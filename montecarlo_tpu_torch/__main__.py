@@ -1,0 +1,6 @@
+"""`python -m montecarlo_tpu_torch` -> the CLI."""
+
+from montecarlo_tpu_torch.cli import main
+
+if __name__ == "__main__":
+    raise SystemExit(main())
