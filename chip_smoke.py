@@ -4,18 +4,28 @@
 Run from the root of a checkout: ``python3 chip_smoke.py``.  It builds the
 CUDA kernels from ``montecarlo_tpu_torch/csrc`` and, in phases:
 
-1. prints the card (``nvidia-smi`` name and power limit) and the build time;
+1. prints the card (``nvidia-smi`` name and power limit), the build time
+   and each kernel's registers, stack frame and spills (``-Xptxas -v``);
 2. K0: Threefry words, uniforms and exp32 of the device build against the
    plain PyTorch versions on 2^20 counters (bitwise), Box-Muller and log32
    (bitwise fraction, max difference);
-3. K1, K2 (plain and antithetic) and K3 against their plain versions at
-   2^18 paths x {252, 17} steps;
+3. K1, K2 and K3 (GBM; K2 and K3 also Heston; plain and antithetic) and
+   K4 (every device functional, GBM and Heston, plain and antithetic)
+   against their plain versions at 2^18 paths x {252, 17} steps;
 4. each kernel against its plain version again, and both timed, at the
-   shapes the main path gives it;
-5. the main path through the CLI entry — ``price`` with fixed paths (K2,
-   plain and antithetic), ``price --target-se 1e-3`` (K3) and ``bench``
-   (K1) — with launch counters reset just before and read just after, and
-   each price held against Black-Scholes;
+   shapes the main paths give it;
+5. the main paths through the CLI entry, each with the launch counters
+   reset just before and read just after:
+   - the European path: ``price`` with fixed paths (K2, plain and
+     antithetic), ``price --target-se 1e-3`` (K3) and ``bench`` (K1), each
+     price held against Black-Scholes;
+   - the path-dependent path (K4): ``price --payoff asian`` (GBM plain and
+     antithetic, Heston), ``up-and-out --bridge`` and ``up-and-in
+     --bridge`` at 2^20 paths x 252 steps, ``note --type autocall`` and
+     ``--type cliquet``, each run raising K4's count; the GBM Asian price
+     lies between the geometric Asian closed form and Black-Scholes, the
+     engine's geometric Asian within 5 std-err of its closed form, and
+     knock-out plus knock-in adds up to the vanilla call of the same seed;
 
 then prints one JSON line describing the kernels and, last, the
 ``{"ok": true, "device": ...}`` line.  Any failure prints its traceback and
@@ -36,6 +46,7 @@ import traceback
 
 PRICE_RTOL = 2e-6    # kernel vs plain version, terminal prices
 MOMENT_RTOL = 1e-6   # kernel vs plain version, block (mean, M2)
+BITWISE = 0.0        # K4 and Heston K2/K3 vs plain version: same bits
 
 
 def log(msg: str) -> None:
@@ -48,6 +59,21 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True)
     return out.stdout.strip().splitlines()[0]
+
+
+def log_resources(ptxas: str) -> None:
+    """One line per kernel from ``nvcc -Xptxas -v``: registers, stack frame
+    and spills (nothing when the library was already built)."""
+    name = frame = None
+    for line in ptxas.splitlines():
+        if "Function properties for" in line:
+            name = line.split("for", 1)[1].strip()
+        elif "stack frame" in line:
+            frame = line.strip()
+        elif "Used" in line and name:
+            regs = line.split("Used", 1)[1].split(",")[0].strip()
+            log(f"  {name}: {regs}; {frame}")
+            name = frame = None
 
 
 def compare(name, got, want, rtol=None):
@@ -158,6 +184,7 @@ def phase_parity(torch, errs):
                 errs["fused_block_moments"] = max(
                     errs.get("fused_block_moments", 0.0), max_abs)
         torch.cuda.synchronize()
+        phase_parity_slice2(torch, errs, n, steps)
     # The whole CLI path on the card against the port's CPU path (plain
     # versions, CPU libm): same draws, float32 round-off apart.
     small = ["price", "--paths", "65536", "--steps", "17"]
@@ -169,6 +196,83 @@ def phase_parity(torch, errs):
         if rel > 1e-5:
             raise AssertionError(f"CLI {key}: cuda {on_card[key]} vs cpu "
                                  f"{on_cpu[key]}")
+
+
+def heston(steps, device="cuda"):
+    from montecarlo_tpu_torch.processes import Heston
+
+    return Heston.create(100.0, 0.04, 0.03, 2.0, 0.04, 0.5, -0.7,
+                         1.0 / steps, device=device)
+
+
+def functional_groups(steps):
+    """Every device functional, in K4's groups of at most four."""
+    from montecarlo_tpu_torch.engine import (ARITH_MEAN, GEO_MEAN,
+                                             RUNNING_MAX, RUNNING_MIN,
+                                             autocallable,
+                                             barrier_survival_up,
+                                             cliquet_sum, realized_variance,
+                                             trapezoid_integral)
+
+    dt = 1.0 / steps
+    period = steps // 4 if steps % 4 == 0 else steps
+    return [
+        {"avg": ARITH_MEAN, "geo": GEO_MEAN, "mx": RUNNING_MAX,
+         "mn": RUNNING_MIN},
+        {"surv": barrier_survival_up(110.0, 0.2, dt),
+         "cl": cliquet_sum(max(steps // 4, 1), -0.02, 0.03),
+         "rv": realized_variance(), "tr": trapezoid_integral(dt)},
+        {"ac": autocallable(period, 100.0, 0.02, 0.03 * dt, 70.0, 100.0)},
+    ]
+
+
+def phase_parity_slice2(torch, errs, n, steps):
+    """Heston K2/K3 and K4 (every functional, GBM and Heston) against
+    their plain versions, bitwise."""
+    from montecarlo_tpu_torch.engine import VanillaPayoff
+    from montecarlo_tpu_torch.ops import (fused_block_moments,
+                                          fused_block_moments_reference,
+                                          fused_functionals,
+                                          fused_functionals_reference,
+                                          fused_terminal,
+                                          fused_terminal_reference)
+    from montecarlo_tpu_torch.processes import GBM
+
+    kw = dict(seed=11, path_offset=12345)
+    hp = heston(steps)
+    for anti in (False, True):
+        label = f"{n}x{steps} {'antithetic' if anti else 'plain'}"
+        _, max_abs, _ = compare(
+            f"K2 Heston {label}",
+            fused_terminal(hp, n, steps, antithetic=anti, **kw),
+            fused_terminal_reference(hp, n, steps, antithetic=anti, **kw),
+            BITWISE)
+        errs["fused_terminal"] = max(errs["fused_terminal"], max_abs)
+        pay = VanillaPayoff("call", 105.0)
+        got = fused_block_moments(hp, pay, n, steps, antithetic=anti, **kw)
+        want = fused_block_moments_reference(hp, pay, n, steps,
+                                             antithetic=anti, **kw)
+        for field in ("mean", "m2"):
+            _, max_abs, _ = compare(f"K3 Heston call {field} {label}",
+                                    getattr(got, field),
+                                    getattr(want, field), BITWISE)
+            errs["fused_block_moments"] = max(errs["fused_block_moments"],
+                                              max_abs)
+        for kind, proc in (("GBM", GBM.create(100.0, 0.03, 0.2, 1.0 / steps,
+                                              device="cuda")),
+                           ("Heston", hp)):
+            for fns in functional_groups(steps):
+                got = fused_functionals(proc, n, steps, functionals=fns,
+                                        antithetic=anti, **kw)
+                want = fused_functionals_reference(
+                    proc, n, steps, functionals=fns, antithetic=anti, **kw)
+                for k in want:
+                    _, max_abs, _ = compare(f"K4 {kind} {k} {label}",
+                                            got[k], want[k], BITWISE)
+                    errs["fused_functionals"] = max(
+                        errs.get("fused_functionals", 0.0), max_abs)
+                del got, want
+        torch.cuda.synchronize()
 
 
 def phase_main_shapes(torch, errs):
@@ -191,10 +295,17 @@ def phase_main_shapes(torch, errs):
         plain_ms, want = cuda_ms(plain, 1)
         t.setdefault(key, ms)
         t.setdefault(key + "_plain", plain_ms)
+        t["_last"] = (ms, plain_ms)
         log(f"  {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+        if isinstance(got, dict):
+            fields = tuple(got)
         for f in fields:
-            g, w = (got, want) if f is None else (getattr(got, f),
-                                                  getattr(want, f))
+            if f is None:
+                g, w = got, want
+            elif isinstance(got, dict):
+                g, w = got[f], want[f]
+            else:
+                g, w = getattr(got, f), getattr(want, f)
             _, max_abs, _ = compare(f"{label}{'' if f is None else ' ' + f}",
                                     g, w, rtol)
             errs[key] = max(errs.get(key, 0.0), max_abs)
@@ -225,7 +336,64 @@ def phase_main_shapes(torch, errs):
               lambda: fused_block_moments_reference(proc, pay, n3, s2,
                                                     seed=0, path_offset=off),
               5, MOMENT_RTOL, fields=("mean", "m2"))
+    main_shapes_slice2(torch, check, t)
     return t
+
+
+def main_shapes_slice2(torch, check, t):
+    """K4 at the path-dependent path's shapes: GBM 2^20 x 252 with the
+    Asian CLI's {avg}, the app's {avg, mx, mn} and the bridge's {surv};
+    Heston {avg}; the autocall note's 2^17 x 252.  Heston K2 and K3 at the
+    European path's shapes."""
+    from montecarlo_tpu_torch.engine import (ARITH_MEAN, RUNNING_MAX,
+                                             RUNNING_MIN, VanillaPayoff,
+                                             autocallable,
+                                             barrier_survival_up)
+    from montecarlo_tpu_torch.ops import (fused_block_moments,
+                                          fused_block_moments_reference,
+                                          fused_functionals,
+                                          fused_functionals_reference,
+                                          fused_terminal,
+                                          fused_terminal_reference)
+    from montecarlo_tpu_torch.processes import GBM
+
+    n, steps = 1 << 20, 252
+    dt = 1.0 / steps
+    gbm = GBM.create(100.0, 0.03, 0.2, dt, device="cuda")
+    hp = heston(steps)
+    cases = [
+        ("K4 GBM {avg}", gbm, n, {"avg": ARITH_MEAN}),
+        ("K4 GBM {avg,mx,mn}", gbm, n,
+         {"avg": ARITH_MEAN, "mx": RUNNING_MAX, "mn": RUNNING_MIN}),
+        ("K4 GBM {surv}", gbm, n,
+         {"surv": barrier_survival_up(126.0, 0.2, dt)}),
+        ("K4 Heston {avg}", hp, n, {"avg": ARITH_MEAN}),
+        ("K4 GBM autocall", gbm, 1 << 17,
+         {"note": autocallable(63, 100.0, 0.02, 0.03 * dt, 70.0, 100.0)}),
+    ]
+    for label, proc, paths, fns in cases:
+        check("fused_functionals", f"{label} {paths}x{steps}",
+              lambda: fused_functionals(proc, paths, steps, seed=0,
+                                        functionals=fns),
+              lambda: fused_functionals_reference(proc, paths, steps,
+                                                  seed=0, functionals=fns),
+              10, BITWISE)
+        t[label] = t["_last"]
+    for anti in (False, True):
+        label = f"K2 Heston {'antithetic' if anti else 'plain'}"
+        check("fused_terminal", f"{label} {n}x{steps}",
+              lambda: fused_terminal(hp, n, steps, seed=0, antithetic=anti),
+              lambda: fused_terminal_reference(hp, n, steps, seed=0,
+                                               antithetic=anti),
+              10, BITWISE)
+        t[label] = t["_last"]
+    n3 = 1 << 22
+    pay = VanillaPayoff("call", 105.0)
+    check("fused_block_moments", f"K3 Heston call {n3}x{steps}",
+          lambda: fused_block_moments(hp, pay, n3, steps, seed=0),
+          lambda: fused_block_moments_reference(hp, pay, n3, steps, seed=0),
+          5, BITWISE, fields=("mean", "m2"))
+    t["K3 Heston"] = t["_last"]
 
 
 def run_cli(argv):
@@ -255,8 +423,8 @@ def phase_main_path(torch):
 
     reset_launch_counts()
     fixed = ["price", "--paths", "1048576", "--steps", "252"]
-    out, _ = run_cli(fixed)
-    check_price("price --paths 1048576 --steps 252", out)
+    vanilla, _ = run_cli(fixed)
+    check_price("price --paths 1048576 --steps 252", vanilla)
     out, _ = run_cli(fixed + ["--sampler", "antithetic"])
     check_price("price ... --sampler antithetic", out)
     out, wall = run_cli(["price", "--target-se", "1e-3", "--steps", "252"])
@@ -268,12 +436,90 @@ def phase_main_path(torch):
     bench, _ = run_cli(["bench"])
     log(f"  bench: {json.dumps(bench)}")
     counts = launch_counts()
-    log(f"  launches on the main path: {counts}")
-    missing = [k for k, v in counts.items() if v < 1]
+    log(f"  launches on the European path: {counts}")
+    missing = [k for k in ("gbm_terminal", "fused_terminal",
+                           "fused_block_moments") if counts[k] < 1]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: "
                              f"{missing}")
-    return counts, bench, wall, out["n_paths"]
+    return counts, bench, wall, out["n_paths"], vanilla
+
+
+def run_k4_cli(argv):
+    """One CLI run of the path-dependent path; it must launch K4."""
+    from montecarlo_tpu_torch.ops import launch_counts
+
+    before = launch_counts()["fused_functionals"]
+    out, wall = run_cli(argv)
+    launched = launch_counts()["fused_functionals"] - before
+    log(f"  {' '.join(argv)}: {json.dumps(out)} ({launched} K4 launches, "
+        f"{wall:.3f} s wall-clock)")
+    if launched < 1:
+        raise AssertionError(f"{argv}: K4 was not launched")
+    values = [v for v in out.values() if isinstance(v, float)]
+    if not all(math.isfinite(v) for v in values):
+        raise AssertionError(f"{argv}: non-finite output {out}")
+    return out
+
+
+def phase_path_dependent(torch, vanilla):
+    """The path-dependent path through the CLI and the engine, launch
+    counters reset just before and read just after.  ``vanilla`` is the
+    European path's ``price --paths 1048576 --steps 252`` output."""
+    import numpy as np
+
+    from montecarlo_tpu_torch.engine import (GEO_MEAN, asian_call,
+                                             geometric_asian_call_closed_form,
+                                             mc_estimate,
+                                             simulate_functionals)
+    from montecarlo_tpu_torch.ops import launch_counts, reset_launch_counts
+    from montecarlo_tpu_torch.processes import GBM
+
+    reset_launch_counts()
+    fixed = ["--paths", "1048576", "--steps", "252"]
+    asian = run_k4_cli(["price", "--payoff", "asian", *fixed])
+    run_k4_cli(["price", "--payoff", "asian", *fixed, "--sampler",
+                "antithetic"])
+    hest = run_k4_cli(["price", "--payoff", "asian", *fixed, "--process",
+                       "heston"])
+    ko = run_k4_cli(["price", "--payoff", "up-and-out", "--bridge", *fixed])
+    ki = run_k4_cli(["price", "--payoff", "up-and-in", "--bridge", *fixed])
+    note = run_k4_cli(["note", "--type", "autocall"])
+    leg = run_k4_cli(["note", "--type", "cliquet"])
+    # The engine's geometric Asian on the card against its closed form.
+    s0, k, r, sigma, steps = 100.0, 105.0, 0.03, 0.2, 252
+    proc = GBM.create(s0, r, sigma, 1.0 / steps, device="cuda")
+    out = simulate_functionals(proc, 1 << 20, steps, seed=0,
+                               functionals={"geo": GEO_MEAN})
+    est = mc_estimate(asian_call(out["geo"], k), float(np.exp(-r)))
+    geo, se = float(est["price"]), float(est["std_err"])
+    cf = geometric_asian_call_closed_form(s0, k, r, sigma, 1.0, steps)
+    counts = launch_counts()
+    log(f"  launches on the path-dependent path: {counts}")
+    ok_geo = abs(geo - cf) < 5 * se + 1e-3
+    log(f"  geometric Asian {geo:.6f} +- {se:.2e} vs closed form {cf:.6f}: "
+        f"{'ok' if ok_geo else 'FAIL'}")
+    parity = ko["price"] + ki["price"]
+    ok_parity = abs(parity - vanilla["price"]) <= 1e-5 * vanilla["price"]
+    log(f"  KO + KI = {ko['price']:.6f} + {ki['price']:.6f} = {parity:.6f} "
+        f"vs call {vanilla['price']:.6f}: {'ok' if ok_parity else 'FAIL'}")
+    # AM >= GM pathwise, and the Asian averages away volatility.
+    bs, a = vanilla["black_scholes"], asian["price"]
+    ok_asian = cf - 5 * asian["std_err"] < a < bs
+    log(f"  Asian {a:.6f} between the geometric closed form {cf:.6f} and "
+        f"Black-Scholes {bs:.6f}: {'ok' if ok_asian else 'FAIL'}")
+    checks = {"geometric Asian vs closed form": ok_geo,
+              "KO + KI = vanilla": ok_parity,
+              "GM <= Asian <= BS": ok_asian,
+              "Heston Asian > 0": hest["price"] > 0,
+              "autocall note in (0.5, 1.2)":
+                  0.5 < note["autocall_note"] < 1.2,
+              "cliquet leg >= 0": leg["cliquet_leg"] >= 0,
+              "K4 launched": counts["fused_functionals"] >= 1}
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"path-dependent checks failed: {failed}")
+    return counts
 
 
 def main() -> int:
@@ -299,19 +545,22 @@ def main() -> int:
         log(f"phase 1: card {card}; torch {torch.__version__}, CUDA "
             f"{torch.version.cuda}")
         t0 = time.perf_counter()
+        ptxas = _build.build(("-Xptxas", "-v"))
         _build.load_library()
         log(f"  kernels built and loaded in {time.perf_counter() - t0:.1f} s"
             f" ({_build.library_path().name})")
+        log_resources(ptxas)
         log("phase 2: K0 device math vs plain versions, 2^20 counters")
         phase_k0(torch)
-        log("phase 3: K1/K2/K3 vs plain versions, 2^18 paths")
+        log("phase 3: K1-K4 vs plain versions, 2^18 paths")
         errs = {}
         phase_parity(torch, errs)
-        log("phase 4: K1/K2/K3 vs plain versions and times, main-path "
-            "shapes")
+        log("phase 4: K1-K4 vs plain versions and times, main-path shapes")
         times = phase_main_shapes(torch, errs)
-        log("phase 5: main path through the CLI")
-        counts, bench, wall, n_paths = phase_main_path(torch)
+        log("phase 5: main paths through the CLI")
+        counts, bench, wall, n_paths, vanilla = phase_main_path(torch)
+        counts["fused_functionals"] = phase_path_dependent(
+            torch, vanilla)["fused_functionals"]
         kernel_s = times["fused_block_moments"] * 1e-3 * n_paths / (1 << 22)
         log(f"  K1 {bench['value']:.6e} path-steps/s, wall-clock to "
             f"std-err 1e-3 {wall:.3f} s, on {card}")
@@ -344,6 +593,13 @@ def main() -> int:
          "max_abs_err": errs["fused_block_moments"],
          "ms": times["fused_block_moments"],
          "plain_ms": times["fused_block_moments_plain"]},
+        {"name": "fused_functionals", "route": "cuda",
+         "source": src + "fused_engine.cu",
+         "replaces": "montecarlo_tpu/ops/fused_engine.py:390",
+         "launches": counts["fused_functionals"],
+         "max_abs_err": errs["fused_functionals"],
+         "ms": times["fused_functionals"],
+         "plain_ms": times["fused_functionals_plain"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

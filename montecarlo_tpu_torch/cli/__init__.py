@@ -1,8 +1,10 @@
 """Command-line interface of the port.
 
 Subcommands:
-  price — European GBM option pricing (fixed --paths or --target-se),
-          --device cuda (default) or cpu
+  price — European option pricing on GBM or Heston: vanilla payoffs (fixed
+          --paths or --target-se) and Asian, lookback, up-and-out/in
+          (--bridge), --device cuda (default) or cpu
+  note  — structured notes on one asset: autocallable and cliquet
   bench — GBM path-steps/s through the K1 kernel at 2^20 paths x 1024
           steps x 8 chained reps, on the card
 
@@ -23,15 +25,17 @@ def _run_bench(args) -> int:
 
 
 def main(argv=None) -> int:
-    from montecarlo_tpu_torch.cli import pricing
+    from montecarlo_tpu_torch.cli import note, pricing
 
     parser = argparse.ArgumentParser(
         prog="montecarlo_tpu_torch",
         description="PyTorch/CUDA port of the Monte Carlo framework")
     sub = parser.add_subparsers(dest="cmd", required=True)
     pricing.add_parsers(sub)
+    note.add_parsers(sub)
     sub.add_parser("bench", help="GBM path-steps/s through K1 at 2^20 "
                    "paths x 1024 steps x 8 reps (CUDA)")
     args = parser.parse_args(argv)
-    handlers = {"price": pricing.cmd_price, "bench": _run_bench}
+    handlers = {"price": pricing.cmd_price, "note": note.cmd_note,
+                "bench": _run_bench}
     return handlers[args.cmd](args)

@@ -1,20 +1,26 @@
-"""`price` — European GBM option pricing through the port's engine.
+"""`price` — option pricing through the port's engine.
 
-The port of the vanilla branch of ``montecarlo_tpu/cli/pricing.py``: GBM,
-the plain and antithetic samplers, call/put/digital payoffs, a fixed
-``--paths`` estimate or ``--target-se`` tolerance pricing.  The output JSON
-has the JAX CLI's keys: ``price``, ``std_err``, ``n_paths`` and, for the
-call and the digital, ``black_scholes``.
+The port of the European branches of ``montecarlo_tpu/cli/pricing.py``:
+GBM and Heston, the plain and antithetic samplers, vanilla call/put/digital
+payoffs (fixed ``--paths`` through K2, or ``--target-se`` tolerance pricing
+through K3) and the path-dependent Asian, lookback, up-and-out and
+up-and-in calls (K4, with the Brownian-bridge barrier under ``--bridge``).
+The output JSON has the JAX CLI's keys: ``price``, ``std_err``,
+``n_paths`` and, for the GBM call and digital, ``black_scholes``.
 """
 
 from __future__ import annotations
 
 import json
 
+VANILLA = ("call", "put", "digital")
+PATH_DEPENDENT = ("asian", "lookback", "up-and-out", "up-and-in")
+
 
 def add_parsers(sub):
-    p = sub.add_parser("price", help="Monte Carlo option pricing (GBM)")
-    p.add_argument("--process", default="gbm", choices=["gbm"])
+    p = sub.add_parser("price", help="Monte Carlo option pricing (GBM, "
+                                     "Heston)")
+    p.add_argument("--process", default="gbm", choices=["gbm", "heston"])
     p.add_argument("--s0", type=float, default=100.0)
     p.add_argument("--strike", type=float, default=105.0)
     p.add_argument("--rate", type=float, default=0.03)
@@ -25,53 +31,136 @@ def add_parsers(sub):
     p.add_argument("--sampler", default="plain",
                    choices=["plain", "antithetic"])
     p.add_argument("--payoff", default="call",
-                   choices=["call", "put", "digital"])
+                   choices=list(VANILLA + PATH_DEPENDENT))
+    p.add_argument("--barrier", type=float, default=None,
+                   help="barrier level for up-and-out/in (default "
+                        "1.2*strike)")
+    p.add_argument("--bridge", action="store_true",
+                   help="up-and-out/in: Brownian-bridge continuous-barrier "
+                        "correction (gbm)")
     p.add_argument("--target-se", type=float, default=None,
                    help="price until the discounted std-err reaches this "
-                        "target instead of a fixed --paths (--sampler plain)")
+                        "target instead of a fixed --paths (vanilla "
+                        "payoffs, --sampler plain)")
     p.add_argument("--seed", type=int, default=0)
+    # Heston extras
+    p.add_argument("--v0", type=float, default=0.04)
+    p.add_argument("--kappa", type=float, default=2.0)
+    p.add_argument("--theta", type=float, default=0.04)
+    p.add_argument("--xi", type=float, default=0.5)
+    p.add_argument("--rho", type=float, default=-0.7)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda (default; an error without a card) or cpu "
                         "(the kernels' plain PyTorch versions)")
 
 
-def cmd_price(args) -> int:
+def build_process(args, dt, device):
+    from montecarlo_tpu_torch.processes import GBM, Heston
+
+    if args.process == "heston":
+        return Heston.create(s0=args.s0, v0=args.v0, mu=args.rate,
+                             kappa=args.kappa, theta=args.theta, xi=args.xi,
+                             rho=args.rho, dt=dt, device=device)
+    return GBM.create(s0=args.s0, mu=args.rate, sigma=args.sigma, dt=dt,
+                      device=device)
+
+
+def resolve_cli_device(name: str):
+    """The device of ``--device``; no card for ``cuda`` exits."""
     from montecarlo_tpu_torch.device import resolve_device
+
+    try:
+        return resolve_device(name)
+    except RuntimeError as e:
+        raise SystemExit(str(e)) from e
+
+
+def cmd_price(args) -> int:
     from montecarlo_tpu_torch.engine import (
         VanillaPayoff, black_scholes_call, black_scholes_digital,
         discount_factor, mc_estimate, price_to_tolerance, terminal_prices)
-    from montecarlo_tpu_torch.processes import GBM
     from montecarlo_tpu_torch.samplers import AntitheticSampler, PlainSampler
 
-    try:
-        device = resolve_device(args.device)
-    except RuntimeError as e:
-        raise SystemExit(str(e)) from e
-    proc = GBM.create(s0=args.s0, mu=args.rate, sigma=args.sigma,
-                      dt=args.maturity / args.steps, device=device)
-    payoff = VanillaPayoff(args.payoff, args.strike)
+    if args.target_se is not None and args.payoff not in VANILLA:
+        raise SystemExit("--target-se applies to vanilla European payoffs "
+                         "(call/put/digital)")
+    if args.bridge and args.process != "gbm":
+        raise SystemExit("--bridge requires --process gbm (constant vol for "
+                         "the bridge law)")
+    device = resolve_cli_device(args.device)
+    dt = args.maturity / args.steps
+    proc = build_process(args, dt, device)
+    sampler = (AntitheticSampler() if args.sampler == "antithetic"
+               else PlainSampler())
     disc = float(discount_factor(args.rate, args.maturity))
-    if args.target_se is not None:
+    if args.payoff in PATH_DEPENDENT:
+        est = _estimate_functional(args, proc, sampler, disc, dt)
+    elif args.target_se is not None:
         if args.sampler != "plain":
             raise SystemExit("--target-se supports --sampler plain (iid "
                              "chunked loop)")
         est = price_to_tolerance(
-            proc, payoff, target_std_err=args.target_se, seed=args.seed,
+            proc, VanillaPayoff(args.payoff, args.strike),
+            target_std_err=args.target_se, seed=args.seed,
             n_steps=args.steps, discount=disc,
             chunk_paths=(1 << 22) if device.type == "cuda" else (1 << 16))
     else:
-        sampler = (AntitheticSampler() if args.sampler == "antithetic"
-                   else PlainSampler())
         terminal = terminal_prices(proc, args.paths, args.steps,
                                    seed=args.seed, sampler=sampler)
-        est = mc_estimate(payoff(terminal), disc)
+        est = mc_estimate(VanillaPayoff(args.payoff, args.strike)(terminal),
+                          disc)
 
     out = {"price": float(est["price"]), "std_err": float(est["std_err"]),
            "n_paths": int(est["n_paths"])}
     oracle = {"call": black_scholes_call,
               "digital": black_scholes_digital}.get(args.payoff)
-    if oracle is not None:
+    if args.process == "gbm" and oracle is not None:
         out["black_scholes"] = oracle(args.s0, args.strike, args.rate,
                                       args.sigma, args.maturity)
     print(json.dumps(out))
     return 0
+
+
+def _estimate_functional(args, proc, sampler, disc, dt):
+    """Path-dependent European payoffs: running functionals folded into
+    the time loop (K4), only the ones the payoff reads."""
+    import torch
+
+    from montecarlo_tpu_torch.engine import (
+        ARITH_MEAN, RUNNING_MAX, RUNNING_MIN, asian_call,
+        barrier_survival_up, european_call, lookback_call_floating,
+        mc_estimate, simulate_functionals, up_and_out_call)
+
+    if args.payoff == "asian":
+        functionals = {"avg": ARITH_MEAN}
+    elif args.payoff == "lookback":
+        functionals = {"min": RUNNING_MIN}
+    elif args.bridge:
+        functionals = {}
+    else:
+        functionals = {"max": RUNNING_MAX}
+    barrier = args.barrier or 1.2 * args.strike
+    if args.payoff in ("up-and-out", "up-and-in") and args.bridge:
+        functionals["surv"] = barrier_survival_up(barrier, args.sigma, dt)
+    if args.payoff == "asian":
+        payoff_of = lambda o: asian_call(o["avg"], args.strike)
+    elif args.payoff == "lookback":
+        payoff_of = lambda o: lookback_call_floating(o["terminal"],
+                                                     o["min"])
+    elif args.bridge:
+        # Knock-out and knock-in from the SAME survival probability
+        # (in-out parity: KO + KI = vanilla, continuous barrier).
+        def payoff_of(o):
+            w = (o["surv"] if args.payoff == "up-and-out"
+                 else 1.0 - o["surv"])
+            return european_call(o["terminal"], args.strike) * w
+    elif args.payoff == "up-and-in":
+        payoff_of = lambda o: torch.where(
+            o["max"] >= barrier, european_call(o["terminal"], args.strike),
+            0.0)
+    else:
+        payoff_of = lambda o: up_and_out_call(
+            o["terminal"], o["max"], args.strike, barrier)
+    out = simulate_functionals(proc, args.paths, args.steps, seed=args.seed,
+                               sampler=sampler, functionals=functionals)
+    return mc_estimate(payoff_of(out), disc)

@@ -17,8 +17,9 @@ import torch
 
 from montecarlo_tpu_torch.device import resolve_device
 from montecarlo_tpu_torch.processes.gbm import GBM
+from montecarlo_tpu_torch.processes.heston import Heston
 
-PROCESSES = {"gbm": GBM}
+PROCESSES = {"gbm": GBM, "heston": Heston}
 
 
 def _tensor(name: str, value, device) -> torch.Tensor:

@@ -1,23 +1,36 @@
-// K2 and K3 — the process-generic fused time loop.
+// K2, K3 and K4 — the process-generic fused time loop.
 //
 // Replaces montecarlo_tpu/ops/fused_engine.py::fused_terminal_pallas (K2,
-// _make_kernel with payoff_fn=None) and ::fused_block_moments_pallas (K3,
-// _make_kernel with a payoff epilogue).  One template,
-//   fused_kernel<Proc, Antithetic, Epilogue>,
-// runs any scalar-state process given as a device functor: init from the
-// process leaves, then per pair of steps one draws_pair (the two steps share
-// their cipher calls), the antithetic mirror on odd path ids, step x2 with
-// the odd final step dropped by a select, and prices at the end.  The
-// epilogue either stores the terminal price (K2) or applies a vanilla payoff
-// and writes (mean, M2) per 128-path row (K3).
+// _make_kernel with payoff_fn=None), ::fused_block_moments_pallas (K3,
+// _make_kernel with a payoff epilogue) and ::fused_functionals_pallas (K4,
+// _make_functional_kernel).  Every kernel is a template over a process
+// functor (GbmProc, HestonProc): init from the process leaves, then per
+// pair of steps one draws_pair (the two steps share their cipher calls),
+// the antithetic mirror on odd path ids, step x2 with the odd final step
+// dropped, and prices at the end.
+//   fused_kernel<Proc, Antithetic, Epilogue>: the epilogue stores the
+//     terminal price (K2) or applies a vanilla payoff and writes (mean, M2)
+//     per 128-path row (K3).
+//   fused_functional_kernel<Proc, Antithetic>: K4 folds up to four path
+//     functionals (FunctionalCode, with float32 parameters folded on the
+//     host) after every step, the scan engine's order, and writes the
+//     terminal prices and each finalized functional.
 //
 // Bounds on the H100: compute — integer ALU for Threefry, the SFU for
-// log/sqrt/sin/cos; K2 writes 4 bytes per path, K3 8 bytes per 128 paths.
-// Design: one thread per path with the state in registers for the whole time
-// loop; K3 uses one 128-thread block per row and sums it in the fixed
-// adjacent-pair tree of stats/welford.py::tree_sum (warp butterfly at
-// offsets 1..16, then (w0+w1)+(w2+w3)), which the plain version reproduces
-// bitwise.  The row -> 4096-path merge stays in torch, as in the JAX package.
+// log/sqrt/sin/cos; K2 writes 4 bytes per path, K3 8 bytes per 128 paths,
+// K4 4 bytes per path per output.  Design: one thread per path with the
+// state and the functional accumulators (at most 4 x 4 floats, statically
+// indexed so they stay in registers) in registers for the whole time loop;
+// the functional code is a kernel argument, so its switch branches the
+// same way across a warp.  K3 uses one 128-thread block per row and sums
+// it in the fixed adjacent-pair tree of stats/welford.py::tree_sum (warp
+// butterfly at offsets 1..16, then (w0+w1)+(w2+w3)), which the plain
+// version reproduces bitwise.  The row -> 4096-path merge stays in torch.
+//
+// Numerics: built with -fmad=false and the default -prec-div=true,
+// -prec-sqrt=true (ops/_build.py, never fast math), so every a*b+c rounds
+// twice and every division and sqrtf is the IEEE result, as in the torch
+// plain versions and the JAX package.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -50,6 +63,9 @@ struct NormalDraws {
   }
 };
 
+// Process codes: the index in ops/fused_engine.py::PROCESS_CODES.
+enum ProcessCode { kGbm = 0, kHeston = 1 };
+
 // GBM (processes/gbm.py): leaves = [s0, mu, sigma, dt].
 struct GbmProc : NormalDraws<1> {
   struct State {
@@ -68,7 +84,66 @@ struct GbmProc : NormalDraws<1> {
     return State{s.log_s + (drift + scale * eps[0])};
   }
   __device__ float prices(State s) const { return mc::exp32(s.log_s); }
+  __device__ float log_prices(State s) const { return s.log_s; }
 };
+
+// Heston, full-truncation Euler (processes/heston.py):
+// leaves = [s0, v0, mu, kappa, theta, xi, rho, dt].
+struct HestonProc : NormalDraws<2> {
+  struct State {
+    float log_s, v;
+  };
+  float log_s0, v0, mu, kappa, theta, xi, rho, dt, rho_perp;
+  __device__ explicit HestonProc(const float* leaves) {
+    log_s0 = mc::log32(leaves[0]);
+    v0 = leaves[1];
+    mu = leaves[2];
+    kappa = leaves[3];
+    theta = leaves[4];
+    xi = leaves[5];
+    rho = leaves[6];
+    dt = leaves[7];
+    rho_perp = sqrtf(1.0f - rho * rho);
+  }
+  __device__ State init() const { return State{log_s0, v0}; }
+  __device__ State step(State s, const float* eps) const {
+    const float z1 = eps[0], z2 = eps[1];
+    const float z_v = rho * z1 + rho_perp * z2;
+    const float v_plus = fmaxf(s.v, 0.0f);
+    const bool positive = v_plus > 0.0f;
+    const float v_safe = positive ? v_plus : 1.0f;
+    const float sq_vdt = positive ? sqrtf(v_safe * dt) : 0.0f;
+    const float log_s = s.log_s + ((mu - 0.5f * v_plus) * dt + sq_vdt * z1);
+    const float v = (s.v + (kappa * (theta - v_plus)) * dt) + (xi * sq_vdt) * z_v;
+    return State{log_s, v};
+  }
+  __device__ float prices(State s) const { return mc::exp32(s.log_s); }
+  __device__ float log_prices(State s) const { return s.log_s; }
+};
+
+// Runs `body` with the per-thread pair loop of every kernel: the draws of
+// steps (2j, 2j+1), mirrored on odd ids for antithetic runs.
+template <class Proc, bool Antithetic, class Body>
+__device__ void pair_loop(uint32_t k0, uint32_t k1, uint32_t id, int n_steps,
+                          Body body) {
+  constexpr int D = Proc::kDraws;
+  // Antithetic: path 2k+1 mirrors path 2k (draws keyed by the pair id).
+  const uint32_t draw_id = Antithetic ? id >> 1 : id;
+  const bool mirror = Antithetic && (id & 1u);
+  const int n_pairs = (n_steps + 1) / 2;
+  for (int j = 0; j < n_pairs; ++j) {
+    float eps0[D], eps1[D];
+    Proc::draws_pair(k0, k1, draw_id, (uint32_t)j, eps0, eps1);
+    if (mirror) {
+#pragma unroll
+      for (int d = 0; d < D; ++d) {
+        eps0[d] = -eps0[d];
+        eps1[d] = -eps1[d];
+      }
+    }
+    body(2 * j, eps0, eps1);
+  }
+}
 
 struct StoreTerminal {  // K2
   float* out;
@@ -121,71 +196,314 @@ __global__ void fused_kernel(const float* __restrict__ leaves,
                              int64_t n_paths, int n_steps,
                              uint32_t path_offset, uint32_t k0, uint32_t k1,
                              Epilogue epilogue) {
-  constexpr int D = Proc::kDraws;
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const bool active = i < n_paths;
   const Proc proc(leaves);
-  const uint32_t id = path_offset + (uint32_t)i;  // wraps mod 2^32
-  // Antithetic: path 2k+1 mirrors path 2k (draws keyed by the pair id).
-  const uint32_t draw_id = Antithetic ? id >> 1 : id;
-  const bool mirror = Antithetic && (id & 1u);
   typename Proc::State state = proc.init();
   if (active) {
-    const int n_pairs = (n_steps + 1) / 2;
-    for (int j = 0; j < n_pairs; ++j) {
-      float eps0[D], eps1[D];
-      Proc::draws_pair(k0, k1, draw_id, (uint32_t)j, eps0, eps1);
-      if (mirror) {
-#pragma unroll
-        for (int d = 0; d < D; ++d) {
-          eps0[d] = -eps0[d];
-          eps1[d] = -eps1[d];
-        }
-      }
-      state = proc.step(state, eps0);
-      const typename Proc::State stepped = proc.step(state, eps1);
-      if (2 * j + 1 < n_steps) state = stepped;  // odd final step: dropped
-    }
+    const uint32_t id = path_offset + (uint32_t)i;  // wraps mod 2^32
+    pair_loop<Proc, Antithetic>(
+        k0, k1, id, n_steps, [&](int t0, const float* eps0, const float* eps1) {
+          state = proc.step(state, eps0);
+          const typename Proc::State stepped = proc.step(state, eps1);
+          if (t0 + 1 < n_steps) state = stepped;  // odd final step: dropped
+        });
   }
   epilogue(i, active, proc.prices(state));
 }
 
-template <class Epilogue>
-int launch(const float* leaves, int64_t n_paths, int64_t n_steps,
-           uint32_t path_offset, uint32_t k0, uint32_t k1, int antithetic,
-           Epilogue epilogue, void* stream) {
-  const int64_t blocks = (n_paths + kRow - 1) / kRow;
+// ---- K4: path functionals --------------------------------------------------
+
+// engine/functionals.py::*_CODE.
+enum FunctionalCode {
+  kArithMean = 0,
+  kGeoMean = 1,
+  kRunningMax = 2,
+  kRunningMin = 3,
+  kBarrierUp = 4,    // params: log_b, inv
+  kCliquet = 5,      // period; params: floor, cap
+  kAutocall = 6,     // period; params: -r_dt, trigger, coupon, pdi, s0,
+                     //         -r_dt * n_steps
+  kRealizedVar = 7,
+  kTrapezoid = 8,    // params: half_dt
+};
+
+constexpr int kMaxFunctionals = 4;
+constexpr int kMaxParams = 6;
+
+struct FunctionalSpec {
+  int n;
+  int code[kMaxFunctionals];
+  int period[kMaxFunctionals];
+  float p[kMaxFunctionals][kMaxParams];
+};
+
+__device__ __forceinline__ bool log_space(int code) {
+  return code == kGeoMean || code == kRunningMax || code == kRunningMin ||
+         code == kBarrierUp || code == kRealizedVar;
+}
+
+// init(obs0) of engine/functionals.py.
+__device__ __forceinline__ void fn_init(int code, const float* p, float obs,
+                                        float* acc) {
+  switch (code) {
+    case kBarrierUp:
+      acc[0] = obs < p[0] ? 1.0f : 0.0f;
+      acc[1] = obs;
+      break;
+    case kCliquet:
+    case kRealizedVar:
+    case kTrapezoid:
+      acc[0] = 0.0f;
+      acc[1] = obs;
+      break;
+    case kAutocall:
+      acc[0] = 1.0f;
+      acc[1] = 0.0f;
+      acc[2] = obs;
+      acc[3] = obs;
+      break;
+    default:  // means, running max / min
+      acc[0] = obs;
+  }
+}
+
+// update(acc, obs, t) with t the 1-based step index.
+__device__ __forceinline__ void fn_update(int code, int period,
+                                          const float* p, float obs, int t,
+                                          float* acc) {
+  switch (code) {
+    case kArithMean:
+    case kGeoMean:
+      acc[0] = acc[0] + obs;
+      break;
+    case kRunningMax:
+      acc[0] = fmaxf(acc[0], obs);
+      break;
+    case kRunningMin:
+      acc[0] = fminf(acc[0], obs);
+      break;
+    case kBarrierUp: {
+      const float a = p[0] - acc[1];
+      const float b = p[0] - obs;
+      const float p_cross = mc::exp32(((-2.0f * a) * b) * p[1]);
+      const bool alive = (a > 0.0f) && (b > 0.0f);
+      acc[0] = acc[0] * (alive ? 1.0f - p_cross : 0.0f);
+      acc[1] = obs;
+      break;
+    }
+    case kCliquet:
+      if (t % period == 0) {
+        const float ret = fminf(fmaxf(obs / acc[1] - 1.0f, p[0]), p[1]);
+        acc[0] = acc[0] + ret;
+        acc[1] = obs;
+      }
+      break;
+    case kAutocall: {
+      acc[2] = fminf(acc[2], obs);
+      if (t % period == 0 && acc[0] > 0.5f && obs >= p[1]) {
+        const float tf = (float)t;
+        const float j = tf / (float)period;
+        acc[1] = (1.0f + p[2] * j) * mc::exp32(p[0] * tf);
+        acc[0] = 0.0f;
+      }
+      acc[3] = obs;
+      break;
+    }
+    case kRealizedVar: {
+      const float d = obs - acc[1];
+      acc[0] = acc[0] + d * d;
+      acc[1] = obs;
+      break;
+    }
+    case kTrapezoid:
+      acc[0] = acc[0] + (acc[1] + obs) * p[0];
+      acc[1] = obs;
+      break;
+  }
+}
+
+// finalize(acc, float(n_steps)).
+__device__ __forceinline__ float fn_finalize(int code, const float* p,
+                                             const float* acc, int n_steps) {
+  const float n_obs = (float)(n_steps + 1);  // n_steps + 1.0, exact
+  switch (code) {
+    case kArithMean:
+      return acc[0] / n_obs;
+    case kGeoMean:
+      return mc::exp32(acc[0] / n_obs);
+    case kRunningMax:
+    case kRunningMin:
+      return mc::exp32(acc[0]);
+    case kAutocall: {
+      if (acc[0] <= 0.5f) return acc[1];
+      const float df_t = mc::exp32(p[5]);
+      const bool breached = acc[2] <= p[3];
+      return df_t * (breached ? fminf(acc[3] / p[4], 1.0f) : 1.0f);
+    }
+    default:  // barrier survival, cliquet leg, sums
+      return acc[0];
+  }
+}
+
+template <class Proc, bool Antithetic>
+__global__ void fused_functional_kernel(const float* __restrict__ leaves,
+                                        int64_t n_paths, int n_steps,
+                                        uint32_t path_offset, uint32_t k0,
+                                        uint32_t k1, FunctionalSpec spec,
+                                        float* __restrict__ out) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n_paths) return;
+  const Proc proc(leaves);
+  bool need_price = false;
+#pragma unroll
+  for (int k = 0; k < kMaxFunctionals; ++k) {
+    if (k < spec.n && !log_space(spec.code[k])) need_price = true;
+  }
+  // The observation of functional k: the price or the log price.
+  auto observe = [&](const typename Proc::State& s, float* obs) {
+    const float price = need_price ? proc.prices(s) : 0.0f;
+    const float logp = proc.log_prices(s);
+#pragma unroll
+    for (int k = 0; k < kMaxFunctionals; ++k) {
+      obs[k] = log_space(spec.code[k]) ? logp : price;
+    }
+  };
+  float acc[kMaxFunctionals][4];
+  float obs[kMaxFunctionals];
+  typename Proc::State state = proc.init();
+  observe(state, obs);
+#pragma unroll
+  for (int k = 0; k < kMaxFunctionals; ++k) {
+    if (k < spec.n) fn_init(spec.code[k], spec.p[k], obs[k], acc[k]);
+  }
+  auto update_all = [&](int t) {
+    observe(state, obs);
+#pragma unroll
+    for (int k = 0; k < kMaxFunctionals; ++k) {
+      if (k < spec.n) {
+        fn_update(spec.code[k], spec.period[k], spec.p[k], obs[k], t, acc[k]);
+      }
+    }
+  };
+  const uint32_t id = path_offset + (uint32_t)i;  // wraps mod 2^32
+  pair_loop<Proc, Antithetic>(
+      k0, k1, id, n_steps, [&](int t0, const float* eps0, const float* eps1) {
+        state = proc.step(state, eps0);  // t0 < n_steps always
+        update_all(t0 + 1);
+        if (t0 + 1 < n_steps) {  // odd final step: dropped
+          state = proc.step(state, eps1);
+          update_all(t0 + 2);
+        }
+      });
+  out[i] = proc.prices(state);
+#pragma unroll
+  for (int k = 0; k < kMaxFunctionals; ++k) {
+    if (k < spec.n) {
+      out[(int64_t)(k + 1) * n_paths + i] =
+          fn_finalize(spec.code[k], spec.p[k], acc[k], n_steps);
+    }
+  }
+}
+
+// Instantiates `Kernel<Proc, Antithetic>` for the process code and the
+// antithetic flag and launches it with one thread per path.
+template <template <class, bool> class Launcher, class... Args>
+int dispatch(int process, int antithetic, int64_t n_paths, void* stream,
+             Args... args) {
+  const unsigned blocks = (unsigned)((n_paths + kRow - 1) / kRow);
   const cudaStream_t s = (cudaStream_t)stream;
-  if (antithetic) {
-    fused_kernel<GbmProc, true, Epilogue><<<(unsigned)blocks, kRow, 0, s>>>(
-        leaves, n_paths, (int)n_steps, path_offset, k0, k1, epilogue);
-  } else {
-    fused_kernel<GbmProc, false, Epilogue><<<(unsigned)blocks, kRow, 0, s>>>(
-        leaves, n_paths, (int)n_steps, path_offset, k0, k1, epilogue);
+  switch (process * 2 + (antithetic ? 1 : 0)) {
+    case kGbm * 2:
+      Launcher<GbmProc, false>::run(blocks, s, n_paths, args...);
+      break;
+    case kGbm * 2 + 1:
+      Launcher<GbmProc, true>::run(blocks, s, n_paths, args...);
+      break;
+    case kHeston * 2:
+      Launcher<HestonProc, false>::run(blocks, s, n_paths, args...);
+      break;
+    case kHeston * 2 + 1:
+      Launcher<HestonProc, true>::run(blocks, s, n_paths, args...);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }
 
+template <class Epilogue>
+struct FusedLauncher {
+  template <class Proc, bool Antithetic>
+  struct With {
+    static void run(unsigned blocks, cudaStream_t s, int64_t n_paths,
+                    const float* leaves, int n_steps, uint32_t path_offset,
+                    uint32_t k0, uint32_t k1, Epilogue epilogue) {
+      fused_kernel<Proc, Antithetic, Epilogue><<<blocks, kRow, 0, s>>>(
+          leaves, n_paths, n_steps, path_offset, k0, k1, epilogue);
+    }
+  };
+};
+
+template <class Proc, bool Antithetic>
+struct FunctionalLauncher {
+  static void run(unsigned blocks, cudaStream_t s, int64_t n_paths,
+                  const float* leaves, int n_steps, uint32_t path_offset,
+                  uint32_t k0, uint32_t k1, FunctionalSpec spec, float* out) {
+    fused_functional_kernel<Proc, Antithetic><<<blocks, kRow, 0, s>>>(
+        leaves, n_paths, n_steps, path_offset, k0, k1, spec, out);
+  }
+};
+
 }  // namespace
 
 // K2: terminal prices, out (n_paths,).
-extern "C" int mc_fused_terminal_gbm(float* out, const float* leaves,
-                                     int64_t n_paths, int64_t n_steps,
-                                     uint32_t path_offset, uint32_t k0,
-                                     uint32_t k1, int antithetic,
-                                     void* stream) {
-  return launch(leaves, n_paths, n_steps, path_offset, k0, k1, antithetic,
-                StoreTerminal{out}, stream);
+extern "C" int mc_fused_terminal(float* out, const float* leaves,
+                                 int process, int64_t n_paths,
+                                 int64_t n_steps, uint32_t path_offset,
+                                 uint32_t k0, uint32_t k1, int antithetic,
+                                 void* stream) {
+  return dispatch<FusedLauncher<StoreTerminal>::With>(
+      process, antithetic, n_paths, stream, leaves, (int)n_steps,
+      path_offset, k0, k1, StoreTerminal{out});
 }
 
 // K3: per-128-path-row payoff (mean, M2), rows (n_paths / 128, 2).
 // n_paths must be a multiple of 128 (the wrapper checks).
-extern "C" int mc_fused_block_moments_gbm(float* rows, const float* leaves,
-                                          int64_t n_paths, int64_t n_steps,
-                                          uint32_t path_offset, uint32_t k0,
-                                          uint32_t k1, int antithetic,
-                                          int payoff, float strike,
-                                          void* stream) {
-  return launch(leaves, n_paths, n_steps, path_offset, k0, k1, antithetic,
-                RowMoments{rows, payoff, strike}, stream);
+extern "C" int mc_fused_block_moments(float* rows, const float* leaves,
+                                      int process, int64_t n_paths,
+                                      int64_t n_steps, uint32_t path_offset,
+                                      uint32_t k0, uint32_t k1,
+                                      int antithetic, int payoff,
+                                      float strike, void* stream) {
+  return dispatch<FusedLauncher<RowMoments>::With>(
+      process, antithetic, n_paths, stream, leaves, (int)n_steps,
+      path_offset, k0, k1, RowMoments{rows, payoff, strike});
+}
+
+// K4: out (1 + n_functionals, n_paths): terminal prices, then each
+// finalized functional.  codes/periods (n_functionals,) and params
+// (n_functionals, kMaxParams) are host arrays.
+extern "C" int mc_fused_functionals(float* out, const float* leaves,
+                                    int process, int64_t n_paths,
+                                    int64_t n_steps, uint32_t path_offset,
+                                    uint32_t k0, uint32_t k1, int antithetic,
+                                    int n_functionals, const int* codes,
+                                    const int* periods, const float* params,
+                                    void* stream) {
+  if (n_functionals < 0 || n_functionals > kMaxFunctionals) {
+    return (int)cudaErrorInvalidValue;
+  }
+  FunctionalSpec spec = {};
+  spec.n = n_functionals;
+  for (int k = 0; k < n_functionals; ++k) {
+    spec.code[k] = codes[k];
+    spec.period[k] = periods[k] < 1 ? 1 : periods[k];
+    for (int q = 0; q < kMaxParams; ++q) {
+      spec.p[k][q] = params[k * kMaxParams + q];
+    }
+  }
+  return dispatch<FunctionalLauncher>(process, antithetic, n_paths, stream,
+                                      leaves, (int)n_steps, path_offset, k0,
+                                      k1, spec, out);
 }

@@ -1,4 +1,5 @@
-"""Path-simulation engine, payoffs and Monte Carlo estimators."""
+"""Path-simulation engine, path functionals, payoffs and Monte Carlo
+estimators."""
 
 from montecarlo_tpu_torch.engine.simulate import (  # noqa: F401
     check_sampler,
@@ -19,6 +20,26 @@ from montecarlo_tpu_torch.engine.payoffs import (  # noqa: F401
 from montecarlo_tpu_torch.engine.dispatch import (  # noqa: F401
     payoff_block_moments,
     terminal_prices,
+)
+from montecarlo_tpu_torch.engine.functionals import (  # noqa: F401
+    ARITH_MEAN,
+    GEO_MEAN,
+    RUNNING_MAX,
+    RUNNING_MIN,
+    PathFunctional,
+    asian_call,
+    autocallable,
+    barrier_survival_up,
+    cliquet_sum,
+    down_and_out_call,
+    geometric_asian_call_closed_form,
+    lookback_call_floating,
+    realized_variance,
+    simulate_functionals,
+    trapezoid_integral,
+    up_and_out_call,
+    variance_swap_strike_mc,
+    worst_of_autocallable,
 )
 from montecarlo_tpu_torch.engine.pricing import (  # noqa: F401
     mc_estimate,

@@ -1,12 +1,13 @@
-"""Engine dispatch for terminal runs.
+"""Engine dispatch for terminal and path-functional runs.
 
-GBM with the plain or antithetic sampler always goes through the kernel
-wrappers, at any path count (the kernels mask the ragged edge); each
+GBM and Heston with the plain or antithetic sampler always go through the
+kernel wrappers, at any path count (the kernels mask the ragged edge); each
 wrapper launches its CUDA kernel for a CUDA process and runs its plain
 version for a CPU one.  Block moments use K3 when the payoff is a
 :class:`VanillaPayoff` and the path count is a multiple of the 4096-path
 stats block; otherwise K2, then the payoff and ``moments_from_array`` in
-torch.
+torch.  Path functionals go to K4 (``simulate_functionals(...,
+prefer_fused=True)``).
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 from montecarlo_tpu_torch.engine.payoffs import VanillaPayoff
 from montecarlo_tpu_torch.ops.fused_engine import (STATS_BLOCK,
                                                    fused_block_moments,
+                                                   fused_functionals,
                                                    fused_terminal)
 from montecarlo_tpu_torch.samplers import AntitheticSampler, PlainSampler
 from montecarlo_tpu_torch.stats.welford import MomentState, moments_from_array
@@ -35,6 +37,16 @@ def terminal_prices(process, n_paths: int, n_steps: int, *, seed, stream=0,
     return fused_terminal(process, n_paths, n_steps, seed=seed,
                           stream=stream, path_offset=path_offset,
                           antithetic=_antithetic(sampler))
+
+
+def functional_run(process, n_paths: int, n_steps: int, *, seed,
+                   functionals, stream=0, sampler=None, path_offset=0):
+    """Terminal prices and path functionals through K4 (its plain version
+    on the CPU); the same draw streams as the torch time loop."""
+    return fused_functionals(process, n_paths, n_steps, seed=seed,
+                             functionals=functionals, stream=stream,
+                             path_offset=path_offset,
+                             antithetic=_antithetic(sampler))
 
 
 def payoff_block_moments(process, payoff_fn, n_paths: int, n_steps: int, *,

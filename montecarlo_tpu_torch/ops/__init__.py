@@ -6,6 +6,7 @@ version for a CPU one; nothing falls back from one to the other.
 - K1 ``gbm_terminal``         — csrc/gbm_kernel.cu
 - K2 ``fused_terminal``       — csrc/fused_engine.cu
 - K3 ``fused_block_moments``  — csrc/fused_engine.cu
+- K4 ``fused_functionals``    — csrc/fused_engine.cu
 - K0 (device math in every kernel) — csrc/rng.cuh, checked on the card
   through ``rng_check`` (csrc/rng_check.cu)
 """
@@ -18,15 +19,18 @@ from montecarlo_tpu_torch.ops.gbm_kernel import (  # noqa: F401
 from montecarlo_tpu_torch.ops.fused_engine import (  # noqa: F401
     K2,
     K3,
+    K4,
     fused_block_moments,
     fused_block_moments_reference,
+    fused_functionals,
+    fused_functionals_reference,
     fused_terminal,
     fused_terminal_reference,
 )
 
 #: The kernels of the pricing path, by name.
 PATH_KERNELS = {"gbm_terminal": K1, "fused_terminal": K2,
-                "fused_block_moments": K3}
+                "fused_block_moments": K3, "fused_functionals": K4}
 
 
 def reset_launch_counts() -> None:

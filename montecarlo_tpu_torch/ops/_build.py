@@ -7,7 +7,10 @@ library.  Each ``extern "C"`` entry takes raw device pointers, counts and
 the CUDA stream, launches on that stream and returns ``cudaGetLastError()``.
 
 Flags: ``sm_90a`` (Hopper), ``-fmad=false`` so every ``a*b+c`` rounds twice
-as the torch plain versions do, and never ``--use_fast_math``.
+as the torch plain versions do, IEEE division and square root
+(``-prec-div=true -prec-sqrt=true``, what the kernels' plain versions and
+the JAX package compute), and never ``--use_fast_math``.  Each source is
+compiled by its own nvcc process, all started together, then linked.
 """
 
 from __future__ import annotations
@@ -18,14 +21,14 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-prec-div=true", "-prec-sqrt=true",
+              "-Xcompiler", "-fPIC")
 
 
 def _sources():
@@ -52,22 +55,44 @@ def _nvcc() -> str:
                        "are built from montecarlo_tpu_torch/csrc on first use")
 
 
-def build() -> float:
-    """Compile the library if it is missing; returns the seconds spent."""
+def build(extra_flags=()) -> str:
+    """Compile the library if it is missing; returns the compilers'
+    messages ("" when it was there).  ``extra_flags`` go to each compile
+    without entering the library's hash: only flags that change no code,
+    such as ``("-Xptxas", "-v")`` for the registers and spills."""
     so = library_path()
     if so.exists():
-        return 0.0
-    t0 = time.perf_counter()
+        return ""
     BUILD_DIR.mkdir(exist_ok=True)
+    nvcc, tag = _nvcc(), f"{so.stem}.{os.getpid()}"
+    objs, procs = [], []
+    for src in _sources()[0]:
+        obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        cmd = [nvcc, *NVCC_FLAGS, *extra_flags, "-c", "-o", str(obj),
+               str(src)]
+        objs.append(obj)
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    logs = [_finish(cmd, p) for cmd, p in procs]
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(s) for s in _sources()[0])]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+            *(str(o) for o in objs)]
+    _finish(link, subprocess.Popen(link, stdout=subprocess.PIPE,
+                                   stderr=subprocess.STDOUT, text=True))
+    for o in objs:
+        o.unlink()
+    os.replace(tmp, so)  # atomic: concurrent builders never load half a file
+    return "".join(logs)
+
+
+def _finish(cmd, proc) -> str:
+    """Wait for one nvcc process; raise with its output if it failed."""
+    out, _ = proc.communicate()
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, so)  # atomic: concurrent builders never load half a file
-    return time.perf_counter() - t0
+                           f"{' '.join(cmd)}\n{out}")
+    return out
 
 
 @functools.lru_cache(maxsize=1)

@@ -1,17 +1,22 @@
-"""K2 and K3: the process-generic fused time loop.
+"""K2, K3 and K4: the process-generic fused time loop.
 
-Port of ``montecarlo_tpu/ops/fused_engine.py::fused_terminal_pallas`` (K2)
-and ``::fused_block_moments_pallas`` (K3); the kernels are one template in
+Port of ``montecarlo_tpu/ops/fused_engine.py::fused_terminal_pallas`` (K2),
+``::fused_block_moments_pallas`` (K3) and ``::fused_functionals_pallas``
+(K4); the kernels are templates over a process functor (GBM, Heston) in
 ``csrc/fused_engine.cu``.  The plain versions below run the process's own
 ``draws_pair``/``step``/``prices`` in the kernel's order — two steps per
-cipher call, the antithetic mirror on odd ids, the odd final step dropped by
-a select — and agree with the kernels bitwise where the platform's
-log/sqrt/sin/cos do.
+cipher call, the antithetic mirror on odd ids, the odd final step dropped —
+and agree with the kernels bitwise where the platform's log/sqrt/sin/cos
+do.
 
 K3 applies a :class:`VanillaPayoff` in the kernel and writes (mean, M2) per
 128-path row, summed in ``tree_sum``'s fixed order; the rows are merged
 into 4096-path :class:`MomentState` blocks in torch, by the same pairwise
 tree as the JAX package.
+
+K4 folds up to four path functionals after every step, each given by its
+device form (``engine.functionals.DeviceForm``), and writes the terminal
+prices plus each finalized functional.
 """
 
 from __future__ import annotations
@@ -21,33 +26,65 @@ import dataclasses
 
 import torch
 
+from montecarlo_tpu_torch.engine.functionals import (MAX_PARAMS,
+                                                     functional_observables)
 from montecarlo_tpu_torch.engine.payoffs import VanillaPayoff
 from montecarlo_tpu_torch.engine.simulate import path_ids_for
 from montecarlo_tpu_torch.ops._build import (CudaKernel, check_cuda_tensor,
                                              cuda_stream)
 from montecarlo_tpu_torch.processes.gbm import GBM
+from montecarlo_tpu_torch.processes.heston import Heston
 from montecarlo_tpu_torch.rng.threefry import MASK32, key_from_seed
 from montecarlo_tpu_torch.stats.welford import (MomentState, moments_reduce,
                                                 tree_sum)
 
 LANES = 128          # paths per stats row (K3's block)
 STATS_BLOCK = 4096   # paths per MomentState block
+MAX_FUNCTIONALS = 4  # K4's functional slots (kMaxFunctionals)
 
-_COMMON = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-           ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int]
-K2 = CudaKernel("mc_fused_terminal_gbm", _COMMON + [ctypes.c_void_p])
-K3 = CudaKernel("mc_fused_block_moments_gbm",
+#: The processes the kernels run, by the code of their functor.
+PROCESS_CODES = {GBM: 0, Heston: 1}
+
+_COMMON = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
+           ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,
+           ctypes.c_int]
+K2 = CudaKernel("mc_fused_terminal", _COMMON + [ctypes.c_void_p])
+K3 = CudaKernel("mc_fused_block_moments",
                 _COMMON + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
+K4 = CudaKernel("mc_fused_functionals",
+                _COMMON + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.c_void_p, ctypes.c_void_p])
 
 
-def _leaves(process) -> torch.Tensor:
-    """The process's leaves, float32 in field order, as the kernel's
-    functor reads them (GBM: [s0, mu, sigma, dt])."""
-    if not isinstance(process, GBM):
-        raise TypeError("the fused kernels run GBM in this port, got "
-                        f"{type(process).__name__}")
-    return torch.stack([getattr(process, f.name)
-                        for f in dataclasses.fields(process)])
+def _leaves(process):
+    """(process code, leaves): the leaves float32 in field order, as the
+    kernel's functor reads them (GBM: [s0, mu, sigma, dt]; Heston: [s0,
+    v0, mu, kappa, theta, xi, rho, dt])."""
+    code = PROCESS_CODES.get(type(process))
+    if code is None:
+        raise TypeError("the fused kernels run GBM and Heston in this port, "
+                        f"got {type(process).__name__}")
+    return code, torch.stack([getattr(process, f.name)
+                              for f in dataclasses.fields(process)])
+
+
+def _draw_pairs(process, n_steps: int, k0: int, k1: int, ids,
+                antithetic: bool):
+    """(t0, eps0, eps1) for each pair of steps (t0, t0 + 1), in the
+    kernels' order: one ``draws_pair``, mirrored on odd ids when
+    antithetic."""
+    draw_ids = ids >> 1 if antithetic else ids
+    odd = (ids & 1).to(torch.bool)
+
+    def mirror(eps):
+        return tuple(torch.where(odd, m, e)
+                     for m, e in zip(process.antithetic(eps), eps))
+
+    for j in range((n_steps + 1) // 2):
+        eps0, eps1 = process.draws_pair(k0, k1, draw_ids, j)
+        if antithetic:
+            eps0, eps1 = mirror(eps0), mirror(eps1)
+        yield 2 * j, eps0, eps1
 
 
 def fused_terminal_reference(process, n_paths: int, n_steps: int, *, seed,
@@ -56,21 +93,12 @@ def fused_terminal_reference(process, n_paths: int, n_steps: int, *, seed,
     """The plain PyTorch version of K2 (any process with the protocol)."""
     k0, k1 = key_from_seed(seed, stream)
     ids = path_ids_for(n_paths, path_offset, process.device)
-    draw_ids = ids >> 1 if antithetic else ids
-    odd = (ids & 1).to(torch.bool)
-
-    def mirror(eps):
-        return tuple(torch.where(odd, m, e)
-                     for m, e in zip(process.antithetic(eps), eps))
-
     state = process.init_state(ids)
-    for j in range((n_steps + 1) // 2):
-        eps0, eps1 = process.draws_pair(k0, k1, draw_ids, j)
-        if antithetic:
-            eps0, eps1 = mirror(eps0), mirror(eps1)
-        state = process.step(state, eps0, 2 * j)
-        stepped = process.step(state, eps1, 2 * j + 1)
-        if 2 * j + 1 < n_steps:  # odd final step: dropped
+    for t0, eps0, eps1 in _draw_pairs(process, n_steps, k0, k1, ids,
+                                      antithetic):
+        state = process.step(state, eps0, t0)
+        stepped = process.step(state, eps1, t0 + 1)
+        if t0 + 1 < n_steps:  # odd final step: dropped
             state = stepped
     return process.prices(state)
 
@@ -118,7 +146,7 @@ def fused_terminal(process, n_paths: int, n_steps: int, *, seed, stream=0,
     """Terminal prices (n_paths,) float32: K2 on a CUDA process, the plain
     version on a CPU one.  Any ``n_paths >= 1``; the kernel masks the
     ragged edge."""
-    leaves = _leaves(process)
+    code, leaves = _leaves(process)
     dev = process.device
     if dev.type == "cpu":
         return fused_terminal_reference(
@@ -130,9 +158,9 @@ def fused_terminal(process, n_paths: int, n_steps: int, *, seed, stream=0,
     out = torch.empty(n_paths, dtype=torch.float32, device=dev)
     k0, k1 = key_from_seed(seed, stream)
     with torch.cuda.device(dev):
-        K2.launch(out.data_ptr(), leaves.data_ptr(), n_paths, n_steps,
-                  int(path_offset) & MASK32, k0, k1, int(antithetic),
-                  cuda_stream(dev))
+        K2.launch(out.data_ptr(), leaves.data_ptr(), code, n_paths,
+                  n_steps, int(path_offset) & MASK32, k0, k1,
+                  int(antithetic), cuda_stream(dev))
     return out
 
 
@@ -142,7 +170,7 @@ def fused_block_moments(process, payoff: VanillaPayoff, n_paths: int,
     """Per-4096-path-block payoff moments with the terminal prices never
     leaving the kernel: K3 on a CUDA process, the plain version on a CPU
     one.  Returns a MomentState with leaves shaped (n_paths // 4096,)."""
-    leaves = _leaves(process)
+    code, leaves = _leaves(process)
     dev = process.device
     if dev.type == "cpu":
         return fused_block_moments_reference(
@@ -155,7 +183,99 @@ def fused_block_moments(process, payoff: VanillaPayoff, n_paths: int,
     rows = torch.empty((n_paths // LANES, 2), dtype=torch.float32, device=dev)
     k0, k1 = key_from_seed(seed, stream)
     with torch.cuda.device(dev):
-        K3.launch(rows.data_ptr(), leaves.data_ptr(), n_paths, n_steps,
-                  int(path_offset) & MASK32, k0, k1, int(antithetic),
-                  payoff.code, payoff.strike, cuda_stream(dev))
+        K3.launch(rows.data_ptr(), leaves.data_ptr(), code, n_paths,
+                  n_steps, int(path_offset) & MASK32, k0, k1,
+                  int(antithetic), payoff.code, payoff.strike,
+                  cuda_stream(dev))
     return _merge_rows(rows)
+
+
+def _device_forms(items, n_steps: int):
+    """The K4 device form of each (name, functional); raises TypeError for
+    a functional that has none."""
+    if len(items) > MAX_FUNCTIONALS:
+        raise ValueError(f"K4 folds at most {MAX_FUNCTIONALS} functionals, "
+                         f"got {len(items)}")
+    forms = []
+    for name, f in items:
+        if f.device is None:
+            raise TypeError(f"functional {name!r} has no device form: run it "
+                            "with simulate_functionals(..., "
+                            "prefer_fused=False)")
+        form = f.device(n_steps)
+        if len(form.params) > MAX_PARAMS:
+            raise ValueError(f"functional {name!r}: more than {MAX_PARAMS} "
+                             "parameters")
+        forms.append(form)
+    return forms
+
+
+def fused_functionals_reference(process, n_paths: int, n_steps: int, *,
+                                seed, functionals, stream=0, path_offset=0,
+                                antithetic: bool = False) -> dict:
+    """The plain PyTorch version of K4: the functionals' own torch folds in
+    the kernel's pair order, the update of step t1 = t0 + 1 kept only
+    while t1 < n_steps."""
+    items = tuple(functionals.items())
+    _leaves(process)
+    _device_forms(items, n_steps)
+    fns = [f for _, f in items]
+    k0, k1 = key_from_seed(seed, stream)
+    ids = path_ids_for(n_paths, path_offset, process.device)
+
+    def update(state, accs, t):
+        obs = functional_observables(process, state, fns)
+        return [f.update(a, o, t) for f, a, o in zip(fns, accs, obs)]
+
+    state = process.init_state(ids)
+    accs = [f.init(o) for f, o in
+            zip(fns, functional_observables(process, state, fns))]
+    for t0, eps0, eps1 in _draw_pairs(process, n_steps, k0, k1, ids,
+                                      antithetic):
+        state = process.step(state, eps0, t0)
+        accs = update(state, accs, t0 + 1)
+        if t0 + 1 < n_steps:  # odd final step: dropped
+            state = process.step(state, eps1, t0 + 1)
+            accs = update(state, accs, t0 + 2)
+    out = {"terminal": process.prices(state)}
+    for (name, f), a in zip(items, accs):
+        out[name] = f.finalize(a, float(n_steps))
+    return out
+
+
+def fused_functionals(process, n_paths: int, n_steps: int, *, seed,
+                      functionals, stream=0, path_offset=0,
+                      antithetic: bool = False) -> dict:
+    """Terminal prices plus named path functionals, ``{"terminal": ...,
+    name: ...}``, each (n_paths,) float32: K4 on a CUDA process, the plain
+    version on a CPU one.  ``functionals`` maps names to
+    :class:`PathFunctional` s with a device form (at most four).  Any
+    ``n_paths >= 1``; the kernel masks the ragged edge."""
+    items = tuple(functionals.items())
+    code, leaves = _leaves(process)
+    forms = _device_forms(items, n_steps)
+    dev = process.device
+    if dev.type == "cpu":
+        return fused_functionals_reference(
+            process, n_paths, n_steps, seed=seed, functionals=functionals,
+            stream=stream, path_offset=path_offset, antithetic=antithetic)
+    if n_paths < 1 or n_steps < 0:
+        raise ValueError(f"n_paths={n_paths}, n_steps={n_steps}")
+    check_cuda_tensor("leaves", leaves, dev, torch.float32)
+    out = torch.empty((1 + len(forms), n_paths), dtype=torch.float32,
+                      device=dev)
+    codes = (ctypes.c_int * MAX_FUNCTIONALS)(*[f.code for f in forms])
+    periods = (ctypes.c_int * MAX_FUNCTIONALS)(*[f.period for f in forms])
+    params = (ctypes.c_float * (MAX_FUNCTIONALS * MAX_PARAMS))()
+    for k, f in enumerate(forms):
+        for q, v in enumerate(f.params):
+            params[k * MAX_PARAMS + q] = v
+    k0, k1 = key_from_seed(seed, stream)
+    with torch.cuda.device(dev):
+        K4.launch(out.data_ptr(), leaves.data_ptr(), code, n_paths, n_steps,
+                  int(path_offset) & MASK32, k0, k1, int(antithetic),
+                  len(forms), codes, periods, params, cuda_stream(dev))
+    result = {"terminal": out[0]}
+    for k, (name, _) in enumerate(items):
+        result[name] = out[k + 1]
+    return result

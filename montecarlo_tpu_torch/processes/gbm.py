@@ -61,3 +61,8 @@ class GBM(NormalDrawsMixin):
 
     def prices(self, state: GBMState):
         return exp32(state.log_s)
+
+    def log_prices(self, state: GBMState):
+        """Native log prices: log-space path functionals fold these directly
+        instead of ``log32(exp32(log_s))``, which is a few ULP off."""
+        return state.log_s

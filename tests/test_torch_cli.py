@@ -1,7 +1,13 @@
-"""The port's CLI (`python -m montecarlo_tpu_torch price ... --device cpu`)
-against the JAX CLI given the same flags: the same keys, values within
-rtol 1e-5 (same paths; normals within 1e-6 and float32 sums in each
+"""The port's CLI (`python -m montecarlo_tpu_torch price|note ... --device
+cpu`) against the JAX CLI given the same flags: the same keys, values
+within rtol 1e-5 (same paths; normals within 1e-6 and float32 sums in each
 framework's own order), the same path count.
+
+A payoff with a discontinuity (a discretely monitored barrier, the
+autocall's trigger and capital barrier) can flip on a path that sits on it
+within the normals' difference.  Those runs allow FLIPS such paths: the
+rtol 1e-5 plus FLIPS times the largest jump of one path's payoff over the
+path count.
 """
 
 import json
@@ -42,20 +48,103 @@ def test_price_matches_jax_cli(flags, capsys):
         assert got[k] == pytest.approx(want[k], rel=1e-5), k
 
 
+FLIPS = 1
+
+
+@pytest.mark.parametrize("flags,jump", [
+    (["--payoff", "asian", "--paths", "2048", "--steps", "16"], 0.0),
+    (["--payoff", "asian", "--paths", "2048", "--steps", "17",
+      "--sampler", "antithetic"], 0.0),
+    (["--payoff", "lookback", "--paths", "2048", "--steps", "17"], 0.0),
+    (["--payoff", "up-and-out", "--paths", "2048", "--steps", "16",
+      "--barrier", "110"], 5.0),
+    (["--payoff", "up-and-in", "--paths", "2048", "--steps", "17",
+      "--barrier", "110"], 5.0),
+    (["--payoff", "up-and-out", "--bridge", "--paths", "2048", "--steps",
+      "16", "--barrier", "112"], 0.0),
+    (["--payoff", "up-and-in", "--bridge", "--paths", "2048", "--steps",
+      "17"], 0.0),
+    (["--process", "heston", "--payoff", "asian", "--paths", "2048",
+      "--steps", "17"], 0.0),
+    (["--process", "heston", "--payoff", "up-and-out", "--paths", "2048",
+      "--steps", "16", "--barrier", "110", "--sampler", "antithetic"], 5.0),
+    (["--process", "heston", "--paths", "2048", "--steps", "16"], 0.0),
+    (["--process", "heston", "--target-se", "0.1", "--steps", "8"], 0.0),
+])
+def test_price_path_dependent_and_heston_match_jax_cli(flags, jump, capsys):
+    """``jump``: the most one flipped path moves its discounted payoff (a
+    barrier at 110 on a 105 call: 5)."""
+    want = _run(jax_main, ["price", *flags], capsys)
+    got = _run(port_main, ["price", *flags, "--device", "cpu"], capsys)
+    assert sorted(got) == sorted(want) == ["n_paths", "price", "std_err"]
+    assert got["n_paths"] == want["n_paths"]
+    for k in ("price", "std_err"):
+        tol = 1e-5 * abs(want[k]) + FLIPS * jump / want["n_paths"]
+        assert abs(got[k] - want[k]) <= tol, k
+
+
+@pytest.mark.parametrize("flags,jump", [
+    (["--type", "autocall", "--paths", "2048", "--steps", "16"], 1.1),
+    (["--type", "autocall", "--paths", "2048", "--steps", "17",
+      "--observations", "3", "--s0", "1", "--trigger", "1.01",
+      "--pdi-barrier", "0.9"], 1.1),
+    (["--type", "cliquet", "--paths", "2048", "--steps", "16"], 0.0),
+])
+def test_note_matches_jax_cli(flags, jump, capsys):
+    """``jump``: a flipped autocall path moves by at most 1 + coupons."""
+    want = _run(jax_main, ["note", *flags], capsys)
+    got = _run(port_main, ["note", *flags, "--device", "cpu"], capsys)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        tol = 1e-5 * abs(want[k]) + FLIPS * jump / want["n_paths"]
+        assert abs(got[k] - want[k]) <= tol, k
+
+
+def test_bridge_knock_out_plus_knock_in_is_vanilla(capsys):
+    """In-out parity from the one survival functional: KO + KI pays the
+    vanilla call on every path, so the estimates add up to the call's."""
+    flags = ["--paths", "4096", "--steps", "17", "--seed", "3",
+             "--device", "cpu"]
+    ko = _run(port_main, ["price", "--payoff", "up-and-out", "--bridge",
+                          *flags], capsys)
+    ki = _run(port_main, ["price", "--payoff", "up-and-in", "--bridge",
+                          *flags], capsys)
+    call = _run(port_main, ["price", "--payoff", "call", *flags], capsys)
+    assert ko["price"] > 0 and ki["price"] > 0
+    assert ko["price"] + ki["price"] == pytest.approx(call["price"],
+                                                      rel=1e-5)
+
+
+@pytest.mark.parametrize("argv,match", [
+    (["price", "--payoff", "asian", "--target-se", "0.1"], "vanilla"),
+    (["price", "--payoff", "up-and-out", "--bridge", "--process", "heston"],
+     "--process gbm"),
+    (["note", "--n-assets", "3"], "worst-of"),
+])
+def test_guards_exit_with_a_message(argv, match, capsys):
+    with pytest.raises(SystemExit, match=match):
+        port_main([*argv, "--device", "cpu"])
+    assert capsys.readouterr().out == ""
+
+
 def test_device_cuda_is_an_error_without_a_card(capsys):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
     with pytest.raises(SystemExit, match="no CUDA device"):
         port_main(["price", "--paths", "128", "--steps", "2"])
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        port_main(["price", "--payoff", "asian", "--paths", "128"])
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        port_main(["note", "--paths", "128"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_main(["bench"])
     assert capsys.readouterr().out == ""
 
 
 @pytest.mark.parametrize("argv", [
-    ["price", "--process", "heston"],
+    ["price", "--process", "merton"],
     ["price", "--sampler", "sobol"],
-    ["price", "--payoff", "asian"],
+    ["price", "--payoff", "max-call"],
     ["price", "--device", "cpu", "--target-se", "0.1", "--sampler",
      "antithetic"],
 ])
@@ -74,3 +163,14 @@ def test_python_dash_m_entry_point():
     res = json.loads(out.stdout.strip().splitlines()[-1])
     assert set(res) == {"price", "std_err", "n_paths", "black_scholes"}
     assert res["n_paths"] == 512
+
+
+def test_python_dash_m_note_entry_point():
+    out = subprocess.run(
+        [sys.executable, "-m", "montecarlo_tpu_torch", "note", "--type",
+         "autocall", "--device", "cpu", "--paths", "4096"],
+        cwd=ROOT, capture_output=True, text=True, timeout=120, check=True)
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert set(res) == {"autocall_note", "std_err", "n_paths", "n_assets",
+                        "observations"}
+    assert res["n_paths"] == 4096 and 0.5 < res["autocall_note"] < 1.2

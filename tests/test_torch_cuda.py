@@ -1,4 +1,4 @@
-"""The CUDA kernels K0-K3 against their plain PyTorch versions, on the card.
+"""The CUDA kernels K0-K4 against their plain PyTorch versions, on the card.
 
 A CUDA kernel has no CPU mode, so every test here needs an NVIDIA GPU and
 skips without one.  The file imports no JAX (the card's machine has none);
@@ -9,19 +9,32 @@ run it there from the repo root with
 Kernel and plain version run the same float32 operations in the same order
 (nvcc -fmad=false, no fast math; K3 sums rows in tree_sum's order), so they
 must agree bitwise; Box-Muller and log32 go through the card's libm on both
-sides and are held to 1e-6 absolute in case the two builds differ.
+sides and are held to 1e-6 absolute in case the two builds differ.  K4
+folds the path functionals from their device forms (host-folded float32
+parameters); its plain version folds the torch closures over the same
+float32 constants, and the torch time loop on the card agrees with both:
+bitwise.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from montecarlo_tpu_torch.engine import VanillaPayoff
+from montecarlo_tpu_torch.engine import (ARITH_MEAN, GEO_MEAN, RUNNING_MAX,
+                                         RUNNING_MIN, VanillaPayoff,
+                                         autocallable, barrier_survival_up,
+                                         cliquet_sum, realized_variance,
+                                         simulate_functionals,
+                                         trapezoid_integral,
+                                         worst_of_autocallable)
 from montecarlo_tpu_torch.ops import (PATH_KERNELS, fused_block_moments,
                                       fused_block_moments_reference,
+                                      fused_functionals,
+                                      fused_functionals_reference,
                                       fused_terminal, fused_terminal_reference,
                                       gbm_terminal, gbm_terminal_reference)
-from montecarlo_tpu_torch.processes import GBM
+from montecarlo_tpu_torch.processes import GBM, Heston
+from montecarlo_tpu_torch.samplers import AntitheticSampler
 
 
 @pytest.fixture
@@ -82,3 +95,78 @@ def test_cuda_k0_device_math_equals_plain(cuda):
         assert torch.equal(got[name], want[name]), name
     for name in ("z0", "z1", "log32"):
         torch.testing.assert_close(got[name], want[name], rtol=0, atol=1e-6)
+
+
+def _process(kind, n_steps, device):
+    if kind == "heston":
+        return Heston.create(100.0, 0.04, 0.03, 2.0, 0.04, 0.5, -0.7,
+                             1 / n_steps, device=device)
+    return GBM.create(100.0, 0.03, 0.2, 1 / n_steps, device=device)
+
+
+def _functionals(group, n_steps):
+    """Every device functional, in K4's groups of at most four."""
+    dt = 1 / n_steps
+    period = n_steps // 4 if n_steps % 4 == 0 else n_steps
+    return [
+        {"avg": ARITH_MEAN, "geo": GEO_MEAN, "mx": RUNNING_MAX,
+         "mn": RUNNING_MIN},
+        {"surv": barrier_survival_up(104.0, 0.2, dt),
+         "cl": cliquet_sum(4, -0.02, 0.03), "rv": realized_variance(),
+         "tr": trapezoid_integral(dt)},
+        {"ac": autocallable(period, 100.5, 0.02, 0.03 * dt, 97.0, 100.0),
+         "avg": ARITH_MEAN},
+    ][group]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gbm", "heston"])
+@pytest.mark.parametrize("antithetic", [False, True])
+@pytest.mark.parametrize("n_steps", [17, 252])
+@pytest.mark.parametrize("group", [0, 1, 2])
+def test_cuda_k4_bitwise_equal_plain(cuda, kind, antithetic, n_steps, group):
+    tp = _process(kind, n_steps, cuda)
+    fns = _functionals(group, n_steps)
+    kw = dict(seed=3, path_offset=2**32 - 500, functionals=fns)
+    k4 = PATH_KERNELS["fused_functionals"].launches
+    got = fused_functionals(tp, 1000, n_steps, antithetic=antithetic, **kw)
+    assert PATH_KERNELS["fused_functionals"].launches == k4 + 1
+    want = fused_functionals_reference(tp, 1000, n_steps,
+                                       antithetic=antithetic, **kw)
+    scan = simulate_functionals(
+        tp, 1000, n_steps, prefer_fused=False,
+        sampler=AntitheticSampler() if antithetic else None, **kw)
+    assert set(got) == set(want) == {"terminal", *fns}
+    for k in want:
+        assert torch.isfinite(got[k]).all(), k
+        assert torch.equal(got[k], want[k]), k
+        assert torch.equal(scan[k], want[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("antithetic", [False, True])
+@pytest.mark.parametrize("n_paths", [1000, 4096 * 3])
+def test_cuda_k2_k3_heston_bitwise_equal_plain(cuda, antithetic, n_paths):
+    tp = _process("heston", 17, cuda)
+    kw = dict(seed=9, path_offset=77, antithetic=antithetic)
+    assert torch.equal(fused_terminal(tp, n_paths, 17, **kw),
+                       fused_terminal_reference(tp, n_paths, 17, **kw))
+    if n_paths % 4096 == 0:
+        pay = VanillaPayoff("call", 100.0)
+        got = fused_block_moments(tp, pay, n_paths, 17, **kw)
+        want = fused_block_moments_reference(tp, pay, n_paths, 17, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_cuda_k4_raises_instead_of_falling_back(cuda):
+    tp = _process("gbm", 16, cuda)
+    k4 = PATH_KERNELS["fused_functionals"].launches
+    worst = worst_of_autocallable(4, 1.0, 0.02, 0.001, 0.7, [100.0])
+    with pytest.raises(TypeError, match="'worst'"):
+        simulate_functionals(tp, 256, 16, seed=0,
+                             functionals={"worst": worst})
+    with pytest.raises(TypeError, match="GBM and Heston"):
+        fused_functionals(object(), 256, 16, seed=0,
+                          functionals={"avg": ARITH_MEAN})
+    assert PATH_KERNELS["fused_functionals"].launches == k4
