@@ -26,6 +26,21 @@ CUDA kernels from ``montecarlo_tpu_torch/csrc`` and, in phases:
      lies between the geometric Asian closed form and Black-Scholes, the
      engine's geometric Asian within 5 std-err of its closed form, and
      knock-out plus knock-in adds up to the vanilla call of the same seed;
+6. the rough-Bergomi path (K5, the factor product, K6), launch counters
+   reset just before and read just after: ``price --process rbergomi`` at
+   2^20 x 252 (twice: the same seed gives the same bits) and at the
+   default 100000 paths, each run raising K5's and K6's counts; ``--eta 0
+   --rho 0 --rate 0`` against Black-Scholes with sigma = sqrt(xi0); the
+   sampler's martingale test at 2^20 x 252; a 65536 x 16 run on the card
+   against ``--device cpu``.
+
+Phase 3 also holds K5 (2^18 paths x {504, 756, 37} columns, ids wrapping
+past 2^32) and K6 (2^18 x {252, 17} steps, fed one joint matrix) against
+their plain versions bitwise; phase 4 times them at 2^20 x 504 and 2^20 x
+252, checks the factor product against a float64 product under a
+process-wide TF32 setting, and times the whole sampler at
+``experiments/rbergomi_bench.py``'s 2^17 x 256 and at the CLI's 2^20 x 252,
+each with its K5 / product / K6 split;
 
 then prints one JSON line describing the kernels and, last, the
 ``{"ok": true, "device": ...}`` line.  Any failure prints its traceback and
@@ -46,7 +61,13 @@ import traceback
 
 PRICE_RTOL = 2e-6    # kernel vs plain version, terminal prices
 MOMENT_RTOL = 1e-6   # kernel vs plain version, block (mean, M2)
-BITWISE = 0.0        # K4 and Heston K2/K3 vs plain version: same bits
+BITWISE = 0.0        # K4-K6 and Heston K2/K3 vs plain version: same bits
+# The card's rBergomi CLI price against --device cpu: cuBLAS and the CPU
+# BLAS sum the factor product in their own orders and the platforms' libm
+# differ in Box-Muller and pow, the two float orders JAX holds its own
+# sampler's tails to within rtol 3e-5.
+RBERGOMI_CPU_RTOL = 3e-5
+WRAP = 2**32 - 500   # a path offset whose ids wrap past 2^32
 
 
 def log(msg: str) -> None:
@@ -185,6 +206,7 @@ def phase_parity(torch, errs):
                     errs.get("fused_block_moments", 0.0), max_abs)
         torch.cuda.synchronize()
         phase_parity_slice2(torch, errs, n, steps)
+    phase_parity_rbergomi(torch, errs, n)
     # The whole CLI path on the card against the port's CPU path (plain
     # versions, CPU libm): same draws, float32 round-off apart.
     small = ["price", "--paths", "65536", "--steps", "17"]
@@ -275,6 +297,51 @@ def phase_parity_slice2(torch, errs, n, steps):
         torch.cuda.synchronize()
 
 
+def rbergomi_model(steps, device="cuda", **kw):
+    """The CLI's default model (xi0 = 0.04, eta = 1.5, rho = -0.7, H = 0.1,
+    T = 1) unless ``kw`` says otherwise."""
+    from montecarlo_tpu_torch.processes import RoughBergomi
+
+    args = dict(s0=100.0, xi0=0.04, eta=1.5, rho=-0.7, h=0.1, T=1.0)
+    args.update(kw)
+    return RoughBergomi.create(n_steps=steps, device=device, **args)
+
+
+def phase_parity_rbergomi(torch, errs, n):
+    """K5 at n x {504, 756, 37} columns (2T and 3T for T = 252, and an odd
+    count) and K6 at n x {252, 17} steps, fed the same joint matrix,
+    against their plain versions, bitwise; path ids wrap past 2^32."""
+    from montecarlo_tpu_torch.ops import (normal_matrix,
+                                          normal_matrix_reference,
+                                          rbergomi_terminal,
+                                          rbergomi_terminal_reference)
+    from montecarlo_tpu_torch.processes.rough_bergomi import factor_product
+
+    for cols in (504, 756, 37):
+        kw = dict(path_offset=WRAP, device="cuda")
+        _, max_abs, _ = compare(
+            f"K5 {n}x{cols} offset 2^32-500",
+            normal_matrix(21, 3, n, cols, **kw),
+            normal_matrix_reference(21, 3, n, cols, **kw), BITWISE)
+        errs["normal_matrix"] = max(errs.get("normal_matrix", 0.0), max_abs)
+        torch.cuda.synchronize()
+    for steps in (252, 17):
+        model = rbergomi_model(steps)
+        z = normal_matrix(21, 3, n, 2 * steps, path_offset=WRAP,
+                          device="cuda")
+        args = (factor_product(model.chol, z), model.tpow(),
+                model.kernel_params(), 21, 3)
+        kw = dict(n_steps=steps, path_offset=WRAP)
+        _, max_abs, _ = compare(f"K6 {n}x{steps} offset 2^32-500",
+                                rbergomi_terminal(*args, **kw),
+                                rbergomi_terminal_reference(*args, **kw),
+                                BITWISE)
+        errs["rbergomi_terminal"] = max(errs.get("rbergomi_terminal", 0.0),
+                                        max_abs)
+        del z, args
+        torch.cuda.synchronize()
+
+
 def phase_main_shapes(torch, errs):
     """Each kernel against its plain version, and both timed, at the
     shapes the main path gives it: K1 at bench's 2^20 x 1024, K2 at the
@@ -337,6 +404,7 @@ def phase_main_shapes(torch, errs):
                                                     seed=0, path_offset=off),
               5, MOMENT_RTOL, fields=("mean", "m2"))
     main_shapes_slice2(torch, check, t)
+    main_shapes_rbergomi(torch, check, t)
     return t
 
 
@@ -394,6 +462,112 @@ def main_shapes_slice2(torch, check, t):
           lambda: fused_block_moments_reference(hp, pay, n3, steps, seed=0),
           5, BITWISE, fields=("mean", "m2"))
     t["K3 Heston"] = t["_last"]
+
+
+def main_shapes_rbergomi(torch, check, t):
+    """K5 at the CLI's 2^20 x 504 and K6 at 2^20 x 252, fed the CLI's joint
+    matrix, each against its plain version and both timed."""
+    from montecarlo_tpu_torch.ops import (normal_matrix,
+                                          normal_matrix_reference,
+                                          rbergomi_terminal,
+                                          rbergomi_terminal_reference)
+    from montecarlo_tpu_torch.processes.rough_bergomi import factor_product
+
+    n, steps = 1 << 20, 252
+    check("normal_matrix", f"K5 {n}x{2 * steps}",
+          lambda: normal_matrix(0, 0, n, 2 * steps, device="cuda"),
+          lambda: normal_matrix_reference(0, 0, n, 2 * steps,
+                                          device="cuda"),
+          10, BITWISE)
+    model = rbergomi_model(steps)
+    joint = factor_product(model.chol, normal_matrix(0, 0, n, 2 * steps,
+                                                     device="cuda"))
+    args = (joint, model.tpow(), model.kernel_params(), 0, 0)
+    check("rbergomi_terminal", f"K6 {n}x{steps}",
+          lambda: rbergomi_terminal(*args, n_steps=steps),
+          lambda: rbergomi_terminal_reference(*args, n_steps=steps),
+          10, BITWISE)
+
+
+def phase_factor_precision(torch):
+    """The factor product on the card against a float64 product of the
+    same float32 operands, at the CLI's 2^20 x 252, with a process-wide
+    TF32 setting in force (the sampler must override it and restore it).
+
+    Bound: every entry within gamma_2T = 2T*u/(1 - 2T*u), u = 2^-24, of
+    (|chol| @ |z|), the rounding bound of a float32 dot product of length
+    2T in any summation order (3.0e-5 at T = 252).  TF32 rounds both
+    operands to 11 significant bits: on the first row, a single product,
+    that rounding alone is of order 2^-11 = 4.9e-4 of |chol| @ |z|.  The
+    same product taken with TF32 left on is measured beside it as the
+    control."""
+    from montecarlo_tpu_torch.ops import normal_matrix
+    from montecarlo_tpu_torch.processes.rough_bergomi import factor_product
+
+    n, steps = 1 << 20, 252
+    model = rbergomi_model(steps)
+    z = normal_matrix(4, 0, n, 2 * steps, device="cuda")
+    nu = 2 * steps * 2.0**-24
+    gamma = nu / (1 - nu)
+    before = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("high")
+        joint = factor_product(model.chol, z)
+        restored = torch.get_float32_matmul_precision() == "high"
+        tf32 = torch.matmul(model.chol, z)   # the control: TF32 allowed
+    finally:
+        torch.set_float32_matmul_precision(before)
+    chol64, z64 = model.chol.double(), z.double()
+    del z
+    ref = chol64 @ z64
+    scale = chol64.abs() @ z64.abs()
+    del z64
+    out = {}
+    for name, got in (("true float32", joint), ("TF32 control", tf32)):
+        err = (got.double() - ref).abs()
+        out[name] = (float(err.max()), float((err / scale).max()))
+        log(f"  factor product {n}x{2 * steps}, {name}: max abs err "
+            f"{out[name][0]:.3e}, max err / (|chol| @ |z|) "
+            f"{out[name][1]:.3e} (bound {gamma:.3e})")
+        del err
+    del ref, scale, joint, tf32
+    torch.cuda.synchronize()
+    if not restored:
+        raise AssertionError("the sampler left the matmul precision changed")
+    if out["true float32"][1] > gamma:
+        raise AssertionError("factor product outside the float32 bound")
+
+
+def phase_sampler_split(torch, n, steps, reps, **kw):
+    """The whole sampler at n x steps, and its split into K5, the factor
+    product and K6, by CUDA events; the host's model set-up (the float64
+    Cholesky factor) by the host clock."""
+    from montecarlo_tpu_torch.ops import normal_matrix, rbergomi_terminal
+    from montecarlo_tpu_torch.processes import rbergomi_simulate
+    from montecarlo_tpu_torch.processes.rough_bergomi import factor_product
+
+    t0 = time.perf_counter()
+    model = rbergomi_model(steps, **kw)
+    torch.cuda.synchronize()
+    setup = time.perf_counter() - t0
+    whole, s_t = cuda_ms(lambda: rbergomi_simulate(model, n, seed=0), reps)
+    k5, z = cuda_ms(lambda: normal_matrix(0, 0, n, 2 * steps,
+                                          device="cuda"), reps)
+    mm, joint = cuda_ms(lambda: factor_product(model.chol, z), reps)
+    tpow, params = model.tpow(), model.kernel_params()
+    k6, prices = cuda_ms(lambda: rbergomi_terminal(joint, tpow, params, 0, 0,
+                                                   n_steps=steps), reps)
+    if not torch.equal(prices, s_t):
+        raise AssertionError("the timed pieces differ from the sampler")
+    rate = n * steps / (whole * 1e-3)
+    parts = k5 + mm + k6
+    log(f"  sampler {n}x{steps}: {whole:.3f} ms, {rate:.4e} path-steps/s; "
+        f"K5 {k5:.3f} ms ({100 * k5 / parts:.1f}%), product {mm:.3f} ms "
+        f"({100 * mm / parts:.1f}%), K6 {k6:.3f} ms "
+        f"({100 * k6 / parts:.1f}%); model set-up on the host "
+        f"{setup:.3f} s")
+    del z, joint, prices, s_t
+    torch.cuda.synchronize()
 
 
 def run_cli(argv):
@@ -522,6 +696,68 @@ def phase_path_dependent(torch, vanilla):
     return counts
 
 
+def run_rbergomi_cli(argv):
+    """One CLI run of the rough-Bergomi path; it must launch K5 and K6."""
+    from montecarlo_tpu_torch.ops import launch_counts
+
+    keys = ("normal_matrix", "rbergomi_terminal")
+    before = launch_counts()
+    out, wall = run_cli(["price", "--process", "rbergomi", *argv])
+    after = launch_counts()
+    launched = {k: after[k] - before[k] for k in keys}
+    log(f"  price --process rbergomi {' '.join(argv)}: {json.dumps(out)} "
+        f"({launched} launches, {wall:.3f} s wall-clock)")
+    if min(launched.values()) < 1:
+        raise AssertionError(f"{argv}: K5 or K6 was not launched")
+    if not (math.isfinite(out["price"]) and math.isfinite(out["std_err"])):
+        raise AssertionError(f"{argv}: non-finite output {out}")
+    return out, wall
+
+
+def phase_rbergomi(torch):
+    """The rough-Bergomi path through the CLI and the sampler, launch
+    counters reset just before and read just after."""
+    from montecarlo_tpu_torch.engine import black_scholes_call
+    from montecarlo_tpu_torch.ops import launch_counts, reset_launch_counts
+    from montecarlo_tpu_torch.processes import rbergomi_simulate
+
+    reset_launch_counts()
+    full = ["--paths", "1048576", "--steps", "252"]
+    first, wall = run_rbergomi_cli(full)
+    again, _ = run_rbergomi_cli(full)
+    default, _ = run_rbergomi_cli([])
+    flat, _ = run_rbergomi_cli([*full, "--eta", "0", "--rho", "0",
+                                "--rate", "0"])
+    bs = black_scholes_call(100.0, 105.0, 0.0, math.sqrt(0.04), 1.0)
+    s_t = rbergomi_simulate(rbergomi_model(252), 1 << 20, seed=0).double()
+    mean, se = float(s_t.mean()), float(s_t.std() / math.sqrt(s_t.numel()))
+    del s_t
+    small = ["--paths", "65536", "--steps", "16"]
+    on_card, _ = run_rbergomi_cli(small)
+    on_cpu, _ = run_cli(["price", "--process", "rbergomi", *small,
+                         "--device", "cpu"])
+    counts = launch_counts()
+    log(f"  launches on the rough-Bergomi path: {counts}")
+    rel = max(abs(on_card[k] - on_cpu[k]) / abs(on_cpu[k])
+              for k in ("price", "std_err"))
+    checks = {
+        "same seed, same bits": first == again,
+        "eta = 0 is Black-Scholes":
+            abs(flat["price"] - bs) < 5 * flat["std_err"] + 1e-3,
+        "martingale": abs(mean - 100.0) < 5 * se,
+        "card vs cpu 65536x16": rel <= RBERGOMI_CPU_RTOL,
+        "default --paths 100000": default["n_paths"] == 100000,
+    }
+    log(f"  eta = 0: {flat['price']:.6f} +- {flat['std_err']:.2e} vs "
+        f"Black-Scholes {bs:.6f}; mean S_T {mean:.6f} +- {se:.2e} vs 100; "
+        f"card vs cpu rel {rel:.3e} (rtol {RBERGOMI_CPU_RTOL:.0e}); "
+        f"2^20 x 252 CLI wall-clock {wall:.3f} s")
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"rough-Bergomi checks failed: {failed}")
+    return counts
+
+
 def main() -> int:
     try:
         import torch
@@ -552,15 +788,25 @@ def main() -> int:
         log_resources(ptxas)
         log("phase 2: K0 device math vs plain versions, 2^20 counters")
         phase_k0(torch)
-        log("phase 3: K1-K4 vs plain versions, 2^18 paths")
+        log("phase 3: K1-K6 vs plain versions, 2^18 paths")
         errs = {}
         phase_parity(torch, errs)
-        log("phase 4: K1-K4 vs plain versions and times, main-path shapes")
+        log("phase 4: K1-K6 vs plain versions and times, main-path shapes")
         times = phase_main_shapes(torch, errs)
+        phase_factor_precision(torch)
+        # experiments/rbergomi_bench.py's shape, then the CLI's default
+        # model at its 2^20 x 252.
+        phase_sampler_split(torch, 1 << 17, 256, 20, xi0=0.235**2, eta=1.9,
+                            rho=-0.9, h=0.07)
+        phase_sampler_split(torch, 1 << 20, 252, 5)
         log("phase 5: main paths through the CLI")
         counts, bench, wall, n_paths, vanilla = phase_main_path(torch)
         counts["fused_functionals"] = phase_path_dependent(
             torch, vanilla)["fused_functionals"]
+        log("phase 6: the rough-Bergomi path through the CLI")
+        rb = phase_rbergomi(torch)
+        for k in ("normal_matrix", "rbergomi_terminal"):
+            counts[k] = rb[k]
         kernel_s = times["fused_block_moments"] * 1e-3 * n_paths / (1 << 22)
         log(f"  K1 {bench['value']:.6e} path-steps/s, wall-clock to "
             f"std-err 1e-3 {wall:.3f} s, on {card}")
@@ -600,6 +846,20 @@ def main() -> int:
          "max_abs_err": errs["fused_functionals"],
          "ms": times["fused_functionals"],
          "plain_ms": times["fused_functionals_plain"]},
+        {"name": "normal_matrix", "route": "cuda",
+         "source": src + "rng_kernel.cu",
+         "replaces": "montecarlo_tpu/ops/rng_kernel.py:67",
+         "launches": counts["normal_matrix"],
+         "max_abs_err": errs["normal_matrix"],
+         "ms": times["normal_matrix"],
+         "plain_ms": times["normal_matrix_plain"]},
+        {"name": "rbergomi_terminal", "route": "cuda",
+         "source": src + "rbergomi_kernel.cu",
+         "replaces": "montecarlo_tpu/ops/rbergomi_kernel.py:73",
+         "launches": counts["rbergomi_terminal"],
+         "max_abs_err": errs["rbergomi_terminal"],
+         "ms": times["rbergomi_terminal"],
+         "plain_ms": times["rbergomi_terminal_plain"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -3,7 +3,8 @@
 Subcommands:
   price — European option pricing on GBM or Heston: vanilla payoffs (fixed
           --paths or --target-se) and Asian, lookback, up-and-out/in
-          (--bridge), --device cuda (default) or cpu
+          (--bridge); rough-Bergomi call/put (--process rbergomi --hurst
+          --eta); --device cuda (default) or cpu
   note  — structured notes on one asset: autocallable and cliquet
   bench — GBM path-steps/s through the K1 kernel at 2^20 paths x 1024
           steps x 8 chained reps, on the card

@@ -3,10 +3,12 @@
 The port of the European branches of ``montecarlo_tpu/cli/pricing.py``:
 GBM and Heston, the plain and antithetic samplers, vanilla call/put/digital
 payoffs (fixed ``--paths`` through K2, or ``--target-se`` tolerance pricing
-through K3) and the path-dependent Asian, lookback, up-and-out and
-up-and-in calls (K4, with the Brownian-bridge barrier under ``--bridge``).
-The output JSON has the JAX CLI's keys: ``price``, ``std_err``,
-``n_paths`` and, for the GBM call and digital, ``black_scholes``.
+through K3), the path-dependent Asian, lookback, up-and-out and up-and-in
+calls (K4, with the Brownian-bridge barrier under ``--bridge``) and the
+rough-Bergomi call and put (``--process rbergomi``, K5 and K6, in
+``pricing_modes``).  The output JSON has the JAX CLI's keys: ``price``,
+``std_err``, ``n_paths`` and, for the GBM call and digital,
+``black_scholes``; rough Bergomi adds ``hurst``.
 """
 
 from __future__ import annotations
@@ -19,8 +21,9 @@ PATH_DEPENDENT = ("asian", "lookback", "up-and-out", "up-and-in")
 
 def add_parsers(sub):
     p = sub.add_parser("price", help="Monte Carlo option pricing (GBM, "
-                                     "Heston)")
-    p.add_argument("--process", default="gbm", choices=["gbm", "heston"])
+                                     "Heston, rough Bergomi)")
+    p.add_argument("--process", default="gbm",
+                   choices=["gbm", "heston", "rbergomi"])
     p.add_argument("--s0", type=float, default=100.0)
     p.add_argument("--strike", type=float, default=105.0)
     p.add_argument("--rate", type=float, default=0.03)
@@ -49,6 +52,11 @@ def add_parsers(sub):
     p.add_argument("--theta", type=float, default=0.04)
     p.add_argument("--xi", type=float, default=0.5)
     p.add_argument("--rho", type=float, default=-0.7)
+    # rough Bergomi extras (--v0 is xi0, --rho the spot-vol corr)
+    p.add_argument("--hurst", type=float, default=0.1,
+                   help="rough Bergomi Hurst exponent (< 0.5 = rough)")
+    p.add_argument("--eta", type=float, default=1.5,
+                   help="rough Bergomi vol-of-vol")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda (default; an error without a card) or cpu "
                         "(the kernels' plain PyTorch versions)")
@@ -79,14 +87,19 @@ def cmd_price(args) -> int:
     from montecarlo_tpu_torch.engine import (
         VanillaPayoff, black_scholes_call, black_scholes_digital,
         discount_factor, mc_estimate, price_to_tolerance, terminal_prices)
+    from montecarlo_tpu_torch.cli.pricing_modes import run_rbergomi
     from montecarlo_tpu_torch.samplers import AntitheticSampler, PlainSampler
 
-    if args.target_se is not None and args.payoff not in VANILLA:
+    if args.target_se is not None and (args.payoff not in VANILLA
+                                       or args.process == "rbergomi"):
         raise SystemExit("--target-se applies to vanilla European payoffs "
-                         "(call/put/digital)")
+                         "(call/put/digital) outside the own-simulator "
+                         "process (rbergomi)")
     if args.bridge and args.process != "gbm":
         raise SystemExit("--bridge requires --process gbm (constant vol for "
                          "the bridge law)")
+    if args.process == "rbergomi":
+        return run_rbergomi(args)
     device = resolve_cli_device(args.device)
     dt = args.maturity / args.steps
     proc = build_process(args, dt, device)

@@ -18,8 +18,9 @@ import torch
 from montecarlo_tpu_torch.device import resolve_device
 from montecarlo_tpu_torch.processes.gbm import GBM
 from montecarlo_tpu_torch.processes.heston import Heston
+from montecarlo_tpu_torch.processes.rough_bergomi import RoughBergomi
 
-PROCESSES = {"gbm": GBM, "heston": Heston}
+PROCESSES = {"gbm": GBM, "heston": Heston, "rbergomi": RoughBergomi}
 
 
 def _tensor(name: str, value, device) -> torch.Tensor:

@@ -7,6 +7,8 @@ version for a CPU one; nothing falls back from one to the other.
 - K2 ``fused_terminal``       — csrc/fused_engine.cu
 - K3 ``fused_block_moments``  — csrc/fused_engine.cu
 - K4 ``fused_functionals``    — csrc/fused_engine.cu
+- K5 ``normal_matrix``        — csrc/rng_kernel.cu
+- K6 ``rbergomi_terminal``    — csrc/rbergomi_kernel.cu
 - K0 (device math in every kernel) — csrc/rng.cuh, checked on the card
   through ``rng_check`` (csrc/rng_check.cu)
 """
@@ -27,10 +29,21 @@ from montecarlo_tpu_torch.ops.fused_engine import (  # noqa: F401
     fused_terminal,
     fused_terminal_reference,
 )
+from montecarlo_tpu_torch.ops.rng_kernel import (  # noqa: F401
+    K5,
+    normal_matrix,
+    normal_matrix_reference,
+)
+from montecarlo_tpu_torch.ops.rbergomi_kernel import (  # noqa: F401
+    K6,
+    rbergomi_terminal,
+    rbergomi_terminal_reference,
+)
 
-#: The kernels of the pricing path, by name.
+#: The kernels of the pricing paths, by name.
 PATH_KERNELS = {"gbm_terminal": K1, "fused_terminal": K2,
-                "fused_block_moments": K3, "fused_functionals": K4}
+                "fused_block_moments": K3, "fused_functionals": K4,
+                "normal_matrix": K5, "rbergomi_terminal": K6}
 
 
 def reset_launch_counts() -> None:

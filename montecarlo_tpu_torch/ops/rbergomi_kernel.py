@@ -1,0 +1,87 @@
+"""K6: the fused rough-Bergomi price integral.
+
+Port of ``montecarlo_tpu/ops/rbergomi_kernel.py::rbergomi_terminal_pallas``;
+the kernel is ``csrc/rbergomi_kernel.cu``.  From the (2T, N) joint matrix
+(W~ grid values, then Brownian increments), ``tpow`` = t_grid^{2H} and the
+7-vector (xi0, eta, rho, sqrt(1-rho^2)*sqrt(dt), dt/2, log32(s0), eta^2/2)
+it makes the perpendicular normals from counter (path id, T + t/2), runs
+the left-point price integral and returns exp32(log S_T).  Unlike the TPU
+kernel it takes any ``n_paths >= 1`` and any ``T >= 1``: an odd T ends with
+the first normal of its last pair (draw column 3T-1).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from montecarlo_tpu_torch.engine.simulate import path_ids_for
+from montecarlo_tpu_torch.ops._build import (CudaKernel, check_cuda_tensor,
+                                             cuda_stream)
+from montecarlo_tpu_torch.rng.normal import boxmuller_pair, exp32
+from montecarlo_tpu_torch.rng.threefry import (MASK32, key_from_seed,
+                                               threefry2x32)
+
+K6 = CudaKernel("mc_rbergomi_terminal", [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int64, ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint32,
+    ctypes.c_uint32, ctypes.c_void_p])
+
+#: The most steps one launch takes: tpow in 48 KB of shared memory.
+MAX_STEPS = 48 * 1024 // 4
+N_PARAMS = 7
+
+
+def _check(joint, tpow, params, n_steps: int) -> None:
+    if not 1 <= n_steps <= MAX_STEPS:
+        raise ValueError(f"n_steps={n_steps} must be in [1, {MAX_STEPS}]")
+    if (joint.dim() != 2 or joint.shape[0] != 2 * n_steps
+            or joint.shape[1] < 1):
+        raise ValueError(f"joint {tuple(joint.shape)} must be (2T, N) with "
+                         f"T = n_steps = {n_steps} and N >= 1")
+    if tuple(tpow.shape) != (n_steps,) or tuple(params.shape) != (N_PARAMS,):
+        raise ValueError(f"tpow {tuple(tpow.shape)} must be ({n_steps},) and "
+                         f"params {tuple(params.shape)} ({N_PARAMS},)")
+
+
+def rbergomi_terminal_reference(joint, tpow, params, seed, stream, *,
+                                n_steps: int, path_offset=0) -> torch.Tensor:
+    """The plain PyTorch version of K6: the same loop on (N,) tensors, the
+    same operations in the same order."""
+    _check(joint, tpow, params, n_steps)
+    xi0, eta, rho, c_perp, half_dt, log_s0, half_eta2 = params
+    T, n_paths = n_steps, joint.shape[1]
+    k0, k1 = key_from_seed(seed, stream)
+    ids = path_ids_for(n_paths, path_offset, joint.device)
+    log_s = log_s0.expand(n_paths)
+    v_left = xi0.expand(n_paths)
+    for t0 in range(0, T, 2):
+        z_perp = boxmuller_pair(*threefry2x32(k0, k1, ids, T + t0 // 2))
+        for t in range(t0, min(t0 + 2, T)):
+            dws = rho * joint[T + t] + c_perp * z_perp[t - t0]
+            log_s = log_s + (torch.sqrt(v_left) * dws - v_left * half_dt)
+            v_left = xi0 * exp32(eta * joint[t] - half_eta2 * tpow[t])
+    return exp32(log_s)
+
+
+def rbergomi_terminal(joint, tpow, params, seed, stream, *, n_steps: int,
+                      path_offset=0) -> torch.Tensor:
+    """Terminal prices, (N,) float32: K6 for a CUDA ``joint``, the plain
+    version for a CPU one."""
+    dev = joint.device
+    if dev.type == "cpu":
+        return rbergomi_terminal_reference(joint, tpow, params, seed, stream,
+                                           n_steps=n_steps,
+                                           path_offset=path_offset)
+    _check(joint, tpow, params, n_steps)
+    for name, t in (("joint", joint), ("tpow", tpow), ("params", params)):
+        check_cuda_tensor(name, t, dev, torch.float32)
+    n_paths = joint.shape[1]
+    out = torch.empty(n_paths, dtype=torch.float32, device=dev)
+    k0, k1 = key_from_seed(seed, stream)
+    with torch.cuda.device(dev):
+        K6.launch(out.data_ptr(), joint.data_ptr(), tpow.data_ptr(),
+                  params.data_ptr(), n_paths, n_steps,
+                  int(path_offset) & MASK32, k0, k1, cuda_stream(dev))
+    return out

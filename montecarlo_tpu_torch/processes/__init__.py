@@ -1,8 +1,13 @@
-"""Stochastic processes (GBM and Heston in this slice of the port)."""
+"""Stochastic processes (GBM, Heston) and the rough-Bergomi sampler."""
 
 from montecarlo_tpu_torch.processes.base import NormalDrawsMixin  # noqa: F401
 from montecarlo_tpu_torch.processes.gbm import GBM, GBMState  # noqa: F401
 from montecarlo_tpu_torch.processes.heston import (  # noqa: F401
     Heston,
     HestonState,
+)
+from montecarlo_tpu_torch.processes.rough_bergomi import (  # noqa: F401
+    RoughBergomi,
+    rbergomi_simulate,
+    volterra_joint_chol,
 )

@@ -3,6 +3,10 @@ cpu`) against the JAX CLI given the same flags: the same keys, values
 within rtol 1e-5 (same paths; normals within 1e-6 and float32 sums in each
 framework's own order), the same path count.
 
+Rough Bergomi (``--process rbergomi``) is held to rtol 1e-5: the port
+follows K6's float order where the JAX CPU path runs its XLA tail (measured
+within 3.8e-6 per path, tests/test_torch_rbergomi.py).
+
 A payoff with a discontinuity (a discretely monitored barrier, the
 autocall's trigger and capital barrier) can flip on a path that sits on it
 within the normals' difference.  Those runs allow FLIPS such paths: the
@@ -46,6 +50,39 @@ def test_price_matches_jax_cli(flags, capsys):
     assert got["n_paths"] == want["n_paths"]
     for k in want:
         assert got[k] == pytest.approx(want[k], rel=1e-5), k
+
+
+@pytest.mark.parametrize("flags", [
+    [],
+    ["--payoff", "put"],
+    ["--hurst", "0.3", "--eta", "1.9", "--rho", "-0.9"],
+])
+def test_price_rbergomi_matches_jax_cli(flags, capsys):
+    argv = ["price", "--process", "rbergomi", "--paths", "4096", "--steps",
+            "16", *flags]
+    want = _run(jax_main, argv, capsys)
+    got = _run(port_main, [*argv, "--device", "cpu"], capsys)
+    assert sorted(got) == sorted(want) == ["hurst", "n_paths", "price",
+                                           "std_err"]
+    assert got["n_paths"] == want["n_paths"] == 4096
+    assert got["hurst"] == want["hurst"]
+    for k in ("price", "std_err"):
+        assert got[k] == pytest.approx(want[k], rel=1e-5), k
+
+
+@pytest.mark.parametrize("flags", [
+    ["--sampler", "antithetic"],
+    ["--target-se", "0.1"],
+    ["--payoff", "asian"],
+])
+def test_rbergomi_guards_exit_as_in_jax(flags, capsys):
+    argv = ["price", "--process", "rbergomi", "--paths", "256", "--steps",
+            "4", *flags]
+    for main, extra in ((jax_main, []), (port_main, ["--device", "cpu"])):
+        with pytest.raises(SystemExit) as e:
+            main([*argv, *extra])
+        assert e.value.code not in (0, None)
+        assert capsys.readouterr().out == ""
 
 
 FLIPS = 1
@@ -120,6 +157,12 @@ def test_bridge_knock_out_plus_knock_in_is_vanilla(capsys):
     (["price", "--payoff", "up-and-out", "--bridge", "--process", "heston"],
      "--process gbm"),
     (["note", "--n-assets", "3"], "worst-of"),
+    (["price", "--process", "rbergomi", "--sampler", "antithetic"],
+     "its own exact-covariance sampler"),
+    (["price", "--process", "rbergomi", "--target-se", "0.1"],
+     "own-simulator"),
+    (["price", "--process", "rbergomi", "--payoff", "asian"],
+     "European call/put"),
 ])
 def test_guards_exit_with_a_message(argv, match, capsys):
     with pytest.raises(SystemExit, match=match):
@@ -136,6 +179,8 @@ def test_device_cuda_is_an_error_without_a_card(capsys):
         port_main(["price", "--payoff", "asian", "--paths", "128"])
     with pytest.raises(SystemExit, match="no CUDA device"):
         port_main(["note", "--paths", "128"])
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        port_main(["price", "--process", "rbergomi", "--paths", "128"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_main(["bench"])
     assert capsys.readouterr().out == ""

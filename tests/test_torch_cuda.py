@@ -1,4 +1,4 @@
-"""The CUDA kernels K0-K4 against their plain PyTorch versions, on the card.
+"""The CUDA kernels K0-K6 against their plain PyTorch versions, on the card.
 
 A CUDA kernel has no CPU mode, so every test here needs an NVIDIA GPU and
 skips without one.  The file imports no JAX (the card's machine has none);
@@ -13,7 +13,9 @@ sides and are held to 1e-6 absolute in case the two builds differ.  K4
 folds the path functionals from their device forms (host-folded float32
 parameters); its plain version folds the torch closures over the same
 float32 constants, and the torch time loop on the card agrees with both:
-bitwise.
+bitwise.  K5 and K6 (rough Bergomi) run the same draws and the same
+float32 operations as their plain versions: bitwise; the factor product
+between them runs in true float32 whatever the process-wide setting.
 """
 
 import numpy as np
@@ -32,8 +34,13 @@ from montecarlo_tpu_torch.ops import (PATH_KERNELS, fused_block_moments,
                                       fused_functionals,
                                       fused_functionals_reference,
                                       fused_terminal, fused_terminal_reference,
-                                      gbm_terminal, gbm_terminal_reference)
-from montecarlo_tpu_torch.processes import GBM, Heston
+                                      gbm_terminal, gbm_terminal_reference,
+                                      normal_matrix, normal_matrix_reference,
+                                      rbergomi_terminal,
+                                      rbergomi_terminal_reference)
+from montecarlo_tpu_torch.processes import (GBM, Heston, RoughBergomi,
+                                            rbergomi_simulate)
+from montecarlo_tpu_torch.processes.rough_bergomi import factor_product
 from montecarlo_tpu_torch.samplers import AntitheticSampler
 
 
@@ -170,3 +177,82 @@ def test_cuda_k4_raises_instead_of_falling_back(cuda):
         fused_functionals(object(), 256, 16, seed=0,
                           functionals={"avg": ARITH_MEAN})
     assert PATH_KERNELS["fused_functionals"].launches == k4
+
+
+WRAP = 2**32 - 500
+
+
+def _rbergomi(n_steps, device):
+    return RoughBergomi.create(100.0, 0.04, 1.5, -0.7, 0.1, n_steps, 0.5,
+                               device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_paths", [1000, 4096 * 3])
+@pytest.mark.parametrize("n_cols", [1, 37, 64])
+def test_cuda_k5_bitwise_equal_plain(cuda, n_paths, n_cols):
+    k5 = PATH_KERNELS["normal_matrix"].launches
+    got = normal_matrix(7, 2, n_paths, n_cols, path_offset=WRAP, device=cuda)
+    assert PATH_KERNELS["normal_matrix"].launches == k5 + 1
+    want = normal_matrix_reference(7, 2, n_paths, n_cols, path_offset=WRAP,
+                                   device=cuda)
+    assert got.shape == (n_cols, n_paths)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_paths", [1000, 4096 * 3])
+@pytest.mark.parametrize("n_steps", [1, 16, 17])
+def test_cuda_k6_bitwise_equal_plain(cuda, n_paths, n_steps):
+    model = _rbergomi(n_steps, cuda)
+    z = normal_matrix(5, 1, n_paths, 2 * n_steps, path_offset=WRAP,
+                      device=cuda)
+    args = (factor_product(model.chol, z), model.tpow(),
+            model.kernel_params(), 5, 1)
+    kw = dict(n_steps=n_steps, path_offset=WRAP)
+    k6 = PATH_KERNELS["rbergomi_terminal"].launches
+    got = rbergomi_terminal(*args, **kw)
+    assert PATH_KERNELS["rbergomi_terminal"].launches == k6 + 1
+    want = rbergomi_terminal_reference(*args, **kw)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_rbergomi_simulate_guards_the_product_precision(cuda):
+    """Under a process-wide TF32 setting the sampler still runs its factor
+    product in true float32, launches K5 and K6 once each and leaves the
+    setting as it found it.  True float32 stays within the dot-product
+    bound gamma_2T = 2T*u/(1 - 2T*u), u = 2^-24, of |chol| @ |z| against a
+    float64 product, in any summation order; TF32 rounds each operand to
+    11 significant bits and misses it on the first row alone, a single
+    product."""
+    n_steps, n = 17, 1000
+    model = _rbergomi(n_steps, cuda)
+    before = torch.get_float32_matmul_precision()
+    try:
+        torch.set_float32_matmul_precision("high")
+        k5 = PATH_KERNELS["normal_matrix"].launches
+        k6 = PATH_KERNELS["rbergomi_terminal"].launches
+        s_t = rbergomi_simulate(model, n, seed=3, path_offset=WRAP)
+        assert PATH_KERNELS["normal_matrix"].launches == k5 + 1
+        assert PATH_KERNELS["rbergomi_terminal"].launches == k6 + 1
+        assert torch.get_float32_matmul_precision() == "high"
+        z = normal_matrix_reference(3, 0, n, 2 * n_steps, path_offset=WRAP,
+                                    device=cuda)
+        joint = factor_product(model.chol, z)
+        assert torch.get_float32_matmul_precision() == "high"
+        torch.set_float32_matmul_precision("highest")
+        assert torch.equal(joint, torch.matmul(model.chol, z))
+        chol, z64 = model.chol.double(), z.double()
+        nu = 2 * n_steps * 2.0**-24
+        bound = (chol.abs() @ z64.abs()) * (nu / (1 - nu))
+        assert ((joint.double() - chol @ z64).abs() <= bound).all()
+        assert torch.equal(s_t, rbergomi_terminal_reference(
+            joint, model.tpow(), model.kernel_params(), 3, 0,
+            n_steps=n_steps, path_offset=WRAP))
+        v, s_paths = rbergomi_simulate(model, n, seed=3, mode="paths")
+        assert v.shape == (n, n_steps) and s_paths.shape == (n,)
+        assert torch.isfinite(v).all() and torch.isfinite(s_paths).all()
+    finally:
+        torch.set_float32_matmul_precision(before)
