@@ -5,9 +5,14 @@ Subcommands:
           --paths or --target-se) and Asian, lookback, up-and-out/in
           (--bridge); rough-Bergomi call/put (--process rbergomi --hurst
           --eta); --device cuda (default) or cpu
-  note  — structured notes on one asset: autocallable and cliquet
+  price --payoff max-call — the best-of-A call on correlated GBM
+          (--n-assets --asset-corr --div)
+  note  — structured notes: autocallable (worst-of with --n-assets > 1)
+          and cliquet
   bench — GBM path-steps/s through the K1 kernel at 2^20 paths x 1024
-          steps x 8 chained reps, on the card
+          steps x 8 chained reps, on the card; --basket: correlated-basket
+          path-steps/s through K7 (A = 8..128) and K2 (A = 5, 8, 16) at
+          2^18 paths x 512 steps, one JSON line per row
 
 Usage: python -m montecarlo_tpu_torch <subcommand> [flags]
 """
@@ -19,9 +24,11 @@ import json
 
 
 def _run_bench(args) -> int:
-    from montecarlo_tpu_torch.bench import run_bench
+    from montecarlo_tpu_torch.bench import run_basket_bench, run_bench
 
-    print(json.dumps(run_bench()))
+    rows = run_basket_bench() if args.basket else [run_bench()]
+    for row in rows:
+        print(json.dumps(row), flush=True)
     return 0
 
 
@@ -34,8 +41,11 @@ def main(argv=None) -> int:
     sub = parser.add_subparsers(dest="cmd", required=True)
     pricing.add_parsers(sub)
     note.add_parsers(sub)
-    sub.add_parser("bench", help="GBM path-steps/s through K1 at 2^20 "
-                   "paths x 1024 steps x 8 reps (CUDA)")
+    bench = sub.add_parser("bench", help="GBM path-steps/s through K1 at "
+                           "2^20 paths x 1024 steps x 8 reps (CUDA)")
+    bench.add_argument("--basket", action="store_true",
+                       help="correlated-basket path-steps/s through K7 and "
+                            "K2 at 2^18 paths x 512 steps x 4 reps instead")
     args = parser.parse_args(argv)
     handlers = {"price": pricing.cmd_price, "note": note.cmd_note,
                 "bench": _run_bench}

@@ -1,10 +1,12 @@
-"""`note` — structured notes on one asset: the autocallable (Phoenix) and
-the cliquet.
+"""`note` — structured notes: the autocallable (Phoenix; worst-of with
+``--n-assets > 1``) and the cliquet.
 
-The port of ``montecarlo_tpu/cli/note.py`` for one asset: GBM with drift
-``rate - div``, the note folded into the time loop as one functional (K4),
-the JAX CLI's output keys.  The worst-of note (``--n-assets > 1``) needs a
-multi-asset process and waits for the MultiGBM slice.
+The port of ``montecarlo_tpu/cli/note.py``: GBM with drift ``rate - div``
+and the note folded into the time loop as one functional (K4); the worst-of
+autocallable on ``--n-assets`` symmetric MultiGBM assets with one pairwise
+correlation, through the torch time loop (``prefer_fused=False``: no kernel
+runs a multi-asset state, as in the JAX package); the JAX CLI's output
+keys.
 """
 
 from __future__ import annotations
@@ -14,11 +16,14 @@ import json
 
 def add_parsers(sub):
     p = sub.add_parser("note", help="structured notes: autocallable "
-                                    "(Phoenix) and cliquet, one asset")
+                                    "(Phoenix) and cliquet, single- or "
+                                    "multi-asset (worst-of)")
     p.add_argument("--type", default="autocall",
                    choices=["autocall", "cliquet"])
     p.add_argument("--n-assets", type=int, default=1,
-                   help="1 (the worst-of note, > 1, is not ported yet)")
+                   help="autocall: >1 prices the WORST-OF note")
+    p.add_argument("--asset-corr", type=float, default=0.6,
+                   help="common pairwise correlation (n-assets > 1)")
     p.add_argument("--s0", type=float, default=100.0)
     p.add_argument("--rate", type=float, default=0.03)
     p.add_argument("--div", type=float, default=0.0,
@@ -55,22 +60,24 @@ def cmd_note(args) -> int:
     import torch
 
     from montecarlo_tpu_torch.cli.pricing import resolve_cli_device
+    from montecarlo_tpu_torch.cli.pricing_modes import symmetric_multi_gbm
     from montecarlo_tpu_torch.engine import (autocallable, cliquet_sum,
                                              mc_estimate,
-                                             simulate_functionals)
+                                             simulate_functionals,
+                                             worst_of_autocallable)
     from montecarlo_tpu_torch.processes import GBM
 
-    if args.n_assets != 1:
-        raise SystemExit("--n-assets > 1 (the worst-of note) needs a "
-                         "multi-asset process, not ported yet; use "
-                         "--n-assets 1")
     device = resolve_cli_device(args.device)
     period = max(args.steps // args.observations, 1)
     n_steps = period * args.observations
     dt = args.maturity / n_steps
     r_dt = args.rate * dt
-    proc = GBM.create(s0=args.s0, mu=args.rate - args.div, sigma=args.sigma,
-                      dt=dt, device=device)
+    one_asset = args.type == "cliquet" or args.n_assets == 1
+    if one_asset:
+        proc = GBM.create(s0=args.s0, mu=args.rate - args.div,
+                          sigma=args.sigma, dt=dt, device=device)
+    else:
+        proc = symmetric_multi_gbm(args, dt, device)
 
     if args.type == "cliquet":
         out = simulate_functionals(
@@ -85,10 +92,16 @@ def cmd_note(args) -> int:
                           "periods": args.observations}))
         return 0
 
-    fn = autocallable(period, args.trigger * args.s0, args.coupon, r_dt,
-                      args.pdi_barrier * args.s0, args.s0)
+    if one_asset:
+        fn = autocallable(period, args.trigger * args.s0, args.coupon, r_dt,
+                          args.pdi_barrier * args.s0, args.s0)
+    else:
+        fn = worst_of_autocallable(period, args.trigger, args.coupon, r_dt,
+                                   args.pdi_barrier,
+                                   [args.s0] * args.n_assets)
     out = simulate_functionals(proc, args.paths, n_steps, seed=args.seed,
-                               functionals={"note": fn})
+                               functionals={"note": fn},
+                               prefer_fused=one_asset)
     # The functional returns the pathwise-DISCOUNTED payoff already.
     est = mc_estimate(out["note"], 1.0)
     print(json.dumps({"autocall_note": float(est["price"]),

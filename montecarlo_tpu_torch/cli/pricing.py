@@ -6,9 +6,12 @@ payoffs (fixed ``--paths`` through K2, or ``--target-se`` tolerance pricing
 through K3), the path-dependent Asian, lookback, up-and-out and up-and-in
 calls (K4, with the Brownian-bridge barrier under ``--bridge``) and the
 rough-Bergomi call and put (``--process rbergomi``, K5 and K6, in
+``pricing_modes``) and the European best-of-A call on correlated GBM
+(``--payoff max-call``, the torch time loop on MultiGBM, in
 ``pricing_modes``).  The output JSON has the JAX CLI's keys: ``price``,
 ``std_err``, ``n_paths`` and, for the GBM call and digital,
-``black_scholes``; rough Bergomi adds ``hurst``.
+``black_scholes``; rough Bergomi adds ``hurst``, the max-call
+``n_assets``.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import json
 
 VANILLA = ("call", "put", "digital")
 PATH_DEPENDENT = ("asian", "lookback", "up-and-out", "up-and-in")
+MULTI_ASSET = ("max-call",)
 
 
 def add_parsers(sub):
@@ -34,7 +38,15 @@ def add_parsers(sub):
     p.add_argument("--sampler", default="plain",
                    choices=["plain", "antithetic"])
     p.add_argument("--payoff", default="call",
-                   choices=list(VANILLA + PATH_DEPENDENT))
+                   choices=list(VANILLA + PATH_DEPENDENT + MULTI_ASSET))
+    # Multi-asset extras (--payoff max-call)
+    p.add_argument("--n-assets", type=int, default=2,
+                   help="max-call: number of (symmetric) assets")
+    p.add_argument("--div", type=float, default=0.0,
+                   help="max-call: continuous dividend yield (risk-neutral "
+                        "drift = rate - div)")
+    p.add_argument("--asset-corr", type=float, default=0.0,
+                   help="max-call: common pairwise correlation")
     p.add_argument("--barrier", type=float, default=None,
                    help="barrier level for up-and-out/in (default "
                         "1.2*strike)")
@@ -87,7 +99,8 @@ def cmd_price(args) -> int:
     from montecarlo_tpu_torch.engine import (
         VanillaPayoff, black_scholes_call, black_scholes_digital,
         discount_factor, mc_estimate, price_to_tolerance, terminal_prices)
-    from montecarlo_tpu_torch.cli.pricing_modes import run_rbergomi
+    from montecarlo_tpu_torch.cli.pricing_modes import (run_max_call,
+                                                        run_rbergomi)
     from montecarlo_tpu_torch.samplers import AntitheticSampler, PlainSampler
 
     if args.target_se is not None and (args.payoff not in VANILLA
@@ -106,6 +119,8 @@ def cmd_price(args) -> int:
     sampler = (AntitheticSampler() if args.sampler == "antithetic"
                else PlainSampler())
     disc = float(discount_factor(args.rate, args.maturity))
+    if args.payoff == "max-call":
+        return run_max_call(args, dt, disc, device)
     if args.payoff in PATH_DEPENDENT:
         est = _estimate_functional(args, proc, sampler, disc, dt)
     elif args.target_se is not None:

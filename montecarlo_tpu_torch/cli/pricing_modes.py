@@ -1,6 +1,6 @@
 """Dedicated run modes of the `price` subcommand, as in
 ``montecarlo_tpu/cli/pricing_modes.py``: the own-simulator processes (rough
-Bergomi in this port) print their own JSON."""
+Bergomi in this port) and the multi-asset max-call print their own JSON."""
 
 from __future__ import annotations
 
@@ -35,3 +35,47 @@ def run_rbergomi(args) -> int:
                       "n_paths": int(est["n_paths"]),
                       "hurst": args.hurst}))
     return 0
+
+
+def run_max_call(args, dt, disc, device) -> int:
+    """``price --payoff max-call``: the European best-of-A call (the
+    Bermudan max-call benchmark family, Andersen-Broadie 2004) on
+    ``--n-assets`` symmetric GBM assets with drift ``rate - div`` and one
+    pairwise correlation, through the torch time loop on MultiGBM, as the
+    JAX CLI runs its scan engine.  (The American half, LSM, comes with the
+    pricing toolkit.)"""
+    from montecarlo_tpu_torch.engine import max_call, mc_estimate, simulate
+
+    if args.process != "gbm":
+        raise SystemExit("--payoff max-call prices symmetric "
+                         "multi-asset GBM (--process gbm)")
+    if args.sampler != "plain":
+        raise SystemExit("--payoff max-call uses plain Threefry "
+                         "draws; --sampler has no effect there")
+    proc = symmetric_multi_gbm(args, dt, device)
+    terminal = simulate(proc, args.paths, args.steps, seed=args.seed)
+    est = mc_estimate(max_call(terminal, args.strike), disc)
+    print(json.dumps({"price": float(est["price"]),
+                      "std_err": float(est["std_err"]),
+                      "n_paths": int(est["n_paths"]),
+                      "n_assets": args.n_assets}))
+    return 0
+
+
+def symmetric_multi_gbm(args, dt: float, device):
+    """``--n-assets`` MultiGBM assets alike in spot (``--s0``), drift
+    (``--rate`` less ``--div``) and vol (``--sigma``), with one pairwise
+    correlation (``--asset-corr``): the max-call's and the worst-of note's
+    underlyings."""
+    import numpy as np
+
+    from montecarlo_tpu_torch.processes import MultiGBM
+
+    a = args.n_assets
+    if a < 1:
+        raise SystemExit("--n-assets must be >= 1")
+    corr = np.full((a, a), args.asset_corr)
+    np.fill_diagonal(corr, 1.0)
+    return MultiGBM.create(s0=[args.s0] * a, mu=[args.rate - args.div] * a,
+                           sigma=[args.sigma] * a, corr=corr, dt=dt,
+                           device=device)

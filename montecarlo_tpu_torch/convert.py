@@ -16,11 +16,14 @@ import numpy as np
 import torch
 
 from montecarlo_tpu_torch.device import resolve_device
+from montecarlo_tpu_torch.processes.basket import BasketGBM
 from montecarlo_tpu_torch.processes.gbm import GBM
 from montecarlo_tpu_torch.processes.heston import Heston
+from montecarlo_tpu_torch.processes.multi_gbm import MultiGBM
 from montecarlo_tpu_torch.processes.rough_bergomi import RoughBergomi
 
-PROCESSES = {"gbm": GBM, "heston": Heston, "rbergomi": RoughBergomi}
+PROCESSES = {"gbm": GBM, "heston": Heston, "rbergomi": RoughBergomi,
+             "basket": BasketGBM, "multigbm": MultiGBM}
 
 
 def _tensor(name: str, value, device) -> torch.Tensor:
@@ -32,7 +35,7 @@ def _tensor(name: str, value, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
 
-def process_from_numpy(kind: str, fields: dict, device="cpu"):
+def process_from_numpy(kind: str, fields: dict, device="cuda"):
     """The port's ``kind`` process from a dict of numpy leaves."""
     cls = PROCESSES[kind]
     names = [f.name for f in dataclasses.fields(cls)]

@@ -4,10 +4,10 @@
 // _make_kernel with payoff_fn=None), ::fused_block_moments_pallas (K3,
 // _make_kernel with a payoff epilogue) and ::fused_functionals_pallas (K4,
 // _make_functional_kernel).  Every kernel is a template over a process
-// functor (GbmProc, HestonProc): init from the process leaves, then per
-// pair of steps one draws_pair (the two steps share their cipher calls),
-// the antithetic mirror on odd path ids, step x2 with the odd final step
-// dropped, and prices at the end.
+// functor (GbmProc, HestonProc, BasketProc<16>, BasketProc<128>): init from
+// the process leaves, then per pair of steps one draws_pair (the two steps
+// share their cipher calls), the antithetic mirror on odd path ids, step x2
+// with the odd final step dropped, and prices at the end.
 //   fused_kernel<Proc, Antithetic, Epilogue>: the epilogue stores the
 //     terminal price (K2) or applies a vanilla payoff and writes (mean, M2)
 //     per 128-path row (K3).
@@ -18,9 +18,14 @@
 //
 // Bounds on the H100: compute — integer ALU for Threefry, the SFU for
 // log/sqrt/sin/cos; K2 writes 4 bytes per path, K3 8 bytes per 128 paths,
-// K4 4 bytes per path per output.  Design: one thread per path with the
-// state and the functional accumulators (at most 4 x 4 floats, statically
-// indexed so they stay in registers) in registers for the whole time loop;
+// K4 4 bytes per path per output; a basket takes A cipher calls per pair
+// of steps and A(A+1)/2 multiplies and A(A-1)/2 adds per step (the
+// unrolled Cholesky),
+// its parameters read from the leaves through L1 by every thread.  Design:
+// one thread per path with the state and the functional accumulators (at
+// most 4 x 4 floats, statically indexed so they stay in registers) in
+// registers for the whole time loop (a basket of more than 16 assets keeps
+// its 128-slot state in local memory);
 // the functional code is a kernel argument, so its switch branches the
 // same way across a warp.  K3 uses one 128-thread block per row and sums
 // it in the fixed adjacent-pair tree of stats/welford.py::tree_sum (warp
@@ -45,7 +50,9 @@ constexpr int kRow = 128;  // paths per stats row = K3's block size
 // of steps (2j, 2j+1) from D cipher calls at counters j*D + c.
 template <int D>
 struct NormalDraws {
-  static constexpr int kDraws = D;
+  static constexpr int kDraws = D;   // capacity of the eps arrays
+  static constexpr int kUnroll = D;  // unroll factor of per-draw loops
+  __device__ int draws() const { return D; }
   __device__ static void draws_pair(uint32_t k0, uint32_t k1, uint32_t id,
                                     uint32_t j, float* eps0, float* eps1) {
     float flat[2 * D];
@@ -64,7 +71,10 @@ struct NormalDraws {
 };
 
 // Process codes: the index in ops/fused_engine.py::PROCESS_CODES.
-enum ProcessCode { kGbm = 0, kHeston = 1 };
+enum ProcessCode { kGbm = 0, kHeston = 1, kBasket = 2 };
+
+constexpr int kBasketSmall = 16;   // register-resident basket capacity
+constexpr int kBasketMax = 128;    // local-memory capacity: MAX_ASSETS
 
 // GBM (processes/gbm.py): leaves = [s0, mu, sigma, dt].
 struct GbmProc : NormalDraws<1> {
@@ -72,7 +82,7 @@ struct GbmProc : NormalDraws<1> {
     float log_s;
   };
   float drift, scale, log_s0;
-  __device__ explicit GbmProc(const float* leaves) {
+  __device__ GbmProc(const float* leaves, int) {
     const float s0 = leaves[0], mu = leaves[1], sigma = leaves[2];
     const float dt = leaves[3];
     drift = (mu - 0.5f * (sigma * sigma)) * dt;
@@ -94,7 +104,7 @@ struct HestonProc : NormalDraws<2> {
     float log_s, v;
   };
   float log_s0, v0, mu, kappa, theta, xi, rho, dt, rho_perp;
-  __device__ explicit HestonProc(const float* leaves) {
+  __device__ HestonProc(const float* leaves, int) {
     log_s0 = mc::log32(leaves[0]);
     v0 = leaves[1];
     mu = leaves[2];
@@ -121,11 +131,130 @@ struct HestonProc : NormalDraws<2> {
   __device__ float log_prices(State s) const { return s.log_s; }
 };
 
+// Correlated GBM basket (processes/basket.py), A <= kCap assets:
+// leaves = [s0 (A), mu (A), sigma (A), chol_flat (A*A, row-major), weights
+// (A), dt].  The state is kCap log prices statically indexed under full
+// unrolling at kCap = 16, so it stays in registers; kCap = 128 keeps rolled
+// loops and local memory (slow but right).  Every loop is guarded by the
+// runtime A: the draws, the counters and the sums never depend on kCap.
+template <int kCap>
+struct BasketProc {
+  static constexpr int kDraws = kCap;
+  static constexpr int kUnroll = kCap <= kBasketSmall ? kCap : 1;
+  struct State {
+    float log_s[kCap];
+  };
+  const float* s0;
+  const float* chol;
+  const float* w;
+  int A;
+  float drift[kCap], scale[kCap];
+  __device__ BasketProc(const float* leaves, int n_assets) : A(n_assets) {
+    s0 = leaves;
+    const float* mu = leaves + A;
+    const float* sigma = leaves + 2 * A;
+    chol = leaves + 3 * A;
+    w = chol + A * A;
+    const float dt = w[A];
+    const float sq_dt = sqrtf(dt);
+#pragma unroll(kUnroll)
+    for (int a = 0; a < kCap; ++a) {
+      if (a < A) {
+        drift[a] = (mu[a] - 0.5f * (sigma[a] * sigma[a])) * dt;
+        scale[a] = sigma[a] * sq_dt;
+      }
+    }
+  }
+  __device__ int draws() const { return A; }
+  // NormalDrawsMixin.draws_pair with the runtime A: calls j*A + c, c < A,
+  // flattened to flat[0:2A]; eps0 = flat[0:A], eps1 = flat[A:2A].  Split
+  // by the parity of A so every slot index is static after unrolling: an
+  // odd A's middle call gives eps0[A-1] and eps1[0].
+  __device__ void draws_pair(uint32_t k0, uint32_t k1, uint32_t id,
+                             uint32_t j, float* eps0, float* eps1) const {
+    const uint32_t base = j * (uint32_t)A;
+    float z0, z1;
+#pragma unroll(kUnroll)
+    for (int p = 0; p < kCap / 2; ++p) {
+      if (2 * p < A) {
+        normal(k0, k1, id, base + (uint32_t)p, &z0, &z1);
+        eps0[2 * p] = z0;
+        if (2 * p + 1 < A) {
+          eps0[2 * p + 1] = z1;
+        } else {
+          eps1[0] = z1;
+        }
+      }
+    }
+    const uint32_t half = base + (uint32_t)((A + 1) / 2);
+    if ((A & 1) == 0) {
+#pragma unroll(kUnroll)
+      for (int p = 0; p < kCap / 2; ++p) {
+        if (2 * p < A) {
+          normal(k0, k1, id, half + (uint32_t)p, &z0, &z1);
+          eps1[2 * p] = z0;
+          eps1[2 * p + 1] = z1;
+        }
+      }
+    } else {
+#pragma unroll(kUnroll)
+      for (int p = 0; p < kCap / 2; ++p) {
+        if (2 * p + 1 < A) {
+          normal(k0, k1, id, half + (uint32_t)p, &z0, &z1);
+          eps1[2 * p + 1] = z0;
+          if (2 * p + 2 < A && 2 * p + 2 < kCap) eps1[2 * p + 2] = z1;
+        }
+      }
+    }
+  }
+  __device__ static void normal(uint32_t k0, uint32_t k1, uint32_t id,
+                                uint32_t c, float* z0, float* z1) {
+    uint32_t b0, b1;
+    mc::threefry2x32(k0, k1, id, c, &b0, &b1);
+    mc::boxmuller_pair(b0, b1, z0, z1);
+  }
+  __device__ State init() const {
+    State s;
+#pragma unroll(kUnroll)
+    for (int a = 0; a < kCap; ++a) {
+      if (a < A) s.log_s[a] = mc::log32(s0[a]);
+    }
+    return s;
+  }
+  // zc_a = L[a,0] z_0 + ... + L[a,a] z_a, left to right; grouped increment.
+  __device__ State step(const State& s, const float* eps) const {
+    State out;
+#pragma unroll(kUnroll)
+    for (int a = 0; a < kCap; ++a) {
+      if (a < A) {
+        const float* row = chol + a * A;
+        float zc = row[0] * eps[0];
+#pragma unroll(kUnroll)
+        for (int b = 1; b <= a; ++b) zc = zc + row[b] * eps[b];
+        out.log_s[a] = s.log_s[a] + (drift[a] + scale[a] * zc);
+      }
+    }
+    return out;
+  }
+  // The basket value, summed over the assets in order.
+  __device__ float prices(const State& s) const {
+    float out = w[0] * mc::exp32(s.log_s[0]);
+#pragma unroll(kUnroll)
+    for (int a = 1; a < kCap; ++a) {
+      if (a < A) out = out + w[a] * mc::exp32(s.log_s[a]);
+    }
+    return out;
+  }
+  __device__ float log_prices(const State& s) const {
+    return mc::log32(prices(s));
+  }
+};
+
 // Runs `body` with the per-thread pair loop of every kernel: the draws of
 // steps (2j, 2j+1), mirrored on odd ids for antithetic runs.
 template <class Proc, bool Antithetic, class Body>
-__device__ void pair_loop(uint32_t k0, uint32_t k1, uint32_t id, int n_steps,
-                          Body body) {
+__device__ void pair_loop(const Proc& proc, uint32_t k0, uint32_t k1,
+                          uint32_t id, int n_steps, Body body) {
   constexpr int D = Proc::kDraws;
   // Antithetic: path 2k+1 mirrors path 2k (draws keyed by the pair id).
   const uint32_t draw_id = Antithetic ? id >> 1 : id;
@@ -133,12 +262,14 @@ __device__ void pair_loop(uint32_t k0, uint32_t k1, uint32_t id, int n_steps,
   const int n_pairs = (n_steps + 1) / 2;
   for (int j = 0; j < n_pairs; ++j) {
     float eps0[D], eps1[D];
-    Proc::draws_pair(k0, k1, draw_id, (uint32_t)j, eps0, eps1);
+    proc.draws_pair(k0, k1, draw_id, (uint32_t)j, eps0, eps1);
     if (mirror) {
-#pragma unroll
+#pragma unroll(Proc::kUnroll)
       for (int d = 0; d < D; ++d) {
-        eps0[d] = -eps0[d];
-        eps1[d] = -eps1[d];
+        if (d < proc.draws()) {
+          eps0[d] = -eps0[d];
+          eps1[d] = -eps1[d];
+        }
       }
     }
     body(2 * j, eps0, eps1);
@@ -192,18 +323,19 @@ struct RowMoments {  // K3
 };
 
 template <class Proc, bool Antithetic, class Epilogue>
-__global__ void fused_kernel(const float* __restrict__ leaves,
+__global__ void fused_kernel(const float* __restrict__ leaves, int dims,
                              int64_t n_paths, int n_steps,
                              uint32_t path_offset, uint32_t k0, uint32_t k1,
                              Epilogue epilogue) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const bool active = i < n_paths;
-  const Proc proc(leaves);
+  const Proc proc(leaves, dims);
   typename Proc::State state = proc.init();
   if (active) {
     const uint32_t id = path_offset + (uint32_t)i;  // wraps mod 2^32
     pair_loop<Proc, Antithetic>(
-        k0, k1, id, n_steps, [&](int t0, const float* eps0, const float* eps1) {
+        proc, k0, k1, id, n_steps,
+        [&](int t0, const float* eps0, const float* eps1) {
           state = proc.step(state, eps0);
           const typename Proc::State stepped = proc.step(state, eps1);
           if (t0 + 1 < n_steps) state = stepped;  // odd final step: dropped
@@ -348,13 +480,14 @@ __device__ __forceinline__ float fn_finalize(int code, const float* p,
 
 template <class Proc, bool Antithetic>
 __global__ void fused_functional_kernel(const float* __restrict__ leaves,
-                                        int64_t n_paths, int n_steps,
-                                        uint32_t path_offset, uint32_t k0,
-                                        uint32_t k1, FunctionalSpec spec,
+                                        int dims, int64_t n_paths,
+                                        int n_steps, uint32_t path_offset,
+                                        uint32_t k0, uint32_t k1,
+                                        FunctionalSpec spec,
                                         float* __restrict__ out) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_paths) return;
-  const Proc proc(leaves);
+  const Proc proc(leaves, dims);
   bool need_price = false;
 #pragma unroll
   for (int k = 0; k < kMaxFunctionals; ++k) {
@@ -388,7 +521,8 @@ __global__ void fused_functional_kernel(const float* __restrict__ leaves,
   };
   const uint32_t id = path_offset + (uint32_t)i;  // wraps mod 2^32
   pair_loop<Proc, Antithetic>(
-      k0, k1, id, n_steps, [&](int t0, const float* eps0, const float* eps1) {
+      proc, k0, k1, id, n_steps,
+      [&](int t0, const float* eps0, const float* eps1) {
         state = proc.step(state, eps0);  // t0 < n_steps always
         update_all(t0 + 1);
         if (t0 + 1 < n_steps) {  // odd final step: dropped
@@ -406,25 +540,41 @@ __global__ void fused_functional_kernel(const float* __restrict__ leaves,
   }
 }
 
-// Instantiates `Kernel<Proc, Antithetic>` for the process code and the
-// antithetic flag and launches it with one thread per path.
+template <template <class, bool> class Launcher, class Proc, class... Args>
+void launch(int antithetic, Args... args) {
+  if (antithetic) {
+    Launcher<Proc, true>::run(args...);
+  } else {
+    Launcher<Proc, false>::run(args...);
+  }
+}
+
+// Instantiates `Kernel<Proc, Antithetic>` for the process code, the basket
+// capacity that holds `dims` assets and the antithetic flag, and launches
+// it with one thread per path.
 template <template <class, bool> class Launcher, class... Args>
-int dispatch(int process, int antithetic, int64_t n_paths, void* stream,
-             Args... args) {
+int dispatch(int process, int dims, int antithetic, int64_t n_paths,
+             void* stream, Args... args) {
   const unsigned blocks = (unsigned)((n_paths + kRow - 1) / kRow);
   const cudaStream_t s = (cudaStream_t)stream;
-  switch (process * 2 + (antithetic ? 1 : 0)) {
-    case kGbm * 2:
-      Launcher<GbmProc, false>::run(blocks, s, n_paths, args...);
+  switch (process) {
+    case kGbm:
+      launch<Launcher, GbmProc>(antithetic, blocks, s, n_paths, dims,
+                                args...);
       break;
-    case kGbm * 2 + 1:
-      Launcher<GbmProc, true>::run(blocks, s, n_paths, args...);
+    case kHeston:
+      launch<Launcher, HestonProc>(antithetic, blocks, s, n_paths, dims,
+                                   args...);
       break;
-    case kHeston * 2:
-      Launcher<HestonProc, false>::run(blocks, s, n_paths, args...);
-      break;
-    case kHeston * 2 + 1:
-      Launcher<HestonProc, true>::run(blocks, s, n_paths, args...);
+    case kBasket:
+      if (dims < 1 || dims > kBasketMax) return (int)cudaErrorInvalidValue;
+      if (dims <= kBasketSmall) {
+        launch<Launcher, BasketProc<kBasketSmall>>(antithetic, blocks, s,
+                                                   n_paths, dims, args...);
+      } else {
+        launch<Launcher, BasketProc<kBasketMax>>(antithetic, blocks, s,
+                                                 n_paths, dims, args...);
+      }
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -437,10 +587,11 @@ struct FusedLauncher {
   template <class Proc, bool Antithetic>
   struct With {
     static void run(unsigned blocks, cudaStream_t s, int64_t n_paths,
-                    const float* leaves, int n_steps, uint32_t path_offset,
-                    uint32_t k0, uint32_t k1, Epilogue epilogue) {
+                    int dims, const float* leaves, int n_steps,
+                    uint32_t path_offset, uint32_t k0, uint32_t k1,
+                    Epilogue epilogue) {
       fused_kernel<Proc, Antithetic, Epilogue><<<blocks, kRow, 0, s>>>(
-          leaves, n_paths, n_steps, path_offset, k0, k1, epilogue);
+          leaves, dims, n_paths, n_steps, path_offset, k0, k1, epilogue);
     }
   };
 };
@@ -448,36 +599,40 @@ struct FusedLauncher {
 template <class Proc, bool Antithetic>
 struct FunctionalLauncher {
   static void run(unsigned blocks, cudaStream_t s, int64_t n_paths,
-                  const float* leaves, int n_steps, uint32_t path_offset,
-                  uint32_t k0, uint32_t k1, FunctionalSpec spec, float* out) {
+                  int dims, const float* leaves, int n_steps,
+                  uint32_t path_offset, uint32_t k0, uint32_t k1,
+                  FunctionalSpec spec, float* out) {
     fused_functional_kernel<Proc, Antithetic><<<blocks, kRow, 0, s>>>(
-        leaves, n_paths, n_steps, path_offset, k0, k1, spec, out);
+        leaves, dims, n_paths, n_steps, path_offset, k0, k1, spec, out);
   }
 };
 
 }  // namespace
 
+// Every entry takes the process code and its dimension `dims` (the basket's
+// asset count; ignored by GBM and Heston) after the leaves.
 // K2: terminal prices, out (n_paths,).
 extern "C" int mc_fused_terminal(float* out, const float* leaves,
-                                 int process, int64_t n_paths,
+                                 int process, int dims, int64_t n_paths,
                                  int64_t n_steps, uint32_t path_offset,
                                  uint32_t k0, uint32_t k1, int antithetic,
                                  void* stream) {
   return dispatch<FusedLauncher<StoreTerminal>::With>(
-      process, antithetic, n_paths, stream, leaves, (int)n_steps,
+      process, dims, antithetic, n_paths, stream, leaves, (int)n_steps,
       path_offset, k0, k1, StoreTerminal{out});
 }
 
 // K3: per-128-path-row payoff (mean, M2), rows (n_paths / 128, 2).
 // n_paths must be a multiple of 128 (the wrapper checks).
 extern "C" int mc_fused_block_moments(float* rows, const float* leaves,
-                                      int process, int64_t n_paths,
-                                      int64_t n_steps, uint32_t path_offset,
-                                      uint32_t k0, uint32_t k1,
-                                      int antithetic, int payoff,
-                                      float strike, void* stream) {
+                                      int process, int dims,
+                                      int64_t n_paths, int64_t n_steps,
+                                      uint32_t path_offset, uint32_t k0,
+                                      uint32_t k1, int antithetic,
+                                      int payoff, float strike,
+                                      void* stream) {
   return dispatch<FusedLauncher<RowMoments>::With>(
-      process, antithetic, n_paths, stream, leaves, (int)n_steps,
+      process, dims, antithetic, n_paths, stream, leaves, (int)n_steps,
       path_offset, k0, k1, RowMoments{rows, payoff, strike});
 }
 
@@ -485,7 +640,7 @@ extern "C" int mc_fused_block_moments(float* rows, const float* leaves,
 // finalized functional.  codes/periods (n_functionals,) and params
 // (n_functionals, kMaxParams) are host arrays.
 extern "C" int mc_fused_functionals(float* out, const float* leaves,
-                                    int process, int64_t n_paths,
+                                    int process, int dims, int64_t n_paths,
                                     int64_t n_steps, uint32_t path_offset,
                                     uint32_t k0, uint32_t k1, int antithetic,
                                     int n_functionals, const int* codes,
@@ -503,7 +658,7 @@ extern "C" int mc_fused_functionals(float* out, const float* leaves,
       spec.p[k][q] = params[k * kMaxParams + q];
     }
   }
-  return dispatch<FunctionalLauncher>(process, antithetic, n_paths, stream,
-                                      leaves, (int)n_steps, path_offset, k0,
-                                      k1, spec, out);
+  return dispatch<FunctionalLauncher>(process, dims, antithetic, n_paths,
+                                      stream, leaves, (int)n_steps,
+                                      path_offset, k0, k1, spec, out);
 }

@@ -9,6 +9,7 @@ from montecarlo_tpu_torch.engine.simulate import (  # noqa: F401
 )
 from montecarlo_tpu_torch.engine.payoffs import (  # noqa: F401
     VanillaPayoff,
+    basket_call,
     black_scholes_call,
     black_scholes_digital,
     black_scholes_put,
@@ -16,6 +17,7 @@ from montecarlo_tpu_torch.engine.payoffs import (  # noqa: F401
     discount_factor,
     european_call,
     european_put,
+    max_call,
 )
 from montecarlo_tpu_torch.engine.dispatch import (  # noqa: F401
     payoff_block_moments,

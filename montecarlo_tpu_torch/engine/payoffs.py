@@ -1,9 +1,10 @@
 """Payoff functions and the Black-Scholes closed forms used as oracles.
 
-The port of ``montecarlo_tpu/engine/payoffs.py`` (European call/put,
-discount factor, Black-Scholes call/put), plus :class:`VanillaPayoff`: the
-call/put/digital payoff as data, which the K3 kernel evaluates in its
-epilogue.  Any other payoff callable runs in torch after K2.
+The port of ``montecarlo_tpu/engine/payoffs.py`` (European call/put, the
+basket and max calls, discount factor, Black-Scholes call/put), plus
+:class:`VanillaPayoff`: the call/put/digital payoff as data, which the K3
+kernel evaluates in its epilogue.  Any other payoff callable runs in torch
+after K2.
 """
 
 from __future__ import annotations
@@ -25,6 +26,18 @@ def european_put(s_t: torch.Tensor, strike) -> torch.Tensor:
 def digital_call(s_t: torch.Tensor, strike) -> torch.Tensor:
     """Cash-or-nothing call: 1 where S_T > K."""
     return (s_t > strike).to(torch.float32)
+
+
+def basket_call(prices: torch.Tensor, weights, strike) -> torch.Tensor:
+    """Call on a weighted basket: prices (n_paths, n_assets)."""
+    w = torch.as_tensor(weights, dtype=prices.dtype, device=prices.device)
+    return torch.clamp(prices @ w - strike, min=0.0)
+
+
+def max_call(prices: torch.Tensor, strike) -> torch.Tensor:
+    """Call on the best of several assets: prices (..., n_assets) — the
+    Bermudan max-call benchmark payoff (Andersen-Broadie 2004)."""
+    return torch.clamp(torch.amax(prices, dim=-1) - strike, min=0.0)
 
 
 @dataclass(frozen=True)

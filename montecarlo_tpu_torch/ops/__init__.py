@@ -9,6 +9,7 @@ version for a CPU one; nothing falls back from one to the other.
 - K4 ``fused_functionals``    — csrc/fused_engine.cu
 - K5 ``normal_matrix``        — csrc/rng_kernel.cu
 - K6 ``rbergomi_terminal``    — csrc/rbergomi_kernel.cu
+- K7 ``packed_basket_terminal`` — csrc/basket_kernel.cu
 - K0 (device math in every kernel) — csrc/rng.cuh, checked on the card
   through ``rng_check`` (csrc/rng_check.cu)
 """
@@ -39,11 +40,17 @@ from montecarlo_tpu_torch.ops.rbergomi_kernel import (  # noqa: F401
     rbergomi_terminal,
     rbergomi_terminal_reference,
 )
+from montecarlo_tpu_torch.ops.basket_kernel import (  # noqa: F401
+    K7,
+    packed_basket_terminal,
+    packed_basket_terminal_reference,
+)
 
 #: The kernels of the pricing paths, by name.
 PATH_KERNELS = {"gbm_terminal": K1, "fused_terminal": K2,
                 "fused_block_moments": K3, "fused_functionals": K4,
-                "normal_matrix": K5, "rbergomi_terminal": K6}
+                "normal_matrix": K5, "rbergomi_terminal": K6,
+                "packed_basket_terminal": K7}
 
 
 def reset_launch_counts() -> None:

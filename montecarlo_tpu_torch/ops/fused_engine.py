@@ -2,8 +2,9 @@
 
 Port of ``montecarlo_tpu/ops/fused_engine.py::fused_terminal_pallas`` (K2),
 ``::fused_block_moments_pallas`` (K3) and ``::fused_functionals_pallas``
-(K4); the kernels are templates over a process functor (GBM, Heston) in
-``csrc/fused_engine.cu``.  The plain versions below run the process's own
+(K4); the kernels are templates over a process functor (GBM, Heston, the
+correlated GBM basket of at most 128 assets) in ``csrc/fused_engine.cu``.
+The plain versions below run the process's own
 ``draws_pair``/``step``/``prices`` in the kernel's order — two steps per
 cipher call, the antithetic mirror on odd ids, the odd final step dropped —
 and agree with the kernels bitwise where the platform's log/sqrt/sin/cos
@@ -32,6 +33,8 @@ from montecarlo_tpu_torch.engine.payoffs import VanillaPayoff
 from montecarlo_tpu_torch.engine.simulate import path_ids_for
 from montecarlo_tpu_torch.ops._build import (CudaKernel, check_cuda_tensor,
                                              cuda_stream)
+from montecarlo_tpu_torch.processes.basket import (BasketGBM,
+                                                   check_kernel_assets)
 from montecarlo_tpu_torch.processes.gbm import GBM
 from montecarlo_tpu_torch.processes.heston import Heston
 from montecarlo_tpu_torch.rng.threefry import MASK32, key_from_seed
@@ -43,11 +46,11 @@ STATS_BLOCK = 4096   # paths per MomentState block
 MAX_FUNCTIONALS = 4  # K4's functional slots (kMaxFunctionals)
 
 #: The processes the kernels run, by the code of their functor.
-PROCESS_CODES = {GBM: 0, Heston: 1}
+PROCESS_CODES = {GBM: 0, Heston: 1, BasketGBM: 2}
 
-_COMMON = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
-           ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32,
-           ctypes.c_int]
+_COMMON = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+           ctypes.c_int64, ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint32,
+           ctypes.c_uint32, ctypes.c_int]
 K2 = CudaKernel("mc_fused_terminal", _COMMON + [ctypes.c_void_p])
 K3 = CudaKernel("mc_fused_block_moments",
                 _COMMON + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
@@ -57,15 +60,21 @@ K4 = CudaKernel("mc_fused_functionals",
 
 
 def _leaves(process):
-    """(process code, leaves): the leaves float32 in field order, as the
-    kernel's functor reads them (GBM: [s0, mu, sigma, dt]; Heston: [s0,
-    v0, mu, kappa, theta, xi, rho, dt])."""
+    """(process code, dims, leaves): the leaves float32 in field order,
+    flattened, as the kernel's functor reads them (GBM: [s0, mu, sigma,
+    dt]; Heston: [s0, v0, mu, kappa, theta, xi, rho, dt]; basket: [s0 (A),
+    mu (A), sigma (A), chol_flat (A*A), weights (A), dt]), and ``dims``
+    the draws per step (the basket's A)."""
     code = PROCESS_CODES.get(type(process))
     if code is None:
-        raise TypeError("the fused kernels run GBM and Heston in this port, "
-                        f"got {type(process).__name__}")
-    return code, torch.stack([getattr(process, f.name)
-                              for f in dataclasses.fields(process)])
+        raise TypeError("the fused kernels run GBM and Heston (and "
+                        "BasketGBM) in this port, got "
+                        f"{type(process).__name__}")
+    dims = process.n_draws
+    if isinstance(process, BasketGBM):
+        check_kernel_assets(dims)
+    return code, dims, torch.cat([getattr(process, f.name).reshape(-1)
+                                  for f in dataclasses.fields(process)])
 
 
 def _draw_pairs(process, n_steps: int, k0: int, k1: int, ids,
@@ -146,7 +155,7 @@ def fused_terminal(process, n_paths: int, n_steps: int, *, seed, stream=0,
     """Terminal prices (n_paths,) float32: K2 on a CUDA process, the plain
     version on a CPU one.  Any ``n_paths >= 1``; the kernel masks the
     ragged edge."""
-    code, leaves = _leaves(process)
+    code, dims, leaves = _leaves(process)
     dev = process.device
     if dev.type == "cpu":
         return fused_terminal_reference(
@@ -158,7 +167,7 @@ def fused_terminal(process, n_paths: int, n_steps: int, *, seed, stream=0,
     out = torch.empty(n_paths, dtype=torch.float32, device=dev)
     k0, k1 = key_from_seed(seed, stream)
     with torch.cuda.device(dev):
-        K2.launch(out.data_ptr(), leaves.data_ptr(), code, n_paths,
+        K2.launch(out.data_ptr(), leaves.data_ptr(), code, dims, n_paths,
                   n_steps, int(path_offset) & MASK32, k0, k1,
                   int(antithetic), cuda_stream(dev))
     return out
@@ -170,7 +179,7 @@ def fused_block_moments(process, payoff: VanillaPayoff, n_paths: int,
     """Per-4096-path-block payoff moments with the terminal prices never
     leaving the kernel: K3 on a CUDA process, the plain version on a CPU
     one.  Returns a MomentState with leaves shaped (n_paths // 4096,)."""
-    code, leaves = _leaves(process)
+    code, dims, leaves = _leaves(process)
     dev = process.device
     if dev.type == "cpu":
         return fused_block_moments_reference(
@@ -183,7 +192,7 @@ def fused_block_moments(process, payoff: VanillaPayoff, n_paths: int,
     rows = torch.empty((n_paths // LANES, 2), dtype=torch.float32, device=dev)
     k0, k1 = key_from_seed(seed, stream)
     with torch.cuda.device(dev):
-        K3.launch(rows.data_ptr(), leaves.data_ptr(), code, n_paths,
+        K3.launch(rows.data_ptr(), leaves.data_ptr(), code, dims, n_paths,
                   n_steps, int(path_offset) & MASK32, k0, k1,
                   int(antithetic), payoff.code, payoff.strike,
                   cuda_stream(dev))
@@ -252,7 +261,7 @@ def fused_functionals(process, n_paths: int, n_steps: int, *, seed,
     :class:`PathFunctional` s with a device form (at most four).  Any
     ``n_paths >= 1``; the kernel masks the ragged edge."""
     items = tuple(functionals.items())
-    code, leaves = _leaves(process)
+    code, dims, leaves = _leaves(process)
     forms = _device_forms(items, n_steps)
     dev = process.device
     if dev.type == "cpu":
@@ -272,9 +281,10 @@ def fused_functionals(process, n_paths: int, n_steps: int, *, seed,
             params[k * MAX_PARAMS + q] = v
     k0, k1 = key_from_seed(seed, stream)
     with torch.cuda.device(dev):
-        K4.launch(out.data_ptr(), leaves.data_ptr(), code, n_paths, n_steps,
-                  int(path_offset) & MASK32, k0, k1, int(antithetic),
-                  len(forms), codes, periods, params, cuda_stream(dev))
+        K4.launch(out.data_ptr(), leaves.data_ptr(), code, dims, n_paths,
+                  n_steps, int(path_offset) & MASK32, k0, k1,
+                  int(antithetic), len(forms), codes, periods, params,
+                  cuda_stream(dev))
     result = {"terminal": out[0]}
     for k, (name, _) in enumerate(items):
         result[name] = out[k + 1]

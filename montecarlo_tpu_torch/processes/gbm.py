@@ -36,7 +36,7 @@ class GBM(NormalDrawsMixin):
     n_draws: ClassVar[int] = 1
 
     @classmethod
-    def create(cls, s0, mu, sigma, dt, device="cpu") -> "GBM":
+    def create(cls, s0, mu, sigma, dt, device="cuda") -> "GBM":
         dev = resolve_device(device)
         as_ = lambda v: torch.as_tensor(v, dtype=torch.float32, device=dev)
         return cls(s0=as_(s0), mu=as_(mu), sigma=as_(sigma), dt=as_(dt))

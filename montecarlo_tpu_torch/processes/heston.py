@@ -45,7 +45,7 @@ class Heston(NormalDrawsMixin):
 
     @classmethod
     def create(cls, s0, v0, mu, kappa, theta, xi, rho, dt,
-               device="cpu") -> "Heston":
+               device="cuda") -> "Heston":
         dev = resolve_device(device)
         as_ = lambda v: torch.as_tensor(v, dtype=torch.float32, device=dev)
         return cls(s0=as_(s0), v0=as_(v0), mu=as_(mu), kappa=as_(kappa),

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from montecarlo_tpu_torch.device import resolve_device
+from montecarlo_tpu_torch.precision import factor_product
 from montecarlo_tpu_torch.rng.normal import exp32, log32
 
 
@@ -94,7 +95,7 @@ class RoughBergomi:
 
     @classmethod
     def create(cls, s0, xi0, eta, rho, h, n_steps: int, T: float,
-               device="cpu") -> "RoughBergomi":
+               device="cuda") -> "RoughBergomi":
         dev = resolve_device(device)
         chol = volterra_joint_chol(n_steps, T, float(h))
         dt = T / n_steps
@@ -122,30 +123,6 @@ class RoughBergomi:
     def tpow(self) -> torch.Tensor:
         """(T,) grid times to the power 2H."""
         return self.t_grid ** (2.0 * self.h)
-
-
-def factor_product(chol: torch.Tensor, z: torch.Tensor) -> torch.Tensor:
-    """``chol @ z``, the (2T, N) joint matrix from (2T, N) normals, in true
-    float32 whatever the process-wide setting: TF32 keeps 10 mantissa bits
-    and would distort the sampled covariance, as the TPU's bf16 passes do
-    in the JAX package, which takes this product at ``Precision.HIGHEST``.
-    A plain product outside any kernel, as the JAX package leaves it to
-    XLA.  Both the legacy and the newer precision settings are put back as
-    they were."""
-    try:
-        legacy = torch.get_float32_matmul_precision()
-    except RuntimeError:  # the two settings disagree; the newer one rules
-        legacy = None
-    matmul = torch.backends.cuda.matmul
-    newer = getattr(matmul, "fp32_precision", None)
-    torch.set_float32_matmul_precision("highest")
-    try:
-        return torch.matmul(chol, z)
-    finally:
-        if legacy is not None:
-            torch.set_float32_matmul_precision(legacy)
-        if newer is not None:
-            matmul.fp32_precision = newer
 
 
 def rbergomi_simulate(model: RoughBergomi, n_paths: int, *, seed: int,
@@ -193,5 +170,4 @@ def rbergomi_simulate(model: RoughBergomi, n_paths: int, *, seed: int,
     return v.T, exp32(log_s)
 
 
-__all__ = ["RoughBergomi", "factor_product", "rbergomi_simulate",
-           "volterra_joint_chol"]
+__all__ = ["RoughBergomi", "rbergomi_simulate", "volterra_joint_chol"]

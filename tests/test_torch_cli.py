@@ -137,6 +137,66 @@ def test_note_matches_jax_cli(flags, jump, capsys):
         assert abs(got[k] - want[k]) <= tol, k
 
 
+@pytest.mark.parametrize("flags", [
+    ["--n-assets", "2"],
+    ["--n-assets", "5", "--asset-corr", "0.5", "--div", "0.01",
+     "--steps", "17", "--seed", "4"],
+])
+def test_price_max_call_matches_jax_cli(flags, capsys):
+    """The best-of-A call through MultiGBM's torch loop against the JAX
+    CLI's scan: the payoff is continuous in the prices, rtol 1e-5."""
+    argv = ["price", "--payoff", "max-call", "--paths", "2048", "--steps",
+            "16", *flags]
+    want = _run(jax_main, argv, capsys)
+    got = _run(port_main, [*argv, "--device", "cpu"], capsys)
+    assert sorted(got) == sorted(want) == ["n_assets", "n_paths", "price",
+                                           "std_err"]
+    assert got["n_assets"] == want["n_assets"]
+    assert got["n_paths"] == want["n_paths"] == 2048
+    for k in ("price", "std_err"):
+        assert got[k] == pytest.approx(want[k], rel=1e-5), k
+
+
+@pytest.mark.parametrize("flags", [
+    ["--n-assets", "3"],
+    ["--n-assets", "4", "--asset-corr", "0.3", "--steps", "17",
+     "--observations", "3"],
+])
+def test_note_worst_of_matches_jax_cli(flags, capsys):
+    """The worst-of autocallable on MultiGBM (the torch loop) against the
+    JAX CLI; a flipped trigger or barrier moves one path by <= 1.1."""
+    argv = ["note", "--type", "autocall", "--paths", "2048", "--steps", "16",
+            *flags]
+    want = _run(jax_main, argv, capsys)
+    got = _run(port_main, [*argv, "--device", "cpu"], capsys)
+    assert sorted(got) == sorted(want)
+    assert got["n_assets"] == want["n_assets"] > 1
+    for k in want:
+        tol = 1e-5 * abs(want[k]) + FLIPS * 1.1 / want["n_paths"]
+        assert abs(got[k] - want[k]) <= tol, k
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    """Every module of the port, imported in a fresh interpreter, leaves
+    ``jax`` and ``montecarlo_tpu`` out of ``sys.modules``."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import montecarlo_tpu_torch as pkg\n"
+        "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, "
+        "pkg.__name__ + '.')]\n"
+        "for name in names:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'montecarlo_tpu'))\n"
+        "print(len(names), bad)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120,
+                         check=True)
+    n, bad = out.stdout.strip().split(" ", 1)
+    assert int(n) > 20
+    assert bad == "[]", bad
+
+
 def test_bridge_knock_out_plus_knock_in_is_vanilla(capsys):
     """In-out parity from the one survival functional: KO + KI pays the
     vanilla call on every path, so the estimates add up to the call's."""
@@ -156,7 +216,8 @@ def test_bridge_knock_out_plus_knock_in_is_vanilla(capsys):
     (["price", "--payoff", "asian", "--target-se", "0.1"], "vanilla"),
     (["price", "--payoff", "up-and-out", "--bridge", "--process", "heston"],
      "--process gbm"),
-    (["note", "--n-assets", "3"], "worst-of"),
+    (["price", "--payoff", "max-call", "--process", "heston"],
+     "--process gbm"),
     (["price", "--process", "rbergomi", "--sampler", "antithetic"],
      "its own exact-covariance sampler"),
     (["price", "--process", "rbergomi", "--target-se", "0.1"],
@@ -181,15 +242,22 @@ def test_device_cuda_is_an_error_without_a_card(capsys):
         port_main(["note", "--paths", "128"])
     with pytest.raises(SystemExit, match="no CUDA device"):
         port_main(["price", "--process", "rbergomi", "--paths", "128"])
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        port_main(["price", "--payoff", "max-call", "--paths", "128"])
+    with pytest.raises(SystemExit, match="no CUDA device"):
+        port_main(["note", "--n-assets", "3", "--paths", "128"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         port_main(["bench"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        port_main(["bench", "--basket"])
     assert capsys.readouterr().out == ""
 
 
 @pytest.mark.parametrize("argv", [
     ["price", "--process", "merton"],
     ["price", "--sampler", "sobol"],
-    ["price", "--payoff", "max-call"],
+    ["price", "--payoff", "max-call", "--sampler", "antithetic",
+     "--device", "cpu"],
     ["price", "--device", "cpu", "--target-se", "0.1", "--sampler",
      "antithetic"],
 ])

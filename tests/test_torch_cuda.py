@@ -1,4 +1,4 @@
-"""The CUDA kernels K0-K6 against their plain PyTorch versions, on the card.
+"""The CUDA kernels K0-K7 against their plain PyTorch versions, on the card.
 
 A CUDA kernel has no CPU mode, so every test here needs an NVIDIA GPU and
 skips without one.  The file imports no JAX (the card's machine has none);
@@ -15,13 +15,17 @@ parameters); its plain version folds the torch closures over the same
 float32 constants, and the torch time loop on the card agrees with both:
 bitwise.  K5 and K6 (rough Bergomi) run the same draws and the same
 float32 operations as their plain versions: bitwise; the factor product
-between them runs in true float32 whatever the process-wide setting.
+between them runs in true float32 whatever the process-wide setting.  K7
+(the packed basket) and K2-K4 on the correlated basket (BasketProc, 16 and
+128 asset capacities) run their plain versions' counters and float32
+operations: bitwise.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from montecarlo_tpu_torch.bench import bench_basket
 from montecarlo_tpu_torch.engine import (ARITH_MEAN, GEO_MEAN, RUNNING_MAX,
                                          RUNNING_MIN, VanillaPayoff,
                                          autocallable, barrier_survival_up,
@@ -36,11 +40,13 @@ from montecarlo_tpu_torch.ops import (PATH_KERNELS, fused_block_moments,
                                       fused_terminal, fused_terminal_reference,
                                       gbm_terminal, gbm_terminal_reference,
                                       normal_matrix, normal_matrix_reference,
+                                      packed_basket_terminal,
+                                      packed_basket_terminal_reference,
                                       rbergomi_terminal,
                                       rbergomi_terminal_reference)
 from montecarlo_tpu_torch.processes import (GBM, Heston, RoughBergomi,
                                             rbergomi_simulate)
-from montecarlo_tpu_torch.processes.rough_bergomi import factor_product
+from montecarlo_tpu_torch.precision import factor_product
 from montecarlo_tpu_torch.samplers import AntitheticSampler
 
 
@@ -256,3 +262,48 @@ def test_cuda_rbergomi_simulate_guards_the_product_precision(cuda):
         assert torch.isfinite(v).all() and torch.isfinite(s_paths).all()
     finally:
         torch.set_float32_matmul_precision(before)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a_n", [1, 5, 16, 20, 128])
+@pytest.mark.parametrize("n_steps", [0, 7, 8])
+def test_cuda_k7_bitwise_equal_plain(cuda, a_n, n_steps):
+    basket = bench_basket(a_n, device=cuda)
+    kw = dict(seed=3, path_offset=WRAP)
+    k7 = PATH_KERNELS["packed_basket_terminal"].launches
+    got = packed_basket_terminal(basket, 1000, n_steps, **kw)
+    assert PATH_KERNELS["packed_basket_terminal"].launches == k7 + 1
+    want = packed_basket_terminal_reference(basket, 1000, n_steps, **kw)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a_n", [3, 5, 16, 17])
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_cuda_basket_k2_k3_k4_bitwise_equal_plain(cuda, a_n, antithetic):
+    """BasketProc at 16 (registers) and 128 (local memory) capacity, odd
+    and even asset counts, against the plain versions and the torch loop."""
+    basket = bench_basket(a_n, device=cuda)
+    kw = dict(seed=4, path_offset=WRAP, antithetic=antithetic)
+    before = dict((k, PATH_KERNELS[k].launches) for k in (
+        "fused_terminal", "fused_block_moments", "fused_functionals"))
+    assert torch.equal(fused_terminal(basket, 1000, 17, **kw),
+                       fused_terminal_reference(basket, 1000, 17, **kw))
+    pay = VanillaPayoff("call", 95.0)
+    got = fused_block_moments(basket, pay, 4096, 17, **kw)
+    want = fused_block_moments_reference(basket, pay, 4096, 17, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    fns = {"avg": ARITH_MEAN, "mx": RUNNING_MAX, "mn": RUNNING_MIN}
+    got = fused_functionals(basket, 1000, 17, functionals=fns, **kw)
+    want = fused_functionals_reference(basket, 1000, 17, functionals=fns,
+                                       **kw)
+    loop = simulate_functionals(
+        basket, 1000, 17, prefer_fused=False, seed=4, path_offset=WRAP,
+        sampler=AntitheticSampler() if antithetic else None, functionals=fns)
+    for k in want:
+        assert torch.isfinite(got[k]).all(), k
+        assert torch.equal(got[k], want[k]), k
+        assert torch.equal(loop[k], want[k]), k
+    for k, n in before.items():
+        assert PATH_KERNELS[k].launches == n + 1, k

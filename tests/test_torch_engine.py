@@ -40,7 +40,7 @@ def _pair():
     """One JAX GBM and its port, both built from the same numpy leaves."""
     jp = JGBM.create(s0=100.0, mu=0.03, sigma=0.2, dt=1 / 252)
     fields = {k: np.asarray(v) for k, v in jp._asdict().items()}
-    return jp, process_from_numpy("gbm", fields)
+    return jp, process_from_numpy("gbm", fields, device="cpu")
 
 
 @pytest.mark.parametrize("n_steps", [1, 16, 17])
@@ -141,11 +141,11 @@ def test_convert_round_trip():
     for k, v in jp._asdict().items():
         np.testing.assert_array_equal(back[k], np.asarray(v))
         assert back[k].dtype == np.float32
-    direct = GBM.create(100.0, 0.03, 0.2, 1 / 252)
+    direct = GBM.create(100.0, 0.03, 0.2, 1 / 252, device="cpu")
     assert torch.equal(simulate(tp, 256, 5, seed=2),
                        simulate(direct, 256, 5, seed=2))
     with pytest.raises(ValueError):
-        process_from_numpy("gbm", {"s0": np.float32(1.0)})
+        process_from_numpy("gbm", {"s0": np.float32(1.0)}, device="cpu")
 
 
 def _imported_roots(path: Path):
@@ -175,7 +175,11 @@ def test_cuda_request_raises_without_a_card():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         GBM.create(100.0, 0.03, 0.2, 1 / 252, device="cuda")
     jp, _ = _pair()
+    fields = {k: np.asarray(v) for k, v in jp._asdict().items()}
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        process_from_numpy("gbm", {k: np.asarray(v)
-                                   for k, v in jp._asdict().items()},
-                           device="cuda")
+        process_from_numpy("gbm", fields, device="cuda")
+    # The library's constructors default to the card, as the CLI does.
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GBM.create(100.0, 0.03, 0.2, 1 / 252)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        process_from_numpy("gbm", fields)

@@ -63,7 +63,8 @@ def _pair(kind):
         jp = JHeston.create(s0=100.0, v0=0.04, mu=0.03, kappa=2.0,
                             theta=0.04, xi=0.5, rho=-0.7, dt=1 / 252)
     return jp, process_from_numpy(
-        kind, {k: np.asarray(v) for k, v in jp._asdict().items()})
+        kind, {k: np.asarray(v) for k, v in jp._asdict().items()},
+        device="cpu")
 
 
 def _groups(n_steps):
@@ -181,7 +182,7 @@ def test_gbm_log_prices_repair():
     performance-normalized underlying."""
     rng = np.random.default_rng(0)
     log_s = torch.from_numpy(rng.uniform(-0.3, 0.3, 4096).astype(np.float32))
-    tp = GBM.create(1.0, 0.03, 0.2, 1 / 252)
+    tp = GBM.create(1.0, 0.03, 0.2, 1 / 252, device="cpu")
     state = GBMState(log_s=log_s)
     obs_log, obs_price = tf.functional_observables(
         tp, state, [tf.RUNNING_MAX, tf.ARITH_MEAN])
@@ -282,7 +283,7 @@ def test_worst_of_single_asset_equals_autocallable():
 
 def test_geometric_asian_within_5se_of_closed_form():
     s0, k, r, sigma, T, steps = 100.0, 100.0, 0.03, 0.2, 1.0, 64
-    tp = GBM.create(s0, r, sigma, T / steps)
+    tp = GBM.create(s0, r, sigma, T / steps, device="cpu")
     out = fused_functionals(tp, 1 << 15, steps, seed=21,
                             functionals={"geo": tf.GEO_MEAN})
     est = mc_estimate(tf.asian_call(out["geo"], k), np.exp(-r * T))

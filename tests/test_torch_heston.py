@@ -40,7 +40,8 @@ def _pair(xi=0.5):
     jp = JHeston.create(s0=100.0, v0=0.04, mu=0.03, kappa=2.0, theta=0.04,
                         xi=xi, rho=-0.7, dt=1 / 252)
     return jp, process_from_numpy(
-        "heston", {k: np.asarray(v) for k, v in jp._asdict().items()})
+        "heston", {k: np.asarray(v) for k, v in jp._asdict().items()},
+        device="cpu")
 
 
 def test_convert_round_trip_and_field_order():

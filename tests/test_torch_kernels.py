@@ -43,7 +43,8 @@ JAX_PAYOFFS = {
 def _pair(dt=1 / 252):
     jp = JGBM.create(s0=100.0, mu=0.03, sigma=0.2, dt=dt)
     return jp, process_from_numpy(
-        "gbm", {k: np.asarray(v) for k, v in jp._asdict().items()})
+        "gbm", {k: np.asarray(v) for k, v in jp._asdict().items()},
+        device="cpu")
 
 
 @pytest.mark.parametrize("n_steps", [1, 16, 17])

@@ -31,7 +31,8 @@ DISC = math.exp(-0.03)
 def _pair(dt):
     jp = JGBM.create(s0=100.0, mu=0.03, sigma=0.2, dt=dt)
     return jp, process_from_numpy(
-        "gbm", {k: np.asarray(v) for k, v in jp._asdict().items()})
+        "gbm", {k: np.asarray(v) for k, v in jp._asdict().items()},
+        device="cpu")
 
 
 def test_mc_estimate_matches_jax():

@@ -43,7 +43,7 @@ from montecarlo_tpu_torch.ops import (normal_matrix,
                                       rbergomi_terminal_reference)
 from montecarlo_tpu_torch.processes import (RoughBergomi, rbergomi_simulate,
                                             volterra_joint_chol)
-from montecarlo_tpu_torch.processes.rough_bergomi import factor_product
+from montecarlo_tpu_torch.precision import factor_product
 from montecarlo_tpu_torch.rng.normal import uniform_from_bits
 from montecarlo_tpu_torch.rng.threefry import key_from_seed, threefry2x32
 
@@ -58,7 +58,7 @@ WRAP = 2**32 - 500
 def _models(n_steps, **kw):
     args = dict(s0=S0, xi0=XI0, eta=ETA, rho=RHO, h=H, n_steps=n_steps, T=T)
     args.update(kw)
-    return JRB.create(**args), RoughBergomi.create(**args)
+    return JRB.create(**args), RoughBergomi.create(**args, device="cpu")
 
 
 @pytest.mark.parametrize("n,T_,h", [(16, 0.5, 0.1), (17, 1.0, 0.3),
@@ -73,7 +73,7 @@ def test_volterra_joint_chol_bitwise(n, T_, h):
 def test_create_and_convert_round_trip_bitwise():
     jm, tm = _models(17)
     fields = {k: np.asarray(v) for k, v in jm._asdict().items()}
-    carried = process_from_numpy("rbergomi", fields)
+    carried = process_from_numpy("rbergomi", fields, device="cpu")
     assert list(process_to_numpy(tm)) == list(fields) == [
         "s0", "xi0", "eta", "rho", "h", "chol", "t_grid", "dt"]
     for model in (tm, carried):
