@@ -48,7 +48,24 @@ CUDA kernels from ``montecarlo_tpu_torch/csrc`` and, in phases:
    (2^20 x 252) and at 1 asset (against Black-Scholes), the worst-of note
    below the one-asset note, ``price_to_tolerance`` on a 5-asset basket
    call (K3) and ``simulate_functionals`` for its Asian (K4), priced
-   below the call.
+   below the call;
+8. the GARCH path (K2-K4 on GarchProc): K2, K3 and K4 ({avg, mx, mn}) on
+   the bootstrap GARCH against their plain versions bitwise, plain and
+   antithetic, at 2^18 paths (2^18 - 37 for K2 and K4) x {20, 17, 252}
+   steps on 2- and 5-year synthetic tables, ids wrapping past 2^32 once;
+   K2 timed at a VaR chunk (2^24 x 20) and at 2^20 x 252 per table, K3 at
+   2^24 x 20, K4 at 2^20 x 252, each beside its plain version and bound;
+   then, counters reset around each call: ``garch_monte_carlo`` (20 days,
+   5-year history) at 1000, 30000 and 2^22 sims with the paths kept (no
+   K2) and at 2^22 without (one K2 launch; terminals bitwise the kept
+   run's, bands within a bin width), the 30000-sim statistics against a
+   NumPy oracle of the reference recurrence (4 sigma), antithetic bands
+   and spread, ``fit_params``; ``portfolio_var_on_device`` at 2^30 x 20
+   in 2^24-path chunks on GARCH and GBM (one K2 launch per chunk; GBM's
+   VaR at its closed form; the sketch at 2^22 within its grid errors of
+   the exact statistics of the same terminals) and ``var --on-device``
+   (the JAX CLI's keys); the VaR at 2^28 and ``garch_monte_carlo`` under
+   the profiler (device busy share, kernels by device time).
 
 Phase 3 also holds K5 (2^18 paths x {504, 756, 37} columns, ids wrapping
 past 2^32) and K6 (2^18 x {252, 17} steps, fed one joint matrix) against
@@ -1147,6 +1164,417 @@ def phase_multi_asset(torch):
     return counts
 
 
+# ---- phase 8: the GARCH path -------------------------------------------------
+
+# Per GARCH step beyond the cipher: the uniform (a shift, a convert; an add
+# and a multiply), the index (a multiply and a floor; a convert and a min),
+# an IEEE sqrt counted as one, and the recurrence's 7 multiplies and adds.
+GARCH_STEP_FP, GARCH_STEP_INT = 12, 4
+# The reference's fixed GARCH parameters (reference app.py:601-603) and the
+# app's 20-day horizon; the parity oracle's path count
+# (tests/test_reference_parity.py).
+GARCH_DAYS, ORACLE_SIMS = 20, 30_000
+VAR_PATHS, VAR_CHUNK, VAR_BINS = 1 << 30, 1 << 24, 8192
+#: The JAX CLI's `var` keys (engine/streaming.py::risk_dict).
+VAR_KEYS = {"percentiles", "expected_return", "expected_vol", "prob_profit",
+            "var_95", "var_95_std_err", "var_95_grid_err", "cvar_95",
+            "cvar_95_grid_err", "std_err", "n_paths", "sketch_oob_fraction"}
+
+
+def garch_bound(n, steps, out_bytes=4, extra_fp=0):
+    """GarchProc in the fused loop: one cipher call per step pair, per step
+    ``GARCH_STEP_FP`` float32 and ``GARCH_STEP_INT`` int32 operations,
+    ``exp32`` once per path (the table is read from cache, not counted)."""
+    pairs = (steps + 1) // 2
+    return bound(n * out_bytes,
+                 int32=n * (pairs * CIPHER_INT + steps * GARCH_STEP_INT),
+                 fp32=n * (steps * GARCH_STEP_FP + EXP32_FP + extra_fp))
+
+
+def garch_history(n_returns, seed=21):
+    """The feature columns garch_monte_carlo reads, from a synthetic
+    history of ``n_returns`` log returns (``data/synthetic.py``): log_ret
+    (NaN first, as the feature layer has it) and rvol_20, the ddof-1
+    rolling std over 20 days times sqrt(252) (quant/rolling.py), computed
+    in numpy; and the spot."""
+    import numpy as np
+
+    from montecarlo_tpu_torch.data import generate_ohlcv
+
+    close = generate_ohlcv(n_days=n_returns + 1, seed=seed)["Close"]
+    log_ret = np.concatenate([[np.nan], np.diff(np.log(close))])
+    win = np.lib.stride_tricks.sliding_window_view(log_ret[1:], 20)
+    rvol = np.concatenate([np.full(20, np.nan),
+                           win.std(axis=1, ddof=1) * np.sqrt(252.0)])
+    return {"log_ret": log_ret, "rvol_20": rvol}, float(close[-1])
+
+
+def garch_process(data, s0):
+    from montecarlo_tpu_torch.processes import GARCHBootstrap
+
+    r = data["log_ret"][1:]
+    return GARCHBootstrap.create(r, s0=s0, var0=data["rvol_20"][-1] ** 2
+                                 / 252.0, device="cuda")
+
+
+def phase_garch_parity(torch, errs, times):
+    """K2, K3 and K4 ({avg, mx, mn}) on GarchProc against their plain
+    versions, bitwise, plain and antithetic, at 2^18 paths (K2 and K4 at
+    2^18 - 37) x {20, 17, 252} steps on the 2- and 5-year tables, one run
+    of each with ids wrapping past 2^32; then K2, K3 and K4 timed beside
+    their plain versions and bounds at the GARCH path's shapes."""
+    from montecarlo_tpu_torch.engine import (ARITH_MEAN, RUNNING_MAX,
+                                             RUNNING_MIN, VanillaPayoff)
+    from montecarlo_tpu_torch.ops import (fused_block_moments,
+                                          fused_block_moments_reference,
+                                          fused_functionals,
+                                          fused_functionals_reference,
+                                          fused_terminal,
+                                          fused_terminal_reference)
+
+    fns = {"avg": ARITH_MEAN, "mx": RUNNING_MAX, "mn": RUNNING_MIN}
+    n = 1 << 18
+    procs = {}
+    for years, n_ret in ((2, 503), (5, 1259)):
+        data, s0 = garch_history(n_ret)
+        procs[years] = garch_process(data, s0)
+        pay = VanillaPayoff("put", s0)
+        for steps in (20, 17, 252):
+            for anti in (False, True):
+                off = WRAP if steps == 17 else 12345
+                kw = dict(seed=19, path_offset=off, antithetic=anti)
+                label = (f"{years}y {n}x{steps} "
+                         f"{'antithetic' if anti else 'plain'} offset {off}")
+                p = procs[years]
+                cases = [("K2", "fused_terminal",
+                          fused_terminal(p, n - 37, steps, **kw),
+                          fused_terminal_reference(p, n - 37, steps, **kw))]
+                got = fused_block_moments(p, pay, n, steps, **kw)
+                want = fused_block_moments_reference(p, pay, n, steps, **kw)
+                cases += [(f"K3 put {f}", "fused_block_moments",
+                           getattr(got, f), getattr(want, f))
+                          for f in ("mean", "m2")]
+                got = fused_functionals(p, n - 37, steps, functionals=fns,
+                                        **kw)
+                want = fused_functionals_reference(p, n - 37, steps,
+                                                   functionals=fns, **kw)
+                cases += [(f"K4 {k}", "fused_functionals", got[k], want[k])
+                          for k in want]
+                for name, key, g, w in cases:
+                    _, max_abs, _ = compare(f"{name} GARCH {label}", g, w,
+                                            BITWISE)
+                    errs[key] = max(errs.get(key, 0.0), max_abs)
+                del cases, got, want
+        torch.cuda.synchronize()
+
+    check = functools.partial(timed_check, times, errs)
+    five = procs[5]
+    nv, sv = VAR_CHUNK, GARCH_DAYS
+    chunk = {}
+    timed_check(chunk, errs, "fused_terminal",
+                f"K2 GARCH 5y {nv}x{sv} (a VaR chunk)",
+                lambda: fused_terminal(five, nv, sv, seed=0,
+                                       path_offset=7 * nv),
+                lambda: fused_terminal_reference(five, nv, sv, seed=0,
+                                                 path_offset=7 * nv),
+                10, BITWISE, bnd=garch_bound(nv, sv))
+    rates = {}
+    for years, p in procs.items():
+        n2, s2 = 1 << 20, 252
+        key = f"K2 GARCH {years}y {n2}x{s2}"
+        t = {}
+        timed_check(t, errs, "fused_terminal", key,
+                    lambda: fused_terminal(p, n2, s2, seed=0),
+                    lambda: fused_terminal_reference(p, n2, s2, seed=0),
+                    10, BITWISE, bnd=garch_bound(n2, s2))
+        rates[years] = n2 * s2 / (t["fused_terminal"]["ms"] * 1e-3)
+        log(f"  {key}: {rates[years]:.4e} path-steps/s "
+            f"({p.table.numel()}-entry table)")
+    pay = VanillaPayoff("put", float(five.s0))
+    check("fused_block_moments", f"K3 GARCH 5y put {nv}x{sv}",
+          lambda: fused_block_moments(five, pay, nv, sv, seed=0),
+          lambda: fused_block_moments_reference(five, pay, nv, sv, seed=0),
+          10, BITWISE, fields=("mean", "m2"),
+          bnd=garch_bound(nv, sv, out_bytes=8 / 128, extra_fp=8))
+    n4, s4 = 1 << 20, 252
+    check("fused_functionals", f"K4 GARCH 5y {{avg,mx,mn}} {n4}x{s4}",
+          lambda: fused_functionals(five, n4, s4, seed=0, functionals=fns),
+          lambda: fused_functionals_reference(five, n4, s4, seed=0,
+                                              functionals=fns),
+          10, BITWISE, bnd=garch_bound(n4, s4, out_bytes=16))
+    log(f"  K2 GARCH path-steps/s at 2^20 x 252: 2-year table "
+        f"{rates[2]:.4e}, 5-year table {rates[5]:.4e}")
+    return procs, chunk["fused_terminal"]["ms"]
+
+
+def garch_oracle(returns, s0, var0, n_sims, n_days, rng):
+    """tests/test_reference_parity.py's NumPy oracle of the reference
+    recurrence (app.py:600-657), float64."""
+    import numpy as np
+
+    std_returns = returns / (returns.std() + 1e-10)
+    prices = np.full(n_sims, s0)
+    var = np.full(n_sims, var0)
+    for _ in range(n_days):
+        r = rng.choice(std_returns, size=n_sims) * np.sqrt(var)
+        prices = prices * np.exp(r)
+        var = 1e-5 + 0.10 * r**2 + 0.85 * var
+    p = {q: np.percentile(prices, q) for q in (1, 5, 10, 25, 50, 75, 90, 95,
+                                               99)}
+    return {"percentiles": p,
+            "expected_return": (prices.mean() / s0 - 1) * 100,
+            "expected_vol": prices.std() / s0 * 100,
+            "prob_profit": (prices > s0).mean() * 100,
+            "var_95": (s0 - p[5]) / s0 * 100,
+            "cvar_95": (s0 - prices[prices <= p[5]].mean()) / s0 * 100}
+
+
+def run_counted(fn, *args, **kw):
+    """(result, wall-clock s, K2/K3/K4 launches) of one call, the launch
+    counters reset just before and read just after."""
+    import torch
+
+    from montecarlo_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return out, wall, launch_counts()
+
+
+def phase_garch_mc(torch, chunk_ms):
+    """garch_monte_carlo through the API on the 5-year synthetic history,
+    20 days, the counters reset around each call; ``chunk_ms`` is K2's
+    time for a 2^24 x 20 chunk, from which each call's K2 share is
+    estimated."""
+    import numpy as np
+
+    from montecarlo_tpu_torch.api import garch_monte_carlo
+    from montecarlo_tpu_torch.processes.garch_fit import fit_garch
+
+    data, s0 = garch_history(1259)
+    returns = data["log_ret"][1:]
+    var0 = data["rvol_20"][-1] ** 2 / 252.0
+    checks, runs = {}, {}
+    for n_sims, keep in ((1000, True), (ORACLE_SIMS, True), (1 << 22, True),
+                         (1 << 22, False)):
+        out, wall, counts = run_counted(garch_monte_carlo, data, n_sims,
+                                        GARCH_DAYS, s0, seed=4,
+                                        keep_paths=keep)
+        k2 = counts["fused_terminal"]
+        runs[(n_sims, keep)] = out
+        share = 100 * k2 * chunk_ms * 1e-3 * (n_sims / VAR_CHUNK) / wall
+        log(f"  garch_monte_carlo {n_sims} sims x {GARCH_DAYS} days, "
+            f"keep_paths={keep}: {wall:.3f} s wall-clock, {k2} K2 launches "
+            f"(K2 ~{share:.1f}% of it); var_95 {out['var_95']:.4f}%, "
+            f"cvar_95 {out['cvar_95']:.4f}%")
+        checks[f"K2 launches at {n_sims}, keep_paths={keep}"] = (
+            k2 == (0 if keep else 1))
+        finite = all(np.isfinite(v) for k, v in out.items()
+                     if isinstance(v, float))
+        checks[f"finite at {n_sims}, keep_paths={keep}"] = finite and bool(
+            np.isfinite(out["final_prices"]).all())
+    kept, sketched = runs[(1 << 22, True)], runs[(1 << 22, False)]
+    checks["K2 terminals = the kept paths' last row, bitwise"] = (
+        np.array_equal(kept["final_prices"], sketched["final_prices"]))
+    fp = sketched["final_prices"]
+    width = 1.5 * (float(fp.max() - fp.min()) + 1e-6) / 2048
+    off = max(float(np.max(np.abs(kept["path_percentiles"][k]
+                                  - sketched["path_percentiles"][k])))
+              for k in kept["path_percentiles"])
+    log(f"  histogram bands vs exact bands at 2^22: max |diff| {off:.3e} "
+        f"(one bin width {width:.3e})")
+    checks["histogram bands within a bin width"] = off <= width
+    del kept, sketched, runs[(1 << 22, True)], runs[(1 << 22, False)]
+
+    ours = runs[(ORACLE_SIMS, True)]
+    rng = np.random.default_rng(0)
+    reps = [garch_oracle(returns, s0, var0, ORACLE_SIMS, GARCH_DAYS, rng)
+            for _ in range(5)]
+
+    def k_sigma(name, val, vals):
+        mean, se = np.mean(vals), max(np.std(vals, ddof=1), 1e-6)
+        ok = abs(val - mean) < 4.0 * se + 1e-9
+        log(f"  oracle {name}: ours {val:.5f}, oracle {mean:.5f} +- "
+            f"{se:.5f}: {'ok' if ok else 'FAIL'}")
+        checks[f"oracle {name}"] = ok
+
+    for k in ("expected_return", "expected_vol", "prob_profit", "var_95",
+              "cvar_95"):
+        k_sigma(k, ours[k], [r[k] for r in reps])
+    for q in (1, 5, 10, 25, 50, 75, 90, 95, 99):
+        k_sigma(f"p{q}", ours["percentiles"][f"p{q}"],
+                [r["percentiles"][q] for r in reps])
+
+    # tests/test_api.py's antithetic gate: the bands agree within noise,
+    # and the expected return's spread over seeds shrinks.
+    n_a = 1 << 22
+    (plain, anti), wall, _ = run_counted(lambda: [
+        garch_monte_carlo(data, n_a, GARCH_DAYS, s0, seed=1,
+                          keep_paths=False, antithetic=a)
+        for a in (False, True)])
+    band = {k: o["percentiles"]["p95"] - o["percentiles"]["p5"]
+            for k, o in (("plain", plain), ("antithetic", anti))}
+    spread = {}
+    for a in (False, True):
+        er = [garch_monte_carlo(data, 1 << 16, GARCH_DAYS, s0, seed=s,
+                                keep_paths=False,
+                                antithetic=a)["expected_return"]
+              for s in range(8)]
+        spread[a] = float(np.std(er, ddof=1))
+    log(f"  antithetic at 2^22: p95 - p5 band {band['antithetic']:.4f} vs "
+        f"plain {band['plain']:.4f} ({wall:.3f} s for both); expected "
+        f"return's std over 8 seeds at 2^16: {spread[True]:.5f} vs plain "
+        f"{spread[False]:.5f}")
+    checks["antithetic band agrees within 1%"] = (
+        abs(band["antithetic"] / band["plain"] - 1) < 0.01)
+    checks["antithetic shrinks the expected return's spread"] = (
+        spread[True] < spread[False])
+
+    (fitted, est), wall, _ = run_counted(lambda: (
+        garch_monte_carlo(data, 1000, GARCH_DAYS, s0, seed=4,
+                          fit_params=True),
+        fit_garch(returns)))
+    log(f"  fit_params=True at 1000 sims (and the fit again): {wall:.3f} s; "
+        f"omega {est.omega:.3e}, alpha {est.alpha:.4f}, beta "
+        f"{est.beta:.4f}; var_95 {fitted['var_95']:.4f}%")
+    checks["fitted alpha + beta < 1"] = (est.alpha + est.beta < 1
+                                         and min(est) > 0)
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"garch_monte_carlo checks failed: {failed}")
+
+
+def phase_garch_var(torch, procs, chunk_ms):
+    """portfolio_var_on_device at 2^30 paths x 20 days in 2^24-path
+    chunks, 8192 bins, on GARCH (5-year table) and on GBM at the var CLI's
+    defaults; the sketch against the exact statistics of the same K2
+    terminals at 2^22; ``var --on-device`` at its defaults."""
+    import numpy as np
+
+    from montecarlo_tpu_torch.api import portfolio_var_on_device
+    from montecarlo_tpu_torch.ops import fused_terminal
+    from montecarlo_tpu_torch.processes import GBM
+    from montecarlo_tpu_torch.stats.risk import terminal_statistics
+
+    checks = {}
+    five = procs[5]
+    gbm = GBM.create(s0=100.0, mu=0.05, sigma=0.25, dt=1 / 252,
+                     device="cuda")
+    n_chunks = VAR_PATHS // VAR_CHUNK
+    out = {}
+    for name, proc in (("GARCH 5y", five), ("GBM", gbm)):
+        s0 = float(proc.s0)
+        res, wall, counts = run_counted(
+            portfolio_var_on_device, proc, VAR_PATHS, GARCH_DAYS, s0,
+            seed=0, bins=VAR_BINS, chunk_paths=VAR_CHUNK)
+        k2 = counts["fused_terminal"]
+        passes = k2 // n_chunks
+        out[name] = res
+        share = (f"K2 ~{100 * k2 * chunk_ms * 1e-3 / wall:.1f}% of it"
+                 if name.startswith("GARCH") else "")
+        log(f"  portfolio_var_on_device {name}, {VAR_PATHS} x {GARCH_DAYS} "
+            f"in {n_chunks} chunks: {wall:.3f} s wall-clock, "
+            f"{VAR_PATHS / wall:.4e} paths/s, {k2} K2 launches ({passes} "
+            f"pass(es)) {share}; {json.dumps(res)}")
+        checks[f"{name}: K2 launched once per chunk"] = (
+            k2 == passes * n_chunks and passes in (1, 2))
+        checks[f"{name}: n_paths"] = res["n_paths"] == VAR_PATHS
+    # The lognormal closed form of the GBM p5 (float32 dt as the process).
+    g = out["GBM"]
+    t = GARCH_DAYS * float(np.float32(1 / 252))
+    z05 = -1.6448536269514729
+    p5 = 100.0 * math.exp((0.05 - 0.5 * 0.25**2) * t + 0.25 * math.sqrt(t)
+                          * z05)
+    var_cf = (100.0 - p5) / 100.0 * 100.0
+    tol = g["var_95_grid_err"] + 4 * g["var_95_std_err"]
+    log(f"  GBM var_95 {g['var_95']:.5f}% vs closed form {var_cf:.5f}% "
+        f"(tolerance {tol:.5f}%)")
+    checks["GBM var_95 at the closed form"] = abs(g["var_95"] - var_cf) < tol
+
+    # One 2^22 chunk on GARCH: the sketch against the exact statistics of
+    # the same K2 terminals (same seed, same ids).
+    n1 = 1 << 22
+    s0 = float(five.s0)
+    sk = portfolio_var_on_device(five, n1, GARCH_DAYS, s0, seed=5,
+                                 bins=VAR_BINS, chunk_paths=n1)
+    exact = terminal_statistics(fused_terminal(five, n1, GARCH_DAYS, seed=5),
+                                s0)
+    for k in ("var_95", "cvar_95"):
+        d = abs(sk[k] - float(exact[k]))
+        log(f"  GARCH {k} at 2^22, sketch {sk[k]:.5f}% vs exact "
+            f"{float(exact[k]):.5f}%: |diff| {d:.2e} (grid error "
+            f"{sk[k + '_grid_err']:.2e})")
+        checks[f"GARCH {k} sketch within its grid error"] = (
+            d <= sk[k + "_grid_err"])
+
+    res, wall = run_cli(["var", "--on-device"])
+    log(f"  var --on-device: {json.dumps(res)} ({wall:.3f} s wall-clock)")
+    checks["var --on-device keys are the JAX CLI's"] = set(res) == VAR_KEYS
+    checks["var --on-device n_paths"] = res["n_paths"] == 1 << 22
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"VaR checks failed: {failed}")
+
+
+def profile_call(torch, label, fn):
+    """One call of ``fn`` under torch.profiler (CPU and CUDA activity):
+    logs its wall-clock, the device time summed over kernels, the device's
+    busy share of the wall-clock and the kernels that took most of it.
+    Only device events count (an operator's own row repeats the time of
+    the kernels it launched)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = []
+    for e in prof.key_averages():
+        us = getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+        if e.device_type == DeviceType.CUDA and us > 0:
+            rows.append((us, e.count, e.key))
+    busy = sum(r[0] for r in rows) * 1e-6
+    if busy == 0:
+        log(f"  profile {label}: {wall:.3f} s wall-clock (profiled); the "
+            "profiler saw no device time: busy share not measured")
+        return
+    rows.sort(reverse=True)
+    top = "; ".join(f"{k[:60]} x{c} {us * 1e-3:.1f} ms "
+                    f"({100 * us * 1e-6 / busy:.0f}%)" for us, c, k in rows[:6])
+    log(f"  profile {label}: {wall:.3f} s wall-clock (profiled), device "
+        f"busy {busy:.3f} s ({100 * busy / wall:.1f}%); {top}")
+
+
+def phase_garch_profile(torch, procs):
+    """Where the GARCH path's time goes: the VaR at 2^28 x 20 (16 chunks)
+    on GARCH and GBM, and garch_monte_carlo at 2^22 without the paths and
+    at 30000 sims with them, each under the profiler."""
+    from montecarlo_tpu_torch.api import (garch_monte_carlo,
+                                          portfolio_var_on_device)
+    from montecarlo_tpu_torch.processes import GBM
+
+    gbm = GBM.create(s0=100.0, mu=0.05, sigma=0.25, dt=1 / 252,
+                     device="cuda")
+    for name, proc in (("GARCH 5y", procs[5]), ("GBM", gbm)):
+        profile_call(torch, f"portfolio_var_on_device {name} 2^28 x 20",
+                     lambda: portfolio_var_on_device(
+                         proc, 1 << 28, GARCH_DAYS, float(proc.s0), seed=0,
+                         bins=VAR_BINS, chunk_paths=VAR_CHUNK))
+    data, s0 = garch_history(1259)
+    for n_sims, keep in ((1 << 22, False), (ORACLE_SIMS, True)):
+        profile_call(torch, f"garch_monte_carlo {n_sims} keep_paths={keep}",
+                     lambda: garch_monte_carlo(data, n_sims, GARCH_DAYS, s0,
+                                               seed=4, keep_paths=keep))
+
+
 #: Each kernel's wrapper, CUDA source and the TPU kernel it replaces.
 KERNELS = [
     ("gbm_terminal", "gbm_kernel.cu", "gbm_kernel.py:118"),
@@ -1214,6 +1642,14 @@ def main() -> int:
         counts["packed_basket_terminal"] = phase_multi_asset(torch)[
             "packed_basket_terminal"]
         log(f"  phase 7 took {time.perf_counter() - t7:.1f} s")
+        log("phase 8: the GARCH path (K2-K4 on GarchProc; "
+            "garch_monte_carlo, portfolio_var_on_device, var --on-device)")
+        t8 = time.perf_counter()
+        procs, chunk_ms = phase_garch_parity(torch, errs, times)
+        phase_garch_mc(torch, chunk_ms)
+        phase_garch_var(torch, procs, chunk_ms)
+        phase_garch_profile(torch, procs)
+        log(f"  phase 8 took {time.perf_counter() - t8:.1f} s, on {card}")
         k3_ms = times["fused_block_moments"]["ms"]
         kernel_s = k3_ms * 1e-3 * n_paths / (1 << 22)
         log(f"  K1 {bench['value']:.6e} path-steps/s, wall-clock to "

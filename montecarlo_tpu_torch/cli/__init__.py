@@ -13,6 +13,8 @@ Subcommands:
           steps x 8 chained reps, on the card; --basket: correlated-basket
           path-steps/s through K7 (A = 8..128) and K2 (A = 5, 8, 16) at
           2^18 paths x 512 steps, one JSON line per row
+  var   — portfolio VaR/CVaR: --on-device runs K2 chunks into a histogram
+          sketch on the card (GBM; --paths --days --bins --chunk)
 
 Usage: python -m montecarlo_tpu_torch <subcommand> [flags]
 """
@@ -33,7 +35,7 @@ def _run_bench(args) -> int:
 
 
 def main(argv=None) -> int:
-    from montecarlo_tpu_torch.cli import note, pricing
+    from montecarlo_tpu_torch.cli import note, pricing, risk
 
     parser = argparse.ArgumentParser(
         prog="montecarlo_tpu_torch",
@@ -41,6 +43,7 @@ def main(argv=None) -> int:
     sub = parser.add_subparsers(dest="cmd", required=True)
     pricing.add_parsers(sub)
     note.add_parsers(sub)
+    risk.add_parsers(sub)
     bench = sub.add_parser("bench", help="GBM path-steps/s through K1 at "
                            "2^20 paths x 1024 steps x 8 reps (CUDA)")
     bench.add_argument("--basket", action="store_true",
@@ -48,5 +51,5 @@ def main(argv=None) -> int:
                             "K2 at 2^18 paths x 512 steps x 4 reps instead")
     args = parser.parse_args(argv)
     handlers = {"price": pricing.cmd_price, "note": note.cmd_note,
-                "bench": _run_bench}
+                "bench": _run_bench, "var": risk.cmd_var}
     return handlers[args.cmd](args)

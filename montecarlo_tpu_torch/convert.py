@@ -4,8 +4,9 @@
 numpy leaves, with ``fields = {k: np.asarray(v) for k, v in
 jax_proc._asdict().items()}``, so a test can build both sides from one
 numpy source.  Floating leaves become float32 tensors and integer leaves
-keep their integer type (a process with a lookup table and its length, such
-as the bootstrap GARCH, registers its class here the same way).
+keep their integer type.  The bootstrap GARCH carries its table and the
+table's length: JAX pads the table to a multiple of 128, and the port keeps
+its ``n_table`` valid entries (``GARCHBootstrap.numpy_fields``).
 """
 
 from __future__ import annotations
@@ -17,13 +18,15 @@ import torch
 
 from montecarlo_tpu_torch.device import resolve_device
 from montecarlo_tpu_torch.processes.basket import BasketGBM
+from montecarlo_tpu_torch.processes.garch import GARCHBootstrap
 from montecarlo_tpu_torch.processes.gbm import GBM
 from montecarlo_tpu_torch.processes.heston import Heston
 from montecarlo_tpu_torch.processes.multi_gbm import MultiGBM
 from montecarlo_tpu_torch.processes.rough_bergomi import RoughBergomi
 
 PROCESSES = {"gbm": GBM, "heston": Heston, "rbergomi": RoughBergomi,
-             "basket": BasketGBM, "multigbm": MultiGBM}
+             "basket": BasketGBM, "multigbm": MultiGBM,
+             "garch": GARCHBootstrap}
 
 
 def _tensor(name: str, value, device) -> torch.Tensor:
@@ -42,6 +45,8 @@ def process_from_numpy(kind: str, fields: dict, device="cuda"):
     if sorted(fields) != sorted(names):
         raise ValueError(f"{kind} takes fields {names}, got {sorted(fields)}")
     dev = resolve_device(device)
+    if hasattr(cls, "numpy_fields"):
+        fields = cls.numpy_fields(fields)
     return cls(**{k: _tensor(k, fields[k], dev) for k in names})
 
 

@@ -4,10 +4,11 @@
 // _make_kernel with payoff_fn=None), ::fused_block_moments_pallas (K3,
 // _make_kernel with a payoff epilogue) and ::fused_functionals_pallas (K4,
 // _make_functional_kernel).  Every kernel is a template over a process
-// functor (GbmProc, HestonProc, BasketProc<16>, BasketProc<128>): init from
-// the process leaves, then per pair of steps one draws_pair (the two steps
-// share their cipher calls), the antithetic mirror on odd path ids, step x2
-// with the odd final step dropped, and prices at the end.
+// functor (GbmProc, HestonProc, BasketProc<16>, BasketProc<128>,
+// GarchProc): init from the process leaves, then per pair of steps one
+// draws_pair (the two steps share their cipher calls), the process's own
+// antithetic mirror on odd path ids (a negated normal, or GARCH's 1 - u),
+// step x2 with the odd final step dropped, and prices at the end.
 //   fused_kernel<Proc, Antithetic, Epilogue>: the epilogue stores the
 //     terminal price (K2) or applies a vanilla payoff and writes (mean, M2)
 //     per 128-path row (K3).
@@ -21,7 +22,10 @@
 // K4 4 bytes per path per output; a basket takes A cipher calls per pair
 // of steps and A(A+1)/2 multiplies and A(A-1)/2 adds per step (the
 // unrolled Cholesky),
-// its parameters read from the leaves through L1 by every thread.  Design:
+// its parameters read from the leaves through L1 by every thread; GARCH
+// one cipher call per pair of steps and, per step, one table read through
+// the read-only cache (the 5-year table is 5 KB), a sqrt and 9 float32
+// operations.  Design:
 // one thread per path with the state and the functional accumulators (at
 // most 4 x 4 floats, statically indexed so they stay in registers) in
 // registers for the whole time loop (a basket of more than 16 assets keeps
@@ -53,6 +57,7 @@ struct NormalDraws {
   static constexpr int kDraws = D;   // capacity of the eps arrays
   static constexpr int kUnroll = D;  // unroll factor of per-draw loops
   __device__ int draws() const { return D; }
+  __device__ static float mirror(float e) { return -e; }
   __device__ static void draws_pair(uint32_t k0, uint32_t k1, uint32_t id,
                                     uint32_t j, float* eps0, float* eps1) {
     float flat[2 * D];
@@ -71,7 +76,7 @@ struct NormalDraws {
 };
 
 // Process codes: the index in ops/fused_engine.py::PROCESS_CODES.
-enum ProcessCode { kGbm = 0, kHeston = 1, kBasket = 2 };
+enum ProcessCode { kGbm = 0, kHeston = 1, kBasket = 2, kGarch = 3 };
 
 constexpr int kBasketSmall = 16;   // register-resident basket capacity
 constexpr int kBasketMax = 128;    // local-memory capacity: MAX_ASSETS
@@ -166,6 +171,7 @@ struct BasketProc {
     }
   }
   __device__ int draws() const { return A; }
+  __device__ static float mirror(float e) { return -e; }
   // NormalDrawsMixin.draws_pair with the runtime A: calls j*A + c, c < A,
   // flattened to flat[0:2A]; eps0 = flat[0:A], eps1 = flat[A:2A].  Split
   // by the parity of A so every slot index is static after unrolling: an
@@ -250,8 +256,55 @@ struct BasketProc {
   }
 };
 
+// GARCH(1,1) bootstrap (processes/garch.py): leaves = [s0, var0, omega,
+// alpha, beta, table (n)], n = dims the table length.  The draw of step t
+// is a uniform, component t & 1 of cipher call t >> 1; the step maps it to
+// min(floor(u * n), n - 1) (rng/normal.py::index_from_uniform), reads the
+// shock there through the read-only cache and runs the recurrence in the
+// JAX package's order: r = shock * sqrt(var), var' = (omega + alpha (r r))
+// + beta var, log_s' = log_s + r.  The mirror is u -> 1 - u, exact in
+// float32 for these uniforms.
+struct GarchProc {
+  static constexpr int kDraws = 1;
+  static constexpr int kUnroll = 1;
+  struct State {
+    float log_s, var;
+  };
+  const float* table;
+  int n;
+  float n_f, log_s0, var0, omega, alpha, beta;
+  __device__ GarchProc(const float* leaves, int n_table)
+      : table(leaves + 5), n(n_table) {
+    n_f = (float)n_table;
+    log_s0 = mc::log32(leaves[0]);
+    var0 = leaves[1];
+    omega = leaves[2];
+    alpha = leaves[3];
+    beta = leaves[4];
+  }
+  __device__ int draws() const { return 1; }
+  __device__ static float mirror(float u) { return 1.0f - u; }
+  __device__ static void draws_pair(uint32_t k0, uint32_t k1, uint32_t id,
+                                    uint32_t j, float* eps0, float* eps1) {
+    uint32_t b0, b1;
+    mc::threefry2x32(k0, k1, id, j, &b0, &b1);
+    eps0[0] = mc::uniform_from_bits(b0);
+    eps1[0] = mc::uniform_from_bits(b1);
+  }
+  __device__ State init() const { return State{log_s0, var0}; }
+  __device__ State step(State s, const float* eps) const {
+    const int idx = min((int)floorf(eps[0] * n_f), n - 1);
+    const float shock = __ldg(table + idx);
+    const float r = shock * sqrtf(s.var);
+    const float var = (omega + alpha * (r * r)) + beta * s.var;
+    return State{s.log_s + r, var};
+  }
+  __device__ float prices(State s) const { return mc::exp32(s.log_s); }
+  __device__ float log_prices(State s) const { return s.log_s; }
+};
+
 // Runs `body` with the per-thread pair loop of every kernel: the draws of
-// steps (2j, 2j+1), mirrored on odd ids for antithetic runs.
+// steps (2j, 2j+1), mirrored by the process on odd ids for antithetic runs.
 template <class Proc, bool Antithetic, class Body>
 __device__ void pair_loop(const Proc& proc, uint32_t k0, uint32_t k1,
                           uint32_t id, int n_steps, Body body) {
@@ -267,8 +320,8 @@ __device__ void pair_loop(const Proc& proc, uint32_t k0, uint32_t k1,
 #pragma unroll(Proc::kUnroll)
       for (int d = 0; d < D; ++d) {
         if (d < proc.draws()) {
-          eps0[d] = -eps0[d];
-          eps1[d] = -eps1[d];
+          eps0[d] = Proc::mirror(eps0[d]);
+          eps1[d] = Proc::mirror(eps1[d]);
         }
       }
     }
@@ -566,6 +619,11 @@ int dispatch(int process, int dims, int antithetic, int64_t n_paths,
       launch<Launcher, HestonProc>(antithetic, blocks, s, n_paths, dims,
                                    args...);
       break;
+    case kGarch:
+      if (dims < 1) return (int)cudaErrorInvalidValue;
+      launch<Launcher, GarchProc>(antithetic, blocks, s, n_paths, dims,
+                                  args...);
+      break;
     case kBasket:
       if (dims < 1 || dims > kBasketMax) return (int)cudaErrorInvalidValue;
       if (dims <= kBasketSmall) {
@@ -610,7 +668,8 @@ struct FunctionalLauncher {
 }  // namespace
 
 // Every entry takes the process code and its dimension `dims` (the basket's
-// asset count; ignored by GBM and Heston) after the leaves.
+// asset count, GARCH's table length; ignored by GBM and Heston) after the
+// leaves.
 // K2: terminal prices, out (n_paths,).
 extern "C" int mc_fused_terminal(float* out, const float* leaves,
                                  int process, int dims, int64_t n_paths,

@@ -1,9 +1,9 @@
 """Engine dispatch for terminal and path-functional runs.
 
-GBM, Heston and BasketGBM with the plain or antithetic sampler always go
-through the kernel wrappers, at any path count (the kernels mask the
-ragged edge); each wrapper launches its CUDA kernel for a CUDA process and
-runs its plain version for a CPU one.  Block moments use K3 when the payoff is a
+GBM, Heston, BasketGBM and the bootstrap GARCH with the plain or
+antithetic sampler always go through the kernel wrappers, at any path
+count (the kernels mask the ragged edge); each wrapper launches its CUDA
+kernel for a CUDA process and runs its plain version for a CPU one.  Block moments use K3 when the payoff is a
 :class:`VanillaPayoff` and the path count is a multiple of the 4096-path
 stats block; otherwise K2, then the payoff and ``moments_from_array`` in
 torch.  Path functionals go to K4 (``simulate_functionals(...,

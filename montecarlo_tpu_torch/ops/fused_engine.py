@@ -3,12 +3,12 @@
 Port of ``montecarlo_tpu/ops/fused_engine.py::fused_terminal_pallas`` (K2),
 ``::fused_block_moments_pallas`` (K3) and ``::fused_functionals_pallas``
 (K4); the kernels are templates over a process functor (GBM, Heston, the
-correlated GBM basket of at most 128 assets) in ``csrc/fused_engine.cu``.
-The plain versions below run the process's own
+correlated GBM basket of at most 128 assets, the bootstrap GARCH) in
+``csrc/fused_engine.cu``.  The plain versions below run the process's own
 ``draws_pair``/``step``/``prices`` in the kernel's order — two steps per
-cipher call, the antithetic mirror on odd ids, the odd final step dropped —
-and agree with the kernels bitwise where the platform's log/sqrt/sin/cos
-do.
+cipher call, the process's antithetic mirror on odd ids, the odd final
+step dropped — and agree with the kernels bitwise where the platform's
+log/sqrt/sin/cos do.
 
 K3 applies a :class:`VanillaPayoff` in the kernel and writes (mean, M2) per
 128-path row, summed in ``tree_sum``'s fixed order; the rows are merged
@@ -35,6 +35,7 @@ from montecarlo_tpu_torch.ops._build import (CudaKernel, check_cuda_tensor,
                                              cuda_stream)
 from montecarlo_tpu_torch.processes.basket import (BasketGBM,
                                                    check_kernel_assets)
+from montecarlo_tpu_torch.processes.garch import GARCHBootstrap
 from montecarlo_tpu_torch.processes.gbm import GBM
 from montecarlo_tpu_torch.processes.heston import Heston
 from montecarlo_tpu_torch.rng.threefry import MASK32, key_from_seed
@@ -46,7 +47,7 @@ STATS_BLOCK = 4096   # paths per MomentState block
 MAX_FUNCTIONALS = 4  # K4's functional slots (kMaxFunctionals)
 
 #: The processes the kernels run, by the code of their functor.
-PROCESS_CODES = {GBM: 0, Heston: 1, BasketGBM: 2}
+PROCESS_CODES = {GBM: 0, Heston: 1, BasketGBM: 2, GARCHBootstrap: 3}
 
 _COMMON = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
            ctypes.c_int64, ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint32,
@@ -60,21 +61,26 @@ K4 = CudaKernel("mc_fused_functionals",
 
 
 def _leaves(process):
-    """(process code, dims, leaves): the leaves float32 in field order,
+    """(process code, dims, leaves): the float32 leaves in field order,
     flattened, as the kernel's functor reads them (GBM: [s0, mu, sigma,
     dt]; Heston: [s0, v0, mu, kappa, theta, xi, rho, dt]; basket: [s0 (A),
-    mu (A), sigma (A), chol_flat (A*A), weights (A), dt]), and ``dims``
-    the draws per step (the basket's A)."""
+    mu (A), sigma (A), chol_flat (A*A), weights (A), dt]; GARCH: [s0,
+    var0, omega, alpha, beta, table (n_table)]), and ``dims`` the basket's
+    A or GARCH's table length, an integer that never passes through a
+    float."""
     code = PROCESS_CODES.get(type(process))
     if code is None:
         raise TypeError("the fused kernels run GBM and Heston (and "
-                        "BasketGBM) in this port, got "
+                        "BasketGBM and GARCHBootstrap) in this port, got "
                         f"{type(process).__name__}")
     dims = process.n_draws
     if isinstance(process, BasketGBM):
         check_kernel_assets(dims)
-    return code, dims, torch.cat([getattr(process, f.name).reshape(-1)
-                                  for f in dataclasses.fields(process)])
+    elif isinstance(process, GARCHBootstrap):
+        dims = process.table.numel()
+    fields = [getattr(process, f.name) for f in dataclasses.fields(process)]
+    return code, dims, torch.cat([v.reshape(-1) for v in fields
+                                  if v.is_floating_point()])
 
 
 def _draw_pairs(process, n_steps: int, k0: int, k1: int, ids,

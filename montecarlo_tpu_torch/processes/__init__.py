@@ -1,8 +1,13 @@
-"""Stochastic processes (GBM, Heston, the correlated GBM basket and
-MultiGBM) and the rough-Bergomi sampler."""
+"""Stochastic processes (GBM, Heston, the correlated GBM basket, MultiGBM
+and the bootstrap GARCH) and the rough-Bergomi sampler."""
 
 from montecarlo_tpu_torch.processes.base import NormalDrawsMixin  # noqa: F401
 from montecarlo_tpu_torch.processes.basket import BasketGBM  # noqa: F401
+from montecarlo_tpu_torch.processes.garch import (  # noqa: F401
+    MIN_HISTORY,
+    GARCHBootstrap,
+    GARCHState,
+)
 from montecarlo_tpu_torch.processes.gbm import GBM, GBMState  # noqa: F401
 from montecarlo_tpu_torch.processes.heston import (  # noqa: F401
     Heston,

@@ -14,6 +14,7 @@ rtol 1e-5 plus FLIPS times the largest jump of one path's payoff over the
 path count.
 """
 
+import ast
 import json
 import subprocess
 import sys
@@ -176,9 +177,17 @@ def test_note_worst_of_matches_jax_cli(flags, capsys):
         assert abs(got[k] - want[k]) <= tol, k
 
 
+#: The GARCH slice's modules, which the walk below must reach.
+GARCH_MODULES = ("api.montecarlo", "api.var", "cli.risk", "data.synthetic",
+                 "engine.path_sketch", "engine.streaming", "processes.garch",
+                 "processes.garch_fit", "stats.quantiles", "stats.risk")
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of the port, imported in a fresh interpreter, leaves
-    ``jax`` and ``montecarlo_tpu`` out of ``sys.modules``."""
+    ``jax`` and ``montecarlo_tpu`` out of ``sys.modules``; the walk covers
+    the GARCH slice's modules; ``chip_smoke.py`` imports neither, at any
+    level of the script."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import montecarlo_tpu_torch as pkg\n"
@@ -188,13 +197,28 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         "    importlib.import_module(name)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'montecarlo_tpu'))\n"
-        "print(len(names), bad)\n")
+        "print(' '.join(names), '|', bad)\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120,
                          check=True)
-    n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) > 20
+    names, bad = out.stdout.strip().split(" | ", 1)
+    names = set(names.split())
+    assert len(names) > 20
     assert bad == "[]", bad
+    missing = [m for m in GARCH_MODULES
+               if f"montecarlo_tpu_torch.{m}" not in names]
+    assert not missing, missing
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    imported = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            imported.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            imported.add(node.module or "")
+    assert any(m.startswith("montecarlo_tpu_torch") for m in imported)
+    bad = sorted(m for m in imported
+                 if m.split(".")[0] in ("jax", "jaxlib", "montecarlo_tpu"))
+    assert not bad, bad
 
 
 def test_bridge_knock_out_plus_knock_in_is_vanilla(capsys):

@@ -18,19 +18,25 @@ float32 operations as their plain versions: bitwise; the factor product
 between them runs in true float32 whatever the process-wide setting.  K7
 (the packed basket) and K2-K4 on the correlated basket (BasketProc, 16 and
 128 asset capacities) run their plain versions' counters and float32
-operations: bitwise.
+operations: bitwise.  So do K2-K4 on the bootstrap GARCH (GarchProc: a
+uniform per step, a table read, an IEEE sqrt, the mirror 1 - u), and the
+per-process mirror leaves every other process's antithetic draws the
+negation they were.
 """
+
+import math
 
 import numpy as np
 import pytest
 import torch
 
 from montecarlo_tpu_torch.bench import bench_basket
+from montecarlo_tpu_torch.data import generate_ohlcv
 from montecarlo_tpu_torch.engine import (ARITH_MEAN, GEO_MEAN, RUNNING_MAX,
                                          RUNNING_MIN, VanillaPayoff,
                                          autocallable, barrier_survival_up,
                                          cliquet_sum, realized_variance,
-                                         simulate_functionals,
+                                         simulate, simulate_functionals,
                                          trapezoid_integral,
                                          worst_of_autocallable)
 from montecarlo_tpu_torch.ops import (PATH_KERNELS, fused_block_moments,
@@ -44,8 +50,8 @@ from montecarlo_tpu_torch.ops import (PATH_KERNELS, fused_block_moments,
                                       packed_basket_terminal_reference,
                                       rbergomi_terminal,
                                       rbergomi_terminal_reference)
-from montecarlo_tpu_torch.processes import (GBM, Heston, RoughBergomi,
-                                            rbergomi_simulate)
+from montecarlo_tpu_torch.processes import (GBM, GARCHBootstrap, Heston,
+                                            RoughBergomi, rbergomi_simulate)
 from montecarlo_tpu_torch.precision import factor_product
 from montecarlo_tpu_torch.samplers import AntitheticSampler
 
@@ -307,3 +313,91 @@ def test_cuda_basket_k2_k3_k4_bitwise_equal_plain(cuda, a_n, antithetic):
         assert torch.equal(loop[k], want[k]), k
     for k, n in before.items():
         assert PATH_KERNELS[k].launches == n + 1, k
+
+
+def _garch(n_returns, device, seed=21):
+    """A bootstrap GARCH on a synthetic history of ``n_returns`` log
+    returns, var0 from its last 20 (rvol_20 ** 2 / 252, ddof 1)."""
+    close = generate_ohlcv(n_days=n_returns + 1, seed=seed)["Close"]
+    r = np.diff(np.log(close))
+    return GARCHBootstrap.create(r, s0=close[-1],
+                                 var0=np.var(r[-20:], ddof=1),
+                                 device=device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_returns", [503, 1259])
+@pytest.mark.parametrize("antithetic", [False, True])
+@pytest.mark.parametrize("n_steps", [1, 16, 17])
+def test_cuda_garch_k2_k3_k4_bitwise_equal_plain(cuda, n_returns, antithetic,
+                                                 n_steps):
+    """GarchProc in K2, K3 and K4 against the plain versions and the torch
+    loop, a ragged path count, ids wrapping past 2^32."""
+    tp = _garch(n_returns, cuda)
+    kw = dict(seed=6, path_offset=WRAP, antithetic=antithetic)
+    sampler = AntitheticSampler() if antithetic else None
+    before = dict((k, PATH_KERNELS[k].launches) for k in (
+        "fused_terminal", "fused_block_moments", "fused_functionals"))
+    got = fused_terminal(tp, 1000, n_steps, **kw)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, fused_terminal_reference(tp, 1000, n_steps, **kw))
+    assert torch.equal(got, simulate(tp, 1000, n_steps, seed=6,
+                                     path_offset=WRAP, sampler=sampler))
+    pay = VanillaPayoff("put", float(tp.s0))
+    got = fused_block_moments(tp, pay, 4096, n_steps, **kw)
+    want = fused_block_moments_reference(tp, pay, 4096, n_steps, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    fns = {"avg": ARITH_MEAN, "mx": RUNNING_MAX, "mn": RUNNING_MIN}
+    got = fused_functionals(tp, 1000, n_steps, functionals=fns, **kw)
+    want = fused_functionals_reference(tp, 1000, n_steps, functionals=fns,
+                                       **kw)
+    loop = simulate_functionals(tp, 1000, n_steps, prefer_fused=False,
+                                seed=6, path_offset=WRAP, sampler=sampler,
+                                functionals=fns)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+        assert torch.equal(loop[k], want[k]), k
+    for k, n in before.items():
+        assert PATH_KERNELS[k].launches == n + 1, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gbm", "basket"])
+def test_cuda_mirror_is_still_the_negation(cuda, kind):
+    """K2's antithetic run against two plain K2 runs: path 2k is the plain
+    run's path k and path 2k+1 the plain run of the process with every
+    sigma negated, since a negated draw and a negated scale round alike
+    (the drift takes sigma^2).  The per-process mirror left GBM's and the
+    basket's draws as they were; Heston's is held to its plain version in
+    test_cuda_k2_k3_heston_bitwise_equal_plain."""
+    if kind == "gbm":
+        proc = GBM.create(100.0, 0.03, 0.2, 1 / 17, device=cuda)
+        flip = GBM.create(100.0, 0.03, -0.2, 1 / 17, device=cuda)
+    else:
+        proc = bench_basket(5, device=cuda)
+        flip = type(proc)(**{**proc.__dict__, "sigma": -proc.sigma})
+    n, steps = 2 * 1000, 17
+    anti = fused_terminal(proc, n, steps, seed=2, antithetic=True)
+    assert torch.equal(anti[0::2], fused_terminal(proc, n // 2, steps,
+                                                  seed=2))
+    assert torch.equal(anti[1::2], fused_terminal(flip, n // 2, steps,
+                                                  seed=2))
+
+
+@pytest.mark.cuda
+def test_cuda_garch_mirror_is_one_minus_u(cuda):
+    """GARCH's odd antithetic path reads the table at the mirrored
+    uniform: with a one-step run its log-return is table[idx(1 - u)] *
+    sqrt(var0), never an index below the table."""
+    tp = _garch(503, cuda)
+    n = 2 * 4096
+    anti = fused_terminal(tp, n, 1, seed=3, antithetic=True)
+    want = fused_terminal_reference(tp, n, 1, seed=3, antithetic=True)
+    assert torch.equal(anti, want)
+    assert torch.isfinite(anti).all()
+    even, odd = anti[0::2].double(), anti[1::2].double()
+    s0 = float(tp.s0)
+    # Sorted table: the mirror pairs low shocks with high ones.
+    corr = torch.corrcoef(torch.stack([even.log() - math.log(s0),
+                                       odd.log() - math.log(s0)]))[0, 1]
+    assert corr < -0.5
