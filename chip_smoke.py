@@ -8,7 +8,9 @@ CUDA kernels from ``montecarlo_tpu_torch/csrc`` and, in phases:
    and each kernel's registers, stack frame and spills (``-Xptxas -v``);
 2. K0: Threefry words, uniforms and exp32 of the device build against the
    plain PyTorch versions on 2^20 counters (bitwise), Box-Muller and log32
-   (bitwise fraction, max difference);
+   (bitwise fraction, max difference); the Sobol integer, Owen key,
+   scrambled uniform and Sobol normal of 2^20 (id, dim) pairs and ndtri32
+   (bitwise);
 3. K1, K2 and K3 (GBM; K2 and K3 also Heston; plain and antithetic) and
    K4 (every device functional, GBM and Heston, plain and antithetic)
    against their plain versions at 2^18 paths x {252, 17} steps;
@@ -65,7 +67,25 @@ CUDA kernels from ``montecarlo_tpu_torch/csrc`` and, in phases:
    VaR at its closed form; the sketch at 2^22 within its grid errors of
    the exact statistics of the same terminals) and ``var --on-device``
    (the JAX CLI's keys); the VaR at 2^28 and ``garch_monte_carlo`` under
-   the profiler (device busy share, kernels by device time).
+   the profiler (device busy share, kernels by device time);
+9. randomized QMC (K2-K4 under Sobol and bridge-Sobol draws): K2, K3 and
+   K4 under each draw source against their plain versions bitwise at 2^18
+   and 2^18 - 37 paths x {252, 17, 9} steps on tables built for exactly
+   the run's steps, ids crossing 2^30; each timed with its bound at the
+   QMC path's shapes (the Threefry K2 beside the Sobol one; K3's rows add
+   the kernel's device time from the profiler as ``device_ms``, since at
+   2^18 paths its wrapper's merges can leave the card idle between
+   launches); then, launch counters reset just before and read just after
+   each run: ``price --sampler sobol-device --target-se 1e-3`` (the RQMC
+   wall-clock to std-err 1e-3; K3 under Sobol), ``--sampler sobol-bridge``
+   (K2 under the bridge), ``--process heston --sampler sobol-device`` (K2
+   under Sobol), the Asian under both samplers at 2^20 paths (K4),
+   ``--sampler sobol`` at 65536 (the host table on the torch loop, no
+   kernel) and ``price_to_tolerance_rqmc`` with bridge replicates (K3
+   under the bridge), each vanilla price within 4 replicate std-errs +
+   1e-4 of Black-Scholes, each run launching its kernel; the tolerance
+   run's wall-clock is then broken down under the profiler, outside the
+   counted runs.
 
 Phase 3 also holds K5 (2^18 paths x {504, 756, 37} columns, ids wrapping
 past 2^32) and K6 (2^18 x {252, 17} steps, fed one joint matrix) against
@@ -234,6 +254,28 @@ def phase_k0(torch):
         _, max_abs, _ = compare(name, got[name], want[name])
         if max_abs > 1e-6:
             raise AssertionError(f"K0 {name}: max abs {max_abs:.3e} > 1e-6")
+    # The Sobol normal: random (id, dim) pairs of a 504-dim table, ids
+    # near 2^30 and 2^32 included; ndtri32 on uniforms and its tails.
+    from montecarlo_tpu_torch.ops.rng_check import (sobol_check,
+                                                    sobol_check_reference)
+    from montecarlo_tpu_torch.rng.sobol import SobolDeviceSampler
+
+    sv = SobolDeviceSampler.create(252, 2, device="cuda").sv
+    ids = c0.clone()
+    ids[:4096] = (1 << 30) - 2048 + torch.arange(4096, device=dev)
+    dims = torch.from_numpy(rng.integers(0, 504, n)).to(dev)
+    u = torch.from_numpy(np.concatenate([
+        rng.uniform(0, 1, n - 56), 2.0 ** -np.arange(1, 33),
+        1 - 2.0 ** -np.arange(1, 25)]).astype(np.float32)).to(dev)
+    got = sobol_check(k0, k1, sv, ids, dims, u)
+    want = sobol_check_reference(k0, k1, sv, ids, dims, u)
+    torch.cuda.synchronize()
+    for name in want:
+        same = bool(torch.equal(got[name], want[name]))
+        log(f"  {name}: bitwise {same}")
+        if not same:
+            compare(name, got[name].double(), want[name].double())
+            raise AssertionError(f"K0 {name} differs from the plain version")
 
 
 def phase_parity(torch, errs):
@@ -1553,6 +1595,29 @@ def profile_call(torch, label, fn):
         f"busy {busy:.3f} s ({100 * busy / wall:.1f}%); {top}")
 
 
+def device_ms(torch, fn, reps, kernel="fused_kernel"):
+    """Device milliseconds per call of ``fn`` spent in the kernels whose
+    name holds ``kernel``, from ``reps`` profiled calls after one warm-up:
+    the card's time without the host's launch gaps (K3's wrapper launches
+    ~36 small merge operations after its kernel).  None when the profiler
+    sees no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0.0))
+             for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and kernel in e.key)
+    return us * 1e-3 / reps if us > 0 else None
+
+
 def phase_garch_profile(torch, procs):
     """Where the GARCH path's time goes: the VaR at 2^28 x 20 (16 chunks)
     on GARCH and GBM, and garch_monte_carlo at 2^22 without the paths and
@@ -1575,6 +1640,340 @@ def phase_garch_profile(torch, procs):
                                                seed=4, keep_paths=keep))
 
 
+# ---- phase 9: randomized QMC ------------------------------------------------
+
+# Per Sobol normal beyond the Gray-code XORs (counted from this run's ids):
+# the Gray code (2), the shift, two bit reversals, the key add, the Owen
+# hash's four multiplies and XORs, the uniform's shift; then the uniform's
+# convert, add and multiply and ndtri32's three rationals, clamps and
+# selects (at least 50 float32 operations; its log and sqrt not counted).
+# The Owen key is one Threefry call per dimension and launch: it does not
+# depend on the path, so the bound counts it once (the kernel computes it
+# per path).
+SOBOL_INT, NDTRI_FP = 16, 52
+RQMC_REPS = 8
+#: The RQMC cells: the tolerance run's per-replicate chunk (K2/K3), the
+#: path-dependent CLI's 2^20 paths over 8 replicates (K4), the steps.
+QMC_CHUNK, QMC_FUNC, QMC_STEPS = 1 << 18, 1 << 17, 252
+
+
+def gray_xors(torch, n, path_offset=0):
+    """The Gray-code XORs one Sobol dimension takes over this run's ids:
+    the set bits of gray(id) below bit 30, summed over the n ids."""
+    ids = (torch.arange(n, dtype=torch.int64, device="cuda")
+           + path_offset) & 0xFFFFFFFF
+    g = (ids ^ (ids >> 1)) & ((1 << 30) - 1)
+    total = torch.zeros((), dtype=torch.int64, device="cuda")
+    for k in range(30):
+        total += ((g >> k) & 1).sum()
+    return int(total)
+
+
+def sobol_bound(torch, n, steps, draws=1, step_fp=3, out_bytes=4,
+                extra_fp=0, path_offset=0, bridge=None):
+    """A fused loop over n paths whose draws are Sobol normals: n * steps *
+    draws of them (or n * T for a bridge of T dims, plus 2L float32
+    operations per step for ``bridge=(T, L)``), each dimension's XORs from
+    this run's ids, ``step_fp`` per step and ``extra_fp`` per path."""
+    dims = bridge[0] if bridge else steps * draws
+    normals = n * dims
+    plan = 2 * bridge[1] * n * steps if bridge else 0
+    return bound(n * out_bytes,
+                 int32=(normals * SOBOL_INT + dims * CIPHER_INT
+                        + dims * gray_xors(torch, n, path_offset)),
+                 fp32=(normals * NDTRI_FP + plan
+                       + n * (steps * step_fp + extra_fp)))
+
+
+def phase_qmc_parity(torch, errs):
+    """K2, K3 and K4 under SobolDraws (GBM; Heston at 17 steps) and
+    BridgeDraws (GBM) against their plain versions, bitwise, at 2^18 paths (K2 and K4 at
+    2^18 - 37) x {252, 17, 9} steps on tables built for exactly the run's
+    steps, ids crossing 2^30 (where the Gray code stops being read)."""
+    from montecarlo_tpu_torch.engine import ARITH_MEAN, RUNNING_MAX
+    from montecarlo_tpu_torch.engine import VanillaPayoff
+    from montecarlo_tpu_torch.ops import (fused_block_moments,
+                                          fused_block_moments_reference,
+                                          fused_functionals,
+                                          fused_functionals_reference,
+                                          fused_terminal,
+                                          fused_terminal_reference)
+    from montecarlo_tpu_torch.processes import GBM
+    from montecarlo_tpu_torch.rng.sobol import (SobolBridgeKernelSampler,
+                                                SobolDeviceSampler)
+
+    n = 1 << 18
+    off = (1 << 30) - 1000
+    fns = {"avg": ARITH_MEAN, "mx": RUNNING_MAX}
+    pay = VanillaPayoff("call", 105.0)
+    for steps in (252, 17, 9):
+        gbm = GBM.create(100.0, 0.03, 0.2, 1.0 / steps, device="cuda")
+        cases = [("sobol", gbm, SobolDeviceSampler.create(
+            steps, 1, scramble_seed=steps, device="cuda"))]
+        if steps == 17:
+            hp = heston(steps)
+            cases.append(("sobol", hp, SobolDeviceSampler.create(
+                steps, 2, scramble_seed=1, device="cuda")))
+        cases.append(("bridge", gbm, SobolBridgeKernelSampler.create(
+            steps, scramble_seed=steps, device="cuda")))
+        for source, proc, smp in cases:
+            kw = dict(seed=13, path_offset=off, sampler=smp)
+            tag = f"{type(proc).__name__} {source} {steps} steps"
+            got = [("K2", "fused_terminal",
+                    fused_terminal(proc, n - 37, steps, **kw),
+                    fused_terminal_reference(proc, n - 37, steps, **kw))]
+            m = fused_block_moments(proc, pay, n, steps, **kw)
+            want_m = fused_block_moments_reference(proc, pay, n, steps, **kw)
+            got += [(f"K3 {f}", "fused_block_moments", getattr(m, f),
+                     getattr(want_m, f)) for f in ("mean", "m2")]
+            fo = fused_functionals(proc, n - 37, steps, functionals=fns, **kw)
+            want_f = fused_functionals_reference(proc, n - 37, steps,
+                                                 functionals=fns, **kw)
+            got += [(f"K4 {k}", "fused_functionals", fo[k], want_f[k])
+                    for k in want_f]
+            for label, key, g, w in got:
+                _, max_abs, _ = compare(f"{label} {tag}", g, w, BITWISE)
+                key = f"{key}_{source}"
+                errs[key] = max(errs.get(key, 0.0), max_abs)
+            del got, m, want_m, fo, want_f
+            torch.cuda.synchronize()
+
+
+def phase_qmc_shapes(torch, errs, times):
+    """The Sobol and bridge kernels against their plain versions and both
+    timed, with their bounds, at the QMC path's shapes: K2 and K3 on GBM at
+    the RQMC tolerance run's 2^18 x 252 replicate chunk; K2 on Heston at
+    the CLI's 2^17 x 252 replicate and at 2^20 x 252; the bridge's K2 at
+    2^18 x 252; K4 {avg} at the Asian CLI's 2^17 x 252 replicate under
+    both samplers; the Threefry K2 beside them at 2^18 x 252."""
+    from montecarlo_tpu_torch.engine import ARITH_MEAN, VanillaPayoff
+    from montecarlo_tpu_torch.ops import (fused_block_moments,
+                                          fused_block_moments_reference,
+                                          fused_functionals,
+                                          fused_functionals_reference,
+                                          fused_terminal,
+                                          fused_terminal_reference)
+    from montecarlo_tpu_torch.processes import GBM
+    from montecarlo_tpu_torch.rng.sobol import (SobolBridgeKernelSampler,
+                                                SobolDeviceSampler)
+
+    check = functools.partial(timed_check, times, errs)
+
+    def k3_device(key, label, fn):
+        """A K3 row adds its kernel's device time as ``device_ms`` beside
+        ``ms``, the wrapper's event time like every other row's, which at
+        2^18 paths includes the host's merge launches."""
+        d = device_ms(torch, fn, 10)
+        row = times[key]
+        row["device_ms"] = d
+        log(f"  {label}: kernel "
+            + ("not measured (the profiler saw no device time)" if d is None
+               else f"{d:.3f} ms of device time per call (profiler)")
+            + f", wrapper {row['ms']:.3f} ms (events)")
+
+    n, s = QMC_CHUNK, QMC_STEPS
+    gbm = GBM.create(100.0, 0.03, 0.2, 1.0 / s, device="cuda")
+    dev = SobolDeviceSampler.create(s, 1, device="cuda")
+    bridge = SobolBridgeKernelSampler.create(s, device="cuda")
+    t_l = (bridge.n_steps, bridge.width)
+    pay = VanillaPayoff("call", 105.0)
+    # The replicate chunk at chunk index 5 (ids 5 * 2^18 onwards).
+    off = 5 * n
+    check("fused_terminal_sobol", f"K2 GBM sobol {n}x{s}",
+          lambda: fused_terminal(gbm, n, s, seed=1, sampler=dev),
+          lambda: fused_terminal_reference(gbm, n, s, seed=1, sampler=dev),
+          10, BITWISE, bnd=sobol_bound(torch, n, s, extra_fp=EXP32_FP))
+    check("fused_block_moments_sobol", f"K3 GBM sobol call {n}x{s} "
+          f"offset {off}",
+          lambda: fused_block_moments(gbm, pay, n, s, seed=1, sampler=dev,
+                                      path_offset=off),
+          lambda: fused_block_moments_reference(gbm, pay, n, s, seed=1,
+                                                sampler=dev, path_offset=off),
+          10, BITWISE, fields=("mean", "m2"),
+          bnd=sobol_bound(torch, n, s, out_bytes=8 / 128,
+                          extra_fp=EXP32_FP + 8, path_offset=off))
+    k3_device("fused_block_moments_sobol", f"K3 GBM sobol {n}x{s}",
+              lambda: fused_block_moments(gbm, pay, n, s, seed=1, sampler=dev,
+                                          path_offset=off))
+    for nh in (QMC_FUNC, 1 << 20):
+        hp = heston(s)
+        hs = SobolDeviceSampler.create(s, 2, device="cuda")
+        check("fused_terminal_sobol", f"K2 Heston sobol {nh}x{s}",
+              lambda: fused_terminal(hp, nh, s, seed=1, sampler=hs),
+              lambda: fused_terminal_reference(hp, nh, s, seed=1,
+                                               sampler=hs),
+              10, BITWISE,
+              bnd=sobol_bound(torch, nh, s, draws=2, step_fp=HESTON_STEP_FP,
+                              extra_fp=EXP32_FP))
+    check("fused_terminal_bridge", f"K2 GBM bridge {n}x{s}",
+          lambda: fused_terminal(gbm, n, s, seed=1, sampler=bridge),
+          lambda: fused_terminal_reference(gbm, n, s, seed=1, sampler=bridge),
+          10, BITWISE,
+          bnd=sobol_bound(torch, n, s, extra_fp=EXP32_FP, bridge=t_l))
+    check("fused_block_moments_bridge", f"K3 GBM bridge call {n}x{s}",
+          lambda: fused_block_moments(gbm, pay, n, s, seed=1, sampler=bridge),
+          lambda: fused_block_moments_reference(gbm, pay, n, s, seed=1,
+                                                sampler=bridge),
+          10, BITWISE, fields=("mean", "m2"),
+          bnd=sobol_bound(torch, n, s, out_bytes=8 / 128,
+                          extra_fp=EXP32_FP + 8, bridge=t_l))
+    k3_device("fused_block_moments_bridge", f"K3 GBM bridge {n}x{s}",
+              lambda: fused_block_moments(gbm, pay, n, s, seed=1,
+                                          sampler=bridge))
+    fns = {"avg": ARITH_MEAN}
+    nf = QMC_FUNC
+    obs = 3 + EXP32_FP + 1  # a GBM step, its observation's exp32, the fold
+    for key, smp, bridged in (("fused_functionals_sobol", dev, None),
+                              ("fused_functionals_bridge", bridge, t_l)):
+        check(key, f"K4 GBM {{avg}} {key.rsplit('_', 1)[1]} {nf}x{s}",
+              lambda: fused_functionals(gbm, nf, s, seed=1, sampler=smp,
+                                        functionals=fns),
+              lambda: fused_functionals_reference(gbm, nf, s, seed=1,
+                                                  sampler=smp,
+                                                  functionals=fns),
+              10, BITWISE,
+              bnd=sobol_bound(torch, nf, s, step_fp=obs, out_bytes=8,
+                              extra_fp=EXP32_FP, bridge=bridged))
+    t = {}
+    timed_check(t, errs, "fused_terminal", f"K2 GBM threefry {n}x{s}",
+                lambda: fused_terminal(gbm, n, s, seed=1),
+                lambda: fused_terminal_reference(gbm, n, s, seed=1),
+                10, BITWISE, bnd=step_bound(n, s, extra_fp=EXP32_FP))
+    ratio = times["fused_terminal_sobol"]["ms"] / t["fused_terminal"]["ms"]
+    log(f"  K2 GBM at {n}x{s}: Sobol draws {ratio:.2f}x the Threefry "
+        "draws' time")
+
+
+def check_rqmc_price(label, out):
+    """Black-Scholes gate of an RQMC vanilla price: within 4 replicate
+    std-errs plus 1e-4."""
+    price, se, bs = out["price"], out["std_err"], out["black_scholes"]
+    ok = math.isfinite(price) and abs(price - bs) < 4 * se + 1e-4
+    log(f"  {label}: {json.dumps(out)} -> |price - bs| = "
+        f"{abs(price - bs):.3e}, 4 se + 1e-4 = {4 * se + 1e-4:.3e} "
+        f"({'ok' if ok else 'FAIL'})")
+    if not ok:
+        raise AssertionError(f"{label}: price {price} vs Black-Scholes {bs}")
+
+
+def run_qmc(totals, label, kernels, fn):
+    """One run of the QMC path, the launch counters reset just before and
+    read just after (``run_counted``): each of ``kernels`` must have
+    launched in it, and nothing else (no kernel at all when it is empty);
+    its launches are added to ``totals``.  Returns (result, wall s)."""
+    out, wall, counts = run_counted(fn)
+    launched = {k: n for k, n in counts.items() if n}
+    log(f"  {label}: {launched or 'no kernel'} launched, {wall:.3f} s")
+    if set(launched) != set(kernels):
+        raise AssertionError(f"{label}: launched {launched}, expected "
+                             f"{list(kernels)}")
+    for k, n in launched.items():
+        totals[k] = totals.get(k, 0) + n
+    return out, wall
+
+
+def phase_qmc_path(torch):
+    """The QMC path through the CLI and the engine, each run counted by
+    itself (``run_qmc``): ``price --sampler sobol-device --target-se
+    1e-3`` (RQMC, K3 under Sobol), ``--sampler sobol-bridge`` (K2 under the
+    bridge) and ``--sampler sobol-device --process heston`` (K2 under
+    Sobol) at 2^20 paths, the Asian under both samplers (K4), ``--sampler
+    sobol`` at 65536 paths (the host table on the torch loop, no kernel),
+    and ``price_to_tolerance_rqmc`` with bridge replicates to 1e-3 through
+    the engine (K3 under the bridge).  Then, outside the counted runs, the
+    tolerance run's wall-clock broken down under the profiler.  Returns
+    the runs' launches per kernel, the RQMC wall-clock and its paths."""
+    from montecarlo_tpu_torch.engine import (VanillaPayoff,
+                                             black_scholes_call,
+                                             discount_factor,
+                                             price_to_tolerance_rqmc)
+    from montecarlo_tpu_torch.processes import GBM
+    from montecarlo_tpu_torch.rng.sobol import (SobolBridgeKernelSampler,
+                                                SobolDeviceSampler)
+
+    counts = {}
+    base = ["price", "--steps", str(QMC_STEPS)]
+
+    def cli(argv, *kernels):
+        label = "price " + " ".join(argv[1:])
+        return run_qmc(counts, label, kernels, lambda: run_cli(argv)[0])
+
+    tol = base + ["--sampler", "sobol-device", "--target-se", "1e-3"]
+    out, wall = cli(tol, "fused_block_moments_sobol")
+    check_rqmc_price("price --sampler sobol-device --target-se 1e-3", out)
+    if not out["std_err"] <= 1e-3:
+        raise AssertionError(f"RQMC target-se run stopped at "
+                             f"{out['std_err']}")
+    chunks = out["n_paths"] // (QMC_CHUNK * RQMC_REPS)
+    log(f"  RQMC wall-clock to std-err 1e-3: {wall:.3f} s ({out['n_paths']} "
+        f"paths, {chunks} chunks of {RQMC_REPS} x {QMC_CHUNK}; "
+        f"{counts['fused_block_moments_sobol']} K3 launches)")
+    big = base + ["--paths", str(1 << 20)]
+    vanilla, _ = cli(big + ["--sampler", "sobol-bridge"],
+                     "fused_terminal_bridge")
+    check_rqmc_price("price --sampler sobol-bridge --paths 1048576", vanilla)
+    heston_out, _ = cli(big + ["--sampler", "sobol-device", "--process",
+                               "heston"], "fused_terminal_sobol")
+    log(f"  price --process heston --sampler sobol-device --paths 1048576: "
+        f"{json.dumps(heston_out)}")
+    asians = {}
+    for smp, k4 in (("sobol-bridge", "fused_functionals_bridge"),
+                    ("sobol-device", "fused_functionals_sobol")):
+        asians[smp], _ = cli(big + ["--sampler", smp, "--payoff", "asian"],
+                             k4)
+        log(f"  price --payoff asian --sampler {smp} --paths 1048576: "
+            f"{json.dumps(asians[smp])}")
+    host, _ = cli(base + ["--sampler", "sobol", "--paths", "65536"])
+    check_rqmc_price("price --sampler sobol --paths 65536 (host table, "
+                     "torch loop)", host)
+    gbm = GBM.create(100.0, 0.03, 0.2, 1.0 / QMC_STEPS, device="cuda")
+    est, w_bridge = run_qmc(
+        counts, "price_to_tolerance_rqmc, bridge replicates, to 1e-3",
+        ("fused_block_moments_bridge",),
+        lambda: price_to_tolerance_rqmc(
+            gbm, VanillaPayoff("call", 105.0), target_std_err=1e-3, seed=0,
+            n_steps=QMC_STEPS, discount=discount_factor(0.03, 1.0),
+            chunk_paths=QMC_CHUNK,
+            sampler_factory=lambda r: SobolBridgeKernelSampler.create(
+                QMC_STEPS, scramble_seed=r, device="cuda")))
+    check_rqmc_price("price_to_tolerance_rqmc, bridge replicates", {
+        "price": float(est["price"]), "std_err": float(est["std_err"]),
+        "n_paths": int(est["n_paths"]),
+        "black_scholes": black_scholes_call(100.0, 105.0, 0.03, 0.2, 1.0)})
+    log(f"  bridge RQMC to std-err 1e-3: {w_bridge:.3f} s, "
+        f"{est['n_chunks']} chunk(s)")
+    log(f"  launches on the QMC path: {counts}")
+    # Where the RQMC tolerance run's wall-clock goes (not counted): the
+    # replicates' samplers built on the host, then the engine's run under
+    # the profiler.
+    t1 = time.perf_counter()
+    for r in range(RQMC_REPS):
+        SobolDeviceSampler.create(QMC_STEPS, 1, scramble_seed=r,
+                                  device="cuda")
+    torch.cuda.synchronize()
+    log(f"  {RQMC_REPS} SobolDeviceSampler tables of {QMC_STEPS} dims built "
+        f"in {time.perf_counter() - t1:.3f} s")
+    profile_call(torch, "price_to_tolerance_rqmc to std-err 1e-3",
+                 lambda: price_to_tolerance_rqmc(
+                     gbm, VanillaPayoff("call", 105.0), target_std_err=1e-3,
+                     seed=0, n_steps=QMC_STEPS,
+                     discount=discount_factor(0.03, 1.0),
+                     chunk_paths=QMC_CHUNK))
+    checks = {
+        "bridge Asian below the call": (asians["sobol-bridge"]["price"]
+                                        < vanilla["price"]),
+        "Asians of both samplers within 4 se": abs(
+            asians["sobol-bridge"]["price"] - asians["sobol-device"]["price"])
+        < 4 * (asians["sobol-bridge"]["std_err"]
+               + asians["sobol-device"]["std_err"]) + 1e-4,
+        "Heston finite": math.isfinite(heston_out["price"]),
+    }
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"QMC path: failed {failed}")
+    return counts, wall, out["n_paths"]
+
+
 #: Each kernel's wrapper, CUDA source and the TPU kernel it replaces.
 KERNELS = [
     ("gbm_terminal", "gbm_kernel.cu", "gbm_kernel.py:118"),
@@ -1584,6 +1983,12 @@ KERNELS = [
     ("normal_matrix", "rng_kernel.cu", "rng_kernel.py:67"),
     ("rbergomi_terminal", "rbergomi_kernel.cu", "rbergomi_kernel.py:73"),
     ("packed_basket_terminal", "basket_kernel.cu", "basket_kernel.py:131"),
+    ("fused_terminal_sobol", "fused_engine.cu", "fused_engine.py:231"),
+    ("fused_block_moments_sobol", "fused_engine.cu", "fused_engine.py:478"),
+    ("fused_functionals_sobol", "fused_engine.cu", "fused_engine.py:390"),
+    ("fused_terminal_bridge", "fused_engine.cu", "fused_engine.py:231"),
+    ("fused_block_moments_bridge", "fused_engine.cu", "fused_engine.py:478"),
+    ("fused_functionals_bridge", "fused_engine.cu", "fused_engine.py:390"),
 ]
 
 
@@ -1650,6 +2055,19 @@ def main() -> int:
         phase_garch_var(torch, procs, chunk_ms)
         phase_garch_profile(torch, procs)
         log(f"  phase 8 took {time.perf_counter() - t8:.1f} s, on {card}")
+        log("phase 9: randomized QMC (Sobol and bridge-Sobol draws in "
+            "K2-K4; RQMC through the CLI)")
+        t9 = time.perf_counter()
+        phase_qmc_parity(torch, errs)
+        phase_qmc_shapes(torch, errs, times)
+        qmc_counts, rqmc_wall, rqmc_paths = phase_qmc_path(torch)
+        for name, *_ in KERNELS:
+            if name.endswith(("_sobol", "_bridge")):
+                counts[name] = qmc_counts[name]
+        log(f"  RQMC wall-clock to std-err 1e-3 {rqmc_wall:.3f} s "
+            f"({rqmc_paths} paths) against the iid loop's {wall:.3f} s "
+            f"({n_paths} paths), on {card}")
+        log(f"  phase 9 took {time.perf_counter() - t9:.1f} s")
         k3_ms = times["fused_block_moments"]["ms"]
         kernel_s = k3_ms * 1e-3 * n_paths / (1 << 22)
         log(f"  K1 {bench['value']:.6e} path-steps/s, wall-clock to "

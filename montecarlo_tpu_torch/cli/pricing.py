@@ -1,16 +1,19 @@
 """`price` — option pricing through the port's engine.
 
 The port of the European branches of ``montecarlo_tpu/cli/pricing.py``:
-GBM and Heston, the plain and antithetic samplers, vanilla call/put/digital
-payoffs (fixed ``--paths`` through K2, or ``--target-se`` tolerance pricing
-through K3), the path-dependent Asian, lookback, up-and-out and up-and-in
-calls (K4, with the Brownian-bridge barrier under ``--bridge``) and the
-rough-Bergomi call and put (``--process rbergomi``, K5 and K6, in
-``pricing_modes``) and the European best-of-A call on correlated GBM
-(``--payoff max-call``, the torch time loop on MultiGBM, in
-``pricing_modes``).  The output JSON has the JAX CLI's keys: ``price``,
-``std_err``, ``n_paths`` and, for the GBM call and digital,
-``black_scholes``; rough Bergomi adds ``hurst``, the max-call
+GBM and Heston; the plain, antithetic and Sobol samplers (``sobol``: the
+host table on the torch loop; ``sobol-device`` and ``sobol-bridge``:
+Sobol draws inside K2-K4), every Sobol variant priced by randomized QMC
+over 8 replicates; vanilla call/put/digital payoffs (fixed ``--paths``
+through K2, or ``--target-se`` tolerance pricing through K3, by the iid
+chunk loop under ``plain`` and by RQMC under ``sobol-device``); the
+path-dependent Asian, lookback, up-and-out and up-and-in calls (K4, with
+the Brownian-bridge barrier under ``--bridge``); the rough-Bergomi call and
+put (``--process rbergomi``, K5 and K6, in ``pricing_modes``) and the
+European best-of-A call on correlated GBM (``--payoff max-call``, the torch
+time loop on MultiGBM, in ``pricing_modes``).  The output JSON has the JAX
+CLI's keys: ``price``, ``std_err``, ``n_paths`` and, for the GBM call and
+digital, ``black_scholes``; rough Bergomi adds ``hurst``, the max-call
 ``n_assets``.
 """
 
@@ -36,7 +39,8 @@ def add_parsers(sub):
     p.add_argument("--paths", type=int, default=100_000)
     p.add_argument("--steps", type=int, default=252)
     p.add_argument("--sampler", default="plain",
-                   choices=["plain", "antithetic"])
+                   choices=["plain", "antithetic", "sobol", "sobol-device",
+                            "sobol-bridge"])
     p.add_argument("--payoff", default="call",
                    choices=list(VANILLA + PATH_DEPENDENT + MULTI_ASSET))
     # Multi-asset extras (--payoff max-call)
@@ -56,7 +60,8 @@ def add_parsers(sub):
     p.add_argument("--target-se", type=float, default=None,
                    help="price until the discounted std-err reaches this "
                         "target instead of a fixed --paths (vanilla "
-                        "payoffs, --sampler plain)")
+                        "payoffs): --sampler plain runs the iid chunk loop, "
+                        "sobol-device replicated-randomization RQMC")
     p.add_argument("--seed", type=int, default=0)
     # Heston extras
     p.add_argument("--v0", type=float, default=0.04)
@@ -96,12 +101,12 @@ def resolve_cli_device(name: str):
 
 
 def cmd_price(args) -> int:
-    from montecarlo_tpu_torch.engine import (
-        VanillaPayoff, black_scholes_call, black_scholes_digital,
-        discount_factor, mc_estimate, price_to_tolerance, terminal_prices)
+    from montecarlo_tpu_torch.cli import pricing_models as pm
     from montecarlo_tpu_torch.cli.pricing_modes import (run_max_call,
                                                         run_rbergomi)
-    from montecarlo_tpu_torch.samplers import AntitheticSampler, PlainSampler
+    from montecarlo_tpu_torch.engine import (black_scholes_call,
+                                             black_scholes_digital,
+                                             discount_factor)
 
     if args.target_se is not None and (args.payoff not in VANILLA
                                        or args.process == "rbergomi"):
@@ -116,27 +121,14 @@ def cmd_price(args) -> int:
     device = resolve_cli_device(args.device)
     dt = args.maturity / args.steps
     proc = build_process(args, dt, device)
-    sampler = (AntitheticSampler() if args.sampler == "antithetic"
-               else PlainSampler())
+    sampler = pm.build_sampler(args, proc)
     disc = float(discount_factor(args.rate, args.maturity))
     if args.payoff == "max-call":
         return run_max_call(args, dt, disc, device)
     if args.payoff in PATH_DEPENDENT:
         est = _estimate_functional(args, proc, sampler, disc, dt)
-    elif args.target_se is not None:
-        if args.sampler != "plain":
-            raise SystemExit("--target-se supports --sampler plain (iid "
-                             "chunked loop)")
-        est = price_to_tolerance(
-            proc, VanillaPayoff(args.payoff, args.strike),
-            target_std_err=args.target_se, seed=args.seed,
-            n_steps=args.steps, discount=disc,
-            chunk_paths=(1 << 22) if device.type == "cuda" else (1 << 16))
     else:
-        terminal = terminal_prices(proc, args.paths, args.steps,
-                                   seed=args.seed, sampler=sampler)
-        est = mc_estimate(VanillaPayoff(args.payoff, args.strike)(terminal),
-                          disc)
+        est = _estimate_vanilla(args, proc, sampler, disc, device)
 
     out = {"price": float(est["price"]), "std_err": float(est["std_err"]),
            "n_paths": int(est["n_paths"])}
@@ -149,15 +141,71 @@ def cmd_price(args) -> int:
     return 0
 
 
+#: Randomizations of every Sobol estimate (the JAX CLI's).
+N_REPLICATES = 8
+
+
+def _rqmc_paths(args) -> int:
+    """``--paths`` rounded down to whole replicates; fewer than 8 paths per
+    replicate exits (the JAX CLI's message; its check stops at one)."""
+    paths = (args.paths // N_REPLICATES) * N_REPLICATES
+    if paths < 8 * N_REPLICATES:
+        raise SystemExit("QMC needs --paths >= 64 (8 replicated "
+                         "randomizations)")
+    return paths
+
+
+def _estimate_vanilla(args, proc, sampler, disc, device):
+    """Vanilla terminal payoffs: the fixed-path estimate (K2), the
+    tolerance loops (``--target-se``: K3 chunks, iid or RQMC) or RQMC
+    replication for every Sobol sampler."""
+    from montecarlo_tpu_torch.cli.pricing_models import (
+        sobol_replicate_factory)
+    from montecarlo_tpu_torch.engine import (VanillaPayoff, mc_estimate,
+                                             price_to_tolerance,
+                                             price_to_tolerance_rqmc,
+                                             rqmc_estimate, terminal_prices)
+
+    payoff = VanillaPayoff(args.payoff, args.strike)
+    on_card = device.type == "cuda"
+    if args.target_se is not None:
+        if args.sampler == "plain":
+            return price_to_tolerance(
+                proc, payoff, target_std_err=args.target_se, seed=args.seed,
+                n_steps=args.steps, discount=disc,
+                chunk_paths=(1 << 22) if on_card else (1 << 16))
+        if args.sampler == "sobol-device":
+            return price_to_tolerance_rqmc(
+                proc, payoff, target_std_err=args.target_se, seed=args.seed,
+                n_steps=args.steps, discount=disc,
+                chunk_paths=(1 << 18) if on_card else (1 << 12))
+        raise SystemExit("--target-se supports --sampler plain (iid chunked "
+                         "loop) or sobol-device (replicated-randomization "
+                         "RQMC loop)")
+    if args.sampler.startswith("sobol"):
+        paths = _rqmc_paths(args)
+        return rqmc_estimate(
+            proc, payoff, paths, args.steps, seed=args.seed,
+            sampler_factory=sobol_replicate_factory(
+                args, proc, paths // N_REPLICATES),
+            n_replicates=N_REPLICATES, discount=disc)
+    terminal = terminal_prices(proc, args.paths, args.steps, seed=args.seed,
+                               sampler=sampler)
+    return mc_estimate(payoff(terminal), disc)
+
+
 def _estimate_functional(args, proc, sampler, disc, dt):
     """Path-dependent European payoffs: running functionals folded into
-    the time loop (K4), only the ones the payoff reads."""
+    the time loop (K4), only the ones the payoff reads; RQMC replication
+    for the Sobol samplers."""
     import torch
 
+    from montecarlo_tpu_torch.cli.pricing_models import (
+        sobol_replicate_factory)
     from montecarlo_tpu_torch.engine import (
         ARITH_MEAN, RUNNING_MAX, RUNNING_MIN, asian_call,
         barrier_survival_up, european_call, lookback_call_floating,
-        mc_estimate, simulate_functionals, up_and_out_call)
+        mc_estimate, rqmc_estimate, simulate_functionals, up_and_out_call)
 
     if args.payoff == "asian":
         functionals = {"avg": ARITH_MEAN}
@@ -189,6 +237,14 @@ def _estimate_functional(args, proc, sampler, disc, dt):
     else:
         payoff_of = lambda o: up_and_out_call(
             o["terminal"], o["max"], args.strike, barrier)
+    if args.sampler.startswith("sobol"):
+        paths = _rqmc_paths(args)
+        return rqmc_estimate(
+            proc, payoff_of, paths, args.steps, seed=args.seed,
+            sampler_factory=sobol_replicate_factory(
+                args, proc, paths // N_REPLICATES),
+            n_replicates=N_REPLICATES, discount=disc,
+            functionals=functionals)
     out = simulate_functionals(proc, args.paths, args.steps, seed=args.seed,
                                sampler=sampler, functionals=functionals)
     return mc_estimate(payoff_of(out), disc)

@@ -5,14 +5,23 @@
 // _make_kernel with a payoff epilogue) and ::fused_functionals_pallas (K4,
 // _make_functional_kernel).  Every kernel is a template over a process
 // functor (GbmProc, HestonProc, BasketProc<16>, BasketProc<128>,
-// GarchProc): init from the process leaves, then per pair of steps one
-// draws_pair (the two steps share their cipher calls), the process's own
-// antithetic mirror on odd path ids (a negated normal, or GARCH's 1 - u),
-// step x2 with the odd final step dropped, and prices at the end.
-//   fused_kernel<Proc, Antithetic, Epilogue>: the epilogue stores the
+// GarchProc) and a draw source: init from the process leaves, then the
+// draw source's time loop calls step(t, eps) for every step in order, and
+// prices come at the end.  Draw sources:
+//   ThreefryDraws<Antithetic>: per pair of steps one draws_pair (the two
+//     steps share their cipher calls), the process's own antithetic mirror
+//     on odd path ids (a negated normal, or GARCH's 1 - u), the odd final
+//     step never taken;
+//   SobolDraws (rng/sobol.py::SobolDeviceSampler.draws_kernel): the
+//     randomized Sobol normal of dimension t * D + d from the direction
+//     table;
+//   BridgeDraws (SobolBridgeKernelSampler with _bridge_fill_scratch and
+//     _bridge_step_draws): the T bridge normals once per path into a
+//     scratch, then per step the plan's weighted sum of O(log T) of them.
+//   fused_kernel<Proc, Draws, Epilogue>: the epilogue stores the
 //     terminal price (K2) or applies a vanilla payoff and writes (mean, M2)
 //     per 128-path row (K3).
-//   fused_functional_kernel<Proc, Antithetic>: K4 folds up to four path
+//   fused_functional_kernel<Proc, Draws>: K4 folds up to four path
 //     functionals (FunctionalCode, with float32 parameters folded on the
 //     host) after every step, the scan engine's order, and writes the
 //     terminal prices and each finalized functional.
@@ -25,7 +34,11 @@
 // its parameters read from the leaves through L1 by every thread; GARCH
 // one cipher call per pair of steps and, per step, one table read through
 // the read-only cache (the 5-year table is 5 KB), a sqrt and 9 float32
-// operations.  Design:
+// operations.  A Sobol draw is integer work per dimension (a Threefry call
+// for the Owen key, the Gray-code XOR over the set bits, the hash's four
+// multiplies and two bit reversals) plus ndtri32's rationals, log and
+// sqrt; the bridge adds 2L float32 operations per step, T scratch writes
+// and L scratch reads per step.  Design:
 // one thread per path with the state and the functional accumulators (at
 // most 4 x 4 floats, statically indexed so they stay in registers) in
 // registers for the whole time loop (a basket of more than 16 assets keeps
@@ -303,31 +316,118 @@ struct GarchProc {
   __device__ float log_prices(State s) const { return s.log_s; }
 };
 
-// Runs `body` with the per-thread pair loop of every kernel: the draws of
-// steps (2j, 2j+1), mirrored by the process on odd ids for antithetic runs.
-template <class Proc, bool Antithetic, class Body>
-__device__ void pair_loop(const Proc& proc, uint32_t k0, uint32_t k1,
-                          uint32_t id, int n_steps, Body body) {
-  constexpr int D = Proc::kDraws;
-  // Antithetic: path 2k+1 mirrors path 2k (draws keyed by the pair id).
-  const uint32_t draw_id = Antithetic ? id >> 1 : id;
-  const bool mirror = Antithetic && (id & 1u);
-  const int n_pairs = (n_steps + 1) / 2;
-  for (int j = 0; j < n_pairs; ++j) {
-    float eps0[D], eps1[D];
-    proc.draws_pair(k0, k1, draw_id, (uint32_t)j, eps0, eps1);
-    if (mirror) {
+// ---- Draw sources ------------------------------------------------------------
+//
+// A draw source is the time loop of one path: run(proc, k0, k1, id, i,
+// n_steps, step) calls step(t, eps) once for each t = 0 .. n_steps - 1, in
+// order, with the innovations of step t.  The codes are
+// ops/fused_engine.py's THREEFRY, SOBOL and BRIDGE.
+enum DrawSource { kThreefry = 0, kSobol = 1, kBridge = 2 };
+
+// The process's own Threefry draws: per pair of steps one draws_pair (the
+// two steps share their cipher calls), mirrored by the process on odd ids
+// for antithetic runs; the odd final step is never taken.
+template <bool Antithetic>
+struct ThreefryDraws {
+  template <class Proc, class Step>
+  __device__ void run(const Proc& proc, uint32_t k0, uint32_t k1,
+                      uint32_t id, int64_t, int n_steps, Step step) const {
+    constexpr int D = Proc::kDraws;
+    // Antithetic: path 2k+1 mirrors path 2k (draws keyed by the pair id).
+    const uint32_t draw_id = Antithetic ? id >> 1 : id;
+    const bool mirror = Antithetic && (id & 1u);
+    const int n_pairs = (n_steps + 1) / 2;
+    for (int j = 0; j < n_pairs; ++j) {
+      float eps0[D], eps1[D];
+      proc.draws_pair(k0, k1, draw_id, (uint32_t)j, eps0, eps1);
+      if (mirror) {
 #pragma unroll(Proc::kUnroll)
-      for (int d = 0; d < D; ++d) {
-        if (d < proc.draws()) {
-          eps0[d] = Proc::mirror(eps0[d]);
-          eps1[d] = Proc::mirror(eps1[d]);
+        for (int d = 0; d < D; ++d) {
+          if (d < proc.draws()) {
+            eps0[d] = Proc::mirror(eps0[d]);
+            eps1[d] = Proc::mirror(eps1[d]);
+          }
         }
       }
+      step(2 * j, eps0);
+      if (2 * j + 1 < n_steps) step(2 * j + 1, eps1);
     }
-    body(2 * j, eps0, eps1);
   }
-}
+};
+
+// rng/sobol.py::SobolDeviceSampler.draws_kernel: draw d of step t is the
+// randomized Sobol normal of dimension t * D + d, read from the (n_dims, 30)
+// table.  JAX's kernel keeps its pair loop and evaluates the draws of the
+// dropped odd final step t = n_steps (its one-hot table read gives 0 past
+// the table); the draws are pure functions of (id, dim), so running the
+// steps one by one and never evaluating that step gives the same bits and
+// never reads past a table built for exactly n_steps.
+struct SobolDraws {
+  const uint32_t* __restrict__ sv;
+  template <class Proc, class Step>
+  __device__ void run(const Proc& proc, uint32_t k0, uint32_t k1,
+                      uint32_t id, int64_t, int n_steps, Step step) const {
+    constexpr int D = Proc::kDraws;
+    const int nd = proc.draws();
+    for (int t = 0; t < n_steps; ++t) {
+      float eps[D];
+#pragma unroll(Proc::kUnroll)
+      for (int d = 0; d < D; ++d) {
+        if (d < nd) {
+          eps[d] = mc::sobol_normal(sv, k0, k1, id, (uint32_t)(t * nd + d));
+        }
+      }
+      step(t, eps);
+    }
+  }
+};
+
+// rng/sobol.py::SobolBridgeKernelSampler with ops/fused_engine.py::
+// _bridge_fill_scratch and _bridge_step_draws.  Phase 1 writes the T bridge
+// normals of the path to its scratch column; phase 2 takes, per step, eps =
+// 0 + c_0 z[d_0] + ... + c_{L-1} z[d_{L-1}] over every padded plan slot in
+// order (the padding is (dim 0, coeff 0), kept so the sum rounds as JAX's).
+// The scratch is a global workspace laid out [dim][path] (stride gridDim.x *
+// blockDim.x: a warp's accesses are coalesced).  Each thread reads only its
+// own column, so no barrier is needed.
+struct BridgeDraws {
+  const uint32_t* __restrict__ sv;     // (T, 30)
+  const int* __restrict__ dims;        // (n_plan, L) plan dims
+  const float* __restrict__ coeffs;    // (n_plan, L) plan weights
+  int T, L;
+  float* scratch;                      // (T, blocks * 128) workspace
+  template <class Proc, class Step>
+  __device__ void run(const Proc&, uint32_t k0, uint32_t k1, uint32_t id,
+                      int64_t i, int n_steps, Step step) const {
+    const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+    float* z = scratch + i;
+    for (int d = 0; d < T; ++d) {
+      z[d * stride] = mc::sobol_normal(sv, k0, k1, id, (uint32_t)d);
+    }
+    for (int t = 0; t < n_steps; ++t) {
+      const int* row_d = dims + (int64_t)t * L;
+      const float* row_c = coeffs + (int64_t)t * L;
+      float e = 0.0f;
+      for (int j = 0; j < L; ++j) e = e + row_c[j] * z[row_d[j] * stride];
+      float eps[Proc::kDraws];
+      eps[0] = e;
+      step(t, eps);
+    }
+  }
+};
+
+// The draw-source arguments of every entry (ops/fused_engine.py::
+// _draw_args): the source code, the antithetic flag (Threefry only), the
+// Sobol table, and the bridge plan with its scratch.
+struct DrawArgs {
+  int source;
+  int antithetic;
+  const uint32_t* sv;
+  const int* dims;
+  const float* coeffs;
+  int T, L;
+  float* scratch;
+};
 
 struct StoreTerminal {  // K2
   float* out;
@@ -375,24 +475,19 @@ struct RowMoments {  // K3
   }
 };
 
-template <class Proc, bool Antithetic, class Epilogue>
+template <class Proc, class Draws, class Epilogue>
 __global__ void fused_kernel(const float* __restrict__ leaves, int dims,
                              int64_t n_paths, int n_steps,
                              uint32_t path_offset, uint32_t k0, uint32_t k1,
-                             Epilogue epilogue) {
+                             Draws draws, Epilogue epilogue) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   const bool active = i < n_paths;
   const Proc proc(leaves, dims);
   typename Proc::State state = proc.init();
   if (active) {
     const uint32_t id = path_offset + (uint32_t)i;  // wraps mod 2^32
-    pair_loop<Proc, Antithetic>(
-        proc, k0, k1, id, n_steps,
-        [&](int t0, const float* eps0, const float* eps1) {
-          state = proc.step(state, eps0);
-          const typename Proc::State stepped = proc.step(state, eps1);
-          if (t0 + 1 < n_steps) state = stepped;  // odd final step: dropped
-        });
+    draws.run(proc, k0, k1, id, i, n_steps,
+              [&](int, const float* eps) { state = proc.step(state, eps); });
   }
   epilogue(i, active, proc.prices(state));
 }
@@ -417,6 +512,7 @@ constexpr int kMaxFunctionals = 4;
 constexpr int kMaxParams = 6;
 
 struct FunctionalSpec {
+  int64_t out_stride;  // row stride of out (the whole run's path count)
   int n;
   int code[kMaxFunctionals];
   int period[kMaxFunctionals];
@@ -531,12 +627,12 @@ __device__ __forceinline__ float fn_finalize(int code, const float* p,
   }
 }
 
-template <class Proc, bool Antithetic>
+template <class Proc, class Draws>
 __global__ void fused_functional_kernel(const float* __restrict__ leaves,
                                         int dims, int64_t n_paths,
                                         int n_steps, uint32_t path_offset,
                                         uint32_t k0, uint32_t k1,
-                                        FunctionalSpec spec,
+                                        Draws draws, FunctionalSpec spec,
                                         float* __restrict__ out) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n_paths) return;
@@ -573,95 +669,149 @@ __global__ void fused_functional_kernel(const float* __restrict__ leaves,
     }
   };
   const uint32_t id = path_offset + (uint32_t)i;  // wraps mod 2^32
-  pair_loop<Proc, Antithetic>(
-      proc, k0, k1, id, n_steps,
-      [&](int t0, const float* eps0, const float* eps1) {
-        state = proc.step(state, eps0);  // t0 < n_steps always
-        update_all(t0 + 1);
-        if (t0 + 1 < n_steps) {  // odd final step: dropped
-          state = proc.step(state, eps1);
-          update_all(t0 + 2);
-        }
-      });
+  // One update after every step, with the 1-based step index (the scan
+  // engine's order, which JAX's pair and bridge loops both keep).
+  draws.run(proc, k0, k1, id, i, n_steps, [&](int t, const float* eps) {
+    state = proc.step(state, eps);
+    update_all(t + 1);
+  });
   out[i] = proc.prices(state);
 #pragma unroll
   for (int k = 0; k < kMaxFunctionals; ++k) {
     if (k < spec.n) {
-      out[(int64_t)(k + 1) * n_paths + i] =
+      out[(k + 1) * spec.out_stride + i] =
           fn_finalize(spec.code[k], spec.p[k], acc[k], n_steps);
     }
   }
 }
 
-template <template <class, bool> class Launcher, class Proc, class... Args>
-void launch(int antithetic, Args... args) {
-  if (antithetic) {
-    Launcher<Proc, true>::run(args...);
-  } else {
-    Launcher<Proc, false>::run(args...);
+// Which draw sources a functor takes: Sobol normals need an all-normal
+// process (GARCH's draw is a uniform); the bridge a single draw (GBM, or a
+// basket of one asset, checked at run time).
+template <class Proc>
+struct SourceTraits {
+  static constexpr bool kSobol = true;
+  static constexpr bool kBridge = false;
+};
+template <>
+struct SourceTraits<GbmProc> {
+  static constexpr bool kSobol = true;
+  static constexpr bool kBridge = true;
+};
+template <>
+struct SourceTraits<BasketProc<kBasketSmall>> {
+  static constexpr bool kSobol = true;
+  static constexpr bool kBridge = true;
+};
+template <>
+struct SourceTraits<GarchProc> {
+  static constexpr bool kSobol = false;
+  static constexpr bool kBridge = false;
+};
+
+// Instantiates `Launcher<Proc, Draws>` for the draw source of `a` and
+// launches it; a source the functor does not take is an invalid value.
+template <template <class, class> class Launcher, class Proc, class... Args>
+cudaError_t launch_source(const DrawArgs& a, int dims, unsigned blocks,
+                          cudaStream_t s, Args... args) {
+  switch (a.source) {
+    case kThreefry:
+      if (a.antithetic) {
+        return Launcher<Proc, ThreefryDraws<true>>::run(
+            blocks, s, dims, ThreefryDraws<true>{}, args...);
+      }
+      return Launcher<Proc, ThreefryDraws<false>>::run(
+          blocks, s, dims, ThreefryDraws<false>{}, args...);
+    case kSobol:
+      if constexpr (SourceTraits<Proc>::kSobol) {
+        if (a.sv == nullptr) return cudaErrorInvalidValue;
+        return Launcher<Proc, SobolDraws>::run(blocks, s, dims,
+                                               SobolDraws{a.sv}, args...);
+      }
+      return cudaErrorInvalidValue;
+    case kBridge:
+      if constexpr (SourceTraits<Proc>::kBridge) {
+        if (a.sv == nullptr || a.dims == nullptr || a.coeffs == nullptr ||
+            a.scratch == nullptr || a.T < 1 || a.L < 1 ||
+            (dims != 1 && Proc::kDraws != 1)) {
+          return cudaErrorInvalidValue;
+        }
+        return Launcher<Proc, BridgeDraws>::run(
+            blocks, s, dims,
+            BridgeDraws{a.sv, a.dims, a.coeffs, a.T, a.L, a.scratch},
+            args...);
+      }
+      return cudaErrorInvalidValue;
+    default:
+      return cudaErrorInvalidValue;
   }
 }
 
-// Instantiates `Kernel<Proc, Antithetic>` for the process code, the basket
-// capacity that holds `dims` assets and the antithetic flag, and launches
-// it with one thread per path.
-template <template <class, bool> class Launcher, class... Args>
-int dispatch(int process, int dims, int antithetic, int64_t n_paths,
+// Picks the functor for the process code (and the basket capacity that
+// holds `dims` assets) and launches it with one thread per path.
+template <template <class, class> class Launcher, class... Args>
+int dispatch(int process, int dims, const DrawArgs& a, int64_t n_paths,
              void* stream, Args... args) {
   const unsigned blocks = (unsigned)((n_paths + kRow - 1) / kRow);
   const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err;
   switch (process) {
     case kGbm:
-      launch<Launcher, GbmProc>(antithetic, blocks, s, n_paths, dims,
-                                args...);
+      err = launch_source<Launcher, GbmProc>(a, dims, blocks, s, n_paths,
+                                             args...);
       break;
     case kHeston:
-      launch<Launcher, HestonProc>(antithetic, blocks, s, n_paths, dims,
-                                   args...);
+      err = launch_source<Launcher, HestonProc>(a, dims, blocks, s,
+                                                n_paths, args...);
       break;
     case kGarch:
       if (dims < 1) return (int)cudaErrorInvalidValue;
-      launch<Launcher, GarchProc>(antithetic, blocks, s, n_paths, dims,
-                                  args...);
+      err = launch_source<Launcher, GarchProc>(a, dims, blocks, s, n_paths,
+                                               args...);
       break;
     case kBasket:
       if (dims < 1 || dims > kBasketMax) return (int)cudaErrorInvalidValue;
       if (dims <= kBasketSmall) {
-        launch<Launcher, BasketProc<kBasketSmall>>(antithetic, blocks, s,
-                                                   n_paths, dims, args...);
+        err = launch_source<Launcher, BasketProc<kBasketSmall>>(
+            a, dims, blocks, s, n_paths, args...);
       } else {
-        launch<Launcher, BasketProc<kBasketMax>>(antithetic, blocks, s,
-                                                 n_paths, dims, args...);
+        err = launch_source<Launcher, BasketProc<kBasketMax>>(
+            a, dims, blocks, s, n_paths, args...);
       }
       break;
     default:
       return (int)cudaErrorInvalidValue;
   }
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 
 template <class Epilogue>
 struct FusedLauncher {
-  template <class Proc, bool Antithetic>
+  template <class Proc, class Draws>
   struct With {
-    static void run(unsigned blocks, cudaStream_t s, int64_t n_paths,
-                    int dims, const float* leaves, int n_steps,
-                    uint32_t path_offset, uint32_t k0, uint32_t k1,
-                    Epilogue epilogue) {
-      fused_kernel<Proc, Antithetic, Epilogue><<<blocks, kRow, 0, s>>>(
-          leaves, dims, n_paths, n_steps, path_offset, k0, k1, epilogue);
+    static cudaError_t run(unsigned blocks, cudaStream_t s, int dims,
+                           Draws draws, int64_t n_paths, const float* leaves,
+                           int n_steps, uint32_t path_offset, uint32_t k0,
+                           uint32_t k1, Epilogue epilogue) {
+      fused_kernel<Proc, Draws, Epilogue><<<blocks, kRow, 0, s>>>(
+          leaves, dims, n_paths, n_steps, path_offset, k0, k1, draws,
+          epilogue);
+      return cudaSuccess;
     }
   };
 };
 
-template <class Proc, bool Antithetic>
+template <class Proc, class Draws>
 struct FunctionalLauncher {
-  static void run(unsigned blocks, cudaStream_t s, int64_t n_paths,
-                  int dims, const float* leaves, int n_steps,
-                  uint32_t path_offset, uint32_t k0, uint32_t k1,
-                  FunctionalSpec spec, float* out) {
-    fused_functional_kernel<Proc, Antithetic><<<blocks, kRow, 0, s>>>(
-        leaves, dims, n_paths, n_steps, path_offset, k0, k1, spec, out);
+  static cudaError_t run(unsigned blocks, cudaStream_t s, int dims,
+                         Draws draws, int64_t n_paths, const float* leaves,
+                         int n_steps, uint32_t path_offset, uint32_t k0,
+                         uint32_t k1, FunctionalSpec spec, float* out) {
+    fused_functional_kernel<Proc, Draws><<<blocks, kRow, 0, s>>>(
+        leaves, dims, n_paths, n_steps, path_offset, k0, k1, draws, spec,
+        out);
+    return cudaSuccess;
   }
 };
 
@@ -669,15 +819,30 @@ struct FunctionalLauncher {
 
 // Every entry takes the process code and its dimension `dims` (the basket's
 // asset count, GARCH's table length; ignored by GBM and Heston) after the
-// leaves.
+// leaves, and after the key words the draw source (DrawSource): `source`,
+// `antithetic` (Threefry only), the Sobol table `sv` (n_dims, 30) for
+// kSobol and kBridge, and for kBridge the plan `plan_dims`/`plan_coeffs`
+// (>= n_steps rows of `width`), the bridge's `bridge_T` dims and its
+// scratch, a float workspace of bridge_T * ceil(n_paths / 128) * 128
+// entries (the wrapper launches at most 2^20 paths at a time on it).
+// Unused pointers are null.
+#define MC_DRAW_PARAMS                                                   \
+  int source, int antithetic, const uint32_t *sv, const int *plan_dims, \
+      const float *plan_coeffs, int bridge_T, int width, float *scratch
+#define MC_DRAW_ARGS                                                 \
+  DrawArgs {                                                         \
+    source, antithetic, sv, plan_dims, plan_coeffs, bridge_T, width, \
+        scratch                                                      \
+  }
+
 // K2: terminal prices, out (n_paths,).
 extern "C" int mc_fused_terminal(float* out, const float* leaves,
                                  int process, int dims, int64_t n_paths,
                                  int64_t n_steps, uint32_t path_offset,
-                                 uint32_t k0, uint32_t k1, int antithetic,
+                                 uint32_t k0, uint32_t k1, MC_DRAW_PARAMS,
                                  void* stream) {
   return dispatch<FusedLauncher<StoreTerminal>::With>(
-      process, dims, antithetic, n_paths, stream, leaves, (int)n_steps,
+      process, dims, MC_DRAW_ARGS, n_paths, stream, leaves, (int)n_steps,
       path_offset, k0, k1, StoreTerminal{out});
 }
 
@@ -687,28 +852,31 @@ extern "C" int mc_fused_block_moments(float* rows, const float* leaves,
                                       int process, int dims,
                                       int64_t n_paths, int64_t n_steps,
                                       uint32_t path_offset, uint32_t k0,
-                                      uint32_t k1, int antithetic,
+                                      uint32_t k1, MC_DRAW_PARAMS,
                                       int payoff, float strike,
                                       void* stream) {
   return dispatch<FusedLauncher<RowMoments>::With>(
-      process, dims, antithetic, n_paths, stream, leaves, (int)n_steps,
+      process, dims, MC_DRAW_ARGS, n_paths, stream, leaves, (int)n_steps,
       path_offset, k0, k1, RowMoments{rows, payoff, strike});
 }
 
-// K4: out (1 + n_functionals, n_paths): terminal prices, then each
-// finalized functional.  codes/periods (n_functionals,) and params
-// (n_functionals, kMaxParams) are host arrays.
+// K4: out (1 + n_functionals, out_stride), out_stride >= n_paths: terminal
+// prices, then each finalized functional, in columns 0 .. n_paths - 1 of
+// each row.  codes/periods (n_functionals,) and params (n_functionals,
+// kMaxParams) are host arrays.
 extern "C" int mc_fused_functionals(float* out, const float* leaves,
                                     int process, int dims, int64_t n_paths,
                                     int64_t n_steps, uint32_t path_offset,
-                                    uint32_t k0, uint32_t k1, int antithetic,
+                                    uint32_t k0, uint32_t k1, MC_DRAW_PARAMS,
                                     int n_functionals, const int* codes,
                                     const int* periods, const float* params,
-                                    void* stream) {
-  if (n_functionals < 0 || n_functionals > kMaxFunctionals) {
+                                    int64_t out_stride, void* stream) {
+  if (n_functionals < 0 || n_functionals > kMaxFunctionals ||
+      out_stride < n_paths) {
     return (int)cudaErrorInvalidValue;
   }
   FunctionalSpec spec = {};
+  spec.out_stride = out_stride;
   spec.n = n_functionals;
   for (int k = 0; k < n_functionals; ++k) {
     spec.code[k] = codes[k];
@@ -717,7 +885,7 @@ extern "C" int mc_fused_functionals(float* out, const float* leaves,
       spec.p[k][q] = params[k * kMaxParams + q];
     }
   }
-  return dispatch<FunctionalLauncher>(process, dims, antithetic, n_paths,
+  return dispatch<FunctionalLauncher>(process, dims, MC_DRAW_ARGS, n_paths,
                                       stream, leaves, (int)n_steps,
                                       path_offset, k0, k1, spec, out);
 }

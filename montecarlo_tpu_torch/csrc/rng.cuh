@@ -1,9 +1,12 @@
 // K0 — the device math traced into every kernel of the JAX package:
-// Threefry-2x32-20, uniform_from_bits, Box-Muller, exp32 and log32.
+// Threefry-2x32-20, uniform_from_bits, Box-Muller, exp32, log32, and the
+// randomized Sobol normal (ndtri32, sobol_bits, the Owen hash).
 //
-// Replaces montecarlo_tpu/rng/threefry.py::threefry2x32 and
+// Replaces montecarlo_tpu/rng/threefry.py::threefry2x32,
 // montecarlo_tpu/rng/normal.py::{uniform_from_bits, boxmuller_pair, exp32,
-// log32}, which Pallas inlines into each TPU kernel.  Written once, as
+// log32, ndtri32} and montecarlo_tpu/rng/sobol.py::{sobol_bits, _reverse32,
+// _scrambled_uniform, _shifted_normal}, which Pallas inlines into each TPU
+// kernel.  Written once, as
 // __host__ __device__ inline functions, so the same text builds for sm_90a
 // (nvcc) and for the host (g++), where the tests hold it against JAX.
 //
@@ -98,6 +101,105 @@ MC_HD float log32(float x) {
   x = fminf(fmaxf(x, 2.5e-9f), 5e8f);
   const float y = logf(x);
   return y + (x * exp32(-y) - 1.0f);
+}
+
+// ---- Sobol points (rng/normal.py::ndtri32, rng/sobol.py) ---------------------
+
+// Inverse standard-normal CDF, Wichura's AS241 PPND7, in the JAX package's
+// operation order: the central rational and both tail rationals are all
+// evaluated and the result selected, as jnp.where does.  u in (0, 1).
+MC_HD float ndtri32(float u) {
+  const float q = u - 0.5f;
+  const float rc = 0.180625f - q * q;
+  const float num_c = q * (((59.109374720f * rc + 159.29113202f) * rc +
+                            50.434271938f) * rc + 3.3871327179f);
+  const float den_c = ((67.187563600f * rc + 78.757757664f) * rc +
+                       17.895169469f) * rc + 1.0f;
+  const float central = num_c / den_c;
+  const float p = fmaxf(fminf(fminf(u, 1.0f - u), 0.5f), 1e-30f);
+  const float rt = sqrtf(-logf(p));
+  const float r1 = rt - 1.6f;
+  const float num_m = ((0.17023821103f * r1 + 1.3067284816f) * r1 +
+                       2.7568153900f) * r1 + 1.4234372777f;
+  const float den_m = (0.12021132975f * r1 + 0.73700164250f) * r1 + 1.0f;
+  const float r2 = rt - 5.0f;
+  const float num_f = ((0.017337203997f * r2 + 0.42868294337f) * r2 +
+                       3.0812263860f) * r2 + 6.6579051150f;
+  const float den_f = (0.012258202635f * r2 + 0.24197894225f) * r2 + 1.0f;
+  const float mid = num_m / den_m;
+  const float far = num_f / den_f;
+  float tail = rt <= 5.0f ? mid : far;
+  tail = q < 0.0f ? -tail : tail;
+  return fabsf(q) <= 0.425f ? central : tail;
+}
+
+// Bits of a Sobol integer (rng/sobol.py::BITS).
+constexpr int kSobolBits = 30;
+
+// Bit reversal (rng/sobol.py::_reverse32); __brev on the card.
+MC_HD uint32_t reverse32(uint32_t x) {
+#ifdef __CUDA_ARCH__
+  return __brev(x);
+#else
+  x = ((x >> 1) & 0x55555555u) | ((x & 0x55555555u) << 1);
+  x = ((x >> 2) & 0x33333333u) | ((x & 0x33333333u) << 2);
+  x = ((x >> 4) & 0x0F0F0F0Fu) | ((x & 0x0F0F0F0Fu) << 4);
+  x = ((x >> 8) & 0x00FF00FFu) | ((x & 0x00FF00FFu) << 8);
+  return (x >> 16) | (x << 16);
+#endif
+}
+
+// The Sobol integer in [0, 2^30) of point `id` in the dimension whose 30
+// direction numbers are row[0..29]: the XOR of row[k] over the set bits k
+// of gray(id) below bit 30 (rng/sobol.py::sobol_bits).  XOR is order-free,
+// so visiting only the set bits gives the same integer.
+MC_HD uint32_t sobol_bits(const uint32_t* row, uint32_t id) {
+  uint32_t g = (id ^ (id >> 1)) & ((1u << kSobolBits) - 1u);
+  uint32_t x = 0;
+  while (g) {
+#ifdef __CUDA_ARCH__
+    const int k = __ffs(g) - 1;
+#else
+    const int k = __builtin_ctz(g);
+#endif
+    x ^= row[k];
+    g &= g - 1u;
+  }
+  return x;
+}
+
+// Owen-scrambled uniform of a Sobol integer (rng/sobol.py::
+// _scrambled_uniform): the Laine-Karras hash keyed by `key` in the
+// bit-reversed domain, then the top 23 bits with a half-ulp centre.
+MC_HD float scrambled_uniform(uint32_t x, uint32_t key) {
+  uint32_t y = reverse32(x << (32 - kSobolBits));
+  y = y + key;
+  y = y ^ (y * 0x6C50B47Cu);
+  y = y ^ (y * 0xB82F1E52u);
+  y = y ^ (y * 0xC7AFE638u);
+  y = y ^ (y * 0x8D22F6E6u);
+  return uniform_from_bits(reverse32(y));
+}
+
+// rng/sobol.py::_shifted_normal.
+MC_HD float shifted_normal(uint32_t x, uint32_t key) {
+  return ndtri32(scrambled_uniform(x, key));
+}
+
+// The Owen-hash key of Sobol dimension `dim`: word 0 of Threefry keyed by
+// the run's (k0, k1) at counter (dim, 0x50B0), rng/sobol.py's convention.
+MC_HD uint32_t sobol_key(uint32_t k0, uint32_t k1, uint32_t dim) {
+  uint32_t s0, s1;
+  threefry2x32(k0, k1, dim, 0x50B0u, &s0, &s1);
+  return s0;
+}
+
+// The randomized Sobol normal of point `id` in dimension `dim` of the
+// (n_dims, 30) table `sv`.
+MC_HD float sobol_normal(const uint32_t* sv, uint32_t k0, uint32_t k1,
+                         uint32_t id, uint32_t dim) {
+  return shifted_normal(sobol_bits(sv + (size_t)dim * kSobolBits, id),
+                        sobol_key(k0, k1, dim));
 }
 
 }  // namespace mc

@@ -1,7 +1,8 @@
-// K0 check entry: runs the device functions of rng.cuh elementwise, so the
-// on-card build of the cipher and the float32 math can be held against the
-// plain PyTorch versions (rng/threefry.py, rng/normal.py).  Not on the
-// pricing path; it exists to test K0 on the card.
+// K0 check entries: run the device functions of rng.cuh elementwise, so the
+// on-card build of the cipher, the float32 math and the Sobol normal can be
+// held against the plain PyTorch versions (rng/threefry.py, rng/normal.py,
+// rng/sobol.py).  Not on the pricing path; they exist to test K0 on the
+// card.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -32,6 +33,26 @@ __global__ void rng_check_kernel(const uint32_t* __restrict__ c0,
   out[5 * n + i] = mc::log32(x[n + i]);
 }
 
+__global__ void sobol_check_kernel(const uint32_t* __restrict__ sv,
+                                   const uint32_t* __restrict__ ids,
+                                   const uint32_t* __restrict__ dims,
+                                   const float* __restrict__ u, int64_t n,
+                                   uint32_t k0, uint32_t k1,
+                                   uint32_t* __restrict__ bits,
+                                   float* __restrict__ out) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const uint32_t dim = dims[i];
+  const uint32_t x =
+      mc::sobol_bits(sv + (size_t)dim * mc::kSobolBits, ids[i]);
+  const uint32_t key = mc::sobol_key(k0, k1, dim);
+  bits[i] = x;
+  bits[n + i] = key;
+  out[i] = mc::scrambled_uniform(x, key);
+  out[n + i] = mc::sobol_normal(sv, k0, k1, ids[i], dim);
+  out[2 * n + i] = mc::ndtri32(u[i]);
+}
+
 }  // namespace
 
 // bits (2, n) uint32: Threefry words; out (6, n) float32: u0, u1, z0, z1,
@@ -43,5 +64,19 @@ extern "C" int mc_rng_check(uint32_t* bits, float* out, const uint32_t* c0,
   const int64_t blocks = (n + threads - 1) / threads;
   rng_check_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
       c0, c1, x, n, k0, k1, bits, out);
+  return (int)cudaGetLastError();
+}
+
+// bits (2, n) uint32: the Sobol integer of (ids[i], dims[i]) in the table sv
+// (n_dims, 30) and the dimension's Owen key; out (3, n) float32: the
+// scrambled uniform, the Sobol normal, ndtri32(u[i]).
+extern "C" int mc_sobol_check(uint32_t* bits, float* out, const uint32_t* sv,
+                              const uint32_t* ids, const uint32_t* dims,
+                              const float* u, int64_t n, uint32_t k0,
+                              uint32_t k1, void* stream) {
+  const int threads = 256;
+  const int64_t blocks = (n + threads - 1) / threads;
+  sobol_check_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+      sv, ids, dims, u, n, k0, k1, bits, out);
   return (int)cudaGetLastError();
 }

@@ -20,6 +20,7 @@ from montecarlo_tpu_torch.engine.payoffs import (  # noqa: F401
     max_call,
 )
 from montecarlo_tpu_torch.engine.dispatch import (  # noqa: F401
+    kernel_route,
     payoff_block_moments,
     terminal_prices,
 )
@@ -46,4 +47,6 @@ from montecarlo_tpu_torch.engine.functionals import (  # noqa: F401
 from montecarlo_tpu_torch.engine.pricing import (  # noqa: F401
     mc_estimate,
     price_to_tolerance,
+    price_to_tolerance_rqmc,
+    rqmc_estimate,
 )

@@ -365,11 +365,13 @@ def simulate_functionals(process, n_paths: int, n_steps: int, *, seed: int,
                          prefer_fused: bool = True) -> dict:
     """Terminal prices plus named path functionals, O(paths) memory.
 
-    ``prefer_fused=True`` runs K4 (``ops.fused_engine.fused_functionals``)
-    with the plain or antithetic sampler: the kernel on a CUDA process,
-    its plain version on a CPU one.  A functional without a device form or
-    a process K4 does not run raises ``TypeError``; ``prefer_fused=False``
-    takes the torch time loop, which runs any of them.
+    ``prefer_fused=True`` goes through ``engine.dispatch``'s gate: K4
+    (``ops.fused_engine.fused_functionals``; the kernel on a CUDA process,
+    its plain version on a CPU one) for the processes and samplers the
+    kernels run, the torch time loop for the others.  On the kernel route
+    a functional without a device form raises ``TypeError``;
+    ``prefer_fused=False`` takes the torch time loop, which runs any of
+    them.
     """
     items = tuple(functionals.items())
     if prefer_fused:

@@ -23,6 +23,9 @@ def check_sampler(sampler, process, n_steps: int) -> None:
     process, and a sampler with a finite table validates its coverage."""
     if sampler is None:
         return
+    if not callable(getattr(sampler, "draws", None)):
+        raise TypeError(f"{type(sampler).__name__} is not a sampler: it has "
+                        "no draws(process, seed, stream, path_ids, t)")
     if getattr(sampler, "normals_only", False):
         from montecarlo_tpu_torch.processes.base import NormalDrawsMixin
 

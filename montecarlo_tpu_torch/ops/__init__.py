@@ -7,6 +7,8 @@ version for a CPU one; nothing falls back from one to the other.
 - K2 ``fused_terminal``       — csrc/fused_engine.cu
 - K3 ``fused_block_moments``  — csrc/fused_engine.cu
 - K4 ``fused_functionals``    — csrc/fused_engine.cu
+  (each under Threefry, Sobol and bridge-Sobol draws, counted apart as
+  ``<name>``, ``<name>_sobol`` and ``<name>_bridge``)
 - K5 ``normal_matrix``        — csrc/rng_kernel.cu
 - K6 ``rbergomi_terminal``    — csrc/rbergomi_kernel.cu
 - K7 ``packed_basket_terminal`` — csrc/basket_kernel.cu
@@ -21,8 +23,14 @@ from montecarlo_tpu_torch.ops.gbm_kernel import (  # noqa: F401
 )
 from montecarlo_tpu_torch.ops.fused_engine import (  # noqa: F401
     K2,
+    K2_BRIDGE,
+    K2_SOBOL,
     K3,
+    K3_BRIDGE,
+    K3_SOBOL,
     K4,
+    K4_BRIDGE,
+    K4_SOBOL,
     fused_block_moments,
     fused_block_moments_reference,
     fused_functionals,
@@ -50,7 +58,13 @@ from montecarlo_tpu_torch.ops.basket_kernel import (  # noqa: F401
 PATH_KERNELS = {"gbm_terminal": K1, "fused_terminal": K2,
                 "fused_block_moments": K3, "fused_functionals": K4,
                 "normal_matrix": K5, "rbergomi_terminal": K6,
-                "packed_basket_terminal": K7}
+                "packed_basket_terminal": K7,
+                "fused_terminal_sobol": K2_SOBOL,
+                "fused_block_moments_sobol": K3_SOBOL,
+                "fused_functionals_sobol": K4_SOBOL,
+                "fused_terminal_bridge": K2_BRIDGE,
+                "fused_block_moments_bridge": K3_BRIDGE,
+                "fused_functionals_bridge": K4_BRIDGE}
 
 
 def reset_launch_counts() -> None:

@@ -3,12 +3,25 @@
 Port of ``montecarlo_tpu/ops/fused_engine.py::fused_terminal_pallas`` (K2),
 ``::fused_block_moments_pallas`` (K3) and ``::fused_functionals_pallas``
 (K4); the kernels are templates over a process functor (GBM, Heston, the
-correlated GBM basket of at most 128 assets, the bootstrap GARCH) in
-``csrc/fused_engine.cu``.  The plain versions below run the process's own
-``draws_pair``/``step``/``prices`` in the kernel's order — two steps per
-cipher call, the process's antithetic mirror on odd ids, the odd final
-step dropped — and agree with the kernels bitwise where the platform's
-log/sqrt/sin/cos do.
+correlated GBM basket of at most 128 assets, the bootstrap GARCH) and a
+draw source in ``csrc/fused_engine.cu``.  Draw sources (``sampler=``):
+
+- ``None``: the process's own Threefry draws, two steps per cipher call,
+  the process's antithetic mirror on odd ids when ``antithetic``;
+- a :class:`~montecarlo_tpu_torch.rng.sobol.SobolDeviceSampler`: the
+  randomized Sobol normal of dimension ``t * n_draws + d``, computed in the
+  kernel from the sampler's direction table;
+- a :class:`~montecarlo_tpu_torch.rng.sobol.SobolBridgeKernelSampler`
+  (single-draw processes): the T bridge normals once per path into a
+  scratch, then per step the plan's weighted sum of O(log T) of them.  The
+  scratch is a global workspace, a launch per ``BRIDGE_WORKSPACE_PATHS``
+  paths.
+
+The plain versions below run the process's own ``draws_pair``/``step``/
+``prices`` (or the sampler's draws) in the kernel's order and agree with
+the kernels bitwise where the platform's log/sqrt/sin/cos do.  A sampler
+together with ``antithetic=True`` raises ``ValueError``, as in the JAX
+package.
 
 K3 applies a :class:`VanillaPayoff` in the kernel and writes (mean, M2) per
 128-path row, summed in ``tree_sum``'s fixed order; the rows are merged
@@ -18,6 +31,9 @@ tree as the JAX package.
 K4 folds up to four path functionals after every step, each given by its
 device form (``engine.functionals.DeviceForm``), and writes the terminal
 prices plus each finalized functional.
+
+Each wrapper counts its launches per draw source (``K2``, ``K2_SOBOL``,
+``K2_BRIDGE``, ...; ``ops.PATH_KERNELS`` names them).
 """
 
 from __future__ import annotations
@@ -30,7 +46,7 @@ import torch
 from montecarlo_tpu_torch.engine.functionals import (MAX_PARAMS,
                                                      functional_observables)
 from montecarlo_tpu_torch.engine.payoffs import VanillaPayoff
-from montecarlo_tpu_torch.engine.simulate import path_ids_for
+from montecarlo_tpu_torch.engine.simulate import check_sampler, path_ids_for
 from montecarlo_tpu_torch.ops._build import (CudaKernel, check_cuda_tensor,
                                              cuda_stream)
 from montecarlo_tpu_torch.processes.basket import (BasketGBM,
@@ -38,6 +54,8 @@ from montecarlo_tpu_torch.processes.basket import (BasketGBM,
 from montecarlo_tpu_torch.processes.garch import GARCHBootstrap
 from montecarlo_tpu_torch.processes.gbm import GBM
 from montecarlo_tpu_torch.processes.heston import Heston
+from montecarlo_tpu_torch.rng.sobol import (SobolBridgeKernelSampler,
+                                            SobolDeviceSampler)
 from montecarlo_tpu_torch.rng.threefry import MASK32, key_from_seed
 from montecarlo_tpu_torch.stats.welford import (MomentState, moments_reduce,
                                                 tree_sum)
@@ -49,15 +67,35 @@ MAX_FUNCTIONALS = 4  # K4's functional slots (kMaxFunctionals)
 #: The processes the kernels run, by the code of their functor.
 PROCESS_CODES = {GBM: 0, Heston: 1, BasketGBM: 2, GARCHBootstrap: 3}
 
+#: Draw-source codes of the kernels (csrc/fused_engine.cu::DrawSource).
+THREEFRY, SOBOL, BRIDGE = 0, 1, 2
+#: Paths per launch on the bridge's global workspace (T floats each: 1 GB
+#: at T = 252), so the workspace stays bounded at any path count.
+BRIDGE_WORKSPACE_PATHS = 1 << 20
+
 _COMMON = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
            ctypes.c_int64, ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint32,
-           ctypes.c_uint32, ctypes.c_int]
-K2 = CudaKernel("mc_fused_terminal", _COMMON + [ctypes.c_void_p])
-K3 = CudaKernel("mc_fused_block_moments",
-                _COMMON + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p])
-K4 = CudaKernel("mc_fused_functionals",
-                _COMMON + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                           ctypes.c_void_p, ctypes.c_void_p])
+           ctypes.c_uint32,
+           # source, antithetic, sv, plan dims, plan coeffs, T, L, scratch
+           ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+           ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+_K2_ARGS = _COMMON + [ctypes.c_void_p]
+_K3_ARGS = _COMMON + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+_K4_ARGS = _COMMON + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                      ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
+K2 = CudaKernel("mc_fused_terminal", _K2_ARGS)
+K3 = CudaKernel("mc_fused_block_moments", _K3_ARGS)
+K4 = CudaKernel("mc_fused_functionals", _K4_ARGS)
+# The same entries under Sobol and bridge-Sobol draws, counted apart.
+K2_SOBOL = CudaKernel("mc_fused_terminal", _K2_ARGS)
+K3_SOBOL = CudaKernel("mc_fused_block_moments", _K3_ARGS)
+K4_SOBOL = CudaKernel("mc_fused_functionals", _K4_ARGS)
+K2_BRIDGE = CudaKernel("mc_fused_terminal", _K2_ARGS)
+K3_BRIDGE = CudaKernel("mc_fused_block_moments", _K3_ARGS)
+K4_BRIDGE = CudaKernel("mc_fused_functionals", _K4_ARGS)
+_BY_SOURCE = {"K2": (K2, K2_SOBOL, K2_BRIDGE),
+              "K3": (K3, K3_SOBOL, K3_BRIDGE),
+              "K4": (K4, K4_SOBOL, K4_BRIDGE)}
 
 
 def _leaves(process):
@@ -83,11 +121,49 @@ def _leaves(process):
                                   if v.is_floating_point()])
 
 
-def _draw_pairs(process, n_steps: int, k0: int, k1: int, ids,
-                antithetic: bool):
-    """(t0, eps0, eps1) for each pair of steps (t0, t0 + 1), in the
-    kernels' order: one ``draws_pair``, mirrored on odd ids when
-    antithetic."""
+def draw_source(sampler, antithetic: bool = False) -> int:
+    """The kernels' draw-source code for ``sampler`` (None, a
+    SobolDeviceSampler or a SobolBridgeKernelSampler)."""
+    if sampler is None:
+        return THREEFRY
+    if antithetic:
+        raise ValueError("antithetic composes with the default draws only")
+    if isinstance(sampler, SobolDeviceSampler):
+        return SOBOL
+    if isinstance(sampler, SobolBridgeKernelSampler):
+        return BRIDGE
+    raise TypeError("the kernels draw from Threefry, a SobolDeviceSampler "
+                    "or a SobolBridgeKernelSampler, got "
+                    f"{type(sampler).__name__}; use engine.simulate")
+
+
+def _check_draws(process, sampler, n_steps: int, antithetic: bool) -> int:
+    source = draw_source(sampler, antithetic)
+    check_sampler(sampler, process, n_steps)
+    return source
+
+
+def _step_draws(process, n_steps: int, k0: int, k1: int, ids,
+                antithetic: bool, sampler=None):
+    """(t, eps) for each step t = 0 .. n_steps - 1, in the kernels' order:
+    Threefry draws one ``draws_pair`` per pair of steps (mirrored on odd
+    ids when antithetic) and never takes the odd final step; a
+    SobolDeviceSampler draws each step from its table; a
+    SobolBridgeKernelSampler computes the T bridge normals once, then sums
+    each step's padded plan row in order from 0."""
+    if isinstance(sampler, SobolDeviceSampler):
+        for t in range(n_steps):
+            yield t, sampler.draws(process, k0, k1, ids, t)
+        return
+    if isinstance(sampler, SobolBridgeKernelSampler):
+        z = sampler.bridge_normals(k0, k1, ids)
+        plan = sampler.dims[:n_steps].tolist()
+        for t in range(n_steps):
+            eps = torch.zeros_like(z[0])
+            for j, dim in enumerate(plan[t]):
+                eps = eps + sampler.coeffs[t, j] * z[dim]
+            yield t, (eps,)
+        return
     draw_ids = ids >> 1 if antithetic else ids
     odd = (ids & 1).to(torch.bool)
 
@@ -99,22 +175,23 @@ def _draw_pairs(process, n_steps: int, k0: int, k1: int, ids,
         eps0, eps1 = process.draws_pair(k0, k1, draw_ids, j)
         if antithetic:
             eps0, eps1 = mirror(eps0), mirror(eps1)
-        yield 2 * j, eps0, eps1
+        yield 2 * j, eps0
+        if 2 * j + 1 < n_steps:  # odd final step: never taken
+            yield 2 * j + 1, eps1
 
 
 def fused_terminal_reference(process, n_paths: int, n_steps: int, *, seed,
                              stream=0, path_offset=0,
-                             antithetic: bool = False) -> torch.Tensor:
+                             antithetic: bool = False,
+                             sampler=None) -> torch.Tensor:
     """The plain PyTorch version of K2 (any process with the protocol)."""
+    _check_draws(process, sampler, n_steps, antithetic)
     k0, k1 = key_from_seed(seed, stream)
     ids = path_ids_for(n_paths, path_offset, process.device)
     state = process.init_state(ids)
-    for t0, eps0, eps1 in _draw_pairs(process, n_steps, k0, k1, ids,
-                                      antithetic):
-        state = process.step(state, eps0, t0)
-        stepped = process.step(state, eps1, t0 + 1)
-        if t0 + 1 < n_steps:  # odd final step: dropped
-            state = stepped
+    for t, eps in _step_draws(process, n_steps, k0, k1, ids, antithetic,
+                              sampler):
+        state = process.step(state, eps, t)
     return process.prices(state)
 
 
@@ -147,61 +224,107 @@ def _check_block_args(payoff, n_paths: int) -> None:
 def fused_block_moments_reference(process, payoff: VanillaPayoff,
                                   n_paths: int, n_steps: int, *, seed,
                                   stream=0, path_offset=0,
-                                  antithetic: bool = False) -> MomentState:
+                                  antithetic: bool = False,
+                                  sampler=None) -> MomentState:
     """The plain PyTorch version of K3 plus the row merge."""
     _check_block_args(payoff, n_paths)
     prices = fused_terminal_reference(
         process, n_paths, n_steps, seed=seed, stream=stream,
-        path_offset=path_offset, antithetic=antithetic)
+        path_offset=path_offset, antithetic=antithetic, sampler=sampler)
     return _merge_rows(_row_moments(payoff(prices)))
 
 
+def _draw_args(process, sampler, source: int, antithetic: bool,
+               n_paths: int):
+    """The kernels' draw-source arguments (source, antithetic, sv, plan
+    dims, plan coeffs, T, L, scratch), the tensors they point into (which
+    must outlive the launches) and the paths per launch: all of them, or
+    ``BRIDGE_WORKSPACE_PATHS`` on the bridge's workspace, which holds T
+    floats for each path of a launch, laid out [dim][path]."""
+    dev = process.device
+    if source == THREEFRY:
+        return ([source, int(antithetic), None, None, None, 0, 0, None], [],
+                n_paths)
+    check_cuda_tensor("sampler.sv", sampler.sv, dev, torch.int32)
+    if source == SOBOL:
+        return ([source, 0, sampler.sv.data_ptr(), None, None, 0, 0, None],
+                [sampler.sv], n_paths)
+    T, L = sampler.n_steps, sampler.width
+    check_cuda_tensor("sampler.dims", sampler.dims, dev, torch.int32)
+    check_cuda_tensor("sampler.coeffs", sampler.coeffs, dev, torch.float32)
+    per_launch = min(n_paths, BRIDGE_WORKSPACE_PATHS)
+    rows = -(-per_launch // LANES) * LANES
+    scratch = torch.empty(T * rows, dtype=torch.float32, device=dev)
+    return ([source, 0, sampler.sv.data_ptr(), sampler.dims.data_ptr(),
+             sampler.coeffs.data_ptr(), T, L, scratch.data_ptr()],
+            [sampler.sv, sampler.dims, sampler.coeffs, scratch], per_launch)
+
+
+def _launches(n_paths: int, per_launch: int, path_offset):
+    """(first path, paths, wrapped offset) of each launch of a run."""
+    for start in range(0, n_paths, per_launch):
+        yield (start, min(per_launch, n_paths - start),
+               (int(path_offset) + start) & MASK32)
+
+
 def fused_terminal(process, n_paths: int, n_steps: int, *, seed, stream=0,
-                   path_offset=0, antithetic: bool = False) -> torch.Tensor:
+                   path_offset=0, antithetic: bool = False,
+                   sampler=None) -> torch.Tensor:
     """Terminal prices (n_paths,) float32: K2 on a CUDA process, the plain
     version on a CPU one.  Any ``n_paths >= 1``; the kernel masks the
-    ragged edge."""
+    ragged edge.  ``sampler``: None (Threefry), a SobolDeviceSampler or a
+    SobolBridgeKernelSampler."""
     code, dims, leaves = _leaves(process)
+    source = _check_draws(process, sampler, n_steps, antithetic)
     dev = process.device
     if dev.type == "cpu":
         return fused_terminal_reference(
             process, n_paths, n_steps, seed=seed, stream=stream,
-            path_offset=path_offset, antithetic=antithetic)
+            path_offset=path_offset, antithetic=antithetic, sampler=sampler)
     if n_paths < 1 or n_steps < 0:
         raise ValueError(f"n_paths={n_paths}, n_steps={n_steps}")
     check_cuda_tensor("leaves", leaves, dev, torch.float32)
+    draw, keep, per_launch = _draw_args(process, sampler, source, antithetic,
+                                        n_paths)
     out = torch.empty(n_paths, dtype=torch.float32, device=dev)
     k0, k1 = key_from_seed(seed, stream)
     with torch.cuda.device(dev):
-        K2.launch(out.data_ptr(), leaves.data_ptr(), code, dims, n_paths,
-                  n_steps, int(path_offset) & MASK32, k0, k1,
-                  int(antithetic), cuda_stream(dev))
+        for start, m, off in _launches(n_paths, per_launch, path_offset):
+            _BY_SOURCE["K2"][source].launch(
+                out.data_ptr() + 4 * start, leaves.data_ptr(), code, dims, m,
+                n_steps, off, k0, k1, *draw, cuda_stream(dev))
     return out
 
 
 def fused_block_moments(process, payoff: VanillaPayoff, n_paths: int,
                         n_steps: int, *, seed, stream=0, path_offset=0,
-                        antithetic: bool = False) -> MomentState:
+                        antithetic: bool = False,
+                        sampler=None) -> MomentState:
     """Per-4096-path-block payoff moments with the terminal prices never
     leaving the kernel: K3 on a CUDA process, the plain version on a CPU
-    one.  Returns a MomentState with leaves shaped (n_paths // 4096,)."""
+    one.  Returns a MomentState with leaves shaped (n_paths // 4096,).
+    ``sampler`` as in :func:`fused_terminal`."""
     code, dims, leaves = _leaves(process)
+    source = _check_draws(process, sampler, n_steps, antithetic)
     dev = process.device
     if dev.type == "cpu":
         return fused_block_moments_reference(
             process, payoff, n_paths, n_steps, seed=seed, stream=stream,
-            path_offset=path_offset, antithetic=antithetic)
+            path_offset=path_offset, antithetic=antithetic, sampler=sampler)
     _check_block_args(payoff, n_paths)
     if n_steps < 0:
         raise ValueError(f"n_steps={n_steps}")
     check_cuda_tensor("leaves", leaves, dev, torch.float32)
+    draw, keep, per_launch = _draw_args(process, sampler, source, antithetic,
+                                        n_paths)
     rows = torch.empty((n_paths // LANES, 2), dtype=torch.float32, device=dev)
     k0, k1 = key_from_seed(seed, stream)
     with torch.cuda.device(dev):
-        K3.launch(rows.data_ptr(), leaves.data_ptr(), code, dims, n_paths,
-                  n_steps, int(path_offset) & MASK32, k0, k1,
-                  int(antithetic), payoff.code, payoff.strike,
-                  cuda_stream(dev))
+        for start, m, off in _launches(n_paths, per_launch, path_offset):
+            _BY_SOURCE["K3"][source].launch(
+                rows.data_ptr() + 8 * (start // LANES), leaves.data_ptr(),
+                code, dims, m, n_steps, off, k0, k1, *draw, payoff.code,
+                payoff.strike, cuda_stream(dev))
     return _merge_rows(rows)
 
 
@@ -227,31 +350,26 @@ def _device_forms(items, n_steps: int):
 
 def fused_functionals_reference(process, n_paths: int, n_steps: int, *,
                                 seed, functionals, stream=0, path_offset=0,
-                                antithetic: bool = False) -> dict:
-    """The plain PyTorch version of K4: the functionals' own torch folds in
-    the kernel's pair order, the update of step t1 = t0 + 1 kept only
-    while t1 < n_steps."""
+                                antithetic: bool = False,
+                                sampler=None) -> dict:
+    """The plain PyTorch version of K4: the functionals' own torch folds,
+    one update after every step with its 1-based index, over the kernels'
+    draws (:func:`_step_draws`)."""
     items = tuple(functionals.items())
     _leaves(process)
     _device_forms(items, n_steps)
+    _check_draws(process, sampler, n_steps, antithetic)
     fns = [f for _, f in items]
     k0, k1 = key_from_seed(seed, stream)
     ids = path_ids_for(n_paths, path_offset, process.device)
-
-    def update(state, accs, t):
-        obs = functional_observables(process, state, fns)
-        return [f.update(a, o, t) for f, a, o in zip(fns, accs, obs)]
-
     state = process.init_state(ids)
     accs = [f.init(o) for f, o in
             zip(fns, functional_observables(process, state, fns))]
-    for t0, eps0, eps1 in _draw_pairs(process, n_steps, k0, k1, ids,
-                                      antithetic):
-        state = process.step(state, eps0, t0)
-        accs = update(state, accs, t0 + 1)
-        if t0 + 1 < n_steps:  # odd final step: dropped
-            state = process.step(state, eps1, t0 + 1)
-            accs = update(state, accs, t0 + 2)
+    for t, eps in _step_draws(process, n_steps, k0, k1, ids, antithetic,
+                              sampler):
+        state = process.step(state, eps, t)
+        obs = functional_observables(process, state, fns)
+        accs = [f.update(a, o, t + 1) for f, a, o in zip(fns, accs, obs)]
     out = {"terminal": process.prices(state)}
     for (name, f), a in zip(items, accs):
         out[name] = f.finalize(a, float(n_steps))
@@ -260,23 +378,28 @@ def fused_functionals_reference(process, n_paths: int, n_steps: int, *,
 
 def fused_functionals(process, n_paths: int, n_steps: int, *, seed,
                       functionals, stream=0, path_offset=0,
-                      antithetic: bool = False) -> dict:
+                      antithetic: bool = False, sampler=None) -> dict:
     """Terminal prices plus named path functionals, ``{"terminal": ...,
     name: ...}``, each (n_paths,) float32: K4 on a CUDA process, the plain
     version on a CPU one.  ``functionals`` maps names to
     :class:`PathFunctional` s with a device form (at most four).  Any
-    ``n_paths >= 1``; the kernel masks the ragged edge."""
+    ``n_paths >= 1``; the kernel masks the ragged edge.  ``sampler`` as in
+    :func:`fused_terminal`."""
     items = tuple(functionals.items())
     code, dims, leaves = _leaves(process)
     forms = _device_forms(items, n_steps)
+    source = _check_draws(process, sampler, n_steps, antithetic)
     dev = process.device
     if dev.type == "cpu":
         return fused_functionals_reference(
             process, n_paths, n_steps, seed=seed, functionals=functionals,
-            stream=stream, path_offset=path_offset, antithetic=antithetic)
+            stream=stream, path_offset=path_offset, antithetic=antithetic,
+            sampler=sampler)
     if n_paths < 1 or n_steps < 0:
         raise ValueError(f"n_paths={n_paths}, n_steps={n_steps}")
     check_cuda_tensor("leaves", leaves, dev, torch.float32)
+    draw, keep, per_launch = _draw_args(process, sampler, source, antithetic,
+                                        n_paths)
     out = torch.empty((1 + len(forms), n_paths), dtype=torch.float32,
                       device=dev)
     codes = (ctypes.c_int * MAX_FUNCTIONALS)(*[f.code for f in forms])
@@ -287,10 +410,11 @@ def fused_functionals(process, n_paths: int, n_steps: int, *, seed,
             params[k * MAX_PARAMS + q] = v
     k0, k1 = key_from_seed(seed, stream)
     with torch.cuda.device(dev):
-        K4.launch(out.data_ptr(), leaves.data_ptr(), code, dims, n_paths,
-                  n_steps, int(path_offset) & MASK32, k0, k1,
-                  int(antithetic), len(forms), codes, periods, params,
-                  cuda_stream(dev))
+        for start, m, off in _launches(n_paths, per_launch, path_offset):
+            _BY_SOURCE["K4"][source].launch(
+                out.data_ptr() + 4 * start, leaves.data_ptr(), code, dims, m,
+                n_steps, off, k0, k1, *draw, len(forms), codes, periods,
+                params, n_paths, cuda_stream(dev))
     result = {"terminal": out[0]}
     for k, (name, _) in enumerate(items):
         result[name] = out[k + 1]

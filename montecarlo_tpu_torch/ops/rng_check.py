@@ -1,6 +1,8 @@
 """K0 on the card: the device functions of ``csrc/rng.cuh`` run elementwise
 (``csrc/rng_check.cu``) beside their plain PyTorch versions, so a test or
-``chip_smoke.py`` can hold the on-card build against ``rng/``."""
+``chip_smoke.py`` can hold the on-card build against ``rng/``: the cipher
+and the float32 math (``rng_check``), and the randomized Sobol normal with
+``ndtri32`` (``sobol_check``)."""
 
 from __future__ import annotations
 
@@ -10,7 +12,8 @@ import torch
 
 from montecarlo_tpu_torch.ops._build import CudaKernel, cuda_stream
 from montecarlo_tpu_torch.rng.normal import (boxmuller_pair, exp32, log32,
-                                             uniform_from_bits)
+                                             ndtri32, uniform_from_bits)
+from montecarlo_tpu_torch.rng.sobol import _owen_key, _scrambled_uniform
 from montecarlo_tpu_torch.rng.threefry import MASK32, threefry2x32
 
 K0_CHECK = CudaKernel("mc_rng_check", [
@@ -19,6 +22,19 @@ K0_CHECK = CudaKernel("mc_rng_check", [
     ctypes.c_void_p])
 
 NAMES = ("bits0", "bits1", "u0", "u1", "z0", "z1", "exp32", "log32")
+
+K0_SOBOL_CHECK = CudaKernel("mc_sobol_check", [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_uint32,
+    ctypes.c_uint32, ctypes.c_void_p])
+
+SOBOL_NAMES = ("sobol_bits", "owen_key", "uniform", "normal", "ndtri32")
+
+
+def _to_i32(w: torch.Tensor) -> torch.Tensor:
+    """uint32 words (int64) as int32 bit patterns (the same 4 bytes)."""
+    return torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(
+        torch.int32).contiguous()
 
 
 def rng_check_reference(k0: int, k1: int, c0, c1, x_exp, x_log) -> dict:
@@ -35,10 +51,7 @@ def rng_check(k0: int, k1: int, c0, c1, x_exp, x_log) -> dict:
     """The check kernel on CUDA tensors; words come back as int64 words."""
     dev = c0.device
     n = c0.numel()
-    # uint32 words travel as int32 bit patterns (same 4 bytes).
-    to_i32 = lambda w: torch.where(w >= 2 ** 31, w - 2 ** 32, w).to(
-        torch.int32).contiguous()
-    cc0, cc1 = to_i32(c0), to_i32(c1)
+    cc0, cc1 = _to_i32(c0), _to_i32(c1)
     x = torch.stack([x_exp, x_log]).to(torch.float32).contiguous()
     bits = torch.empty((2, n), dtype=torch.int32, device=dev)
     out = torch.empty((6, n), dtype=torch.float32, device=dev)
@@ -48,3 +61,41 @@ def rng_check(k0: int, k1: int, c0, c1, x_exp, x_log) -> dict:
                         k1 & MASK32, cuda_stream(dev))
     words = bits.to(torch.int64) & MASK32
     return dict(zip(NAMES, (words[0], words[1], *out)))
+
+
+def sobol_check_reference(k0: int, k1: int, sv, ids, dims, u) -> dict:
+    """Plain versions of the Sobol check: per element i the Sobol integer
+    and Owen key of (ids[i], dims[i]) in the table ``sv`` (n_dims, 30),
+    the scrambled uniform, the Sobol normal, and ``ndtri32(u[i])``."""
+    dims = dims.to(torch.int64)
+    uniq = torch.unique(dims).tolist()
+    table = torch.zeros(max(uniq) + 1 if uniq else 1, dtype=torch.int64)
+    table[uniq] = torch.tensor([_owen_key(k0, k1, d) for d in uniq],
+                               dtype=torch.int64)
+    keys = table.to(ids.device)[dims]
+    rows = sv.to(torch.int64)[dims]                      # (n, 30)
+    g = ids ^ (ids >> 1)
+    x = torch.zeros_like(ids)
+    for k in range(rows.shape[1]):
+        x = x ^ (rows[:, k] * ((g >> k) & 1))
+    uniform = _scrambled_uniform(x, keys)
+    vals = (x, keys, uniform, ndtri32(uniform), ndtri32(u))
+    return dict(zip(SOBOL_NAMES, vals))
+
+
+def sobol_check(k0: int, k1: int, sv, ids, dims, u) -> dict:
+    """The Sobol check kernel on CUDA tensors: ``sv`` int32 (n_dims, 30),
+    ``ids`` words, ``dims`` int (n,), ``u`` float32 (n,)."""
+    dev = ids.device
+    n = ids.numel()
+    bits = torch.empty((2, n), dtype=torch.int32, device=dev)
+    out = torch.empty((3, n), dtype=torch.float32, device=dev)
+    args = (sv.to(torch.int32).contiguous(), _to_i32(ids),
+            dims.to(torch.int32).contiguous(),
+            u.to(torch.float32).contiguous())
+    with torch.cuda.device(dev):
+        K0_SOBOL_CHECK.launch(bits.data_ptr(), out.data_ptr(),
+                              *(a.data_ptr() for a in args), n, k0 & MASK32,
+                              k1 & MASK32, cuda_stream(dev))
+    words = bits.to(torch.int64) & MASK32
+    return dict(zip(SOBOL_NAMES, (words[0], words[1], *out)))

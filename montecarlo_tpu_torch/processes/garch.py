@@ -66,6 +66,8 @@ class GARCHBootstrap:
     n_table: torch.Tensor
 
     n_draws: ClassVar[int] = 1
+    #: The draw is a uniform: ``SobolSampler.for_process`` keeps it raw.
+    draw_kinds: ClassVar[tuple] = ("uniform",)
 
     def __post_init__(self):
         if self.table.dim() != 1 or int(self.n_table) != self.table.numel():

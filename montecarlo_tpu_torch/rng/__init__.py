@@ -1,4 +1,5 @@
-"""Counter-based Threefry RNG and the normal/uniform variates built on it."""
+"""Counter-based Threefry RNG, the normal/uniform variates built on it, and
+randomized Sobol QMC."""
 
 from montecarlo_tpu_torch.rng.threefry import (  # noqa: F401
     MASK32,
@@ -20,4 +21,12 @@ from montecarlo_tpu_torch.rng.normal import (  # noqa: F401
     uniform_draw,
     uniform_from_bits,
     uniform_pair,
+)
+from montecarlo_tpu_torch.rng.sobol import (  # noqa: F401
+    SobolBridgeDeviceSampler,
+    SobolBridgeKernelSampler,
+    SobolDeviceSampler,
+    brownian_bridge_matrix,
+    direction_numbers,
+    sobol_bits,
 )

@@ -304,12 +304,74 @@ def test_multigbm_product_ignores_a_tf32_setting():
 
 
 def test_multi_asset_functionals_refuse_the_kernel():
-    """No kernel runs a multi-asset state: K4's dispatch refuses MultiGBM
-    by name (the worst-of note asks for the torch loop explicitly)."""
-    _, tm = _three("multigbm")
+    """No kernel runs a multi-asset state: the dispatch's gate sends
+    MultiGBM's ``simulate_functionals`` to the functionals' torch loop (K4
+    and its plain version refuse it by name), as JAX's dispatch sends it
+    to its scan, and the result matches JAX's: rtol 2e-6."""
+    jm, tm = _three("multigbm")
+    fns = {"avg": ARITH_MEAN, "mx": RUNNING_MAX}
     with pytest.raises(TypeError, match="got MultiGBM"):
-        simulate_functionals(tm, 64, 4, seed=0,
-                             functionals={"avg": ARITH_MEAN})
+        fused_functionals_reference(tm, 64, 4, seed=0, functionals=fns)
+    n, steps = 512, 9
+    got = simulate_functionals(tm, n, steps, seed=6, functionals=fns,
+                               path_offset=WRAP)
+    want = jf.simulate_functionals(
+        jm, n, steps, seed=6, functionals={"avg": jf.ARITH_MEAN,
+                                           "mx": jf.RUNNING_MAX},
+        dtype=jnp.float32, path_offset=WRAP)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
+                                   rtol=PRICE_RTOL, err_msg=k)
+
+
+@pytest.mark.parametrize("entry", ["terminal_prices", "block_moments",
+                                   "block_moments_ragged"])
+def test_multi_asset_dispatch_takes_the_torch_loop(entry):
+    """``terminal_prices`` and ``payoff_block_moments`` on MultiGBM (a
+    process outside PROCESS_CODES) run the torch loop and match JAX's scan
+    route: terminals within rtol 2e-6; block moments within rtol 1e-5
+    (each framework sums in its own order)."""
+    from montecarlo_tpu.engine.dispatch import (
+        payoff_block_moments as jblock, terminal_prices as jterminal)
+    from montecarlo_tpu_torch.engine import (payoff_block_moments,
+                                             terminal_prices)
+
+    jm, tm = _three("multigbm")
+    steps = 8
+    if entry == "terminal_prices":
+        got = terminal_prices(tm, 1000, steps, seed=2, path_offset=WRAP)
+        want = jterminal(jm, 1000, steps, seed=2, path_offset=WRAP)
+        assert tuple(got.shape) == want.shape == (1000, 3)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   rtol=PRICE_RTOL)
+        return
+    n = 8192 if entry == "block_moments" else 1000
+    got = payoff_block_moments(tm, lambda s: max_call(s, 90.0), n, steps,
+                               seed=2)
+    want = jblock(jm, lambda s: jmax_call(s, 90.0), n, steps, seed=2)
+    for f in ("count", "mean", "m2"):
+        np.testing.assert_allclose(getattr(got, f).numpy(),
+                                   np.asarray(getattr(want, f)), rtol=1e-5,
+                                   err_msg=f)
+
+
+def test_multi_asset_price_to_tolerance_matches_jax():
+    """``price_to_tolerance`` on MultiGBM's max-call runs chunk by chunk
+    through the torch loop and stops after JAX's number of chunks, at
+    JAX's price and std-err within rtol 1e-5."""
+    from montecarlo_tpu.engine import price_to_tolerance as jptt
+    from montecarlo_tpu_torch.engine import price_to_tolerance
+
+    jm, tm = _three("multigbm")
+    kw = dict(target_std_err=0.02, seed=8, chunk_paths=1 << 12, n_steps=4,
+              discount=0.97)
+    want = jptt(jm, lambda s: jmax_call(s, 90.0), **kw)
+    got = price_to_tolerance(tm, lambda s: max_call(s, 90.0), **kw)
+    assert got["n_chunks"] == int(want["n_chunks"]) > 1
+    for k in ("price", "std_err", "n_paths"):
+        np.testing.assert_allclose(float(got[k]), float(want[k]), rtol=1e-5,
+                                   err_msg=k)
 
 
 # --- construction -------------------------------------------------------------

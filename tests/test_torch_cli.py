@@ -177,17 +177,18 @@ def test_note_worst_of_matches_jax_cli(flags, capsys):
         assert abs(got[k] - want[k]) <= tol, k
 
 
-#: The GARCH slice's modules, which the walk below must reach.
-GARCH_MODULES = ("api.montecarlo", "api.var", "cli.risk", "data.synthetic",
+#: The GARCH and QMC slices' modules, which the walk below must reach.
+SLICE_MODULES = ("api.montecarlo", "api.var", "cli.risk", "data.synthetic",
                  "engine.path_sketch", "engine.streaming", "processes.garch",
-                 "processes.garch_fit", "stats.quantiles", "stats.risk")
+                 "processes.garch_fit", "stats.quantiles", "stats.risk",
+                 "rng.sobol", "samplers", "cli.pricing_models")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of the port, imported in a fresh interpreter, leaves
     ``jax`` and ``montecarlo_tpu`` out of ``sys.modules``; the walk covers
-    the GARCH slice's modules; ``chip_smoke.py`` imports neither, at any
-    level of the script."""
+    the GARCH and QMC slices' modules; ``chip_smoke.py`` imports neither,
+    at any level of the script."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import montecarlo_tpu_torch as pkg\n"
@@ -205,7 +206,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     names = set(names.split())
     assert len(names) > 20
     assert bad == "[]", bad
-    missing = [m for m in GARCH_MODULES
+    missing = [m for m in SLICE_MODULES
                if f"montecarlo_tpu_torch.{m}" not in names]
     assert not missing, missing
     tree = ast.parse((ROOT / "chip_smoke.py").read_text())
@@ -279,7 +280,7 @@ def test_device_cuda_is_an_error_without_a_card(capsys):
 
 @pytest.mark.parametrize("argv", [
     ["price", "--process", "merton"],
-    ["price", "--sampler", "sobol"],
+    ["price", "--sampler", "sobol", "--process", "merton", "--device", "cpu"],
     ["price", "--payoff", "max-call", "--sampler", "antithetic",
      "--device", "cpu"],
     ["price", "--device", "cpu", "--target-se", "0.1", "--sampler",

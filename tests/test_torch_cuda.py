@@ -21,7 +21,11 @@ between them runs in true float32 whatever the process-wide setting.  K7
 operations: bitwise.  So do K2-K4 on the bootstrap GARCH (GarchProc: a
 uniform per step, a table read, an IEEE sqrt, the mirror 1 - u), and the
 per-process mirror leaves every other process's antithetic draws the
-negation they were.
+negation they were.  Under Sobol and bridge-Sobol draws (the randomized
+Sobol normal of K0: integer words, the Owen hash, ndtri32 with the same
+logf and sqrtf on both sides) K2-K4 equal their plain versions and the
+torch loop bitwise too, odd step counts on exact-size tables, ids across
+2^30, the bridge's scratch in its global workspace.
 """
 
 import math
@@ -401,3 +405,171 @@ def test_cuda_garch_mirror_is_one_minus_u(cuda):
     corr = torch.corrcoef(torch.stack([even.log() - math.log(s0),
                                        odd.log() - math.log(s0)]))[0, 1]
     assert corr < -0.5
+
+
+# --- randomized QMC: Sobol and bridge-Sobol draws in K2-K4 -------------------
+
+def _sobol_process(kind, n_steps, device):
+    if kind == "basket":
+        return bench_basket(5, device=device)
+    return _process(kind, n_steps, device)
+
+
+@pytest.mark.cuda
+def test_cuda_k0_sobol_normal_equals_plain(cuda):
+    """The Sobol integer, the Owen key, the scrambled uniform, the Sobol
+    normal and ndtri32 of the device build against the plain versions:
+    bitwise (the same logf and sqrtf on both sides), ids near 2^30 and
+    2^32 included."""
+    from montecarlo_tpu_torch.ops.rng_check import (sobol_check,
+                                                    sobol_check_reference)
+    from montecarlo_tpu_torch.rng.sobol import SobolDeviceSampler
+
+    r = np.random.default_rng(1)
+    n = 1 << 16
+    sv = SobolDeviceSampler.create(64, 2, device=cuda).sv
+    ids = torch.from_numpy(np.concatenate([
+        r.integers(0, 2**32, n - 2048), 2**30 - 1024 + np.arange(1024),
+        2**32 - 1024 + np.arange(1024)])).to(cuda)
+    dims = torch.from_numpy(r.integers(0, 128, n)).to(cuda)
+    u = torch.from_numpy(np.concatenate([
+        r.uniform(0, 1, n - 64), 2.0 ** -np.arange(1, 33),
+        1 - 2.0 ** -np.arange(1, 25), [0.5] * 8]).astype(np.float32)).to(cuda)
+    got = sobol_check(0x9E3779B9, 77, sv, ids, dims, u)
+    want = sobol_check_reference(0x9E3779B9, 77, sv, ids, dims, u)
+    for name in want:
+        assert torch.equal(got[name], want[name]), name
+    assert torch.isfinite(got["normal"]).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gbm", "heston", "basket"])
+@pytest.mark.parametrize("n_steps", [8, 9, 17])
+def test_cuda_sobol_k2_k3_k4_bitwise_equal_plain(cuda, kind, n_steps):
+    """SobolDraws in K2, K3 and K4 on a table built for exactly n_steps
+    (odd counts included: the dropped step is never drawn), against the
+    plain versions and the torch loop, a ragged path count, ids wrapping
+    past 2^32; each launch raises its Sobol counter."""
+    from montecarlo_tpu_torch.rng.sobol import SobolDeviceSampler
+
+    tp = _sobol_process(kind, n_steps, cuda)
+    smp = SobolDeviceSampler.create(n_steps, tp.n_draws, scramble_seed=3,
+                                    device=cuda)
+    kw = dict(seed=6, path_offset=WRAP, sampler=smp)
+    names = ("fused_terminal_sobol", "fused_block_moments_sobol",
+             "fused_functionals_sobol")
+    before = {k: PATH_KERNELS[k].launches for k in names}
+    got = fused_terminal(tp, 1000, n_steps, **kw)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, fused_terminal_reference(tp, 1000, n_steps, **kw))
+    assert torch.equal(got, simulate(tp, 1000, n_steps, seed=6,
+                                     path_offset=WRAP, sampler=smp))
+    pay = VanillaPayoff("call", 95.0)
+    got = fused_block_moments(tp, pay, 4096, n_steps, **kw)
+    want = fused_block_moments_reference(tp, pay, 4096, n_steps, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    fns = {"avg": ARITH_MEAN, "mx": RUNNING_MAX, "mn": RUNNING_MIN}
+    got = fused_functionals(tp, 1000, n_steps, functionals=fns, **kw)
+    want = fused_functionals_reference(tp, 1000, n_steps, functionals=fns,
+                                       **kw)
+    loop = simulate_functionals(tp, 1000, n_steps, prefer_fused=False,
+                                seed=6, path_offset=WRAP, sampler=smp,
+                                functionals=fns)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+        assert torch.equal(loop[k], want[k]), k
+    for k, n in before.items():
+        assert PATH_KERNELS[k].launches == n + 1, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_steps,built_for", [(8, 8), (9, 9), (17, 17),
+                                               (9, 12)])
+def test_cuda_bridge_k2_k3_k4_bitwise_equal_plain(cuda, n_steps, built_for):
+    """BridgeDraws in K2, K3 and K4 on a plan built for the run's steps or
+    more, against
+    the plain versions and the torch loop (the Device sampler's per-step
+    sums); each launch raises its bridge counter."""
+    from montecarlo_tpu_torch.rng.sobol import SobolBridgeKernelSampler
+
+    tp = _process("gbm", n_steps, cuda)
+    smp = SobolBridgeKernelSampler.create(built_for, scramble_seed=2,
+                                          device=cuda)
+    kw = dict(seed=5, path_offset=2**30 - 300, sampler=smp)
+    names = ("fused_terminal_bridge", "fused_block_moments_bridge",
+             "fused_functionals_bridge")
+    before = {k: PATH_KERNELS[k].launches for k in names}
+    got = fused_terminal(tp, 1000, n_steps, **kw)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, fused_terminal_reference(tp, 1000, n_steps, **kw))
+    assert torch.equal(got, simulate(tp, 1000, n_steps, seed=5,
+                                     path_offset=2**30 - 300, sampler=smp))
+    pay = VanillaPayoff("put", 100.0)
+    got = fused_block_moments(tp, pay, 4096, n_steps, **kw)
+    want = fused_block_moments_reference(tp, pay, 4096, n_steps, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    fns = {"avg": ARITH_MEAN, "mx": RUNNING_MAX}
+    got = fused_functionals(tp, 1000, n_steps, functionals=fns, **kw)
+    want = fused_functionals_reference(tp, 1000, n_steps, functionals=fns,
+                                       **kw)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    for k, n in before.items():
+        assert PATH_KERNELS[k].launches == n + 1, k
+
+
+@pytest.mark.cuda
+def test_cuda_dispatch_gate_routes(cuda):
+    """The gate on the card: a Sobol table that covers the run launches
+    K2's Sobol variant; a short table, a host Sobol table and MultiGBM take
+    the torch loop and launch nothing."""
+    from montecarlo_tpu_torch.engine import terminal_prices
+    from montecarlo_tpu_torch.processes import MultiGBM
+    from montecarlo_tpu_torch.rng.sobol import SobolDeviceSampler
+    from montecarlo_tpu_torch.samplers import SobolSampler
+
+    tp = _process("gbm", 16, cuda)
+    k2s = PATH_KERNELS["fused_terminal_sobol"].launches
+    smp = SobolDeviceSampler.create(16, 1, device=cuda)
+    assert torch.equal(terminal_prices(tp, 512, 16, seed=1, sampler=smp),
+                       simulate(tp, 512, 16, seed=1, sampler=smp))
+    assert PATH_KERNELS["fused_terminal_sobol"].launches == k2s + 1
+    counts = {k: v.launches for k, v in PATH_KERNELS.items()}
+    with pytest.raises(ValueError, match="Sobol table"):
+        terminal_prices(tp, 512, 17, seed=1, sampler=smp)
+    host = SobolSampler.for_process(tp, 512, 16, seed=3)
+    assert torch.isfinite(terminal_prices(tp, 512, 16, seed=1,
+                                          sampler=host)).all()
+    multi = MultiGBM.create([100.0, 90.0], [0.03, 0.03], [0.2, 0.3],
+                            np.array([[1.0, 0.3], [0.3, 1.0]]), 1 / 16,
+                            device=cuda)
+    assert terminal_prices(multi, 512, 16, seed=1).shape == (512, 2)
+    assert {k: v.launches for k, v in PATH_KERNELS.items()} == counts
+
+
+@pytest.mark.cuda
+def test_cuda_bridge_workspace_launches_in_chunks(cuda, monkeypatch):
+    """On the bridge's workspace the wrappers launch at most
+    BRIDGE_WORKSPACE_PATHS paths at a time (each launch counted), and the
+    pieces equal one plain run: K2 and K4 on a ragged count, K3 on whole
+    rows."""
+    from montecarlo_tpu_torch.ops import fused_engine
+    from montecarlo_tpu_torch.rng.sobol import SobolBridgeKernelSampler
+
+    monkeypatch.setattr(fused_engine, "BRIDGE_WORKSPACE_PATHS", 1024)
+    tp = _process("gbm", 17, cuda)
+    smp = SobolBridgeKernelSampler.create(17, device=cuda)
+    kw = dict(seed=3, path_offset=WRAP, sampler=smp)
+    k2 = PATH_KERNELS["fused_terminal_bridge"].launches
+    got = fused_terminal(tp, 3000, 17, **kw)
+    assert PATH_KERNELS["fused_terminal_bridge"].launches == k2 + 3
+    assert torch.equal(got, fused_terminal_reference(tp, 3000, 17, **kw))
+    pay = VanillaPayoff("call", 100.0)
+    got = fused_block_moments(tp, pay, 8192, 17, **kw)
+    want = fused_block_moments_reference(tp, pay, 8192, 17, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    fns = {"avg": ARITH_MEAN, "mx": RUNNING_MAX}
+    got = fused_functionals(tp, 3000, 17, functionals=fns, **kw)
+    want = fused_functionals_reference(tp, 3000, 17, functionals=fns, **kw)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
