@@ -85,7 +85,24 @@ CUDA kernels from ``montecarlo_tpu_torch/csrc`` and, in phases:
    under the bridge), each vanilla price within 4 replicate std-errs +
    1e-4 of Black-Scholes, each run launching its kernel; the tolerance
    run's wall-clock is then broken down under the profiler, outside the
-   counted runs.
+   counted runs;
+10. the jump, Levy, QE and SABR processes on K2-K4 (MertonProc, KouProc,
+   BatesProc, NigProc, HestonQEProc, BatesQEProc, VgProc, SabrProc): K2, K3
+   and K4 ({avg, geo, mx, mn}) on each against its plain version bitwise,
+   plain and antithetic (SABR also under Sobol draws), at 2^18 paths
+   (2^18 - 37 for K2 and K4) x 17 steps with ids from 2^30 - 1000, at 252
+   steps K2 antithetic and K4 plain, and the K0 gamma-table inversion on
+   2^20 uniforms; each K2 timed (and held bitwise) at
+   2^20 x 252 beside its plain version and bound, K3 on Merton at two
+   2^22 x 252 tolerance chunks, K4 {avg} on Kou and VG at 2^20 x 252; then,
+   launch counters reset just before and read just after each run: ``price
+   --process <p> --paths 1048576 --steps 252`` for the eight (K2), gated
+   within 4 std-err plus a stated slack by the CF price (kou, nig, vg,
+   bates, bates-qe), merton_call_series (merton), Heston's CF (heston-qe)
+   and the martingale E[F_T] = f0 (sabr, from ``--strike 0``); ``price
+   --process merton --target-se 1e-3`` (K3), ``--process kou --payoff
+   asian`` (K4) and ``--process merton --sampler sobol`` (the host table
+   on the torch loop, no kernel).
 
 Phase 3 also holds K5 (2^18 paths x {504, 756, 37} columns, ids wrapping
 past 2^32) and K6 (2^18 x {252, 17} steps, fed one joint matrix) against
@@ -1974,6 +1991,307 @@ def phase_qmc_path(torch):
     return counts, wall, out["n_paths"]
 
 
+# ---- phase 10: jump, Levy, QE and SABR processes on K2-K4 -------------------
+
+#: The processes of phase 10, in PROCESS_CODES order, and per process the
+#: Threefry calls per step pair that give normals (a Box-Muller pair each)
+#: and uniforms (two uniform_from_bits each), and the float32 adds and
+#: multiplies of one step (selects and compares counted as one each;
+#: log32, logf, sqrtf and the Box-Muller transcendentals not counted, so
+#: every bound below is loose where they matter; exp32 and ndtri32's
+#: rationals are float32 arithmetic and counted).
+JUMP_KINDS = ("merton", "kou", "bates", "nig", "heston-qe", "bates-qe", "vg",
+              "sabr")
+UNIFORM_FP = 6  # two halves: a shift, a convert, an add and a multiply
+QE_STEP_FP = 50 + NDTRI_FP
+JUMP_COST = {
+    "merton": (2, 1, 12),                   # 4 Poisson selects + 8
+    "kou": (1, 5, 4 + 4 * 5 + 4),           # Poisson, 4 jump sizes, 4
+    "bates": (3, 1, HESTON_STEP_FP + 4 + 4),
+    "nig": (2, 1, 16),
+    "heston-qe": (1, 1, QE_STEP_FP + 7),
+    "bates-qe": (2, 2, QE_STEP_FP + 7 + 4 + 4),
+    "vg": (1, 2, NDTRI_FP + 30 + 2 * EXP32_FP + 8 + 6),
+    "sabr": (2, 0, 2 * EXP32_FP + 12),
+}
+#: The phase's shapes: K2 at the CLI's 2^20 x 252, K3 at
+#: price_to_tolerance's 2^22 x 252 chunks, K4 {avg} at 2^20 x 252.
+JUMP_PATHS, JUMP_STEPS, JUMP_TOL_CHUNK = 1 << 20, 252, 1 << 22
+
+
+def jump_bound(kind, n, steps, out_bytes=4, extra_fp=0, observe_fp=0):
+    """The least time of ``kind``'s fused loop over n paths: its cipher
+    calls per step pair at CIPHER_INT int32 operations each (BOXMULLER_FP
+    or UNIFORM_FP float32 beside), its step's float32 operations (plus
+    ``observe_fp`` per step for K4's observation and fold), exp32 once per
+    path for the prices (SABR's prices are its state: none) plus
+    ``extra_fp``, and ``out_bytes`` per path."""
+    normal, uniform, step_fp = JUMP_COST[kind]
+    pairs = (steps + 1) // 2
+    calls = n * pairs * (normal + uniform)
+    price_fp = 0 if kind == "sabr" else EXP32_FP
+    return bound(n * out_bytes, int32=calls * CIPHER_INT,
+                 fp32=(n * pairs * (normal * BOXMULLER_FP
+                                    + uniform * UNIFORM_FP)
+                       + n * (steps * (step_fp + observe_fp) + price_fp
+                              + extra_fp)))
+
+
+def jump_process(kind, steps):
+    """The process ``price --process kind --steps steps`` simulates, on
+    the card, with the CLI's defaults."""
+    from montecarlo_tpu_torch.cli.pricing import cli_process
+
+    return cli_process(["--process", kind, "--steps", str(steps)], "cuda")[0]
+
+
+def phase_jump_parity(torch, errs):
+    """K2, K3 and K4 ({avg, geo, mx, mn}) on each of the eight new
+    functors against their plain versions, bitwise, with ids from 2^30 -
+    1000: at 17 steps each kernel plain and antithetic (SABR also under
+    Sobol draws), K3 at 2^18 paths, K2 and K4 at 2^18 - 37; at 252 steps
+    (the odd final step not taken: 126 pairs) K2 antithetic (SABR also
+    under Sobol draws) and K4 plain at 2^18 - 37, where phase 10's timed
+    launches add K2 plain at 2^20 for every process and K3 on Merton at
+    2^22.  A 252-step plain version takes seconds (hundreds of eager
+    operations per step), so 252-step runs are kept to these.  Then the K0
+    gamma functions on 2^20 uniforms."""
+    import numpy as np
+
+    from montecarlo_tpu_torch.engine import (ARITH_MEAN, GEO_MEAN,
+                                             RUNNING_MAX, RUNNING_MIN,
+                                             VanillaPayoff)
+    from montecarlo_tpu_torch.ops import (fused_block_moments,
+                                          fused_block_moments_reference,
+                                          fused_functionals,
+                                          fused_functionals_reference,
+                                          fused_terminal,
+                                          fused_terminal_reference)
+    from montecarlo_tpu_torch.ops.rng_check import (gamma_check,
+                                                    gamma_check_reference)
+    from montecarlo_tpu_torch.rng.sobol import SobolDeviceSampler
+
+    n = 1 << 18
+    off = (1 << 30) - 1000
+    fns = {"avg": ARITH_MEAN, "geo": GEO_MEAN, "mx": RUNNING_MAX,
+           "mn": RUNNING_MIN}
+    pay = VanillaPayoff("call", 105.0)
+    for kind in JUMP_KINDS:
+        t0 = time.perf_counter()
+        for steps in (17, JUMP_STEPS):
+            proc = jump_process(kind, steps)
+            every = ("K2", "K3", "K4")
+            runs = ([("plain", dict(), every), ("antithetic",
+                                                dict(antithetic=True), every)]
+                    if steps == 17 else
+                    [("antithetic", dict(antithetic=True), ("K2",)),
+                     ("plain", dict(), ("K4",))])
+            if kind == "sabr":
+                runs.append(("sobol", dict(sampler=SobolDeviceSampler.create(
+                    steps, 2, scramble_seed=steps, device="cuda")),
+                    every if steps == 17 else ("K2",)))
+            for label, draw, kernels in runs:
+                kw = dict(seed=17, path_offset=off, **draw)
+                sfx = "_sobol" if label == "sobol" else f"_{kind}"
+                tag = f"{kind} {steps} steps {label}"
+                cases = []
+                if "K2" in kernels:
+                    cases.append(("K2", "fused_terminal" + sfx,
+                                  fused_terminal(proc, n - 37, steps, **kw),
+                                  fused_terminal_reference(proc, n - 37,
+                                                           steps, **kw)))
+                if "K3" in kernels:
+                    got = fused_block_moments(proc, pay, n, steps, **kw)
+                    want = fused_block_moments_reference(proc, pay, n, steps,
+                                                         **kw)
+                    cases += [(f"K3 {f}", "fused_block_moments" + sfx,
+                               getattr(got, f), getattr(want, f))
+                              for f in ("mean", "m2")]
+                if "K4" in kernels:
+                    got = fused_functionals(proc, n - 37, steps,
+                                            functionals=fns, **kw)
+                    want = fused_functionals_reference(
+                        proc, n - 37, steps, functionals=fns, **kw)
+                    cases += [(f"K4 {k}", "fused_functionals" + sfx, got[k],
+                               want[k]) for k in want]
+                for name, key, g, w in cases:
+                    _, max_abs, _ = compare(f"{name} {tag}", g, w, BITWISE)
+                    errs[key] = max(errs.get(key, 0.0), max_abs)
+                del cases
+            torch.cuda.synchronize()
+        log(f"  {kind} parity: {time.perf_counter() - t0:.1f} s")
+    vg = jump_process("vg", JUMP_STEPS)
+    rng = np.random.default_rng(10)
+    m = 1 << 20
+    u_w, u_b = (torch.from_numpy(rng.uniform(0, 1, m).astype(np.float32))
+                .cuda() for _ in range(2))
+    x = torch.from_numpy(rng.uniform(-95, 2, m).astype(np.float32)).cuda()
+    got = gamma_check(vg, u_w, u_b, x)
+    want = gamma_check_reference(vg, u_w, u_b, x)
+    torch.cuda.synchronize()
+    for name in want:
+        same = bool(torch.equal(got[name], want[name]))
+        log(f"  K0 {name} 2^20 uniforms (VG's table, a = dt/nu): bitwise "
+            f"{same}")
+        if not same:
+            compare(name, got[name], want[name])
+            raise AssertionError(f"K0 {name} differs from the plain version")
+
+
+def phase_jump_shapes(torch, errs, times):
+    """Each new K2 timed at the CLI's 2^20 x 252 beside its plain version
+    and bound, K3 on Merton at price_to_tolerance's 2^22 x 252 (chunks 0
+    and 7), K4 {avg} on Kou and VG at 2^20 x 252; each checked bitwise.
+    Returns the K2 rates in path-steps/s."""
+    from montecarlo_tpu_torch.engine import ARITH_MEAN, VanillaPayoff
+    from montecarlo_tpu_torch.ops import (fused_block_moments,
+                                          fused_block_moments_reference,
+                                          fused_functionals,
+                                          fused_functionals_reference,
+                                          fused_terminal,
+                                          fused_terminal_reference)
+
+    n, s = JUMP_PATHS, JUMP_STEPS
+    rates = {}
+    for kind in JUMP_KINDS:
+        proc = jump_process(kind, s)
+        key = f"fused_terminal_{kind}"
+        timed_check(times, errs, key, f"K2 {kind} {n}x{s}",
+                    lambda: fused_terminal(proc, n, s, seed=0),
+                    lambda: fused_terminal_reference(proc, n, s, seed=0),
+                    10, BITWISE, bnd=jump_bound(kind, n, s))
+        rates[kind] = n * s / (times[key]["ms"] * 1e-3)
+    merton = jump_process("merton", s)
+    pay = VanillaPayoff("call", 105.0)
+    nt = JUMP_TOL_CHUNK
+    for chunk in (0, 7):
+        off = chunk * nt
+        timed_check(times, errs, "fused_block_moments_merton",
+                    f"K3 merton call {nt}x{s} chunk {chunk}",
+                    lambda: fused_block_moments(merton, pay, nt, s, seed=0,
+                                                path_offset=off),
+                    lambda: fused_block_moments_reference(
+                        merton, pay, nt, s, seed=0, path_offset=off),
+                    5, BITWISE, fields=("mean", "m2"),
+                    bnd=jump_bound("merton", nt, s, out_bytes=8 / 128,
+                                   extra_fp=8))
+    fns = {"avg": ARITH_MEAN}
+    for kind in ("kou", "vg"):
+        proc = jump_process(kind, s)
+        timed_check(times, errs, f"fused_functionals_{kind}",
+                    f"K4 {kind} {{avg}} {n}x{s}",
+                    lambda: fused_functionals(proc, n, s, seed=0,
+                                              functionals=fns),
+                    lambda: fused_functionals_reference(proc, n, s, seed=0,
+                                                        functionals=fns),
+                    10, BITWISE,
+                    bnd=jump_bound(kind, n, s, out_bytes=8,
+                                   observe_fp=EXP32_FP + 1))
+    log("  K2 path-steps/s at 2^20 x 252: " + ", ".join(
+        f"{k} {r:.4e}" for k, r in rates.items()))
+    return rates
+
+
+#: Each CLI run's slack beside 4 std-err against its oracle: the JAX
+#: tests' 2e-3 where the scheme is exact in law (Merton, Kou, NIG, VG: the
+#: truncated Poisson's error is below float32), test_bates.py's 0.08 for
+#: the full-truncation Euler Bates, 0.02 for the QE schemes' bias at 252
+#: steps, 1e-3 for SABR's martingale.
+JUMP_SLACK = {"merton": 2e-3, "kou": 2e-3, "nig": 2e-3, "vg": 2e-3,
+              "bates": 0.08, "heston-qe": 0.02, "bates-qe": 0.02,
+              "sabr": 1e-3}
+
+
+def check_oracle(label, out, oracle, slack):
+    """A CLI price within 4 std-err plus ``slack`` of its oracle."""
+    price, se = out["price"], out["std_err"]
+    ok = math.isfinite(price) and abs(price - oracle) < 4 * se + slack
+    log(f"  {label}: {json.dumps(out)} -> oracle {oracle:.6f}, |diff| "
+        f"{abs(price - oracle):.3e}, 4 se + {slack:g} = "
+        f"{4 * se + slack:.3e} ({'ok' if ok else 'FAIL'})")
+    if not ok:
+        raise AssertionError(f"{label}: price {price} vs oracle {oracle}")
+
+
+def counted_cli(argv, *kernels):
+    """One CLI run, its launch counters reset just before and read just
+    after (``run_qmc``: exactly ``kernels`` launched): (JSON, wall s,
+    launches by kernel)."""
+    got = {}
+    out, wall = run_qmc(got, "price " + " ".join(argv[1:]), kernels,
+                        lambda: run_cli(argv)[0])
+    return out, wall, got
+
+
+def phase_jump_path(torch):
+    """The slice's main path through the CLI, each run counted by itself:
+    ``price --process <p> --paths 1048576 --steps 252`` for the eight
+    processes (K2), gated by their oracles (the CF price for kou, nig, vg,
+    bates and bates-qe; merton_call_series for merton; Heston's CF for
+    heston-qe; SABR by the martingale disc E[F_T] = s0, from ``--strike
+    0``); ``--target-se 1e-3`` on Merton (K3), ``--payoff asian`` on Kou
+    (K4, below Kou's call), ``--sampler sobol`` on Merton (the host's
+    mixed-draw table on the torch loop, no kernel).  Returns each
+    kernel-line entry's launches."""
+    from montecarlo_tpu_torch.engine import cf_pricing
+    from montecarlo_tpu_torch.processes import (bates_log_cf,
+                                                merton_call_series)
+
+    base = ["price", "--paths", str(JUMP_PATHS), "--steps", str(JUMP_STEPS)]
+    oracles = {
+        "merton": merton_call_series(100.0, 105.0, 0.03, 0.2, 1.0, -0.05,
+                                     0.1, 1.0),
+        "heston-qe": cf_pricing.cf_call_price(
+            bates_log_cf(100.0, 0.03, 0.04, 2.0, 0.04, 0.5, -0.7, 0.0,
+                         -0.05, 0.1, 1.0), 100.0, 105.0, 1.0, 0.03)}
+    launches, outs = {}, {}
+    for kind in JUMP_KINDS:
+        out, _, got = counted_cli(base + ["--process", kind],
+                                  "fused_terminal")
+        launches[f"fused_terminal_{kind}"] = got["fused_terminal"]
+        outs[kind] = out
+        if kind == "sabr":
+            continue
+        # The JAX CLI prints cf_price for every process here but these two.
+        if ("cf_price" in out) == (kind in oracles):
+            raise AssertionError(f"{kind}: keys {sorted(out)}")
+        check_oracle(f"{kind} vs its oracle", out,
+                     oracles[kind] if kind in oracles else out["cf_price"],
+                     JUMP_SLACK[kind])
+    fwd, _, got = counted_cli(base + ["--process", "sabr", "--strike", "0"],
+                              "fused_terminal")
+    launches["fused_terminal_sabr"] += got["fused_terminal"]
+    check_oracle("sabr martingale: disc E[F_T] = s0 (--strike 0)", fwd,
+                 100.0, JUMP_SLACK["sabr"])
+    if not 0 < outs["sabr"]["price"] < fwd["price"]:
+        raise AssertionError(f"sabr call {outs['sabr']} outside (0, s0)")
+    tol, wall, got = counted_cli(
+        ["price", "--process", "merton", "--target-se", "1e-3", "--steps",
+         str(JUMP_STEPS)], "fused_block_moments")
+    launches["fused_block_moments_merton"] = got["fused_block_moments"]
+    check_oracle("merton --target-se 1e-3 vs merton_call_series", tol,
+                 oracles["merton"], JUMP_SLACK["merton"])
+    if not tol["std_err"] <= 1e-3:
+        raise AssertionError(f"merton target-se run stopped at "
+                             f"{tol['std_err']}")
+    log(f"  merton wall-clock to std-err 1e-3: {wall:.3f} s "
+        f"({tol['n_paths']} paths, {got['fused_block_moments']} K3 "
+        "launches)")
+    asian, _, got = counted_cli(base + ["--process", "kou", "--payoff",
+                                        "asian"], "fused_functionals")
+    launches["fused_functionals_kou"] = got["fused_functionals"]
+    if not 0 < asian["price"] < outs["kou"]["price"]:
+        raise AssertionError(f"kou Asian {asian} not below its call")
+    sobol, _, _ = counted_cli(["price", "--process", "merton", "--sampler",
+                               "sobol", "--paths", "65536", "--steps",
+                               str(JUMP_STEPS)])
+    check_oracle("merton --sampler sobol (host table, torch loop) vs "
+                 "merton_call_series", sobol, oracles["merton"],
+                 JUMP_SLACK["merton"])
+    log(f"  launches on the jump/Levy/QE/SABR path: {launches}")
+    return launches
+
+
 #: Each kernel's wrapper, CUDA source and the TPU kernel it replaces.
 KERNELS = [
     ("gbm_terminal", "gbm_kernel.cu", "gbm_kernel.py:118"),
@@ -1989,6 +2307,10 @@ KERNELS = [
     ("fused_terminal_bridge", "fused_engine.cu", "fused_engine.py:231"),
     ("fused_block_moments_bridge", "fused_engine.cu", "fused_engine.py:478"),
     ("fused_functionals_bridge", "fused_engine.cu", "fused_engine.py:390"),
+    *((f"fused_terminal_{k}", "fused_engine.cu", "fused_engine.py:231")
+      for k in JUMP_KINDS),
+    ("fused_block_moments_merton", "fused_engine.cu", "fused_engine.py:478"),
+    ("fused_functionals_kou", "fused_engine.cu", "fused_engine.py:390"),
 ]
 
 
@@ -2068,6 +2390,17 @@ def main() -> int:
             f"({rqmc_paths} paths) against the iid loop's {wall:.3f} s "
             f"({n_paths} paths), on {card}")
         log(f"  phase 9 took {time.perf_counter() - t9:.1f} s")
+        log("phase 10: jump, Levy, QE and SABR processes on K2-K4")
+        t10 = time.perf_counter()
+        phase_jump_parity(torch, errs)
+        t_shapes = time.perf_counter()
+        phase_jump_shapes(torch, errs, times)
+        t_path = time.perf_counter()
+        counts.update(phase_jump_path(torch))
+        log(f"  phase 10: parity {t_shapes - t10:.1f} s, timed shapes "
+            f"{t_path - t_shapes:.1f} s, CLI path "
+            f"{time.perf_counter() - t_path:.1f} s")
+        log(f"  phase 10 took {time.perf_counter() - t10:.1f} s, on {card}")
         k3_ms = times["fused_block_moments"]["ms"]
         kernel_s = k3_ms * 1e-3 * n_paths / (1 << 22)
         log(f"  K1 {bench['value']:.6e} path-steps/s, wall-clock to "

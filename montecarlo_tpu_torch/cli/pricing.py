@@ -8,19 +8,28 @@ over 8 replicates; vanilla call/put/digital payoffs (fixed ``--paths``
 through K2, or ``--target-se`` tolerance pricing through K3, by the iid
 chunk loop under ``plain`` and by RQMC under ``sobol-device``); the
 path-dependent Asian, lookback, up-and-out and up-and-in calls (K4, with
-the Brownian-bridge barrier under ``--bridge``); the rough-Bergomi call and
-put (``--process rbergomi``, K5 and K6, in ``pricing_modes``) and the
-European best-of-A call on correlated GBM (``--payoff max-call``, the torch
-time loop on MultiGBM, in ``pricing_modes``).  The output JSON has the JAX
-CLI's keys: ``price``, ``std_err``, ``n_paths`` and, for the GBM call and
-digital, ``black_scholes``; rough Bergomi adds ``hurst``, the max-call
-``n_assets``.
+the Brownian-bridge barrier under ``--bridge``); the jump, Levy, QE and
+SABR processes of the JAX CLI's menu (``--process heston-qe``, ``bates``,
+``bates-qe``, ``merton``, ``kou``, ``nig``, ``vg``, ``sabr``) on the same
+kernels, with the JAX CLI's refusal of the in-kernel Sobol samplers for the
+seven whose draws include uniforms (``--sampler sobol`` runs them on the
+host's mixed-draw table on the torch loop); the rough-Bergomi call and put
+(``--process rbergomi``, K5 and K6, in ``pricing_modes``) and the European
+best-of-A call on correlated GBM (``--payoff max-call``, the torch time
+loop on MultiGBM, in ``pricing_modes``).  The output JSON has the JAX CLI's
+keys: ``price``, ``std_err``, ``n_paths`` and, for the GBM call and
+digital, ``black_scholes``; for the call on Kou, NIG, VG, Bates and BatesQE
+``cf_price``, the characteristic-function oracle; rough Bergomi adds
+``hurst``, the max-call ``n_assets``.
 """
 
 from __future__ import annotations
 
 import json
 
+#: The ``--process`` menu: the JAX CLI's, less cev, slv and hybrid.
+PROCESSES = ["gbm", "heston", "heston-qe", "bates", "bates-qe", "merton",
+             "kou", "nig", "vg", "sabr", "rbergomi"]
 VANILLA = ("call", "put", "digital")
 PATH_DEPENDENT = ("asian", "lookback", "up-and-out", "up-and-in")
 MULTI_ASSET = ("max-call",)
@@ -28,13 +37,15 @@ MULTI_ASSET = ("max-call",)
 
 def add_parsers(sub):
     p = sub.add_parser("price", help="Monte Carlo option pricing (GBM, "
-                                     "Heston, rough Bergomi)")
-    p.add_argument("--process", default="gbm",
-                   choices=["gbm", "heston", "rbergomi"])
+                                     "Heston, jump, Levy and SABR "
+                                     "processes, rough Bergomi)")
+    p.add_argument("--process", default="gbm", choices=PROCESSES)
     p.add_argument("--s0", type=float, default=100.0)
     p.add_argument("--strike", type=float, default=105.0)
     p.add_argument("--rate", type=float, default=0.03)
     p.add_argument("--sigma", type=float, default=0.2)
+    p.add_argument("--beta", type=float, default=0.7,
+                   help="SABR: CEV exponent")
     p.add_argument("--maturity", type=float, default=1.0, help="years")
     p.add_argument("--paths", type=int, default=100_000)
     p.add_argument("--steps", type=int, default=252)
@@ -69,6 +80,32 @@ def add_parsers(sub):
     p.add_argument("--theta", type=float, default=0.04)
     p.add_argument("--xi", type=float, default=0.5)
     p.add_argument("--rho", type=float, default=-0.7)
+    # Merton/Kou/Bates extras
+    p.add_argument("--jump-intensity", type=float, default=1.0)
+    p.add_argument("--jump-mean", type=float, default=-0.05)
+    p.add_argument("--jump-std", type=float, default=0.1)
+    p.add_argument("--p-up", type=float, default=0.4,
+                   help="Kou: probability a jump is upward")
+    p.add_argument("--eta1", type=float, default=10.0,
+                   help="Kou: up-jump decay (>1)")
+    p.add_argument("--eta2", type=float, default=5.0,
+                   help="Kou: down-jump decay")
+    # NIG extras (pure-jump Levy; --sigma unused)
+    p.add_argument("--nig-alpha", type=float, default=15.0,
+                   help="NIG: tail heaviness (> |nig-beta + 1|)")
+    p.add_argument("--nig-beta", type=float, default=-5.0,
+                   help="NIG: skewness (< 0 skews the down-tail)")
+    p.add_argument("--nig-delta", type=float, default=0.5,
+                   help="NIG: scale per unit time")
+    # Variance-gamma extras (--sigma is the subordinated BM scale)
+    p.add_argument("--vg-theta", type=float, default=-0.14,
+                   help="VG: subordinated drift (< 0 skews the down-tail)")
+    p.add_argument("--vg-nu", type=float, default=0.2,
+                   help="VG: subordinator variance rate (kurtosis; "
+                        "needs dt <= nu)")
+    # SABR extras (--sigma is alpha, --beta the CEV exponent, --rho the corr)
+    p.add_argument("--nu", type=float, default=0.3,
+                   help="SABR vol-of-vol")
     # rough Bergomi extras (--v0 is xi0, --rho the spot-vol corr)
     p.add_argument("--hurst", type=float, default=0.1,
                    help="rough Bergomi Hurst exponent (< 0.5 = rough)")
@@ -79,15 +116,21 @@ def add_parsers(sub):
                         "(the kernels' plain PyTorch versions)")
 
 
-def build_process(args, dt, device):
-    from montecarlo_tpu_torch.processes import GBM, Heston
+def cli_process(flags, device="cuda"):
+    """The process ``price <flags>`` simulates (``flags`` a list of the
+    subcommand's flags, such as ``["--process", "kou", "--steps",
+    "252"]``), on ``device``, and the parsed arguments."""
+    import argparse
 
-    if args.process == "heston":
-        return Heston.create(s0=args.s0, v0=args.v0, mu=args.rate,
-                             kappa=args.kappa, theta=args.theta, xi=args.xi,
-                             rho=args.rho, dt=dt, device=device)
-    return GBM.create(s0=args.s0, mu=args.rate, sigma=args.sigma, dt=dt,
-                      device=device)
+    from montecarlo_tpu_torch.cli.pricing_models import build_process
+    from montecarlo_tpu_torch.device import resolve_device
+
+    parser = argparse.ArgumentParser()
+    add_parsers(parser.add_subparsers())
+    args = parser.parse_args(["price", *flags])
+    proc = build_process(args, args.maturity / args.steps,
+                         resolve_device(device))
+    return proc, args
 
 
 def resolve_cli_device(name: str):
@@ -120,7 +163,7 @@ def cmd_price(args) -> int:
         return run_rbergomi(args)
     device = resolve_cli_device(args.device)
     dt = args.maturity / args.steps
-    proc = build_process(args, dt, device)
+    proc = pm.build_process(args, dt, device)
     sampler = pm.build_sampler(args, proc)
     disc = float(discount_factor(args.rate, args.maturity))
     if args.payoff == "max-call":
@@ -137,6 +180,7 @@ def cmd_price(args) -> int:
     if args.process == "gbm" and oracle is not None:
         out["black_scholes"] = oracle(args.s0, args.strike, args.rate,
                                       args.sigma, args.maturity)
+    pm.append_oracles(out, args)
     print(json.dumps(out))
     return 0
 

@@ -6,7 +6,9 @@ jax_proc._asdict().items()}``, so a test can build both sides from one
 numpy source.  Floating leaves become float32 tensors and integer leaves
 keep their integer type.  The bootstrap GARCH carries its table and the
 table's length: JAX pads the table to a multiple of 128, and the port keeps
-its ``n_table`` valid entries (``GARCHBootstrap.numpy_fields``).
+its ``n_table`` valid entries (``GARCHBootstrap.numpy_fields``).  The
+variance gamma carries its quantile table (two 512-entry leaves) and the
+QE processes their create-time constants, as leaves like any other.
 """
 
 from __future__ import annotations
@@ -17,16 +19,17 @@ import numpy as np
 import torch
 
 from montecarlo_tpu_torch.device import resolve_device
-from montecarlo_tpu_torch.processes.basket import BasketGBM
-from montecarlo_tpu_torch.processes.garch import GARCHBootstrap
-from montecarlo_tpu_torch.processes.gbm import GBM
-from montecarlo_tpu_torch.processes.heston import Heston
-from montecarlo_tpu_torch.processes.multi_gbm import MultiGBM
-from montecarlo_tpu_torch.processes.rough_bergomi import RoughBergomi
+from montecarlo_tpu_torch.processes import (NIG, SABR, BasketGBM, Bates,
+                                            BatesQE, GARCHBootstrap, GBM,
+                                            Heston, HestonQE, Kou, Merton,
+                                            MultiGBM, RoughBergomi,
+                                            VarianceGamma)
 
 PROCESSES = {"gbm": GBM, "heston": Heston, "rbergomi": RoughBergomi,
              "basket": BasketGBM, "multigbm": MultiGBM,
-             "garch": GARCHBootstrap}
+             "garch": GARCHBootstrap, "merton": Merton, "kou": Kou,
+             "bates": Bates, "nig": NIG, "heston-qe": HestonQE,
+             "bates-qe": BatesQE, "vg": VarianceGamma, "sabr": SABR}
 
 
 def _tensor(name: str, value, device) -> torch.Tensor:

@@ -1,12 +1,15 @@
 // K0 — the device math traced into every kernel of the JAX package:
-// Threefry-2x32-20, uniform_from_bits, Box-Muller, exp32, log32, and the
-// randomized Sobol normal (ndtri32, sobol_bits, the Owen hash).
+// Threefry-2x32-20, uniform_from_bits, Box-Muller, exp32, log32, the
+// randomized Sobol normal (ndtri32, sobol_bits, the Owen hash) and the
+// table-inverted gamma variate of variance gamma (expneg_wide32,
+// gamma_from_uniforms_table32).
 //
 // Replaces montecarlo_tpu/rng/threefry.py::threefry2x32,
 // montecarlo_tpu/rng/normal.py::{uniform_from_bits, boxmuller_pair, exp32,
-// log32, ndtri32} and montecarlo_tpu/rng/sobol.py::{sobol_bits, _reverse32,
-// _scrambled_uniform, _shifted_normal}, which Pallas inlines into each TPU
-// kernel.  Written once, as
+// log32, ndtri32}, montecarlo_tpu/rng/sobol.py::{sobol_bits, _reverse32,
+// _scrambled_uniform, _shifted_normal} and montecarlo_tpu/rng/gamma.py::
+// {expneg_wide32, gamma_from_uniforms_table32}, which Pallas inlines into
+// each TPU kernel.  Written once, as
 // __host__ __device__ inline functions, so the same text builds for sm_90a
 // (nvcc) and for the host (g++), where the tests hold it against JAX.
 //
@@ -200,6 +203,45 @@ MC_HD float sobol_normal(const uint32_t* sv, uint32_t k0, uint32_t k1,
                          uint32_t id, uint32_t dim) {
   return shifted_normal(sobol_bits(sv + (size_t)dim * kSobolBits, id),
                         sobol_key(k0, k1, dim));
+}
+
+// ---- Gamma variates by table inversion (rng/gamma.py) -----------------------
+
+// exp(x) for x in [-88, 0] as exp32(x / 8)^8; inputs clamp to that range.
+MC_HD float expneg_wide32(float x) {
+  x = fminf(fmaxf(x, -88.0f), 0.0f);
+  const float e = exp32(x * 0.125f);
+  const float e2 = e * e;
+  const float e4 = e2 * e2;
+  return e4 * e4;
+}
+
+// One Gamma(a, 1) variate, a in (0, 1], from two uniforms (rng/gamma.py::
+// gamma_from_uniforms_table32): the shape-(1 + a) quantile of u_w from the
+// residual table (z0, dz, resid[n], dresid[n]) by cubic Hermite at z =
+// ndtri32(u_w), plus log(u_w) / (1 + a), times u_boost^(1/a).  The table
+// is read by plain indexing.
+MC_HD float gamma_from_uniforms_table32(float a, float u_w, float u_boost,
+                                        float z0, float dz,
+                                        const float* resid,
+                                        const float* dresid, int n) {
+  const float u = fminf(fmaxf(u_w, 6e-8f), (float)(1.0 - 6e-8));
+  const float z = ndtri32(u);
+  const float t = (z - z0) / dz;
+  int i = (int)floorf(t);
+  i = i < 0 ? 0 : (i > n - 2 ? n - 2 : i);
+  const float frac = fminf(fmaxf(t - (float)i, 0.0f), 1.0f);
+  const float g0 = resid[i], g1 = resid[i + 1];
+  const float m0 = dresid[i] * dz, m1 = dresid[i + 1] * dz;
+  const float f2 = frac * frac;
+  const float f3 = f2 * frac;
+  const float h = ((g0 * ((2.0f * f3 - 3.0f * f2) + 1.0f) +
+                    m0 * ((f3 - 2.0f * f2) + frac)) +
+                   g1 * (-2.0f * f3 + 3.0f * f2)) +
+                  m1 * (f3 - f2);
+  const float b = 1.0f + a;
+  const float log_w = fminf(fmaxf(h + log32(u) / b, -20.0f), 20.0f);
+  return exp32(log_w) * expneg_wide32(log32(u_boost) / a);
 }
 
 }  // namespace mc

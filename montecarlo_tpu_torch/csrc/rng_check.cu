@@ -1,8 +1,8 @@
 // K0 check entries: run the device functions of rng.cuh elementwise, so the
-// on-card build of the cipher, the float32 math and the Sobol normal can be
-// held against the plain PyTorch versions (rng/threefry.py, rng/normal.py,
-// rng/sobol.py).  Not on the pricing path; they exist to test K0 on the
-// card.
+// on-card build of the cipher, the float32 math, the Sobol normal and the
+// table-inverted gamma variate can be held against the plain PyTorch
+// versions (rng/threefry.py, rng/normal.py, rng/sobol.py, rng/gamma.py).
+// Not on the pricing path; they exist to test K0 on the card.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -53,6 +53,20 @@ __global__ void sobol_check_kernel(const uint32_t* __restrict__ sv,
   out[2 * n + i] = mc::ndtri32(u[i]);
 }
 
+__global__ void gamma_check_kernel(const float* __restrict__ u_w,
+                                   const float* __restrict__ u_b,
+                                   const float* __restrict__ x, int64_t n,
+                                   float a, float z0, float dz,
+                                   const float* __restrict__ resid,
+                                   const float* __restrict__ dresid,
+                                   int n_table, float* __restrict__ out) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  out[i] = mc::expneg_wide32(x[i]);
+  out[n + i] = mc::gamma_from_uniforms_table32(a, u_w[i], u_b[i], z0, dz,
+                                               resid, dresid, n_table);
+}
+
 }  // namespace
 
 // bits (2, n) uint32: Threefry words; out (6, n) float32: u0, u1, z0, z1,
@@ -78,5 +92,21 @@ extern "C" int mc_sobol_check(uint32_t* bits, float* out, const uint32_t* sv,
   const int64_t blocks = (n + threads - 1) / threads;
   sobol_check_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
       sv, ids, dims, u, n, k0, k1, bits, out);
+  return (int)cudaGetLastError();
+}
+
+// out (2, n) float32: expneg_wide32(x[i]) and the Gamma(a) variate of
+// (u_w[i], u_b[i]) from the residual table (z0, dz, resid, dresid) of
+// n_table knots.
+extern "C" int mc_gamma_check(float* out, const float* u_w, const float* u_b,
+                              const float* x, int64_t n, float a, float z0,
+                              float dz, const float* resid,
+                              const float* dresid, int n_table,
+                              void* stream) {
+  if (n_table < 2) return (int)cudaErrorInvalidValue;
+  const int threads = 256;
+  const int64_t blocks = (n + threads - 1) / threads;
+  gamma_check_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
+      u_w, u_b, x, n, a, z0, dz, resid, dresid, n_table, out);
   return (int)cudaGetLastError();
 }

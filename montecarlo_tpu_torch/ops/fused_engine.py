@@ -3,14 +3,18 @@
 Port of ``montecarlo_tpu/ops/fused_engine.py::fused_terminal_pallas`` (K2),
 ``::fused_block_moments_pallas`` (K3) and ``::fused_functionals_pallas``
 (K4); the kernels are templates over a process functor (GBM, Heston, the
-correlated GBM basket of at most 128 assets, the bootstrap GARCH) and a
-draw source in ``csrc/fused_engine.cu``.  Draw sources (``sampler=``):
+correlated GBM basket of at most 128 assets, the bootstrap GARCH, Merton,
+Kou, Bates, NIG, HestonQE, BatesQE, variance gamma and SABR) and a draw
+source in ``csrc/fused_engine.cu``.  Draw sources (``sampler=``):
 
-- ``None``: the process's own Threefry draws, two steps per cipher call,
-  the process's antithetic mirror on odd ids when ``antithetic``;
-- a :class:`~montecarlo_tpu_torch.rng.sobol.SobolDeviceSampler`: the
-  randomized Sobol normal of dimension ``t * n_draws + d``, computed in the
-  kernel from the sampler's direction table;
+- ``None``: the process's own Threefry draws (its ``draws_pair``), two
+  steps per set of cipher calls, the process's antithetic mirror (per
+  draw: a normal negated, a uniform reflected) on odd ids when
+  ``antithetic``;
+- a :class:`~montecarlo_tpu_torch.rng.sobol.SobolDeviceSampler`
+  (all-normal processes): the randomized Sobol normal of dimension ``t *
+  n_draws + d``, computed in the kernel from the sampler's direction
+  table;
 - a :class:`~montecarlo_tpu_torch.rng.sobol.SobolBridgeKernelSampler`
   (single-draw processes): the T bridge normals once per path into a
   scratch, then per step the plan's weighted sum of O(log T) of them.  The
@@ -49,11 +53,11 @@ from montecarlo_tpu_torch.engine.payoffs import VanillaPayoff
 from montecarlo_tpu_torch.engine.simulate import check_sampler, path_ids_for
 from montecarlo_tpu_torch.ops._build import (CudaKernel, check_cuda_tensor,
                                              cuda_stream)
-from montecarlo_tpu_torch.processes.basket import (BasketGBM,
-                                                   check_kernel_assets)
-from montecarlo_tpu_torch.processes.garch import GARCHBootstrap
-from montecarlo_tpu_torch.processes.gbm import GBM
-from montecarlo_tpu_torch.processes.heston import Heston
+from montecarlo_tpu_torch.processes import (NIG, SABR, BasketGBM, Bates,
+                                            BatesQE, GARCHBootstrap, GBM,
+                                            Heston, HestonQE, Kou, Merton,
+                                            VarianceGamma)
+from montecarlo_tpu_torch.processes.basket import check_kernel_assets
 from montecarlo_tpu_torch.rng.sobol import (SobolBridgeKernelSampler,
                                             SobolDeviceSampler)
 from montecarlo_tpu_torch.rng.threefry import MASK32, key_from_seed
@@ -64,8 +68,11 @@ LANES = 128          # paths per stats row (K3's block)
 STATS_BLOCK = 4096   # paths per MomentState block
 MAX_FUNCTIONALS = 4  # K4's functional slots (kMaxFunctionals)
 
-#: The processes the kernels run, by the code of their functor.
-PROCESS_CODES = {GBM: 0, Heston: 1, BasketGBM: 2, GARCHBootstrap: 3}
+#: The processes the kernels run, by the code of their functor
+#: (csrc/fused_engine.cu::ProcessCode).
+PROCESS_CODES = {GBM: 0, Heston: 1, BasketGBM: 2, GARCHBootstrap: 3,
+                 Merton: 4, Kou: 5, Bates: 6, NIG: 7, HestonQE: 8,
+                 BatesQE: 9, VarianceGamma: 10, SABR: 11}
 
 #: Draw-source codes of the kernels (csrc/fused_engine.cu::DrawSource).
 THREEFRY, SOBOL, BRIDGE = 0, 1, 2
@@ -103,19 +110,28 @@ def _leaves(process):
     flattened, as the kernel's functor reads them (GBM: [s0, mu, sigma,
     dt]; Heston: [s0, v0, mu, kappa, theta, xi, rho, dt]; basket: [s0 (A),
     mu (A), sigma (A), chol_flat (A*A), weights (A), dt]; GARCH: [s0,
-    var0, omega, alpha, beta, table (n_table)]), and ``dims`` the basket's
-    A or GARCH's table length, an integer that never passes through a
-    float."""
+    var0, omega, alpha, beta, table (n_table)]; Merton: [s0, mu, sigma,
+    lam, jump_mean, jump_std, dt]; Kou: [s0, mu, sigma, lam, p_up, eta1,
+    eta2, dt]; Bates: Heston's with [lam, jump_mean, jump_std] before dt;
+    NIG: [s0, mu, alpha, beta, delta, dt]; HestonQE and BatesQE: Heston's
+    and Bates's, then [e_kdt, c1, c2, k0, k1, k2, k3, k4, mgf_a]; VG: [s0,
+    mu, sigma, theta, nu, dt, gq_z0, gq_dz, gq_resid (n), gq_dresid (n)];
+    SABR: [f0, alpha, beta, nu, rho, dt]), and ``dims`` the basket's A,
+    GARCH's table length or VG's table length n, an integer that never
+    passes through a float."""
     code = PROCESS_CODES.get(type(process))
     if code is None:
+        others = ", ".join(c.__name__ for c in list(PROCESS_CODES)[2:])
         raise TypeError("the fused kernels run GBM and Heston (and "
-                        "BasketGBM and GARCHBootstrap) in this port, got "
+                        f"{others}) in this port, got "
                         f"{type(process).__name__}")
     dims = process.n_draws
     if isinstance(process, BasketGBM):
         check_kernel_assets(dims)
     elif isinstance(process, GARCHBootstrap):
         dims = process.table.numel()
+    elif isinstance(process, VarianceGamma):
+        dims = process.gq_resid.numel()
     fields = [getattr(process, f.name) for f in dataclasses.fields(process)]
     return code, dims, torch.cat([v.reshape(-1) for v in fields
                                   if v.is_floating_point()])

@@ -1,8 +1,9 @@
 """K0 on the card: the device functions of ``csrc/rng.cuh`` run elementwise
 (``csrc/rng_check.cu``) beside their plain PyTorch versions, so a test or
 ``chip_smoke.py`` can hold the on-card build against ``rng/``: the cipher
-and the float32 math (``rng_check``), and the randomized Sobol normal with
-``ndtri32`` (``sobol_check``)."""
+and the float32 math (``rng_check``), the randomized Sobol normal with
+``ndtri32`` (``sobol_check``), and ``expneg_wide32`` with the
+table-inverted gamma variate of variance gamma (``gamma_check``)."""
 
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ import ctypes
 import torch
 
 from montecarlo_tpu_torch.ops._build import CudaKernel, cuda_stream
+from montecarlo_tpu_torch.rng.gamma import (expneg_wide32,
+                                            gamma_from_uniforms_table32)
 from montecarlo_tpu_torch.rng.normal import (boxmuller_pair, exp32, log32,
                                              ndtri32, uniform_from_bits)
 from montecarlo_tpu_torch.rng.sobol import _owen_key, _scrambled_uniform
@@ -99,3 +102,42 @@ def sobol_check(k0: int, k1: int, sv, ids, dims, u) -> dict:
                               k1 & MASK32, cuda_stream(dev))
     words = bits.to(torch.int64) & MASK32
     return dict(zip(SOBOL_NAMES, (words[0], words[1], *out)))
+
+
+K0_GAMMA_CHECK = CudaKernel("mc_gamma_check", [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int64, ctypes.c_float, ctypes.c_float, ctypes.c_float,
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+
+GAMMA_NAMES = ("expneg_wide32", "gamma")
+
+
+def _gamma_args(vg):
+    """(a, z0, dz, resid, dresid) of a VarianceGamma process: the shape
+    dt/nu as the process computes it and its quantile table."""
+    return (vg.dt / vg.nu, vg.gq_z0, vg.gq_dz, vg.gq_resid, vg.gq_dresid)
+
+
+def gamma_check_reference(vg, u_w, u_b, x) -> dict:
+    """Plain versions of the gamma check: ``expneg_wide32(x)`` and the
+    Gamma(dt/nu) variate of ``(u_w, u_b)`` from ``vg``'s table."""
+    a, z0, dz, resid, dresid = _gamma_args(vg)
+    vals = (expneg_wide32(x),
+            gamma_from_uniforms_table32(a, u_w, u_b, z0, dz, resid, dresid))
+    return dict(zip(GAMMA_NAMES, vals))
+
+
+def gamma_check(vg, u_w, u_b, x) -> dict:
+    """The gamma check kernel on CUDA tensors (float32, (n,) each) and a
+    VarianceGamma process on the card."""
+    dev = u_w.device
+    n = u_w.numel()
+    a, z0, dz, resid, dresid = _gamma_args(vg)
+    args = [t.to(torch.float32).contiguous() for t in (u_w, u_b, x)]
+    out = torch.empty((2, n), dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        K0_GAMMA_CHECK.launch(out.data_ptr(), *(t.data_ptr() for t in args),
+                              n, float(a), float(z0), float(dz),
+                              resid.data_ptr(), dresid.data_ptr(),
+                              resid.numel(), cuda_stream(dev))
+    return dict(zip(GAMMA_NAMES, out))

@@ -1,8 +1,15 @@
-"""Stochastic processes (GBM, Heston, the correlated GBM basket, MultiGBM
-and the bootstrap GARCH) and the rough-Bergomi sampler."""
+"""Stochastic processes (GBM, Heston, the correlated GBM basket, MultiGBM,
+the bootstrap GARCH, the jump processes Merton, Kou and Bates, the Levy
+processes NIG and variance gamma, HestonQE, BatesQE and SABR) and the
+rough-Bergomi sampler."""
 
 from montecarlo_tpu_torch.processes.base import NormalDrawsMixin  # noqa: F401
 from montecarlo_tpu_torch.processes.basket import BasketGBM  # noqa: F401
+from montecarlo_tpu_torch.processes.bates import (  # noqa: F401
+    Bates,
+    bates_log_cf,
+)
+from montecarlo_tpu_torch.processes.bates_qe import BatesQE  # noqa: F401
 from montecarlo_tpu_torch.processes.garch import (  # noqa: F401
     MIN_HISTORY,
     GARCHBootstrap,
@@ -13,12 +20,21 @@ from montecarlo_tpu_torch.processes.heston import (  # noqa: F401
     Heston,
     HestonState,
 )
+from montecarlo_tpu_torch.processes.heston_qe import HestonQE  # noqa: F401
+from montecarlo_tpu_torch.processes.kou import Kou  # noqa: F401
+from montecarlo_tpu_torch.processes.merton import (  # noqa: F401
+    Merton,
+    merton_call_series,
+)
 from montecarlo_tpu_torch.processes.multi_gbm import (  # noqa: F401
     MultiGBM,
     MultiGBMState,
 )
+from montecarlo_tpu_torch.processes.nig import NIG  # noqa: F401
 from montecarlo_tpu_torch.processes.rough_bergomi import (  # noqa: F401
     RoughBergomi,
     rbergomi_simulate,
     volterra_joint_chol,
 )
+from montecarlo_tpu_torch.processes.sabr import SABR  # noqa: F401
+from montecarlo_tpu_torch.processes.vg import VarianceGamma  # noqa: F401

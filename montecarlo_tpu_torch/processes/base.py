@@ -8,7 +8,10 @@ one device, with pure methods:
 - ``draws(seed, stream, path_ids, t)`` — the innovations of step ``t``
 - ``step(state, eps, t)``           — one time step
 - ``prices(state)``                 — observable prices
-- ``antithetic(eps)``               — mirrored innovations (negation)
+- ``antithetic(eps)``               — mirrored innovations (a normal
+  negated, a uniform reflected as ``1 - u``)
+- ``draw_kinds``                    — ``"normal"`` or ``"uniform"`` per
+  draw, for processes whose draws are not all normals
 
 Time stays sequential (a Python loop here, a loop inside the kernel on the
 card); parallelism is over paths.
@@ -20,19 +23,57 @@ import dataclasses
 
 import torch
 
-from montecarlo_tpu_torch.rng.normal import normal_draw, normal_pair
+from montecarlo_tpu_torch.device import resolve_device
+from montecarlo_tpu_torch.rng.normal import (exp32, log32, normal_draw,
+                                             normal_pair)
 from montecarlo_tpu_torch.rng.threefry import MASK32
 
 
-class NormalDrawsMixin:
-    """Default innovations: i.i.d. standard normals keyed by (global path
-    id, draw index ``m = t * n_draws + d``), so streams are shard-invariant.
-    Innovations are a tuple of per-dimension tensors shaped like
-    ``path_ids``."""
+def f32_leaves(device, **values) -> dict:
+    """0-d float32 tensors on ``device`` (resolved: CUDA without a card
+    raises) from python numbers or 0-d tensors, by field name."""
+    dev = resolve_device(device)
+    return {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
+            for k, v in values.items()}
+
+
+class DeviceMixin:
+    """The device of a process: the device of its first field."""
 
     @property
     def device(self) -> torch.device:
         return getattr(self, dataclasses.fields(self)[0].name).device
+
+
+class LogPriceMixin:
+    """State, prices and native log prices of a process whose only state
+    is the log price ``log_s``, started at ``log32(s0)``."""
+
+    def init_state(self, path_ids):
+        return self.State(log_s=log32(self.s0).expand(path_ids.shape).clone())
+
+    def prices(self, state):
+        return exp32(state.log_s)
+
+    def log_prices(self, state):
+        return state.log_s
+
+
+class LogVarianceMixin(LogPriceMixin):
+    """State (log price, variance) started at (log32(s0), v0): Bates,
+    HestonQE and BatesQE."""
+
+    def init_state(self, path_ids):
+        shape = path_ids.shape
+        return self.State(log_s=log32(self.s0).expand(shape).clone(),
+                          v=self.v0.expand(shape).clone())
+
+
+class NormalDrawsMixin(DeviceMixin):
+    """Default innovations: i.i.d. standard normals keyed by (global path
+    id, draw index ``m = t * n_draws + d``), so streams are shard-invariant.
+    Innovations are a tuple of per-dimension tensors shaped like
+    ``path_ids``."""
 
     def draws(self, seed, stream, path_ids, t):
         d0 = int(t) * self.n_draws

@@ -279,8 +279,8 @@ def test_device_cuda_is_an_error_without_a_card(capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["price", "--process", "merton"],
-    ["price", "--sampler", "sobol", "--process", "merton", "--device", "cpu"],
+    ["price", "--process", "cev"],
+    ["price", "--sampler", "sobol", "--process", "slv", "--device", "cpu"],
     ["price", "--payoff", "max-call", "--sampler", "antithetic",
      "--device", "cpu"],
     ["price", "--device", "cpu", "--target-se", "0.1", "--sampler",

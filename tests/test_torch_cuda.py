@@ -25,7 +25,12 @@ negation they were.  Under Sobol and bridge-Sobol draws (the randomized
 Sobol normal of K0: integer words, the Owen hash, ndtri32 with the same
 logf and sqrtf on both sides) K2-K4 equal their plain versions and the
 torch loop bitwise too, odd step counts on exact-size tables, ids across
-2^30, the bridge's scratch in its global workspace.
+2^30, the bridge's scratch in its global workspace.  The jump, Levy, QE
+and SABR functors (Merton, Kou, Bates, NIG, HestonQE, BatesQE, VG, SABR:
+their draws_pair layouts, second key streams, per-draw mirror, Poisson
+select chains, ndtri32 and the gamma table) equal their plain versions and
+the torch loop bitwise on K2-K4, SABR under Sobol draws too, and the
+device build of the gamma-table inversion equals its plain version.
 """
 
 import math
@@ -571,5 +576,107 @@ def test_cuda_bridge_workspace_launches_in_chunks(cuda, monkeypatch):
     fns = {"avg": ARITH_MEAN, "mx": RUNNING_MAX}
     got = fused_functionals(tp, 3000, 17, functionals=fns, **kw)
     want = fused_functionals_reference(tp, 3000, 17, functionals=fns, **kw)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+# --- the jump, Levy, QE and SABR processes on K2-K4 ---------------------------
+
+NEW_KINDS = ["merton", "kou", "bates", "nig", "heston-qe", "bates-qe", "vg",
+             "sabr"]
+
+
+def _cli_proc(kind, n_steps, device):
+    from montecarlo_tpu_torch.cli.pricing import cli_process
+
+    return cli_process(["--process", kind, "--steps", str(n_steps)],
+                       device)[0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_steps", [17, 252])
+@pytest.mark.parametrize("antithetic", [False, True])
+@pytest.mark.parametrize("kind", NEW_KINDS)
+def test_cuda_new_process_k2_k3_k4_bitwise_equal_plain(cuda, kind,
+                                                       antithetic, n_steps):
+    """Each new functor (its draws_pair layout, second key streams and
+    per-draw mirror) against its plain version and the torch loop on the
+    card: K2 and K4 on a ragged count, K3 on whole rows, ids wrapping past
+    2^32."""
+    tp = _cli_proc(kind, n_steps, cuda)
+    kw = dict(seed=3, path_offset=WRAP, antithetic=antithetic)
+    n = 4096 * 3
+    got = fused_terminal(tp, n - 37, n_steps, **kw)
+    want = fused_terminal_reference(tp, n - 37, n_steps, **kw)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, want)
+    loop = simulate(tp, n - 37, n_steps, seed=3, path_offset=WRAP,
+                    sampler=AntitheticSampler() if antithetic else None)
+    assert torch.equal(got, loop)
+    pay = VanillaPayoff("call", 100.0)
+    got = fused_block_moments(tp, pay, n, n_steps, **kw)
+    want = fused_block_moments_reference(tp, pay, n, n_steps, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    fns = {"avg": ARITH_MEAN, "geo": GEO_MEAN, "mx": RUNNING_MAX,
+           "mn": RUNNING_MIN}
+    got = fused_functionals(tp, n - 37, n_steps, functionals=fns, **kw)
+    want = fused_functionals_reference(tp, n - 37, n_steps, functionals=fns,
+                                       **kw)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_steps", [9, 17])
+def test_cuda_sabr_under_sobol_draws_bitwise_equal_plain(cuda, n_steps):
+    from montecarlo_tpu_torch.rng.sobol import SobolDeviceSampler
+
+    tp = _cli_proc("sabr", n_steps, cuda)
+    smp = SobolDeviceSampler.create(n_steps, 2, scramble_seed=4, device=cuda)
+    kw = dict(seed=3, path_offset=(1 << 30) - 1000, sampler=smp)
+    got = fused_terminal(tp, 5000, n_steps, **kw)
+    assert torch.equal(got, fused_terminal_reference(tp, 5000, n_steps, **kw))
+    fns = {"avg": ARITH_MEAN, "geo": GEO_MEAN}
+    got = fused_functionals(tp, 5000, n_steps, functionals=fns, **kw)
+    want = fused_functionals_reference(tp, 5000, n_steps, functionals=fns,
+                                       **kw)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.cuda
+def test_cuda_mixed_processes_refuse_sobol_draws(cuda):
+    """A process with uniform draws under device Sobol normals raises
+    before anything launches."""
+    from montecarlo_tpu_torch.rng.sobol import SobolDeviceSampler
+
+    from montecarlo_tpu_torch.engine import terminal_prices
+
+    counts = {k: v.launches for k, v in PATH_KERNELS.items()}
+    for kind in NEW_KINDS[:-1]:
+        tp = _cli_proc(kind, 16, cuda)
+        smp = SobolDeviceSampler.create(16, tp.n_draws, device=cuda)
+        with pytest.raises(ValueError, match="non-normal"):
+            fused_terminal(tp, 256, 16, seed=0, sampler=smp)
+        with pytest.raises(ValueError, match="non-normal"):
+            terminal_prices(tp, 256, 16, seed=0, sampler=smp)
+    assert {k: v.launches for k, v in PATH_KERNELS.items()} == counts
+
+
+@pytest.mark.cuda
+def test_cuda_k0_gamma_functions_equal_plain(cuda):
+    """expneg_wide32 and the table-inverted gamma variate of the device
+    build against their plain versions on the card: bitwise."""
+    from montecarlo_tpu_torch.ops.rng_check import (gamma_check,
+                                                    gamma_check_reference)
+
+    vg = _cli_proc("vg", 252, cuda)
+    rng = np.random.default_rng(5)
+    n = 1 << 16
+    u_w, u_b = (torch.from_numpy(rng.uniform(0, 1, n).astype(np.float32))
+                .to(cuda) for _ in range(2))
+    x = torch.from_numpy(rng.uniform(-95, 2, n).astype(np.float32)).to(cuda)
+    got = gamma_check(vg, u_w, u_b, x)
+    want = gamma_check_reference(vg, u_w, u_b, x)
     for k in want:
         assert torch.equal(got[k], want[k]), k
