@@ -102,7 +102,31 @@ CUDA kernels from ``montecarlo_tpu_torch/csrc`` and, in phases:
    and the martingale E[F_T] = f0 (sabr, from ``--strike 0``); ``price
    --process merton --target-se 1e-3`` (K3), ``--process kou --payoff
    asian`` (K4) and ``--process merton --sampler sobol`` (the host table
-   on the torch loop, no kernel).
+   on the torch loop, no kernel);
+11. local and stochastic-local volatility on K2-K4 (LocalVolProc, SlvProc
+   with its per-step leverage row read through a pointer and an offset,
+   the port of JAX's KernelRows, and SlvKnotsProc): K2, K3 and K4 ({avg,
+   geo, mx, mn}) against their plain versions bitwise at 2^18 paths (2^18
+   - 37 for K2 and K4) x 17 steps with ids from 2^30 - 1000, on the CLI's
+   CEV surface, a time-dependent surface of 16 time knots, the CLI's
+   calibrated SLV and its ``slv_to_kernel`` SLVKnots, plain, antithetic
+   and under Sobol draws (local vol under the bridge too), the SLV of 17
+   rows also at 23 steps (the clamp), at 252 steps K2 antithetic and K4
+   plain; ``calibrate_slv`` at 2^17 particles x 252 steps timed by the host
+   clock, twice at one seed (bitwise equal rows), once under the profiler,
+   and at 2^14 x 64 against
+   ``--device cpu`` within rtol 5e-4; K2 on each of the three timed at
+   2^20 x 252 beside its plain version and bound, K3 on the SLV at two
+   2^22 x 252 tolerance chunks, K4 {avg} on the SLV at 2^20 x 252; then,
+   launch counters reset just before and read just after each run:
+   ``price --process cev --paths 1048576 --steps 252`` (K2, within 5
+   std-err + 0.05 of the CEV closed form), ``price --process slv`` at the
+   same shape for K = 85, 100, 115 (K2, within 4 std-err + 0.0075 BS +
+   0.03 of Black-Scholes at the demo surface's implied vol), the engine's
+   ``terminal_prices`` on ``slv_to_kernel`` of that SLV (K2), ``--process
+   slv --target-se 1e-3`` (K3), ``--payoff asian`` on SLV (K4, below its
+   call), ``--sampler sobol-device`` on SLV and ``sobol-bridge`` on CEV
+   (K2 under each), each vanilla under its gate.
 
 Phase 3 also holds K5 (2^18 paths x {504, 756, 37} columns, ids wrapping
 past 2^32) and K6 (2^18 x {252, 17} steps, fed one joint matrix) against
@@ -2292,6 +2316,377 @@ def phase_jump_path(torch):
     return launches
 
 
+
+# ---- phase 11: local and stochastic-local volatility on K2-K4 ----------------
+
+#: Per surface functor: the Threefry calls per step pair (a Box-Muller pair
+#: each) and the float32 operations of one step, counted as HESTON_STEP_FP
+#: is (adds, multiplies, selects, clamps; the IEEE divisions as one each;
+#: sqrtf and the table loads not counted).  The knot index and
+#: interpolation (u, floor, two clamps, frac's clamps, the two products
+#: and the sum) 12; the time blend (its coordinate 5, the two hat weights
+#: 9, two lanes of two knots 8) 22; the log-moneyness 1.
+SURFACE_KNOTS_FP, SURFACE_BLEND_FP = 12, 22
+SURFACE_COST = {
+    "local_vol": (1, SURFACE_KNOTS_FP + SURFACE_BLEND_FP + 1 + 8),
+    "slv": (2, HESTON_STEP_FP + SURFACE_KNOTS_FP + 1 + 4),
+    "slv_knots": (2, HESTON_STEP_FP + SURFACE_KNOTS_FP + SURFACE_BLEND_FP
+                  + 1 + 4),
+}
+#: The phase's shapes: K2 and K4 at the CLI's 2^20 x 252, K3 at
+#: price_to_tolerance's 2^22 x 252 chunks, the calibration at the CLI's
+#: 2^17 particles x 252 steps, its card-against-CPU check at 2^14 x 64.
+SURFACE_PATHS, SURFACE_STEPS, SURFACE_TOL_CHUNK = 1 << 20, 252, 1 << 22
+#: tests/test_torch_slv.py's calibration tolerance (the same rows computed
+#: with other summation orders and other libm normals): every leverage
+#: entry within rtol 5e-4, the mean relative difference below 1e-5.
+CALIB_RTOL, CALIB_MEAN_RTOL = 5e-4, 1e-5
+
+
+def surface_bound(kind, proc, n, steps, out_bytes=4, extra_fp=0,
+                  observe_fp=0):
+    """The least time of ``kind``'s fused loop over n paths: its cipher
+    calls per step pair, its step's float32 operations (plus
+    ``observe_fp`` per step for K4), exp32 for the prices plus
+    ``extra_fp`` per path; ``out_bytes`` per path out and the surface
+    table read once."""
+    draws, step_fp = SURFACE_COST[kind]
+    table = proc.lev_rows if kind == "slv" else (
+        proc.lev_flat if kind == "slv_knots" else proc.vol_flat)
+    pairs = (steps + 1) // 2
+    calls = n * pairs * draws
+    return bound(n * out_bytes + 4 * table.numel(),
+                 int32=calls * CIPHER_INT,
+                 fp32=calls * BOXMULLER_FP
+                 + n * (steps * (step_fp + observe_fp) + EXP32_FP
+                        + extra_fp))
+
+
+def surface_procs(steps, paths=SURFACE_PATHS):
+    """The surface processes on the card: the CLI's CEV surface, a
+    time-dependent local-vol surface (16 time knots from 16 steps on), the
+    SLV ``price --process slv --paths <paths>`` calibrates (exact rows, one
+    per step) and its ``slv_to_kernel`` SLVKnots."""
+    import numpy as np
+
+    from montecarlo_tpu_torch.cli.pricing import cli_process
+    from montecarlo_tpu_torch.processes import LocalVolGBM, slv_to_kernel
+
+    flags = ["--steps", str(steps), "--paths", str(paths)]
+    slv = cli_process(["--process", "slv", *flags], "cuda")[0]
+    return {
+        "cev": cli_process(["--process", "cev", *flags], "cuda")[0],
+        "tdep": LocalVolGBM.create(
+            100.0, 0.03, 1.0 / steps, steps,
+            lambda t, x: 0.2 + 0.1 * np.tanh(np.log(x / 100.0)) + 0.05 * t,
+            device="cuda"),
+        "slv": slv, "slv_knots": slv_to_kernel(slv)}
+
+
+def phase_surface_parity(torch, errs):
+    """K2, K3 and K4 ({avg, geo, mx, mn}) on LocalVolProc (the CEV and the
+    time-dependent surface), SlvProc (the CLI's calibrated SLV: the
+    KernelRows read) and SlvKnotsProc against their plain versions,
+    bitwise, ids from 2^30 - 1000: at 17 steps plain, antithetic and under
+    Sobol draws (local vol under the bridge too), K3 at 2^18 paths, K2 and
+    K4 at 2^18 - 37; the SLV of 17 rows also at 23 steps (the clamp past
+    its last row); at 252 steps K2 antithetic and K4 plain on the CEV, SLV
+    and SLVKnots."""
+    from montecarlo_tpu_torch.engine import (ARITH_MEAN, GEO_MEAN,
+                                             RUNNING_MAX, RUNNING_MIN,
+                                             VanillaPayoff)
+    from montecarlo_tpu_torch.ops import (fused_block_moments,
+                                          fused_block_moments_reference,
+                                          fused_functionals,
+                                          fused_functionals_reference,
+                                          fused_terminal,
+                                          fused_terminal_reference)
+    from montecarlo_tpu_torch.rng.sobol import (SobolBridgeKernelSampler,
+                                                SobolDeviceSampler)
+
+    n = 1 << 18
+    off = (1 << 30) - 1000
+    fns = {"avg": ARITH_MEAN, "geo": GEO_MEAN, "mx": RUNNING_MAX,
+           "mn": RUNNING_MIN}
+    pay = VanillaPayoff("call", 105.0)
+    every = ("K2", "K3", "K4")
+    key = {"cev": "local_vol", "tdep": "local_vol", "slv": "slv",
+           "slv_knots": "slv_knots"}
+    for steps in (17, SURFACE_STEPS):
+        procs = surface_procs(steps)
+        for kind, proc in procs.items():
+            if steps != 17 and kind == "tdep":
+                continue
+            t0 = time.perf_counter()
+            runs = []
+            for n_steps in ((17, 23) if steps == 17 and kind == "slv"
+                            else (steps,)):
+                if steps != 17:
+                    runs += [("antithetic", n_steps, dict(antithetic=True),
+                              ("K2",)), ("plain", n_steps, {}, ("K4",))]
+                    continue
+                runs += [("plain", n_steps, {}, every),
+                         ("antithetic", n_steps, dict(antithetic=True),
+                          every),
+                         ("sobol", n_steps, dict(
+                             sampler=SobolDeviceSampler.create(
+                                 n_steps, proc.n_draws, scramble_seed=n_steps,
+                                 device="cuda")), every)]
+                if proc.n_draws == 1:
+                    runs.append(("bridge", n_steps, dict(
+                        sampler=SobolBridgeKernelSampler.create(
+                            n_steps, scramble_seed=n_steps,
+                            device="cuda")), every))
+            for label, n_steps, draw, kernels in runs:
+                kw = dict(seed=17, path_offset=off, **draw)
+                sfx = (f"_{label}" if label in ("sobol", "bridge")
+                       else f"_{key[kind]}")
+                tag = f"{kind} {n_steps} steps {label}"
+                cases = []
+                if "K2" in kernels:
+                    cases.append(("K2", "fused_terminal" + sfx,
+                                  fused_terminal(proc, n - 37, n_steps, **kw),
+                                  fused_terminal_reference(proc, n - 37,
+                                                           n_steps, **kw)))
+                if "K3" in kernels:
+                    got = fused_block_moments(proc, pay, n, n_steps, **kw)
+                    want = fused_block_moments_reference(proc, pay, n,
+                                                         n_steps, **kw)
+                    cases += [(f"K3 {f}", "fused_block_moments" + sfx,
+                               getattr(got, f), getattr(want, f))
+                              for f in ("mean", "m2")]
+                if "K4" in kernels:
+                    got = fused_functionals(proc, n - 37, n_steps,
+                                            functionals=fns, **kw)
+                    want = fused_functionals_reference(
+                        proc, n - 37, n_steps, functionals=fns, **kw)
+                    cases += [(f"K4 {k}", "fused_functionals" + sfx, got[k],
+                               want[k]) for k in want]
+                for name, ekey, g, w in cases:
+                    _, max_abs, _ = compare(f"{name} {tag}", g, w, BITWISE)
+                    errs[ekey] = max(errs.get(ekey, 0.0), max_abs)
+                del cases
+            torch.cuda.synchronize()
+            log(f"  {kind} parity at {steps} steps: "
+                f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_surface_calibration(torch):
+    """``calibrate_slv`` on the card: the CLI's 2^17 particles x 252 steps
+    by the host clock (twice: bitwise equal rows) and once under the
+    profiler (the device's busy share, the kernels and their launches),
+    and at 2^14 x 64 against the same calibration on the CPU within
+    CALIB_RTOL.  Returns the host seconds of the timed calibrations."""
+    import numpy as np
+
+    from montecarlo_tpu_torch.processes import LocalVolGBM, calibrate_slv
+    from montecarlo_tpu_torch.processes.dupire import local_vol_fn_from_ivs
+
+    # The CLI's demo surface (cli/pricing_models.py::_slv) at its defaults.
+    ks = np.linspace(0.7, 1.4, 15) * 100.0
+    ivs = (0.2 - 0.1 * np.log(ks / 100.0))[None, :].repeat(2, 0)
+    fn = local_vol_fn_from_ivs(ks, np.array([0.5, 1.0]), ivs, s0=100.0,
+                               rate=0.03)
+    mixing = dict(v0=0.04, kappa=2.0, theta=0.04, xi=0.5, rho=-0.7)
+
+    def calibrate(device, steps, particles):
+        lv = LocalVolGBM.create(100.0, 0.03, 1.0 / steps, steps, fn,
+                                x_min=-0.9, x_max=0.9, device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = calibrate_slv(lv, n_steps=steps, n_particles=particles,
+                             seed=0, **mixing).lev_rows
+        if device == "cuda":
+            torch.cuda.synchronize()
+        return rows, time.perf_counter() - t0
+
+    calibrate("cuda", 16, 1 << 12)  # warm-up: torch's first launches
+    walls = []
+    rows = []
+    for _ in range(2):
+        r, wall = calibrate("cuda", SURFACE_STEPS, 1 << 17)
+        rows.append(r)
+        walls.append(wall)
+    same = bool(torch.equal(rows[0], rows[1]))
+    log(f"  calibrate_slv 2^17 particles x {SURFACE_STEPS} steps on the "
+        f"card: {walls[0]:.3f} s, {walls[1]:.3f} s; twice at one seed "
+        f"bitwise {same}")
+    profile_call(torch, f"calibrate_slv 2^17 x {SURFACE_STEPS}",
+                 lambda: calibrate("cuda", SURFACE_STEPS, 1 << 17))
+    if not same or not bool(torch.isfinite(rows[0]).all()):
+        raise AssertionError("calibrate_slv: rows differ between two runs "
+                             "at one seed, or are not finite")
+    card, _ = calibrate("cuda", 64, 1 << 14)
+    cpu, _ = calibrate("cpu", 64, 1 << 14)
+    rel = (card.cpu().double() - cpu.double()).abs() / cpu.double().abs()
+    log(f"  calibrate_slv 2^14 x 64, card against --device cpu: max rel "
+        f"{float(rel.max()):.3e} (< {CALIB_RTOL:g}), mean rel "
+        f"{float(rel.mean()):.3e} (< {CALIB_MEAN_RTOL:g})")
+    if float(rel.max()) >= CALIB_RTOL or float(rel.mean()) >= CALIB_MEAN_RTOL:
+        raise AssertionError("calibrate_slv: the card's rows are off the "
+                             "CPU's")
+    return walls
+
+
+def phase_surface_shapes(torch, errs, times):
+    """K2 on the CEV surface, the SLV and its SLVKnots at the CLI's 2^20 x
+    252 beside the plain version and bound, K3 on the SLV at two 2^22 x
+    252 tolerance chunks (0 and 7), K4 {avg} on the SLV at 2^20 x 252; each
+    bitwise."""
+    from montecarlo_tpu_torch.engine import ARITH_MEAN, VanillaPayoff
+    from montecarlo_tpu_torch.ops import (fused_block_moments,
+                                          fused_block_moments_reference,
+                                          fused_functionals,
+                                          fused_functionals_reference,
+                                          fused_terminal,
+                                          fused_terminal_reference)
+
+    n, s = SURFACE_PATHS, SURFACE_STEPS
+    procs = surface_procs(s)
+    procs = {"local_vol": procs["cev"], "slv": procs["slv"],
+             "slv_knots": procs["slv_knots"]}
+    for kind, proc in procs.items():
+        timed_check(times, errs, f"fused_terminal_{kind}",
+                    f"K2 {kind} {n}x{s}",
+                    lambda: fused_terminal(proc, n, s, seed=0),
+                    lambda: fused_terminal_reference(proc, n, s, seed=0),
+                    10, BITWISE, bnd=surface_bound(kind, proc, n, s))
+    slv = procs["slv"]
+    pay = VanillaPayoff("call", 105.0)
+    nt = SURFACE_TOL_CHUNK
+    for chunk in (0, 7):
+        off = chunk * nt
+        timed_check(times, errs, "fused_block_moments_slv",
+                    f"K3 slv call {nt}x{s} chunk {chunk}",
+                    lambda: fused_block_moments(slv, pay, nt, s, seed=0,
+                                                path_offset=off),
+                    lambda: fused_block_moments_reference(
+                        slv, pay, nt, s, seed=0, path_offset=off),
+                    5, BITWISE, fields=("mean", "m2"),
+                    bnd=surface_bound("slv", slv, nt, s, out_bytes=8 / 128,
+                                      extra_fp=8))
+    fns = {"avg": ARITH_MEAN}
+    timed_check(times, errs, "fused_functionals_slv",
+                f"K4 slv {{avg}} {n}x{s}",
+                lambda: fused_functionals(slv, n, s, seed=0, functionals=fns),
+                lambda: fused_functionals_reference(slv, n, s, seed=0,
+                                                    functionals=fns),
+                10, BITWISE,
+                bnd=surface_bound("slv", slv, n, s, out_bytes=8,
+                                  observe_fp=EXP32_FP + 1))
+    log("  K2 path-steps/s at 2^20 x 252: " + ", ".join(
+        f"{k} {n * s / (times[f'fused_terminal_{k}']['ms'] * 1e-3):.4e}"
+        for k in procs))
+
+
+def cev_call(s0, k, r, sigma, beta, t):
+    """The CEV call's noncentral chi-square closed form
+    (tests/test_local_vol.py:60-78) for sigma_LN(S) = sigma (S/s0)^(beta -
+    1)."""
+    from scipy.stats import ncx2
+
+    delta = sigma * s0 ** (1 - beta)
+    v = (delta ** 2 / (2 * r * (beta - 1))
+         * (math.exp(2 * r * (beta - 1) * t) - 1))
+    a = (k * math.exp(-r * t)) ** (2 * (1 - beta)) / ((1 - beta) ** 2 * v)
+    b = 1 / (1 - beta)
+    c = s0 ** (2 * (1 - beta)) / ((1 - beta) ** 2 * v)
+    return float(s0 * (1 - ncx2.cdf(a, b + 2, c))
+                 - k * math.exp(-r * t) * ncx2.cdf(c, b, a))
+
+
+def phase_surface_path(torch):
+    """The slice's main path through the CLI (and one engine call), each
+    run counted by itself: ``price --process cev --paths 1048576 --steps
+    252`` (K2, within 5 std-err + 0.05 of the CEV closed form); ``price
+    --process slv`` at the same shape for K = 85, 100, 115 (K2, the
+    calibration first; each within 4 std-err + 0.0075 BS + 0.03 of
+    Black-Scholes at the demo surface's iv(K) = 0.2 - 0.1 log(K/100),
+    tests/test_slv.py's gate); the engine's ``terminal_prices`` on the
+    100-strike SLV's ``slv_to_kernel`` (K2, the same gate); ``--target-se
+    1e-3`` on SLV (K3), ``--payoff asian`` on SLV (K4, below its call),
+    ``--sampler sobol-device`` on SLV (K2 under Sobol draws) and
+    ``--sampler sobol-bridge`` on CEV (K2 under the bridge), each vanilla
+    under its gate.  Returns each kernels-line entry's launches."""
+    from montecarlo_tpu_torch.cli.pricing import cli_process
+    from montecarlo_tpu_torch.engine import (black_scholes_call, mc_estimate,
+                                             terminal_prices)
+    from montecarlo_tpu_torch.processes import slv_to_kernel
+
+    n, s = SURFACE_PATHS, SURFACE_STEPS
+    base = ["price", "--paths", str(n), "--steps", str(s)]
+    disc = math.exp(-0.03)
+    cev = cev_call(100.0, 105.0, 0.03, 0.2, 0.7, 1.0)
+
+    def iv_bs(k):
+        return black_scholes_call(100.0, k, 0.03,
+                                  0.2 - 0.1 * math.log(k / 100.0), 1.0)
+
+    def slv_slack(k):  # beside 4 std-err: tests/test_slv.py:69's gate
+        return 0.0075 * iv_bs(k) + 0.03
+
+    launches = {}
+    out, wall, got = counted_cli(base + ["--process", "cev"],
+                                 "fused_terminal")
+    launches["fused_terminal_local_vol"] = got["fused_terminal"]
+    check_oracle("cev vs the noncentral chi-square closed form (5 se + "
+                 "0.05)", out, cev, out["std_err"] + 0.05)
+    launches["fused_terminal_slv"] = 0
+    calls = {}
+    for k in (85.0, 100.0, 115.0):
+        out, wall, got = counted_cli(
+            base + ["--process", "slv", "--strike", f"{k:g}"],
+            "fused_terminal")
+        launches["fused_terminal_slv"] += got["fused_terminal"]
+        calls[k] = out
+        check_oracle(f"slv K={k:g} vs Black-Scholes at iv(K) ({wall:.3f} s "
+                     "with its calibration)", out, iv_bs(k), slv_slack(k))
+    slv, _ = cli_process(["--process", "slv", "--steps", str(s), "--paths",
+                          str(n)], "cuda")
+    knots = slv_to_kernel(slv)
+    pay = lambda x: torch.clamp(x - 100.0, min=0.0)
+    est, wall, got = run_counted(
+        lambda: {k: float(v) for k, v in mc_estimate(
+            pay(terminal_prices(knots, n, s, seed=0)), disc).items()})
+    if set(k for k, v in got.items() if v) != {"fused_terminal"}:
+        raise AssertionError(f"slv_to_kernel run launched {got}")
+    launches["fused_terminal_slv_knots"] = got["fused_terminal"]
+    check_oracle("SLVKnots (slv_to_kernel, 16 knots) K=100 vs Black-Scholes "
+                 "at iv(100)", est, iv_bs(100.0), slv_slack(100.0))
+    tol, wall, got = counted_cli(
+        ["price", "--process", "slv", "--target-se", "1e-3", "--steps",
+         str(s)], "fused_block_moments")
+    launches["fused_block_moments_slv"] = got["fused_block_moments"]
+    check_oracle("slv --target-se 1e-3 vs Black-Scholes at iv(105)", tol,
+                 iv_bs(105.0), slv_slack(105.0))
+    if not tol["std_err"] <= 1e-3:
+        raise AssertionError(f"slv target-se run stopped at "
+                             f"{tol['std_err']}")
+    log(f"  slv wall-clock to std-err 1e-3: {wall:.3f} s "
+        f"({tol['n_paths']} paths, {got['fused_block_moments']} K3 "
+        "launches, the 100000-particle calibration included)")
+    asian, _, got = counted_cli(
+        base + ["--process", "slv", "--payoff", "asian"], "fused_functionals")
+    launches["fused_functionals_slv"] = got["fused_functionals"]
+    call105, _, _ = counted_cli(base + ["--process", "slv"], "fused_terminal")
+    if not 0 < asian["price"] < call105["price"]:
+        raise AssertionError(f"slv Asian {asian} not below its call "
+                             f"{call105}")
+    log(f"  slv Asian {asian['price']:.6f} below its call "
+        f"{call105['price']:.6f}")
+    qmc, _, _ = counted_cli(base + ["--process", "slv", "--sampler",
+                                    "sobol-device"], "fused_terminal_sobol")
+    check_oracle("slv --sampler sobol-device vs Black-Scholes at iv(105)",
+                 qmc, iv_bs(105.0), slv_slack(105.0))
+    bridge, _, _ = counted_cli(base + ["--process", "cev", "--sampler",
+                                       "sobol-bridge"],
+                               "fused_terminal_bridge")
+    check_oracle("cev --sampler sobol-bridge vs the closed form (5 se + "
+                 "0.05)", bridge, cev, bridge["std_err"] + 0.05)
+    log(f"  launches on the local-vol/SLV path: {launches}")
+    return launches
+
 #: Each kernel's wrapper, CUDA source and the TPU kernel it replaces.
 KERNELS = [
     ("gbm_terminal", "gbm_kernel.cu", "gbm_kernel.py:118"),
@@ -2311,6 +2706,14 @@ KERNELS = [
       for k in JUMP_KINDS),
     ("fused_block_moments_merton", "fused_engine.cu", "fused_engine.py:478"),
     ("fused_functionals_kou", "fused_engine.cu", "fused_engine.py:390"),
+    ("fused_terminal_local_vol", "fused_engine.cu", "fused_engine.py:231"),
+    ("fused_terminal_slv", "fused_engine.cu",
+     "fused_engine.py:231 (KernelRows: fused_engine.py:44)"),
+    ("fused_terminal_slv_knots", "fused_engine.cu", "fused_engine.py:231"),
+    ("fused_block_moments_slv", "fused_engine.cu",
+     "fused_engine.py:478 (KernelRows: fused_engine.py:44)"),
+    ("fused_functionals_slv", "fused_engine.cu",
+     "fused_engine.py:390 (KernelRows: fused_engine.py:44)"),
 ]
 
 
@@ -2401,6 +2804,21 @@ def main() -> int:
             f"{t_path - t_shapes:.1f} s, CLI path "
             f"{time.perf_counter() - t_path:.1f} s")
         log(f"  phase 10 took {time.perf_counter() - t10:.1f} s, on {card}")
+        log("phase 11: local and stochastic-local volatility on K2-K4 "
+            "(LocalVolProc, SlvProc's KernelRows read, SlvKnotsProc)")
+        t11 = time.perf_counter()
+        phase_surface_parity(torch, errs)
+        t_calib = time.perf_counter()
+        phase_surface_calibration(torch)
+        t_shapes = time.perf_counter()
+        phase_surface_shapes(torch, errs, times)
+        t_path = time.perf_counter()
+        counts.update(phase_surface_path(torch))
+        log(f"  phase 11: parity {t_calib - t11:.1f} s, calibration "
+            f"{t_shapes - t_calib:.1f} s, timed shapes "
+            f"{t_path - t_shapes:.1f} s, CLI path "
+            f"{time.perf_counter() - t_path:.1f} s")
+        log(f"  phase 11 took {time.perf_counter() - t11:.1f} s, on {card}")
         k3_ms = times["fused_block_moments"]["ms"]
         kernel_s = k3_ms * 1e-3 * n_paths / (1 << 22)
         log(f"  K1 {bench['value']:.6e} path-steps/s, wall-clock to "

@@ -13,7 +13,11 @@ SABR processes of the JAX CLI's menu (``--process heston-qe``, ``bates``,
 ``bates-qe``, ``merton``, ``kou``, ``nig``, ``vg``, ``sabr``) on the same
 kernels, with the JAX CLI's refusal of the in-kernel Sobol samplers for the
 seven whose draws include uniforms (``--sampler sobol`` runs them on the
-host's mixed-draw table on the torch loop); the rough-Bergomi call and put
+host's mixed-draw table on the torch loop); local volatility (``--process
+cev``: the CEV surface sigma (S/s0)^(beta - 1)) and stochastic-local
+volatility (``--process slv``: leverage particle-calibrated on the card to
+the Dupire local vol of a demo skewed implied-vol surface) on the same
+kernels; the rough-Bergomi call and put
 (``--process rbergomi``, K5 and K6, in ``pricing_modes``) and the European
 best-of-A call on correlated GBM (``--payoff max-call``, the torch time
 loop on MultiGBM, in ``pricing_modes``).  The output JSON has the JAX CLI's
@@ -27,9 +31,9 @@ from __future__ import annotations
 
 import json
 
-#: The ``--process`` menu: the JAX CLI's, less cev, slv and hybrid.
-PROCESSES = ["gbm", "heston", "heston-qe", "bates", "bates-qe", "merton",
-             "kou", "nig", "vg", "sabr", "rbergomi"]
+#: The ``--process`` menu: the JAX CLI's, less hybrid.
+PROCESSES = ["gbm", "cev", "heston", "heston-qe", "bates", "bates-qe",
+             "merton", "kou", "nig", "vg", "sabr", "rbergomi", "slv"]
 VANILLA = ("call", "put", "digital")
 PATH_DEPENDENT = ("asian", "lookback", "up-and-out", "up-and-in")
 MULTI_ASSET = ("max-call",)
@@ -37,15 +41,18 @@ MULTI_ASSET = ("max-call",)
 
 def add_parsers(sub):
     p = sub.add_parser("price", help="Monte Carlo option pricing (GBM, "
-                                     "Heston, jump, Levy and SABR "
-                                     "processes, rough Bergomi)")
+                                     "CEV, Heston, jump, Levy and SABR "
+                                     "processes, rough Bergomi, SLV)")
     p.add_argument("--process", default="gbm", choices=PROCESSES)
     p.add_argument("--s0", type=float, default=100.0)
     p.add_argument("--strike", type=float, default=105.0)
     p.add_argument("--rate", type=float, default=0.03)
     p.add_argument("--sigma", type=float, default=0.2)
     p.add_argument("--beta", type=float, default=0.7,
-                   help="SABR: CEV exponent")
+                   help="CEV elasticity (--process cev); SABR: CEV exponent")
+    p.add_argument("--skew", type=float, default=-0.1,
+                   help="slv: demo-surface IV skew per unit log-moneyness "
+                        "(iv = sigma + skew*log(K/S0))")
     p.add_argument("--maturity", type=float, default=1.0, help="years")
     p.add_argument("--paths", type=int, default=100_000)
     p.add_argument("--steps", type=int, default=252)

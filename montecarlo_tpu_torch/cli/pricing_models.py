@@ -7,6 +7,8 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
+
 
 def build_process(args, dt, device):
     """The ``--process`` table (rbergomi runs its own sampler in
@@ -40,6 +42,15 @@ def build_process(args, dt, device):
         return P.VarianceGamma.create(s0=args.s0, mu=args.rate,
                                       sigma=args.sigma, theta=args.vg_theta,
                                       nu=args.vg_nu, **common)
+    if args.process == "cev":
+        # sigma_LN(S) = sigma (S/s0)^(beta - 1), clipped as the JAX CLI does.
+        sigma, beta, s0 = args.sigma, args.beta, args.s0
+        return P.LocalVolGBM.create(
+            s0, args.rate, dt, args.steps,
+            lambda t, s: np.clip(sigma * (s / s0) ** (beta - 1.0), 1e-4, 4.0),
+            device=device)
+    if args.process == "slv":
+        return _slv(args, dt, device)
     if args.process == "sabr":
         # The T-forward of the spot, f0 = s0 e^{rT}, driftless under the
         # forward measure (discounting by --rate prices the same spot);
@@ -49,6 +60,28 @@ def build_process(args, dt, device):
                              beta=args.beta, nu=args.nu, rho=args.rho,
                              **common)
     return P.GBM.create(s0=args.s0, mu=args.rate, sigma=args.sigma, **common)
+
+
+def _slv(args, dt, device):
+    """Heston-SLV with its leverage particle-calibrated to the Dupire local
+    vol of the demo surface iv(K) = sigma + skew log(K / s0) (15 strikes
+    0.7-1.4 s0, maturities T/2 and T, log-moneyness grid [-0.9, 0.9]), at
+    min(paths, 2^17) particles and --seed; --v0..--rho set the smile's
+    dynamics.  Exact per-step leverage rows (K2-K4's SlvProc)."""
+    from montecarlo_tpu_torch import processes as P
+    from montecarlo_tpu_torch.processes.dupire import local_vol_fn_from_ivs
+
+    ks = np.linspace(0.7, 1.4, 15) * args.s0
+    mats = np.array([0.5, 1.0]) * args.maturity
+    ivs = (args.sigma + args.skew * np.log(ks / args.s0))[None, :].repeat(2, 0)
+    vol_fn = local_vol_fn_from_ivs(ks, mats, ivs, s0=args.s0, rate=args.rate)
+    lv = P.LocalVolGBM.create(args.s0, args.rate, dt, args.steps, vol_fn,
+                              x_min=-0.9, x_max=0.9, device=device)
+    return P.calibrate_slv(lv, v0=args.v0, kappa=args.kappa,
+                           theta=args.theta, xi=args.xi, rho=args.rho,
+                           n_steps=args.steps,
+                           n_particles=min(args.paths, 1 << 17),
+                           seed=args.seed)
 
 
 def cf_oracle(args):

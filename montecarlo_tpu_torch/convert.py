@@ -8,7 +8,9 @@ keep their integer type.  The bootstrap GARCH carries its table and the
 table's length: JAX pads the table to a multiple of 128, and the port keeps
 its ``n_table`` valid entries (``GARCHBootstrap.numpy_fields``).  The
 variance gamma carries its quantile table (two 512-entry leaves) and the
-QE processes their create-time constants, as leaves like any other.
+QE processes their create-time constants, as leaves like any other, and
+the local-vol surfaces their tables (SLV's ``lev_rows`` keeps its
+(n_steps, 128) shape).
 """
 
 from __future__ import annotations
@@ -19,17 +21,19 @@ import numpy as np
 import torch
 
 from montecarlo_tpu_torch.device import resolve_device
-from montecarlo_tpu_torch.processes import (NIG, SABR, BasketGBM, Bates,
-                                            BatesQE, GARCHBootstrap, GBM,
-                                            Heston, HestonQE, Kou, Merton,
-                                            MultiGBM, RoughBergomi,
+from montecarlo_tpu_torch.processes import (NIG, SABR, SLV, BasketGBM,
+                                            Bates, BatesQE, GARCHBootstrap,
+                                            GBM, Heston, HestonQE, Kou,
+                                            LocalVolGBM, Merton, MultiGBM,
+                                            RoughBergomi, SLVKnots,
                                             VarianceGamma)
 
 PROCESSES = {"gbm": GBM, "heston": Heston, "rbergomi": RoughBergomi,
              "basket": BasketGBM, "multigbm": MultiGBM,
              "garch": GARCHBootstrap, "merton": Merton, "kou": Kou,
              "bates": Bates, "nig": NIG, "heston-qe": HestonQE,
-             "bates-qe": BatesQE, "vg": VarianceGamma, "sabr": SABR}
+             "bates-qe": BatesQE, "vg": VarianceGamma, "sabr": SABR,
+             "local-vol": LocalVolGBM, "slv": SLV, "slv-knots": SLVKnots}
 
 
 def _tensor(name: str, value, device) -> torch.Tensor:

@@ -6,9 +6,13 @@
 // _make_functional_kernel).  Every kernel is a template over a process
 // functor (GbmProc, HestonProc, BasketProc<16>, BasketProc<128>,
 // GarchProc, MertonProc, KouProc, BatesProc, NigProc, HestonQEProc,
-// BatesQEProc, VgProc, SabrProc) and a draw source: init from the process
-// leaves, then the draw source's time loop calls step(t, eps) for every
-// step in order, and prices come at the end.  Draw sources:
+// BatesQEProc, VgProc, SabrProc, LocalVolProc, SlvProc, SlvKnotsProc) and a
+// draw source: init from the process leaves, then the draw source's time
+// loop calls step(t, eps) for every step in order, and prices come at the
+// end.  SlvProc's per-step leverage row is the port of the JAX kernels'
+// KernelRows (ops/fused_engine.py:44-66, the dynamic ref slice of a
+// kernel_rows_field leaf): a pointer and a clamped row offset.  Draw
+// sources:
 //   ThreefryDraws<Antithetic>: per pair of steps one draws_pair (the two
 //     steps share their cipher calls; each process keeps the JAX
 //     package's layout of normals and uniforms, uniforms on their own key
@@ -41,7 +45,11 @@
 // their second streams and per step the truncated Poisson's four selects,
 // Kou four log32 (one per jump size), the QE step ndtri32 and two log32,
 // VG ndtri32, three log32, two exp32 and four table reads (two 2 KB
-// tables through the read-only cache), SABR two exp32 and a log32.  A
+// tables through the read-only cache), SABR two exp32 and a log32.  The
+// local-vol surfaces add per step one or two IEEE divisions (the
+// log-moneyness coordinate; the time-knot coordinate of a blended surface)
+// and two (an exact SLV row) or four (a blend of two knots) table reads
+// through the read-only cache, the same addresses for every thread.  A
 // Sobol draw is integer work per dimension (a Threefry call for the Owen
 // key, the Gray-code XOR over the set bits, the hash's four multiplies and
 // two bit reversals) plus ndtri32's rationals, log and sqrt; the bridge
@@ -65,7 +73,10 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "rng.cuh"
+#include "surface.cuh"
 
 namespace {
 
@@ -110,6 +121,9 @@ enum ProcessCode {
   kBatesQE = 9,
   kVg = 10,
   kSabr = 11,
+  kLocalVol = 12,
+  kSlv = 13,
+  kSlvKnots = 14,
 };
 
 constexpr int kBasketSmall = 16;   // register-resident basket capacity
@@ -796,6 +810,129 @@ struct SabrProc : NormalDraws<2> {
   __device__ float log_prices(State s) const { return mc::log32(s.f); }
 };
 
+// ---- Local and stochastic-local volatility ----------------------------------
+//
+// The functors whose step reads the step index t (a time-dependent surface)
+// derive from TimedStep; step_at hands t to them and not to the others.
+// Their knot-grid reads are surface.cuh's.
+struct TimedStep {};
+
+// Local volatility (processes/local_vol.py): leaves = [s0, rate, dt, x0, dx,
+// dt_knot, vol_flat (n_tk * 128)], n_tk = dims >= 2 time knots.  Per step
+// sigma = the t-blended surface at x = log_s - log32(s0), then the GBM
+// increment ((rate - 0.5 sigma^2) dt + (sigma sqrt(dt)) z), grouped before
+// the add.
+struct LocalVolProc : NormalDraws<1>, TimedStep {
+  using State = LogState;
+  const float* vol;
+  int n_tk;
+  float log_s0, rate, dt, sq_dt, x0, dx, dt_knot;
+  __device__ LocalVolProc(const float* leaves, int n)
+      : vol(leaves + 6), n_tk(n) {
+    log_s0 = mc::log32(leaves[0]);
+    rate = leaves[1];
+    dt = leaves[2];
+    x0 = leaves[3];
+    dx = leaves[4];
+    dt_knot = leaves[5];
+    sq_dt = sqrtf(dt);
+  }
+  __device__ State init() const { return State{log_s0}; }
+  __device__ State step(State s, const float* eps, int t) const {
+    const float u = mc::knot_time(t, dt, dt_knot, n_tk);
+    const float sig =
+        mc::interp_blend(vol, n_tk, u, s.log_s - log_s0, x0, dx);
+    const float drift = (rate - 0.5f * (sig * sig)) * dt;
+    return State{s.log_s + (drift + (sig * sq_dt) * eps[0])};
+  }
+  __device__ float prices(State s) const { return mc::exp32(s.log_s); }
+  __device__ float log_prices(State s) const { return s.log_s; }
+};
+
+// Heston mixing with a leverage L (processes/slv.py::_SLVStep.step):
+// full-truncation Euler, the double select around the square root, then
+// log_s += ((rate - (0.5 L^2) v+) dt + (L sqrt(v+ dt)) z1) and the Heston
+// variance update.  Leverage::at(log_s, t) gives L; leaves = [s0, rate, v0,
+// kappa, theta, xi, rho, dt, x0, dx, ...].
+template <class Leverage>
+struct SlvStep : NormalDraws<2>, TimedStep {
+  using State = LogVarState;
+  float log_s0, rate, v0, kappa, theta, xi, rho, rho_perp, dt, x0, dx;
+  __device__ explicit SlvStep(const float* leaves) {
+    log_s0 = mc::log32(leaves[0]);
+    rate = leaves[1];
+    v0 = leaves[2];
+    kappa = leaves[3];
+    theta = leaves[4];
+    xi = leaves[5];
+    rho = leaves[6];
+    dt = leaves[7];
+    x0 = leaves[8];
+    dx = leaves[9];
+    rho_perp = sqrtf(1.0f - rho * rho);
+  }
+  __device__ State init() const { return State{log_s0, v0}; }
+  __device__ State step(State s, const float* eps, int t) const {
+    const float z1 = eps[0], z2 = eps[1];
+    const float z_v = rho * z1 + rho_perp * z2;
+    const float v_plus = fmaxf(s.v, 0.0f);
+    const bool positive = v_plus > 0.0f;
+    const float v_safe = positive ? v_plus : 1.0f;
+    const float sq_vdt = positive ? sqrtf(v_safe * dt) : 0.0f;
+    const float lev =
+        static_cast<const Leverage*>(this)->at(s.log_s - log_s0, t);
+    const float log_s = s.log_s + ((rate - (0.5f * (lev * lev)) * v_plus) * dt +
+                                   (lev * sq_vdt) * z1);
+    const float v =
+        (s.v + (kappa * (theta - v_plus)) * dt) + (xi * sq_vdt) * z_v;
+    return State{log_s, v};
+  }
+  __device__ float prices(State s) const { return mc::exp32(s.log_s); }
+  __device__ float log_prices(State s) const { return s.log_s; }
+};
+
+// SLV with exact per-step rows (processes/slv.py::SLV): leaves = [..., x0,
+// dx, lev_rows (n_rows * 128)], n_rows = dims >= 1.  The port of the JAX
+// kernels' KernelRows (ops/fused_engine.py:44-66): row t is lev + clamp(t,
+// 0, n_rows - 1) * 128, a pointer and an offset, read through the
+// read-only cache (every thread of a step reads the same 512-byte row).
+struct SlvProc : SlvStep<SlvProc> {
+  const float* lev;
+  int n_rows;
+  __device__ SlvProc(const float* leaves, int n)
+      : SlvStep<SlvProc>(leaves), lev(leaves + 10), n_rows(n) {}
+  __device__ float at(float x, int t) const {
+    const int k = t < 0 ? 0 : (t < n_rows ? t : n_rows - 1);
+    return mc::interp_row(lev + (int64_t)k * mc::kKnots, x, x0, dx);
+  }
+};
+
+// SLV on hat-blended time knots (processes/slv.py::SLVKnots): leaves =
+// [..., x0, dx, dt_knot, lev_flat (n_tk * 128)], n_tk = dims >= 2.
+struct SlvKnotsProc : SlvStep<SlvKnotsProc> {
+  const float* lev;
+  int n_tk;
+  float dt_knot;
+  __device__ SlvKnotsProc(const float* leaves, int n)
+      : SlvStep<SlvKnotsProc>(leaves), lev(leaves + 11), n_tk(n),
+        dt_knot(leaves[10]) {}
+  __device__ float at(float x, int t) const {
+    return mc::interp_blend(lev, n_tk, mc::knot_time(t, dt, dt_knot, n_tk), x,
+                            x0, dx);
+  }
+};
+
+// Step t of a path: a TimedStep functor gets t, the others the draws only.
+template <class Proc>
+__device__ __forceinline__ typename Proc::State step_at(
+    const Proc& proc, const typename Proc::State& s, const float* eps, int t) {
+  if constexpr (std::is_base_of<TimedStep, Proc>::value) {
+    return proc.step(s, eps, t);
+  } else {
+    return proc.step(s, eps);
+  }
+}
+
 // ---- Draw sources ------------------------------------------------------------
 //
 // A draw source is the time loop of one path: run(proc, k0, k1, id, i,
@@ -966,8 +1103,9 @@ __global__ void fused_kernel(const float* __restrict__ leaves, int dims,
   typename Proc::State state = proc.init();
   if (active) {
     const uint32_t id = path_offset + (uint32_t)i;  // wraps mod 2^32
-    draws.run(proc, k0, k1, id, i, n_steps,
-              [&](int, const float* eps) { state = proc.step(state, eps); });
+    draws.run(proc, k0, k1, id, i, n_steps, [&](int t, const float* eps) {
+      state = step_at(proc, state, eps, t);
+    });
   }
   epilogue(i, active, proc.prices(state));
 }
@@ -1152,7 +1290,7 @@ __global__ void fused_functional_kernel(const float* __restrict__ leaves,
   // One update after every step, with the 1-based step index (the scan
   // engine's order, which JAX's pair and bridge loops both keep).
   draws.run(proc, k0, k1, id, i, n_steps, [&](int t, const float* eps) {
-    state = proc.step(state, eps);
+    state = step_at(proc, state, eps, t);
     update_all(t + 1);
   });
   out[i] = proc.prices(state);
@@ -1194,6 +1332,11 @@ template <>
 struct SourceTraits<VgProc> : ThreefryOnly {};
 template <>
 struct SourceTraits<GbmProc> {
+  static constexpr bool kSobol = true;
+  static constexpr bool kBridge = true;
+};
+template <>
+struct SourceTraits<LocalVolProc> {
   static constexpr bool kSobol = true;
   static constexpr bool kBridge = true;
 };
@@ -1300,6 +1443,21 @@ int dispatch(int process, int dims, const DrawArgs& a, int64_t n_paths,
     case kSabr:
       err = launch_source<Launcher, SabrProc>(a, dims, blocks, s, n_paths,
                                               args...);
+      break;
+    case kLocalVol:
+      if (dims < 2) return (int)cudaErrorInvalidValue;
+      err = launch_source<Launcher, LocalVolProc>(a, dims, blocks, s,
+                                                  n_paths, args...);
+      break;
+    case kSlv:
+      if (dims < 1) return (int)cudaErrorInvalidValue;
+      err = launch_source<Launcher, SlvProc>(a, dims, blocks, s, n_paths,
+                                             args...);
+      break;
+    case kSlvKnots:
+      if (dims < 2) return (int)cudaErrorInvalidValue;
+      err = launch_source<Launcher, SlvKnotsProc>(a, dims, blocks, s,
+                                                  n_paths, args...);
       break;
     case kBasket:
       if (dims < 1 || dims > kBasketMax) return (int)cudaErrorInvalidValue;

@@ -4,8 +4,11 @@ Port of ``montecarlo_tpu/ops/fused_engine.py::fused_terminal_pallas`` (K2),
 ``::fused_block_moments_pallas`` (K3) and ``::fused_functionals_pallas``
 (K4); the kernels are templates over a process functor (GBM, Heston, the
 correlated GBM basket of at most 128 assets, the bootstrap GARCH, Merton,
-Kou, Bates, NIG, HestonQE, BatesQE, variance gamma and SABR) and a draw
-source in ``csrc/fused_engine.cu``.  Draw sources (``sampler=``):
+Kou, Bates, NIG, HestonQE, BatesQE, variance gamma, SABR, local volatility,
+SLV with exact per-step leverage rows and SLV on leverage time knots) and a
+draw source in ``csrc/fused_engine.cu``.  The exact-rows SLV reads its
+step's row through a pointer and an offset, the port of the JAX kernels'
+``KernelRows``.  Draw sources (``sampler=``):
 
 - ``None``: the process's own Threefry draws (its ``draws_pair``), two
   steps per set of cipher calls, the process's antithetic mirror (per
@@ -53,9 +56,10 @@ from montecarlo_tpu_torch.engine.payoffs import VanillaPayoff
 from montecarlo_tpu_torch.engine.simulate import check_sampler, path_ids_for
 from montecarlo_tpu_torch.ops._build import (CudaKernel, check_cuda_tensor,
                                              cuda_stream)
-from montecarlo_tpu_torch.processes import (NIG, SABR, BasketGBM, Bates,
-                                            BatesQE, GARCHBootstrap, GBM,
-                                            Heston, HestonQE, Kou, Merton,
+from montecarlo_tpu_torch.processes import (NIG, SABR, SLV, BasketGBM,
+                                            Bates, BatesQE, GARCHBootstrap,
+                                            GBM, Heston, HestonQE, Kou,
+                                            LocalVolGBM, Merton, SLVKnots,
                                             VarianceGamma)
 from montecarlo_tpu_torch.processes.basket import check_kernel_assets
 from montecarlo_tpu_torch.rng.sobol import (SobolBridgeKernelSampler,
@@ -72,7 +76,8 @@ MAX_FUNCTIONALS = 4  # K4's functional slots (kMaxFunctionals)
 #: (csrc/fused_engine.cu::ProcessCode).
 PROCESS_CODES = {GBM: 0, Heston: 1, BasketGBM: 2, GARCHBootstrap: 3,
                  Merton: 4, Kou: 5, Bates: 6, NIG: 7, HestonQE: 8,
-                 BatesQE: 9, VarianceGamma: 10, SABR: 11}
+                 BatesQE: 9, VarianceGamma: 10, SABR: 11, LocalVolGBM: 12,
+                 SLV: 13, SLVKnots: 14}
 
 #: Draw-source codes of the kernels (csrc/fused_engine.cu::DrawSource).
 THREEFRY, SOBOL, BRIDGE = 0, 1, 2
@@ -116,8 +121,12 @@ def _leaves(process):
     NIG: [s0, mu, alpha, beta, delta, dt]; HestonQE and BatesQE: Heston's
     and Bates's, then [e_kdt, c1, c2, k0, k1, k2, k3, k4, mgf_a]; VG: [s0,
     mu, sigma, theta, nu, dt, gq_z0, gq_dz, gq_resid (n), gq_dresid (n)];
-    SABR: [f0, alpha, beta, nu, rho, dt]), and ``dims`` the basket's A,
-    GARCH's table length or VG's table length n, an integer that never
+    SABR: [f0, alpha, beta, nu, rho, dt]; local vol: [s0, rate, dt, x0, dx,
+    dt_knot, vol_flat (n_tk * 128)]; SLV: [s0, rate, v0, kappa, theta, xi,
+    rho, dt, x0, dx, lev_rows (n_rows * 128)]; SLV on knots: SLV's up to
+    dx, then [dt_knot, lev_flat (n_tk * 128)]), and ``dims`` the basket's
+    A, GARCH's table length, VG's table length n, the local-vol surfaces'
+    time-knot count n_tk or SLV's row count n_rows, an integer that never
     passes through a float."""
     code = PROCESS_CODES.get(type(process))
     if code is None:
@@ -132,6 +141,10 @@ def _leaves(process):
         dims = process.table.numel()
     elif isinstance(process, VarianceGamma):
         dims = process.gq_resid.numel()
+    elif isinstance(process, (LocalVolGBM, SLVKnots)):
+        dims = process.n_time_knots
+    elif isinstance(process, SLV):
+        dims = process.lev_rows.shape[0]
     fields = [getattr(process, f.name) for f in dataclasses.fields(process)]
     return code, dims, torch.cat([v.reshape(-1) for v in fields
                                   if v.is_floating_point()])

@@ -177,17 +177,20 @@ def test_note_worst_of_matches_jax_cli(flags, capsys):
         assert abs(got[k] - want[k]) <= tol, k
 
 
-#: The GARCH and QMC slices' modules, which the walk below must reach.
+#: The GARCH, QMC and local-vol slices' modules, which the walk below must
+#: reach.
 SLICE_MODULES = ("api.montecarlo", "api.var", "cli.risk", "data.synthetic",
                  "engine.path_sketch", "engine.streaming", "processes.garch",
                  "processes.garch_fit", "stats.quantiles", "stats.risk",
-                 "rng.sobol", "samplers", "cli.pricing_models")
+                 "rng.sobol", "samplers", "cli.pricing_models",
+                 "processes.dupire", "processes.local_vol", "processes.slv")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of the port, imported in a fresh interpreter, leaves
     ``jax`` and ``montecarlo_tpu`` out of ``sys.modules``; the walk covers
-    the GARCH and QMC slices' modules; ``chip_smoke.py`` imports neither,
+    the GARCH, QMC and local-vol slices' modules; ``chip_smoke.py`` imports
+    neither,
     at any level of the script."""
     code = (
         "import importlib, pkgutil, sys\n"
@@ -279,8 +282,8 @@ def test_device_cuda_is_an_error_without_a_card(capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["price", "--process", "cev"],
-    ["price", "--sampler", "sobol", "--process", "slv", "--device", "cpu"],
+    ["price", "--process", "hybrid"],
+    ["price", "--sampler", "sobol", "--process", "hybrid", "--device", "cpu"],
     ["price", "--payoff", "max-call", "--sampler", "antithetic",
      "--device", "cpu"],
     ["price", "--device", "cpu", "--target-se", "0.1", "--sampler",

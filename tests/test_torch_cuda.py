@@ -30,7 +30,11 @@ and SABR functors (Merton, Kou, Bates, NIG, HestonQE, BatesQE, VG, SABR:
 their draws_pair layouts, second key streams, per-draw mirror, Poisson
 select chains, ndtri32 and the gamma table) equal their plain versions and
 the torch loop bitwise on K2-K4, SABR under Sobol draws too, and the
-device build of the gamma-table inversion equals its plain version.
+device build of the gamma-table inversion equals its plain version.  So
+do the local-vol surfaces (LocalVolProc on the CEV and a time-dependent
+surface, SlvProc's exact rows read through a pointer and an offset, its
+clamp past the last row, SlvKnotsProc) under every draw source each
+takes; two calibrations at one seed give the same leverage bits.
 """
 
 import math
@@ -680,3 +684,108 @@ def test_cuda_k0_gamma_functions_equal_plain(cuda):
     want = gamma_check_reference(vg, u_w, u_b, x)
     for k in want:
         assert torch.equal(got[k], want[k]), k
+
+
+# --- local and stochastic-local volatility on K2-K4 --------------------------
+
+def _surface_procs(n_steps, device):
+    """The CLI's CEV surface, a time-dependent local-vol surface (16 time
+    knots), the CLI's calibrated SLV (n_steps rows) and its SLVKnots."""
+    from montecarlo_tpu_torch.processes import LocalVolGBM, slv_to_kernel
+
+    cev = _cli_proc("cev", n_steps, device)
+    tdep = LocalVolGBM.create(
+        100.0, 0.03, 1.0 / 32, n_steps,
+        lambda t, s: 0.2 + 0.1 * np.tanh(np.log(s / 100.0)) + 0.05 * t,
+        device=device)
+    from montecarlo_tpu_torch.cli.pricing import cli_process
+
+    slv = cli_process(["--process", "slv", "--steps", str(n_steps),
+                       "--paths", "16384"], device)[0]
+    return {"cev": cev, "tdep": tdep, "slv": slv,
+            "slv-knots": slv_to_kernel(slv)}
+
+
+#: Each surface process under each draw source it takes: the bridge orders
+#: one normal per step, so local vol only.
+SURFACE_CASES = [(kind, source)
+                 for kind in ("cev", "tdep", "slv", "slv-knots")
+                 for source in ("plain", "antithetic", "sobol", "bridge")
+                 if source != "bridge" or not kind.startswith("slv")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,source", SURFACE_CASES)
+def test_cuda_surface_processes_k2_k3_k4_bitwise_equal_plain(cuda, kind,
+                                                             source):
+    """LocalVolProc, SlvProc (the KernelRows read) and SlvKnotsProc against
+    their plain versions and the torch loop on the card under each draw
+    source they take; SLV also at more steps than it has rows (the
+    clamp)."""
+    from montecarlo_tpu_torch.rng.sobol import (SobolBridgeKernelSampler,
+                                                SobolDeviceSampler)
+
+    procs = _surface_procs(17, cuda)
+    tp = procs[kind]
+    pay = VanillaPayoff("call", 100.0)
+    fns = {"avg": ARITH_MEAN, "geo": GEO_MEAN, "mx": RUNNING_MAX,
+           "mn": RUNNING_MIN}
+    n = 4096 * 3
+    for n_steps in ((17, 23) if kind == "slv" else (17,)):
+        kw = dict(seed=3, path_offset=(1 << 30) - 1000)
+        loop_smp = None
+        if source == "antithetic":
+            kw["antithetic"] = True
+            loop_smp = AntitheticSampler()
+        elif source == "sobol":
+            kw["sampler"] = loop_smp = SobolDeviceSampler.create(
+                n_steps, tp.n_draws, scramble_seed=4, device=cuda)
+        elif source == "bridge":
+            kw["sampler"] = loop_smp = SobolBridgeKernelSampler.create(
+                n_steps, scramble_seed=4, device=cuda)
+        got = fused_terminal(tp, n - 37, n_steps, **kw)
+        assert torch.isfinite(got).all()
+        assert torch.equal(got, fused_terminal_reference(tp, n - 37, n_steps,
+                                                         **kw))
+        loop = simulate(tp, n - 37, n_steps, seed=3,
+                        path_offset=(1 << 30) - 1000, sampler=loop_smp)
+        assert torch.equal(got, loop)
+        got = fused_block_moments(tp, pay, n, n_steps, **kw)
+        want = fused_block_moments_reference(tp, pay, n, n_steps, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        got = fused_functionals(tp, n - 37, n_steps, functionals=fns, **kw)
+        want = fused_functionals_reference(tp, n - 37, n_steps,
+                                           functionals=fns, **kw)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.cuda
+def test_cuda_surface_processes_refuse_bad_tables(cuda):
+    """The kernels refuse a surface of fewer than 2 time knots and an SLV
+    of no rows, before any launch counts."""
+    import dataclasses
+
+    procs = _surface_procs(8, cuda)
+    counts = {k: v.launches for k, v in PATH_KERNELS.items()}
+    one_knot = dataclasses.replace(procs["cev"],
+                                   vol_flat=procs["cev"].vol_flat[:128])
+    no_rows = dataclasses.replace(procs["slv"],
+                                  lev_rows=procs["slv"].lev_rows[:0])
+    for proc in (one_knot, no_rows):
+        with pytest.raises(RuntimeError, match="launch failed"):
+            fused_terminal(proc, 256, 8, seed=0)
+    assert {k: v.launches for k, v in PATH_KERNELS.items()} == counts
+
+
+@pytest.mark.cuda
+def test_cuda_calibration_is_reproducible(cuda):
+    """Two calibrations at one seed give the same leverage rows, bit for
+    bit (fixed-order deposits, no atomics)."""
+    from montecarlo_tpu_torch.cli.pricing import cli_process
+
+    flags = ["--process", "slv", "--steps", "32", "--paths", "65536"]
+    a = cli_process(flags, cuda)[0]
+    b = cli_process(flags, cuda)[0]
+    assert torch.equal(a.lev_rows, b.lev_rows)
+    assert torch.isfinite(a.lev_rows).all()
