@@ -36,9 +36,13 @@ CUDA kernels from ``montecarlo_tpu_torch/csrc`` and, in phases:
    sampler's martingale test at 2^20 x 252; a 65536 x 16 run on the card
    against ``--device cpu``;
 7. the multi-asset path (K7, and K2-K4 on the correlated basket): K7 at
-   A in {5, 16, 20, 64, 128} assets x T in {7, 8} on 2^16 paths (and once
-   with ids wrapping past 2^32), and at ``bench --basket``'s 2^18 x 512 x
-   A = 128 against the plain version on a 2^14-path slice, all bitwise;
+   A in {1, 2, 5, 16, 20, 33, 64, 127, 128} assets x T in {7, 8} on 2^16
+   paths, at A in {5, 20, 33, 127} on a ragged 2^16 + 17 (and once with
+   ids wrapping past 2^32), and at ``bench --basket``'s 2^18 x 512 x A =
+   128 against the plain version on a 2^14-path slice, all bitwise; K7
+   timed at each ``bench --basket`` asset count beside its bound, its
+   FMA-free issue floor, its registers and shared memory per block, and a
+   cuBLAS yardstick of the correlation alone;
    K2, K3 and K4 ({avg}, {avg, mx, mn}) on BasketGBM at A in {3, 5, 16,
    17}, plain and antithetic, bitwise; the basket's mean and variance
    against the lognormal closed form (K7 at A in {16, 32}, K2 at A = 5);
@@ -959,14 +963,34 @@ def basket_bound(n, steps, a_n, observe=False, out_bytes=4, extra_fp=0):
                       out_bytes=out_bytes, extra_fp=value + extra_fp)
 
 
-def k7_bound(n, steps, a_n):
-    """K7: per pair A cipher calls, two correlations (2A^2), two updates
-    (6A); then A exp32 and the weighted sum; 4 bytes out per path."""
+def k7_ops(n, steps, a_n):
+    """K7's counted operations (int32, float32): per pair A cipher calls,
+    two correlations (2A^2), two updates (6A); then A exp32 and the
+    weighted sum."""
     pairs = (steps + 1) // 2
     calls = n * pairs * a_n
     fp = (calls * BOXMULLER_FP + n * pairs * (2 * a_n * a_n + 6 * a_n)
           + n * (a_n * (EXP32_FP + 2)))
-    return bound(4 * n, int32=calls * CIPHER_INT, fp32=fp)
+    return calls * CIPHER_INT, fp
+
+
+def k7_bound(n, steps, a_n):
+    """K7: its operations over their peak rates; 4 bytes out per path."""
+    int32, fp = k7_ops(n, steps, a_n)
+    return bound(4 * n, int32=int32, fp32=fp)
+
+
+# Warp instructions an H100 SXM issues per second: 4 schedulers per SM x
+# 132 SMs x the 1.98 GHz boost clock.
+WARP_ISSUE_PER_S = 4 * 132 * 1.98e9
+
+
+def k7_issue_floor(n, steps, a_n):
+    """K7's FMA-free issue floor (ms): the same counted operations, each a
+    warp instruction of its own (built with -fmad=false, so no multiply and
+    add fuse) sharing the schedulers' issue slots, over 32 lanes."""
+    int32, fp = k7_ops(n, steps, a_n)
+    return 1e3 * (int32 + fp) / 32 / WARP_ISSUE_PER_S
 
 
 HESTON_STEP_FP = 17  # the full-truncation step's multiplies, adds, max
@@ -1047,10 +1071,12 @@ def phase_basket_parity(torch, errs, times):
             errs.get("packed_basket_terminal", 0.0), max_abs)
 
     n = 1 << 16
-    for a_n in (5, 16, 20, 64, 128):
+    for a_n in (1, 2, 5, 16, 20, 33, 64, 127, 128):
         basket = bench_basket(a_n)
         for steps in (7, 8):
             k7_check(f"K7 A={a_n} {n}x{steps}", basket, n, steps)
+    for a_n in (5, 20, 33, 127):  # a ragged last block in every tier
+        k7_check(f"K7 A={a_n} {n + 17}x7", bench_basket(a_n), n + 17, 7)
     k7_check(f"K7 A=16 {n}x8 offset 2^32-2^15", bench_basket(16), n, 8,
              offset=2**32 - 2**15)
     torch.cuda.synchronize()
@@ -1074,6 +1100,7 @@ def phase_basket_parity(torch, errs, times):
     log(f"  K7 A=128 {nb}x{tb}: kernel {k7_ms:.3f} ms, bound "
         f"{k7_bnd[0]:.4f} ms ({k7_bnd[1]}); plain version on {sl} of its "
         f"paths {k7_plain_ms:.3f} ms (host clock, with the comparison)")
+    phase_k7_rows(torch)
 
     fns = {"avg": ARITH_MEAN, "mx": RUNNING_MAX, "mn": RUNNING_MIN}
     pay = VanillaPayoff("call", 95.0)
@@ -1150,6 +1177,47 @@ def phase_basket_parity(torch, errs, times):
           lambda: fused_functionals_reference(
               basket, n4, s3, seed=0, functionals={"avg": ARITH_MEAN}),
           3, BITWISE, bnd=basket_bound(n4, s3, 5, observe=True, out_bytes=8))
+
+
+def phase_k7_rows(torch):
+    """K7 at each ``bench --basket`` asset count (2^18 x 512), by CUDA
+    events, beside its bound, its FMA-free issue floor and its launch's
+    registers and shared memory; and, as a yardstick only, the dense
+    correlation alone by cuBLAS (``torch.matmul`` of (2^18 x A) by (A x A)
+    in true float32, FMA allowed) times 512 steps: not the same function,
+    not a port, on no path."""
+    from montecarlo_tpu_torch.bench import (BASKET_PATHS, BASKET_STEPS,
+                                            K7_ASSETS, bench_basket)
+    from montecarlo_tpu_torch.ops import packed_basket_terminal
+    from montecarlo_tpu_torch.ops.basket_kernel import k7_attributes
+
+    n, t = BASKET_PATHS, BASKET_STEPS
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for a_n in K7_ASSETS:
+            basket = bench_basket(a_n)
+            ms, out = cuda_ms(lambda: packed_basket_terminal(
+                basket, n, t, seed=1000), 3)
+            if not bool(torch.isfinite(out).all()):
+                raise AssertionError(f"K7 A={a_n}: non-finite values")
+            bnd, by = k7_bound(n, t, a_n)
+            floor = k7_issue_floor(n, t, a_n)
+            attr = k7_attributes(a_n)
+            z = torch.randn(n, a_n, device="cuda")
+            chol_t = basket.chol_flat.reshape(a_n, a_n).t().contiguous()
+            mm_ms, _ = cuda_ms(lambda: z @ chol_t, 5)
+            del out, z
+            log(f"  K7 A={a_n} {n}x{t}: {ms:.3f} ms; bound {bnd:.4f} ms "
+                f"({by}, {100 * bnd / ms:.1f}%); FMA-free issue floor "
+                f"{floor:.3f} ms ({100 * floor / ms:.1f}%); "
+                f"{attr['registers']} registers, {attr['local_bytes']} B "
+                f"local, {attr['shared_bytes']} B shared per block of "
+                f"{attr['paths_per_block']} paths; yardstick torch.matmul "
+                f"({n}x{a_n})x({a_n}x{a_n}) fp32 {mm_ms:.4f} ms x {t} steps "
+                f"= {mm_ms * t:.3f} ms")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
 
 
 def phase_multi_asset(torch):

@@ -14,85 +14,131 @@
 // ULP or so; the plain version uses the same functions, so kernel and plain
 // version agree bitwise.
 //
-// Bounds on the H100: compute.  Per path and step pair, A cipher calls
-// (integer ALU) and 2A^2 float32 multiplies and adds for the correlation,
-// which dominates from A ~ 16 on; the output is 4 bytes per path.  Design:
-// the TPU's lane packing, power-of-two padding and kron(I, L^T) MXU matrix
-// are left out.  One block holds P = 256/A paths and one thread per (path,
-// asset); each thread makes its own asset's cipher call per pair and writes
-// z0/z1 to shared memory; after a barrier it sums its row of L against its
-// path's z (a broadcast read).  L lives in shared memory as the packed lower
-// triangle, column-major, so the 32 threads of a warp read 32 consecutive
-// words (33 KB at A = 128).  The correlation is plain float32 (no tensor
-// cores, no TF32: the rBergomi factor product misses its float32 error
-// bound 24-fold in TF32).  Built with -fmad=false: every multiply and add
-// rounds on its own, as in the plain version.  Any n_paths >= 1: the
-// ragged last block is masked.
+// Bounds on the H100: issue slots.  Per path and step pair, A cipher calls
+// with their Box-Muller transforms (integer ALU at half the issue rate, and
+// libm's polynomials) and the triangular correlation of both halves, A(A+1)
+// multiplies and A(A-1) adds; built with -fmad=false, every one issues
+// alone, so from A ~ 32 on the correlation's float32 instructions set the
+// time.  The output is 4 bytes per path.
+//
+// Design (csrc/basket_tile.cuh): a block holds P paths x all A assets, P =
+// 256 / 256 / 128 / 64 for A up to 16 / 32 / 64 / 128 (four instantiations).
+// Per step pair the block's threads share out its P*A cipher calls, U of
+// them in lock step per thread so the dependent rounds of U calls
+// interleave, and write the normals to shared memory as z[b][p]; after a
+// barrier each thread sums a register tile of M paths x 8 assets against
+// them, column by column, from L packed by tile in shared memory (float4
+// and float2 loads: 2M + 8 shared words for 32M float operations, where the
+// one-thread-per-(path, asset) kernel before it loaded 3 words for 4).  A
+// thread owns tiles t and T-1-t, so every warp does the same triangular
+// work, and the 32 lanes of a warp share one tile pair and one loop bound.
+// The log prices stay in registers for the whole time loop.  The TPU's lane
+// packing, power-of-two padding and kron(I, L^T) MXU product are left out,
+// and so are tensor cores: neither TF32 nor 3xTF32 is bitwise.  Shared
+// memory goes past 48 KB (~100 KB at A = 128, two blocks per SM), so it is
+// dynamic.  Producer warps ciphering pair j + 1 beside consumers of pair j
+// would need the draws twice over, one block per SM at A = 128; they are
+// not built (PERF.md).  Any n_paths >= 1: the ragged last block is masked
+// at the store.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "basket_tile.cuh"
 #include "rng.cuh"
 
 namespace {
 
-constexpr int kMaxAssets = 128;  // processes/basket.py MAX_ASSETS
-constexpr int kThreads = 256;  // a block holds kThreads / A paths
-constexpr int kTri = kMaxAssets * (kMaxAssets + 1) / 2;
+// The draws of step pair j for block path p and assets a, a + da, ...: the
+// U ciphers in lock step, then the U Box-Muller transforms.
+struct ThreefryPair {
+  uint32_t k0, k1, id0, n_pairs, j;
 
-__global__ void packed_basket_kernel(float* __restrict__ out,
-                                     const float* __restrict__ params,
-                                     const float* __restrict__ chol, int A,
-                                     int paths_per_block, int64_t n_paths,
-                                     int n_steps, uint32_t path_offset,
-                                     uint32_t k0, uint32_t k1) {
-  __shared__ float s_l[kTri];  // column b holds L[b..A-1, b]
-  __shared__ float s_z0[kThreads];
-  __shared__ float s_z1[kThreads];
-  const int tid = threadIdx.x;
-  for (int k = tid; k < A * A; k += blockDim.x) {
-    const int r = k / A, c = k - r * A;
-    if (c <= r) s_l[c * A - c * (c - 1) / 2 + (r - c)] = chol[k];
+  template <int U>
+  MC_HD void batch(int p, int a, int da, float* z0, float* z1,
+                   int dz) const {
+    uint32_t c0[U], c1[U], b0[U], b1[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      c0[u] = id0 + (uint32_t)p;                     // wraps
+      c1[u] = (uint32_t)(a + u * da) * n_pairs + j;  // wraps
+    }
+    mc::threefry2x32_lanes<U>(k0, k1, c0, c1, b0, b1);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      mc::boxmuller_pair(b0[u], b1[u], z0 + u * dz, z1 + u * dz);
+    }
   }
-  const int p = tid / A;
-  const int a = tid - p * A;
-  const int64_t i = (int64_t)blockIdx.x * paths_per_block + p;
-  const uint32_t id = path_offset + (uint32_t)i;  // wraps mod 2^32
-  const float drift = params[a];
-  const float scale = params[A + a];
-  const float w = params[3 * A + a];
-  float log_s = params[2 * A + a];
-  const float* z0 = s_z0 + p * A;  // this path's draws
-  const float* z1 = s_z1 + p * A;
+};
+
+template <class Tr>
+__global__ void __launch_bounds__(k7::kThreads, Tr::kBlocksPerSM)
+packed_basket_kernel(float* __restrict__ out, const float* __restrict__ params,
+                     const float* __restrict__ chol, int A, int64_t n_paths,
+                     int n_steps, uint32_t path_offset, uint32_t k0,
+                     uint32_t k1) {
+  extern __shared__ float4 smem4[];
+  const k7::Smem s = k7::carve(reinterpret_cast<float*>(smem4), A, Tr::P);
+  const int tid = threadIdx.x;
+  k7::stage_constants(s, A, Tr::P, params, chol, tid, k7::kThreads);
+  const k7::Owned o = k7::owned<Tr>(tid, A);
+  float log_s[2][Tr::M][k7::kTile];
+  k7::init_log_s<Tr>(o, A, params, log_s);
+  const int64_t base = (int64_t)blockIdx.x * Tr::P;
   const int n_pairs = (n_steps + 1) / 2;
-  const uint32_t c_base = (uint32_t)a * (uint32_t)n_pairs;  // wraps
+  ThreefryPair draw{k0, k1, path_offset + (uint32_t)base, (uint32_t)n_pairs,
+                    0u};
   __syncthreads();
   for (int j = 0; j < n_pairs; ++j) {
-    uint32_t b0, b1;
-    mc::threefry2x32(k0, k1, id, c_base + (uint32_t)j, &b0, &b1);
-    mc::boxmuller_pair(b0, b1, &s_z0[tid], &s_z1[tid]);
+    draw.j = (uint32_t)j;
+    k7::fill_pair<Tr::U>(s, A, Tr::P, tid, k7::kThreads, draw);
     __syncthreads();
-    float zc0 = s_l[a] * z0[0];
-    float zc1 = s_l[a] * z1[0];
-    int idx = a;  // s_l index of L[a, b]
-    for (int b = 1; b <= a; ++b) {
-      idx += A - b;
-      const float l = s_l[idx];
-      zc0 = zc0 + l * z0[b];
-      zc1 = zc1 + l * z1[b];
-    }
-    log_s = (log_s + drift) + scale * zc0;
-    const bool live = 2 * j + 1 < n_steps;
-    log_s = (log_s + (live ? drift : 0.0f)) + (live ? scale * zc1 : 0.0f);
-    __syncthreads();  // s_z0/s_z1 are rewritten by the next pair
+    k7::step_pair<Tr>(s, o, 2 * j + 1 < n_steps, log_s);
+    __syncthreads();  // the draws are rewritten by the next pair
   }
-  s_z0[tid] = w * mc::exp32(log_s);
+  k7::stage_weighted<Tr>(s, o, A, log_s);
   __syncthreads();
-  if (a == 0 && i < n_paths) {
-    float v = z0[0];
-    for (int b = 1; b < A; ++b) v = v + z0[b];
-    out[i] = v;
+  if (tid < Tr::P && base + tid < n_paths) {
+    out[base + tid] = k7::path_sum(s, Tr::P, tid, A);
   }
+}
+
+template <class Tr>
+size_t smem_bytes(int A) {
+  return k7::smem_floats(A, Tr::P) * sizeof(float);
+}
+
+template <class Tr>
+int launch(float* out, const float* params, const float* chol, int A,
+           int64_t n_paths, int n_steps, uint32_t path_offset, uint32_t k0,
+           uint32_t k1, cudaStream_t stream) {
+  const int64_t blocks = (n_paths + Tr::P - 1) / Tr::P;
+  if (blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
+  const size_t bytes = smem_bytes<Tr>(A);
+  // Room for the tier's widest basket, on the current device.
+  const cudaError_t attr = cudaFuncSetAttribute(
+      packed_basket_kernel<Tr>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem_bytes<Tr>(Tr::kMaxAssetsOfTier));
+  if (attr != cudaSuccess) return (int)attr;
+  packed_basket_kernel<Tr><<<(unsigned)blocks, k7::kThreads, bytes, stream>>>(
+      out, params, chol, A, n_paths, n_steps, path_offset, k0, k1);
+  return (int)cudaGetLastError();
+}
+
+template <class Tr>
+int attributes(int A, int* out) {
+  cudaFuncAttributes fa;
+  const cudaError_t err = cudaFuncGetAttributes(&fa, packed_basket_kernel<Tr>);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.localSizeBytes;
+  out[2] = (int)smem_bytes<Tr>(A);
+  out[3] = Tr::P;
+  return 0;
+}
+
+bool valid_assets(int n_assets) {
+  return n_assets >= 1 && n_assets <= k7::kMaxAssets;
 }
 
 }  // namespace
@@ -104,16 +150,37 @@ extern "C" int mc_packed_basket_terminal(float* out, const float* params,
                                          int64_t n_paths, int64_t n_steps,
                                          uint32_t path_offset, uint32_t k0,
                                          uint32_t k1, void* stream) {
-  if (n_assets < 1 || n_assets > kMaxAssets || n_paths < 1 || n_steps < 0 ||
+  if (!valid_assets(n_assets) || n_paths < 1 || n_steps < 0 ||
       n_steps > 0x7FFFFFFF) {
     return (int)cudaErrorInvalidValue;
   }
-  const int per_block = kThreads / n_assets;
-  const int64_t blocks = (n_paths + per_block - 1) / per_block;
-  if (blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
-  packed_basket_kernel<<<(unsigned)blocks, per_block * n_assets, 0,
-                         (cudaStream_t)stream>>>(
-      out, params, chol, n_assets, per_block, n_paths, (int)n_steps,
-      path_offset, k0, k1);
-  return (int)cudaGetLastError();
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int t = (int)n_steps;
+  switch (k7::tier_of(n_assets)) {
+    case 0:
+      return launch<k7::Tier16>(out, params, chol, n_assets, n_paths, t,
+                                path_offset, k0, k1, st);
+    case 1:
+      return launch<k7::Tier32>(out, params, chol, n_assets, n_paths, t,
+                                path_offset, k0, k1, st);
+    case 2:
+      return launch<k7::Tier64>(out, params, chol, n_assets, n_paths, t,
+                                path_offset, k0, k1, st);
+    default:
+      return launch<k7::Tier128>(out, params, chol, n_assets, n_paths, t,
+                                 path_offset, k0, k1, st);
+  }
+}
+
+// The launch K7 makes for an A-asset basket: out[0] registers per thread,
+// out[1] local memory per thread (bytes), out[2] dynamic shared memory per
+// block (bytes), out[3] paths per block.
+extern "C" int mc_packed_basket_attributes(int n_assets, int* out) {
+  if (!valid_assets(n_assets)) return (int)cudaErrorInvalidValue;
+  switch (k7::tier_of(n_assets)) {
+    case 0: return attributes<k7::Tier16>(n_assets, out);
+    case 1: return attributes<k7::Tier32>(n_assets, out);
+    case 2: return attributes<k7::Tier64>(n_assets, out);
+    default: return attributes<k7::Tier128>(n_assets, out);
+  }
 }

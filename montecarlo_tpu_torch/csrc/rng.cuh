@@ -16,8 +16,10 @@
 // Bounds on the H100: the cipher is integer ALU work (20 rounds of add,
 // rotate, xor per 64 random bits); Box-Muller's log, sqrt, sin and cos go
 // to the SFU and their range reductions.  Nothing here touches memory.
-// Design: one call per counter, all in registers; rotations are compile-time
-// constants after unrolling (one funnel shift each).
+// Design: one call per counter, all in registers, or U calls in lock step
+// (threefry2x32_lanes) where a kernel needs independent work to hide the
+// rounds' latency; rotations are compile-time constants after unrolling
+// (one funnel shift each).
 //
 // Numerics: build without --use_fast_math (its __logf/__expf are the biased
 // approximations exp32/log32 exist to avoid) and with -fmad=false, so every
@@ -40,27 +42,50 @@ MC_HD uint32_t rotl32(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
 }
 
-// Threefry-2x32, 20 rounds (Salmon et al., SC'11).  key = (k0, k1),
-// counter = (c0, c1) = (global path id, draw index).
-MC_HD void threefry2x32(uint32_t k0, uint32_t k1, uint32_t c0, uint32_t c1,
-                        uint32_t* o0, uint32_t* o1) {
+// Threefry-2x32, 20 rounds (Salmon et al., SC'11), on U counters in lock
+// step: the U calls' instructions interleave, so a thread keeps U
+// independent chains in flight; each gives the words one call gives.
+// key = (k0, k1), counter u = (c0[u], c1[u]) = (global path id, draw index).
+template <int U>
+MC_HD void threefry2x32_lanes(uint32_t k0, uint32_t k1, const uint32_t* c0,
+                              const uint32_t* c1, uint32_t* o0,
+                              uint32_t* o1) {
   const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
   const int rot[2][4] = {{13, 15, 26, 6}, {17, 29, 16, 24}};
-  uint32_t x0 = c0 + k0;
-  uint32_t x1 = c1 + k1;
+  uint32_t x0[U], x1[U];
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    x0[u] = c0[u] + k0;
+    x1[u] = c1[u] + k1;
+  }
 #pragma unroll
   for (int j = 0; j < 5; ++j) {
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      x0 += x1;
-      x1 = rotl32(x1, rot[j % 2][i]);
-      x1 ^= x0;
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        x0[u] += x1[u];
+        x1[u] = rotl32(x1[u], rot[j % 2][i]);
+        x1[u] ^= x0[u];
+      }
     }
-    x0 += ks[(j + 1) % 3];
-    x1 += ks[(j + 2) % 3] + (uint32_t)(j + 1);
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      x0[u] += ks[(j + 1) % 3];
+      x1[u] += ks[(j + 2) % 3] + (uint32_t)(j + 1);
+    }
   }
-  *o0 = x0;
-  *o1 = x1;
+#pragma unroll
+  for (int u = 0; u < U; ++u) {
+    o0[u] = x0[u];
+    o1[u] = x1[u];
+  }
+}
+
+// One Threefry-2x32-20 call at counter (c0, c1).
+MC_HD void threefry2x32(uint32_t k0, uint32_t k1, uint32_t c0, uint32_t c1,
+                        uint32_t* o0, uint32_t* o1) {
+  threefry2x32_lanes<1>(k0, k1, &c0, &c1, o0, o1);
 }
 
 // Open-interval uniform from the top 23 bits: ((b >> 9) + 0.5) * 2^-23, exact.

@@ -14,7 +14,9 @@ Both versions take ``log32``/``exp32`` where the JAX package takes
 ``jnp.log``/``jnp.exp`` (an ULP or so apart), sum the correlation over b in
 ascending order and the basket over the assets in order, so kernel and
 plain version agree bitwise; against the JAX package they agree within
-rtol 2e-6.
+rtol 2e-6.  The kernel's block schedule (a register-tiled triangular
+correlation over draws in shared memory) is ``csrc/basket_tile.cuh``,
+which tests/test_torch_basket_tile.py also runs on the host.
 """
 
 from __future__ import annotations
@@ -25,7 +27,7 @@ import torch
 
 from montecarlo_tpu_torch.engine.simulate import path_ids_for
 from montecarlo_tpu_torch.ops._build import (CudaKernel, check_cuda_tensor,
-                                             cuda_stream)
+                                             cuda_stream, load_library)
 from montecarlo_tpu_torch.processes.basket import check_kernel_assets
 from montecarlo_tpu_torch.rng.normal import boxmuller_pair, exp32, log32
 from montecarlo_tpu_torch.rng.threefry import (MASK32, key_from_seed,
@@ -35,6 +37,26 @@ K7 = CudaKernel("mc_packed_basket_terminal", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
     ctypes.c_int64, ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint32,
     ctypes.c_uint32, ctypes.c_void_p])
+
+
+def k7_attributes(n_assets: int) -> dict:
+    """The launch K7 makes for an ``n_assets`` basket, from
+    ``cudaFuncGetAttributes``: registers and local memory per thread,
+    dynamic shared memory per block (bytes) and paths per block.  Needs a
+    card; launches nothing."""
+    check_kernel_assets(n_assets)
+    lib = load_library()
+    fn = lib.mc_packed_basket_attributes
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    vals = (ctypes.c_int * 4)()
+    err = fn(n_assets, ctypes.cast(vals, ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError(f"mc_packed_basket_attributes: CUDA error {err} "
+                           f"({lib.mc_error_string(err).decode()})")
+    return dict(zip(("registers", "local_bytes", "shared_bytes",
+                     "paths_per_block"), vals))
+
 
 def _check(basket, n_paths: int, n_steps: int) -> int:
     a_n = basket.n_assets

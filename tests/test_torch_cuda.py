@@ -284,7 +284,7 @@ def test_cuda_rbergomi_simulate_guards_the_product_precision(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("a_n", [1, 5, 16, 20, 128])
+@pytest.mark.parametrize("a_n", [1, 2, 5, 16, 17, 20, 33, 64, 65, 127, 128])
 @pytest.mark.parametrize("n_steps", [0, 7, 8])
 def test_cuda_k7_bitwise_equal_plain(cuda, a_n, n_steps):
     basket = bench_basket(a_n, device=cuda)
