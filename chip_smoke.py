@@ -189,8 +189,10 @@ def card_line() -> str:
 
 def log_resources(ptxas: str) -> None:
     """One line per kernel from ``nvcc -Xptxas -v``: registers, stack frame
-    and spills (nothing when the library was already built)."""
+    and spills (nothing when the library was already built), then each
+    source's compile seconds; raise if a kernel spills."""
     name = frame = None
+    spills = []
     for line in ptxas.splitlines():
         if "Function properties for" in line:
             name = line.split("for", 1)[1].strip()
@@ -199,7 +201,14 @@ def log_resources(ptxas: str) -> None:
         elif "Used" in line and name:
             regs = line.split("Used", 1)[1].split(",")[0].strip()
             log(f"  {name}: {regs}; {frame}")
+            if frame and not frame.endswith(
+                    "0 bytes spill stores, 0 bytes spill loads"):
+                spills.append(name)
             name = frame = None
+        elif line.startswith("nvcc "):
+            log(f"  {line}")
+    if spills:
+        raise AssertionError(f"kernels that spill: {spills}")
 
 
 def compare(name, got, want, rtol=None):
@@ -1060,6 +1069,33 @@ def phase_basket_parity(torch, errs, times):
                                           fused_terminal_reference,
                                           packed_basket_terminal,
                                           packed_basket_terminal_reference)
+    from montecarlo_tpu_torch.rng.sobol import (SobolBridgeKernelSampler,
+                                                SobolDeviceSampler)
+
+    def basket_cases(basket, label, n, steps, kw):
+        """K2, K3 and K4 ({avg, mx, mn} and {avg}) on the basket, bitwise
+        against their plain versions."""
+        cases = [
+            ("K2", "fused_terminal_basket",
+             fused_terminal(basket, n, steps, **kw),
+             fused_terminal_reference(basket, n, steps, **kw))]
+        got = fused_block_moments(basket, pay, n, steps, **kw)
+        want = fused_block_moments_reference(basket, pay, n, steps, **kw)
+        cases += [(f"K3 call {f}", "fused_block_moments_basket",
+                   getattr(got, f), getattr(want, f))
+                  for f in ("mean", "m2")]
+        want = fused_functionals_reference(basket, n, steps,
+                                           functionals=fns, **kw)
+        got = fused_functionals(basket, n, steps, functionals=fns, **kw)
+        one = fused_functionals(basket, n, steps,
+                                functionals={"avg": ARITH_MEAN}, **kw)
+        cases += [(f"K4 {{avg,mx,mn}} {k}", "fused_functionals_basket",
+                   got[k], want[k]) for k in want]
+        cases += [(f"K4 {{avg}} {k}", "fused_functionals_basket", one[k],
+                   want[k]) for k in one]
+        for name, key, g, w in cases:
+            _, max_abs, _ = compare(f"{name} basket {label}", g, w, BITWISE)
+            errs[key] = max(errs.get(key, 0.0), max_abs)
 
     def k7_check(label, basket, n, steps, offset=0, full=None):
         kw = dict(seed=13, path_offset=offset)
@@ -1105,33 +1141,23 @@ def phase_basket_parity(torch, errs, times):
     fns = {"avg": ARITH_MEAN, "mx": RUNNING_MAX, "mn": RUNNING_MIN}
     pay = VanillaPayoff("call", 95.0)
     n, steps = 1 << 14, 17
-    for a_n in (3, 5, 16, 17):
+    # Every BasketFixed<A> edge (1, 2, 3, 4, 5, 8, 9, 16) and
+    # BasketProc<128> (17).
+    for a_n in (1, 2, 3, 4, 5, 8, 9, 16, 17):
         basket = bench_basket(a_n)
         for anti in (False, True):
             label = f"A={a_n} {n}x{steps} {'antithetic' if anti else 'plain'}"
             kw = dict(seed=17, path_offset=WRAP, antithetic=anti)
-            cases = [
-                ("K2", "fused_terminal", fused_terminal(basket, n, steps, **kw),
-                 fused_terminal_reference(basket, n, steps, **kw))]
-            got = fused_block_moments(basket, pay, n, steps, **kw)
-            want = fused_block_moments_reference(basket, pay, n, steps, **kw)
-            cases += [(f"K3 call {f}", "fused_block_moments",
-                       getattr(got, f), getattr(want, f))
-                      for f in ("mean", "m2")]
-            want = fused_functionals_reference(basket, n, steps,
-                                               functionals=fns, **kw)
-            got = fused_functionals(basket, n, steps, functionals=fns, **kw)
-            one = fused_functionals(basket, n, steps,
-                                    functionals={"avg": ARITH_MEAN}, **kw)
-            cases += [(f"K4 {{avg,mx,mn}} {k}", "fused_functionals", got[k],
-                       want[k]) for k in want]
-            cases += [(f"K4 {{avg}} {k}", "fused_functionals", one[k],
-                       want[k]) for k in one]
-            for name, key, g, w in cases:
-                _, max_abs, _ = compare(f"{name} basket {label}", g, w,
-                                        BITWISE)
-                errs[key] = max(errs.get(key, 0.0), max_abs)
-            del cases, got, want, one
+            basket_cases(basket, label, n, steps, kw)
+    # Sobol draws (dimension t A + d, streamed in d order) at two asset
+    # counts, and the bridge-Sobol source on a basket of one asset.
+    for a_n in (5, 16):
+        smp = SobolDeviceSampler.create(steps, a_n, scramble_seed=3)
+        basket_cases(bench_basket(a_n), f"A={a_n} {n}x{steps} sobol-device",
+                     n, steps, dict(seed=17, path_offset=WRAP, sampler=smp))
+    smp = SobolBridgeKernelSampler.create(steps, scramble_seed=2)
+    basket_cases(bench_basket(1), f"A=1 {n}x{steps} sobol-bridge", n, steps,
+                 dict(seed=17, path_offset=2**30 - 300, sampler=smp))
     torch.cuda.synchronize()
 
     # Closed-form gates on the card.
@@ -1153,7 +1179,7 @@ def phase_basket_parity(torch, errs, times):
     check = functools.partial(timed_check, times, errs)
     for a_n in K2_ASSETS:
         basket = bench_basket(a_n)
-        check("fused_terminal", f"K2 basket A={a_n} {nb}x{tb}",
+        check("fused_terminal_basket", f"K2 basket A={a_n} {nb}x{tb}",
               lambda: fused_terminal(basket, nb, tb, seed=1000),
               lambda: fused_terminal_reference(basket, nb, tb, seed=1000),
               3, BITWISE, bnd=basket_bound(nb, tb, a_n))
@@ -1161,7 +1187,7 @@ def phase_basket_parity(torch, errs, times):
     n3, s3 = TOL_CHUNK, TOL_STEPS
     tol_pay = VanillaPayoff("call", BASKET_STRIKE)
     for chunk in (0, 30):
-        check("fused_block_moments",
+        check("fused_block_moments_basket",
               f"K3 basket A=5 call {n3}x{s3} chunk {chunk}",
               lambda: fused_block_moments(basket, tol_pay, n3, s3,
                                           seed=0, path_offset=chunk * n3),
@@ -1171,12 +1197,21 @@ def phase_basket_parity(torch, errs, times):
               3, BITWISE, fields=("mean", "m2"),
               bnd=basket_bound(n3, s3, 5, out_bytes=8 / 128, extra_fp=8))
     n4 = ASIAN_PATHS
-    check("fused_functionals", f"K4 basket A=5 {{avg}} {n4}x{s3}",
+    check("fused_functionals_basket", f"K4 basket A=5 {{avg}} {n4}x{s3}",
           lambda: fused_functionals(basket, n4, s3, seed=0,
                                     functionals={"avg": ARITH_MEAN}),
           lambda: fused_functionals_reference(
               basket, n4, s3, seed=0, functionals={"avg": ARITH_MEAN}),
           3, BITWISE, bnd=basket_bound(n4, s3, 5, observe=True, out_bytes=8))
+    # BasketProc<128> (17..128 assets; on no main path): K2 at A = 32,
+    # its plain version held at A = 17 above.
+    wide = bench_basket(32)
+    ms, out = cuda_ms(lambda: fused_terminal(wide, nb, tb, seed=1000), 3)
+    if not bool(torch.isfinite(out).all()):
+        raise AssertionError("K2 basket A=32: non-finite values")
+    bnd, by = basket_bound(nb, tb, 32)
+    log(f"  K2 basket A=32 {nb}x{tb} (BasketProc<128>): kernel {ms:.3f} ms, "
+        f"bound {bnd:.4f} ms ({by})")
 
 
 def phase_k7_rows(torch):
@@ -1281,6 +1316,7 @@ def phase_multi_asset(torch):
         f"{a_price:.6f} +- {a_se:.2e}, {ASIAN_PATHS} x {TOL_STEPS}, "
         f"{k4_basket} K4 launches, {wall_asian:.3f} s wall-clock")
     counts = launch_counts()
+    counts["fused_functionals_basket"] = k4_basket
     log(f"  launches on the multi-asset path: {counts}")
     se1, se3 = one["std_err"], three["std_err"]
     checks = {
@@ -2764,6 +2800,10 @@ KERNELS = [
     ("normal_matrix", "rng_kernel.cu", "rng_kernel.py:67"),
     ("rbergomi_terminal", "rbergomi_kernel.cu", "rbergomi_kernel.py:73"),
     ("packed_basket_terminal", "basket_kernel.cu", "basket_kernel.py:131"),
+    ("fused_terminal_basket", "fused_basket.cu", "fused_engine.py:231"),
+    ("fused_block_moments_basket", "fused_basket_k3.cu",
+     "fused_engine.py:478"),
+    ("fused_functionals_basket", "fused_basket_k4.cu", "fused_engine.py:390"),
     ("fused_terminal_sobol", "fused_engine.cu", "fused_engine.py:231"),
     ("fused_block_moments_sobol", "fused_engine.cu", "fused_engine.py:478"),
     ("fused_functionals_sobol", "fused_engine.cu", "fused_engine.py:390"),
@@ -2837,8 +2877,13 @@ def main() -> int:
         log("phase 7: the multi-asset path (K7; K2-K4 on the basket)")
         t7 = time.perf_counter()
         phase_basket_parity(torch, errs, times)
-        counts["packed_basket_terminal"] = phase_multi_asset(torch)[
-            "packed_basket_terminal"]
+        multi = phase_multi_asset(torch)
+        # Only baskets launch K2 and K3 on the multi-asset path; its K4
+        # basket launch is counted around its own call.
+        for name in ("packed_basket_terminal", "fused_functionals_basket"):
+            counts[name] = multi[name]
+        for name in ("fused_terminal", "fused_block_moments"):
+            counts[f"{name}_basket"] = multi[name]
         log(f"  phase 7 took {time.perf_counter() - t7:.1f} s")
         log("phase 8: the GARCH path (K2-K4 on GarchProc; "
             "garch_monte_carlo, portfolio_var_on_device, var --on-device)")

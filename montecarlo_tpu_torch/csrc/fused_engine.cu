@@ -1,86 +1,46 @@
-// K2, K3 and K4 — the process-generic fused time loop.
+// K2, K3 and K4 on every process but the correlated basket: the process
+// functors and the dispatch by process code, and the library's K2-K4
+// entries (the basket's functors and launches are csrc/fused_basket.cuh's;
+// the draw sources, epilogues and kernels csrc/fused_engine.cuh's).
 //
-// Replaces montecarlo_tpu/ops/fused_engine.py::fused_terminal_pallas (K2,
-// _make_kernel with payoff_fn=None), ::fused_block_moments_pallas (K3,
-// _make_kernel with a payoff epilogue) and ::fused_functionals_pallas (K4,
-// _make_functional_kernel).  Every kernel is a template over a process
-// functor (GbmProc, HestonProc, BasketProc<16>, BasketProc<128>,
-// GarchProc, MertonProc, KouProc, BatesProc, NigProc, HestonQEProc,
-// BatesQEProc, VgProc, SabrProc, LocalVolProc, SlvProc, SlvKnotsProc) and a
-// draw source: init from the process leaves, then the draw source's time
-// loop calls step(t, eps) for every step in order, and prices come at the
-// end.  SlvProc's per-step leverage row is the port of the JAX kernels'
-// KernelRows (ops/fused_engine.py:44-66, the dynamic ref slice of a
-// kernel_rows_field leaf): a pointer and a clamped row offset.  Draw
-// sources:
-//   ThreefryDraws<Antithetic>: per pair of steps one draws_pair (the two
-//     steps share their cipher calls; each process keeps the JAX
-//     package's layout of normals and uniforms, uniforms on their own key
-//     streams k1 ^ C), the process's own per-draw antithetic mirror on odd
-//     path ids (a normal negated, a uniform reflected 1 - u), the odd
-//     final step never taken;
-//   SobolDraws (rng/sobol.py::SobolDeviceSampler.draws_kernel): the
-//     randomized Sobol normal of dimension t * D + d from the direction
-//     table;
-//   BridgeDraws (SobolBridgeKernelSampler with _bridge_fill_scratch and
-//     _bridge_step_draws): the T bridge normals once per path into a
-//     scratch, then per step the plan's weighted sum of O(log T) of them.
-//   fused_kernel<Proc, Draws, Epilogue>: the epilogue stores the
-//     terminal price (K2) or applies a vanilla payoff and writes (mean, M2)
-//     per 128-path row (K3).
-//   fused_functional_kernel<Proc, Draws>: K4 folds up to four path
-//     functionals (FunctionalCode, with float32 parameters folded on the
-//     host) after every step, the scan engine's order, and writes the
-//     terminal prices and each finalized functional.
+// Replaces montecarlo_tpu/ops/fused_engine.py::fused_terminal_pallas (K2),
+// ::fused_block_moments_pallas (K3) and ::fused_functionals_pallas (K4)
+// for the process functors GbmProc, HestonProc, GarchProc, MertonProc,
+// KouProc, BatesProc, NigProc, HestonQEProc, BatesQEProc, VgProc,
+// SabrProc, LocalVolProc, SlvProc and SlvKnotsProc.  SlvProc's per-step
+// leverage row is the port of the JAX kernels' KernelRows
+// (ops/fused_engine.py:44-66, the dynamic ref slice of a kernel_rows_field
+// leaf): a pointer and a clamped row offset.
 //
 // Bounds on the H100: compute — integer ALU for Threefry, the SFU for
-// log/sqrt/sin/cos; K2 writes 4 bytes per path, K3 8 bytes per 128 paths,
-// K4 4 bytes per path per output; a basket takes A cipher calls per pair
-// of steps and A(A+1)/2 multiplies and A(A-1)/2 adds per step (the
-// unrolled Cholesky),
-// its parameters read from the leaves through L1 by every thread; GARCH
-// one cipher call per pair of steps and, per step, one table read through
-// the read-only cache (the 5-year table is 5 KB), a sqrt and 9 float32
-// operations.  The jump and Levy processes add uniform cipher calls on
-// their second streams and per step the truncated Poisson's four selects,
-// Kou four log32 (one per jump size), the QE step ndtri32 and two log32,
-// VG ndtri32, three log32, two exp32 and four table reads (two 2 KB
+// log/sqrt/sin/cos; K2 writes 4 bytes per path, K3 8 bytes per 128 paths, K4 4
+// bytes per path per output; GARCH one cipher call per pair of steps and, per
+// step, one table read through the read-only cache (the 5-year table is 5 KB),
+// a sqrt and 9 float32 operations.  The jump and Levy processes add uniform
+// cipher calls on their second streams and per step the truncated Poisson's
+// four selects, Kou four log32 (one per jump size), the QE step ndtri32 and two
+// log32, VG ndtri32, three log32, two exp32 and four table reads (two 2 KB
 // tables through the read-only cache), SABR two exp32 and a log32.  The
-// local-vol surfaces add per step one or two IEEE divisions (the
-// log-moneyness coordinate; the time-knot coordinate of a blended surface)
-// and two (an exact SLV row) or four (a blend of two knots) table reads
-// through the read-only cache, the same addresses for every thread.  A
-// Sobol draw is integer work per dimension (a Threefry call for the Owen
-// key, the Gray-code XOR over the set bits, the hash's four multiplies and
-// two bit reversals) plus ndtri32's rationals, log and sqrt; the bridge
-// adds 2L float32 operations per step, T scratch writes and L scratch
-// reads per step.  Design:
-// one thread per path with the state and the functional accumulators (at
-// most 4 x 4 floats, statically indexed so they stay in registers) in
-// registers for the whole time loop (a basket of more than 16 assets keeps
-// its 128-slot state in local memory);
-// the functional code is a kernel argument, so its switch branches the
-// same way across a warp.  K3 uses one 128-thread block per row and sums
-// it in the fixed adjacent-pair tree of stats/welford.py::tree_sum (warp
-// butterfly at offsets 1..16, then (w0+w1)+(w2+w3)), which the plain
-// version reproduces bitwise.  The row -> 4096-path merge stays in torch.
+// local-vol surfaces add per step one or two IEEE divisions (the log-moneyness
+// coordinate; the time-knot coordinate of a blended surface) and two (an exact
+// SLV row) or four (a blend of two knots) table reads through the read-only
+// cache, the same addresses for every thread.  A Sobol draw is integer work per
+// dimension (a Threefry call for the Owen key, the Gray-code XOR over the set
+// bits, the hash's four multiplies and two bit reversals) plus ndtri32's
+// rationals, log and sqrt; the bridge adds 2L float32 operations per step, T
+// scratch writes and L scratch reads per step.  Design:
+// csrc/fused_engine.cuh's, one thread per path with its state in registers.
 //
 // Numerics: built with -fmad=false and the default -prec-div=true,
 // -prec-sqrt=true (ops/_build.py, never fast math), so every a*b+c rounds
 // twice and every division and sqrtf is the IEEE result, as in the torch
 // plain versions and the JAX package.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
-
-#include <type_traits>
-
-#include "rng.cuh"
+#include "fused_engine.cuh"
 #include "surface.cuh"
 
+namespace mcf {
 namespace {
-
-constexpr int kRow = 128;  // paths per stats row = K3's block size
 
 // Default innovations of NormalDrawsMixin: D normals per step, the 2D draws
 // of steps (2j, 2j+1) from D cipher calls at counters j*D + c.
@@ -106,28 +66,6 @@ struct NormalDraws {
     }
   }
 };
-
-// Process codes: the index in ops/fused_engine.py::PROCESS_CODES.
-enum ProcessCode {
-  kGbm = 0,
-  kHeston = 1,
-  kBasket = 2,
-  kGarch = 3,
-  kMerton = 4,
-  kKou = 5,
-  kBates = 6,
-  kNig = 7,
-  kHestonQE = 8,
-  kBatesQE = 9,
-  kVg = 10,
-  kSabr = 11,
-  kLocalVol = 12,
-  kSlv = 13,
-  kSlvKnots = 14,
-};
-
-constexpr int kBasketSmall = 16;   // register-resident basket capacity
-constexpr int kBasketMax = 128;    // local-memory capacity: MAX_ASSETS
 
 // GBM (processes/gbm.py): leaves = [s0, mu, sigma, dt].
 struct GbmProc : NormalDraws<1> {
@@ -182,126 +120,6 @@ struct HestonProc : NormalDraws<2> {
   }
   __device__ float prices(State s) const { return mc::exp32(s.log_s); }
   __device__ float log_prices(State s) const { return s.log_s; }
-};
-
-// Correlated GBM basket (processes/basket.py), A <= kCap assets:
-// leaves = [s0 (A), mu (A), sigma (A), chol_flat (A*A, row-major), weights
-// (A), dt].  The state is kCap log prices statically indexed under full
-// unrolling at kCap = 16, so it stays in registers; kCap = 128 keeps rolled
-// loops and local memory (slow but right).  Every loop is guarded by the
-// runtime A: the draws, the counters and the sums never depend on kCap.
-template <int kCap>
-struct BasketProc {
-  static constexpr int kDraws = kCap;
-  static constexpr int kUnroll = kCap <= kBasketSmall ? kCap : 1;
-  struct State {
-    float log_s[kCap];
-  };
-  const float* s0;
-  const float* chol;
-  const float* w;
-  int A;
-  float drift[kCap], scale[kCap];
-  __device__ BasketProc(const float* leaves, int n_assets) : A(n_assets) {
-    s0 = leaves;
-    const float* mu = leaves + A;
-    const float* sigma = leaves + 2 * A;
-    chol = leaves + 3 * A;
-    w = chol + A * A;
-    const float dt = w[A];
-    const float sq_dt = sqrtf(dt);
-#pragma unroll(kUnroll)
-    for (int a = 0; a < kCap; ++a) {
-      if (a < A) {
-        drift[a] = (mu[a] - 0.5f * (sigma[a] * sigma[a])) * dt;
-        scale[a] = sigma[a] * sq_dt;
-      }
-    }
-  }
-  __device__ int draws() const { return A; }
-  __device__ static float mirror(int, float e) { return -e; }
-  // NormalDrawsMixin.draws_pair with the runtime A: calls j*A + c, c < A,
-  // flattened to flat[0:2A]; eps0 = flat[0:A], eps1 = flat[A:2A].  Split
-  // by the parity of A so every slot index is static after unrolling: an
-  // odd A's middle call gives eps0[A-1] and eps1[0].
-  __device__ void draws_pair(uint32_t k0, uint32_t k1, uint32_t id,
-                             uint32_t j, float* eps0, float* eps1) const {
-    const uint32_t base = j * (uint32_t)A;
-    float z0, z1;
-#pragma unroll(kUnroll)
-    for (int p = 0; p < kCap / 2; ++p) {
-      if (2 * p < A) {
-        normal(k0, k1, id, base + (uint32_t)p, &z0, &z1);
-        eps0[2 * p] = z0;
-        if (2 * p + 1 < A) {
-          eps0[2 * p + 1] = z1;
-        } else {
-          eps1[0] = z1;
-        }
-      }
-    }
-    const uint32_t half = base + (uint32_t)((A + 1) / 2);
-    if ((A & 1) == 0) {
-#pragma unroll(kUnroll)
-      for (int p = 0; p < kCap / 2; ++p) {
-        if (2 * p < A) {
-          normal(k0, k1, id, half + (uint32_t)p, &z0, &z1);
-          eps1[2 * p] = z0;
-          eps1[2 * p + 1] = z1;
-        }
-      }
-    } else {
-#pragma unroll(kUnroll)
-      for (int p = 0; p < kCap / 2; ++p) {
-        if (2 * p + 1 < A) {
-          normal(k0, k1, id, half + (uint32_t)p, &z0, &z1);
-          eps1[2 * p + 1] = z0;
-          if (2 * p + 2 < A && 2 * p + 2 < kCap) eps1[2 * p + 2] = z1;
-        }
-      }
-    }
-  }
-  __device__ static void normal(uint32_t k0, uint32_t k1, uint32_t id,
-                                uint32_t c, float* z0, float* z1) {
-    uint32_t b0, b1;
-    mc::threefry2x32(k0, k1, id, c, &b0, &b1);
-    mc::boxmuller_pair(b0, b1, z0, z1);
-  }
-  __device__ State init() const {
-    State s;
-#pragma unroll(kUnroll)
-    for (int a = 0; a < kCap; ++a) {
-      if (a < A) s.log_s[a] = mc::log32(s0[a]);
-    }
-    return s;
-  }
-  // zc_a = L[a,0] z_0 + ... + L[a,a] z_a, left to right; grouped increment.
-  __device__ State step(const State& s, const float* eps) const {
-    State out;
-#pragma unroll(kUnroll)
-    for (int a = 0; a < kCap; ++a) {
-      if (a < A) {
-        const float* row = chol + a * A;
-        float zc = row[0] * eps[0];
-#pragma unroll(kUnroll)
-        for (int b = 1; b <= a; ++b) zc = zc + row[b] * eps[b];
-        out.log_s[a] = s.log_s[a] + (drift[a] + scale[a] * zc);
-      }
-    }
-    return out;
-  }
-  // The basket value, summed over the assets in order.
-  __device__ float prices(const State& s) const {
-    float out = w[0] * mc::exp32(s.log_s[0]);
-#pragma unroll(kUnroll)
-    for (int a = 1; a < kCap; ++a) {
-      if (a < A) out = out + w[a] * mc::exp32(s.log_s[a]);
-    }
-    return out;
-  }
-  __device__ float log_prices(const State& s) const {
-    return mc::log32(prices(s));
-  }
 };
 
 // GARCH(1,1) bootstrap (processes/garch.py): leaves = [s0, var0, omega,
@@ -812,10 +630,8 @@ struct SabrProc : NormalDraws<2> {
 
 // ---- Local and stochastic-local volatility ----------------------------------
 //
-// The functors whose step reads the step index t (a time-dependent surface)
-// derive from TimedStep; step_at hands t to them and not to the others.
-// Their knot-grid reads are surface.cuh's.
-struct TimedStep {};
+// TimedStep functors (fused_engine.cuh); their knot-grid reads are
+// surface.cuh's.
 
 // Local volatility (processes/local_vol.py): leaves = [s0, rate, dt, x0, dx,
 // dt_knot, vol_flat (n_tk * 128)], n_tk = dims >= 2 time knots.  Per step
@@ -922,400 +738,8 @@ struct SlvKnotsProc : SlvStep<SlvKnotsProc> {
   }
 };
 
-// Step t of a path: a TimedStep functor gets t, the others the draws only.
-template <class Proc>
-__device__ __forceinline__ typename Proc::State step_at(
-    const Proc& proc, const typename Proc::State& s, const float* eps, int t) {
-  if constexpr (std::is_base_of<TimedStep, Proc>::value) {
-    return proc.step(s, eps, t);
-  } else {
-    return proc.step(s, eps);
-  }
-}
+}  // namespace
 
-// ---- Draw sources ------------------------------------------------------------
-//
-// A draw source is the time loop of one path: run(proc, k0, k1, id, i,
-// n_steps, step) calls step(t, eps) once for each t = 0 .. n_steps - 1, in
-// order, with the innovations of step t.  The codes are
-// ops/fused_engine.py's THREEFRY, SOBOL and BRIDGE.
-enum DrawSource { kThreefry = 0, kSobol = 1, kBridge = 2 };
-
-// The process's own Threefry draws: per pair of steps one draws_pair (the
-// two steps share their cipher calls), mirrored by the process on odd ids
-// for antithetic runs; the odd final step is never taken.
-template <bool Antithetic>
-struct ThreefryDraws {
-  template <class Proc, class Step>
-  __device__ void run(const Proc& proc, uint32_t k0, uint32_t k1,
-                      uint32_t id, int64_t, int n_steps, Step step) const {
-    constexpr int D = Proc::kDraws;
-    // Antithetic: path 2k+1 mirrors path 2k (draws keyed by the pair id).
-    const uint32_t draw_id = Antithetic ? id >> 1 : id;
-    const bool mirror = Antithetic && (id & 1u);
-    const int n_pairs = (n_steps + 1) / 2;
-    for (int j = 0; j < n_pairs; ++j) {
-      float eps0[D], eps1[D];
-      proc.draws_pair(k0, k1, draw_id, (uint32_t)j, eps0, eps1);
-      if (mirror) {
-#pragma unroll(Proc::kUnroll)
-        for (int d = 0; d < D; ++d) {
-          if (d < proc.draws()) {
-            eps0[d] = Proc::mirror(d, eps0[d]);
-            eps1[d] = Proc::mirror(d, eps1[d]);
-          }
-        }
-      }
-      step(2 * j, eps0);
-      if (2 * j + 1 < n_steps) step(2 * j + 1, eps1);
-    }
-  }
-};
-
-// rng/sobol.py::SobolDeviceSampler.draws_kernel: draw d of step t is the
-// randomized Sobol normal of dimension t * D + d, read from the (n_dims, 30)
-// table.  JAX's kernel keeps its pair loop and evaluates the draws of the
-// dropped odd final step t = n_steps (its one-hot table read gives 0 past
-// the table); the draws are pure functions of (id, dim), so running the
-// steps one by one and never evaluating that step gives the same bits and
-// never reads past a table built for exactly n_steps.
-struct SobolDraws {
-  const uint32_t* __restrict__ sv;
-  template <class Proc, class Step>
-  __device__ void run(const Proc& proc, uint32_t k0, uint32_t k1,
-                      uint32_t id, int64_t, int n_steps, Step step) const {
-    constexpr int D = Proc::kDraws;
-    const int nd = proc.draws();
-    for (int t = 0; t < n_steps; ++t) {
-      float eps[D];
-#pragma unroll(Proc::kUnroll)
-      for (int d = 0; d < D; ++d) {
-        if (d < nd) {
-          eps[d] = mc::sobol_normal(sv, k0, k1, id, (uint32_t)(t * nd + d));
-        }
-      }
-      step(t, eps);
-    }
-  }
-};
-
-// rng/sobol.py::SobolBridgeKernelSampler with ops/fused_engine.py::
-// _bridge_fill_scratch and _bridge_step_draws.  Phase 1 writes the T bridge
-// normals of the path to its scratch column; phase 2 takes, per step, eps =
-// 0 + c_0 z[d_0] + ... + c_{L-1} z[d_{L-1}] over every padded plan slot in
-// order (the padding is (dim 0, coeff 0), kept so the sum rounds as JAX's).
-// The scratch is a global workspace laid out [dim][path] (stride gridDim.x *
-// blockDim.x: a warp's accesses are coalesced).  Each thread reads only its
-// own column, so no barrier is needed.
-struct BridgeDraws {
-  const uint32_t* __restrict__ sv;     // (T, 30)
-  const int* __restrict__ dims;        // (n_plan, L) plan dims
-  const float* __restrict__ coeffs;    // (n_plan, L) plan weights
-  int T, L;
-  float* scratch;                      // (T, blocks * 128) workspace
-  template <class Proc, class Step>
-  __device__ void run(const Proc&, uint32_t k0, uint32_t k1, uint32_t id,
-                      int64_t i, int n_steps, Step step) const {
-    const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-    float* z = scratch + i;
-    for (int d = 0; d < T; ++d) {
-      z[d * stride] = mc::sobol_normal(sv, k0, k1, id, (uint32_t)d);
-    }
-    for (int t = 0; t < n_steps; ++t) {
-      const int* row_d = dims + (int64_t)t * L;
-      const float* row_c = coeffs + (int64_t)t * L;
-      float e = 0.0f;
-      for (int j = 0; j < L; ++j) e = e + row_c[j] * z[row_d[j] * stride];
-      float eps[Proc::kDraws];
-      eps[0] = e;
-      step(t, eps);
-    }
-  }
-};
-
-// The draw-source arguments of every entry (ops/fused_engine.py::
-// _draw_args): the source code, the antithetic flag (Threefry only), the
-// Sobol table, and the bridge plan with its scratch.
-struct DrawArgs {
-  int source;
-  int antithetic;
-  const uint32_t* sv;
-  const int* dims;
-  const float* coeffs;
-  int T, L;
-  float* scratch;
-};
-
-struct StoreTerminal {  // K2
-  float* out;
-  __device__ void operator()(int64_t i, bool active, float price) const {
-    if (active) out[i] = price;
-  }
-};
-
-// Sum over the 128 threads of a block in tree_sum's adjacent-pair order.
-// Every thread gets the total.
-__device__ float row_tree_sum(float v, float* partial) {
-#pragma unroll
-  for (int off = 1; off < 32; off <<= 1) {
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  }
-  const int warp = threadIdx.x >> 5;
-  if ((threadIdx.x & 31) == 0) partial[warp] = v;
-  __syncthreads();
-  const float total = (partial[0] + partial[1]) + (partial[2] + partial[3]);
-  __syncthreads();  // partial[] is reused by the next call
-  return total;
-}
-
-struct RowMoments {  // K3
-  float* rows;       // (n_paths / 128, 2): mean, M2
-  int payoff;        // 0 call, 1 put, 2 digital (engine/payoffs.py)
-  float strike;
-  __device__ void operator()(int64_t, bool, float price) const {
-    __shared__ float partial[kRow / 32];
-    float pay;
-    if (payoff == 0) {
-      pay = fmaxf(price - strike, 0.0f);
-    } else if (payoff == 1) {
-      pay = fmaxf(strike - price, 0.0f);
-    } else {
-      pay = price > strike ? 1.0f : 0.0f;
-    }
-    const float mean = row_tree_sum(pay, partial) / (float)kRow;
-    const float d = pay - mean;
-    const float m2 = row_tree_sum(d * d, partial);
-    if (threadIdx.x == 0) {
-      rows[2 * blockIdx.x] = mean;
-      rows[2 * blockIdx.x + 1] = m2;
-    }
-  }
-};
-
-template <class Proc, class Draws, class Epilogue>
-__global__ void fused_kernel(const float* __restrict__ leaves, int dims,
-                             int64_t n_paths, int n_steps,
-                             uint32_t path_offset, uint32_t k0, uint32_t k1,
-                             Draws draws, Epilogue epilogue) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const bool active = i < n_paths;
-  const Proc proc(leaves, dims);
-  typename Proc::State state = proc.init();
-  if (active) {
-    const uint32_t id = path_offset + (uint32_t)i;  // wraps mod 2^32
-    draws.run(proc, k0, k1, id, i, n_steps, [&](int t, const float* eps) {
-      state = step_at(proc, state, eps, t);
-    });
-  }
-  epilogue(i, active, proc.prices(state));
-}
-
-// ---- K4: path functionals --------------------------------------------------
-
-// engine/functionals.py::*_CODE.
-enum FunctionalCode {
-  kArithMean = 0,
-  kGeoMean = 1,
-  kRunningMax = 2,
-  kRunningMin = 3,
-  kBarrierUp = 4,    // params: log_b, inv
-  kCliquet = 5,      // period; params: floor, cap
-  kAutocall = 6,     // period; params: -r_dt, trigger, coupon, pdi, s0,
-                     //         -r_dt * n_steps
-  kRealizedVar = 7,
-  kTrapezoid = 8,    // params: half_dt
-};
-
-constexpr int kMaxFunctionals = 4;
-constexpr int kMaxParams = 6;
-
-struct FunctionalSpec {
-  int64_t out_stride;  // row stride of out (the whole run's path count)
-  int n;
-  int code[kMaxFunctionals];
-  int period[kMaxFunctionals];
-  float p[kMaxFunctionals][kMaxParams];
-};
-
-__device__ __forceinline__ bool log_space(int code) {
-  return code == kGeoMean || code == kRunningMax || code == kRunningMin ||
-         code == kBarrierUp || code == kRealizedVar;
-}
-
-// init(obs0) of engine/functionals.py.
-__device__ __forceinline__ void fn_init(int code, const float* p, float obs,
-                                        float* acc) {
-  switch (code) {
-    case kBarrierUp:
-      acc[0] = obs < p[0] ? 1.0f : 0.0f;
-      acc[1] = obs;
-      break;
-    case kCliquet:
-    case kRealizedVar:
-    case kTrapezoid:
-      acc[0] = 0.0f;
-      acc[1] = obs;
-      break;
-    case kAutocall:
-      acc[0] = 1.0f;
-      acc[1] = 0.0f;
-      acc[2] = obs;
-      acc[3] = obs;
-      break;
-    default:  // means, running max / min
-      acc[0] = obs;
-  }
-}
-
-// update(acc, obs, t) with t the 1-based step index.
-__device__ __forceinline__ void fn_update(int code, int period,
-                                          const float* p, float obs, int t,
-                                          float* acc) {
-  switch (code) {
-    case kArithMean:
-    case kGeoMean:
-      acc[0] = acc[0] + obs;
-      break;
-    case kRunningMax:
-      acc[0] = fmaxf(acc[0], obs);
-      break;
-    case kRunningMin:
-      acc[0] = fminf(acc[0], obs);
-      break;
-    case kBarrierUp: {
-      const float a = p[0] - acc[1];
-      const float b = p[0] - obs;
-      const float p_cross = mc::exp32(((-2.0f * a) * b) * p[1]);
-      const bool alive = (a > 0.0f) && (b > 0.0f);
-      acc[0] = acc[0] * (alive ? 1.0f - p_cross : 0.0f);
-      acc[1] = obs;
-      break;
-    }
-    case kCliquet:
-      if (t % period == 0) {
-        const float ret = fminf(fmaxf(obs / acc[1] - 1.0f, p[0]), p[1]);
-        acc[0] = acc[0] + ret;
-        acc[1] = obs;
-      }
-      break;
-    case kAutocall: {
-      acc[2] = fminf(acc[2], obs);
-      if (t % period == 0 && acc[0] > 0.5f && obs >= p[1]) {
-        const float tf = (float)t;
-        const float j = tf / (float)period;
-        acc[1] = (1.0f + p[2] * j) * mc::exp32(p[0] * tf);
-        acc[0] = 0.0f;
-      }
-      acc[3] = obs;
-      break;
-    }
-    case kRealizedVar: {
-      const float d = obs - acc[1];
-      acc[0] = acc[0] + d * d;
-      acc[1] = obs;
-      break;
-    }
-    case kTrapezoid:
-      acc[0] = acc[0] + (acc[1] + obs) * p[0];
-      acc[1] = obs;
-      break;
-  }
-}
-
-// finalize(acc, float(n_steps)).
-__device__ __forceinline__ float fn_finalize(int code, const float* p,
-                                             const float* acc, int n_steps) {
-  const float n_obs = (float)(n_steps + 1);  // n_steps + 1.0, exact
-  switch (code) {
-    case kArithMean:
-      return acc[0] / n_obs;
-    case kGeoMean:
-      return mc::exp32(acc[0] / n_obs);
-    case kRunningMax:
-    case kRunningMin:
-      return mc::exp32(acc[0]);
-    case kAutocall: {
-      if (acc[0] <= 0.5f) return acc[1];
-      const float df_t = mc::exp32(p[5]);
-      const bool breached = acc[2] <= p[3];
-      return df_t * (breached ? fminf(acc[3] / p[4], 1.0f) : 1.0f);
-    }
-    default:  // barrier survival, cliquet leg, sums
-      return acc[0];
-  }
-}
-
-template <class Proc, class Draws>
-__global__ void fused_functional_kernel(const float* __restrict__ leaves,
-                                        int dims, int64_t n_paths,
-                                        int n_steps, uint32_t path_offset,
-                                        uint32_t k0, uint32_t k1,
-                                        Draws draws, FunctionalSpec spec,
-                                        float* __restrict__ out) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n_paths) return;
-  const Proc proc(leaves, dims);
-  bool need_price = false;
-#pragma unroll
-  for (int k = 0; k < kMaxFunctionals; ++k) {
-    if (k < spec.n && !log_space(spec.code[k])) need_price = true;
-  }
-  // The observation of functional k: the price or the log price.
-  auto observe = [&](const typename Proc::State& s, float* obs) {
-    const float price = need_price ? proc.prices(s) : 0.0f;
-    const float logp = proc.log_prices(s);
-#pragma unroll
-    for (int k = 0; k < kMaxFunctionals; ++k) {
-      obs[k] = log_space(spec.code[k]) ? logp : price;
-    }
-  };
-  float acc[kMaxFunctionals][4];
-  float obs[kMaxFunctionals];
-  typename Proc::State state = proc.init();
-  observe(state, obs);
-#pragma unroll
-  for (int k = 0; k < kMaxFunctionals; ++k) {
-    if (k < spec.n) fn_init(spec.code[k], spec.p[k], obs[k], acc[k]);
-  }
-  auto update_all = [&](int t) {
-    observe(state, obs);
-#pragma unroll
-    for (int k = 0; k < kMaxFunctionals; ++k) {
-      if (k < spec.n) {
-        fn_update(spec.code[k], spec.period[k], spec.p[k], obs[k], t, acc[k]);
-      }
-    }
-  };
-  const uint32_t id = path_offset + (uint32_t)i;  // wraps mod 2^32
-  // One update after every step, with the 1-based step index (the scan
-  // engine's order, which JAX's pair and bridge loops both keep).
-  draws.run(proc, k0, k1, id, i, n_steps, [&](int t, const float* eps) {
-    state = step_at(proc, state, eps, t);
-    update_all(t + 1);
-  });
-  out[i] = proc.prices(state);
-#pragma unroll
-  for (int k = 0; k < kMaxFunctionals; ++k) {
-    if (k < spec.n) {
-      out[(k + 1) * spec.out_stride + i] =
-          fn_finalize(spec.code[k], spec.p[k], acc[k], n_steps);
-    }
-  }
-}
-
-// Which draw sources a functor takes: Sobol normals need an all-normal
-// process (GARCH's draw is a uniform, and so are some of every MixedDraws
-// process's: rng/sobol.py refuses them too); the bridge a single draw
-// (GBM, or a basket of one asset, checked at run time).
-template <class Proc>
-struct SourceTraits {
-  static constexpr bool kSobol = true;
-  static constexpr bool kBridge = false;
-};
-struct ThreefryOnly {
-  static constexpr bool kSobol = false;
-  static constexpr bool kBridge = false;
-};
 template <>
 struct SourceTraits<MertonProc> : ThreefryOnly {};
 template <>
@@ -1341,56 +765,15 @@ struct SourceTraits<LocalVolProc> {
   static constexpr bool kBridge = true;
 };
 template <>
-struct SourceTraits<BasketProc<kBasketSmall>> {
-  static constexpr bool kSobol = true;
-  static constexpr bool kBridge = true;
-};
-template <>
 struct SourceTraits<GarchProc> {
   static constexpr bool kSobol = false;
   static constexpr bool kBridge = false;
 };
 
-// Instantiates `Launcher<Proc, Draws>` for the draw source of `a` and
-// launches it; a source the functor does not take is an invalid value.
-template <template <class, class> class Launcher, class Proc, class... Args>
-cudaError_t launch_source(const DrawArgs& a, int dims, unsigned blocks,
-                          cudaStream_t s, Args... args) {
-  switch (a.source) {
-    case kThreefry:
-      if (a.antithetic) {
-        return Launcher<Proc, ThreefryDraws<true>>::run(
-            blocks, s, dims, ThreefryDraws<true>{}, args...);
-      }
-      return Launcher<Proc, ThreefryDraws<false>>::run(
-          blocks, s, dims, ThreefryDraws<false>{}, args...);
-    case kSobol:
-      if constexpr (SourceTraits<Proc>::kSobol) {
-        if (a.sv == nullptr) return cudaErrorInvalidValue;
-        return Launcher<Proc, SobolDraws>::run(blocks, s, dims,
-                                               SobolDraws{a.sv}, args...);
-      }
-      return cudaErrorInvalidValue;
-    case kBridge:
-      if constexpr (SourceTraits<Proc>::kBridge) {
-        if (a.sv == nullptr || a.dims == nullptr || a.coeffs == nullptr ||
-            a.scratch == nullptr || a.T < 1 || a.L < 1 ||
-            (dims != 1 && Proc::kDraws != 1)) {
-          return cudaErrorInvalidValue;
-        }
-        return Launcher<Proc, BridgeDraws>::run(
-            blocks, s, dims,
-            BridgeDraws{a.sv, a.dims, a.coeffs, a.T, a.L, a.scratch},
-            args...);
-      }
-      return cudaErrorInvalidValue;
-    default:
-      return cudaErrorInvalidValue;
-  }
-}
+namespace {
 
-// Picks the functor for the process code (and the basket capacity that
-// holds `dims` assets) and launches it with one thread per path.
+// Picks the functor for the process code (the basket's by its asset count,
+// in fused_basket.cuh) and launches it with one thread per path.
 template <template <class, class> class Launcher, class... Args>
 int dispatch(int process, int dims, const DrawArgs& a, int64_t n_paths,
              void* stream, Args... args) {
@@ -1460,14 +843,7 @@ int dispatch(int process, int dims, const DrawArgs& a, int64_t n_paths,
                                                   n_paths, args...);
       break;
     case kBasket:
-      if (dims < 1 || dims > kBasketMax) return (int)cudaErrorInvalidValue;
-      if (dims <= kBasketSmall) {
-        err = launch_source<Launcher, BasketProc<kBasketSmall>>(
-            a, dims, blocks, s, n_paths, args...);
-      } else {
-        err = launch_source<Launcher, BasketProc<kBasketMax>>(
-            a, dims, blocks, s, n_paths, args...);
-      }
+      err = launch_basket(a, dims, blocks, s, n_paths, args...);
       break;
     default:
       return (int)cudaErrorInvalidValue;
@@ -1476,36 +852,10 @@ int dispatch(int process, int dims, const DrawArgs& a, int64_t n_paths,
   return (int)cudaGetLastError();
 }
 
-template <class Epilogue>
-struct FusedLauncher {
-  template <class Proc, class Draws>
-  struct With {
-    static cudaError_t run(unsigned blocks, cudaStream_t s, int dims,
-                           Draws draws, int64_t n_paths, const float* leaves,
-                           int n_steps, uint32_t path_offset, uint32_t k0,
-                           uint32_t k1, Epilogue epilogue) {
-      fused_kernel<Proc, Draws, Epilogue><<<blocks, kRow, 0, s>>>(
-          leaves, dims, n_paths, n_steps, path_offset, k0, k1, draws,
-          epilogue);
-      return cudaSuccess;
-    }
-  };
-};
-
-template <class Proc, class Draws>
-struct FunctionalLauncher {
-  static cudaError_t run(unsigned blocks, cudaStream_t s, int dims,
-                         Draws draws, int64_t n_paths, const float* leaves,
-                         int n_steps, uint32_t path_offset, uint32_t k0,
-                         uint32_t k1, FunctionalSpec spec, float* out) {
-    fused_functional_kernel<Proc, Draws><<<blocks, kRow, 0, s>>>(
-        leaves, dims, n_paths, n_steps, path_offset, k0, k1, draws, spec,
-        out);
-    return cudaSuccess;
-  }
-};
-
 }  // namespace
+}  // namespace mcf
+
+using namespace mcf;
 
 // Every entry takes the process code and its dimension `dims` (the basket's
 // asset count, GARCH's table length, VG's quantile-table length; ignored by

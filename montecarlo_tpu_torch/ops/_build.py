@@ -21,6 +21,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -57,24 +58,38 @@ def _nvcc() -> str:
 
 def build(extra_flags=()) -> str:
     """Compile the library if it is missing; returns the compilers'
-    messages ("" when it was there).  ``extra_flags`` go to each compile
-    without entering the library's hash: only flags that change no code,
-    such as ``("-Xptxas", "-v")`` for the registers and spills."""
+    messages ("" when it was there), then one line per source with the
+    seconds its nvcc took.  ``extra_flags`` go to each compile without
+    entering the library's hash: only flags that change no code, such as
+    ``("-Xptxas", "-v")`` for the registers and spills."""
     so = library_path()
     if so.exists():
         return ""
     BUILD_DIR.mkdir(exist_ok=True)
     nvcc, tag = _nvcc(), f"{so.stem}.{os.getpid()}"
-    objs, procs = [], []
+    jobs = []
+    t0 = time.perf_counter()
     for src in _sources()[0]:
         obj = BUILD_DIR / f"{tag}.{src.stem}.o"
+        log = obj.with_suffix(".log")
         cmd = [nvcc, *NVCC_FLAGS, *extra_flags, "-c", "-o", str(obj),
                str(src)]
-        objs.append(obj)
-        procs.append((cmd, subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-            text=True)))
-    logs = [_finish(cmd, p) for cmd, p in procs]
+        # Output to a file: a full pipe would stall a compile until its
+        # turn to be read.
+        with open(log, "w") as f:
+            proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
+        jobs.append((src, obj, log, cmd, proc))
+    seconds = _wait_all([job[-1] for job in jobs], t0)
+    logs, times = [], []
+    for (src, obj, log, cmd, proc), sec in zip(jobs, seconds):
+        out = log.read_text()
+        log.unlink()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{out}")
+        logs.append(out)
+        times.append(f"nvcc {src.name}: {sec:.1f} s\n")
+    objs = [job[1] for job in jobs]
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
     link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
             *(str(o) for o in objs)]
@@ -83,7 +98,18 @@ def build(extra_flags=()) -> str:
     for o in objs:
         o.unlink()
     os.replace(tmp, so)  # atomic: concurrent builders never load half a file
-    return "".join(logs)
+    return "".join(logs + times)
+
+
+def _wait_all(procs, t0) -> list:
+    """Wait for every process; the seconds from ``t0`` to each one's end."""
+    done = [None] * len(procs)
+    while None in done:
+        for k, p in enumerate(procs):
+            if done[k] is None and p.poll() is not None:
+                done[k] = time.perf_counter() - t0
+        time.sleep(0.05)
+    return done
 
 
 def _finish(cmd, proc) -> str:

@@ -298,11 +298,12 @@ def test_cuda_k7_bitwise_equal_plain(cuda, a_n, n_steps):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("a_n", [3, 5, 16, 17])
+@pytest.mark.parametrize("a_n", [1, 2, 3, 4, 5, 8, 9, 16, 17])
 @pytest.mark.parametrize("antithetic", [False, True])
 def test_cuda_basket_k2_k3_k4_bitwise_equal_plain(cuda, a_n, antithetic):
-    """BasketProc at 16 (registers) and 128 (local memory) capacity, odd
-    and even asset counts, against the plain versions and the torch loop."""
+    """BasketFixed<A> (one instantiation per A up to 16: the smallest, odd
+    and even counts, the edges 8, 9 and 16) and BasketProc<128> (17 on),
+    against the plain versions and the torch loop."""
     basket = bench_basket(a_n, device=cuda)
     kw = dict(seed=4, path_offset=WRAP, antithetic=antithetic)
     before = dict((k, PATH_KERNELS[k].launches) for k in (
@@ -419,8 +420,8 @@ def test_cuda_garch_mirror_is_one_minus_u(cuda):
 # --- randomized QMC: Sobol and bridge-Sobol draws in K2-K4 -------------------
 
 def _sobol_process(kind, n_steps, device):
-    if kind == "basket":
-        return bench_basket(5, device=device)
+    if kind.startswith("basket"):  # basket<A>
+        return bench_basket(int(kind[6:]), device=device)
     return _process(kind, n_steps, device)
 
 
@@ -452,7 +453,7 @@ def test_cuda_k0_sobol_normal_equals_plain(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kind", ["gbm", "heston", "basket"])
+@pytest.mark.parametrize("kind", ["gbm", "heston", "basket5", "basket16"])
 @pytest.mark.parametrize("n_steps", [8, 9, 17])
 def test_cuda_sobol_k2_k3_k4_bitwise_equal_plain(cuda, kind, n_steps):
     """SobolDraws in K2, K3 and K4 on a table built for exactly n_steps
@@ -492,16 +493,18 @@ def test_cuda_sobol_k2_k3_k4_bitwise_equal_plain(cuda, kind, n_steps):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gbm", "basket1"])
 @pytest.mark.parametrize("n_steps,built_for", [(8, 8), (9, 9), (17, 17),
                                                (9, 12)])
-def test_cuda_bridge_k2_k3_k4_bitwise_equal_plain(cuda, n_steps, built_for):
+def test_cuda_bridge_k2_k3_k4_bitwise_equal_plain(cuda, n_steps, built_for,
+                                                 kind):
     """BridgeDraws in K2, K3 and K4 on a plan built for the run's steps or
     more, against
     the plain versions and the torch loop (the Device sampler's per-step
     sums); each launch raises its bridge counter."""
     from montecarlo_tpu_torch.rng.sobol import SobolBridgeKernelSampler
 
-    tp = _process("gbm", n_steps, cuda)
+    tp = _sobol_process(kind, n_steps, cuda)
     smp = SobolBridgeKernelSampler.create(built_for, scramble_seed=2,
                                           device=cuda)
     kw = dict(seed=5, path_offset=2**30 - 300, sampler=smp)
