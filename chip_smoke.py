@@ -75,7 +75,10 @@ CUDA kernels from ``montecarlo_tpu_torch/csrc`` and, in phases:
 9. randomized QMC (K2-K4 under Sobol and bridge-Sobol draws): K2, K3 and
    K4 under each draw source against their plain versions bitwise at 2^18
    and 2^18 - 37 paths x {252, 17, 9} steps on tables built for exactly
-   the run's steps, ids crossing 2^30; each timed with its bound at the
+   the run's steps, ids crossing 2^30, and at 2^12 and 2^12 + 13 paths x
+   17 steps with ids from 2^32 - 40 (a partial last warp, and the wrap
+   inside a warp of the warp-shared Gray-code walk); each timed with its
+   bound at the
    QMC path's shapes (the Threefry K2 beside the Sobol one; K3's rows add
    the kernel's device time from the profiler as ``device_ms``, since at
    2^18 paths its wrapper's merges can leave the card idle between
@@ -1794,7 +1797,7 @@ def phase_garch_profile(torch, procs):
 # selects (at least 50 float32 operations; its log and sqrt not counted).
 # The Owen key is one Threefry call per dimension and launch: it does not
 # depend on the path, so the bound counts it once (the kernel computes it
-# per path).
+# once per block).
 SOBOL_INT, NDTRI_FP = 16, 52
 RQMC_REPS = 8
 #: The RQMC cells: the tolerance run's per-replicate chunk (K2/K3), the
@@ -1819,11 +1822,17 @@ def sobol_bound(torch, n, steps, draws=1, step_fp=3, out_bytes=4,
     """A fused loop over n paths whose draws are Sobol normals: n * steps *
     draws of them (or n * T for a bridge of T dims, plus 2L float32
     operations per step for ``bridge=(T, L)``), each dimension's XORs from
-    this run's ids, ``step_fp`` per step and ``extra_fp`` per path."""
+    this run's ids, ``step_fp`` per step and ``extra_fp`` per path.  The
+    bridge's scratch adds the bytes it cannot avoid: per path its T
+    normals written once (phase 1) and read once (phase 2).  The plan's
+    other reads of them (L a step: each normal about L times, the padding
+    dim 0 at every step) are re-reads, which the cache can serve, and are
+    not counted."""
     dims = bridge[0] if bridge else steps * draws
     normals = n * dims
     plan = 2 * bridge[1] * n * steps if bridge else 0
-    return bound(n * out_bytes,
+    scratch = 4 * n * 2 * bridge[0] if bridge else 0
+    return bound(n * out_bytes + scratch,
                  int32=(normals * SOBOL_INT + dims * CIPHER_INT
                         + dims * gray_xors(torch, n, path_offset)),
                  fp32=(normals * NDTRI_FP + plan
@@ -1832,9 +1841,11 @@ def sobol_bound(torch, n, steps, draws=1, step_fp=3, out_bytes=4,
 
 def phase_qmc_parity(torch, errs):
     """K2, K3 and K4 under SobolDraws (GBM; Heston at 17 steps) and
-    BridgeDraws (GBM) against their plain versions, bitwise, at 2^18 paths (K2 and K4 at
-    2^18 - 37) x {252, 17, 9} steps on tables built for exactly the run's
-    steps, ids crossing 2^30 (where the Gray code stops being read)."""
+    BridgeDraws (GBM) against their plain versions, bitwise, at 2^18 paths
+    (K2 and K4 at 2^18 - 37, not a multiple of 32) x {252, 17, 9} steps on
+    tables built for exactly the run's steps, ids crossing 2^30 (where the
+    Gray code stops being read); at 17 steps also on 2^12 paths (K2 and
+    K4 at 2^12 + 13) with ids from 2^32 - 40, wrapping inside a warp."""
     from montecarlo_tpu_torch.engine import ARITH_MEAN, RUNNING_MAX
     from montecarlo_tpu_torch.engine import VanillaPayoff
     from montecarlo_tpu_torch.ops import (fused_block_moments,
@@ -1847,11 +1858,16 @@ def phase_qmc_parity(torch, errs):
     from montecarlo_tpu_torch.rng.sobol import (SobolBridgeKernelSampler,
                                                 SobolDeviceSampler)
 
-    n = 1 << 18
-    off = (1 << 30) - 1000
     fns = {"avg": ARITH_MEAN, "mx": RUNNING_MAX}
     pay = VanillaPayoff("call", 105.0)
-    for steps in (252, 17, 9):
+    # (steps, paths, path offset): ids crossing 2^30 at 2^18 paths (K2 and
+    # K4 at 2^18 - 37, a partial last warp); at 17 steps also ids from 40
+    # below 2^32 (the wrap inside a warp) on 2^12 paths (K2 and K4 at 2^12
+    # + 13: a last block with one warp of 13 active lanes).
+    runs = [(s, 1 << 18, (1 << 30) - 1000) for s in (252, 17, 9)]
+    runs.append((17, 1 << 12, 2**32 - 40))
+    for steps, n, off in runs:
+        ragged = n - 37 if n > 1 << 12 else n + 13
         gbm = GBM.create(100.0, 0.03, 0.2, 1.0 / steps, device="cuda")
         cases = [("sobol", gbm, SobolDeviceSampler.create(
             steps, 1, scramble_seed=steps, device="cuda"))]
@@ -1863,16 +1879,18 @@ def phase_qmc_parity(torch, errs):
             steps, scramble_seed=steps, device="cuda")))
         for source, proc, smp in cases:
             kw = dict(seed=13, path_offset=off, sampler=smp)
-            tag = f"{type(proc).__name__} {source} {steps} steps"
+            tag = (f"{type(proc).__name__} {source} {steps} steps, {n} "
+                   f"paths from {off}")
             got = [("K2", "fused_terminal",
-                    fused_terminal(proc, n - 37, steps, **kw),
-                    fused_terminal_reference(proc, n - 37, steps, **kw))]
+                    fused_terminal(proc, ragged, steps, **kw),
+                    fused_terminal_reference(proc, ragged, steps, **kw))]
             m = fused_block_moments(proc, pay, n, steps, **kw)
             want_m = fused_block_moments_reference(proc, pay, n, steps, **kw)
             got += [(f"K3 {f}", "fused_block_moments", getattr(m, f),
                      getattr(want_m, f)) for f in ("mean", "m2")]
-            fo = fused_functionals(proc, n - 37, steps, functionals=fns, **kw)
-            want_f = fused_functionals_reference(proc, n - 37, steps,
+            fo = fused_functionals(proc, ragged, steps, functionals=fns,
+                                   **kw)
+            want_f = fused_functionals_reference(proc, ragged, steps,
                                                  functionals=fns, **kw)
             got += [(f"K4 {k}", "fused_functionals", fo[k], want_f[k])
                     for k in want_f]

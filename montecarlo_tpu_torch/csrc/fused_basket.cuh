@@ -101,8 +101,9 @@ struct BasketFixed {
   __device__ void run(const SobolDraws& d, uint32_t k0, uint32_t k1,
                       uint32_t id, int n_steps, State& st,
                       After& after) const {
+    mc::SobolWarpNormals src(d.sv, k0, k1, id);
     auto normal = [&](int t, int c) {
-      return mc::sobol_normal(d.sv, k0, k1, id, (uint32_t)(t * A + c));
+      return src.normal((uint32_t)(t * A + c));
     };
     bstep::run_steps<A>(s, st.log_s, n_steps, normal, after);
   }

@@ -25,11 +25,12 @@
 // coordinate; the time-knot coordinate of a blended surface) and two (an exact
 // SLV row) or four (a blend of two knots) table reads through the read-only
 // cache, the same addresses for every thread.  A Sobol draw is integer work per
-// dimension (a Threefry call for the Owen key, the Gray-code XOR over the set
-// bits, the hash's four multiplies and two bit reversals) plus ndtri32's
-// rationals, log and sqrt; the bridge adds 2L float32 operations per step, T
-// scratch writes and L scratch reads per step.  Design:
-// csrc/fused_engine.cuh's, one thread per path with its state in registers.
+// dimension (the warp's shared Gray-code walk, a load and 11 shuffles; the
+// Owen key's Threefry call once per block; the hash's four multiplies and two
+// bit reversals) plus ndtri32's rationals, log and sqrt; the bridge adds 2L
+// float32 operations per step, T scratch writes and L scratch reads per step.
+// Design: csrc/fused_engine.cuh's, one thread per path with its state in
+// registers.
 //
 // Numerics: built with -fmad=false and the default -prec-div=true,
 // -prec-sqrt=true (ops/_build.py, never fast math), so every a*b+c rounds

@@ -22,7 +22,8 @@
 //     final step never taken;
 //   SobolDraws (rng/sobol.py::SobolDeviceSampler.draws_kernel): the
 //     randomized Sobol normal of dimension t * D + d from the direction
-//     table;
+//     table, the warp's Gray-code walk and the block's staged Owen keys
+//     (sobol_warp.cuh);
 //   BridgeDraws (SobolBridgeKernelSampler with _bridge_fill_scratch and
 //     _bridge_step_draws): the T bridge normals once per path into a
 //     scratch, then per step the plan's weighted sum of O(log T) of them.
@@ -39,7 +40,10 @@
 //
 // Design: one thread per path with the state and the functional
 // accumulators (at most 4 x 4 floats, statically indexed so they stay in
-// registers) in registers for the whole time loop; the functional code is a
+// registers) in registers for the whole time loop.  Under the Sobol
+// sources every thread of a block runs its path, past n_paths too, and
+// only the active ones write: their lanes shuffle with the whole warp and
+// their blocks stage keys between barriers.  The functional code is a
 // kernel argument, so its switch branches the same way across a warp.  K3
 // uses one 128-thread block per row and sums it in the fixed adjacent-pair
 // tree of stats/welford.py::tree_sum (warp butterfly at offsets 1..16, then
@@ -59,6 +63,7 @@
 
 #include "functionals.cuh"
 #include "rng.cuh"
+#include "sobol_warp.cuh"
 
 namespace mcf {
 
@@ -122,8 +127,10 @@ struct Streams : std::false_type {};
 //
 // A draw source is the time loop of one path: run(proc, k0, k1, id, i,
 // n_steps, step) calls step(t, eps) once for each t = 0 .. n_steps - 1, in
-// order, with the innovations of step t.  The codes are
-// ops/fused_engine.py's THREEFRY, SOBOL and BRIDGE.
+// order, with the innovations of step t.  kWholeBlock: every thread of the
+// block must run it, past n_paths too (its warps shuffle and its block
+// stages between barriers); the kernels then write for the active threads
+// only.  The codes are ops/fused_engine.py's THREEFRY, SOBOL and BRIDGE.
 enum DrawSource { kThreefry = 0, kSobol = 1, kBridge = 2 };
 
 // The process's own Threefry draws: per pair of steps one draws_pair (the
@@ -131,6 +138,7 @@ enum DrawSource { kThreefry = 0, kSobol = 1, kBridge = 2 };
 // for antithetic runs; the odd final step is never taken.
 template <bool Antithetic>
 struct ThreefryDraws {
+  static constexpr bool kWholeBlock = false;  // each path on its own
   // Antithetic: path 2k+1 mirrors path 2k (draws keyed by the pair id).
   __device__ static uint32_t draw_id(uint32_t id) {
     return Antithetic ? id >> 1 : id;
@@ -168,21 +176,23 @@ struct ThreefryDraws {
 // dropped odd final step t = n_steps (its one-hot table read gives 0 past
 // the table); the draws are pure functions of (id, dim), so running the
 // steps one by one and never evaluating that step gives the same bits and
-// never reads past a table built for exactly n_steps.
+// never reads past a table built for exactly n_steps.  The normals are
+// sobol_warp.cuh's: the warp walks the Gray code together and the block
+// stages the Owen keys, so every thread of the block runs this source.
 struct SobolDraws {
+  static constexpr bool kWholeBlock = true;  // warp walk, staged keys
   const uint32_t* __restrict__ sv;
   template <class Proc, class Step>
   __device__ void run(const Proc& proc, uint32_t k0, uint32_t k1,
                       uint32_t id, int64_t, int n_steps, Step step) const {
     constexpr int D = Proc::kDraws;
     const int nd = proc.draws();
+    mc::SobolWarpNormals src(sv, k0, k1, id);
     for (int t = 0; t < n_steps; ++t) {
       float eps[D];
 #pragma unroll(Proc::kUnroll)
       for (int d = 0; d < D; ++d) {
-        if (d < nd) {
-          eps[d] = mc::sobol_normal(sv, k0, k1, id, (uint32_t)(t * nd + d));
-        }
+        if (d < nd) eps[d] = src.normal((uint32_t)(t * nd + d));
       }
       step(t, eps);
     }
@@ -191,7 +201,8 @@ struct SobolDraws {
 
 // rng/sobol.py::SobolBridgeKernelSampler with ops/fused_engine.py::
 // _bridge_fill_scratch and _bridge_step_draws.  Phase 1 writes the T bridge
-// normals of the path to its scratch column; phase 2 takes, per step, eps =
+// normals of the path (sobol_warp.cuh's, as SobolDraws') to its scratch
+// column; phase 2 takes, per step, eps =
 // 0 + c_0 z[d_0] + ... + c_{L-1} z[d_{L-1}] over every padded plan slot in
 // order (the padding is (dim 0, coeff 0), kept so the sum rounds as JAX's).
 // The scratch is a global workspace laid out [dim][path] (stride gridDim.x *
@@ -203,14 +214,14 @@ struct BridgeDraws {
   const float* __restrict__ coeffs;    // (n_plan, L) plan weights
   int T, L;
   float* scratch;                      // (T, blocks * 128) workspace
+  static constexpr bool kWholeBlock = true;  // phase 1 is SobolDraws'
   template <class Proc, class Step>
   __device__ void run(const Proc&, uint32_t k0, uint32_t k1, uint32_t id,
                       int64_t i, int n_steps, Step step) const {
     const int64_t stride = (int64_t)gridDim.x * blockDim.x;
     float* z = scratch + i;
-    for (int d = 0; d < T; ++d) {
-      z[d * stride] = mc::sobol_normal(sv, k0, k1, id, (uint32_t)d);
-    }
+    mc::SobolWarpNormals src(sv, k0, k1, id);
+    for (int d = 0; d < T; ++d) z[d * stride] = src.normal((uint32_t)d);
     for (int t = 0; t < n_steps; ++t) {
       const int* row_d = dims + (int64_t)t * L;
       const float* row_c = coeffs + (int64_t)t * L;
@@ -324,7 +335,7 @@ __global__ void fused_kernel(const float* __restrict__ leaves, int dims,
   const bool active = i < n_paths;
   const Proc proc(constants<Proc>(leaves, dims), dims);
   typename Proc::State state = proc.init();
-  if (active) {
+  if (active || Draws::kWholeBlock) {
     const uint32_t id = path_offset + (uint32_t)i;  // wraps mod 2^32
     auto none = [](int) {};
     run_path(proc, draws, k0, k1, id, i, n_steps, state, none);
@@ -342,8 +353,9 @@ __global__ void fused_functional_kernel(const float* __restrict__ leaves,
                                         Draws draws, FunctionalSpec spec,
                                         float* __restrict__ out) {
   const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool active = i < n_paths;
   const float* consts = constants<Proc>(leaves, dims);  // the whole block
-  if (i >= n_paths) return;
+  if (!active && !Draws::kWholeBlock) return;
   const Proc proc(consts, dims);
   const Needs need = needs(spec);
   // The observation of functional k: the price or the log price.  A
@@ -380,6 +392,7 @@ __global__ void fused_functional_kernel(const float* __restrict__ leaves,
   // engine's order, which JAX's pair and bridge loops both keep).
   auto after = [&](int t) { update_all(t + 1); };
   run_path(proc, draws, k0, k1, id, i, n_steps, state, after);
+  if (!active) return;
   out[i] = proc.prices(state);
 #pragma unroll
   for (int k = 0; k < kMaxFunctionals; ++k) {

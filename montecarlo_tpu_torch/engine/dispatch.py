@@ -5,10 +5,13 @@ before anything launches (the counterpart of the JAX package's
 ``_fusable_sampler``/``_kernel_sampler``/``_fused_eligible``):
 
 - **the kernels** (K2, K3, K4; their plain versions for a CPU process)
-  for a process in ``PROCESS_CODES`` with no sampler, the plain or
-  antithetic sampler, a :class:`SobolDeviceSampler` whose table covers
-  ``n_steps * n_draws`` dims, or a :class:`SobolBridgeKernelSampler` on a
-  single-draw process built for at least ``n_steps`` steps;
+  for a process the kernels take (``ops.fused_engine.kernel_refusal`` is
+  None: a type in ``PROCESS_CODES``, a :class:`BasketGBM` of at most
+  ``MAX_ASSETS`` assets) with no sampler,
+  the plain or antithetic sampler, a :class:`SobolDeviceSampler` whose
+  table covers ``n_steps * n_draws`` dims, or a
+  :class:`SobolBridgeKernelSampler` on a single-draw process built for at
+  least ``n_steps`` steps;
 - **the torch time loop** otherwise (``engine.simulate``, the
   functionals' loop): any process with the protocol, any sampler, the same
   streams.
@@ -24,11 +27,11 @@ from __future__ import annotations
 
 from montecarlo_tpu_torch.engine.payoffs import VanillaPayoff
 from montecarlo_tpu_torch.engine.simulate import simulate
-from montecarlo_tpu_torch.ops.fused_engine import (PROCESS_CODES,
-                                                   STATS_BLOCK,
+from montecarlo_tpu_torch.ops.fused_engine import (STATS_BLOCK,
                                                    fused_block_moments,
                                                    fused_functionals,
-                                                   fused_terminal)
+                                                   fused_terminal,
+                                                   kernel_refusal)
 from montecarlo_tpu_torch.rng.sobol import (SobolBridgeKernelSampler,
                                             SobolDeviceSampler)
 from montecarlo_tpu_torch.samplers import AntitheticSampler, PlainSampler
@@ -47,8 +50,9 @@ def _kernel_sampler_ok(sampler, process, n_steps: int) -> bool:
 
 def kernel_route(process, sampler, n_steps: int) -> bool:
     """True when K2-K4 (or their plain versions) run this process and
-    sampler; False for the torch time loop."""
-    return (type(process) in PROCESS_CODES
+    sampler; False for the torch time loop (also for a process the
+    kernels' wrappers refuse, such as a basket larger than they take)."""
+    return (kernel_refusal(process) is None
             and _kernel_sampler_ok(sampler, process, n_steps))
 
 

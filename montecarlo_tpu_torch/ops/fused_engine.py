@@ -61,7 +61,7 @@ from montecarlo_tpu_torch.processes import (NIG, SABR, SLV, BasketGBM,
                                             GBM, Heston, HestonQE, Kou,
                                             LocalVolGBM, Merton, SLVKnots,
                                             VarianceGamma)
-from montecarlo_tpu_torch.processes.basket import check_kernel_assets
+from montecarlo_tpu_torch.processes.basket import kernel_assets_refusal
 from montecarlo_tpu_torch.rng.sobol import (SobolBridgeKernelSampler,
                                             SobolDeviceSampler)
 from montecarlo_tpu_torch.rng.threefry import MASK32, key_from_seed
@@ -110,6 +110,21 @@ _BY_SOURCE = {"K2": (K2, K2_SOBOL, K2_BRIDGE),
               "K4": (K4, K4_SOBOL, K4_BRIDGE)}
 
 
+def kernel_refusal(process) -> Exception | None:
+    """Why K2-K4 do not run ``process``, as the error their wrappers raise
+    (a type with no functor; a basket of more assets than the kernels
+    take), or None when they run it.  ``engine.dispatch.kernel_route``
+    asks it before it routes a run."""
+    if type(process) not in PROCESS_CODES:
+        others = ", ".join(c.__name__ for c in list(PROCESS_CODES)[2:])
+        return TypeError("the fused kernels run GBM and Heston (and "
+                         f"{others}) in this port, got "
+                         f"{type(process).__name__}")
+    if isinstance(process, BasketGBM):
+        return kernel_assets_refusal(process.n_draws)
+    return None
+
+
 def _leaves(process):
     """(process code, dims, leaves): the float32 leaves in field order,
     flattened, as the kernel's functor reads them (GBM: [s0, mu, sigma,
@@ -128,16 +143,12 @@ def _leaves(process):
     A, GARCH's table length, VG's table length n, the local-vol surfaces'
     time-knot count n_tk or SLV's row count n_rows, an integer that never
     passes through a float."""
-    code = PROCESS_CODES.get(type(process))
-    if code is None:
-        others = ", ".join(c.__name__ for c in list(PROCESS_CODES)[2:])
-        raise TypeError("the fused kernels run GBM and Heston (and "
-                        f"{others}) in this port, got "
-                        f"{type(process).__name__}")
+    err = kernel_refusal(process)
+    if err is not None:
+        raise err
+    code = PROCESS_CODES[type(process)]
     dims = process.n_draws
-    if isinstance(process, BasketGBM):
-        check_kernel_assets(dims)
-    elif isinstance(process, GARCHBootstrap):
+    if isinstance(process, GARCHBootstrap):
         dims = process.table.numel()
     elif isinstance(process, VarianceGamma):
         dims = process.gq_resid.numel()

@@ -33,12 +33,21 @@ from montecarlo_tpu_torch.rng.normal import exp32, log32
 MAX_ASSETS = 128
 
 
+def kernel_assets_refusal(n_assets: int) -> ValueError | None:
+    """The ``ValueError`` for an asset count outside ``1 <= n_assets <=
+    MAX_ASSETS``, the basket kernels' limit (which their plain versions
+    keep too); None inside it."""
+    if 1 <= n_assets <= MAX_ASSETS:
+        return None
+    return ValueError(f"the basket kernels take 1 to at most {MAX_ASSETS}"
+                      f" assets, got {n_assets}")
+
+
 def check_kernel_assets(n_assets: int) -> None:
-    """Raise ``ValueError`` unless ``1 <= n_assets <= MAX_ASSETS``: the
-    basket kernels' limit, which their plain versions keep too."""
-    if not 1 <= n_assets <= MAX_ASSETS:
-        raise ValueError(f"the basket kernels take 1 to at most {MAX_ASSETS}"
-                         f" assets, got {n_assets}")
+    """Raise :func:`kernel_assets_refusal`'s error, if there is one."""
+    err = kernel_assets_refusal(n_assets)
+    if err is not None:
+        raise err
 
 
 @dataclass(frozen=True)

@@ -1,0 +1,79 @@
+"""``tools/rows.py``, the script that times the port's kernel rows on the
+card, checked here where its sources are: every variant's text edits find
+what they replace exactly once in the current ``csrc`` (the kernels have no
+measurement switch, so a variant is an edited copy of their text), and
+the SASS reader finds a loop's hot path around a slow path.
+"""
+
+import importlib.util
+import shutil
+from pathlib import Path
+
+import pytest
+
+REPO = Path(__file__).resolve().parent.parent
+CSRC = REPO / "montecarlo_tpu_torch" / "csrc"
+
+
+def _tool():
+    spec = importlib.util.spec_from_file_location(
+        "rows_tool", REPO / "tools" / "rows.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+ROWS = _tool()
+VARIANTS = [(s, v) for s, rs in sorted(ROWS.ROW_SETS.items())
+            for v in rs.variants]
+
+
+@pytest.mark.parametrize("row_set,variant", VARIANTS)
+def test_variant_edits_find_their_text(row_set, variant, tmp_path):
+    edits = ROWS.ROW_SETS[row_set].variants[variant]
+    out = tmp_path / "csrc"
+    shutil.copytree(CSRC, out)
+    ROWS.apply_edits(out, edits, variant)
+    for fname, old, new in edits:
+        assert new in (out / fname).read_text(), (fname, old[:40])
+    changed = {f for f, _, _ in edits}
+    for path in CSRC.iterdir():
+        same = (out / path.name).read_bytes() == path.read_bytes()
+        assert same == (path.name not in changed), path.name
+
+
+def test_variant_edits_refuse_missing_text(tmp_path):
+    out = tmp_path / "csrc"
+    shutil.copytree(CSRC, out)
+    fname, old, new = ROWS.SLV_SOBOL_VARIANTS["key per normal"][0]
+    (out / fname).write_text((out / fname).read_text().replace(old, ""))
+    with pytest.raises(RuntimeError, match="key per normal"):
+        ROWS.apply_edits(out, [(fname, old, new)], "key per normal")
+
+
+SASS = """
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   IADD3 R2, R2, 0x1, RZ ;
+        /*0020*/                   FMUL R3, R3, R4 ;
+        /*0030*/               @P0 BRA 0x70 ;
+        /*0040*/                   MOV R8, R3 ;
+        /*0050*/                   CALL.REL.NOINC 0x200 ;
+        /*0060*/                   MOV R3, R8 ;
+        /*0070*/                   FADD R3, R3, R5 ;
+        /*0080*/               @P1 BRA 0xa0 ;
+        /*0090*/                   FADD R3, R3, R6 ;
+        /*00a0*/                   ISETP.GE.AND P2, PT, R2, R7, PT ;
+        /*00b0*/              @!P2 BRA 0x10 ;
+        /*00c0*/                   EXIT ;
+"""
+
+
+def test_sass_hot_path_skips_the_slow_path():
+    ins = ROWS.parse_sass(SASS)
+    assert len(ins) == 13
+    loop = ROWS.hottest_loop(ins)
+    assert [a for a, *_ in loop] == list(range(0x10, 0xc0, 0x10))
+    hot = [a for a, *_ in ROWS.hot_path(ins)]
+    # the CALL's three instructions are skipped; the other branch falls
+    # through
+    assert hot == [0x10, 0x20, 0x30, 0x70, 0x80, 0x90, 0xa0, 0xb0]

@@ -1,0 +1,698 @@
+"""Rows of the port's K2-K4 (and K7) at the main paths' shapes, timed on the
+card: the rows ROADMAP ranks the redesigns by, for comparing two checkouts
+(run it from the root of each, in turns, in one call) and variants of the
+kernels' sources.
+
+Row sets (``ROW_SETS``):
+
+- ``basket``: K2 on the basket at ``bench --basket``'s 2^18 paths x 512
+  steps, A = 5, 8, 16 (seed 1000); K3 on the 5-asset call at
+  ``price_to_tolerance``'s 2^22 x 252 chunk; K4 {avg} on the 5-asset basket
+  at the basket Asian's 2^20 x 252; on the checkout's own library also K2
+  at A = 32 (BasketProc<128>, on no main path), K7 at A = 8 and 16 and
+  ``price_to_tolerance`` on the 5-asset call to std-err 1e-3 (host clock,
+  twice);
+- ``slv_sobol``: SLV (``chip_smoke.surface_procs``: the CLI's calibrated
+  SLV, its SLVKnots and the CEV surface): K2 at 2^20 x 252 on each, K3 on
+  the SLV call at two 2^22 x 252 tolerance chunks (0 and 7), K4 {avg} on
+  the SLV at 2^20 x 252; Heston's K2, K3 and K4 at the same shapes, the
+  rate SLV is held to.  Sobol (phase 9's shapes): K2 and K3 on GBM at the
+  RQMC chunk 2^18 x 252 (K3 at chunk offset 5 x 2^18), K4 {avg} at 2^17 x
+  252, the same under bridge-Sobol draws, K2 on Heston at 2^17 and 2^20 x
+  252, and the Threefry K2 on GBM at 2^18 x 252 beside them; first, on the
+  checkout's own library, the Sobol K2 as ``chip_smoke.py`` times it (one
+  warm-up call, then 10, on a card left idle by the builds).
+
+A kernel row is timed by CUDA events after a quarter second of warm-up,
+then ``--reps`` calls, beside its bound from ``chip_smoke``'s bound
+functions (the checkout's own); the K3 rows also give the kernel's device
+time from the profiler.  Each row prints one JSON line with a SHA-256 of
+its output bytes, so two checkouts that must agree bitwise print the same
+digests.
+
+``--sass`` writes the SASS of the set's kernels (``sass`` of the set) from
+the built library, and from each variant's, to ``--out-dir`` and prints
+each kernel's opcode counts: in the whole kernel, in its hottest loop (the
+span of its largest backward branch) and on that loop's hot path, with the
+hot path's issue floor (warp instructions over 4 schedulers x 132 SMs x
+1.98 GHz) for one pass per step pair over 2^22 x 252.
+
+``--variants`` rebuilds the library from edited copies of the sources (the
+set's ``variants``) and times the set's rows on each, the rows of the
+checkout's own library left out.  ``--rounds`` repeats the rows (and the
+variants').  Needs one CUDA card and nvcc; run from the root of a
+checkout:
+
+    python3 tools/rows.py SET [--label L] [--reps N] [--rounds N] [--sass]
+                          [--variants [NAMES]] [--out-dir DIR]
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import hashlib
+import json
+import math
+import re
+import shutil
+import subprocess
+import sys
+import time
+from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Callable, NamedTuple
+
+ROOT = Path.cwd()
+sys.path.insert(0, str(ROOT))
+
+# Warp instructions an H100 SXM issues per second: 4 schedulers per SM x
+# 132 SMs x the 1.98 GHz boost clock.
+WARP_ISSUE_PER_S = 4 * 132 * 1.98e9
+
+
+def log(row: dict) -> None:
+    print(json.dumps(row), flush=True)
+
+
+def cuda_ms(torch, fn, reps: int):
+    """Milliseconds per call of ``fn`` by CUDA events after a quarter
+    second of warm-up calls (the clocks ramp up), and the last call's
+    result."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < 0.25:
+        out = fn()
+        torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        out = fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps, out
+
+
+def digest(out) -> str:
+    """SHA-256 (first 16 hex digits) of a result's bytes, in field order."""
+    h = hashlib.sha256()
+    parts = (out.values() if isinstance(out, dict)
+             else (out.mean, out.m2) if hasattr(out, "m2") else (out,))
+    for t in parts:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+class Row(NamedTuple):
+    name: str
+    measure: Callable   # (torch, reps) -> the row's fields
+    own: bool = False   # on the checkout's own library only
+
+
+def timed(name, bnd, fn, profile=False, own=False) -> Row:
+    """A kernel row: ``fn`` by CUDA events beside its bound ``bnd`` (ms,
+    bound_by), with the profiler's device time when ``profile``."""
+    def measure(torch, reps):
+        import chip_smoke as cs
+
+        ms, out = cuda_ms(torch, fn, reps)
+        row = {"ms": round(ms, 4), "bound_ms": round(bnd[0], 4),
+               "bound_by": bnd[1], "digest": digest(out)}
+        del out
+        if profile:
+            d = cs.device_ms(torch, fn, reps)
+            row["device_ms"] = None if d is None else round(d, 4)
+        return row
+    return Row(name, measure, own)
+
+
+# ---------------------------------------------------------------- basket
+
+def basket_rows(torch):
+    import chip_smoke as cs
+    from montecarlo_tpu_torch.bench import (BASKET_PATHS, BASKET_STEPS,
+                                            bench_basket)
+    from montecarlo_tpu_torch.engine import (ARITH_MEAN, VanillaPayoff,
+                                             price_to_tolerance)
+    from montecarlo_tpu_torch.ops import (fused_block_moments,
+                                          fused_functionals, fused_terminal,
+                                          packed_basket_terminal)
+
+    n, t = BASKET_PATHS, BASKET_STEPS
+    rows = [timed(f"K2 A={a} {n}x{t}", cs.basket_bound(n, t, a),
+                  lambda b=bench_basket(a): fused_terminal(b, n, t,
+                                                           seed=1000))
+            for a in (5, 8, 16)]
+    b5 = bench_basket(5)
+    pay = VanillaPayoff("call", cs.BASKET_STRIKE)
+    n3, s3, n4 = cs.TOL_CHUNK, cs.TOL_STEPS, cs.ASIAN_PATHS
+    rows += [
+        timed(f"K3 A=5 call {n3}x{s3}",
+              cs.basket_bound(n3, s3, 5, out_bytes=8 / 128, extra_fp=8),
+              lambda: fused_block_moments(b5, pay, n3, s3, seed=0)),
+        timed(f"K4 A=5 {{avg}} {n4}x{s3}",
+              cs.basket_bound(n4, s3, 5, observe=True, out_bytes=8),
+              lambda: fused_functionals(b5, n4, s3, seed=0,
+                                        functionals={"avg": ARITH_MEAN})),
+        timed(f"K2 A=32 {n}x{t}", cs.basket_bound(n, t, 32),
+              lambda b=bench_basket(32): fused_terminal(b, n, t, seed=1000),
+              own=True)]
+    rows += [timed(f"K7 A={a} {n}x{t}", cs.k7_bound(n, t, a),
+                   lambda b=bench_basket(a): packed_basket_terminal(
+                       b, n, t, seed=1000), own=True) for a in (8, 16)]
+
+    def tolerance(torch, reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        est = price_to_tolerance(b5, pay, target_std_err=1e-3, seed=0,
+                                 chunk_paths=n3, n_steps=s3,
+                                 discount=math.exp(-0.03))
+        price = float(est["price"])
+        return {"s": round(time.perf_counter() - t0, 4),
+                "chunks": est["n_chunks"], "price": price,
+                "std_err": float(est["std_err"])}
+    rows += [Row(f"price_to_tolerance A=5 rep {rep}", tolerance, True)
+             for rep in range(2)]
+    return rows
+
+
+# Text edits of the variants: (file, old, new); each old text must be
+# there once.
+_LANES = ("basket_step.cuh",
+          "return n_assets >= 4 ? 2 : 1;")
+_STAGED = ("basket_step.cuh", "return n_assets > 8;")
+_FIXED = ("fused_basket.cuh", "  if (dims <= bstep::kMaxAssets) {\n")
+BASKET_VARIANTS = {
+    # Every A's step pairs streamed, or staged.
+    "streamed": [(*_STAGED, "return false;")],
+    "staged": [(*_STAGED, "return true;")],
+    # 1 or 4 Threefry calls in lock step for every A.
+    "lanes 1": [(*_LANES, "return 1;")],
+    "lanes 4": [(*_LANES, "return 4;")],
+    # A <= 8 on BasketProc<8>: capacity 8 with the runtime A and the
+    # pair's draws all made before its steps.
+    "capacity 8": [(*_FIXED, "  if (dims <= 8) {\n    return launch_source<"
+                    "Launcher, BasketProc<8>>(a, dims, blocks, s, args...);"
+                    "\n  }\n" + _FIXED[1])],
+    # A <= 16 on BasketProc<16>, the runtime-A functor BasketFixed<A>
+    # replaced.
+    "capacity 16": [(*_FIXED, "  if (dims <= 16) {\n    return launch_source<"
+                     "Launcher, BasketProc<16>>(a, dims, blocks, s, "
+                     "args...);\n  }\n" + _FIXED[1])],
+}
+
+# The kernels --sass reads: (tag, regular expressions that must all match
+# the mangled name).  Under plain Threefry draws; the A = 5 functor is
+# BasketProc<16> in the capacity variants.
+_B5 = "BasketFixedILi5E|BasketProcILi(8|16)E"
+BASKET_SASS = (
+    ("K2 A=5", ("fused_kernel", _B5, "StoreTerminal", "ThreefryDrawsILb0E")),
+    ("K3 A=5", ("fused_kernel", _B5, "RowMoments", "ThreefryDrawsILb0E")),
+    ("K4 A=5", ("fused_functional_kernel", _B5, "ThreefryDrawsILb0E")),
+    ("K2 A=16", ("fused_kernel", "BasketFixedILi16E|BasketProcILi16E",
+                 "StoreTerminal", "ThreefryDrawsILb0E")),
+)
+
+
+# ------------------------------------------------------------- slv_sobol
+
+def slv_sobol_rows(torch):
+    import chip_smoke as cs
+    from montecarlo_tpu_torch.engine import ARITH_MEAN, VanillaPayoff
+    from montecarlo_tpu_torch.ops import (fused_block_moments,
+                                          fused_functionals, fused_terminal)
+    from montecarlo_tpu_torch.processes import GBM
+    from montecarlo_tpu_torch.rng.sobol import (SobolBridgeKernelSampler,
+                                                SobolDeviceSampler)
+
+    avg = {"avg": ARITH_MEAN}
+    s = cs.SURFACE_STEPS
+    nq, nf = cs.QMC_CHUNK, cs.QMC_FUNC
+    gbm = GBM.create(100.0, 0.03, 0.2, 1.0 / s, device="cuda")
+    dev = SobolDeviceSampler.create(s, 1, device="cuda")
+
+    def k2_sobol():
+        return fused_terminal(gbm, nq, s, seed=1, sampler=dev)
+
+    def as_smoke(torch, reps):
+        ms, out = cs.cuda_ms(k2_sobol, 10)
+        return {"ms": round(ms, 4), "digest": digest(out)}
+    rows = [Row(f"K2 gbm sobol {nq}x{s} after one warm-up call", as_smoke,
+                True)]
+    n, nt = cs.SURFACE_PATHS, cs.SURFACE_TOL_CHUNK
+    procs = cs.surface_procs(s)
+    slv = procs["slv"]
+    pay = VanillaPayoff("call", 105.0)
+    rows += [timed(f"K2 {kind} {n}x{s}", cs.surface_bound(kind, proc, n, s),
+                   lambda p=proc: fused_terminal(p, n, s, seed=0))
+             for kind, proc in (("slv", slv),
+                                ("slv_knots", procs["slv_knots"]),
+                                ("local_vol", procs["cev"]))]
+    rows += [timed(f"K3 slv call {nt}x{s} chunk {c}",
+                   cs.surface_bound("slv", slv, nt, s, out_bytes=8 / 128,
+                                    extra_fp=8),
+                   lambda off=c * nt: fused_block_moments(
+                       slv, pay, nt, s, seed=0, path_offset=off),
+                   profile=True)
+             for c in (0, 7)]
+    rows.append(timed(f"K4 slv {{avg}} {n}x{s}",
+                      cs.surface_bound("slv", slv, n, s, out_bytes=8,
+                                       observe_fp=cs.EXP32_FP + 1),
+                      lambda: fused_functionals(slv, n, s, seed=0,
+                                                functionals=avg)))
+    hp = cs.heston(s)
+    hfp = cs.HESTON_STEP_FP
+    rows += [
+        timed(f"K2 heston {n}x{s}",
+              cs.step_bound(n, s, draws=2, step_fp=hfp,
+                            extra_fp=cs.EXP32_FP),
+              lambda: fused_terminal(hp, n, s, seed=0)),
+        timed(f"K3 heston call {nt}x{s}",
+              cs.step_bound(nt, s, draws=2, step_fp=hfp, out_bytes=8 / 128,
+                            extra_fp=cs.EXP32_FP + 8),
+              lambda: fused_block_moments(hp, pay, nt, s, seed=0),
+              profile=True),
+        timed(f"K4 heston {{avg}} {n}x{s}",
+              cs.step_bound(n, s, draws=2, step_fp=hfp + cs.EXP32_FP + 1,
+                            out_bytes=8, extra_fp=cs.EXP32_FP),
+              lambda: fused_functionals(hp, n, s, seed=0, functionals=avg))]
+    hs = SobolDeviceSampler.create(s, 2, device="cuda")
+    bridge = SobolBridgeKernelSampler.create(s, device="cuda")
+    t_l = (bridge.n_steps, bridge.width)
+    off = 5 * nq
+    obs = 3 + cs.EXP32_FP + 1
+    for src, smp, br in (("sobol", dev, None), ("bridge", bridge, t_l)):
+        rows += [
+            timed(f"K2 gbm {src} {nq}x{s}",
+                  cs.sobol_bound(torch, nq, s, extra_fp=cs.EXP32_FP,
+                                 bridge=br),
+                  lambda smp=smp: fused_terminal(gbm, nq, s, seed=1,
+                                                 sampler=smp)),
+            timed(f"K3 gbm {src} call {nq}x{s}",
+                  cs.sobol_bound(torch, nq, s, out_bytes=8 / 128,
+                                 extra_fp=cs.EXP32_FP + 8, path_offset=off,
+                                 bridge=br),
+                  lambda smp=smp: fused_block_moments(
+                      gbm, pay, nq, s, seed=1, sampler=smp, path_offset=off),
+                  profile=True),
+            timed(f"K4 gbm {{avg}} {src} {nf}x{s}",
+                  cs.sobol_bound(torch, nf, s, step_fp=obs, out_bytes=8,
+                                 extra_fp=cs.EXP32_FP, bridge=br),
+                  lambda smp=smp: fused_functionals(
+                      gbm, nf, s, seed=1, sampler=smp, functionals=avg))]
+    rows += [timed(f"K2 heston sobol {nh}x{s}",
+                   cs.sobol_bound(torch, nh, s, draws=2, step_fp=hfp,
+                                  extra_fp=cs.EXP32_FP),
+                   lambda nh=nh: fused_terminal(hp, nh, s, seed=1,
+                                                sampler=hs))
+             for nh in (nf, 1 << 20)]
+    rows.append(timed(f"K2 gbm threefry {nq}x{s}",
+                      cs.step_bound(nq, s, extra_fp=cs.EXP32_FP),
+                      lambda: fused_terminal(gbm, nq, s, seed=1)))
+    return rows
+
+
+_LEV = ("fused_engine.cu", """    const float lev =
+        static_cast<const Leverage*>(this)->at(s.log_s - log_s0, t);
+""")
+_STEP_TOP = ("fused_engine.cu", """  __device__ State step(State s, const float* eps, int t) const {
+    const float z1 = eps[0], z2 = eps[1];
+""")
+_AT = ("fused_engine.cu", """    const int k = t < 0 ? 0 : (t < n_rows ? t : n_rows - 1);
+    return mc::interp_row(lev + (int64_t)k * mc::kKnots, x, x0, dx);
+""")
+_STAGED_AT = """    // Rows t and t + 1 in a shared double buffer, one barrier a step
+    // (every thread of the block is at the same t; 128 threads, one
+    // float each).
+    __shared__ float rows[2 * mc::kKnots];
+    const int tid = threadIdx.x;
+    if (t == 0) rows[tid] = __ldg(lev + tid);
+    __syncthreads();
+    const float* cur = rows + (t & 1) * mc::kKnots;
+    const int k = t + 1 < n_rows ? t + 1 : n_rows - 1;
+    rows[((t + 1) & 1) * mc::kKnots + tid] = __ldg(lev + k * mc::kKnots + tid);
+    float frac;
+    const int i = mc::knot_index((x - x0) / dx, &frac);
+    return cur[i] * (1.0f - frac) + cur[i + 1] * frac;
+"""
+# a / d for a divisor fixed over a launch: r = RN(1/d) once, then q0 = a r
+# and two fused multiply-add corrections (Markstein), the IEEE division
+# for |a| or d outside [2^-60, 2^60], zero, subnormal, infinite or NaN.
+_QUOTIENT = """#if defined(__CUDA_ARCH__)
+#define MC_FMA(a, b, c) __fmaf_rn(a, b, c)
+#else
+#define MC_FMA(a, b, c) fmaf(a, b, c)
+#endif
+struct QuotientBy {
+  float d, r, lo;
+  MC_HD explicit QuotientBy(float divisor)
+      : d(divisor), r(1.0f / divisor),
+        lo(divisor >= 0x1p-60f && divisor <= 0x1p60f ? 0x1p-60f
+                                                     : INFINITY) {}
+  MC_HD float operator()(float a) const {
+    const float m = fabsf(a);
+    if (m >= lo && m <= 0x1p60f) {
+      const float q0 = a * r;
+      const float q1 = MC_FMA(MC_FMA(-d, q0, a), r, q0);
+      return MC_FMA(MC_FMA(-d, q1, a), r, q1);
+    }
+    return a / d;
+  }
+};
+
+"""
+_RECIPROCAL = [
+    ("surface.cuh", "MC_HD int knot_index(float u, float* frac) {",
+     _QUOTIENT + "MC_HD int knot_index(float u, float* frac) {"),
+    ("surface.cuh", """MC_HD float interp_row(const float* row, float x, float x0, float dx) {
+  float frac;
+  const int i = knot_index((x - x0) / dx, &frac);""",
+     """MC_HD float interp_row(const float* row, float x, float x0,
+                       const QuotientBy& dx) {
+  float frac;
+  const int i = knot_index(dx(x - x0), &frac);"""),
+    ("surface.cuh", """MC_HD float knot_time(int t, float dt, float dt_knot, int n_tk) {
+  const float u = ((float)t * dt) / dt_knot;""",
+     """MC_HD float knot_time(int t, float dt, const QuotientBy& dt_knot,
+                      int n_tk) {
+  const float u = dt_knot((float)t * dt);"""),
+    ("surface.cuh", """                         float x0, float dx) {
+  float frac;
+  const int i = knot_index((x - x0) / dx, &frac);""",
+     """                         float x0, const QuotientBy& dx) {
+  float frac;
+  const int i = knot_index(dx(x - x0), &frac);"""),
+    ("fused_engine.cu", "  float log_s0, rate, dt, sq_dt, x0, dx, dt_knot;",
+     "  float log_s0, rate, dt, sq_dt, x0;\n"
+     "  mc::QuotientBy dx{1.0f}, dt_knot{1.0f};"),
+    ("fused_engine.cu", "    dx = leaves[4];",
+     "    dx = mc::QuotientBy(leaves[4]);"),
+    ("fused_engine.cu", "    dt_knot = leaves[5];",
+     "    dt_knot = mc::QuotientBy(leaves[5]);"),
+    ("fused_engine.cu",
+     "  float log_s0, rate, v0, kappa, theta, xi, rho, rho_perp, dt, x0, dx;",
+     "  float log_s0, rate, v0, kappa, theta, xi, rho, rho_perp, dt, x0;\n"
+     "  mc::QuotientBy dx{1.0f};"),
+    ("fused_engine.cu", "    dx = leaves[9];",
+     "    dx = mc::QuotientBy(leaves[9]);"),
+    ("fused_engine.cu", "  float dt_knot;\n  __device__ SlvKnotsProc",
+     "  mc::QuotientBy dt_knot;\n  __device__ SlvKnotsProc"),
+]
+_WARP_X = ("sobol_warp.cuh", "    const uint32_t x = warp_sobol_bits(lane, "
+           "sv + (size_t)dim * kSobolBits);")
+SLV_SOBOL_VARIANTS = {
+    # The surfaces' division by dx and dt_knot as a reciprocal taken once
+    # and two fused multiply-add corrections (QuotientBy).
+    "reciprocal division": _RECIPROCAL,
+    # The leverage read first in the SLV step, before the variance's root.
+    "lev first": [(*_LEV, ""), (*_STEP_TOP, _STEP_TOP[1].replace(
+        "{\n", "{\n" + _LEV[1], 1))],
+    # SLV's row staged in shared memory, double-buffered.
+    "staged row": [(*_AT, _STAGED_AT)],
+    # The Owen key computed per normal again (the walk stays the warp's).
+    "key per normal": [("sobol_warp.cuh",
+                        "    return shifted_normal(x, keys[dim % "
+                        "kKeyChunk]);",
+                        "    return shifted_normal(x, sobol_key(k0, k1, "
+                        "dim));")],
+    # Each lane's own loop over its Gray code's set bits again (the keys
+    # stay staged).
+    "loop walk": [
+        ("sobol_warp.cuh", "  WarpLane lane;\n",
+         "  WarpLane lane;\n  uint32_t id_;\n"),
+        ("sobol_warp.cuh",
+         "threadIdx.x & (kWarp - 1)) {}",
+         "threadIdx.x & (kWarp - 1)), id_(id) {}"),
+        (*_WARP_X, "    const uint32_t x = sobol_bits(sv + (size_t)dim * "
+         "kSobolBits, id_);")],
+}
+
+SLV_SOBOL_SASS = (
+    ("K3 slv", ("fused_kernel", "SlvProc", "RowMoments",
+                "ThreefryDrawsILb0E")),
+    ("K3 heston", ("fused_kernel", "HestonProc", "RowMoments",
+                   "ThreefryDrawsILb0E")),
+    ("K3 slv_knots", ("fused_kernel", "SlvKnotsProc", "RowMoments",
+                      "ThreefryDrawsILb0E")),
+    ("K3 local_vol", ("fused_kernel", "LocalVolProc", "RowMoments",
+                      "ThreefryDrawsILb0E")),
+    ("K2 gbm sobol", ("fused_kernel", "GbmProc", "StoreTerminal",
+                      "SobolDraws")),
+    ("K2 gbm bridge", ("fused_kernel", "GbmProc", "StoreTerminal",
+                       "BridgeDraws")),
+)
+
+
+class RowSet(NamedTuple):
+    rows: Callable      # torch -> [Row]
+    variants: dict      # name -> [(file, old, new)]
+    sass: tuple         # (tag, patterns)
+
+
+ROW_SETS = {
+    "basket": RowSet(basket_rows, BASKET_VARIANTS, BASKET_SASS),
+    "slv_sobol": RowSet(slv_sobol_rows, SLV_SOBOL_VARIANTS, SLV_SOBOL_SASS),
+}
+
+
+# ------------------------------------------------------------------ SASS
+
+_SASS_LINE = re.compile(r"\s*/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?"
+                        r"([A-Z0-9]+(?:\.[A-Z0-9_]+)*)(.*)")
+
+
+def parse_sass(body: str):
+    """[(address, opcode, operands, predicated)] of one kernel's SASS."""
+    out = []
+    for line in body.splitlines():
+        m = _SASS_LINE.match(line)
+        if m:
+            out.append((int(m.group(1), 16), m.group(3), m.group(4),
+                        m.group(2) is not None))
+    return out
+
+
+def _target(rest: str) -> int:
+    return int(re.search(r"0x([0-9a-f]+)", rest).group(1), 16)
+
+
+def hottest_loop(ins):
+    """The instructions from the target of the largest backward branch to
+    that branch: the kernel's outer time loop."""
+    best = None
+    for addr, op, rest, _ in ins:
+        if op.startswith("BRA") and re.search(r"0x[0-9a-f]+", rest):
+            tgt = _target(rest)
+            if tgt < addr and (best is None or addr - tgt > best[1] - best[0]):
+                best = (tgt, addr)
+    if best is None:
+        return []
+    return [x for x in ins if best[0] <= x[0] <= best[1]]
+
+
+def hot_path(ins):
+    """The instructions one pass of the hottest loop issues when no slow
+    path runs: from its head to its back-edge, following every branch,
+    where a forward conditional branch is taken when the code it skips is
+    a slow path (at most 8 instructions around a CALL, the IEEE division's
+    and square root's, or code holding a loop of its own, the sine's and
+    cosine's argument reduction) and falls through otherwise."""
+    loop = hottest_loop(ins)
+    if not loop:
+        return []
+    back = loop[-1][0]
+    at = {x[0]: k for k, x in enumerate(ins)}
+    k, path = at[loop[0][0]], []
+    while True:
+        addr, op, rest, pred = ins[k]
+        path.append(ins[k])
+        if addr == back:
+            return path
+        if op.startswith("BRA") and _target(rest) > addr:
+            skipped = [x for x in ins if addr < x[0] < _target(rest)]
+            slow = (len(skipped) <= 8 and any(
+                o.startswith("CALL") for _, o, _, _ in skipped)) or any(
+                o.startswith("BRA") and _target(r) < a
+                for a, o, r, _ in skipped)
+            if not pred or slow:
+                k = at[_target(rest)]
+                continue
+        k += 1
+
+
+def sass(label: str, out_dir: Path, so: Path, kernels) -> None:
+    """The SASS of ``kernels`` ((tag, patterns)) from library ``so``, to
+    ``out_dir``, and their opcode counts: the whole kernel, its hottest
+    loop and that loop's hot path, and the hot path's issue floor for one
+    pass per step pair over 2^22 paths (2^22 x 252: 126 passes)."""
+    from montecarlo_tpu_torch.ops import _build
+
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-sass", str(so)],
+                          capture_output=True, text=True, check=True).stdout
+    for body in re.split(r"\n\s*Function : ", text)[1:]:
+        name = body.split("\n", 1)[0].strip()
+        for tag, pats in kernels:
+            if not all(re.search(p, name) for p in pats):
+                continue
+            ins = parse_sass(body)
+            loop, hot = hottest_loop(ins), hot_path(ins)
+            fname = f"sass_{label}_{tag}.txt".replace(" ", "_")
+            (out_dir / fname).write_text(body)
+            floor = (1 << 22) / 32 * 126 * len(hot) / WARP_ISSUE_PER_S
+            log({"label": label, "sass": tag, "function": name[-90:],
+                 "instructions": len(ins), "loop_instructions": len(loop),
+                 "hot_instructions": len(hot),
+                 "hot_issue_floor_ms_2^22x252": round(1e3 * floor, 3),
+                 "hot_ops": dict(Counter(o for _, o, _, _ in hot)
+                                 .most_common()),
+                 "top": Counter(o for _, o, _, _ in ins).most_common(10)})
+
+
+# -------------------------------------------------------------- variants
+
+def apply_edits(src_dir: Path, edits, name: str) -> None:
+    """Make a variant's ``edits`` to the sources in ``src_dir``; each old
+    text must be there once."""
+    for fname, old, new in edits:
+        src = (src_dir / fname).read_text()
+        if src.count(old) != 1:
+            raise RuntimeError(f"{fname}: the text of variant {name!r} is "
+                               f"not there once")
+        (src_dir / fname).write_text(src.replace(old, new))
+
+
+def _includes(src: Path, seen=None) -> set:
+    """The file names ``src`` includes with quotes, transitively."""
+    seen = set() if seen is None else seen
+    for name in re.findall(r'#include "([^"]+)"', src.read_text()):
+        if name not in seen:
+            seen.add(name)
+            _includes(src.with_name(name), seen)
+    return seen
+
+
+def _compile(srcs, out: Path):
+    """nvcc of each source into ``out``, all started together; the
+    objects."""
+    from montecarlo_tpu_torch.ops import _build
+
+    objs, procs = [], []
+    for src in srcs:
+        obj = out / f"{src.stem}.o"
+        objs.append(obj)
+        procs.append(subprocess.Popen(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-c", "-o", str(obj),
+             str(src)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    for p in procs:
+        _build._finish(p.args, p)
+    return objs
+
+
+def build_variants(variants: dict) -> dict:
+    """{name: shared object} for ``variants`` ({name: edits}): each built
+    from copies of the sources with its edits made; the units no
+    variant's edits reach are compiled once and linked into every one."""
+    from montecarlo_tpu_torch.ops import _build
+
+    root = _build.BUILD_DIR / "variants"
+    if root.exists():
+        shutil.rmtree(root)
+    edited = {f for edits in variants.values() for f, _, _ in edits}
+    units = sorted(_build.CSRC.glob("*.cu"))
+    touched = [u for u in units if ({u.name} | _includes(u)) & edited]
+    shared = root / "shared"
+    shared.mkdir(parents=True)
+    dirs = {}
+    for name, edits in variants.items():
+        out = root / name.replace(" ", "_")
+        shutil.copytree(_build.CSRC, out)
+        apply_edits(out, edits, name)
+        dirs[name] = out
+    jobs = [(shared, [u for u in units if u not in touched])]
+    jobs += [(out, [out / u.name for u in touched]) for out in dirs.values()]
+    with ThreadPoolExecutor(len(jobs)) as ex:
+        objs = dict(zip([j[0] for j in jobs],
+                        ex.map(lambda j: _compile(j[1], j[0]), jobs)))
+    sos = {}
+    for name, out in dirs.items():
+        so = out / "libvariant.so"
+        link = [_build._nvcc(), *_build.NVCC_FLAGS, "-shared", "-o", str(so),
+                *map(str, objs[shared] + objs[out])]
+        _build._finish(link, subprocess.Popen(
+            link, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+        sos[name] = so
+    return sos
+
+
+def load(so: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(so))
+    lib.mc_error_string.argtypes = [ctypes.c_int]
+    lib.mc_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def run_rows(torch, label: str, reps: int, rows) -> None:
+    for row in rows:
+        log({"label": label, "row": row.name, **row.measure(torch, reps)})
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("set", choices=sorted(ROW_SETS))
+    ap.add_argument("--label", default=ROOT.name)
+    ap.add_argument("--reps", type=int, default=5)
+    ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--variants", nargs="?", const="all", default="",
+                    help="comma-separated names (all if none)")
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="times the rows are taken")
+    ap.add_argument("--out-dir", default=".")
+    args = ap.parse_args()
+    rs = ROW_SETS[args.set]
+    names = (list(rs.variants) if args.variants == "all"
+             else [v for v in args.variants.split(",") if v])
+    import torch
+
+    if not torch.cuda.is_available():
+        print("rows: no CUDA card", file=sys.stderr)
+        return 1
+    from montecarlo_tpu_torch.ops import _build
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
+    _build.load_library()
+    log({"label": args.label, "set": args.set, "card": card,
+         "library_s": round(time.perf_counter() - t0, 1)})
+    out_dir = Path(args.out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    sos = build_variants({v: rs.variants[v] for v in names}) if names else {}
+    if args.sass:
+        sass(args.label, out_dir, _build.library_path(), rs.sass)
+        for name, so in sos.items():
+            sass(f"{args.label} {name}", out_dir, so, rs.sass)
+    rows = rs.rows(torch)
+    main_lib = _build.load_library
+    for rnd in range(args.rounds):
+        run_rows(torch, args.label if rnd == 0 else
+                 f"{args.label} round {rnd + 1}", args.reps,
+                 [r for r in rows if rnd == 0 or not r.own])
+        try:
+            for name, so in sos.items():
+                lib = load(so)
+                _build.load_library = lambda lib=lib: lib
+                run_rows(torch, f"{args.label} {name}", args.reps,
+                         [r for r in rows if not r.own])
+        finally:
+            _build.load_library = main_lib
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
