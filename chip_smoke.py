@@ -15,7 +15,10 @@ CUDA kernels from ``montecarlo_tpu_torch/csrc`` and, in phases:
    K4 (every device functional, GBM and Heston, plain and antithetic)
    against their plain versions at 2^18 paths x {252, 17} steps;
 4. each kernel against its plain version again, and both timed, at the
-   shapes the main paths give it;
+   shapes the main paths give it; K4 on the generic fold and on each fold
+   fixed at compile time (the Asian's {avg}, the app's {avg, mx, mn}, the
+   bridge barrier's {surv}, the notes) beside its SASS issue floor (the
+   time loop's hot path from ``cuobjdump``, ``tools/rows.py``'s reader);
 5. the main paths through the CLI entry, each with the launch counters
    reset just before and read just after:
    - the European path: ``price`` with fixed paths (K2, plain and
@@ -24,7 +27,8 @@ CUDA kernels from ``montecarlo_tpu_torch/csrc`` and, in phases:
    - the path-dependent path (K4): ``price --payoff asian`` (GBM plain and
      antithetic, Heston), ``up-and-out --bridge`` and ``up-and-in
      --bridge`` at 2^20 paths x 252 steps, ``note --type autocall`` and
-     ``--type cliquet``, each run raising K4's count; the GBM Asian price
+     ``--type cliquet``, each run raising K4's count (and, for the sets
+     of FixedFolds, the fixed folds' count); the GBM Asian price
      lies between the geometric Asian closed form and Black-Scholes, the
      engine's geometric Asian within 5 std-err of its closed form, and
      knock-out plus knock-in adds up to the vanilla call of the same seed;
@@ -77,8 +81,10 @@ CUDA kernels from ``montecarlo_tpu_torch/csrc`` and, in phases:
    and 2^18 - 37 paths x {252, 17, 9} steps on tables built for exactly
    the run's steps, ids crossing 2^30, and at 2^12 and 2^12 + 13 paths x
    17 steps with ids from 2^32 - 40 (a partial last warp, and the wrap
-   inside a warp of the warp-shared Gray-code walk); each timed with its
-   bound at the
+   inside a warp of the warp-shared Gray-code walk), K4 on a fixed fold
+   ({avg}) and on the generic one; each timed with its bound (the
+   bridge's without scratch: its normals stay in registers) and, for the
+   bridge and K4 rows, its SASS issue floor at the
    QMC path's shapes (the Threefry K2 beside the Sobol one; K3's rows add
    the kernel's device time from the profiler as ``device_ms``, since at
    2^18 paths its wrapper's merges can leave the card idle between
@@ -86,7 +92,8 @@ CUDA kernels from ``montecarlo_tpu_torch/csrc`` and, in phases:
    each run: ``price --sampler sobol-device --target-se 1e-3`` (the RQMC
    wall-clock to std-err 1e-3; K3 under Sobol), ``--sampler sobol-bridge``
    (K2 under the bridge), ``--process heston --sampler sobol-device`` (K2
-   under Sobol), the Asian under both samplers at 2^20 paths (K4),
+   under Sobol), the Asian under both samplers at 2^20 paths (K4 on its
+   fixed fold),
    ``--sampler sobol`` at 65536 (the host table on the torch loop, no
    kernel) and ``price_to_tolerance_rqmc`` with bridge replicates (K3
    under the bridge), each vanilla price within 4 replicate std-errs +
@@ -254,10 +261,11 @@ def cuda_ms(fn, reps: int):
 
 
 def timed_check(times, errs, key, label, kernel, plain, reps, rtol, *, bnd,
-                fields=(None,)):
+                fields=(None,), floor=None):
     """Time ``kernel`` (``reps`` calls) and ``plain`` (one call) by CUDA
     events, log both beside ``bnd`` = (least ms, "bytes" or "operations")
-    at this shape, and compare their outputs within ``rtol``.  The first
+    at this shape (and ``floor``, the kernel's SASS issue floor in ms,
+    where given), and compare their outputs within ``rtol``.  The first
     row of kernel ``key`` is the one its kernels-line entry reports."""
     import torch
 
@@ -266,7 +274,8 @@ def timed_check(times, errs, key, label, kernel, plain, reps, rtol, *, bnd,
     times.setdefault(key, {"ms": ms, "plain_ms": plain_ms,
                            "bound_ms": bnd[0], "bound_by": bnd[1]})
     log(f"  {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-        f"{bnd[0]:.4f} ms ({bnd[1]})")
+        f"{bnd[0]:.4f} ms ({bnd[1]})"
+        + ("" if floor is None else f", SASS issue floor {floor:.4f} ms"))
     if isinstance(got, dict):
         fields = tuple(got)
     for f in fields:
@@ -558,14 +567,17 @@ def phase_main_shapes(torch, errs):
 
 
 def main_shapes_slice2(torch, check):
-    """K4 at the path-dependent path's shapes: GBM 2^20 x 252 with the
-    Asian CLI's {avg}, the app's {avg, mx, mn} and the bridge's {surv};
-    Heston {avg}; the autocall note's 2^17 x 252.  Heston K2 and K3 at the
-    European path's shapes."""
-    from montecarlo_tpu_torch.engine import (ARITH_MEAN, RUNNING_MAX,
-                                             RUNNING_MIN, VanillaPayoff,
-                                             autocallable,
-                                             barrier_survival_up)
+    """K4 at the path-dependent path's shapes, each beside its SASS issue
+    floor: GBM 2^20 x 252 with the generic fold ({avg, geo, mx, mn}, a set
+    outside FixedFolds) and with the fixed folds of the Asian CLI's {avg}
+    (plain and antithetic), the app's {avg, mx, mn} and the bridge's
+    {surv}; Heston {avg}; the notes' 2^17 x 252 (the autocall and the
+    cliquet leg).  Heston K2 and K3 at the European path's shapes."""
+    from montecarlo_tpu_torch.engine import (ARITH_MEAN, GEO_MEAN,
+                                             RUNNING_MAX, RUNNING_MIN,
+                                             VanillaPayoff, autocallable,
+                                             barrier_survival_up,
+                                             cliquet_sum)
     from montecarlo_tpu_torch.ops import (fused_block_moments,
                                           fused_block_moments_reference,
                                           fused_functionals,
@@ -580,35 +592,65 @@ def main_shapes_slice2(torch, check):
     hp = heston(steps)
     gbm_obs = 3 + EXP32_FP  # a GBM step and the exp32 of its observation
     heston_step = dict(draws=2, step_fp=HESTON_STEP_FP)
+    pairs = (steps + 1) // 2
+    tf = "ThreefryDrawsILb0E"
+    # (key, label, process, paths, functionals, bound, SASS patterns,
+    # antithetic): the generic fold's row first, the entry of
+    # fused_functionals; then the fixed folds'.
     cases = [
-        ("K4 GBM {avg}", gbm, n, {"avg": ARITH_MEAN},
+        ("fused_functionals", "K4 GBM {avg,geo,mx,mn} (generic fold)", gbm,
+         n, {"avg": ARITH_MEAN, "geo": GEO_MEAN, "mx": RUNNING_MAX,
+             "mn": RUNNING_MIN},
+         step_bound(n, steps, step_fp=gbm_obs + 4, out_bytes=20,
+                    extra_fp=EXP32_FP),
+         k4_sass("GbmProc", tf, "SpecFold"), False),
+        ("fused_functionals_fixed", "K4 GBM {avg}", gbm, n,
+         {"avg": ARITH_MEAN},
          step_bound(n, steps, step_fp=gbm_obs + 1, out_bytes=8,
-                    extra_fp=EXP32_FP)),
-        ("K4 GBM {avg,mx,mn}", gbm, n,
+                    extra_fp=EXP32_FP),
+         k4_sass("GbmProc", tf, (0,)), False),
+        ("fused_functionals_fixed", "K4 GBM {avg} antithetic", gbm, n,
+         {"avg": ARITH_MEAN},
+         step_bound(n, steps, step_fp=gbm_obs + 1, out_bytes=8,
+                    extra_fp=EXP32_FP),
+         k4_sass("GbmProc", "ThreefryDrawsILb1E", (0,)), True),
+        ("fused_functionals_fixed", "K4 GBM {avg,mx,mn}", gbm, n,
          {"avg": ARITH_MEAN, "mx": RUNNING_MAX, "mn": RUNNING_MIN},
          step_bound(n, steps, step_fp=gbm_obs + 3, out_bytes=16,
-                    extra_fp=EXP32_FP)),
+                    extra_fp=EXP32_FP),
+         k4_sass("GbmProc", tf, (0, 2, 3)), False),
         # The bridge survival: four float32 operations, an exp32, a product.
-        ("K4 GBM {surv}", gbm, n,
+        ("fused_functionals_fixed", "K4 GBM {surv}", gbm, n,
          {"surv": barrier_survival_up(126.0, 0.2, dt)},
          step_bound(n, steps, step_fp=3 + 5 + EXP32_FP, out_bytes=8,
-                    extra_fp=EXP32_FP)),
-        ("K4 Heston {avg}", hp, n, {"avg": ARITH_MEAN},
+                    extra_fp=EXP32_FP),
+         k4_sass("GbmProc", tf, (4,)), False),
+        ("fused_functionals_fixed", "K4 Heston {avg}", hp, n,
+         {"avg": ARITH_MEAN},
          step_bound(n, steps, draws=2,
                     step_fp=HESTON_STEP_FP + EXP32_FP + 1, out_bytes=8,
-                    extra_fp=EXP32_FP)),
-        ("K4 GBM autocall", gbm, 1 << 17,
+                    extra_fp=EXP32_FP),
+         k4_sass("HestonProc", tf, (0,)), False),
+        ("fused_functionals_fixed", "K4 GBM autocall", gbm, 1 << 17,
          {"note": autocallable(63, 100.0, 0.02, 0.03 * dt, 70.0, 100.0)},
          step_bound(1 << 17, steps, step_fp=gbm_obs + 2, out_bytes=8,
-                    extra_fp=EXP32_FP)),
+                    extra_fp=EXP32_FP),
+         k4_sass("GbmProc", tf, (6,)), False),
+        ("fused_functionals_fixed", "K4 GBM cliquet leg", gbm, 1 << 17,
+         {"leg": cliquet_sum(63, -0.02, 0.03)},
+         step_bound(1 << 17, steps, step_fp=gbm_obs + 1, out_bytes=8,
+                    extra_fp=EXP32_FP),
+         k4_sass("GbmProc", tf, (5,)), False),
     ]
-    for label, proc, paths, fns, bnd in cases:
-        check("fused_functionals", f"{label} {paths}x{steps}",
+    for key, label, proc, paths, fns, bnd, pats, anti in cases:
+        check(key, f"{label} {paths}x{steps}",
               lambda: fused_functionals(proc, paths, steps, seed=0,
-                                        functionals=fns),
+                                        functionals=fns, antithetic=anti),
               lambda: fused_functionals_reference(proc, paths, steps,
-                                                  seed=0, functionals=fns),
-              10, BITWISE, bnd=bnd)
+                                                  seed=0, functionals=fns,
+                                                  antithetic=anti),
+              10, BITWISE, bnd=bnd,
+              floor=issue_floor(pats, paths, pairs))
     for anti in (False, True):
         label = f"K2 Heston {'antithetic' if anti else 'plain'}"
         check("fused_terminal", f"{label} {n}x{steps}",
@@ -861,7 +903,9 @@ def phase_path_dependent(torch, vanilla):
               "autocall note in (0.5, 1.2)":
                   0.5 < note["autocall_note"] < 1.2,
               "cliquet leg >= 0": leg["cliquet_leg"] >= 0,
-              "K4 launched": counts["fused_functionals"] >= 1}
+              "K4 launched": counts["fused_functionals"] >= 1,
+              "K4's fixed folds launched":
+                  counts["fused_functionals_fixed"] >= 1}
     failed = [name for name, ok in checks.items() if not ok]
     if failed:
         raise AssertionError(f"path-dependent checks failed: {failed}")
@@ -951,6 +995,63 @@ def bound(n_bytes, int32=0.0, fp32=0.0):
     t_ops = max(int32 / INT32_PER_S, fp32 / FP32_PER_S)
     return (1e3 * max(t_bytes, t_ops),
             "bytes" if t_bytes >= t_ops else "operations")
+
+
+# Warp instructions an H100 SXM issues per second: 4 schedulers per SM x
+# 132 SMs x the 1.98 GHz boost clock (tools/rows.py's).
+WARP_ISSUE_PER_S = 4 * 132 * 1.98e9
+
+
+def _rows_tool():
+    """tools/rows.py, the SASS reader."""
+    import importlib.util
+    from pathlib import Path
+
+    path = Path(__file__).resolve().parent / "tools" / "rows.py"
+    spec = importlib.util.spec_from_file_location("rows_tool", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+@functools.lru_cache(maxsize=1)
+def _sass_bodies():
+    """[(mangled name, SASS text)] of the built library's kernels."""
+    from montecarlo_tpu_torch.ops import _build
+
+    return _rows_tool().sass_bodies(_build.library_path())
+
+
+def issue_floor(patterns, n, passes, loads=0):
+    """The SASS issue floor (ms) of the kernel whose mangled name matches
+    every regular expression of ``patterns``: per warp of the n paths,
+    ``passes`` passes of its time loop's hot path (a step pair under
+    Threefry draws, a step under the Sobol sources) and ``loads`` of the
+    hot path of the largest loop inside it (the bridge's T reloads, each
+    a Sobol normal), at the card's warp issue rate.  The hot path is one
+    pass when no slow path runs (tools/rows.py); a lower bound of the
+    kernel's time where the bound's operation counts leave out
+    instructions (Box-Muller, divisions, control)."""
+    import re
+
+    rows = _rows_tool()
+    found = [body for name, body in _sass_bodies()
+             if all(re.search(p, name) for p in patterns)]
+    if len(found) != 1:
+        raise AssertionError(f"{len(found)} kernels match {patterns}")
+    ins = rows.parse_sass(found[0])
+    hot = len(rows.hot_path(ins))
+    nested = len(rows.hot_path(ins, rows.nested_loop(ins))) if loads else 0
+    warps = -(-n // 32)
+    return 1e3 * warps * (passes * hot + loads * nested) / WARP_ISSUE_PER_S
+
+
+def k4_sass(proc, draws, fold):
+    """The patterns of K4's kernel on functor ``proc`` under ``draws``
+    with ``fold`` (``SpecFold`` or a FixedFold's codes)."""
+    if not isinstance(fold, str):
+        fold = "FixedFoldIJ" + "".join(f"Li{c}E" for c in fold) + "EE"
+    return ("fused_functional_kernel", proc, draws, fold)
 
 
 def step_bound(n, steps, draws=1, step_fp=3, out_bytes=4, extra_fp=0):
@@ -1820,19 +1921,18 @@ def gray_xors(torch, n, path_offset=0):
 def sobol_bound(torch, n, steps, draws=1, step_fp=3, out_bytes=4,
                 extra_fp=0, path_offset=0, bridge=None):
     """A fused loop over n paths whose draws are Sobol normals: n * steps *
-    draws of them (or n * T for a bridge of T dims, plus 2L float32
-    operations per step for ``bridge=(T, L)``), each dimension's XORs from
-    this run's ids, ``step_fp`` per step and ``extra_fp`` per path.  The
-    bridge's scratch adds the bytes it cannot avoid: per path its T
-    normals written once (phase 1) and read once (phase 2).  The plan's
-    other reads of them (L a step: each normal about L times, the padding
-    dim 0 at every step) are re-reads, which the cache can serve, and are
-    not counted."""
+    draws of them (or n * T for a bridge of T dims, plus its plan's L
+    multiplies and L adds per step for ``bridge=(T, L)``), each
+    dimension's XORs from this run's ids, ``step_fp`` per step and
+    ``extra_fp`` per path.  Bytes: the output, and for the bridge its plan
+    read once (T rows of L dims and weights and a level mask, and the T x
+    30 direction numbers); it keeps its normals in registers and writes no
+    scratch."""
     dims = bridge[0] if bridge else steps * draws
     normals = n * dims
     plan = 2 * bridge[1] * n * steps if bridge else 0
-    scratch = 4 * n * 2 * bridge[0] if bridge else 0
-    return bound(n * out_bytes + scratch,
+    tables = 4 * bridge[0] * (2 * bridge[1] + 1 + 30) if bridge else 0
+    return bound(n * out_bytes + tables,
                  int32=(normals * SOBOL_INT + dims * CIPHER_INT
                         + dims * gray_xors(torch, n, path_offset)),
                  fp32=(normals * NDTRI_FP + plan
@@ -1894,6 +1994,14 @@ def phase_qmc_parity(torch, errs):
                                                  functionals=fns, **kw)
             got += [(f"K4 {k}", "fused_functionals", fo[k], want_f[k])
                     for k in want_f]
+            # {avg}: a fixed fold (FixedFolds), {avg, mx} the generic one.
+            avg = {"avg": ARITH_MEAN}
+            fo = fused_functionals(proc, ragged, steps, functionals=avg,
+                                   **kw)
+            want_f = fused_functionals_reference(proc, ragged, steps,
+                                                 functionals=avg, **kw)
+            got += [(f"K4 fixed {k}", "fused_functionals_fixed", fo[k],
+                     want_f[k]) for k in want_f]
             for label, key, g, w in got:
                 _, max_abs, _ = compare(f"{label} {tag}", g, w, BITWISE)
                 key = f"{key}_{source}"
@@ -1909,7 +2017,8 @@ def phase_qmc_shapes(torch, errs, times):
     the CLI's 2^17 x 252 replicate and at 2^20 x 252; the bridge's K2 at
     2^18 x 252; K4 {avg} at the Asian CLI's 2^17 x 252 replicate under
     both samplers; the Threefry K2 beside them at 2^18 x 252."""
-    from montecarlo_tpu_torch.engine import ARITH_MEAN, VanillaPayoff
+    from montecarlo_tpu_torch.engine import (ARITH_MEAN, GEO_MEAN,
+                                             VanillaPayoff)
     from montecarlo_tpu_torch.ops import (fused_block_moments,
                                           fused_block_moments_reference,
                                           fused_functionals,
@@ -1968,35 +2077,53 @@ def phase_qmc_shapes(torch, errs, times):
               10, BITWISE,
               bnd=sobol_bound(torch, nh, s, draws=2, step_fp=HESTON_STEP_FP,
                               extra_fp=EXP32_FP))
+    # The bridge's floor: a step's hot path per step, a reload's per dim.
+    bridge_floor = functools.partial(issue_floor, passes=s,
+                                     loads=bridge.n_steps)
     check("fused_terminal_bridge", f"K2 GBM bridge {n}x{s}",
           lambda: fused_terminal(gbm, n, s, seed=1, sampler=bridge),
           lambda: fused_terminal_reference(gbm, n, s, seed=1, sampler=bridge),
           10, BITWISE,
-          bnd=sobol_bound(torch, n, s, extra_fp=EXP32_FP, bridge=t_l))
+          bnd=sobol_bound(torch, n, s, extra_fp=EXP32_FP, bridge=t_l),
+          floor=bridge_floor(("fused_kernel", "GbmProc", "BridgeDraws",
+                              "StoreTerminal"), n))
     check("fused_block_moments_bridge", f"K3 GBM bridge call {n}x{s}",
           lambda: fused_block_moments(gbm, pay, n, s, seed=1, sampler=bridge),
           lambda: fused_block_moments_reference(gbm, pay, n, s, seed=1,
                                                 sampler=bridge),
           10, BITWISE, fields=("mean", "m2"),
           bnd=sobol_bound(torch, n, s, out_bytes=8 / 128,
-                          extra_fp=EXP32_FP + 8, bridge=t_l))
+                          extra_fp=EXP32_FP + 8, bridge=t_l),
+          floor=bridge_floor(("fused_kernel", "GbmProc", "BridgeDraws",
+                              "RowMoments"), n))
     k3_device("fused_block_moments_bridge", f"K3 GBM bridge {n}x{s}",
               lambda: fused_block_moments(gbm, pay, n, s, seed=1,
                                           sampler=bridge))
-    fns = {"avg": ARITH_MEAN}
     nf = QMC_FUNC
     obs = 3 + EXP32_FP + 1  # a GBM step, its observation's exp32, the fold
-    for key, smp, bridged in (("fused_functionals_sobol", dev, None),
-                              ("fused_functionals_bridge", bridge, t_l)):
-        check(key, f"K4 GBM {{avg}} {key.rsplit('_', 1)[1]} {nf}x{s}",
-              lambda: fused_functionals(gbm, nf, s, seed=1, sampler=smp,
-                                        functionals=fns),
-              lambda: fused_functionals_reference(gbm, nf, s, seed=1,
-                                                  sampler=smp,
-                                                  functionals=fns),
-              10, BITWISE,
-              bnd=sobol_bound(torch, nf, s, step_fp=obs, out_bytes=8,
-                              extra_fp=EXP32_FP, bridge=bridged))
+    # The Asian CLI's {avg} on its fixed fold, and {avg, geo} (outside
+    # FixedFolds) on the generic fold, under both samplers.
+    sets = (("fused_functionals_fixed", "{avg}", {"avg": ARITH_MEAN}, obs,
+             8, (0,)),
+            ("fused_functionals", "{avg,geo}",
+             {"avg": ARITH_MEAN, "geo": GEO_MEAN}, obs + 1, 12, "SpecFold"))
+    for source, smp, bridged, draws in (
+            ("sobol", dev, None, "SobolDraws"),
+            ("bridge", bridge, t_l, "BridgeDraws")):
+        for key, tag, fns, fp, out_bytes, fold in sets:
+            pats = k4_sass("GbmProc", draws, fold)
+            check(f"{key}_{source}", f"K4 GBM {tag} {source} {nf}x{s}",
+                  lambda: fused_functionals(gbm, nf, s, seed=1, sampler=smp,
+                                            functionals=fns),
+                  lambda: fused_functionals_reference(gbm, nf, s, seed=1,
+                                                      sampler=smp,
+                                                      functionals=fns),
+                  10, BITWISE,
+                  bnd=sobol_bound(torch, nf, s, step_fp=fp,
+                                  out_bytes=out_bytes, extra_fp=EXP32_FP,
+                                  bridge=bridged),
+                  floor=(issue_floor(pats, nf, s, loads=s) if bridged
+                         else issue_floor(pats, nf, s)))
     t = {}
     timed_check(t, errs, "fused_terminal", f"K2 GBM threefry {n}x{s}",
                 lambda: fused_terminal(gbm, n, s, seed=1),
@@ -2080,10 +2207,10 @@ def phase_qmc_path(torch):
     log(f"  price --process heston --sampler sobol-device --paths 1048576: "
         f"{json.dumps(heston_out)}")
     asians = {}
-    for smp, k4 in (("sobol-bridge", "fused_functionals_bridge"),
-                    ("sobol-device", "fused_functionals_sobol")):
+    for smp, source in (("sobol-bridge", "bridge"), ("sobol-device", "sobol")):
         asians[smp], _ = cli(big + ["--sampler", smp, "--payoff", "asian"],
-                             k4)
+                             f"fused_functionals_{source}",
+                             f"fused_functionals_fixed_{source}")
         log(f"  price --payoff asian --sampler {smp} --paths 1048576: "
             f"{json.dumps(asians[smp])}")
     host, _ = cli(base + ["--sampler", "sobol", "--paths", "65536"])
@@ -2424,7 +2551,8 @@ def phase_jump_path(torch):
         f"({tol['n_paths']} paths, {got['fused_block_moments']} K3 "
         "launches)")
     asian, _, got = counted_cli(base + ["--process", "kou", "--payoff",
-                                        "asian"], "fused_functionals")
+                                        "asian"], "fused_functionals",
+                                "fused_functionals_fixed")
     launches["fused_functionals_kou"] = got["fused_functionals"]
     if not 0 < asian["price"] < outs["kou"]["price"]:
         raise AssertionError(f"kou Asian {asian} not below its call")
@@ -2789,7 +2917,8 @@ def phase_surface_path(torch):
         f"({tol['n_paths']} paths, {got['fused_block_moments']} K3 "
         "launches, the 100000-particle calibration included)")
     asian, _, got = counted_cli(
-        base + ["--process", "slv", "--payoff", "asian"], "fused_functionals")
+        base + ["--process", "slv", "--payoff", "asian"], "fused_functionals",
+        "fused_functionals_fixed")
     launches["fused_functionals_slv"] = got["fused_functionals"]
     call105, _, _ = counted_cli(base + ["--process", "slv"], "fused_terminal")
     if not 0 < asian["price"] < call105["price"]:
@@ -2814,7 +2943,8 @@ KERNELS = [
     ("gbm_terminal", "gbm_kernel.cu", "gbm_kernel.py:118"),
     ("fused_terminal", "fused_engine.cu", "fused_engine.py:231"),
     ("fused_block_moments", "fused_engine.cu", "fused_engine.py:478"),
-    ("fused_functionals", "fused_engine.cu", "fused_engine.py:390"),
+    ("fused_functionals", "fused_k4.cu", "fused_engine.py:390"),
+    ("fused_functionals_fixed", "fused_k4.cu", "fused_engine.py:390"),
     ("normal_matrix", "rng_kernel.cu", "rng_kernel.py:67"),
     ("rbergomi_terminal", "rbergomi_kernel.cu", "rbergomi_kernel.py:73"),
     ("packed_basket_terminal", "basket_kernel.cu", "basket_kernel.py:131"),
@@ -2824,21 +2954,23 @@ KERNELS = [
     ("fused_functionals_basket", "fused_basket_k4.cu", "fused_engine.py:390"),
     ("fused_terminal_sobol", "fused_engine.cu", "fused_engine.py:231"),
     ("fused_block_moments_sobol", "fused_engine.cu", "fused_engine.py:478"),
-    ("fused_functionals_sobol", "fused_engine.cu", "fused_engine.py:390"),
+    ("fused_functionals_sobol", "fused_k4.cu", "fused_engine.py:390"),
+    ("fused_functionals_fixed_sobol", "fused_k4.cu", "fused_engine.py:390"),
     ("fused_terminal_bridge", "fused_engine.cu", "fused_engine.py:231"),
     ("fused_block_moments_bridge", "fused_engine.cu", "fused_engine.py:478"),
-    ("fused_functionals_bridge", "fused_engine.cu", "fused_engine.py:390"),
+    ("fused_functionals_bridge", "fused_k4.cu", "fused_engine.py:390"),
+    ("fused_functionals_fixed_bridge", "fused_k4.cu", "fused_engine.py:390"),
     *((f"fused_terminal_{k}", "fused_engine.cu", "fused_engine.py:231")
       for k in JUMP_KINDS),
     ("fused_block_moments_merton", "fused_engine.cu", "fused_engine.py:478"),
-    ("fused_functionals_kou", "fused_engine.cu", "fused_engine.py:390"),
+    ("fused_functionals_kou", "fused_k4.cu", "fused_engine.py:390"),
     ("fused_terminal_local_vol", "fused_engine.cu", "fused_engine.py:231"),
     ("fused_terminal_slv", "fused_engine.cu",
      "fused_engine.py:231 (KernelRows: fused_engine.py:44)"),
     ("fused_terminal_slv_knots", "fused_engine.cu", "fused_engine.py:231"),
     ("fused_block_moments_slv", "fused_engine.cu",
      "fused_engine.py:478 (KernelRows: fused_engine.py:44)"),
-    ("fused_functionals_slv", "fused_engine.cu",
+    ("fused_functionals_slv", "fused_k4.cu",
      "fused_engine.py:390 (KernelRows: fused_engine.py:44)"),
 ]
 
@@ -2886,8 +3018,9 @@ def main() -> int:
         phase_sampler_split(torch, 1 << 20, 252, 5)
         log("phase 5: main paths through the CLI")
         counts, bench, wall, n_paths, vanilla = phase_main_path(torch)
-        counts["fused_functionals"] = phase_path_dependent(
-            torch, vanilla)["fused_functionals"]
+        path_counts = phase_path_dependent(torch, vanilla)
+        for name in ("fused_functionals", "fused_functionals_fixed"):
+            counts[name] = path_counts[name]
         log("phase 6: the rough-Bergomi path through the CLI")
         rb = phase_rbergomi(torch)
         for k in ("normal_matrix", "rbergomi_terminal"):

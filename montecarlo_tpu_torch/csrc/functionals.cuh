@@ -2,10 +2,22 @@
 // fold (init, update after every step, finalize) of engine/functionals.py's
 // device forms, and the observation each functional takes.
 //
+// Two folds of the same arithmetic.  SpecFold takes the codes as data
+// (FunctionalSpec) and runs every slot through a switch at every
+// observation, four accumulators a slot: the generic fold, for any set.
+// FixedFold<Codes...> fixes the set at compile time (JAX compiles each set
+// into its own kernel, ops/fused_engine.py::_make_functional_kernel): each
+// slot's update is straight-line code, keeps only the accumulators its
+// code uses, observes the price or the log price as chosen at compile
+// time, and replaces `t % period == 0` by an integer countdown (the
+// updates come with t = 1, 2, ... in order, so both are true at the same
+// steps).  FixedFolds lists the sets K4 is built for; with_fold picks the
+// one that a spec names, or SpecFold.
+//
 // Written as __host__ __device__ functions so that the same text runs in
-// K4 (csrc/fused_engine.cuh, nvcc) and in the host shim of
-// tests/test_torch_basket_step.py (g++), which walks K4's per-path loop on
-// the basket bitwise against ops/fused_engine.py::
+// K4 (csrc/fused_engine.cuh, nvcc) and in the host shims of
+// tests/test_torch_basket_step.py and tests/test_torch_fold.py (g++),
+// which walk K4's per-path loop bitwise against ops/fused_engine.py::
 // fused_functionals_reference.
 #pragma once
 
@@ -40,7 +52,7 @@ struct FunctionalSpec {
   float p[kMaxFunctionals][kMaxParams];
 };
 
-MC_HD bool log_space(int code) {
+MC_HD constexpr bool log_space(int code) {
   return code == kGeoMean || code == kRunningMax || code == kRunningMin ||
          code == kBarrierUp || code == kRealizedVar;
 }
@@ -173,6 +185,302 @@ MC_HD float fn_finalize(int code, const float* p, const float* acc,
     default:  // barrier survival, cliquet leg, sums
       return acc[0];
   }
+}
+
+// ---- The generic fold: the codes are data ------------------------------------
+
+// The fold K4 runs over the state's observations: init(spec, price, logp)
+// on the initial state, update(spec, price, logp, t) after step t - 1 (t
+// the 1-based step index), finalize(spec, out, i, n_steps) writes row k + 1
+// of column i for each slot k.  needs(spec) says which observations it
+// reads.
+struct SpecFold {
+  float acc[kMaxFunctionals][4];
+  MC_HD static Needs needs(const FunctionalSpec& spec) {
+    return mcf::needs(spec);
+  }
+  MC_HD void init(const FunctionalSpec& spec, float price, float logp) {
+    float obs[kMaxFunctionals];
+    observations(spec, price, logp, obs);
+#pragma unroll
+    for (int k = 0; k < kMaxFunctionals; ++k) {
+      if (k < spec.n) fn_init(spec.code[k], spec.p[k], obs[k], acc[k]);
+    }
+  }
+  MC_HD void update(const FunctionalSpec& spec, float price, float logp,
+                    int t) {
+    float obs[kMaxFunctionals];
+    observations(spec, price, logp, obs);
+#pragma unroll
+    for (int k = 0; k < kMaxFunctionals; ++k) {
+      if (k < spec.n) {
+        fn_update(spec.code[k], spec.period[k], spec.p[k], obs[k], t, acc[k]);
+      }
+    }
+  }
+  MC_HD void finalize(const FunctionalSpec& spec, float* out, int64_t i,
+                      int n_steps) const {
+#pragma unroll
+    for (int k = 0; k < kMaxFunctionals; ++k) {
+      if (k < spec.n) {
+        out[(k + 1) * spec.out_stride + i] =
+            fn_finalize(spec.code[k], spec.p[k], acc[k], n_steps);
+      }
+    }
+  }
+};
+
+// ---- The fold fixed at compile time ------------------------------------------
+
+// One slot of code Code: the same operations as fn_init, fn_update and
+// fn_finalize for that code, on the accumulators it uses.  kLog: it
+// observes the log price (log_space).  update gets the slot's period and t.
+template <int Code>
+struct Slot;
+
+template <>
+struct Slot<kArithMean> {
+  static constexpr bool kLog = false;
+  float sum;
+  MC_HD void init(const float*, int, float obs) { sum = obs; }
+  MC_HD void update(const float*, int, float obs, int) { sum = sum + obs; }
+  MC_HD float finalize(const float*, int n_steps) const {
+    return sum / (float)(n_steps + 1);
+  }
+};
+
+template <>
+struct Slot<kGeoMean> {
+  static constexpr bool kLog = true;
+  float sum;
+  MC_HD void init(const float*, int, float obs) { sum = obs; }
+  MC_HD void update(const float*, int, float obs, int) { sum = sum + obs; }
+  MC_HD float finalize(const float*, int n_steps) const {
+    return mc::exp32(sum / (float)(n_steps + 1));
+  }
+};
+
+template <>
+struct Slot<kRunningMax> {
+  static constexpr bool kLog = true;
+  float m;
+  MC_HD void init(const float*, int, float obs) { m = obs; }
+  MC_HD void update(const float*, int, float obs, int) { m = fmaxf(m, obs); }
+  MC_HD float finalize(const float*, int) const { return mc::exp32(m); }
+};
+
+template <>
+struct Slot<kRunningMin> {
+  static constexpr bool kLog = true;
+  float m;
+  MC_HD void init(const float*, int, float obs) { m = obs; }
+  MC_HD void update(const float*, int, float obs, int) { m = fminf(m, obs); }
+  MC_HD float finalize(const float*, int) const { return mc::exp32(m); }
+};
+
+template <>
+struct Slot<kBarrierUp> {  // p: log_b, inv
+  static constexpr bool kLog = true;
+  float surv, prev;
+  MC_HD void init(const float* p, int, float obs) {
+    surv = obs < p[0] ? 1.0f : 0.0f;
+    prev = obs;
+  }
+  MC_HD void update(const float* p, int, float obs, int) {
+    const float a = p[0] - prev;
+    const float b = p[0] - obs;
+    const float p_cross = mc::exp32(((-2.0f * a) * b) * p[1]);
+    const bool alive = (a > 0.0f) && (b > 0.0f);
+    surv = surv * (alive ? 1.0f - p_cross : 0.0f);
+    prev = obs;
+  }
+  MC_HD float finalize(const float*, int) const { return surv; }
+};
+
+template <>
+struct Slot<kCliquet> {  // p: floor, cap
+  static constexpr bool kLog = false;
+  float sum, last;
+  int left;  // updates to the next reset
+  MC_HD void init(const float*, int period, float obs) {
+    sum = 0.0f;
+    last = obs;
+    left = period;
+  }
+  MC_HD void update(const float* p, int period, float obs, int) {
+    if (--left == 0) {
+      left = period;
+      const float ret = fminf(fmaxf(obs / last - 1.0f, p[0]), p[1]);
+      sum = sum + ret;
+      last = obs;
+    }
+  }
+  MC_HD float finalize(const float*, int) const { return sum; }
+};
+
+template <>
+struct Slot<kAutocall> {  // p: -r_dt, trigger, coupon, pdi, s0, -r_dt T
+  static constexpr bool kLog = false;
+  bool alive;
+  float pay, mn, last;
+  int left;  // updates to the next observation date
+  MC_HD void init(const float*, int period, float obs) {
+    alive = true;
+    pay = 0.0f;
+    mn = obs;
+    last = obs;
+    left = period;
+  }
+  MC_HD void update(const float* p, int period, float obs, int t) {
+    mn = fminf(mn, obs);
+    if (--left == 0) {
+      left = period;
+      if (alive && obs >= p[1]) {
+        const float tf = (float)t;
+        const float j = tf / (float)period;
+        pay = (1.0f + p[2] * j) * mc::exp32(p[0] * tf);
+        alive = false;
+      }
+    }
+    last = obs;
+  }
+  MC_HD float finalize(const float* p, int) const {
+    if (!alive) return pay;
+    const float df_t = mc::exp32(p[5]);
+    const bool breached = mn <= p[3];
+    return df_t * (breached ? fminf(last / p[4], 1.0f) : 1.0f);
+  }
+};
+
+template <>
+struct Slot<kRealizedVar> {
+  static constexpr bool kLog = true;
+  float sum, prev;
+  MC_HD void init(const float*, int, float obs) {
+    sum = 0.0f;
+    prev = obs;
+  }
+  MC_HD void update(const float*, int, float obs, int) {
+    const float d = obs - prev;
+    sum = sum + d * d;
+    prev = obs;
+  }
+  MC_HD float finalize(const float*, int) const { return sum; }
+};
+
+template <>
+struct Slot<kTrapezoid> {  // p: half_dt
+  static constexpr bool kLog = false;
+  float sum, prev;
+  MC_HD void init(const float*, int, float obs) {
+    sum = 0.0f;
+    prev = obs;
+  }
+  MC_HD void update(const float* p, int, float obs, int) {
+    sum = sum + (prev + obs) * p[0];
+    prev = obs;
+  }
+  MC_HD float finalize(const float*, int) const { return sum; }
+};
+
+// Slots K, K + 1, ... of a fixed fold, one member each.
+template <int K, int... Codes>
+struct Slots {
+  MC_HD void init(const FunctionalSpec&, float, float) {}
+  MC_HD void update(const FunctionalSpec&, float, float, int) {}
+  MC_HD void finalize(const FunctionalSpec&, float*, int64_t, int) const {}
+};
+
+template <int K, int C, int... Rest>
+struct Slots<K, C, Rest...> {
+  Slot<C> head;
+  Slots<K + 1, Rest...> tail;
+  MC_HD static float pick(float price, float logp) {
+    return Slot<C>::kLog ? logp : price;
+  }
+  MC_HD void init(const FunctionalSpec& s, float price, float logp) {
+    head.init(s.p[K], s.period[K], pick(price, logp));
+    tail.init(s, price, logp);
+  }
+  MC_HD void update(const FunctionalSpec& s, float price, float logp,
+                    int t) {
+    head.update(s.p[K], s.period[K], pick(price, logp), t);
+    tail.update(s, price, logp, t);
+  }
+  MC_HD void finalize(const FunctionalSpec& s, float* out, int64_t i,
+                      int n_steps) const {
+    out[(K + 1) * s.out_stride + i] = head.finalize(s.p[K], n_steps);
+    tail.finalize(s, out, i, n_steps);
+  }
+};
+
+// The fold of the functional set Codes, in slot order; SpecFold's
+// interface, its needs known at compile time.
+template <int... Codes>
+struct FixedFold {
+  static constexpr int kN = sizeof...(Codes);
+  static constexpr bool kPrice = (... || !log_space(Codes));
+  static constexpr bool kLog = (... || log_space(Codes));
+  Slots<0, Codes...> slots;
+  MC_HD static Needs needs(const FunctionalSpec&) { return Needs{kPrice, kLog}; }
+  // Whether `spec` is this set: the same codes in the same slots.
+  MC_HD static bool names(const FunctionalSpec& spec) {
+    const int codes[kN] = {Codes...};
+    if (spec.n != kN) return false;
+    for (int k = 0; k < kN; ++k) {
+      if (spec.code[k] != codes[k]) return false;
+    }
+    return true;
+  }
+  MC_HD void init(const FunctionalSpec& spec, float price, float logp) {
+    slots.init(spec, price, logp);
+  }
+  MC_HD void update(const FunctionalSpec& spec, float price, float logp,
+                    int t) {
+    slots.update(spec, price, logp, t);
+  }
+  MC_HD void finalize(const FunctionalSpec& spec, float* out, int64_t i,
+                      int n_steps) const {
+    slots.finalize(spec, out, i, n_steps);
+  }
+};
+
+template <class... Folds>
+struct FoldList {};
+
+// The sets the main paths launch, which K4 is built for: {avg} (the Asian
+// CLI, the Sobol and bridge Asians, the basket Asian, Kou, VG, SLV), {avg,
+// mx, mn} (the app's set, GARCH's), {surv} (the bridge barriers), the
+// autocall note and the cliquet leg.  Which process and draw source take
+// each is the kernels' choice (FixedFor, csrc/fused_k4.cu).
+using FixedFolds =
+    FoldList<FixedFold<kArithMean>,
+             FixedFold<kArithMean, kRunningMax, kRunningMin>,
+             FixedFold<kBarrierUp>, FixedFold<kAutocall>,
+             FixedFold<kCliquet>>;
+
+// The index in FixedFolds of the set `spec` names, or -1.
+template <class... Folds>
+MC_HD int fixed_fold_index(FoldList<Folds...>, const FunctionalSpec& spec) {
+  int k = 0, found = -1;
+  (void)((Folds::names(spec) ? (found = k, true) : (++k, false)) || ...);
+  return found;
+}
+MC_HD int fixed_fold_index(const FunctionalSpec& spec) {
+  return fixed_fold_index(FixedFolds{}, spec);
+}
+
+// f(fold) with the fold of `spec`: its FixedFolds entry, or SpecFold.
+template <class F, class... Folds>
+auto with_fold(FoldList<Folds...>, const FunctionalSpec& spec, F&& f)
+    -> decltype(f(SpecFold{})) {
+  decltype(f(SpecFold{})) r{};
+  const bool fixed = ((Folds::names(spec) && (r = f(Folds{}), true)) || ...);
+  return fixed ? r : f(SpecFold{});
+}
+template <class F>
+auto with_fold(const FunctionalSpec& spec, F&& f) -> decltype(f(SpecFold{})) {
+  return with_fold(FixedFolds{}, spec, f);
 }
 
 }  // namespace mcf

@@ -243,6 +243,14 @@ template <int A, bool Anti>
 struct Streams<BasketFixed<A>, ThreefryDraws<Anti>> : std::true_type {};
 template <int A>
 struct Streams<BasketFixed<A>, SobolDraws> : std::true_type {};
+// K4's fixed fold of the 5-asset basket Asian, under Threefry and Sobol
+// draws (csrc/fused_basket_k4.cu).
+template <bool Anti>
+struct FixedFor<BasketFixed<5>, ThreefryDraws<Anti>, FixedFold<kArithMean>>
+    : std::true_type {};
+template <>
+struct FixedFor<BasketFixed<5>, SobolDraws, FixedFold<kArithMean>>
+    : std::true_type {};
 // The bridge's single draw: a basket of one asset.
 template <int A>
 struct SourceTraits<BasketFixed<A>> {
@@ -295,6 +303,6 @@ cudaError_t launch_basket_even(const DrawArgs& a, int dims, unsigned blocks,
                                cudaStream_t s, int64_t n_paths,
                                const float* leaves, int n_steps,
                                uint32_t path_offset, uint32_t k0, uint32_t k1,
-                               FunctionalSpec spec, float* out);
+                               FunctionalSpec spec, float* out, int* fixed);
 
 }  // namespace mcf

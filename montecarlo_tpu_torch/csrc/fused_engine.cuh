@@ -24,27 +24,31 @@
 //     randomized Sobol normal of dimension t * D + d from the direction
 //     table, the warp's Gray-code walk and the block's staged Owen keys
 //     (sobol_warp.cuh);
-//   BridgeDraws (SobolBridgeKernelSampler with _bridge_fill_scratch and
-//     _bridge_step_draws): the T bridge normals once per path into a
-//     scratch, then per step the plan's weighted sum of O(log T) of them.
+//   BridgeDraws (SobolBridgeKernelSampler with _bridge_step_draws): per
+//     step the plan's weighted sum of O(log T) bridge normals, one held per
+//     tree level in registers and each computed once per path, when its
+//     level first needs it (bridge_levels.cuh); no scratch.
 //   fused_kernel<Proc, Draws, Epilogue>: the epilogue stores the
 //     terminal price (K2) or applies a vanilla payoff and writes (mean, M2)
 //     per 128-path row (K3).
-//   fused_functional_kernel<Proc, Draws>: K4 folds up to four path
+//   fused_functional_kernel<Proc, Draws, Fold>: K4 folds up to four path
 //     functionals (csrc/functionals.cuh, with float32 parameters folded on
 //     the host) after every step, the scan engine's order, and writes the
-//     terminal prices and each finalized functional.  It observes the price
-//     only when a functional reads it and the log price only when one reads
-//     that; a functor whose log price is log32 of its price (the basket)
-//     computes its price once per observation.
+//     terminal prices and each finalized functional.  The fold is a
+//     FixedFold, the set fixed at compile time (straight-line updates, only
+//     the accumulators the codes use), for the sets and functors K4 is
+//     built for (FixedFor), else SpecFold, the codes read from the spec.  It
+//     observes the price only when a functional reads it and the log price
+//     only when one reads that; a functor whose log price is log32 of its
+//     price (the basket) computes its price once per observation.
 //
 // Design: one thread per path with the state and the functional
-// accumulators (at most 4 x 4 floats, statically indexed so they stay in
-// registers) in registers for the whole time loop.  Under the Sobol
-// sources every thread of a block runs its path, past n_paths too, and
-// only the active ones write: their lanes shuffle with the whole warp and
-// their blocks stage keys between barriers.  The functional code is a
-// kernel argument, so its switch branches the same way across a warp.  K3
+// accumulators in registers for the whole time loop (SpecFold's at most 4
+// x 4 floats, statically indexed).  Under the Sobol sources every thread
+// of a block runs its path, past n_paths too, and only the active ones
+// write: their lanes shuffle with the whole warp and their blocks stage
+// keys between barriers.  SpecFold's codes are kernel arguments, so its
+// switch branches the same way across a warp.  K3
 // uses one 128-thread block per row and sums it in the fixed adjacent-pair
 // tree of stats/welford.py::tree_sum (warp butterfly at offsets 1..16, then
 // (w0+w1)+(w2+w3)), which the plain version reproduces bitwise.  The row ->
@@ -61,6 +65,7 @@
 
 #include <type_traits>
 
+#include "bridge_levels.cuh"
 #include "functionals.cuh"
 #include "rng.cuh"
 #include "sobol_warp.cuh"
@@ -200,35 +205,36 @@ struct SobolDraws {
 };
 
 // rng/sobol.py::SobolBridgeKernelSampler with ops/fused_engine.py::
-// _bridge_fill_scratch and _bridge_step_draws.  Phase 1 writes the T bridge
-// normals of the path (sobol_warp.cuh's, as SobolDraws') to its scratch
-// column; phase 2 takes, per step, eps =
-// 0 + c_0 z[d_0] + ... + c_{L-1} z[d_{L-1}] over every padded plan slot in
-// order (the padding is (dim 0, coeff 0), kept so the sum rounds as JAX's).
-// The scratch is a global workspace laid out [dim][path] (stride gridDim.x *
-// blockDim.x: a warp's accesses are coalesced).  Each thread reads only its
-// own column, so no barrier is needed.
+// _bridge_step_draws: per step, eps = 0 + c_0 z[d_0] + ... + c_{L-1}
+// z[d_{L-1}] over every plan slot in order (a padded slot's weight is 0,
+// kept so the sum rounds as JAX's), the normals held one per tree level in
+// registers (bridge_levels.cuh) and each computed once per path when its
+// level first needs it: sobol_warp.cuh's warp walk, as
+// SobolDraws', with the Owen keys of the T dims staged once per block
+// (SobolStagedNormals: tree order jumps between SobolDraws' key chunks
+// once T > 256).  Nothing is written to or read from global memory but
+// the plan, the same rows for every thread (read-only cache).
 struct BridgeDraws {
-  const uint32_t* __restrict__ sv;     // (T, 30)
-  const int* __restrict__ dims;        // (n_plan, L) plan dims
-  const float* __restrict__ coeffs;    // (n_plan, L) plan weights
+  const uint32_t* __restrict__ sv;      // (T, 30)
+  const float* __restrict__ coeffs;     // (n_plan, L) plan weights
+  const uint32_t* __restrict__ sched;   // (2T + 1,) load schedule
   int T, L;
-  float* scratch;                      // (T, blocks * 128) workspace
-  static constexpr bool kWholeBlock = true;  // phase 1 is SobolDraws'
+  static constexpr bool kWholeBlock = true;  // warp walk, staged keys
   template <class Proc, class Step>
   __device__ void run(const Proc&, uint32_t k0, uint32_t k1, uint32_t id,
-                      int64_t i, int n_steps, Step step) const {
-    const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-    float* z = scratch + i;
-    mc::SobolWarpNormals src(sv, k0, k1, id);
-    for (int d = 0; d < T; ++d) z[d * stride] = src.normal((uint32_t)d);
-    for (int t = 0; t < n_steps; ++t) {
-      const int* row_d = dims + (int64_t)t * L;
-      const float* row_c = coeffs + (int64_t)t * L;
-      float e = 0.0f;
-      for (int j = 0; j < L; ++j) e = e + row_c[j] * z[row_d[j] * stride];
+                      int64_t, int n_steps, Step step) const {
+    const mc::SobolStagedNormals src(sv, k0, k1, id, T);
+    auto normal = [&](uint32_t dim) { return src.normal(dim); };
+    mc::BridgeLevels levels;
+    const uint32_t* loads = sched + T + 1;  // after the T + 1 offsets
+    const float* row = coeffs;
+    uint32_t first = 0;
+    for (int t = 0; t < n_steps; ++t, row += L) {
+      const uint32_t next = __ldg(sched + t + 1);
       float eps[Proc::kDraws];
-      eps[0] = e;
+      eps[0] = levels.step(row, loads + first, (int)(next - first), L,
+                           normal);
+      first = next;
       step(t, eps);
     }
   }
@@ -236,15 +242,15 @@ struct BridgeDraws {
 
 // The draw-source arguments of every entry (ops/fused_engine.py::
 // _draw_args): the source code, the antithetic flag (Threefry only), the
-// Sobol table, and the bridge plan with its scratch.
+// Sobol table, and the bridge plan: its weights (L slots a row) and load
+// schedule, over T bridge dims.
 struct DrawArgs {
   int source;
   int antithetic;
   const uint32_t* sv;
-  const int* dims;
   const float* coeffs;
+  const uint32_t* sched;
   int T, L;
-  float* scratch;
 };
 
 struct StoreTerminal {  // K2
@@ -345,7 +351,7 @@ __global__ void fused_kernel(const float* __restrict__ leaves, int dims,
 
 // ---- K4: path functionals --------------------------------------------------
 
-template <class Proc, class Draws>
+template <class Proc, class Draws, class Fold>
 __global__ void fused_functional_kernel(const float* __restrict__ leaves,
                                         int dims, int64_t n_paths,
                                         int n_steps, uint32_t path_offset,
@@ -357,50 +363,35 @@ __global__ void fused_functional_kernel(const float* __restrict__ leaves,
   const float* consts = constants<Proc>(leaves, dims);  // the whole block
   if (!active && !Draws::kWholeBlock) return;
   const Proc proc(consts, dims);
-  const Needs need = needs(spec);
-  // The observation of functional k: the price or the log price.  A
-  // functor whose log price is log32 of its price computes the price once,
-  // and only when some functional reads either.
-  auto observe = [&](const typename Proc::State& s, float* obs) {
+  const Needs need = Fold::needs(spec);  // a constant for a FixedFold
+  // The observations: the price and the log price.  A functor whose log
+  // price is log32 of its price computes the price once, and only when
+  // some functional reads either.
+  float price, logp;
+  auto observe = [&](const typename Proc::State& s) {
     if constexpr (ProcTraits<Proc>::kLogOfPrice) {
-      const float price = need.price || need.log ? proc.prices(s) : 0.0f;
-      observations(spec, price, need.log ? mc::log32(price) : 0.0f, obs);
+      price = need.price || need.log ? proc.prices(s) : 0.0f;
+      logp = need.log ? mc::log32(price) : 0.0f;
     } else {
-      const float price = need.price ? proc.prices(s) : 0.0f;
-      observations(spec, price, proc.log_prices(s), obs);
+      price = need.price ? proc.prices(s) : 0.0f;
+      logp = proc.log_prices(s);
     }
   };
-  float acc[kMaxFunctionals][4];
-  float obs[kMaxFunctionals];
+  Fold fold;
   typename Proc::State state = proc.init();
-  observe(state, obs);
-#pragma unroll
-  for (int k = 0; k < kMaxFunctionals; ++k) {
-    if (k < spec.n) fn_init(spec.code[k], spec.p[k], obs[k], acc[k]);
-  }
-  auto update_all = [&](int t) {
-    observe(state, obs);
-#pragma unroll
-    for (int k = 0; k < kMaxFunctionals; ++k) {
-      if (k < spec.n) {
-        fn_update(spec.code[k], spec.period[k], spec.p[k], obs[k], t, acc[k]);
-      }
-    }
-  };
+  observe(state);
+  fold.init(spec, price, logp);
   const uint32_t id = path_offset + (uint32_t)i;  // wraps mod 2^32
   // One update after every step, with the 1-based step index (the scan
   // engine's order, which JAX's pair and bridge loops both keep).
-  auto after = [&](int t) { update_all(t + 1); };
+  auto after = [&](int t) {
+    observe(state);
+    fold.update(spec, price, logp, t + 1);
+  };
   run_path(proc, draws, k0, k1, id, i, n_steps, state, after);
   if (!active) return;
   out[i] = proc.prices(state);
-#pragma unroll
-  for (int k = 0; k < kMaxFunctionals; ++k) {
-    if (k < spec.n) {
-      out[(k + 1) * spec.out_stride + i] =
-          fn_finalize(spec.code[k], spec.p[k], acc[k], n_steps);
-    }
-  }
+  fold.finalize(spec, out, i, n_steps);
 }
 
 // Which draw sources a functor takes: Sobol normals need an all-normal
@@ -439,14 +430,13 @@ cudaError_t launch_source(const DrawArgs& a, int dims, unsigned blocks,
       return cudaErrorInvalidValue;
     case kBridge:
       if constexpr (SourceTraits<Proc>::kBridge) {
-        if (a.sv == nullptr || a.dims == nullptr || a.coeffs == nullptr ||
-            a.scratch == nullptr || a.T < 1 || a.L < 1 ||
+        if (a.sv == nullptr || a.coeffs == nullptr || a.sched == nullptr ||
+            a.T < 1 || a.L < 1 || a.L > mc::kMaxLevels ||
             (dims != 1 && Proc::kDraws != 1)) {
           return cudaErrorInvalidValue;
         }
         return Launcher<Proc, BridgeDraws>::run(
-            blocks, s, dims,
-            BridgeDraws{a.sv, a.dims, a.coeffs, a.T, a.L, a.scratch},
+            blocks, s, dims, BridgeDraws{a.sv, a.coeffs, a.sched, a.T, a.L},
             args...);
       }
       return cudaErrorInvalidValue;
@@ -471,17 +461,38 @@ struct FusedLauncher {
   };
 };
 
-template <class Proc, class Draws>
-struct FunctionalLauncher {
-  static cudaError_t run(unsigned blocks, cudaStream_t s, int dims,
-                         Draws draws, int64_t n_paths, const float* leaves,
-                         int n_steps, uint32_t path_offset, uint32_t k0,
-                         uint32_t k1, FunctionalSpec spec, float* out) {
-    fused_functional_kernel<Proc, Draws><<<blocks, kRow, 0, s>>>(
-        leaves, dims, n_paths, n_steps, path_offset, k0, k1, draws, spec,
-        out);
-    return cudaSuccess;
-  }
+// Whether K4 on functor Proc under draw source Draws is built with the
+// fixed fold Fold, one of FixedFolds (specialized, for FixedFold types
+// only, where the kernels are instantiated: csrc/fused_k4.cu,
+// csrc/fused_basket.cuh).  Elsewhere the set runs SpecFold.
+template <class Proc, class Draws, class Fold>
+struct FixedFor : std::false_type {};
+
+// K4 with the fold the entry chose from the spec (with_fold): Fold where
+// FixedFor says so, else SpecFold; *fixed says which (1 or 0).
+template <class Fold>
+struct FoldLauncher {
+  template <class Proc, class Draws>
+  struct With {
+    static cudaError_t run(unsigned blocks, cudaStream_t s, int dims,
+                           Draws draws, int64_t n_paths, const float* leaves,
+                           int n_steps, uint32_t path_offset, uint32_t k0,
+                           uint32_t k1, FunctionalSpec spec, float* out,
+                           int* fixed) {
+      if constexpr (FixedFor<Proc, Draws, Fold>::value) {
+        *fixed = 1;
+        fused_functional_kernel<Proc, Draws, Fold><<<blocks, kRow, 0, s>>>(
+            leaves, dims, n_paths, n_steps, path_offset, k0, k1, draws, spec,
+            out);
+      } else {
+        *fixed = 0;
+        fused_functional_kernel<Proc, Draws, SpecFold>
+            <<<blocks, kRow, 0, s>>>(leaves, dims, n_paths, n_steps,
+                                     path_offset, k0, k1, draws, spec, out);
+      }
+      return cudaSuccess;
+    }
+  };
 };
 
 // K2, K3 and K4 on the correlated basket of `dims` assets, launched with
@@ -498,6 +509,7 @@ cudaError_t launch_basket(const DrawArgs& a, int dims, unsigned blocks,
 cudaError_t launch_basket(const DrawArgs& a, int dims, unsigned blocks,
                           cudaStream_t s, int64_t n_paths, const float* leaves,
                           int n_steps, uint32_t path_offset, uint32_t k0,
-                          uint32_t k1, FunctionalSpec spec, float* out);
+                          uint32_t k1, FunctionalSpec spec, float* out,
+                          int* fixed);
 
 }  // namespace mcf

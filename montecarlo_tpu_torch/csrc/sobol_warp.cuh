@@ -3,8 +3,8 @@
 // Owen keys of the dimensions staged once per block.
 //
 // Replaces, inside the kernels' Sobol and bridge-Sobol draw sources
-// (fused_engine.cuh: SobolDraws, BridgeDraws' phase 1; the basket's Sobol
-// stream), the per-path mc::sobol_normal of rng.cuh, which walks gray(id)'s
+// (fused_engine.cuh: SobolDraws, BridgeDraws; the basket's Sobol stream),
+// the per-path mc::sobol_normal of rng.cuh, which walks gray(id)'s
 // set bits in a loop whose trip count differs from lane to lane and runs a
 // whole Threefry call per normal for the Owen key.  Same bits: the integer
 // is the XOR of the same words (XOR is order-free), the key the same
@@ -144,6 +144,46 @@ struct SobolWarpNormals {
     }
     const uint32_t x = warp_sobol_bits(lane, sv + (size_t)dim * kSobolBits);
     return shifted_normal(x, keys[dim % kKeyChunk]);
+  }
+};
+
+// The bridge's normals (fused_engine.cuh's BridgeDraws), which ask for the
+// dims in tree order, jumping between chunks of kKeyChunk once n_dims >
+// kKeyChunk: the Owen keys of dims [0, min(n_dims, kBridgeKeys)) staged
+// once per block, by every thread of the block before any normal; a dim
+// past them takes its key per normal (a Threefry call).  No barrier after
+// the constructor, so the dims may come in any order.
+constexpr int kBridgeKeys = 2048;  // 8 KB of shared memory a block
+struct SobolStagedNormals {
+  const uint32_t* sv;  // (n_dims, 30) direction numbers
+  uint32_t k0, k1;
+  WarpLane lane;
+  uint32_t n_keys;  // the keys staged
+  const uint32_t* keys;
+  __device__ SobolStagedNormals(const uint32_t* table, uint32_t key0,
+                                uint32_t key1, uint32_t id, int n_dims)
+      : sv(table), k0(key0), k1(key1),
+        lane(id - (threadIdx.x & (kWarp - 1)), threadIdx.x & (kWarp - 1)),
+        n_keys((uint32_t)(n_dims < kBridgeKeys ? n_dims : kBridgeKeys)) {
+    __shared__ uint32_t staged[kBridgeKeys];  // the block's, one per kernel
+    for (uint32_t j = threadIdx.x; j < n_keys; j += blockDim.x) {
+      staged[j] = sobol_key(k0, k1, j);
+    }
+    __syncthreads();
+    keys = staged;
+  }
+  __device__ float normal(uint32_t dim) const {
+    const uint32_t x = warp_sobol_bits(lane, sv + (size_t)dim * kSobolBits);
+    // A branch, not a select: the unstaged key's Threefry call stays off
+    // the path of a staged dim.
+    const uint32_t key =
+        dim < n_keys ? keys[dim] : unstaged_key(k0, k1, dim);
+    return shifted_normal(x, key);
+  }
+  __device__ __noinline__ static uint32_t unstaged_key(uint32_t k0,
+                                                       uint32_t k1,
+                                                       uint32_t dim) {
+    return sobol_key(k0, k1, dim);
   }
 };
 

@@ -11,7 +11,7 @@ before anything launches (the counterpart of the JAX package's
   the plain or antithetic sampler, a :class:`SobolDeviceSampler` whose
   table covers ``n_steps * n_draws`` dims, or a
   :class:`SobolBridgeKernelSampler` on a single-draw process built for at
-  least ``n_steps`` steps;
+  least ``n_steps`` steps, its plan at most ``MAX_BRIDGE_LEVELS`` wide;
 - **the torch time loop** otherwise (``engine.simulate``, the
   functionals' loop): any process with the protocol, any sampler, the same
   streams.
@@ -52,7 +52,7 @@ def kernel_route(process, sampler, n_steps: int) -> bool:
     """True when K2-K4 (or their plain versions) run this process and
     sampler; False for the torch time loop (also for a process the
     kernels' wrappers refuse, such as a basket larger than they take)."""
-    return (kernel_refusal(process) is None
+    return (kernel_refusal(process, sampler) is None
             and _kernel_sampler_ok(sampler, process, n_steps))
 
 

@@ -6,9 +6,11 @@ version for a CPU one; nothing falls back from one to the other.
 - K1 ``gbm_terminal``         — csrc/gbm_kernel.cu
 - K2 ``fused_terminal``       — csrc/fused_engine.cu
 - K3 ``fused_block_moments``  — csrc/fused_engine.cu
-- K4 ``fused_functionals``    — csrc/fused_engine.cu
+- K4 ``fused_functionals``    — csrc/fused_k4.cu
   (each under Threefry, Sobol and bridge-Sobol draws, counted apart as
-  ``<name>``, ``<name>_sobol`` and ``<name>_bridge``)
+  ``<name>``, ``<name>_sobol`` and ``<name>_bridge``; K4's launches of a
+  fold fixed at compile time also as ``fused_functionals_fixed[_sobol|
+  _bridge]``; the basket's in csrc/fused_basket*.cu)
 - K5 ``normal_matrix``        — csrc/rng_kernel.cu
 - K6 ``rbergomi_terminal``    — csrc/rbergomi_kernel.cu
 - K7 ``packed_basket_terminal`` — csrc/basket_kernel.cu
@@ -30,6 +32,9 @@ from montecarlo_tpu_torch.ops.fused_engine import (  # noqa: F401
     K3_SOBOL,
     K4,
     K4_BRIDGE,
+    K4_FIXED,
+    K4_FIXED_BRIDGE,
+    K4_FIXED_SOBOL,
     K4_SOBOL,
     fused_block_moments,
     fused_block_moments_reference,
@@ -64,7 +69,10 @@ PATH_KERNELS = {"gbm_terminal": K1, "fused_terminal": K2,
                 "fused_functionals_sobol": K4_SOBOL,
                 "fused_terminal_bridge": K2_BRIDGE,
                 "fused_block_moments_bridge": K3_BRIDGE,
-                "fused_functionals_bridge": K4_BRIDGE}
+                "fused_functionals_bridge": K4_BRIDGE,
+                "fused_functionals_fixed": K4_FIXED,
+                "fused_functionals_fixed_sobol": K4_FIXED_SOBOL,
+                "fused_functionals_fixed_bridge": K4_FIXED_BRIDGE}
 
 
 def reset_launch_counts() -> None:

@@ -19,10 +19,11 @@ step's row through a pointer and an offset, the port of the JAX kernels'
   n_draws + d``, computed in the kernel from the sampler's direction
   table;
 - a :class:`~montecarlo_tpu_torch.rng.sobol.SobolBridgeKernelSampler`
-  (single-draw processes): the T bridge normals once per path into a
-  scratch, then per step the plan's weighted sum of O(log T) of them.  The
-  scratch is a global workspace, a launch per ``BRIDGE_WORKSPACE_PATHS``
-  paths.
+  (single-draw processes): per step the plan's weighted sum of O(log T)
+  bridge normals, one held per tree level in registers and each computed
+  once per path (``csrc/bridge_levels.cuh``); no workspace.  A plan wider
+  than ``MAX_BRIDGE_LEVELS`` levels (T > 2^15 steps) is refused
+  (:func:`kernel_refusal`).
 
 The plain versions below run the process's own ``draws_pair``/``step``/
 ``prices`` (or the sampler's draws) in the kernel's order and agree with
@@ -37,10 +38,15 @@ tree as the JAX package.
 
 K4 folds up to four path functionals after every step, each given by its
 device form (``engine.functionals.DeviceForm``), and writes the terminal
-prices plus each finalized functional.
+prices plus each finalized functional.  The sets the main paths launch
+run a fold fixed at compile time where the kernels are built for it
+(``csrc/functionals.cuh``'s ``FixedFolds``, ``csrc/fused_k4.cu``); the
+others the generic fold, the codes read at run time.
 
 Each wrapper counts its launches per draw source (``K2``, ``K2_SOBOL``,
-``K2_BRIDGE``, ...; ``ops.PATH_KERNELS`` names them).
+``K2_BRIDGE``, ...; ``ops.PATH_KERNELS`` names them); K4's launches that
+ran a fixed fold are counted again in ``K4_FIXED``, ``K4_FIXED_SOBOL`` and
+``K4_FIXED_BRIDGE``.
 """
 
 from __future__ import annotations
@@ -79,22 +85,25 @@ PROCESS_CODES = {GBM: 0, Heston: 1, BasketGBM: 2, GARCHBootstrap: 3,
                  BatesQE: 9, VarianceGamma: 10, SABR: 11, LocalVolGBM: 12,
                  SLV: 13, SLVKnots: 14}
 
-#: Draw-source codes of the kernels (csrc/fused_engine.cu::DrawSource).
+#: Draw-source codes of the kernels (csrc/fused_engine.cuh::DrawSource).
 THREEFRY, SOBOL, BRIDGE = 0, 1, 2
-#: Paths per launch on the bridge's global workspace (T floats each: 1 GB
-#: at T = 252), so the workspace stays bounded at any path count.
-BRIDGE_WORKSPACE_PATHS = 1 << 20
+#: The widest bridge plan the kernels take: the tree levels whose normals a
+#: path holds in registers (csrc/bridge_levels.cuh::kMaxLevels; T <= 2^15).
+MAX_BRIDGE_LEVELS = 16
 
 _COMMON = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
            ctypes.c_int64, ctypes.c_int64, ctypes.c_uint32, ctypes.c_uint32,
            ctypes.c_uint32,
-           # source, antithetic, sv, plan dims, plan coeffs, T, L, scratch
+           # source, antithetic, sv, plan coeffs, plan schedule, T, L
            ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-           ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+           ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
 _K2_ARGS = _COMMON + [ctypes.c_void_p]
 _K3_ARGS = _COMMON + [ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+# ... n_functionals, codes, periods, params, out_stride, the fixed fold
+# index it ran (int*), the stream.
 _K4_ARGS = _COMMON + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-                      ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p]
+                      ctypes.c_void_p, ctypes.c_int64, ctypes.c_void_p,
+                      ctypes.c_void_p]
 K2 = CudaKernel("mc_fused_terminal", _K2_ARGS)
 K3 = CudaKernel("mc_fused_block_moments", _K3_ARGS)
 K4 = CudaKernel("mc_fused_functionals", _K4_ARGS)
@@ -105,16 +114,33 @@ K4_SOBOL = CudaKernel("mc_fused_functionals", _K4_ARGS)
 K2_BRIDGE = CudaKernel("mc_fused_terminal", _K2_ARGS)
 K3_BRIDGE = CudaKernel("mc_fused_block_moments", _K3_ARGS)
 K4_BRIDGE = CudaKernel("mc_fused_functionals", _K4_ARGS)
+# K4's launches that ran a fixed fold, counted again (never launched
+# through these).
+K4_FIXED = CudaKernel("mc_fused_functionals", _K4_ARGS)
+K4_FIXED_SOBOL = CudaKernel("mc_fused_functionals", _K4_ARGS)
+K4_FIXED_BRIDGE = CudaKernel("mc_fused_functionals", _K4_ARGS)
 _BY_SOURCE = {"K2": (K2, K2_SOBOL, K2_BRIDGE),
               "K3": (K3, K3_SOBOL, K3_BRIDGE),
-              "K4": (K4, K4_SOBOL, K4_BRIDGE)}
+              "K4": (K4, K4_SOBOL, K4_BRIDGE),
+              "K4_FIXED": (K4_FIXED, K4_FIXED_SOBOL, K4_FIXED_BRIDGE)}
 
 
-def kernel_refusal(process) -> Exception | None:
-    """Why K2-K4 do not run ``process``, as the error their wrappers raise
-    (a type with no functor; a basket of more assets than the kernels
-    take), or None when they run it.  ``engine.dispatch.kernel_route``
-    asks it before it routes a run."""
+def _bridge_refusal(sampler) -> Exception | None:
+    if (isinstance(sampler, SobolBridgeKernelSampler)
+            and sampler.width > MAX_BRIDGE_LEVELS):
+        return ValueError(
+            f"the kernels' bridge holds at most {MAX_BRIDGE_LEVELS} tree "
+            f"levels, this plan has {sampler.width} (T = "
+            f"{sampler.n_steps}); run it on the torch loop")
+    return None
+
+
+def kernel_refusal(process, sampler=None) -> Exception | None:
+    """Why K2-K4 do not run ``process`` under ``sampler``, as the error
+    their wrappers raise (a type with no functor; a basket of more assets
+    than the kernels take; a bridge plan wider than MAX_BRIDGE_LEVELS), or
+    None when they run it.  ``engine.dispatch.kernel_route`` asks it
+    before it routes a run."""
     if type(process) not in PROCESS_CODES:
         others = ", ".join(c.__name__ for c in list(PROCESS_CODES)[2:])
         return TypeError("the fused kernels run GBM and Heston (and "
@@ -122,7 +148,7 @@ def kernel_refusal(process) -> Exception | None:
                          f"{type(process).__name__}")
     if isinstance(process, BasketGBM):
         return kernel_assets_refusal(process.n_draws)
-    return None
+    return _bridge_refusal(sampler)
 
 
 def _leaves(process):
@@ -179,6 +205,9 @@ def draw_source(sampler, antithetic: bool = False) -> int:
 
 def _check_draws(process, sampler, n_steps: int, antithetic: bool) -> int:
     source = draw_source(sampler, antithetic)
+    err = _bridge_refusal(sampler)
+    if err is not None:
+        raise err
     check_sampler(sampler, process, n_steps)
     return source
 
@@ -274,37 +303,20 @@ def fused_block_moments_reference(process, payoff: VanillaPayoff,
     return _merge_rows(_row_moments(payoff(prices)))
 
 
-def _draw_args(process, sampler, source: int, antithetic: bool,
-               n_paths: int):
+def _draw_args(process, sampler, source: int, antithetic: bool) -> list:
     """The kernels' draw-source arguments (source, antithetic, sv, plan
-    dims, plan coeffs, T, L, scratch), the tensors they point into (which
-    must outlive the launches) and the paths per launch: all of them, or
-    ``BRIDGE_WORKSPACE_PATHS`` on the bridge's workspace, which holds T
-    floats for each path of a launch, laid out [dim][path]."""
+    coeffs, plan schedule, T, L), pointers into the sampler's tables, each
+    checked to lie on the process's device."""
     dev = process.device
     if source == THREEFRY:
-        return ([source, int(antithetic), None, None, None, 0, 0, None], [],
-                n_paths)
+        return [source, int(antithetic), None, None, None, 0, 0]
     check_cuda_tensor("sampler.sv", sampler.sv, dev, torch.int32)
     if source == SOBOL:
-        return ([source, 0, sampler.sv.data_ptr(), None, None, 0, 0, None],
-                [sampler.sv], n_paths)
-    T, L = sampler.n_steps, sampler.width
-    check_cuda_tensor("sampler.dims", sampler.dims, dev, torch.int32)
+        return [source, 0, sampler.sv.data_ptr(), None, None, 0, 0]
     check_cuda_tensor("sampler.coeffs", sampler.coeffs, dev, torch.float32)
-    per_launch = min(n_paths, BRIDGE_WORKSPACE_PATHS)
-    rows = -(-per_launch // LANES) * LANES
-    scratch = torch.empty(T * rows, dtype=torch.float32, device=dev)
-    return ([source, 0, sampler.sv.data_ptr(), sampler.dims.data_ptr(),
-             sampler.coeffs.data_ptr(), T, L, scratch.data_ptr()],
-            [sampler.sv, sampler.dims, sampler.coeffs, scratch], per_launch)
-
-
-def _launches(n_paths: int, per_launch: int, path_offset):
-    """(first path, paths, wrapped offset) of each launch of a run."""
-    for start in range(0, n_paths, per_launch):
-        yield (start, min(per_launch, n_paths - start),
-               (int(path_offset) + start) & MASK32)
+    check_cuda_tensor("sampler.schedule", sampler.schedule, dev, torch.int32)
+    return [source, 0, sampler.sv.data_ptr(), sampler.coeffs.data_ptr(),
+            sampler.schedule.data_ptr(), sampler.n_steps, sampler.width]
 
 
 def fused_terminal(process, n_paths: int, n_steps: int, *, seed, stream=0,
@@ -324,15 +336,13 @@ def fused_terminal(process, n_paths: int, n_steps: int, *, seed, stream=0,
     if n_paths < 1 or n_steps < 0:
         raise ValueError(f"n_paths={n_paths}, n_steps={n_steps}")
     check_cuda_tensor("leaves", leaves, dev, torch.float32)
-    draw, keep, per_launch = _draw_args(process, sampler, source, antithetic,
-                                        n_paths)
+    draw = _draw_args(process, sampler, source, antithetic)
     out = torch.empty(n_paths, dtype=torch.float32, device=dev)
     k0, k1 = key_from_seed(seed, stream)
     with torch.cuda.device(dev):
-        for start, m, off in _launches(n_paths, per_launch, path_offset):
-            _BY_SOURCE["K2"][source].launch(
-                out.data_ptr() + 4 * start, leaves.data_ptr(), code, dims, m,
-                n_steps, off, k0, k1, *draw, cuda_stream(dev))
+        _BY_SOURCE["K2"][source].launch(
+            out.data_ptr(), leaves.data_ptr(), code, dims, n_paths, n_steps,
+            int(path_offset) & MASK32, k0, k1, *draw, cuda_stream(dev))
     return out
 
 
@@ -355,16 +365,14 @@ def fused_block_moments(process, payoff: VanillaPayoff, n_paths: int,
     if n_steps < 0:
         raise ValueError(f"n_steps={n_steps}")
     check_cuda_tensor("leaves", leaves, dev, torch.float32)
-    draw, keep, per_launch = _draw_args(process, sampler, source, antithetic,
-                                        n_paths)
+    draw = _draw_args(process, sampler, source, antithetic)
     rows = torch.empty((n_paths // LANES, 2), dtype=torch.float32, device=dev)
     k0, k1 = key_from_seed(seed, stream)
     with torch.cuda.device(dev):
-        for start, m, off in _launches(n_paths, per_launch, path_offset):
-            _BY_SOURCE["K3"][source].launch(
-                rows.data_ptr() + 8 * (start // LANES), leaves.data_ptr(),
-                code, dims, m, n_steps, off, k0, k1, *draw, payoff.code,
-                payoff.strike, cuda_stream(dev))
+        _BY_SOURCE["K3"][source].launch(
+            rows.data_ptr(), leaves.data_ptr(), code, dims, n_paths, n_steps,
+            int(path_offset) & MASK32, k0, k1, *draw, payoff.code,
+            payoff.strike, cuda_stream(dev))
     return _merge_rows(rows)
 
 
@@ -438,8 +446,7 @@ def fused_functionals(process, n_paths: int, n_steps: int, *, seed,
     if n_paths < 1 or n_steps < 0:
         raise ValueError(f"n_paths={n_paths}, n_steps={n_steps}")
     check_cuda_tensor("leaves", leaves, dev, torch.float32)
-    draw, keep, per_launch = _draw_args(process, sampler, source, antithetic,
-                                        n_paths)
+    draw = _draw_args(process, sampler, source, antithetic)
     out = torch.empty((1 + len(forms), n_paths), dtype=torch.float32,
                       device=dev)
     codes = (ctypes.c_int * MAX_FUNCTIONALS)(*[f.code for f in forms])
@@ -449,12 +456,14 @@ def fused_functionals(process, n_paths: int, n_steps: int, *, seed,
         for q, v in enumerate(f.params):
             params[k * MAX_PARAMS + q] = v
     k0, k1 = key_from_seed(seed, stream)
+    fixed = ctypes.c_int(-1)  # the FixedFolds index of the fold it ran
     with torch.cuda.device(dev):
-        for start, m, off in _launches(n_paths, per_launch, path_offset):
-            _BY_SOURCE["K4"][source].launch(
-                out.data_ptr() + 4 * start, leaves.data_ptr(), code, dims, m,
-                n_steps, off, k0, k1, *draw, len(forms), codes, periods,
-                params, n_paths, cuda_stream(dev))
+        _BY_SOURCE["K4"][source].launch(
+            out.data_ptr(), leaves.data_ptr(), code, dims, n_paths, n_steps,
+            int(path_offset) & MASK32, k0, k1, *draw, len(forms), codes,
+            periods, params, n_paths, ctypes.byref(fixed), cuda_stream(dev))
+    if fixed.value >= 0:
+        _BY_SOURCE["K4_FIXED"][source].launches += 1
     result = {"terminal": out[0]}
     for k, (name, _) in enumerate(items):
         result[name] = out[k + 1]

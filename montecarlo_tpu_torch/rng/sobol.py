@@ -20,7 +20,8 @@ the normals go through ``ndtri32``, which calls the platform's log.
 The samplers keep the JAX package's table layouts (``sv`` (n_dims, 30),
 the bridge plan's ``dims``/``coeffs`` (T, L)) as int32/float32 tensors on
 the process's device; every direction number is below 2^30, so int32 holds
-it exactly and the kernels read it as uint32 through a plain pointer.
+it exactly and the kernels read it as uint32 through a plain pointer.  The
+kernels' bridge also reads the plan's load schedule (``bridge_schedule``).
 """
 
 from __future__ import annotations
@@ -225,6 +226,27 @@ def _bridge_tables(n_steps: int, scramble_seed):
     return sv, dims, coeffs
 
 
+def bridge_schedule(dims: np.ndarray) -> np.ndarray:
+    """(2T + 1,) int32 load schedule of a bridge plan (T, L): the kernels
+    hold one bridge normal per slot, the dim of a tree level
+    (csrc/bridge_levels.cuh), and compute a normal only when a slot takes
+    a new dim.  Entries 0 .. T are the offsets of each step's loads (step
+    t's are loads first[t] .. first[t + 1] - 1); then the loads in step
+    order, each ``level << 16 | dim``, slots in order within a step.  A
+    padded slot (dim 0 past slot 0, coefficient 0) is never loaded: its
+    product is a zero whatever finite normal the level holds, and adding a
+    zero leaves the sum's bits as they are."""
+    dims = np.asarray(dims)
+    T, L = dims.shape
+    change = np.ones(dims.shape, bool)
+    change[1:] = dims[1:] != dims[:-1]
+    change[:, 1:] &= dims[:, 1:] != 0
+    t, j = np.nonzero(change)  # row-major: step order, slots in order
+    first = np.searchsorted(t, np.arange(T + 1))
+    loads = (j.astype(np.int64) << 16) | dims[t, j]
+    return np.concatenate([first, loads]).astype(np.int32)
+
+
 @dataclass(frozen=True)
 class SobolBridgeDeviceSampler:
     """Randomized Sobol with Brownian-bridge ordering, evaluated per step:
@@ -276,21 +298,35 @@ class SobolBridgeDeviceSampler:
 
 @dataclass(frozen=True)
 class SobolBridgeKernelSampler(SobolBridgeDeviceSampler):
-    """Bridge Sobol for K2-K4: the kernel computes each of the T bridge
-    normals once per path into a scratch, then combines the O(log T)
-    cached normals of each step with the plan's weights, in the same
+    """Bridge Sobol for K2-K4: the kernel holds one bridge normal per tree
+    level, computes each of the T normals once per path when its level
+    first needs it (``schedule``, the plan's loads), and combines each
+    step's O(log T) normals with the plan's weights, in the same
     padded-slot order as :class:`SobolBridgeDeviceSampler` — the same
     stream, which the inherited :meth:`draws` computes on the torch loop.
     The JAX package keeps these tables transposed for its kernel
     (``sv_t``, ``dims_t``, ``coeffs_t``); here they keep the device
     sampler's layout.  Single-draw, normals only."""
 
+    schedule: torch.Tensor  # (2T + 1,) int32 loads (bridge_schedule)
+
+    @classmethod
+    def create(cls, n_steps: int, scramble_seed: int | None = 0,
+               device="cuda"):
+        sv, dims, coeffs = _bridge_tables(n_steps, scramble_seed)
+        return cls(sv=_device_table(sv, torch.int32, device),
+                   dims=_device_table(dims, torch.int32, device),
+                   coeffs=_device_table(coeffs, torch.float32, device),
+                   schedule=_device_table(bridge_schedule(dims),
+                                          torch.int32, device))
+
     def as_device_sampler(self) -> SobolBridgeDeviceSampler:
         return SobolBridgeDeviceSampler(sv=self.sv, dims=self.dims,
                                         coeffs=self.coeffs)
 
     def bridge_normals(self, seed, stream, path_ids) -> torch.Tensor:
-        """The kernel's scratch: the T bridge normals of every path,
-        (T, n_paths) float32."""
+        """The T bridge normals of every path, (T, n_paths) float32: the
+        values the kernels hold per tree level, each computed once per
+        path."""
         return torch.stack([_sobol_normal(self.sv, seed, stream, path_ids, d)
                             for d in range(self.n_steps)])

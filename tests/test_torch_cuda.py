@@ -25,7 +25,10 @@ negation they were.  Under Sobol and bridge-Sobol draws (the randomized
 Sobol normal of K0: integer words, the Owen hash, ndtri32 with the same
 logf and sqrtf on both sides) K2-K4 equal their plain versions and the
 torch loop bitwise too, odd step counts on exact-size tables, ids across
-2^30, the bridge's scratch in its global workspace.  The jump, Levy, QE
+2^30, the bridge's normals held per tree level (T up to 1024, whose dims
+span several chunks of Owen keys).  K4's folds fixed at compile time (the
+sets of csrc/functionals.cuh's FixedFolds) equal the generic fold's plain
+version bitwise under every draw source, each launch counted as fixed.  The jump, Levy, QE
 and SABR functors (Merton, Kou, Bates, NIG, HestonQE, BatesQE, VG, SABR:
 their draws_pair layouts, second key streams, per-draw mirror, Poisson
 select chains, ndtri32 and the gamma table) equal their plain versions and
@@ -188,6 +191,100 @@ def test_cuda_k2_k3_heston_bitwise_equal_plain(cuda, antithetic, n_paths):
         got = fused_block_moments(tp, pay, n_paths, 17, **kw)
         want = fused_block_moments_reference(tp, pay, n_paths, 17, **kw)
         assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def _fixed_sets(n_steps):
+    """The functional sets K4 runs with a fixed fold (FixedFolds)."""
+    dt = 1 / n_steps
+    return {
+        "avg": {"avg": ARITH_MEAN},
+        "avg_mx_mn": {"avg": ARITH_MEAN, "mx": RUNNING_MAX,
+                      "mn": RUNNING_MIN},
+        "surv": {"surv": barrier_survival_up(104.0, 0.2, dt)},
+        "autocall": {"ac": autocallable(3, 100.5, 0.02, 0.03 * dt, 97.0,
+                                        100.0)},
+        "cliquet": {"cl": cliquet_sum(3, -0.02, 0.03)},
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("source", ["plain", "antithetic", "sobol",
+                                    "bridge"])
+@pytest.mark.parametrize("n_steps", [18, 63])
+@pytest.mark.parametrize("fold", ["avg", "avg_mx_mn", "surv", "autocall",
+                                  "cliquet"])
+def test_cuda_k4_fixed_fold_bitwise_equal_plain(cuda, source, n_steps, fold):
+    """GBM's K4 with each fixed fold, under each draw source, against the
+    plain version (the torch closures) bitwise; the launch is counted as
+    a fixed fold's."""
+    from montecarlo_tpu_torch.rng.sobol import (SobolBridgeKernelSampler,
+                                                SobolDeviceSampler)
+
+    tp = _process("gbm", n_steps, cuda)
+    fns = _fixed_sets(n_steps)[fold]
+    kw = dict(seed=3, path_offset=2**32 - 500, functionals=fns)
+    suffix = ""
+    if source == "antithetic":
+        kw["antithetic"] = True
+    elif source == "sobol":
+        kw["sampler"] = SobolDeviceSampler.create(n_steps, 1, device=cuda)
+        suffix = "_sobol"
+    elif source == "bridge":
+        kw["sampler"] = SobolBridgeKernelSampler.create(n_steps, device=cuda)
+        suffix = "_bridge"
+    fixed = PATH_KERNELS["fused_functionals_fixed" + suffix].launches
+    got = fused_functionals(tp, 1000, n_steps, **kw)
+    assert PATH_KERNELS["fused_functionals_fixed" + suffix].launches == (
+        fixed + 1)
+    want = fused_functionals_reference(tp, 1000, n_steps, **kw)
+    for k in want:
+        assert torch.isfinite(got[k]).all(), k
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.cuda
+def test_cuda_k4_generic_fold_outside_fixed_sets(cuda):
+    """A set outside FixedFolds ({avg, geo}; {mx, avg}, the app's set in
+    another order) and a fixed set on a functor it is not built for
+    (local vol) run the generic fold: counted as K4 launches only."""
+    from montecarlo_tpu_torch.cli.pricing import cli_process
+
+    tp = _process("gbm", 17, cuda)
+    cev = cli_process(["--process", "cev", "--steps", "17"], cuda)[0]
+    runs = [(tp, {"avg": ARITH_MEAN, "geo": GEO_MEAN}),
+            (tp, {"mx": RUNNING_MAX, "avg": ARITH_MEAN}),
+            (cev, {"avg": ARITH_MEAN})]
+    for proc, fns in runs:
+        k4 = PATH_KERNELS["fused_functionals"].launches
+        fixed = PATH_KERNELS["fused_functionals_fixed"].launches
+        got = fused_functionals(proc, 1000, 17, seed=2, functionals=fns)
+        want = fused_functionals_reference(proc, 1000, 17, seed=2,
+                                           functionals=fns)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+        assert PATH_KERNELS["fused_functionals"].launches == k4 + 1
+        assert PATH_KERNELS["fused_functionals_fixed"].launches == fixed
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_steps", [256, 300, 1024])
+def test_cuda_bridge_levels_past_one_key_chunk(cuda, n_steps):
+    """The bridge at T past 256, where its dims in tree order span several
+    chunks of Owen keys (all staged once per block): K2 and K4 {avg}
+    bitwise equal to their plain versions."""
+    from montecarlo_tpu_torch.rng.sobol import SobolBridgeKernelSampler
+
+    tp = _process("gbm", n_steps, cuda)
+    smp = SobolBridgeKernelSampler.create(n_steps, device=cuda)
+    kw = dict(seed=4, path_offset=2**32 - 40, sampler=smp)
+    assert torch.equal(fused_terminal(tp, 300, n_steps, **kw),
+                       fused_terminal_reference(tp, 300, n_steps, **kw))
+    fns = {"avg": ARITH_MEAN}
+    got = fused_functionals(tp, 300, n_steps, functionals=fns, **kw)
+    want = fused_functionals_reference(tp, 300, n_steps, functionals=fns,
+                                       **kw)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
 
 
 @pytest.mark.cuda
@@ -560,21 +657,18 @@ def test_cuda_dispatch_gate_routes(cuda):
 
 
 @pytest.mark.cuda
-def test_cuda_bridge_workspace_launches_in_chunks(cuda, monkeypatch):
-    """On the bridge's workspace the wrappers launch at most
-    BRIDGE_WORKSPACE_PATHS paths at a time (each launch counted), and the
-    pieces equal one plain run: K2 and K4 on a ragged count, K3 on whole
-    rows."""
-    from montecarlo_tpu_torch.ops import fused_engine
+def test_cuda_bridge_workspace_launches_in_chunks(cuda):
+    """The bridge has no workspace: the wrappers launch once for any path
+    count (each launch counted), and the launch equals one plain run: K2
+    and K4 on a ragged count, K3 on whole rows."""
     from montecarlo_tpu_torch.rng.sobol import SobolBridgeKernelSampler
 
-    monkeypatch.setattr(fused_engine, "BRIDGE_WORKSPACE_PATHS", 1024)
     tp = _process("gbm", 17, cuda)
     smp = SobolBridgeKernelSampler.create(17, device=cuda)
     kw = dict(seed=3, path_offset=WRAP, sampler=smp)
     k2 = PATH_KERNELS["fused_terminal_bridge"].launches
     got = fused_terminal(tp, 3000, 17, **kw)
-    assert PATH_KERNELS["fused_terminal_bridge"].launches == k2 + 3
+    assert PATH_KERNELS["fused_terminal_bridge"].launches == k2 + 1
     assert torch.equal(got, fused_terminal_reference(tp, 3000, 17, **kw))
     pay = VanillaPayoff("call", 100.0)
     got = fused_block_moments(tp, pay, 8192, 17, **kw)

@@ -313,13 +313,13 @@ def slv_sobol_rows(torch):
     return rows
 
 
-_LEV = ("fused_engine.cu", """    const float lev =
+_LEV = ("processes.cuh", """    const float lev =
         static_cast<const Leverage*>(this)->at(s.log_s - log_s0, t);
 """)
-_STEP_TOP = ("fused_engine.cu", """  __device__ State step(State s, const float* eps, int t) const {
+_STEP_TOP = ("processes.cuh", """  __device__ State step(State s, const float* eps, int t) const {
     const float z1 = eps[0], z2 = eps[1];
 """)
-_AT = ("fused_engine.cu", """    const int k = t < 0 ? 0 : (t < n_rows ? t : n_rows - 1);
+_AT = ("processes.cuh", """    const int k = t < 0 ? 0 : (t < n_rows ? t : n_rows - 1);
     return mc::interp_row(lev + (int64_t)k * mc::kKnots, x, x0, dx);
 """)
 _STAGED_AT = """    // Rows t and t + 1 in a shared double buffer, one barrier a step
@@ -383,24 +383,25 @@ _RECIPROCAL = [
      """                         float x0, const QuotientBy& dx) {
   float frac;
   const int i = knot_index(dx(x - x0), &frac);"""),
-    ("fused_engine.cu", "  float log_s0, rate, dt, sq_dt, x0, dx, dt_knot;",
+    ("processes.cuh", "  float log_s0, rate, dt, sq_dt, x0, dx, dt_knot;",
      "  float log_s0, rate, dt, sq_dt, x0;\n"
      "  mc::QuotientBy dx{1.0f}, dt_knot{1.0f};"),
-    ("fused_engine.cu", "    dx = leaves[4];",
+    ("processes.cuh", "    dx = leaves[4];",
      "    dx = mc::QuotientBy(leaves[4]);"),
-    ("fused_engine.cu", "    dt_knot = leaves[5];",
+    ("processes.cuh", "    dt_knot = leaves[5];",
      "    dt_knot = mc::QuotientBy(leaves[5]);"),
-    ("fused_engine.cu",
+    ("processes.cuh",
      "  float log_s0, rate, v0, kappa, theta, xi, rho, rho_perp, dt, x0, dx;",
      "  float log_s0, rate, v0, kappa, theta, xi, rho, rho_perp, dt, x0;\n"
      "  mc::QuotientBy dx{1.0f};"),
-    ("fused_engine.cu", "    dx = leaves[9];",
+    ("processes.cuh", "    dx = leaves[9];",
      "    dx = mc::QuotientBy(leaves[9]);"),
-    ("fused_engine.cu", "  float dt_knot;\n  __device__ SlvKnotsProc",
+    ("processes.cuh", "  float dt_knot;\n  __device__ SlvKnotsProc",
      "  mc::QuotientBy dt_knot;\n  __device__ SlvKnotsProc"),
 ]
 _WARP_X = ("sobol_warp.cuh", "    const uint32_t x = warp_sobol_bits(lane, "
-           "sv + (size_t)dim * kSobolBits);")
+           "sv + (size_t)dim * kSobolBits);\n    return shifted_normal(x, "
+           "keys[dim % kKeyChunk]);")
 SLV_SOBOL_VARIANTS = {
     # The surfaces' division by dx and dt_knot as a reciprocal taken once
     # and two fused multiply-add corrections (QuotientBy).
@@ -419,13 +420,14 @@ SLV_SOBOL_VARIANTS = {
     # Each lane's own loop over its Gray code's set bits again (the keys
     # stay staged).
     "loop walk": [
-        ("sobol_warp.cuh", "  WarpLane lane;\n",
-         "  WarpLane lane;\n  uint32_t id_;\n"),
+        ("sobol_warp.cuh", "  WarpLane lane;\n  uint32_t staged",
+         "  WarpLane lane;\n  uint32_t id_;\n  uint32_t staged"),
         ("sobol_warp.cuh",
          "threadIdx.x & (kWarp - 1)) {}",
          "threadIdx.x & (kWarp - 1)), id_(id) {}"),
         (*_WARP_X, "    const uint32_t x = sobol_bits(sv + (size_t)dim * "
-         "kSobolBits, id_);")],
+         "kSobolBits, id_);\n    return shifted_normal(x, keys[dim % "
+         "kKeyChunk]);")],
 }
 
 SLV_SOBOL_SASS = (
@@ -444,6 +446,165 @@ SLV_SOBOL_SASS = (
 )
 
 
+# ----------------------------------------------------------- fold_bridge
+
+def fold_bridge_rows(torch):
+    import chip_smoke as cs
+    from montecarlo_tpu_torch.cli.pricing import cli_process
+    from montecarlo_tpu_torch.engine import (ARITH_MEAN, GEO_MEAN,
+                                             RUNNING_MAX, RUNNING_MIN,
+                                             VanillaPayoff, autocallable,
+                                             barrier_survival_up,
+                                             cliquet_sum)
+    from montecarlo_tpu_torch.bench import bench_basket
+    from montecarlo_tpu_torch.ops import (fused_block_moments,
+                                          fused_functionals, fused_terminal)
+    from montecarlo_tpu_torch.processes import GBM
+    from montecarlo_tpu_torch.rng.sobol import (SobolBridgeKernelSampler,
+                                                SobolDeviceSampler)
+
+    s, n = 252, 1 << 20
+    dt = 1.0 / s
+    gbm = GBM.create(100.0, 0.03, 0.2, dt, device="cuda")
+    obs = 3 + cs.EXP32_FP  # a GBM step and its observation's exp32
+    sets = {
+        "{avg}": ({"avg": ARITH_MEAN}, obs + 1, 8),
+        "{avg,mx,mn}": ({"avg": ARITH_MEAN, "mx": RUNNING_MAX,
+                         "mn": RUNNING_MIN}, obs + 3, 16),
+        "{surv}": ({"surv": barrier_survival_up(126.0, 0.2, dt)},
+                   3 + 5 + cs.EXP32_FP, 8),
+        "{avg,geo,mx,mn} (generic)": (
+            {"avg": ARITH_MEAN, "geo": GEO_MEAN, "mx": RUNNING_MAX,
+             "mn": RUNNING_MIN}, obs + 4, 20)}
+
+    def k4(proc, paths, fns, **kw):
+        return lambda: fused_functionals(proc, paths, s, seed=0,
+                                         functionals=fns, **kw)
+    rows = []
+    for tag, (fns, step_fp, out) in sets.items():
+        rows.append(timed(f"K4 gbm {tag} {n}x{s}",
+                          cs.step_bound(n, s, step_fp=step_fp,
+                                        out_bytes=out, extra_fp=cs.EXP32_FP),
+                          k4(gbm, n, fns)))
+    avg = sets["{avg}"][0]
+    rows.append(timed(f"K4 gbm {{avg}} antithetic {n}x{s}",
+                      cs.step_bound(n, s, step_fp=obs + 1, out_bytes=8,
+                                    extra_fp=cs.EXP32_FP),
+                      k4(gbm, n, avg, antithetic=True)))
+    # The notes' shapes: 2^17 paths, 4 periods of 63 steps.
+    nn = 1 << 17
+    for tag, fn in (("autocall", autocallable(63, 100.0, 0.02, 0.03 * dt,
+                                              70.0, 100.0)),
+                    ("cliquet", cliquet_sum(63, -0.02, 0.03))):
+        rows.append(timed(f"K4 gbm {tag} {nn}x{s}",
+                          cs.step_bound(nn, s, step_fp=obs + 2, out_bytes=8,
+                                        extra_fp=cs.EXP32_FP),
+                          k4(gbm, nn, {tag: fn})))
+    hp = cs.heston(s)
+    rows.append(timed(f"K4 heston {{avg}} {n}x{s}",
+                      cs.step_bound(n, s, draws=2,
+                                    step_fp=(cs.HESTON_STEP_FP + cs.EXP32_FP
+                                             + 1),
+                                    out_bytes=8, extra_fp=cs.EXP32_FP),
+                      k4(hp, n, avg)))
+    garch = cs.garch_process(*cs.garch_history(1259))
+    mxmn = sets["{avg,mx,mn}"][0]
+    rows.append(timed(f"K4 garch 5y {{avg,mx,mn}} {n}x{s}",
+                      cs.garch_bound(n, s, out_bytes=16), k4(garch, n, mxmn)))
+    rows.append(timed(f"K4 basket A=5 {{avg}} {n}x{s}",
+                      cs.basket_bound(n, s, 5, observe=True, out_bytes=8),
+                      k4(bench_basket(5), n, avg)))
+    kou = cs.jump_process("kou", s)
+    rows.append(timed(f"K4 kou {{avg}} {n}x{s}",
+                      cs.jump_bound("kou", n, s, out_bytes=8,
+                                    observe_fp=cs.EXP32_FP + 1),
+                      k4(kou, n, avg)))
+    slv = cli_process(["--process", "slv", "--steps", str(s), "--paths",
+                       str(n)], "cuda")[0]
+    rows.append(timed(f"K4 slv {{avg}} {n}x{s}",
+                      cs.surface_bound("slv", slv, n, s, out_bytes=8,
+                                       observe_fp=cs.EXP32_FP + 1),
+                      k4(slv, n, avg)))
+    # The Threefry K2 and K3 on GBM at the main path's shapes.
+    pay = VanillaPayoff("call", 105.0)
+    n3 = 1 << 22
+    rows += [
+        timed(f"K2 gbm threefry {n}x{s}",
+              cs.step_bound(n, s, extra_fp=cs.EXP32_FP),
+              lambda: fused_terminal(gbm, n, s, seed=0)),
+        timed(f"K2 gbm threefry antithetic {n}x{s}",
+              cs.step_bound(n, s, extra_fp=cs.EXP32_FP),
+              lambda: fused_terminal(gbm, n, s, seed=0, antithetic=True)),
+        timed(f"K3 gbm call {n3}x{s}",
+              cs.step_bound(n3, s, out_bytes=8 / 128,
+                            extra_fp=cs.EXP32_FP + 8),
+              lambda: fused_block_moments(gbm, pay, n3, s, seed=0),
+              profile=True)]
+    # Sobol and bridge-Sobol draws at phase 9's shapes; the bridge also at
+    # 1024 steps, where its dims span four chunks of staged keys.
+    nq, nf = cs.QMC_CHUNK, cs.QMC_FUNC
+    dev = SobolDeviceSampler.create(s, 1, device="cuda")
+    bridge = SobolBridgeKernelSampler.create(s, device="cuda")
+    off = 5 * nq
+    for src, smp in (("sobol", dev), ("bridge", bridge)):
+        br = (smp.n_steps, smp.width) if src == "bridge" else None
+        rows += [
+            timed(f"K2 gbm {src} {nq}x{s}",
+                  cs.sobol_bound(torch, nq, s, extra_fp=cs.EXP32_FP,
+                                 bridge=br),
+                  lambda smp=smp: fused_terminal(gbm, nq, s, seed=1,
+                                                 sampler=smp)),
+            timed(f"K3 gbm {src} call {nq}x{s}",
+                  cs.sobol_bound(torch, nq, s, out_bytes=8 / 128,
+                                 extra_fp=cs.EXP32_FP + 8, path_offset=off,
+                                 bridge=br),
+                  lambda smp=smp: fused_block_moments(
+                      gbm, pay, nq, s, seed=1, sampler=smp, path_offset=off),
+                  profile=True),
+            timed(f"K4 gbm {{avg}} {src} {nf}x{s}",
+                  cs.sobol_bound(torch, nf, s, step_fp=obs + 1, out_bytes=8,
+                                 extra_fp=cs.EXP32_FP, bridge=br),
+                  lambda smp=smp: fused_functionals(
+                      gbm, nf, s, seed=1, sampler=smp, functionals=avg))]
+    s4 = 1024
+    g4 = GBM.create(100.0, 0.03, 0.2, 1.0 / s4, device="cuda")
+    b4 = SobolBridgeKernelSampler.create(s4, device="cuda")
+    rows.append(timed(f"K2 gbm bridge {nq}x{s4}",
+                      cs.sobol_bound(torch, nq, s4, extra_fp=cs.EXP32_FP,
+                                     bridge=(b4.n_steps, b4.width)),
+                      lambda: fused_terminal(g4, nq, s4, seed=1,
+                                             sampler=b4)))
+    return rows
+
+
+def _fold(*codes) -> str:
+    """The K4 kernel of a functional set: the generic kernel of a tree
+    whose fold is data (no ``Fold`` in its name), or the instantiation of
+    ``codes``."""
+    return "^(?!.*Fold)|FixedFoldIJ" + "".join(f"Li{c}E" for c in codes) \
+        + "EE"
+
+
+FOLD_BRIDGE_SASS = (
+    ("K4 gbm {avg}", ("fused_functional_kernel", "GbmProc",
+                      "ThreefryDrawsILb0E", _fold(0))),
+    ("K4 gbm {avg,mx,mn}", ("fused_functional_kernel", "GbmProc",
+                            "ThreefryDrawsILb0E", _fold(0, 2, 3))),
+    ("K4 gbm {surv}", ("fused_functional_kernel", "GbmProc",
+                       "ThreefryDrawsILb0E", _fold(4))),
+    ("K4 gbm {avg} sobol", ("fused_functional_kernel", "GbmProc",
+                            "SobolDraws", _fold(0))),
+    ("K4 gbm {avg} bridge", ("fused_functional_kernel", "GbmProc",
+                             "BridgeDraws", _fold(0))),
+    ("K2 gbm threefry", ("fused_kernel", "GbmProc", "StoreTerminal",
+                         "ThreefryDrawsILb0E")),
+    ("K2 gbm sobol", ("fused_kernel", "GbmProc", "StoreTerminal",
+                      "SobolDraws")),
+    ("K2 gbm bridge", ("fused_kernel", "GbmProc", "StoreTerminal",
+                       "BridgeDraws")),
+)
+
+
 class RowSet(NamedTuple):
     rows: Callable      # torch -> [Row]
     variants: dict      # name -> [(file, old, new)]
@@ -453,6 +614,7 @@ class RowSet(NamedTuple):
 ROW_SETS = {
     "basket": RowSet(basket_rows, BASKET_VARIANTS, BASKET_SASS),
     "slv_sobol": RowSet(slv_sobol_rows, SLV_SOBOL_VARIANTS, SLV_SOBOL_SASS),
+    "fold_bridge": RowSet(fold_bridge_rows, {}, FOLD_BRIDGE_SASS),
 }
 
 
@@ -491,14 +653,31 @@ def hottest_loop(ins):
     return [x for x in ins if best[0] <= x[0] <= best[1]]
 
 
-def hot_path(ins):
-    """The instructions one pass of the hottest loop issues when no slow
-    path runs: from its head to its back-edge, following every branch,
-    where a forward conditional branch is taken when the code it skips is
-    a slow path (at most 8 instructions around a CALL, the IEEE division's
-    and square root's, or code holding a loop of its own, the sine's and
-    cosine's argument reduction) and falls through otherwise."""
+def nested_loop(ins):
+    """The largest loop inside the hottest loop (the bridge's loop over the
+    levels it reloads at a step, each a Sobol normal), or []."""
     loop = hottest_loop(ins)
+    best = None
+    for addr, op, rest, _ in loop:
+        if op.startswith("BRA") and re.search(r"0x[0-9a-f]+", rest):
+            tgt = _target(rest)
+            if (loop[0][0] < tgt < addr < loop[-1][0]
+                    and (best is None or addr - tgt > best[1] - best[0])):
+                best = (tgt, addr)
+    if best is None:
+        return []
+    return [x for x in ins if best[0] <= x[0] <= best[1]]
+
+
+def hot_path(ins, loop=None):
+    """The instructions one pass of a loop (the hottest by default)
+    issues when no slow path runs: from its head to its back-edge,
+    following every branch, where a forward conditional branch is taken
+    when the code it skips is a slow path (at most 8 instructions around
+    a CALL, the IEEE division's and square root's, or code holding a loop
+    of its own, the sine's and cosine's argument reduction) and falls
+    through otherwise."""
+    loop = hottest_loop(ins) if loop is None else loop
     if not loop:
         return []
     back = loop[-1][0]
@@ -521,29 +700,37 @@ def hot_path(ins):
         k += 1
 
 
-def sass(label: str, out_dir: Path, so: Path, kernels) -> None:
-    """The SASS of ``kernels`` ((tag, patterns)) from library ``so``, to
-    ``out_dir``, and their opcode counts: the whole kernel, its hottest
-    loop and that loop's hot path, and the hot path's issue floor for one
-    pass per step pair over 2^22 paths (2^22 x 252: 126 passes)."""
+def sass_bodies(so: Path):
+    """[(mangled name, SASS text)] of every kernel in library ``so``."""
     from montecarlo_tpu_torch.ops import _build
 
     tool = Path(_build._nvcc()).with_name("cuobjdump")
     text = subprocess.run([str(tool), "-sass", str(so)],
                           capture_output=True, text=True, check=True).stdout
-    for body in re.split(r"\n\s*Function : ", text)[1:]:
-        name = body.split("\n", 1)[0].strip()
+    return [(body.split("\n", 1)[0].strip(), body)
+            for body in re.split(r"\n\s*Function : ", text)[1:]]
+
+
+def sass(label: str, out_dir: Path, so: Path, kernels) -> None:
+    """The SASS of ``kernels`` ((tag, patterns)) from library ``so``, to
+    ``out_dir``, and their opcode counts: the whole kernel, its hottest
+    loop and that loop's hot path, the hot path of the largest loop inside
+    it (the bridge's reloads), and the hot path's issue floor for one pass
+    per step pair over 2^22 paths (2^22 x 252: 126 passes)."""
+    for name, body in sass_bodies(so):
         for tag, pats in kernels:
             if not all(re.search(p, name) for p in pats):
                 continue
             ins = parse_sass(body)
             loop, hot = hottest_loop(ins), hot_path(ins)
+            inner = hot_path(ins, nested_loop(ins))
             fname = f"sass_{label}_{tag}.txt".replace(" ", "_")
             (out_dir / fname).write_text(body)
             floor = (1 << 22) / 32 * 126 * len(hot) / WARP_ISSUE_PER_S
             log({"label": label, "sass": tag, "function": name[-90:],
                  "instructions": len(ins), "loop_instructions": len(loop),
                  "hot_instructions": len(hot),
+                 "nested_hot_instructions": len(inner),
                  "hot_issue_floor_ms_2^22x252": round(1e3 * floor, 3),
                  "hot_ops": dict(Counter(o for _, o, _, _ in hot)
                                  .most_common()),
