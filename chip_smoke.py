@@ -34,8 +34,9 @@ CUDA kernels from ``montecarlo_tpu_torch/csrc`` and, in phases:
      knock-out plus knock-in adds up to the vanilla call of the same seed;
 6. the rough-Bergomi path (K5, the factor product, K6), launch counters
    reset just before and read just after: ``price --process rbergomi`` at
-   2^20 x 252 (twice: the same seed gives the same bits) and at the
-   default 100000 paths, each run raising K5's and K6's counts; ``--eta 0
+   2^20 x 252 (twice: the same seed gives the same bits), at the
+   default 100000 paths and at 99999 paths (K6's plain-load form), each
+   run raising K5's count and its K6 form's; ``--eta 0
    --rho 0 --rate 0`` against Black-Scholes with sigma = sqrt(xi0); the
    sampler's martingale test at 2^20 x 252; a 65536 x 16 run on the card
    against ``--device cpu``;
@@ -107,7 +108,8 @@ CUDA kernels from ``montecarlo_tpu_torch/csrc`` and, in phases:
    (2^18 - 37 for K2 and K4) x 17 steps with ids from 2^30 - 1000, at 252
    steps K2 antithetic and K4 plain, and the K0 gamma-table inversion on
    2^20 uniforms; each K2 timed (and held bitwise) at
-   2^20 x 252 beside its plain version and bound, K3 on Merton at two
+   2^20 x 252 beside its plain version, bound and SASS issue floor, K3 on
+   Merton at two
    2^22 x 252 tolerance chunks, K4 {avg} on Kou and VG at 2^20 x 252; then,
    launch counters reset just before and read just after each run: ``price
    --process <p> --paths 1048576 --steps 252`` for the eight (K2), gated
@@ -130,7 +132,8 @@ CUDA kernels from ``montecarlo_tpu_torch/csrc`` and, in phases:
    clock, twice at one seed (bitwise equal rows), once under the profiler,
    and at 2^14 x 64 against
    ``--device cpu`` within rtol 5e-4; K2 on each of the three timed at
-   2^20 x 252 beside its plain version and bound, K3 on the SLV at two
+   2^20 x 252 beside its plain version, bound and SASS issue floor, K3 on
+   the SLV at two
    2^22 x 252 tolerance chunks, K4 {avg} on the SLV at 2^20 x 252; then,
    launch counters reset just before and read just after each run:
    ``price --process cev --paths 1048576 --steps 252`` (K2, within 5
@@ -143,10 +146,12 @@ CUDA kernels from ``montecarlo_tpu_torch/csrc`` and, in phases:
    (K2 under each), each vanilla under its gate.
 
 Phase 3 also holds K5 (2^18 paths x {504, 756, 37} columns, ids wrapping
-past 2^32) and K6 (2^18 x {252, 17} steps, fed one joint matrix) against
-their plain versions bitwise; phase 4 times them at 2^20 x 504 and 2^20 x
-252, checks the factor product against a float64 product under a
-process-wide TF32 setting, and times the whole sampler at
+past 2^32) and K6 (2^18 and 2^18 - 3 paths, its ring and its plain-load
+form, x {252, 17} steps, fed one joint matrix) against their plain
+versions bitwise; phase 4 times them at 2^20 x 504 and at 2^20 and 2^20 -
+3 x 252 (K6 beside its SASS issue floor), checks the factor product
+against a float64 product under a process-wide TF32 setting, and times
+the whole sampler at
 ``experiments/rbergomi_bench.py``'s 2^17 x 256 and at the CLI's 2^20 x 252,
 each with its K5 / product / K6 split;
 
@@ -487,9 +492,11 @@ def rbergomi_model(steps, device="cuda", **kw):
 
 def phase_parity_rbergomi(torch, errs, n):
     """K5 at n x {504, 756, 37} columns (2T and 3T for T = 252, and an odd
-    count) and K6 at n x {252, 17} steps, fed the same joint matrix,
-    against their plain versions, bitwise; path ids wrap past 2^32."""
-    from montecarlo_tpu_torch.ops import (normal_matrix,
+    count), K6's Box-Muller sine and cosine on all 2^23 angles, and K6 at
+    n and n - 3 paths (its ring and its plain-load form, each seen to
+    launch) x {252, 17} steps, fed the same joint matrix, against their
+    plain versions, bitwise; path ids wrap past 2^32."""
+    from montecarlo_tpu_torch.ops import (PATH_KERNELS, normal_matrix,
                                           normal_matrix_reference,
                                           rbergomi_terminal,
                                           rbergomi_terminal_reference)
@@ -503,21 +510,35 @@ def phase_parity_rbergomi(torch, errs, n):
             normal_matrix_reference(21, 3, n, cols, **kw), BITWISE)
         errs["normal_matrix"] = max(errs.get("normal_matrix", 0.0), max_abs)
         torch.cuda.synchronize()
-    for steps in (252, 17):
-        model = rbergomi_model(steps)
-        z = normal_matrix(21, 3, n, 2 * steps, path_offset=WRAP,
-                          device="cuda")
-        args = (factor_product(model.chol, z), model.tpow(),
-                model.kernel_params(), 21, 3)
-        kw = dict(n_steps=steps, path_offset=WRAP)
-        _, max_abs, _ = compare(f"K6 {n}x{steps} offset 2^32-500",
-                                rbergomi_terminal(*args, **kw),
-                                rbergomi_terminal_reference(*args, **kw),
-                                BITWISE)
-        errs["rbergomi_terminal"] = max(errs.get("rbergomi_terminal", 0.0),
-                                        max_abs)
-        del z, args
-        torch.cuda.synchronize()
+    from montecarlo_tpu_torch.ops.rbergomi_kernel import (
+        boxmuller_angles, boxmuller_angles_reference)
+
+    # K6's Box-Muller takes sine and cosine from one sincosf: every angle.
+    same = bool(torch.equal(boxmuller_angles("cuda"),
+                            boxmuller_angles_reference("cuda")))
+    log(f"  K6 Box-Muller sin and cos, all 2^23 angles: bitwise {same}")
+    if not same:
+        raise AssertionError("K6's sincosf differs from sin and cos")
+    for key, paths in (("rbergomi_terminal", n),
+                       ("rbergomi_terminal_unaligned", n - 3)):
+        for steps in (252, 17):
+            model = rbergomi_model(steps)
+            z = normal_matrix(21, 3, paths, 2 * steps, path_offset=WRAP,
+                              device="cuda")
+            args = (factor_product(model.chol, z), model.tpow(),
+                    model.kernel_params(), 21, 3)
+            kw = dict(n_steps=steps, path_offset=WRAP)
+            before = PATH_KERNELS[key].launches
+            got = rbergomi_terminal(*args, **kw)
+            if PATH_KERNELS[key].launches != before + 1:
+                raise AssertionError(f"K6 {paths}x{steps}: {key} did not "
+                                     "launch")
+            _, max_abs, _ = compare(
+                f"K6 {paths}x{steps} offset 2^32-500 ({key})", got,
+                rbergomi_terminal_reference(*args, **kw), BITWISE)
+            errs[key] = max(errs.get(key, 0.0), max_abs)
+            del z, args, got
+            torch.cuda.synchronize()
 
 
 def phase_main_shapes(torch, errs):
@@ -670,8 +691,10 @@ def main_shapes_slice2(torch, check):
 
 
 def main_shapes_rbergomi(torch, check):
-    """K5 at the CLI's 2^20 x 504 and K6 at 2^20 x 252, fed the CLI's joint
-    matrix, each against its plain version and both timed."""
+    """K5 at the CLI's 2^20 x 504 and K6 at 2^20 x 252 (its ring form) and
+    at 2^20 - 3 x 252 (its plain-load form), fed the CLI's joint matrix,
+    each against its plain version and both timed, K6 beside its SASS
+    issue floor."""
     from montecarlo_tpu_torch.ops import (normal_matrix,
                                           normal_matrix_reference,
                                           rbergomi_terminal,
@@ -679,7 +702,6 @@ def main_shapes_rbergomi(torch, check):
     from montecarlo_tpu_torch.precision import factor_product
 
     n, steps = 1 << 20, 252
-    pairs = (steps + 1) // 2
     # K5: one cipher call per column pair, 4 bytes out per entry.
     check("normal_matrix", f"K5 {n}x{2 * steps}",
           lambda: normal_matrix(0, 0, n, 2 * steps, device="cuda"),
@@ -689,18 +711,18 @@ def main_shapes_rbergomi(torch, check):
           bnd=bound(4 * n * 2 * steps, int32=n * steps * CIPHER_INT,
                     fp32=n * steps * BOXMULLER_FP))
     model = rbergomi_model(steps)
-    joint = factor_product(model.chol, normal_matrix(0, 0, n, 2 * steps,
-                                                     device="cuda"))
-    args = (joint, model.tpow(), model.kernel_params(), 0, 0)
-    # K6: reads the (2T, N) joint matrix, one cipher call per step pair,
-    # per step an exp32 and 11 more float32 operations.
-    check("rbergomi_terminal", f"K6 {n}x{steps}",
-          lambda: rbergomi_terminal(*args, n_steps=steps),
-          lambda: rbergomi_terminal_reference(*args, n_steps=steps),
-          10, BITWISE,
-          bnd=bound(4 * n * (2 * steps + 1), int32=n * pairs * CIPHER_INT,
-                    fp32=n * (pairs * BOXMULLER_FP
-                              + steps * (11 + EXP32_FP))))
+    # K6's ring form at the CLI's N, its plain-load form at an N % 4 != 0.
+    for key, paths in (("rbergomi_terminal", n),
+                       ("rbergomi_terminal_unaligned", n - 3)):
+        joint = factor_product(model.chol, normal_matrix(
+            0, 0, paths, 2 * steps, device="cuda"))
+        args = (joint, model.tpow(), model.kernel_params(), 0, 0)
+        check(key, f"K6 {paths}x{steps}",
+              lambda: rbergomi_terminal(*args, n_steps=steps),
+              lambda: rbergomi_terminal_reference(*args, n_steps=steps),
+              10, BITWISE, bnd=k6_bound(paths, steps),
+              floor=k6_floor(paths, steps))
+        del joint, args
 
 
 def phase_factor_precision(torch):
@@ -912,11 +934,12 @@ def phase_path_dependent(torch, vanilla):
     return counts
 
 
-def run_rbergomi_cli(argv):
-    """One CLI run of the rough-Bergomi path; it must launch K5 and K6."""
+def run_rbergomi_cli(argv, k6="rbergomi_terminal"):
+    """One CLI run of the rough-Bergomi path; it must launch K5 and K6's
+    form ``k6``."""
     from montecarlo_tpu_torch.ops import launch_counts
 
-    keys = ("normal_matrix", "rbergomi_terminal")
+    keys = ("normal_matrix", k6)
     before = launch_counts()
     out, wall = run_cli(["price", "--process", "rbergomi", *argv])
     after = launch_counts()
@@ -942,6 +965,9 @@ def phase_rbergomi(torch):
     first, wall = run_rbergomi_cli(full)
     again, _ = run_rbergomi_cli(full)
     default, _ = run_rbergomi_cli([])
+    # A path count that is not a multiple of 4: K6's plain-load form.
+    ragged, _ = run_rbergomi_cli(["--paths", "99999"],
+                                 "rbergomi_terminal_unaligned")
     flat, _ = run_rbergomi_cli([*full, "--eta", "0", "--rho", "0",
                                 "--rate", "0"])
     bs = black_scholes_call(100.0, 105.0, 0.0, math.sqrt(0.04), 1.0)
@@ -963,6 +989,9 @@ def phase_rbergomi(torch):
         "martingale": abs(mean - 100.0) < 5 * se,
         "card vs cpu 65536x16": rel <= RBERGOMI_CPU_RTOL,
         "default --paths 100000": default["n_paths"] == 100000,
+        "--paths 99999 within 5 std-err of the default's price":
+            abs(ragged["price"] - default["price"])
+            < 5 * math.hypot(ragged["std_err"], default["std_err"]),
     }
     log(f"  eta = 0: {flat['price']:.6f} +- {flat['std_err']:.2e} vs "
         f"Black-Scholes {bs:.6f}; mean S_T {mean:.6f} +- {se:.2e} vs 100; "
@@ -1026,20 +1055,25 @@ def issue_floor(patterns, n, passes, loads=0):
     """The SASS issue floor (ms) of the kernel whose mangled name matches
     every regular expression of ``patterns``: per warp of the n paths,
     ``passes`` passes of its time loop's hot path (a step pair under
-    Threefry draws, a step under the Sobol sources) and ``loads`` of the
-    hot path of the largest loop inside it (the bridge's T reloads, each
-    a Sobol normal), at the card's warp issue rate.  The hot path is one
-    pass when no slow path runs (tools/rows.py); a lower bound of the
-    kernel's time where the bound's operation counts leave out
-    instructions (Box-Muller, divisions, control)."""
+    Threefry draws, a step under the Sobol sources; a callable of the
+    mangled name where the symbol says, as K6's ring names its stage
+    depth) and ``loads`` of the hot path of the largest loop inside it
+    (the bridge's T reloads, each a Sobol normal), at the card's warp
+    issue rate.  The hot path is one pass when no slow path runs
+    (tools/rows.py); a lower bound of the kernel's time where the bound's
+    operation counts leave out instructions (Box-Muller, divisions,
+    control)."""
     import re
 
     rows = _rows_tool()
-    found = [body for name, body in _sass_bodies()
+    found = [(name, body) for name, body in _sass_bodies()
              if all(re.search(p, name) for p in patterns)]
     if len(found) != 1:
         raise AssertionError(f"{len(found)} kernels match {patterns}")
-    ins = rows.parse_sass(found[0])
+    name, body = found[0]
+    if callable(passes):
+        passes = passes(name)
+    ins = rows.parse_sass(body)
     hot = len(rows.hot_path(ins))
     nested = len(rows.hot_path(ins, rows.nested_loop(ins))) if loads else 0
     warps = -(-n // 32)
@@ -1062,6 +1096,26 @@ def step_bound(n, steps, draws=1, step_fp=3, out_bytes=4, extra_fp=0):
     calls = n * pairs * draws
     return bound(n * out_bytes, int32=calls * CIPHER_INT,
                  fp32=calls * BOXMULLER_FP + n * (steps * step_fp + extra_fp))
+
+
+def k6_bound(n, steps):
+    """K6: reads the (2T, N) joint matrix and writes N prices; a cipher
+    call a step pair, per step an exp32 and 11 more float32 operations."""
+    pairs = (steps + 1) // 2
+    return bound(4 * n * (2 * steps + 1), int32=n * pairs * CIPHER_INT,
+                 fp32=n * (pairs * BOXMULLER_FP + steps * (11 + EXP32_FP)))
+
+
+def k6_floor(n, steps):
+    """K6's SASS issue floor at n x steps, for the form the wrapper takes
+    there: the ring's time loop passes a stage of K steps, the plain-load
+    form's a step pair."""
+    from montecarlo_tpu_torch.ops.rbergomi_kernel import ring_aligned
+
+    rows = _rows_tool()
+    pats = (("rbergomi_ring_kernel",) if ring_aligned(n, 0)
+            else ("rbergomi_terminal_kernel",))
+    return issue_floor(pats, n, lambda name: rows.passes(name, steps))
 
 
 def basket_bound(n, steps, a_n, observe=False, out_bytes=4, extra_fp=0):
@@ -1091,11 +1145,6 @@ def k7_bound(n, steps, a_n):
     """K7: its operations over their peak rates; 4 bytes out per path."""
     int32, fp = k7_ops(n, steps, a_n)
     return bound(4 * n, int32=int32, fp32=fp)
-
-
-# Warp instructions an H100 SXM issues per second: 4 schedulers per SM x
-# 132 SMs x the 1.98 GHz boost clock.
-WARP_ISSUE_PER_S = 4 * 132 * 1.98e9
 
 
 def k7_issue_floor(n, steps, a_n):
@@ -2290,6 +2339,19 @@ JUMP_COST = {
 #: The phase's shapes: K2 at the CLI's 2^20 x 252, K3 at
 #: price_to_tolerance's 2^22 x 252 chunks, K4 {avg} at 2^20 x 252.
 JUMP_PATHS, JUMP_STEPS, JUMP_TOL_CHUNK = 1 << 20, 252, 1 << 22
+#: Each process's functor in csrc/processes.cuh.
+FUNCTORS = {"merton": "MertonProc", "kou": "KouProc", "bates": "BatesProc",
+            "nig": "NigProc", "heston-qe": "HestonQEProc",
+            "bates-qe": "BatesQEProc", "vg": "VgProc", "sabr": "SabrProc",
+            "local_vol": "LocalVolProc", "slv": "SlvProc",
+            "slv_knots": "SlvKnotsProc"}
+
+
+def k2_floor(kind, n, steps):
+    """The SASS issue floor of K2 (plain Threefry draws) on ``kind``'s
+    functor at n x steps: a pass of its time loop a step pair."""
+    return issue_floor(("fused_kernel", FUNCTORS[kind], "StoreTerminal",
+                        "ThreefryDrawsILb0E"), n, (steps + 1) // 2)
 
 
 def jump_bound(kind, n, steps, out_bytes=4, extra_fp=0, observe_fp=0):
@@ -2432,7 +2494,8 @@ def phase_jump_shapes(torch, errs, times):
         timed_check(times, errs, key, f"K2 {kind} {n}x{s}",
                     lambda: fused_terminal(proc, n, s, seed=0),
                     lambda: fused_terminal_reference(proc, n, s, seed=0),
-                    10, BITWISE, bnd=jump_bound(kind, n, s))
+                    10, BITWISE, bnd=jump_bound(kind, n, s),
+                    floor=k2_floor(kind, n, s))
         rates[kind] = n * s / (times[key]["ms"] * 1e-3)
     merton = jump_process("merton", s)
     pay = VanillaPayoff("call", 105.0)
@@ -2801,7 +2864,8 @@ def phase_surface_shapes(torch, errs, times):
                     f"K2 {kind} {n}x{s}",
                     lambda: fused_terminal(proc, n, s, seed=0),
                     lambda: fused_terminal_reference(proc, n, s, seed=0),
-                    10, BITWISE, bnd=surface_bound(kind, proc, n, s))
+                    10, BITWISE, bnd=surface_bound(kind, proc, n, s),
+                    floor=k2_floor(kind, n, s))
     slv = procs["slv"]
     pay = VanillaPayoff("call", 105.0)
     nt = SURFACE_TOL_CHUNK
@@ -2947,6 +3011,8 @@ KERNELS = [
     ("fused_functionals_fixed", "fused_k4.cu", "fused_engine.py:390"),
     ("normal_matrix", "rng_kernel.cu", "rng_kernel.py:67"),
     ("rbergomi_terminal", "rbergomi_kernel.cu", "rbergomi_kernel.py:73"),
+    ("rbergomi_terminal_unaligned", "rbergomi_kernel.cu",
+     "rbergomi_kernel.py:73"),
     ("packed_basket_terminal", "basket_kernel.cu", "basket_kernel.py:131"),
     ("fused_terminal_basket", "fused_basket.cu", "fused_engine.py:231"),
     ("fused_block_moments_basket", "fused_basket_k3.cu",
@@ -3023,7 +3089,8 @@ def main() -> int:
             counts[name] = path_counts[name]
         log("phase 6: the rough-Bergomi path through the CLI")
         rb = phase_rbergomi(torch)
-        for k in ("normal_matrix", "rbergomi_terminal"):
+        for k in ("normal_matrix", "rbergomi_terminal",
+                  "rbergomi_terminal_unaligned"):
             counts[k] = rb[k]
         log("phase 7: the multi-asset path (K7; K2-K4 on the basket)")
         t7 = time.perf_counter()

@@ -13,6 +13,8 @@ version for a CPU one; nothing falls back from one to the other.
   _bridge]``; the basket's in csrc/fused_basket*.cu)
 - K5 ``normal_matrix``        — csrc/rng_kernel.cu
 - K6 ``rbergomi_terminal``    — csrc/rbergomi_kernel.cu
+  (its ring form, and its plain-load form for n_paths % 4 != 0 counted
+  apart as ``rbergomi_terminal_unaligned``)
 - K7 ``packed_basket_terminal`` — csrc/basket_kernel.cu
 - K0 (device math in every kernel) — csrc/rng.cuh, checked on the card
   through ``rng_check`` (csrc/rng_check.cu)
@@ -50,6 +52,7 @@ from montecarlo_tpu_torch.ops.rng_kernel import (  # noqa: F401
 )
 from montecarlo_tpu_torch.ops.rbergomi_kernel import (  # noqa: F401
     K6,
+    K6_UNALIGNED,
     rbergomi_terminal,
     rbergomi_terminal_reference,
 )
@@ -63,6 +66,7 @@ from montecarlo_tpu_torch.ops.basket_kernel import (  # noqa: F401
 PATH_KERNELS = {"gbm_terminal": K1, "fused_terminal": K2,
                 "fused_block_moments": K3, "fused_functionals": K4,
                 "normal_matrix": K5, "rbergomi_terminal": K6,
+                "rbergomi_terminal_unaligned": K6_UNALIGNED,
                 "packed_basket_terminal": K7,
                 "fused_terminal_sobol": K2_SOBOL,
                 "fused_block_moments_sobol": K3_SOBOL,

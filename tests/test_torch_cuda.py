@@ -66,6 +66,8 @@ from montecarlo_tpu_torch.ops import (PATH_KERNELS, fused_block_moments,
                                       packed_basket_terminal_reference,
                                       rbergomi_terminal,
                                       rbergomi_terminal_reference)
+from montecarlo_tpu_torch.ops.rbergomi_kernel import (
+    boxmuller_angles, boxmuller_angles_reference)
 from montecarlo_tpu_torch.processes import (GBM, GARCHBootstrap, Heston,
                                             RoughBergomi, rbergomi_simulate)
 from montecarlo_tpu_torch.precision import factor_product
@@ -323,21 +325,57 @@ def test_cuda_k5_bitwise_equal_plain(cuda, n_paths, n_cols):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n_paths", [1000, 4096 * 3])
-@pytest.mark.parametrize("n_steps", [1, 16, 17])
+@pytest.mark.parametrize("n_paths", [1000, 1001, 4096 * 3, 4097])
+@pytest.mark.parametrize("n_steps", [1, 2, 16, 17, 252, 300])
 def test_cuda_k6_bitwise_equal_plain(cuda, n_paths, n_steps):
+    """Both forms: the ring for n_paths % 4 == 0 (T not a multiple of its
+    stage, an odd T's last half pair), the plain loads otherwise."""
     model = _rbergomi(n_steps, cuda)
     z = normal_matrix(5, 1, n_paths, 2 * n_steps, path_offset=WRAP,
                       device=cuda)
     args = (factor_product(model.chol, z), model.tpow(),
             model.kernel_params(), 5, 1)
     kw = dict(n_steps=n_steps, path_offset=WRAP)
-    k6 = PATH_KERNELS["rbergomi_terminal"].launches
+    form = ("rbergomi_terminal" if n_paths % 4 == 0
+            else "rbergomi_terminal_unaligned")
+    before = {k: PATH_KERNELS[k].launches
+              for k in ("rbergomi_terminal", "rbergomi_terminal_unaligned")}
     got = rbergomi_terminal(*args, **kw)
-    assert PATH_KERNELS["rbergomi_terminal"].launches == k6 + 1
+    for k, n in before.items():
+        assert PATH_KERNELS[k].launches == n + (k == form), k
     want = rbergomi_terminal_reference(*args, **kw)
     assert torch.isfinite(got).all()
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_k6_boxmuller_angles_bitwise_equal_plain(cuda):
+    """K6's one sincosf gives torch.sin's and torch.cos's bits on every
+    one of the 2^23 angles Box-Muller takes from a word."""
+    got = boxmuller_angles(cuda)
+    want = boxmuller_angles_reference(cuda)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_k6_misaligned_matrix_takes_the_plain_loads(cuda):
+    """A contiguous matrix that starts 4 bytes past 16 (n_paths % 4 == 0):
+    its rows are not on 16 bytes, so the plain-load form runs, bitwise."""
+    n_steps, n_paths = 17, 4096
+    model = _rbergomi(n_steps, cuda)
+    z = normal_matrix(5, 1, n_paths, 2 * n_steps, device=cuda)
+    flat = torch.empty(2 * n_steps * n_paths + 1, device=cuda)
+    joint = flat[1:].view(2 * n_steps, n_paths)
+    joint.copy_(factor_product(model.chol, z))
+    assert joint.data_ptr() % 16 == 4
+    args = (joint, model.tpow(), model.kernel_params(), 5, 1)
+    ring = PATH_KERNELS["rbergomi_terminal"].launches
+    plain = PATH_KERNELS["rbergomi_terminal_unaligned"].launches
+    got = rbergomi_terminal(*args, n_steps=n_steps)
+    assert PATH_KERNELS["rbergomi_terminal"].launches == ring
+    assert PATH_KERNELS["rbergomi_terminal_unaligned"].launches == plain + 1
+    assert torch.equal(got, rbergomi_terminal_reference(*args,
+                                                        n_steps=n_steps))
 
 
 @pytest.mark.cuda

@@ -44,7 +44,9 @@ from montecarlo_tpu_torch.ops import (normal_matrix,
 from montecarlo_tpu_torch.processes import (RoughBergomi, rbergomi_simulate,
                                             volterra_joint_chol)
 from montecarlo_tpu_torch.precision import factor_product
-from montecarlo_tpu_torch.rng.normal import uniform_from_bits
+from montecarlo_tpu_torch.ops.rbergomi_kernel import (
+    N_ANGLES, boxmuller_angles, boxmuller_angles_reference)
+from montecarlo_tpu_torch.rng.normal import boxmuller_pair, uniform_from_bits
 from montecarlo_tpu_torch.rng.threefry import key_from_seed, threefry2x32
 
 torch.set_num_threads(1)
@@ -149,6 +151,26 @@ def test_rbergomi_terminal_plain_matches_pallas_interpret():
                             path_offset=4096)
     assert got.shape == (n,) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, rtol=2e-6)
+
+
+def test_boxmuller_angles_reference_is_boxmuller_pair():
+    """The plain version of K6's angle check takes Box-Muller's sine and
+    cosine exactly as ``boxmuller_pair`` does: its normals are r times
+    them, bitwise, at words of every angle index's extremes and between;
+    the check's wrapper runs it for a CPU device."""
+    ref = boxmuller_angles_reference("cpu")
+    assert ref.shape == (2, N_ANGLES)
+    assert torch.equal(boxmuller_angles("cpu"), ref)
+    rng = np.random.default_rng(13)
+    m = np.concatenate([[0, 1, N_ANGLES - 1],
+                        rng.integers(0, N_ANGLES, 4096)])
+    b1 = torch.from_numpy((m << 9) + rng.integers(0, 512, m.size))
+    b0 = torch.from_numpy(rng.integers(0, 2**32, m.size))
+    z0, z1 = boxmuller_pair(b0, b1)
+    r = torch.sqrt(-2.0 * torch.log(uniform_from_bits(b0)))
+    idx = torch.from_numpy(m)
+    assert torch.equal(z0, r * ref[1, idx])
+    assert torch.equal(z1, r * ref[0, idx])
 
 
 def test_rbergomi_terminal_rejects_bad_shapes():

@@ -1,4 +1,4 @@
-"""Rows of the port's K2-K4 (and K7) at the main paths' shapes, timed on the
+"""Rows of the port's K2-K7 at the main paths' shapes, timed on the
 card: the rows ROADMAP ranks the redesigns by, for comparing two checkouts
 (run it from the root of each, in turns, in one call) and variants of the
 kernels' sources.
@@ -22,6 +22,11 @@ Row sets (``ROW_SETS``):
   252, and the Threefry K2 on GBM at 2^18 x 252 beside them; first, on the
   checkout's own library, the Sobol K2 as ``chip_smoke.py`` times it (one
   warm-up call, then 10, on a card left idle by the builds).
+- ``rbergomi``: K6 at the CLI's 2^20 x 252, at
+  ``experiments/rbergomi_bench.py``'s 2^17 x 256 (its model) and at an
+  unaligned 2^20 - 3 x 252 (the plain-load form), each on the joint
+  matrix of K5's draws and the factor product; the sampler's K5, product
+  and whole ``rbergomi_simulate`` at 2^20 x 252 and 2^17 x 256.
 
 A kernel row is timed by CUDA events after a quarter second of warm-up,
 then ``--reps`` calls, beside its bound from ``chip_smoke``'s bound
@@ -35,7 +40,9 @@ the built library, and from each variant's, to ``--out-dir`` and prints
 each kernel's opcode counts: in the whole kernel, in its hottest loop (the
 span of its largest backward branch) and on that loop's hot path, with the
 hot path's issue floor (warp instructions over 4 schedulers x 132 SMs x
-1.98 GHz) for one pass per step pair over 2^22 x 252.
+1.98 GHz) at the set's shape (2^22 x 252, K6's 2^20 x 252): one pass per
+step pair, or per stage of K steps where the kernel's symbol names a
+stage loop (K6's ring, ``rbergomi_ring_kernel<K, S>``).
 
 ``--variants`` rebuilds the library from edited copies of the sources (the
 set's ``variants``) and times the set's rows on each, the rows of the
@@ -43,8 +50,9 @@ checkout's own library left out.  ``--rounds`` repeats the rows (and the
 variants').  Needs one CUDA card and nvcc; run from the root of a
 checkout:
 
-    python3 tools/rows.py SET [--label L] [--reps N] [--rounds N] [--sass]
-                          [--variants [NAMES]] [--out-dir DIR]
+    python3 tools/rows.py SET [--label L] [--reps N] [--rounds N]
+                          [--sass | --sass-only] [--variants [NAMES]]
+                          [--out-dir DIR]
 """
 
 from __future__ import annotations
@@ -605,16 +613,112 @@ FOLD_BRIDGE_SASS = (
 )
 
 
+# ------------------------------------------------------------- rbergomi
+
+# experiments/rbergomi_bench.py's model (its T = 1).
+BENCH_MODEL = dict(xi0=0.235**2, eta=1.9, rho=-0.9, h=0.07)
+
+
+def rbergomi_rows(torch):
+    import chip_smoke as cs
+    from montecarlo_tpu_torch.ops import normal_matrix, rbergomi_terminal
+    from montecarlo_tpu_torch.precision import factor_product
+    from montecarlo_tpu_torch.processes import rbergomi_simulate
+
+    rows = []
+    for n, s, kw in ((1 << 20, 252, {}), (1 << 17, 256, BENCH_MODEL),
+                     ((1 << 20) - 3, 252, {})):
+        model = cs.rbergomi_model(s, **kw)
+        z = normal_matrix(0, 0, n, 2 * s, device="cuda")
+        args = (factor_product(model.chol, z), model.tpow(),
+                model.kernel_params(), 0, 0)
+        del z
+        pairs = (s + 1) // 2
+        # chip_smoke.py's K6 bound: the joint matrix read and the prices
+        # written; a cipher call a pair, an exp32 and 11 float32
+        # operations a step.
+        bnd = cs.bound(4 * n * (2 * s + 1), int32=n * pairs * cs.CIPHER_INT,
+                       fp32=n * (pairs * cs.BOXMULLER_FP
+                                 + s * (11 + cs.EXP32_FP)))
+        rows.append(timed(f"K6 {n}x{s}", bnd,
+                          lambda a=args, s=s: rbergomi_terminal(
+                              *a, n_steps=s)))
+    for n, s, kw in ((1 << 20, 252, {}), (1 << 17, 256, BENCH_MODEL)):
+        model = cs.rbergomi_model(s, **kw)
+        pairs = s  # K5: a cipher call per column pair of its 2T columns
+        rows.append(timed(
+            f"K5 {n}x{2 * s}",
+            cs.bound(4 * n * 2 * s, int32=n * pairs * cs.CIPHER_INT,
+                     fp32=n * pairs * cs.BOXMULLER_FP),
+            lambda n=n, s=s: normal_matrix(0, 0, n, 2 * s, device="cuda")))
+        z = normal_matrix(0, 0, n, 2 * s, device="cuda")
+        # The product: 2 (2T)^2 N float32 operations at 67 TFLOP/s.
+        rows.append(timed(f"product {2 * s}x{2 * s} @ {2 * s}x{n}",
+                          cs.bound(4 * n * 4 * s, fp32=2 * (2 * s) ** 2 * n),
+                          lambda m=model, z=z: factor_product(m.chol, z)))
+
+        def sampler(torch, reps, m=model, n=n):
+            ms, out = cuda_ms(torch, lambda: rbergomi_simulate(m, n, seed=0),
+                              reps)
+            return {"ms": round(ms, 4), "digest": digest(out)}
+        rows.append(Row(f"sampler {n}x{s}", sampler))
+    return rows
+
+
+_RING = ("rbergomi_ring.cuh", "constexpr int kStageSteps = 4;  // K: steps a "
+         "stage holds\nconstexpr int kStages = 3;      // S: slots of a warp's "
+         "ring\n")
+
+
+def _ring_shape(k, s):
+    return [(*_RING, f"constexpr int kStageSteps = {k};\nconstexpr int "
+             f"kStages = {s};\n")]
+
+
+RBERGOMI_VARIANTS = {
+    # (a): every shape on the plain-load form, the next pair's four values
+    # loaded into registers before the current pair runs.
+    "register double buffer": [
+        ("rbergomi_kernel.cu", "  if (n_paths % 4 != 0 || (uintptr_t)joint "
+         "% 16 != 0) {\n    return (int)cudaErrorInvalidValue;\n  }\n",
+         "  return mc_rbergomi_terminal_unaligned(out, joint, tpow, params, "
+         "n_paths, n_steps, path_offset, k0, k1, stream);\n"),
+        ("rbergomi_kernel.cu", "// The ring form.  Refuses",
+         "extern \"C\" int mc_rbergomi_terminal_unaligned(\n    float*, "
+         "const float*, const float*, const float*, int64_t, int64_t, "
+         "uint32_t,\n    uint32_t, uint32_t, void*);\n\n"
+         "// The ring form.  Refuses")],
+    # Box-Muller's sine and cosine from sinf and cosf, a range reduction
+    # each (rng.cuh's boxmuller_pair, the parent's).
+    "sinf and cosf": [("rbergomi_kernel.cu",
+                       "  boxmuller_sincos(b0, b1, z0, z1);\n}",
+                       "  mc::boxmuller_pair(b0, b1, z0, z1);\n}")],
+    # (b) at other stage depths K and ring slots S.
+    "ring K=2 S=3": _ring_shape(2, 3),
+    "ring K=4 S=2": _ring_shape(4, 2),
+    "ring K=8 S=2": _ring_shape(8, 2),
+    "ring K=8 S=3": _ring_shape(8, 3),
+}
+
+RBERGOMI_SASS = (
+    ("K6", ("rbergomi_terminal_kernel",)),
+    ("K6 ring", ("rbergomi_ring_kernel",)),
+)
+
+
 class RowSet(NamedTuple):
     rows: Callable      # torch -> [Row]
     variants: dict      # name -> [(file, old, new)]
     sass: tuple         # (tag, patterns)
+    floor_shape: tuple = (1 << 22, 252)  # (paths, steps) of the SASS floor
 
 
 ROW_SETS = {
     "basket": RowSet(basket_rows, BASKET_VARIANTS, BASKET_SASS),
     "slv_sobol": RowSet(slv_sobol_rows, SLV_SOBOL_VARIANTS, SLV_SOBOL_SASS),
     "fold_bridge": RowSet(fold_bridge_rows, {}, FOLD_BRIDGE_SASS),
+    "rbergomi": RowSet(rbergomi_rows, RBERGOMI_VARIANTS, RBERGOMI_SASS,
+                       (1 << 20, 252)),
 }
 
 
@@ -700,6 +804,18 @@ def hot_path(ins, loop=None):
         k += 1
 
 
+def stage_steps(name: str) -> int:
+    """The steps one pass of a kernel's time loop takes: K in K6's ring
+    (``rbergomi_ring_kernel<K, S>``), else a step pair."""
+    m = re.search(r"rbergomi_ring_kernelILi(\d+)E", name)
+    return int(m.group(1)) if m else 2
+
+
+def passes(name: str, steps: int) -> int:
+    """Passes of the time loop of kernel ``name`` over ``steps`` steps."""
+    return -(-steps // stage_steps(name))
+
+
 def sass_bodies(so: Path):
     """[(mangled name, SASS text)] of every kernel in library ``so``."""
     from montecarlo_tpu_torch.ops import _build
@@ -711,12 +827,15 @@ def sass_bodies(so: Path):
             for body in re.split(r"\n\s*Function : ", text)[1:]]
 
 
-def sass(label: str, out_dir: Path, so: Path, kernels) -> None:
+def sass(label: str, out_dir: Path, so: Path, kernels,
+         shape=(1 << 22, 252)) -> None:
     """The SASS of ``kernels`` ((tag, patterns)) from library ``so``, to
     ``out_dir``, and their opcode counts: the whole kernel, its hottest
-    loop and that loop's hot path, the hot path of the largest loop inside
-    it (the bridge's reloads), and the hot path's issue floor for one pass
-    per step pair over 2^22 paths (2^22 x 252: 126 passes)."""
+    loop and that loop's hot path (and per step pair), the hot path of the
+    largest loop inside it (the bridge's reloads), and the hot path's
+    issue floor at ``shape`` = (paths, steps): a pass per warp per step
+    pair, or per stage of K6's ring."""
+    n, steps = shape
     for name, body in sass_bodies(so):
         for tag, pats in kernels:
             if not all(re.search(p, name) for p in pats):
@@ -726,12 +845,15 @@ def sass(label: str, out_dir: Path, so: Path, kernels) -> None:
             inner = hot_path(ins, nested_loop(ins))
             fname = f"sass_{label}_{tag}.txt".replace(" ", "_")
             (out_dir / fname).write_text(body)
-            floor = (1 << 22) / 32 * 126 * len(hot) / WARP_ISSUE_PER_S
+            floor = (-(-n // 32) * passes(name, steps) * len(hot)
+                     / WARP_ISSUE_PER_S)
             log({"label": label, "sass": tag, "function": name[-90:],
                  "instructions": len(ins), "loop_instructions": len(loop),
                  "hot_instructions": len(hot),
+                 "hot_per_pair": round(2 * len(hot) / stage_steps(name), 1),
                  "nested_hot_instructions": len(inner),
-                 "hot_issue_floor_ms_2^22x252": round(1e3 * floor, 3),
+                 "floor_shape": f"{n}x{steps}",
+                 "hot_issue_floor_ms": round(1e3 * floor, 4),
                  "hot_ops": dict(Counter(o for _, o, _, _ in hot)
                                  .most_common()),
                  "top": Counter(o for _, o, _, _ in ins).most_common(10)})
@@ -833,6 +955,8 @@ def main() -> int:
     ap.add_argument("--label", default=ROOT.name)
     ap.add_argument("--reps", type=int, default=5)
     ap.add_argument("--sass", action="store_true")
+    ap.add_argument("--sass-only", action="store_true",
+                    help="the SASS counts, no rows timed")
     ap.add_argument("--variants", nargs="?", const="all", default="",
                     help="comma-separated names (all if none)")
     ap.add_argument("--rounds", type=int, default=1,
@@ -860,10 +984,13 @@ def main() -> int:
     out_dir = Path(args.out_dir)
     out_dir.mkdir(parents=True, exist_ok=True)
     sos = build_variants({v: rs.variants[v] for v in names}) if names else {}
-    if args.sass:
-        sass(args.label, out_dir, _build.library_path(), rs.sass)
+    if args.sass or args.sass_only:
+        sass(args.label, out_dir, _build.library_path(), rs.sass,
+             rs.floor_shape)
         for name, so in sos.items():
-            sass(f"{args.label} {name}", out_dir, so, rs.sass)
+            sass(f"{args.label} {name}", out_dir, so, rs.sass, rs.floor_shape)
+    if args.sass_only:
+        return 0
     rows = rs.rows(torch)
     main_lib = _build.load_library
     for rnd in range(args.rounds):
