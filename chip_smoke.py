@@ -119,11 +119,15 @@ CUDA kernels from ``montecarlo_tpu_torch/csrc`` and, in phases:
    --process merton --target-se 1e-3`` (K3), ``--process kou --payoff
    asian`` (K4) and ``--process merton --sampler sobol`` (the host table
    on the torch loop, no kernel);
-11. local and stochastic-local volatility on K2-K4 (LocalVolProc, SlvProc
-   with its per-step leverage row read through a pointer and an offset,
-   the port of JAX's KernelRows, and SlvKnotsProc): K2, K3 and K4 ({avg,
-   geo, mx, mn}) against their plain versions bitwise at 2^18 paths (2^18
-   - 37 for K2 and K4) x 17 steps with ids from 2^30 - 1000, on the CLI's
+11. local and stochastic-local volatility on K2-K4 (LocalVolProc and
+   SlvProc, each reading its step's row through a pointer and an offset,
+   the port of JAX's KernelRows; the surfaces on time knots, local vol and
+   SLVKnots, read the rows the row builder blends once per (process,
+   n_steps), SLVKnots on SlvProc): the row builder against ``blend_rows``
+   bitwise at 2, 3 and 16 time knots, to 7 steps past the horizon; K2, K3
+   and K4 ({avg, geo, mx, mn}) against their plain versions bitwise at
+   2^18 paths (2^18 - 37 for K2 and K4) x 17 steps (9 too) with ids from
+   2^30 - 1000, on the CLI's
    CEV surface, a time-dependent surface of 16 time knots, the CLI's
    calibrated SLV and its ``slv_to_kernel`` SLVKnots, plain, antithetic
    and under Sobol draws (local vol under the bridge too), the SLV of 17
@@ -131,9 +135,12 @@ CUDA kernels from ``montecarlo_tpu_torch/csrc`` and, in phases:
    plain; ``calibrate_slv`` at 2^17 particles x 252 steps timed by the host
    clock, twice at one seed (bitwise equal rows), once under the profiler,
    and at 2^14 x 64 against
-   ``--device cpu`` within rtol 5e-4; K2 on each of the three timed at
-   2^20 x 252 beside its plain version, bound and SASS issue floor, K3 on
-   the SLV at two
+   ``--device cpu`` within rtol 5e-4; K2 on each of the three (local vol
+   also on the 16-knot surface and under Sobol and bridge draws) timed at
+   2^20 x 252, each launch on a surface on knots with its row build,
+   beside its plain version, bound (and the per-path blend's bound it had
+   before the row builder) and SASS issue floor, the row builder alone,
+   K3 on the SLV at two
    2^22 x 252 tolerance chunks, K4 {avg} on the SLV at 2^20 x 252; then,
    launch counters reset just before and read just after each run:
    ``price --process cev --paths 1048576 --steps 252`` (K2, within 5
@@ -143,7 +150,8 @@ CUDA kernels from ``montecarlo_tpu_torch/csrc`` and, in phases:
    ``terminal_prices`` on ``slv_to_kernel`` of that SLV (K2), ``--process
    slv --target-se 1e-3`` (K3), ``--payoff asian`` on SLV (K4, below its
    call), ``--sampler sobol-device`` on SLV and ``sobol-bridge`` on CEV
-   (K2 under each), each vanilla under its gate.
+   (K2 under each), ``--process cev --target-se 1e-3`` (K3 chunks on one
+   row build), each vanilla under its gate.
 
 Phase 3 also holds K5 (2^18 paths x {504, 756, 37} columns, ids wrapping
 past 2^32) and K6 (2^18 and 2^18 - 3 paths, its ring and its plain-load
@@ -513,12 +521,14 @@ def phase_parity_rbergomi(torch, errs, n):
     from montecarlo_tpu_torch.ops.rbergomi_kernel import (
         boxmuller_angles, boxmuller_angles_reference)
 
-    # K6's Box-Muller takes sine and cosine from one sincosf: every angle.
+    # K6's and SabrProc's Box-Muller takes sine and cosine from one
+    # sincosf (rng.cuh's boxmuller_angle_sincos): every angle.
     same = bool(torch.equal(boxmuller_angles("cuda"),
                             boxmuller_angles_reference("cuda")))
-    log(f"  K6 Box-Muller sin and cos, all 2^23 angles: bitwise {same}")
+    log(f"  Box-Muller sin and cos from one sincosf (K6, SabrProc), all "
+        f"2^23 angles: bitwise {same}")
     if not same:
-        raise AssertionError("K6's sincosf differs from sin and cos")
+        raise AssertionError("rng.cuh's sincosf differs from sin and cos")
     for key, paths in (("rbergomi_terminal", n),
                        ("rbergomi_terminal_unaligned", n - 3)):
         for steps in (252, 17):
@@ -2344,14 +2354,19 @@ FUNCTORS = {"merton": "MertonProc", "kou": "KouProc", "bates": "BatesProc",
             "nig": "NigProc", "heston-qe": "HestonQEProc",
             "bates-qe": "BatesQEProc", "vg": "VgProc", "sabr": "SabrProc",
             "local_vol": "LocalVolProc", "slv": "SlvProc",
-            "slv_knots": "SlvKnotsProc"}
+            "slv_knots": "SlvProc"}
 
 
-def k2_floor(kind, n, steps):
-    """The SASS issue floor of K2 (plain Threefry draws) on ``kind``'s
-    functor at n x steps: a pass of its time loop a step pair."""
+def k2_floor(kind, n, steps, draws="ThreefryDrawsILb0E"):
+    """The SASS issue floor of K2 on ``kind``'s functor at n x steps under
+    ``draws`` (plain Threefry by default: a pass of its time loop a step
+    pair; a step under the Sobol sources, the bridge's T reloads beside)."""
+    if draws.startswith("Threefry"):
+        return issue_floor(("fused_kernel", FUNCTORS[kind], "StoreTerminal",
+                            draws), n, (steps + 1) // 2)
     return issue_floor(("fused_kernel", FUNCTORS[kind], "StoreTerminal",
-                        "ThreefryDrawsILb0E"), n, (steps + 1) // 2)
+                        draws), n, steps,
+                       loads=steps if draws == "BridgeDraws" else 0)
 
 
 def jump_bound(kind, n, steps, out_bytes=4, extra_fp=0, observe_fp=0):
@@ -2636,16 +2651,21 @@ def phase_jump_path(torch):
 #: each) and the float32 operations of one step, counted as HESTON_STEP_FP
 #: is (adds, multiplies, selects, clamps; the IEEE divisions as one each;
 #: sqrtf and the table loads not counted).  The knot index and
-#: interpolation (u, floor, two clamps, frac's clamps, the two products
-#: and the sum) 12; the time blend (its coordinate 5, the two hat weights
-#: 9, two lanes of two knots 8) 22; the log-moneyness 1.
-SURFACE_KNOTS_FP, SURFACE_BLEND_FP = 12, 22
+#: interpolation of the step's row (u, floor, two clamps, frac's clamps,
+#: the two products and the sum) 12; the log-moneyness 1.  The surfaces
+#: on time knots (local vol, SLVKnots) read rows the row builder blends
+#: once per step and lane: a lane's time coordinate 5, its two hat weights
+#: 9, its two knots 4 (SURFACE_ROW_FP).  Until the row builder the blend
+#: ran per path and step, two lanes of it (SURFACE_BLEND_FP = 5 + 9 + 8);
+#: ``surface_bound(..., per_path_blend=True)`` is that older bound, printed
+#: beside the new one.
+SURFACE_KNOTS_FP, SURFACE_BLEND_FP, SURFACE_ROW_FP = 12, 22, 18
 SURFACE_COST = {
-    "local_vol": (1, SURFACE_KNOTS_FP + SURFACE_BLEND_FP + 1 + 8),
+    "local_vol": (1, SURFACE_KNOTS_FP + 1 + 8),
     "slv": (2, HESTON_STEP_FP + SURFACE_KNOTS_FP + 1 + 4),
-    "slv_knots": (2, HESTON_STEP_FP + SURFACE_KNOTS_FP + SURFACE_BLEND_FP
-                  + 1 + 4),
+    "slv_knots": (2, HESTON_STEP_FP + SURFACE_KNOTS_FP + 1 + 4),
 }
+BLENDED = ("local_vol", "slv_knots")
 #: The phase's shapes: K2 and K4 at the CLI's 2^20 x 252, K3 at
 #: price_to_tolerance's 2^22 x 252 chunks, the calibration at the CLI's
 #: 2^17 particles x 252 steps, its card-against-CPU check at 2^14 x 64.
@@ -2657,20 +2677,28 @@ CALIB_RTOL, CALIB_MEAN_RTOL = 5e-4, 1e-5
 
 
 def surface_bound(kind, proc, n, steps, out_bytes=4, extra_fp=0,
-                  observe_fp=0):
+                  observe_fp=0, per_path_blend=False):
     """The least time of ``kind``'s fused loop over n paths: its cipher
     calls per step pair, its step's float32 operations (plus
     ``observe_fp`` per step for K4), exp32 for the prices plus
     ``extra_fp`` per path; ``out_bytes`` per path out and the surface
-    table read once."""
+    table read once.  A surface on time knots adds its row build, once:
+    SURFACE_ROW_FP a lane of each step's row, the rows written and read
+    once.  ``per_path_blend``: the bound before the row builder, the time
+    blend in every path's step and no rows."""
     draws, step_fp = SURFACE_COST[kind]
     table = proc.lev_rows if kind == "slv" else (
         proc.lev_flat if kind == "slv_knots" else proc.vol_flat)
     pairs = (steps + 1) // 2
     calls = n * pairs * draws
-    return bound(n * out_bytes + 4 * table.numel(),
+    rows = steps * 128 if kind in BLENDED else 0
+    row_fp = rows * SURFACE_ROW_FP
+    if per_path_blend and kind in BLENDED:
+        rows, row_fp = 0, 0
+        step_fp += SURFACE_BLEND_FP
+    return bound(n * out_bytes + 4 * (table.numel() + 2 * rows),
                  int32=calls * CIPHER_INT,
-                 fp32=calls * BOXMULLER_FP
+                 fp32=calls * BOXMULLER_FP + row_fp
                  + n * (steps * (step_fp + observe_fp) + EXP32_FP
                         + extra_fp))
 
@@ -2725,6 +2753,7 @@ def phase_surface_parity(torch, errs):
     every = ("K2", "K3", "K4")
     key = {"cev": "local_vol", "tdep": "local_vol", "slv": "slv",
            "slv_knots": "slv_knots"}
+    phase_surface_rows(torch, errs)
     for steps in (17, SURFACE_STEPS):
         procs = surface_procs(steps)
         for kind, proc in procs.items():
@@ -2733,6 +2762,7 @@ def phase_surface_parity(torch, errs):
             t0 = time.perf_counter()
             runs = []
             for n_steps in ((17, 23) if steps == 17 and kind == "slv"
+                            else (9, 17) if steps == 17
                             else (steps,)):
                 if steps != 17:
                     runs += [("antithetic", n_steps, dict(antithetic=True),
@@ -2782,6 +2812,37 @@ def phase_surface_parity(torch, errs):
             torch.cuda.synchronize()
             log(f"  {kind} parity at {steps} steps: "
                 f"{time.perf_counter() - t0:.1f} s")
+
+
+def phase_surface_rows(torch, errs):
+    """The row builder against ``blend_rows`` (the plain version) on the
+    card, bitwise: the CLI's CEV surface and the time-dependent one (16
+    time knots each), a 3-knot surface and the SLVKnots table, every step
+    to 7 past the horizon (where the knot coordinate clamps)."""
+    import numpy as np
+
+    from montecarlo_tpu_torch.ops import surface_rows
+    from montecarlo_tpu_torch.processes import LocalVolGBM
+    from montecarlo_tpu_torch.processes.local_vol import blend_rows
+
+    procs = surface_procs(17)
+    procs["3 knots"] = LocalVolGBM.create(
+        100.0, 0.03, 1.0 / 17, 17,
+        lambda t, x: 0.2 + 0.1 * np.tanh(np.log(x / 100.0)) + 0.05 * t,
+        n_time_knots=3, device="cuda")
+    for kind in ("cev", "3 knots", "tdep", "slv_knots"):
+        proc = procs[kind]
+        table = proc.lev_flat if kind == "slv_knots" else proc.vol_flat
+        for steps in (17, SURFACE_STEPS):
+            n_rows = steps + 7
+            _, max_abs, _ = compare(
+                f"row builder {kind} ({proc.n_time_knots} knots) "
+                f"{n_rows}x128",
+                surface_rows(table, n_rows, proc.dt, proc.dt_knot),
+                blend_rows(table.reshape(-1, 128), list(range(n_rows)),
+                           proc.dt, proc.dt_knot), BITWISE)
+            errs["surface_rows"] = max(errs.get("surface_rows", 0.0),
+                                       max_abs)
 
 
 def phase_surface_calibration(torch):
@@ -2843,29 +2904,81 @@ def phase_surface_calibration(torch):
 
 
 def phase_surface_shapes(torch, errs, times):
-    """K2 on the CEV surface, the SLV and its SLVKnots at the CLI's 2^20 x
-    252 beside the plain version and bound, K3 on the SLV at two 2^22 x
-    252 tolerance chunks (0 and 7), K4 {avg} on the SLV at 2^20 x 252; each
-    bitwise."""
+    """The row builder at 252 x 128 (the CLI's CEV surface and the
+    time-dependent one, 16 time knots each), K2 on the CEV surface, the SLV and its SLVKnots at
+    the CLI's 2^20 x 252 (local vol also on the 16-knot surface and under
+    Sobol and bridge draws; each launch on a surface on knots with its row
+    build: a new process object a call) beside the plain version, bound
+    (and the per-path blend's) and SASS issue floor, K3 on the SLV at two
+    2^22 x 252 tolerance chunks (0 and 7), K4 {avg} on the SLV at 2^20 x
+    252; each bitwise."""
+    import dataclasses
+
     from montecarlo_tpu_torch.engine import ARITH_MEAN, VanillaPayoff
     from montecarlo_tpu_torch.ops import (fused_block_moments,
                                           fused_block_moments_reference,
                                           fused_functionals,
                                           fused_functionals_reference,
                                           fused_terminal,
-                                          fused_terminal_reference)
+                                          fused_terminal_reference,
+                                          surface_rows)
+    from montecarlo_tpu_torch.processes.local_vol import blend_rows
+    from montecarlo_tpu_torch.rng.sobol import (SobolBridgeKernelSampler,
+                                                SobolDeviceSampler)
 
     n, s = SURFACE_PATHS, SURFACE_STEPS
-    procs = surface_procs(s)
-    procs = {"local_vol": procs["cev"], "slv": procs["slv"],
-             "slv_knots": procs["slv_knots"]}
+    all_procs = surface_procs(s)
+    for tag in ("cev", "tdep"):
+        lv = all_procs[tag]
+        rows = s * 128
+        timed_check(times, errs, "surface_rows",
+                    f"row builder {tag} ({lv.n_time_knots} knots) {s}x128",
+                    lambda: surface_rows(lv.vol_flat, s, lv.dt, lv.dt_knot),
+                    lambda: blend_rows(lv.vol_flat.reshape(-1, 128),
+                                       list(range(s)), lv.dt, lv.dt_knot),
+                    50, BITWISE,
+                    bnd=bound(4 * (lv.vol_flat.numel() + rows),
+                              fp32=rows * SURFACE_ROW_FP))
+    procs = {"local_vol": all_procs["cev"], "slv": all_procs["slv"],
+             "slv_knots": all_procs["slv_knots"]}
     for kind, proc in procs.items():
-        timed_check(times, errs, f"fused_terminal_{kind}",
-                    f"K2 {kind} {n}x{s}",
-                    lambda: fused_terminal(proc, n, s, seed=0),
+        label = f"K2 {kind} {n}x{s}"
+        timed_check(times, errs, f"fused_terminal_{kind}", label,
+                    lambda: fused_terminal(dataclasses.replace(proc), n, s,
+                                           seed=0),
                     lambda: fused_terminal_reference(proc, n, s, seed=0),
                     10, BITWISE, bnd=surface_bound(kind, proc, n, s),
                     floor=k2_floor(kind, n, s))
+        if kind in BLENDED:
+            old = surface_bound(kind, proc, n, s, per_path_blend=True)
+            log(f"  {label}: the per-path blend's bound {old[0]:.4f} ms "
+                f"({old[1]})")
+    tdep = all_procs["tdep"]
+    timed_check(times, errs, "fused_terminal_local_vol",
+                f"K2 local_vol 16 knots {n}x{s}",
+                lambda: fused_terminal(dataclasses.replace(tdep), n, s,
+                                       seed=0),
+                lambda: fused_terminal_reference(tdep, n, s, seed=0),
+                10, BITWISE, bnd=surface_bound("local_vol", tdep, n, s),
+                floor=k2_floor("local_vol", n, s))
+    cev = procs["local_vol"]
+    step_fp = SURFACE_COST["local_vol"][1]
+    for src, smp in (
+            ("SobolDraws", SobolDeviceSampler.create(s, 1, device="cuda")),
+            ("BridgeDraws", SobolBridgeKernelSampler.create(s,
+                                                            device="cuda"))):
+        br = (smp.n_steps, smp.width) if src == "BridgeDraws" else None
+        key = ("fused_terminal_sobol" if src == "SobolDraws"
+               else "fused_terminal_bridge")
+        timed_check(times, errs, key, f"K2 local_vol {src} {n}x{s}",
+                    lambda: fused_terminal(dataclasses.replace(cev), n, s,
+                                           seed=1, sampler=smp),
+                    lambda: fused_terminal_reference(cev, n, s, seed=1,
+                                                     sampler=smp),
+                    10, BITWISE,
+                    bnd=sobol_bound(torch, n, s, step_fp=step_fp,
+                                    extra_fp=EXP32_FP, bridge=br),
+                    floor=k2_floor("local_vol", n, s, src))
     slv = procs["slv"]
     pay = VanillaPayoff("call", 105.0)
     nt = SURFACE_TOL_CHUNK
@@ -2942,8 +3055,9 @@ def phase_surface_path(torch):
 
     launches = {}
     out, wall, got = counted_cli(base + ["--process", "cev"],
-                                 "fused_terminal")
+                                 "fused_terminal", "surface_rows")
     launches["fused_terminal_local_vol"] = got["fused_terminal"]
+    launches["surface_rows"] = got["surface_rows"]
     check_oracle("cev vs the noncentral chi-square closed form (5 se + "
                  "0.05)", out, cev, out["std_err"] + 0.05)
     launches["fused_terminal_slv"] = 0
@@ -2963,9 +3077,11 @@ def phase_surface_path(torch):
     est, wall, got = run_counted(
         lambda: {k: float(v) for k, v in mc_estimate(
             pay(terminal_prices(knots, n, s, seed=0)), disc).items()})
-    if set(k for k, v in got.items() if v) != {"fused_terminal"}:
+    if set(k for k, v in got.items() if v) != {"fused_terminal",
+                                               "surface_rows"}:
         raise AssertionError(f"slv_to_kernel run launched {got}")
     launches["fused_terminal_slv_knots"] = got["fused_terminal"]
+    launches["surface_rows"] += got["surface_rows"]
     check_oracle("SLVKnots (slv_to_kernel, 16 knots) K=100 vs Black-Scholes "
                  "at iv(100)", est, iv_bs(100.0), slv_slack(100.0))
     tol, wall, got = counted_cli(
@@ -2994,11 +3110,25 @@ def phase_surface_path(torch):
                                     "sobol-device"], "fused_terminal_sobol")
     check_oracle("slv --sampler sobol-device vs Black-Scholes at iv(105)",
                  qmc, iv_bs(105.0), slv_slack(105.0))
-    bridge, _, _ = counted_cli(base + ["--process", "cev", "--sampler",
-                                       "sobol-bridge"],
-                               "fused_terminal_bridge")
+    bridge, _, got = counted_cli(base + ["--process", "cev", "--sampler",
+                                         "sobol-bridge"],
+                                 "fused_terminal_bridge", "surface_rows")
+    launches["surface_rows"] += got["surface_rows"]
     check_oracle("cev --sampler sobol-bridge vs the closed form (5 se + "
                  "0.05)", bridge, cev, bridge["std_err"] + 0.05)
+    # A tolerance run's chunks share one row build.
+    tol, wall, got = counted_cli(
+        ["price", "--process", "cev", "--target-se", "1e-3", "--steps",
+         str(s)], "fused_block_moments", "surface_rows")
+    launches["surface_rows"] += got["surface_rows"]
+    check_oracle("cev --target-se 1e-3 vs the closed form (5 se + 0.05)",
+                 tol, cev, tol["std_err"] + 0.05)
+    if got["surface_rows"] != 1 or not tol["std_err"] <= 1e-3:
+        raise AssertionError(f"cev target-se run: {got}, std-err "
+                             f"{tol['std_err']}")
+    log(f"  cev wall-clock to std-err 1e-3: {wall:.3f} s "
+        f"({tol['n_paths']} paths, {got['fused_block_moments']} K3 "
+        f"launches on {got['surface_rows']} row build)")
     log(f"  launches on the local-vol/SLV path: {launches}")
     return launches
 
@@ -3038,6 +3168,8 @@ KERNELS = [
      "fused_engine.py:478 (KernelRows: fused_engine.py:44)"),
     ("fused_functionals_slv", "fused_k4.cu",
      "fused_engine.py:390 (KernelRows: fused_engine.py:44)"),
+    ("surface_rows", "fused_engine.cu",
+     "fused_engine.py:231 (the surfaces' time blend traced into K2-K4)"),
 ]
 
 
@@ -3136,7 +3268,8 @@ def main() -> int:
             f"{time.perf_counter() - t_path:.1f} s")
         log(f"  phase 10 took {time.perf_counter() - t10:.1f} s, on {card}")
         log("phase 11: local and stochastic-local volatility on K2-K4 "
-            "(LocalVolProc, SlvProc's KernelRows read, SlvKnotsProc)")
+            "(LocalVolProc and SlvProc on their rows; the row builder of "
+            "the surfaces on knots)")
         t11 = time.perf_counter()
         phase_surface_parity(torch, errs)
         t_calib = time.perf_counter()

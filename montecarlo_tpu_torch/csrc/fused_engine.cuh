@@ -89,8 +89,7 @@ enum ProcessCode {
   kVg = 10,
   kSabr = 11,
   kLocalVol = 12,
-  kSlv = 13,
-  kSlvKnots = 14,
+  kSlv = 13,  // also SLV on time knots, on its blended rows
 };
 
 // The functors whose step reads the step index t (a time-dependent surface)

@@ -9,10 +9,13 @@
 // ::fused_block_moments_pallas (K3) and ::fused_functionals_pallas (K4)
 // for the process functors GbmProc, HestonProc, GarchProc, MertonProc,
 // KouProc, BatesProc, NigProc, HestonQEProc, BatesQEProc, VgProc,
-// SabrProc, LocalVolProc, SlvProc and SlvKnotsProc.  SlvProc's per-step
-// leverage row is the port of the JAX kernels' KernelRows
-// (ops/fused_engine.py:44-66, the dynamic ref slice of a kernel_rows_field
-// leaf): a pointer and a clamped row offset.
+// SabrProc, LocalVolProc and SlvProc.  SlvProc's per-step leverage row is
+// the port of the JAX kernels' KernelRows (ops/fused_engine.py:44-66, the
+// dynamic ref slice of a kernel_rows_field leaf): a pointer and a clamped
+// row offset.  The surfaces on hat-blended time knots (local vol, and SLV
+// on knots, which runs as SlvProc) read rows that the row builder
+// (blend_rows_kernel in fused_engine.cu) blends once per launch, one per
+// step, in the same way.
 //
 // Bounds on the H100: compute — integer ALU for Threefry, the SFU for
 // log/sqrt/sin/cos; K2 writes 4 bytes per path, K3 8 bytes per 128 paths, K4 4
@@ -22,11 +25,12 @@
 // cipher calls on their second streams and per step the truncated Poisson's
 // four selects, Kou four log32 (one per jump size), the QE step ndtri32 and two
 // log32, VG ndtri32, three log32, two exp32 and four table reads (two 2 KB
-// tables through the read-only cache), SABR two exp32 and a log32.  The
-// local-vol surfaces add per step one or two IEEE divisions (the log-moneyness
-// coordinate; the time-knot coordinate of a blended surface) and two (an exact
-// SLV row) or four (a blend of two knots) table reads through the read-only
-// cache, the same addresses for every thread.  A Sobol draw is integer work per
+// tables through the read-only cache), SABR two exp32 and a log32 (its
+// Box-Muller pairs from one sincosf).  The local-vol surfaces add per step
+// one IEEE division (the log-moneyness coordinate) and two reads of the
+// step's row through the read-only cache, the same row for every thread;
+// the time blend is the row builder's, once per step and lane.  A Sobol
+// draw is integer work per
 // dimension (the warp's shared Gray-code walk, a load and 11 shuffles; the
 // Owen key's Threefry call once per block; the hash's four multiplies and two
 // bit reversals) plus ndtri32's rationals, log and sqrt; the bridge adds 2L
@@ -602,6 +606,16 @@ struct VgProc : MixedDraws<3, 0b011u> {
 // for F+ > 0, 0 at F+ = 0 (1 when beta = 0); the forward is absorbed at 0.
 // The prices are the forward; log-space functionals observe log32(F).
 struct SabrProc : NormalDraws<2> {
+  // NormalDraws<2>'s counters 2j and 2j + 1, each pair's sine and cosine
+  // from one sincosf (mc::boxmuller_sincos): the same bits.
+  __device__ static void draws_pair(uint32_t k0, uint32_t k1, uint32_t id,
+                                    uint32_t j, float* eps0, float* eps1) {
+    uint32_t b0, b1, c0, c1;
+    mc::threefry2x32(k0, k1, id, 2u * j, &b0, &b1);
+    mc::threefry2x32(k0, k1, id, 2u * j + 1u, &c0, &c1);
+    mc::boxmuller_sincos(b0, b1, &eps0[0], &eps0[1]);
+    mc::boxmuller_sincos(c0, c1, &eps1[0], &eps1[1]);
+  }
   struct State {
     float f, sigma;
   };
@@ -639,30 +653,32 @@ struct SabrProc : NormalDraws<2> {
 // surface.cuh's.
 
 // Local volatility (processes/local_vol.py): leaves = [s0, rate, dt, x0, dx,
-// dt_knot, vol_flat (n_tk * 128)], n_tk = dims >= 2 time knots.  Per step
-// sigma = the t-blended surface at x = log_s - log32(s0), then the GBM
+// rows (n_rows * 128)], n_rows = dims >= 1, row t the surface's hat blend
+// at step t from the row builder (blend_rows_kernel).  Per step sigma = row
+// clamp(t, 0, n_rows - 1) at x = log_s - log32(s0), read as SlvProc reads
+// its rows (interp_row over blend_lane's floats is interp_blend's
+// arithmetic, so the bits are the per-path blend's), then the GBM
 // increment ((rate - 0.5 sigma^2) dt + (sigma sqrt(dt)) z), grouped before
 // the add.
 struct LocalVolProc : NormalDraws<1>, TimedStep {
   using State = LogState;
   const float* vol;
-  int n_tk;
-  float log_s0, rate, dt, sq_dt, x0, dx, dt_knot;
+  int n_rows;
+  float log_s0, rate, dt, sq_dt, x0, dx;
   __device__ LocalVolProc(const float* leaves, int n)
-      : vol(leaves + 6), n_tk(n) {
+      : vol(leaves + 5), n_rows(n) {
     log_s0 = mc::log32(leaves[0]);
     rate = leaves[1];
     dt = leaves[2];
     x0 = leaves[3];
     dx = leaves[4];
-    dt_knot = leaves[5];
     sq_dt = sqrtf(dt);
   }
   __device__ State init() const { return State{log_s0}; }
   __device__ State step(State s, const float* eps, int t) const {
-    const float u = mc::knot_time(t, dt, dt_knot, n_tk);
-    const float sig =
-        mc::interp_blend(vol, n_tk, u, s.log_s - log_s0, x0, dx);
+    const int k = t < 0 ? 0 : (t < n_rows ? t : n_rows - 1);
+    const float sig = mc::interp_row(vol + (int64_t)k * mc::kKnots,
+                                     s.log_s - log_s0, x0, dx);
     const float drift = (rate - 0.5f * (sig * sig)) * dt;
     return State{s.log_s + (drift + (sig * sq_dt) * eps[0])};
   }
@@ -717,6 +733,8 @@ struct SlvStep : NormalDraws<2>, TimedStep {
 // kernels' KernelRows (ops/fused_engine.py:44-66): row t is lev + clamp(t,
 // 0, n_rows - 1) * 128, a pointer and an offset, read through the
 // read-only cache (every thread of a step reads the same 512-byte row).
+// SLV on time knots (processes/slv.py::SLVKnots) runs here too, on the
+// rows the row builder blends from its knots, one per step.
 struct SlvProc : SlvStep<SlvProc> {
   const float* lev;
   int n_rows;
@@ -725,21 +743,6 @@ struct SlvProc : SlvStep<SlvProc> {
   __device__ float at(float x, int t) const {
     const int k = t < 0 ? 0 : (t < n_rows ? t : n_rows - 1);
     return mc::interp_row(lev + (int64_t)k * mc::kKnots, x, x0, dx);
-  }
-};
-
-// SLV on hat-blended time knots (processes/slv.py::SLVKnots): leaves =
-// [..., x0, dx, dt_knot, lev_flat (n_tk * 128)], n_tk = dims >= 2.
-struct SlvKnotsProc : SlvStep<SlvKnotsProc> {
-  const float* lev;
-  int n_tk;
-  float dt_knot;
-  __device__ SlvKnotsProc(const float* leaves, int n)
-      : SlvStep<SlvKnotsProc>(leaves), lev(leaves + 11), n_tk(n),
-        dt_knot(leaves[10]) {}
-  __device__ float at(float x, int t) const {
-    return mc::interp_blend(lev, n_tk, mc::knot_time(t, dt, dt_knot, n_tk), x,
-                            x0, dx);
   }
 };
 
@@ -833,7 +836,7 @@ int dispatch(int process, int dims, const DrawArgs& a, int64_t n_paths,
                                               args...);
       break;
     case kLocalVol:
-      if (dims < 2) return (int)cudaErrorInvalidValue;
+      if (dims < 1) return (int)cudaErrorInvalidValue;
       err = launch_source<Launcher, LocalVolProc>(a, dims, blocks, s,
                                                   n_paths, args...);
       break;
@@ -841,11 +844,6 @@ int dispatch(int process, int dims, const DrawArgs& a, int64_t n_paths,
       if (dims < 1) return (int)cudaErrorInvalidValue;
       err = launch_source<Launcher, SlvProc>(a, dims, blocks, s, n_paths,
                                              args...);
-      break;
-    case kSlvKnots:
-      if (dims < 2) return (int)cudaErrorInvalidValue;
-      err = launch_source<Launcher, SlvKnotsProc>(a, dims, blocks, s,
-                                                  n_paths, args...);
       break;
     case kBasket:
       err = launch_basket(a, dims, blocks, s, n_paths, args...);
@@ -861,8 +859,8 @@ int dispatch(int process, int dims, const DrawArgs& a, int64_t n_paths,
 }  // namespace mcf
 
 // Every entry takes the process code and its dimension `dims` (the basket's
-// asset count, GARCH's table length, VG's quantile-table length; ignored by
-// the other processes) after the leaves, and after the key words the draw
+// asset count, GARCH's table length, VG's quantile-table length, the
+// surfaces' row count; ignored by the other processes) after the leaves, and after the key words the draw
 // source (DrawSource): `source`, `antithetic` (Threefry only), the Sobol
 // table `sv` (n_dims, 30) for kSobol and kBridge, and for kBridge the
 // plan's weights `plan_coeffs` (>= n_steps rows of `width` <=

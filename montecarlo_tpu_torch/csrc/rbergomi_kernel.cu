@@ -72,33 +72,13 @@ __device__ __forceinline__ void substep(const Params& p, float dw, float w_t,
   *v_left = p.xi0 * mc::exp32(p.eta * w_t - c_t);
 }
 
-// Box-Muller's angle from a word, as mc::boxmuller_pair takes it.
-__device__ __forceinline__ float boxmuller_angle(uint32_t b1) {
-  return 6.283185307179586f * mc::uniform_from_bits(b1);
-}
-
-// mc::boxmuller_pair with the sine and cosine from one sincosf: one range
-// reduction for both where sinf and cosf take one each (~18 of a pair's
-// ~305 SASS instructions).  libdevice's sincosf gives sinf's and cosf's
-// bits on every one of the 2^23 angles a word can give
-// (mc_rbergomi_angle_check, held against the plain version's torch.sin
-// and torch.cos), so the pair is boxmuller_pair's, bit for bit.
-__device__ __forceinline__ void boxmuller_sincos(uint32_t b0, uint32_t b1,
-                                                 float* z0, float* z1) {
-  const float r = sqrtf(-2.0f * logf(mc::uniform_from_bits(b0)));
-  float s, c;
-  sincosf(boxmuller_angle(b1), &s, &c);
-  *z0 = r * c;
-  *z1 = r * s;
-}
-
 // The normals of the pair starting at step t (even): counter (id, T + t/2).
 __device__ __forceinline__ void pair_normals(uint32_t k0, uint32_t k1,
                                              uint32_t id, int T, int t,
                                              float* z0, float* z1) {
   uint32_t b0, b1;
   mc::threefry2x32(k0, k1, id, (uint32_t)(T + t / 2), &b0, &b1);
-  boxmuller_sincos(b0, b1, z0, z1);
+  mc::boxmuller_sincos(b0, b1, z0, z1);
 }
 
 // The plain-load form: any n_paths.
@@ -226,7 +206,7 @@ __global__ void angle_check_kernel(float* out) {
   const uint32_t m = blockIdx.x * blockDim.x + threadIdx.x;
   if (m >= kAngles) return;
   float s, c;
-  sincosf(boxmuller_angle(m << 9), &s, &c);
+  mc::boxmuller_angle_sincos(m << 9, &s, &c);
   out[m] = s;
   out[kAngles + m] = c;
 }

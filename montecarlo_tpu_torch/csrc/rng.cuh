@@ -102,6 +102,32 @@ MC_HD void boxmuller_pair(uint32_t b0, uint32_t b1, float* z0, float* z1) {
   *z1 = r * sinf(theta);
 }
 
+#ifdef __CUDACC__
+// ---- Device only: Box-Muller from one sincosf ---------------------------------
+//
+// boxmuller_pair with the sine and cosine from one sincosf: one range
+// reduction for both where sinf and cosf take one each (~16 SASS
+// instructions a pair).  libdevice's sincosf gives sinf's and cosf's bits
+// on every one of the 2^23 angles a word can give (mc_rbergomi_angle_check
+// calls boxmuller_angle_sincos and is held against the plain version's
+// torch.sin and torch.cos), so the pair is boxmuller_pair's, bit for bit.
+// The host build keeps boxmuller_pair: glibc's sincosf is another libm.
+// Called by K6 (rbergomi_kernel.cu) and SabrProc (processes.cuh).
+__device__ __forceinline__ void boxmuller_angle_sincos(uint32_t b1, float* s,
+                                                       float* c) {
+  sincosf(6.283185307179586f * uniform_from_bits(b1), s, c);
+}
+
+__device__ __forceinline__ void boxmuller_sincos(uint32_t b0, uint32_t b1,
+                                                 float* z0, float* z1) {
+  const float r = sqrtf(-2.0f * logf(uniform_from_bits(b0)));
+  float s, c;
+  boxmuller_angle_sincos(b1, &s, &c);
+  *z0 = r * c;
+  *z1 = r * s;
+}
+#endif
+
 // Accurate float32 exp: Cody-Waite reduction + the Cephes expf polynomial,
 // IEEE-exact mul/add only; 2^n from two integer shifts.  |x| <= 20.
 MC_HD float exp32(float x) {

@@ -1,6 +1,8 @@
-// The knot-grid reads of the local-vol surfaces (LocalVolProc, SlvProc,
-// SlvKnotsProc in fused_engine.cu): a row of 128 log-moneyness knots read
-// at a path's log-moneyness, and the hat-weight blend of time-knot rows.
+// The knot-grid reads of the local-vol surfaces: a row of 128 log-moneyness
+// knots read at a path's log-moneyness (LocalVolProc and SlvProc in
+// processes.cuh, once per path and step), and the hat-weight blend of
+// time-knot rows (blend_rows_kernel in fused_engine.cu, once per step and
+// lane: the rows those functors read for a surface on time knots).
 //
 // Replaces montecarlo_tpu/processes/local_vol.py::{interp_row_1d,
 // LocalVolGBM._row, LocalVolGBM.local_vol} and processes/slv.py::{SLV.
@@ -9,14 +11,18 @@
 // {knot_index, interp_row, blend_rows}.  __host__ __device__ like rng.cuh,
 // so the tests build the same text with g++ and hold it against them.
 //
-// Bounds on the H100: an IEEE division per read, and two (an exact row) or
-// four (a blend of two knots) loads from a table every thread of a step
-// reads alike, so the read-only cache serves them.  Design: JAX's one-hot
-// contractions and lane gathers work around XLA's and Mosaic's gathers;
-// here a read is a pointer and an offset (__ldg on the card).  The time
-// blend sums only the two bracketing knots: every other hat weight is 0,
-// and adding 0 w T = +0 to the positive partial sum changes no bit, so the
-// result is the plain version's full sum from 0 in knot order.
+// Bounds on the H100: an IEEE division per read, and two loads from a row
+// every thread of a step reads alike, so the read-only cache serves them;
+// the blend, a division and four loads a lane, runs once per step and
+// lane, not per path.  Design: JAX's one-hot contractions and lane gathers
+// work around XLA's and Mosaic's gathers; here a read is a pointer and an
+// offset (__ldg on the card).  interp_blend, the per-path read of a
+// blended row, is interp_row's arithmetic over blend_lane's floats, so a
+// row blended first and read after (the kernels' order) gives its bits;
+// it stays as the header tests' reference.  The time blend sums only the
+// two bracketing knots: every other hat weight is 0, and adding 0 w T = +0
+// to the positive partial sum changes no bit, so the result is the plain
+// version's full sum from 0 in knot order.
 #pragma once
 
 #include "rng.cuh"
@@ -66,6 +72,13 @@ MC_HD float blend_lane(const float* table, int n_tk, float u, int k) {
   row = row + w0 * MC_LDG(table + j0 * kKnots + k);
   row = row + w1 * MC_LDG(table + (j0 + 1) * kKnots + k);
   return row;
+}
+
+// Lane k of row t of the rows a surface on time knots is read from: the
+// blend at step t's knot coordinate (blend_rows_kernel's body, a thread's).
+MC_HD float row_lane(const float* table, int n_tk, int t, float dt,
+                     float dt_knot, int k) {
+  return blend_lane(table, n_tk, knot_time(t, dt, dt_knot, n_tk), k);
 }
 
 // The blended row at knot coordinate u, read at log-moneyness x.

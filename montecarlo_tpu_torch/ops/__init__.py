@@ -11,6 +11,9 @@ version for a CPU one; nothing falls back from one to the other.
   ``<name>``, ``<name>_sobol`` and ``<name>_bridge``; K4's launches of a
   fold fixed at compile time also as ``fused_functionals_fixed[_sobol|
   _bridge]``; the basket's in csrc/fused_basket*.cu)
+- ``surface_rows``            — csrc/fused_engine.cu: the row builder of
+  the surfaces on time knots (local vol, SLV on knots), whose rows K2-K4
+  read; once per (process, n_steps)
 - K5 ``normal_matrix``        — csrc/rng_kernel.cu
 - K6 ``rbergomi_terminal``    — csrc/rbergomi_kernel.cu
   (its ring form, and its plain-load form for n_paths % 4 != 0 counted
@@ -38,12 +41,14 @@ from montecarlo_tpu_torch.ops.fused_engine import (  # noqa: F401
     K4_FIXED_BRIDGE,
     K4_FIXED_SOBOL,
     K4_SOBOL,
+    SURFACE_ROWS,
     fused_block_moments,
     fused_block_moments_reference,
     fused_functionals,
     fused_functionals_reference,
     fused_terminal,
     fused_terminal_reference,
+    surface_rows,
 )
 from montecarlo_tpu_torch.ops.rng_kernel import (  # noqa: F401
     K5,
@@ -76,7 +81,8 @@ PATH_KERNELS = {"gbm_terminal": K1, "fused_terminal": K2,
                 "fused_functionals_bridge": K4_BRIDGE,
                 "fused_functionals_fixed": K4_FIXED,
                 "fused_functionals_fixed_sobol": K4_FIXED_SOBOL,
-                "fused_functionals_fixed_bridge": K4_FIXED_BRIDGE}
+                "fused_functionals_fixed_bridge": K4_FIXED_BRIDGE,
+                "surface_rows": SURFACE_ROWS}
 
 
 def reset_launch_counts() -> None:

@@ -8,7 +8,12 @@ Kou, Bates, NIG, HestonQE, BatesQE, variance gamma, SABR, local volatility,
 SLV with exact per-step leverage rows and SLV on leverage time knots) and a
 draw source in ``csrc/fused_engine.cu``.  The exact-rows SLV reads its
 step's row through a pointer and an offset, the port of the JAX kernels'
-``KernelRows``.  Draw sources (``sampler=``):
+``KernelRows``.  A surface on hat-blended time knots (local vol, SLV on
+knots) has its rows blended once, one per step, by the row builder
+(:func:`surface_rows`, ``csrc/fused_engine.cu::blend_rows_kernel``), once
+per (process, n_steps) for every launch that follows; its functor reads
+them as the exact-rows SLV does (SLV on knots runs the exact-rows SLV's
+functor, ``SlvProc``).  Draw sources (``sampler=``):
 
 - ``None``: the process's own Threefry draws (its ``draws_pair``), two
   steps per set of cipher calls, the process's antithetic mirror (per
@@ -46,13 +51,14 @@ others the generic fold, the codes read at run time.
 Each wrapper counts its launches per draw source (``K2``, ``K2_SOBOL``,
 ``K2_BRIDGE``, ...; ``ops.PATH_KERNELS`` names them); K4's launches that
 ran a fixed fold are counted again in ``K4_FIXED``, ``K4_FIXED_SOBOL`` and
-``K4_FIXED_BRIDGE``.
+``K4_FIXED_BRIDGE``; the row builder's in ``SURFACE_ROWS``.
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import weakref
 
 import torch
 
@@ -68,6 +74,7 @@ from montecarlo_tpu_torch.processes import (NIG, SABR, SLV, BasketGBM,
                                             LocalVolGBM, Merton, SLVKnots,
                                             VarianceGamma)
 from montecarlo_tpu_torch.processes.basket import kernel_assets_refusal
+from montecarlo_tpu_torch.processes.local_vol import KNOTS, blend_rows
 from montecarlo_tpu_torch.rng.sobol import (SobolBridgeKernelSampler,
                                             SobolDeviceSampler)
 from montecarlo_tpu_torch.rng.threefry import MASK32, key_from_seed
@@ -79,11 +86,18 @@ STATS_BLOCK = 4096   # paths per MomentState block
 MAX_FUNCTIONALS = 4  # K4's functional slots (kMaxFunctionals)
 
 #: The processes the kernels run, by the code of their functor
-#: (csrc/fused_engine.cu::ProcessCode).
+#: (csrc/fused_engine.cuh::ProcessCode): SLV on knots runs SLV's, on the
+#: rows blended from its knots.
 PROCESS_CODES = {GBM: 0, Heston: 1, BasketGBM: 2, GARCHBootstrap: 3,
                  Merton: 4, Kou: 5, Bates: 6, NIG: 7, HestonQE: 8,
                  BatesQE: 9, VarianceGamma: 10, SABR: 11, LocalVolGBM: 12,
-                 SLV: 13, SLVKnots: 14}
+                 SLV: 13, SLVKnots: 13}
+#: The surfaces on time knots, by the fields their functor's leaves hold
+#: before the rows: LocalVolProc's [s0, rate, dt, x0, dx], and SlvProc's
+#: for SLV on knots.
+ROW_HEADS = {LocalVolGBM: ("s0", "rate", "dt", "x0", "dx"),
+             SLVKnots: ("s0", "rate", "v0", "kappa", "theta", "xi", "rho",
+                        "dt", "x0", "dx")}
 
 #: Draw-source codes of the kernels (csrc/fused_engine.cuh::DrawSource).
 THREEFRY, SOBOL, BRIDGE = 0, 1, 2
@@ -119,6 +133,10 @@ K4_BRIDGE = CudaKernel("mc_fused_functionals", _K4_ARGS)
 K4_FIXED = CudaKernel("mc_fused_functionals", _K4_ARGS)
 K4_FIXED_SOBOL = CudaKernel("mc_fused_functionals", _K4_ARGS)
 K4_FIXED_BRIDGE = CudaKernel("mc_fused_functionals", _K4_ARGS)
+# rows, table, dt, dt_knot, n_tk, n_rows, stream
+SURFACE_ROWS = CudaKernel("mc_surface_rows", [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ctypes.c_int, ctypes.c_int64, ctypes.c_void_p])
 _BY_SOURCE = {"K2": (K2, K2_SOBOL, K2_BRIDGE),
               "K3": (K3, K3_SOBOL, K3_BRIDGE),
               "K4": (K4, K4_SOBOL, K4_BRIDGE),
@@ -168,7 +186,8 @@ def _leaves(process):
     dx, then [dt_knot, lev_flat (n_tk * 128)]), and ``dims`` the basket's
     A, GARCH's table length, VG's table length n, the local-vol surfaces'
     time-knot count n_tk or SLV's row count n_rows, an integer that never
-    passes through a float."""
+    passes through a float.  A launch on a surface on time knots takes
+    :func:`_launch_leaves`' instead."""
     err = kernel_refusal(process)
     if err is not None:
         raise err
@@ -185,6 +204,72 @@ def _leaves(process):
     fields = [getattr(process, f.name) for f in dataclasses.fields(process)]
     return code, dims, torch.cat([v.reshape(-1) for v in fields
                                   if v.is_floating_point()])
+
+
+def surface_rows(table: torch.Tensor, n_rows: int, dt: torch.Tensor,
+                 dt_knot: torch.Tensor, out: torch.Tensor | None = None
+                 ) -> torch.Tensor:
+    """The (n_rows, 128) float32 rows of steps 0 .. n_rows - 1 of a
+    surface on time knots, ``table`` its (n_tk * 128,) knots row-major,
+    ``dt`` and ``dt_knot`` its 0-d float32 leaves: the row builder
+    (``csrc/fused_engine.cu::blend_rows_kernel``) on a CUDA table, the
+    plain version ``blend_rows(table, range(n_rows), dt, dt_knot)`` on a
+    CPU one; written into ``out`` ((n_rows * 128,) float32) when given.
+    The kernel refuses fewer than 2 time knots."""
+    dev = table.device
+    if dev.type == "cpu":
+        rows = blend_rows(table.reshape(-1, KNOTS), list(range(n_rows)), dt,
+                          dt_knot)
+        return rows if out is None else out.copy_(rows.reshape(out.shape))
+    for name, t in (("table", table), ("dt", dt), ("dt_knot", dt_knot)):
+        check_cuda_tensor(name, t, dev, torch.float32)
+    if out is None:
+        out = torch.empty((n_rows, KNOTS), dtype=torch.float32, device=dev)
+    check_cuda_tensor("out", out, dev, torch.float32)
+    if out.numel() != n_rows * KNOTS:
+        raise ValueError(f"out holds {out.numel()} floats, not "
+                         f"{n_rows} x {KNOTS}")
+    with torch.cuda.device(dev):
+        SURFACE_ROWS.launch(out.data_ptr(), table.data_ptr(), dt.data_ptr(),
+                            dt_knot.data_ptr(), table.numel() // KNOTS,
+                            n_rows, cuda_stream(dev))
+    return out
+
+
+#: The launch leaves of the surfaces on time knots, built once per
+#: (process, n_steps): id(process) -> (a weak reference to it, n_steps,
+#: (n_rows, leaves)); an entry goes with its process.
+_ROW_LEAVES: dict = {}
+
+
+def _launch_leaves(process, n_steps: int, dims: int, leaves):
+    """(dims, leaves) of a launch of ``n_steps`` steps on the card:
+    ``_leaves``' own, or for a surface on time knots (``ROW_HEADS``) its
+    head leaves and then its rows of steps 0 .. max(n_steps, 1) - 1 from
+    :func:`surface_rows`, with dims the row count.  Those are built on the
+    first launch of a (process, n_steps) and kept for the launches after it
+    (a ``price_to_tolerance`` run's chunks); a process's leaves are fixed
+    once it is made."""
+    dev = process.device
+    head = ROW_HEADS.get(type(process))
+    if head is None:
+        check_cuda_tensor("leaves", leaves, dev, torch.float32)
+        return dims, leaves
+    key = id(process)
+    hit = _ROW_LEAVES.get(key)
+    if hit is not None and hit[0]() is process and hit[1] == n_steps:
+        return hit[2]
+    n_rows = max(n_steps, 1)
+    out = torch.empty(len(head) + n_rows * KNOTS, dtype=torch.float32,
+                      device=dev)
+    out[:len(head)] = torch.stack([getattr(process, f) for f in head])
+    table = (process.vol_flat if isinstance(process, LocalVolGBM)
+             else process.lev_flat)
+    surface_rows(table, n_rows, process.dt, process.dt_knot,
+                 out=out[len(head):])
+    ref = weakref.ref(process, lambda _, k=key: _ROW_LEAVES.pop(k, None))
+    _ROW_LEAVES[key] = (ref, n_steps, (n_rows, out))
+    return n_rows, out
 
 
 def draw_source(sampler, antithetic: bool = False) -> int:
@@ -335,8 +420,8 @@ def fused_terminal(process, n_paths: int, n_steps: int, *, seed, stream=0,
             path_offset=path_offset, antithetic=antithetic, sampler=sampler)
     if n_paths < 1 or n_steps < 0:
         raise ValueError(f"n_paths={n_paths}, n_steps={n_steps}")
-    check_cuda_tensor("leaves", leaves, dev, torch.float32)
     draw = _draw_args(process, sampler, source, antithetic)
+    dims, leaves = _launch_leaves(process, n_steps, dims, leaves)
     out = torch.empty(n_paths, dtype=torch.float32, device=dev)
     k0, k1 = key_from_seed(seed, stream)
     with torch.cuda.device(dev):
@@ -364,8 +449,8 @@ def fused_block_moments(process, payoff: VanillaPayoff, n_paths: int,
     _check_block_args(payoff, n_paths)
     if n_steps < 0:
         raise ValueError(f"n_steps={n_steps}")
-    check_cuda_tensor("leaves", leaves, dev, torch.float32)
     draw = _draw_args(process, sampler, source, antithetic)
+    dims, leaves = _launch_leaves(process, n_steps, dims, leaves)
     rows = torch.empty((n_paths // LANES, 2), dtype=torch.float32, device=dev)
     k0, k1 = key_from_seed(seed, stream)
     with torch.cuda.device(dev):
@@ -445,8 +530,8 @@ def fused_functionals(process, n_paths: int, n_steps: int, *, seed,
             sampler=sampler)
     if n_paths < 1 or n_steps < 0:
         raise ValueError(f"n_paths={n_paths}, n_steps={n_steps}")
-    check_cuda_tensor("leaves", leaves, dev, torch.float32)
     draw = _draw_args(process, sampler, source, antithetic)
+    dims, leaves = _launch_leaves(process, n_steps, dims, leaves)
     out = torch.empty((1 + len(forms), n_paths), dtype=torch.float32,
                       device=dev)
     codes = (ctypes.c_int * MAX_FUNCTIONALS)(*[f.code for f in forms])

@@ -12,7 +12,9 @@ the grid.  JAX's one-hot contractions and lane gathers are workarounds for
 XLA's and Mosaic's gathers; here plain indexing reads the same entries.
 
 K2, K3 and K4 run it as ``LocalVolProc`` (``csrc/fused_engine.cu``) with
-the same float32 operations (``csrc/surface.cuh``).
+the same float32 operations (``csrc/surface.cuh``): the row of each step
+blended once by the row builder (``ops.fused_engine.surface_rows``), then
+read at every path's log-moneyness.
 """
 
 from __future__ import annotations

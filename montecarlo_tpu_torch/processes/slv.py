@@ -12,8 +12,10 @@ double ``where`` around the square root, the increments grouped as there):
   run it as ``SlvProc``, which reads that row through a pointer and an
   offset (the JAX kernels' ``KernelRows``);
 - :class:`SLVKnots` keeps the leverage on hat-blended time knots, as
-  :class:`LocalVolGBM` keeps its surface (``SlvKnotsProc``), built from an
-  SLV by :func:`slv_to_kernel`;
+  :class:`LocalVolGBM` keeps its surface, built from an SLV by
+  :func:`slv_to_kernel`.  K2-K4 blend its rows once, one per step (the
+  row builder, ``ops.fused_engine.surface_rows``), and run them as an
+  SLV's exact rows (``SlvProc``);
 - :func:`calibrate_slv` fits the leverage to a local-vol target by the
   particle method (Guyon and Henry-Labordere): at each step the particles'
   E[v | S] on the 128 knots from cloud-in-cell deposits, smoothed and

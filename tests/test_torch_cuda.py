@@ -36,8 +36,11 @@ the torch loop bitwise on K2-K4, SABR under Sobol draws too, and the
 device build of the gamma-table inversion equals its plain version.  So
 do the local-vol surfaces (LocalVolProc on the CEV and a time-dependent
 surface, SlvProc's exact rows read through a pointer and an offset, its
-clamp past the last row, SlvKnotsProc) under every draw source each
-takes; two calibrations at one seed give the same leverage bits.
+clamp past the last row, SLVKnots on SlvProc) under every draw source each
+takes; the row builder of the surfaces on time knots equals blend_rows
+bitwise and runs once per (process, n_steps); SABR's Box-Muller pairs
+from one sincosf equal its plain version's sin and cos; two calibrations
+at one seed give the same leverage bits.
 """
 
 import math
@@ -350,8 +353,9 @@ def test_cuda_k6_bitwise_equal_plain(cuda, n_paths, n_steps):
 
 @pytest.mark.cuda
 def test_cuda_k6_boxmuller_angles_bitwise_equal_plain(cuda):
-    """K6's one sincosf gives torch.sin's and torch.cos's bits on every
-    one of the 2^23 angles Box-Muller takes from a word."""
+    """The one sincosf of K6 and SabrProc (rng.cuh's
+    boxmuller_angle_sincos) gives torch.sin's and torch.cos's bits on
+    every one of the 2^23 angles Box-Muller takes from a word."""
     got = boxmuller_angles(cuda)
     want = boxmuller_angles_reference(cuda)
     assert torch.equal(got, want)
@@ -784,6 +788,33 @@ def test_cuda_sabr_under_sobol_draws_bitwise_equal_plain(cuda, n_steps):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_steps", [1, 2, 9])
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_cuda_sabr_sincos_draws_bitwise_equal_plain(cuda, n_steps,
+                                                    antithetic):
+    """SabrProc's own draws_pair (NormalDraws<2>'s counters, each pair's
+    sine and cosine from one sincosf) against the plain version and the
+    torch loop: one step, one pair, an odd count; 1000 paths and a count
+    not a multiple of 256."""
+    tp = _cli_proc("sabr", n_steps, cuda)
+    for n in (1000, 4096 * 3 - 37):
+        kw = dict(seed=5, path_offset=WRAP, antithetic=antithetic)
+        got = fused_terminal(tp, n, n_steps, **kw)
+        assert torch.isfinite(got).all()
+        assert torch.equal(got, fused_terminal_reference(tp, n, n_steps,
+                                                         **kw))
+        loop = simulate(tp, n, n_steps, seed=5, path_offset=WRAP,
+                        sampler=AntitheticSampler() if antithetic else None)
+        assert torch.equal(got, loop)
+        fns = {"avg": ARITH_MEAN, "mx": RUNNING_MAX}
+        got = fused_functionals(tp, n, n_steps, functionals=fns, **kw)
+        want = fused_functionals_reference(tp, n, n_steps, functionals=fns,
+                                           **kw)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.cuda
 def test_cuda_mixed_processes_refuse_sobol_draws(cuda):
     """A process with uniform draws under device Sobol normals raises
     before anything launches."""
@@ -850,13 +881,62 @@ SURFACE_CASES = [(kind, source)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_rows", [1, 17, 259])
+@pytest.mark.parametrize("n_tk", [2, 3, 16])
+def test_cuda_row_builder_bitwise_equal_plain(cuda, n_tk, n_rows):
+    """The row builder (blend_rows_kernel) against blend_rows on the card,
+    past the horizon of 17 steps too (the clamp): bitwise, one launch."""
+    from montecarlo_tpu_torch.ops import surface_rows
+    from montecarlo_tpu_torch.processes import LocalVolGBM
+    from montecarlo_tpu_torch.processes.local_vol import blend_rows
+
+    lv = LocalVolGBM.create(
+        100.0, 0.03, 1.0 / 32, 17,
+        lambda t, s: 0.2 + 0.1 * np.tanh(np.log(s / 100.0)) + 0.05 * t,
+        n_time_knots=n_tk, device=cuda)
+    before = PATH_KERNELS["surface_rows"].launches
+    got = surface_rows(lv.vol_flat, n_rows, lv.dt, lv.dt_knot)
+    assert PATH_KERNELS["surface_rows"].launches == before + 1
+    want = blend_rows(lv.vol_flat.reshape(-1, 128), list(range(n_rows)),
+                      lv.dt, lv.dt_knot)
+    assert got.shape == (n_rows, 128)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_surface_rows_built_once_per_process_and_steps(cuda):
+    """K2 twice and a tolerance run's K3 chunks on one process and step
+    count take one row build; another step count or a copy of the
+    process builds again."""
+    import dataclasses
+
+    from montecarlo_tpu_torch.engine import price_to_tolerance
+
+    cev = _cli_proc("cev", 17, cuda)
+    rows = PATH_KERNELS["surface_rows"]
+    k3 = PATH_KERNELS["fused_block_moments"]
+    b0, k0 = rows.launches, k3.launches
+    a = fused_terminal(cev, 5000, 17, seed=1)
+    assert torch.equal(a, fused_terminal(cev, 5000, 17, seed=1))
+    price_to_tolerance(cev, VanillaPayoff("call", 100.0),
+                       target_std_err=1e-9, seed=1, chunk_paths=4096,
+                       n_steps=17, max_chunks=3)
+    assert (rows.launches - b0, k3.launches - k0) == (1, 3)
+    fused_terminal(cev, 5000, 9, seed=1)
+    assert torch.equal(fused_terminal(dataclasses.replace(cev), 5000, 17,
+                                      seed=1), a)
+    assert rows.launches - b0 == 3
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("kind,source", SURFACE_CASES)
 def test_cuda_surface_processes_k2_k3_k4_bitwise_equal_plain(cuda, kind,
                                                              source):
-    """LocalVolProc, SlvProc (the KernelRows read) and SlvKnotsProc against
-    their plain versions and the torch loop on the card under each draw
-    source they take; SLV also at more steps than it has rows (the
-    clamp)."""
+    """LocalVolProc, SlvProc (the KernelRows read) and SLVKnots (SlvProc on
+    its blended rows) against their plain versions and the torch loop on
+    the card under each draw source they take, at an odd and a short step
+    count and on path counts that are no multiple of 256; SLV also at more
+    steps than it has rows (the clamp)."""
     from montecarlo_tpu_torch.rng.sobol import (SobolBridgeKernelSampler,
                                                 SobolDeviceSampler)
 
@@ -866,7 +946,7 @@ def test_cuda_surface_processes_k2_k3_k4_bitwise_equal_plain(cuda, kind,
     fns = {"avg": ARITH_MEAN, "geo": GEO_MEAN, "mx": RUNNING_MAX,
            "mn": RUNNING_MIN}
     n = 4096 * 3
-    for n_steps in ((17, 23) if kind == "slv" else (17,)):
+    for n_steps in ((17, 23) if kind == "slv" else (9, 17)):
         kw = dict(seed=3, path_offset=(1 << 30) - 1000)
         loop_smp = None
         if source == "antithetic":
@@ -885,6 +965,8 @@ def test_cuda_surface_processes_k2_k3_k4_bitwise_equal_plain(cuda, kind,
         loop = simulate(tp, n - 37, n_steps, seed=3,
                         path_offset=(1 << 30) - 1000, sampler=loop_smp)
         assert torch.equal(got, loop)
+        assert torch.equal(fused_terminal(tp, 1000, n_steps, **kw),
+                           fused_terminal_reference(tp, 1000, n_steps, **kw))
         got = fused_block_moments(tp, pay, n, n_steps, **kw)
         want = fused_block_moments_reference(tp, pay, n, n_steps, **kw)
         assert all(torch.equal(a, b) for a, b in zip(got, want))

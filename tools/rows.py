@@ -27,6 +27,16 @@ Row sets (``ROW_SETS``):
   unaligned 2^20 - 3 x 252 (the plain-load form), each on the joint
   matrix of K5's draws and the factor product; the sampler's K5, product
   and whole ``rbergomi_simulate`` at 2^20 x 252 and 2^17 x 256.
+- ``sabr_surface``: K2 at the CLI's 2^20 x 252 on SABR (plain and
+  antithetic), local vol (the CLI's CEV surface and a time-dependent one,
+  16 time knots each; the CEV also under Sobol and bridge draws), SLVKnots and the
+  exact-rows SLV, each launch on a surface on knots with its row build (a
+  new process object a call); K3 on the SLV and the CEV call at a 2^22 x
+  252 tolerance chunk; K4 {avg} on the CEV at 2^20 x 252; as controls K6
+  at 2^20 x 252, the Threefry K2 on GBM at 2^20 x 252 and its K3 at 2^22 x
+  252; on the checkout's own library also the row builder alone at 252 x
+  128.  Its SASS is that of the Threefry K2 on each functor (SLVKnots'
+  own where a checkout has one), K3 on SLV and K6's ring.
 
 A kernel row is timed by CUDA events after a quarter second of warm-up,
 then ``--reps`` calls, beside its bound from ``chip_smoke``'s bound
@@ -380,39 +390,25 @@ _RECIPROCAL = [
                        const QuotientBy& dx) {
   float frac;
   const int i = knot_index(dx(x - x0), &frac);"""),
-    ("surface.cuh", """MC_HD float knot_time(int t, float dt, float dt_knot, int n_tk) {
-  const float u = ((float)t * dt) / dt_knot;""",
-     """MC_HD float knot_time(int t, float dt, const QuotientBy& dt_knot,
-                      int n_tk) {
-  const float u = dt_knot((float)t * dt);"""),
-    ("surface.cuh", """                         float x0, float dx) {
-  float frac;
-  const int i = knot_index((x - x0) / dx, &frac);""",
-     """                         float x0, const QuotientBy& dx) {
-  float frac;
-  const int i = knot_index(dx(x - x0), &frac);"""),
-    ("processes.cuh", "  float log_s0, rate, dt, sq_dt, x0, dx, dt_knot;",
+    ("processes.cuh", "  float log_s0, rate, dt, sq_dt, x0, dx;",
      "  float log_s0, rate, dt, sq_dt, x0;\n"
-     "  mc::QuotientBy dx{1.0f}, dt_knot{1.0f};"),
+     "  mc::QuotientBy dx{1.0f};"),
     ("processes.cuh", "    dx = leaves[4];",
      "    dx = mc::QuotientBy(leaves[4]);"),
-    ("processes.cuh", "    dt_knot = leaves[5];",
-     "    dt_knot = mc::QuotientBy(leaves[5]);"),
     ("processes.cuh",
      "  float log_s0, rate, v0, kappa, theta, xi, rho, rho_perp, dt, x0, dx;",
      "  float log_s0, rate, v0, kappa, theta, xi, rho, rho_perp, dt, x0;\n"
      "  mc::QuotientBy dx{1.0f};"),
     ("processes.cuh", "    dx = leaves[9];",
      "    dx = mc::QuotientBy(leaves[9]);"),
-    ("processes.cuh", "  float dt_knot;\n  __device__ SlvKnotsProc",
-     "  mc::QuotientBy dt_knot;\n  __device__ SlvKnotsProc"),
 ]
 _WARP_X = ("sobol_warp.cuh", "    const uint32_t x = warp_sobol_bits(lane, "
            "sv + (size_t)dim * kSobolBits);\n    return shifted_normal(x, "
            "keys[dim % kKeyChunk]);")
 SLV_SOBOL_VARIANTS = {
-    # The surfaces' division by dx and dt_knot as a reciprocal taken once
-    # and two fused multiply-add corrections (QuotientBy).
+    # The surfaces' division by dx as a reciprocal taken once and two fused
+    # multiply-add corrections (QuotientBy); the time knots' division by
+    # dt_knot is the row builder's, once per step and lane.
     "reciprocal division": _RECIPROCAL,
     # The leverage read first in the SLV step, before the variance's root.
     "lev first": [(*_LEV, ""), (*_STEP_TOP, _STEP_TOP[1].replace(
@@ -619,30 +615,36 @@ FOLD_BRIDGE_SASS = (
 BENCH_MODEL = dict(xi0=0.235**2, eta=1.9, rho=-0.9, h=0.07)
 
 
-def rbergomi_rows(torch):
+def k6_row(n, s, **kw) -> Row:
+    """K6 at n x s on the joint matrix of K5's draws and the factor
+    product, beside chip_smoke.py's K6 bound: the joint matrix read and the
+    prices written; a cipher call a pair, an exp32 and 11 float32
+    operations a step."""
     import chip_smoke as cs
     from montecarlo_tpu_torch.ops import normal_matrix, rbergomi_terminal
     from montecarlo_tpu_torch.precision import factor_product
+
+    model = cs.rbergomi_model(s, **kw)
+    z = normal_matrix(0, 0, n, 2 * s, device="cuda")
+    args = (factor_product(model.chol, z), model.tpow(),
+            model.kernel_params(), 0, 0)
+    del z
+    pairs = (s + 1) // 2
+    bnd = cs.bound(4 * n * (2 * s + 1), int32=n * pairs * cs.CIPHER_INT,
+                   fp32=n * (pairs * cs.BOXMULLER_FP + s * (11 + cs.EXP32_FP)))
+    return timed(f"K6 {n}x{s}", bnd,
+                 lambda: rbergomi_terminal(*args, n_steps=s))
+
+
+def rbergomi_rows(torch):
+    import chip_smoke as cs
+    from montecarlo_tpu_torch.ops import normal_matrix
+    from montecarlo_tpu_torch.precision import factor_product
     from montecarlo_tpu_torch.processes import rbergomi_simulate
 
-    rows = []
-    for n, s, kw in ((1 << 20, 252, {}), (1 << 17, 256, BENCH_MODEL),
-                     ((1 << 20) - 3, 252, {})):
-        model = cs.rbergomi_model(s, **kw)
-        z = normal_matrix(0, 0, n, 2 * s, device="cuda")
-        args = (factor_product(model.chol, z), model.tpow(),
-                model.kernel_params(), 0, 0)
-        del z
-        pairs = (s + 1) // 2
-        # chip_smoke.py's K6 bound: the joint matrix read and the prices
-        # written; a cipher call a pair, an exp32 and 11 float32
-        # operations a step.
-        bnd = cs.bound(4 * n * (2 * s + 1), int32=n * pairs * cs.CIPHER_INT,
-                       fp32=n * (pairs * cs.BOXMULLER_FP
-                                 + s * (11 + cs.EXP32_FP)))
-        rows.append(timed(f"K6 {n}x{s}", bnd,
-                          lambda a=args, s=s: rbergomi_terminal(
-                              *a, n_steps=s)))
+    rows = [k6_row(n, s, **kw)
+            for n, s, kw in ((1 << 20, 252, {}), (1 << 17, 256, BENCH_MODEL),
+                             ((1 << 20) - 3, 252, {}))]
     for n, s, kw in ((1 << 20, 252, {}), (1 << 17, 256, BENCH_MODEL)):
         model = cs.rbergomi_model(s, **kw)
         pairs = s  # K5: a cipher call per column pair of its 2T columns
@@ -691,7 +693,7 @@ RBERGOMI_VARIANTS = {
     # Box-Muller's sine and cosine from sinf and cosf, a range reduction
     # each (rng.cuh's boxmuller_pair, the parent's).
     "sinf and cosf": [("rbergomi_kernel.cu",
-                       "  boxmuller_sincos(b0, b1, z0, z1);\n}",
+                       "  mc::boxmuller_sincos(b0, b1, z0, z1);\n}",
                        "  mc::boxmuller_pair(b0, b1, z0, z1);\n}")],
     # (b) at other stage depths K and ring slots S.
     "ring K=2 S=3": _ring_shape(2, 3),
@@ -702,6 +704,127 @@ RBERGOMI_VARIANTS = {
 
 RBERGOMI_SASS = (
     ("K6", ("rbergomi_terminal_kernel",)),
+    ("K6 ring", ("rbergomi_ring_kernel",)),
+)
+
+
+# --------------------------------------------------------- sabr_surface
+
+def sabr_surface_rows(torch):
+    import dataclasses
+
+    import chip_smoke as cs
+    from montecarlo_tpu_torch.engine import ARITH_MEAN, VanillaPayoff
+    from montecarlo_tpu_torch.ops import (fused_block_moments,
+                                          fused_functionals, fused_terminal)
+    from montecarlo_tpu_torch.processes import GBM
+    from montecarlo_tpu_torch.rng.sobol import (SobolBridgeKernelSampler,
+                                                SobolDeviceSampler)
+
+    n, s, nt = 1 << 20, 252, 1 << 22
+    sabr = cs.jump_process("sabr", s)
+    rows = [timed(f"K2 sabr{tag} {n}x{s}", cs.jump_bound("sabr", n, s),
+                  lambda kw=kw: fused_terminal(sabr, n, s, seed=0, **kw))
+            for tag, kw in (("", {}), (" antithetic", {"antithetic": True}))]
+    procs = cs.surface_procs(s)
+
+    def fresh(proc, **kw):
+        """K2 with its row build: a new process object a call."""
+        return lambda: fused_terminal(dataclasses.replace(proc), n, s,
+                                      **kw)
+    for kind, tag, proc in (("local_vol", "cev", procs["cev"]),
+                            ("local_vol", "16 knots", procs["tdep"]),
+                            ("slv_knots", "slv_knots", procs["slv_knots"]),
+                            ("slv", "slv", procs["slv"])):
+        rows.append(timed(f"K2 {kind} {tag} {n}x{s}",
+                          cs.surface_bound(kind, proc, n, s),
+                          fresh(proc, seed=0)))
+    cev = procs["cev"]
+    step_fp = cs.SURFACE_COST["local_vol"][1]
+    for src, smp in (("sobol", SobolDeviceSampler.create(s, 1,
+                                                         device="cuda")),
+                     ("bridge", SobolBridgeKernelSampler.create(
+                         s, device="cuda"))):
+        br = (smp.n_steps, smp.width) if src == "bridge" else None
+        rows.append(timed(f"K2 local_vol cev {src} {n}x{s}",
+                          cs.sobol_bound(torch, n, s, step_fp=step_fp,
+                                         extra_fp=cs.EXP32_FP, bridge=br),
+                          fresh(cev, seed=1, sampler=smp)))
+    pay = VanillaPayoff("call", 105.0)
+    rows += [
+        timed(f"K3 slv call {nt}x{s}",
+              cs.surface_bound("slv", procs["slv"], nt, s, out_bytes=8 / 128,
+                               extra_fp=8),
+              lambda: fused_block_moments(procs["slv"], pay, nt, s, seed=0),
+              profile=True),
+        timed(f"K3 local_vol cev call {nt}x{s}",
+              cs.surface_bound("local_vol", cev, nt, s, out_bytes=8 / 128,
+                               extra_fp=8),
+              lambda: fused_block_moments(dataclasses.replace(cev), pay, nt,
+                                          s, seed=0),
+              profile=True),
+        timed(f"K4 local_vol cev {{avg}} {n}x{s}",
+              cs.surface_bound("local_vol", cev, n, s, out_bytes=8,
+                               observe_fp=cs.EXP32_FP + 1),
+              lambda: fused_functionals(dataclasses.replace(cev), n, s,
+                                        seed=0,
+                                        functionals={"avg": ARITH_MEAN}))]
+    # The controls: K6, the Threefry GBM K2 and K3.
+    rows.append(k6_row(n, s))
+    gbm = GBM.create(100.0, 0.03, 0.2, 1.0 / s, device="cuda")
+    rows += [
+        timed(f"K2 gbm threefry {n}x{s}",
+              cs.step_bound(n, s, extra_fp=cs.EXP32_FP),
+              lambda: fused_terminal(gbm, n, s, seed=0)),
+        timed(f"K3 gbm call {nt}x{s}",
+              cs.step_bound(nt, s, out_bytes=8 / 128,
+                            extra_fp=cs.EXP32_FP + 8),
+              lambda: fused_block_moments(gbm, pay, nt, s, seed=0),
+              profile=True)]
+    from montecarlo_tpu_torch import ops
+
+    if hasattr(ops, "surface_rows"):  # the row builder, where it exists
+        rows += [timed(f"row builder {tag} 252x128",
+                       cs.bound(4 * (p.vol_flat.numel() + s * 128),
+                                fp32=s * 128 * cs.SURFACE_ROW_FP),
+                       lambda p=p: ops.surface_rows(p.vol_flat, s, p.dt,
+                                                    p.dt_knot), own=True)
+                 for tag, p in (("cev", cev), ("16 knots", procs["tdep"]))]
+    return rows
+
+
+# SabrProc's Box-Muller pairs from sinf and cosf, a range reduction each
+# (rng.cuh's boxmuller_pair, NormalDraws<2>'s).
+_SABR_DRAWS = ("processes.cuh", """    mc::boxmuller_sincos(b0, b1, &eps0[0], &eps0[1]);
+    mc::boxmuller_sincos(c0, c1, &eps1[0], &eps1[1]);""")
+_SABR_CIPHER = ("processes.cuh", """    uint32_t b0, b1, c0, c1;
+    mc::threefry2x32(k0, k1, id, 2u * j, &b0, &b1);
+    mc::threefry2x32(k0, k1, id, 2u * j + 1u, &c0, &c1);""")
+_SABR_POW = ("processes.cuh", """    const float pw =
+        f_plus > 0.0f ? mc::exp32(beta * mc::log32(f_plus)) : at_zero;""")
+SABR_SURFACE_VARIANTS = {
+    "sabr sinf and cosf": [(*_SABR_DRAWS, _SABR_DRAWS[1].replace(
+        "boxmuller_sincos", "boxmuller_pair"))],
+    # The pair's two cipher calls in lock step.
+    "sabr cipher lanes 2": [(*_SABR_CIPHER, """    uint32_t in0[2] = {id, id}, in1[2] = {2u * j, 2u * j + 1u};
+    uint32_t o0[2], o1[2];
+    mc::threefry2x32_lanes<2>(k0, k1, in0, in1, o0, o1);
+    const uint32_t b0 = o0[0], b1 = o1[0], c0 = o0[1], c1 = o1[1];""")],
+    # F+^beta under a branch, taken only where F+ > 0, in place of the
+    # select of two computed sides.
+    "sabr power branch": [(*_SABR_POW, """    float pw = at_zero;
+    if (f_plus > 0.0f) pw = mc::exp32(beta * mc::log32(f_plus));""")],
+}
+
+_K2 = ("fused_kernel", "StoreTerminal", "ThreefryDrawsILb0E")
+SABR_SURFACE_SASS = (
+    ("K2 sabr", ("SabrProc", *_K2)),
+    ("K2 local_vol", ("LocalVolProc", *_K2)),
+    ("K2 slv_knots", ("SlvKnotsProc", *_K2)),
+    ("K2 slv", ("SlvProc", *_K2)),
+    ("K3 slv", ("fused_kernel", "SlvProc", "RowMoments",
+                "ThreefryDrawsILb0E")),
+    ("K2 gbm threefry", ("GbmProc", *_K2)),
     ("K6 ring", ("rbergomi_ring_kernel",)),
 )
 
@@ -719,6 +842,8 @@ ROW_SETS = {
     "fold_bridge": RowSet(fold_bridge_rows, {}, FOLD_BRIDGE_SASS),
     "rbergomi": RowSet(rbergomi_rows, RBERGOMI_VARIANTS, RBERGOMI_SASS,
                        (1 << 20, 252)),
+    "sabr_surface": RowSet(sabr_surface_rows, SABR_SURFACE_VARIANTS,
+                           SABR_SURFACE_SASS, (1 << 20, 252)),
 }
 
 
