@@ -151,7 +151,26 @@ CUDA kernels from ``montecarlo_tpu_torch/csrc`` and, in phases:
    slv --target-se 1e-3`` (K3), ``--payoff asian`` on SLV (K4, below its
    call), ``--sampler sobol-device`` on SLV and ``sobol-bridge`` on CEV
    (K2 under each), ``--process cev --target-se 1e-3`` (K3 chunks on one
-   row build), each vanilla under its gate.
+   row build), each vanilla under its gate;
+12. the sharded and streaming path (``parallel/``, ``engine/streaming.py``,
+   the streaming ``var``) on a one-rank NCCL mesh whose collectives run on
+   the card: launch counters reset just before and read just after,
+   ``sharded_mc_estimate`` on the GBM 105-call, ``sharded_terminal_sketch``
+   and ``sharded_functional_estimate`` {avg} at 2^22 x 252 (K2, K4),
+   ``sharded_rbergomi_estimate`` at 2^20 x 252 (K5 and K6 on 4096-path
+   blocks), a ``streaming_estimate`` of 2^22 x 252 in 2^20-path chunks
+   stopped by its progress callback after chunk 2 and resumed from its
+   .npz over the mesh, and ``var --paths 2^26 --days 20`` (64 K2 chunks);
+   then each result bitwise the unsharded computation (K2's terminals,
+   ``block_moments``, ``moments_reduce``), a 4-rank mesh emulated rank by
+   rank (the sharded functions run on each rank's mesh, their collectives'
+   inputs combined in rank order) bitwise world size 1, K2 at path offsets
+   2^31 - 4096 and 2^32 - 4096 bitwise its plain version, the resumed
+   stream bitwise the one-shot run, the estimate within 5 std-err of
+   Black-Scholes, the ``var`` keys and its var_95 at the closed form; and
+   the world-size-1 sharded estimate timed against the unsharded one in
+   turns (the sharded overhead) beside the streaming ``var``'s
+   wall-clock.
 
 Phase 3 also holds K5 (2^18 paths x {504, 756, 37} columns, ids wrapping
 past 2^32) and K6 (2^18 and 2^18 - 3 paths, its ring and its plain-load
@@ -3133,6 +3152,339 @@ def phase_surface_path(torch):
     return launches
 
 #: Each kernel's wrapper, CUDA source and the TPU kernel it replaces.
+# --- phase 12: the sharded and streaming path --------------------------------
+
+#: Phase 12's shapes: the sharded estimators at 2^22 x 252 (rough Bergomi
+#: at 2^20 x 252), the emulated mesh's ranks, the stream's chunks and the
+#: streaming ``var``'s paths.
+SHARD_PATHS, SHARD_STEPS, RB_SHARD_PATHS = 1 << 22, 252, 1 << 20
+EMULATED_RANKS = 4
+STREAM_TOTAL, STREAM_CHUNK = 1 << 22, 1 << 20
+STREAM_GRID = dict(lo=40.0, hi=260.0, bins=4096)
+VAR_STREAM_PATHS = 1 << 26
+
+
+def unsharded(values):
+    """The unsharded estimate: ``block_moments`` over 4096-path blocks,
+    then ``moments_reduce``'s fixed tree."""
+    from montecarlo_tpu_torch.parallel import block_moments
+    from montecarlo_tpu_torch.stats.welford import moments_reduce
+
+    return moments_reduce(block_moments(values))
+
+
+def gbm_var_closed_form(days, mu=0.05, sigma=0.25):
+    """The lognormal var_95 (percent of spot) of GBM over ``days`` steps
+    of the float32 dt the process holds."""
+    import numpy as np
+
+    t = days * float(np.float32(1 / 252))
+    z05 = -1.6448536269514729
+    return 100.0 - 100.0 * math.exp((mu - 0.5 * sigma**2) * t
+                                    + sigma * math.sqrt(t) * z05)
+
+
+def emulated_rank(device, rank):
+    """Rank ``rank`` of an ``EMULATED_RANKS``-rank paths mesh, run in this
+    process: its collectives hand back the rank's own tensor and keep it in
+    ``sent``, in call order, for the caller to combine over the ranks."""
+    from dataclasses import dataclass, field
+
+    from montecarlo_tpu_torch.parallel import PATHS_AXIS, Mesh
+
+    @dataclass(frozen=True, eq=False)
+    class EmulatedRank(Mesh):
+        sent: list = field(default_factory=list)
+
+        def all_gather(self, x, axis):
+            self._check(x)
+            self.sent.append(x)
+            return x
+
+        def all_reduce(self, x, op, axes):
+            self._check(x)
+            self.sent.append(x)
+            return x.clone()
+
+    return EmulatedRank(shape={PATHS_AXIS: EMULATED_RANKS},
+                        coords={PATHS_AXIS: rank}, device=device,
+                        groups={PATHS_AXIS: None}, backend=None)
+
+
+def phase_sharded_path(torch, mesh, tmp):
+    """The main path of phase 12, launch counters reset just before and
+    read just after: ``sharded_mc_estimate``, ``sharded_terminal_sketch``
+    and ``sharded_functional_estimate`` {avg} on GBM at 2^22 x 252,
+    ``sharded_rbergomi_estimate`` at 2^20 x 252, a ``streaming_estimate``
+    stopped by its progress callback after chunk 2 and resumed from its
+    .npz over the mesh, and ``var --paths 2^26 --days 20`` (the streaming
+    route).  Returns (results, launch counts, the var's wall-clock)."""
+    import os
+
+    from montecarlo_tpu_torch.engine import ARITH_MEAN, VanillaPayoff
+    from montecarlo_tpu_torch.engine.streaming import streaming_estimate
+    from montecarlo_tpu_torch.ops import launch_counts, reset_launch_counts
+    from montecarlo_tpu_torch.parallel import (sharded_functional_estimate,
+                                               sharded_mc_estimate,
+                                               sharded_rbergomi_estimate,
+                                               sharded_terminal_sketch)
+    from montecarlo_tpu_torch.processes import GBM
+
+    gbm = GBM.create(100.0, 0.03, 0.2, 1 / 252, device="cuda")
+    disc = math.exp(-0.03 * SHARD_STEPS / 252)
+    n, t = SHARD_PATHS, SHARD_STEPS
+    call = VanillaPayoff("call", 105.0)
+    model = rbergomi_model(SHARD_STEPS)
+    ckpt = os.path.join(tmp, "stream.npz")
+
+    def stop_after_two(done, total, se):
+        if done == 2 * STREAM_CHUNK:
+            raise KeyboardInterrupt("stopped after chunk 2")
+
+    reset_launch_counts()
+    out = {"gbm": gbm, "model": model, "disc": disc}
+    out["est"] = sharded_mc_estimate(gbm, call, n, t, seed=0, mesh=mesh,
+                                     discount=disc)
+    out["sketch"] = sharded_terminal_sketch(gbm, n, t, seed=0, mesh=mesh,
+                                            lo=40.0, hi=260.0, bins=8192)
+    out["asian"] = sharded_functional_estimate(
+        gbm, {"avg": ARITH_MEAN},
+        lambda o: torch.clamp(o["avg"] - 105.0, min=0.0), n, t, seed=0,
+        mesh=mesh, discount=disc)
+    out["rbergomi"] = sharded_rbergomi_estimate(
+        model, lambda s: torch.clamp(s - 100.0, min=0.0), RB_SHARD_PATHS,
+        seed=0, mesh=mesh)
+    kw = dict(seed=2, chunk_paths=STREAM_CHUNK, checkpoint_path=ckpt,
+              **STREAM_GRID)
+    try:
+        streaming_estimate(gbm, STREAM_TOTAL, t, progress_callback=stop_after_two,
+                           **kw)
+        raise AssertionError("the stream was not stopped after chunk 2")
+    except KeyboardInterrupt:
+        pass
+    out["resumed"] = streaming_estimate(gbm, STREAM_TOTAL, t, mesh=mesh,
+                                        **kw)
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        out["var"], var_wall = run_cli(
+            ["var", "--paths", str(VAR_STREAM_PATHS), "--days", "20"])
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    lines = err.getvalue().splitlines()
+    progress = [line for line in lines if "paths, std-err" in line]
+    log(f"  var --paths {VAR_STREAM_PATHS} --days 20: {len(progress)} "
+        f"progress lines on stderr, the last {progress[-1].strip()!r}; "
+        f"{len(lines) - len(progress)} other lines")
+    return out, counts, var_wall
+
+
+def phase_sharded(torch):
+    """Phase 12: a one-rank NCCL mesh on the card; its main path
+    (``phase_sharded_path``), then each result held bitwise against the
+    unsharded computation; a 4-rank mesh emulated rank by rank; K2 at
+    path offsets past 2^31 against its plain version; the resumed stream
+    against the one-shot run; the sharded overhead at world size 1.
+    Returns phase 12's launch counts."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from montecarlo_tpu_torch.engine import (ARITH_MEAN, VanillaPayoff,
+                                             black_scholes_call,
+                                             simulate_functionals,
+                                             terminal_prices)
+    from montecarlo_tpu_torch.engine.streaming import streaming_estimate
+    from montecarlo_tpu_torch.ops import (fused_terminal,
+                                          fused_terminal_reference)
+    from montecarlo_tpu_torch.parallel import (make_mesh,
+                                               sharded_functional_estimate,
+                                               sharded_mc_estimate,
+                                               sharded_terminal_sketch)
+    from montecarlo_tpu_torch.processes import rbergomi_simulate
+    from montecarlo_tpu_torch.stats.quantiles import sketch_from_array
+    from montecarlo_tpu_torch.stats.welford import (MomentState,
+                                                    moments_reduce,
+                                                    std_error)
+
+    card = card_line()
+    torch.cuda.set_device(0)
+    checks = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/init",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_mesh()
+            log(f"  mesh {mesh.shape} on {mesh.device}, backend "
+                f"{mesh.backend}")
+            checks["the mesh runs NCCL on the card"] = (
+                mesh.backend == "nccl" and mesh.device.type == "cuda"
+                and mesh.groups["paths"] is not None)
+            t0 = time.perf_counter()
+            res, counts, var_wall = phase_sharded_path(torch, mesh, tmp)
+            log(f"  the main path took {time.perf_counter() - t0:.1f} s; "
+                f"launches: {counts}")
+            want = {"fused_terminal": 2 + 4 + VAR_STREAM_PATHS // (1 << 20),
+                    "fused_functionals": 1, "fused_functionals_fixed": 1,
+                    "normal_matrix": RB_SHARD_PATHS // 4096,
+                    "rbergomi_terminal": RB_SHARD_PATHS // 4096}
+            for k, v in want.items():
+                checks[f"{k} launched {v} times on the main path"] = (
+                    counts[k] == v)
+
+            gbm, disc = res["gbm"], res["disc"]
+            n, t = SHARD_PATHS, SHARD_STEPS
+            d = torch.tensor(disc, dtype=torch.float32, device="cuda")
+            call = VanillaPayoff("call", 105.0)
+            term = fused_terminal(gbm, n, t, seed=0)
+            ref = unsharded(call(term))
+            est = res["est"]
+            checks["estimate bitwise unsharded"] = (
+                torch.equal(est["price"], d * ref.mean)
+                and torch.equal(est["std_err"], d * std_error(ref)))
+            bs = float(black_scholes_call(100.0, 105.0, 0.03, 0.2,
+                                          t * float(gbm.dt)))
+            price, se = float(est["price"]), float(est["std_err"])
+            log(f"  sharded_mc_estimate 2^22 x 252: price {price:.6f} +- "
+                f"{se:.6f}, Black-Scholes {bs:.6f}")
+            checks["estimate at Black-Scholes"] = abs(price - bs) < 5 * se
+
+            sk, mo = res["sketch"]
+            sk_ref = sketch_from_array(term, 40.0, 260.0, 8192)
+            term_ref = unsharded(term)
+            checks["sketch bitwise unsharded"] = (
+                torch.equal(sk.counts, sk_ref.counts.to(torch.int64))
+                and torch.equal(sk.vmin, sk_ref.vmin)
+                and torch.equal(sk.vmax, sk_ref.vmax)
+                and float(sk.underflow) == float(sk_ref.underflow)
+                and float(sk.overflow) == float(sk_ref.overflow)
+                and all(torch.equal(a, b) for a, b in zip(mo, term_ref)))
+
+            asian = lambda o: torch.clamp(o["avg"] - 105.0, min=0.0)
+            fn_ref = unsharded(asian(simulate_functionals(
+                gbm, n, t, seed=0, functionals={"avg": ARITH_MEAN})))
+            checks["functional estimate bitwise unsharded"] = torch.equal(
+                res["asian"]["price"], d * fn_ref.mean)
+            log(f"  sharded_functional_estimate {{avg}}: "
+                f"{float(res['asian']['price']):.6f} (below the call: "
+                f"{float(res['asian']['price']) < price})")
+            checks["Asian below the call"] = (
+                float(res["asian"]["price"]) < price)
+
+            model = res["model"]
+            rb_pay = lambda s: torch.clamp(s - 100.0, min=0.0)
+            blocks = torch.cat([rb_pay(rbergomi_simulate(
+                model, 4096, seed=0, path_offset=4096 * b))
+                for b in range(RB_SHARD_PATHS // 4096)])
+            rb_ref = unsharded(blocks)
+            rb = res["rbergomi"]
+            checks["rBergomi estimate bitwise unsharded"] = torch.equal(
+                rb["price"], rb_ref.mean)
+            flat = rb_pay(rbergomi_simulate(model, RB_SHARD_PATHS, seed=0))
+            log(f"  sharded_rbergomi_estimate 2^20 x 252: "
+                f"{float(rb['price']):.6f} +- {float(rb['std_err']):.6f}; "
+                f"one 2^20-wide sampler call (another cuBLAS blocking): "
+                f"{float(flat.double().mean()):.6f}")
+            # The JAX package's own bound between its fixed-width blocks
+            # and one wide call (tests/test_sharded_rbergomi.py).
+            checks["rBergomi blocks within 1e-4 of one wide call"] = (
+                abs(float(rb["price"]) - float(flat.double().mean()))
+                <= 1e-4 * float(rb["price"]))
+
+            # The 4-rank mesh: each rank's shard body, run by the sharded
+            # function itself on that rank's mesh, its collectives' inputs
+            # gathered here in rank order and merged.
+            def over_ranks(fn):
+                ranks = [emulated_rank(mesh.device, r)
+                         for r in range(EMULATED_RANKS)]
+                for rank in ranks:
+                    fn(rank)
+                return [[rank.sent[i] for rank in ranks]
+                        for i in range(len(ranks[0].sent))]
+
+            def merged(parts):
+                return moments_reduce(MomentState(*torch.cat(parts).T))
+
+            est4 = merged(*over_ranks(lambda m: sharded_mc_estimate(
+                gbm, call, n, t, seed=0, mesh=m, discount=disc)))
+            checks["4 emulated ranks bitwise world size 1 (estimate)"] = (
+                torch.equal(d * est4.mean, est["price"])
+                and torch.equal(d * std_error(est4), est["std_err"]))
+            ints, exts, moms = over_ranks(lambda m: sharded_terminal_sketch(
+                gbm, n, t, seed=0, mesh=m, lo=40.0, hi=260.0, bins=8192))
+            ints = sum(ints)
+            checks["4 emulated ranks bitwise world size 1 (sketch)"] = (
+                torch.equal(ints[:8192], sk.counts)
+                and float(ints[8192]) == float(sk.underflow)
+                and float(ints[8193]) == float(sk.overflow)
+                and torch.equal(torch.stack(exts).min(0).values,
+                                torch.stack([sk.vmin, -sk.vmax]))
+                and all(torch.equal(a, b)
+                        for a, b in zip(merged(moms), mo)))
+            fn4 = merged(*over_ranks(lambda m: sharded_functional_estimate(
+                gbm, {"avg": ARITH_MEAN}, asian, n, t, seed=0, mesh=m,
+                discount=disc)))
+            checks["4 emulated ranks bitwise world size 1 (functional)"] = (
+                torch.equal(d * fn4.mean, res["asian"]["price"]))
+
+            for off in (2**31 - 4096, 2**32 - 4096):
+                got = fused_terminal(gbm, 8192, t, seed=0, path_offset=off)
+                plain = fused_terminal_reference(gbm, 8192, t, seed=0,
+                                                 path_offset=off)
+                same, _, _ = compare(f"K2 at path offset {off}", got, plain,
+                                     BITWISE)
+                checks[f"K2 at offset {off} bitwise plain"] = same == 1.0
+
+            oneshot = streaming_estimate(gbm, STREAM_TOTAL, t, seed=2,
+                                         chunk_paths=STREAM_TOTAL,
+                                         **STREAM_GRID)
+            resumed = res["resumed"]
+            checks["resumed stream bitwise the one-shot run"] = (
+                resumed.paths_done == STREAM_TOTAL
+                and all((getattr(resumed, k) == getattr(oneshot, k)).all()
+                        for k in ("block_mean", "block_m2", "block_count"))
+                and (resumed.sketch.counts == oneshot.sketch.counts).all())
+
+            v = res["var"]
+            cf = gbm_var_closed_form(20)
+            tol = v["var_95_grid_err"] + 4 * v["var_95_std_err"]
+            log(f"  var --paths {VAR_STREAM_PATHS} --days 20 (streaming): "
+                f"{var_wall:.3f} s wall-clock, {VAR_STREAM_PATHS / var_wall:.4e}"
+                f" paths/s, var_95 {v['var_95']:.5f}% vs closed form "
+                f"{cf:.5f}% (tolerance {tol:.5f}%), on {card}")
+            checks["var keys are the JAX CLI's"] = set(v) == VAR_KEYS
+            checks["var n_paths"] = v["n_paths"] == VAR_STREAM_PATHS
+            checks["var_95 at the closed form"] = abs(v["var_95"] - cf) < tol
+
+            # The sharded overhead at world size 1 (ROADMAP item 5's cell).
+            def flat_run():
+                r = unsharded(call(terminal_prices(gbm, n, t, seed=0)))
+                return d * r.mean
+
+            def sharded_run():
+                return sharded_mc_estimate(gbm, call, n, t, seed=0,
+                                           mesh=mesh, discount=disc)["price"]
+
+            times = {}
+            for name, fn in (("unsharded", flat_run), ("sharded", sharded_run),
+                             ("sharded ", sharded_run),
+                             ("unsharded ", flat_run)):
+                ms, _ = cuda_ms(fn, 5)
+                times.setdefault(name.strip(), []).append(ms)
+            log(f"  estimate at 2^22 x 252, world size 1: sharded "
+                f"{times['sharded']} ms, unsharded {times['unsharded']} ms "
+                f"(CUDA events, 5 calls each, in turns), overhead "
+                f"{min(times['sharded']) / min(times['unsharded']) - 1:+.2%},"
+                f" on {card}")
+        finally:
+            dist.destroy_process_group()
+    failed = [name for name, ok in checks.items() if not ok]
+    for name, ok in checks.items():
+        log(f"  {name}: {'ok' if ok else 'FAIL'}")
+    if failed:
+        raise AssertionError(f"phase 12 checks failed: {failed}")
+    return counts
+
+
 KERNELS = [
     ("gbm_terminal", "gbm_kernel.cu", "gbm_kernel.py:118"),
     ("fused_terminal", "fused_engine.cu", "fused_engine.py:231"),
@@ -3283,6 +3635,15 @@ def main() -> int:
             f"{t_path - t_shapes:.1f} s, CLI path "
             f"{time.perf_counter() - t_path:.1f} s")
         log(f"  phase 11 took {time.perf_counter() - t11:.1f} s, on {card}")
+        log("phase 12: the sharded and streaming path on a one-rank NCCL "
+            "mesh (K2, K4, K5, K6)")
+        t12 = time.perf_counter()
+        for name, n in phase_sharded(torch).items():
+            if name in ("fused_terminal", "fused_functionals",
+                        "fused_functionals_fixed", "normal_matrix",
+                        "rbergomi_terminal"):
+                counts[name] += n
+        log(f"  phase 12 took {time.perf_counter() - t12:.1f} s, on {card}")
         k3_ms = times["fused_block_moments"]["ms"]
         kernel_s = k3_ms * 1e-3 * n_paths / (1 << 22)
         log(f"  K1 {bench['value']:.6e} path-steps/s, wall-clock to "

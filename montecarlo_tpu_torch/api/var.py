@@ -1,11 +1,11 @@
-"""Billion-path portfolio VaR/CVaR on one card (BASELINE.json config 5).
+"""Portfolio VaR/CVaR at any path count (BASELINE.json config 5).
 
-The port of ``montecarlo_tpu/api/var.py::portfolio_var_on_device`` and its
-range helpers.  Terminal values go chunk by chunk into a histogram sketch
-plus Chan-merged moments that never leave the card, so memory is O(bins)
-at any path count; the sketch range is calibrated by a small pilot run.
-``portfolio_var`` (streaming, checkpoints, the mesh) comes with the
-multi-device slice.
+The port of ``montecarlo_tpu/api/var.py``: ``portfolio_var`` (one sharded
+sketch pass over a mesh, or the checkpointed stream of
+``engine.streaming``) and ``portfolio_var_on_device`` (a host loop of K2
+chunks whose histogram sketch and Chan-merged moments never leave the
+card), with the range helpers.  Memory is O(bins) at any path count; the
+sketch range is calibrated by a small pilot run.
 """
 
 from __future__ import annotations
@@ -18,9 +18,13 @@ import torch
 
 from montecarlo_tpu_torch.engine.dispatch import terminal_prices
 from montecarlo_tpu_torch.engine.simulate import simulate
-from montecarlo_tpu_torch.engine.streaming import risk_dict
+from montecarlo_tpu_torch.engine.streaming import (risk_dict,
+                                                   risk_from_state,
+                                                   streaming_estimate)
+from montecarlo_tpu_torch.parallel.sharded import sharded_terminal_sketch
 from montecarlo_tpu_torch.stats.quantiles import (HistogramSketch, bin_index,
                                                   histogram_counts)
+from montecarlo_tpu_torch.stats.welford import std_error
 
 #: Out-of-range fraction above which the auto-ranged sketch re-runs on a
 #: widened grid: a 4096-path pilot cannot see deep tails, and CVaR would
@@ -60,6 +64,72 @@ def _warn_oob(sketch, context: str) -> None:
             "quantiles/CVaR are approximated at the grid edge — widen "
             "lo/hi or let the range auto-calibrate",
             stacklevel=3)
+
+
+def portfolio_var(process, n_paths: int, n_days: int, current_value: float,
+                  *, seed: int = 0, sampler=None, mesh=None,
+                  bins: int = 8192, lo: Optional[float] = None,
+                  hi: Optional[float] = None,
+                  chunk_paths: Optional[int] = None, block_size: int = 4096,
+                  checkpoint_path: Optional[str] = None,
+                  progress_callback=None) -> dict:
+    """VaR/CVaR and percentile bands of ``n_paths`` terminal values.
+
+    - With ``mesh`` and no ``chunk_paths``: one sharded pass,
+      ``parallel.sharded.sharded_terminal_sketch`` (integer bin counts
+      summed by the collective, block moments gathered and merged by the
+      fixed tree), on every rank.
+    - Otherwise ``engine.streaming.streaming_estimate`` in chunks of
+      ``chunk_paths`` (at most 2^20 by default), over ``mesh`` when given,
+      with ``checkpoint_path`` resumable and ``progress_callback``.
+
+    An auto-ranged grid (no ``lo``/``hi``) that lost more than 1e-6 of the
+    values off its edges runs once more on the exact observed range,
+    except in a checkpointed run: its checkpoint holds the grid, and a
+    second grid would not resume.  Returns the reference's risk keys
+    (app.py:647-657) with their error bars, ``std_err`` and ``n_paths``.
+    """
+    auto_ranged = lo is None and hi is None
+    if lo is None or hi is None:
+        auto_lo, auto_hi = _pilot_range(process, n_days, seed)
+        lo = auto_lo if lo is None else lo
+        hi = auto_hi if hi is None else hi
+
+    if mesh is not None and chunk_paths is None:
+        for _ in range(2):
+            sketch, moments = sharded_terminal_sketch(
+                process, n_paths, n_days, seed=seed, mesh=mesh, lo=lo,
+                hi=hi, bins=bins, block_size=block_size, sampler=sampler)
+            if (auto_ranged
+                    and _oob_fraction(sketch) > _OOB_RERANGE_THRESHOLD):
+                lo, hi = _widened_range(lo, hi, sketch.vmin, sketch.vmax)
+                continue
+            break
+        if not auto_ranged:
+            _warn_oob(sketch, "portfolio_var")
+        std = float(torch.sqrt(moments.m2
+                               / torch.clamp(moments.count, min=1.0)))
+        return risk_dict(sketch, mean=float(moments.mean), std=std,
+                         std_err=float(std_error(moments)),
+                         count=int(float(moments.count)),
+                         current_price=current_value)
+
+    chunk = chunk_paths or min(n_paths, 1 << 20)
+    for _ in range(2):
+        state = streaming_estimate(
+            process, n_paths, n_days, seed=seed, chunk_paths=chunk,
+            block_size=block_size, lo=lo, hi=hi, bins=bins, mesh=mesh,
+            sampler=sampler, checkpoint_path=checkpoint_path,
+            progress_callback=progress_callback)
+        if (auto_ranged and checkpoint_path is None
+                and _oob_fraction(state.sketch) > _OOB_RERANGE_THRESHOLD):
+            lo, hi = _widened_range(lo, hi, state.sketch.vmin,
+                                    state.sketch.vmax)
+            continue
+        break
+    if not (auto_ranged and checkpoint_path is None):
+        _warn_oob(state.sketch, "portfolio_var")
+    return risk_from_state(state, current_value)
 
 
 def _sketch_chunks(process, n_chunks: int, chunk_paths: int, n_days: int,

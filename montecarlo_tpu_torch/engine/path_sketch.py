@@ -1,8 +1,10 @@
 """Per-step percentile curves from histograms — O(T x bins) memory at any
 path count.
 
-The port of ``montecarlo_tpu/engine/path_sketch.py::path_histograms`` and
-``percentiles_from_histograms``.  The reference's chart needs per-step
+The port of ``montecarlo_tpu/engine/path_sketch.py``: ``path_histograms``
+and ``percentiles_from_histograms``; ``sharded_path_percentiles`` lives
+with the other sharded estimators in ``parallel.sharded`` and is
+re-exported here, JAX's import path.  The reference's chart needs per-step
 percentile bands (reference app.py:643-645), which it gets from the whole
 ``(n_days + 1, n_sims)`` path array; here every step's prices go into a
 histogram and are dropped.  The JAX package runs this loop as a scan
@@ -18,6 +20,8 @@ import numpy as np
 import torch
 
 from montecarlo_tpu_torch.engine.simulate import check_sampler, path_ids_for
+from montecarlo_tpu_torch.parallel.sharded import (  # noqa: F401
+    sharded_path_percentiles)
 from montecarlo_tpu_torch.rng.threefry import key_from_seed
 from montecarlo_tpu_torch.samplers import PlainSampler
 from montecarlo_tpu_torch.stats.quantiles import histogram_counts
@@ -75,3 +79,4 @@ def percentiles_from_histograms(hists, lo: float, hi: float,
         frac = np.clip((target - cdf_left) / in_bin, 0.0, 1.0)
         out[f"p{q}"] = lo + (k + frac) * width
     return out
+

@@ -1,0 +1,339 @@
+"""Sharded simulation with reductions that do not depend on the mesh.
+
+The port of the main path of ``montecarlo_tpu/parallel/sharded.py``
+(``sharded_terminal``, ``block_moments``, ``sharded_mc_estimate``,
+``sharded_basket_estimate``, ``sharded_functional_estimate``,
+``sharded_terminal_sketch``, ``sharded_rbergomi_estimate``) and of
+``montecarlo_tpu/engine/path_sketch.py::sharded_path_percentiles``.  Every rank of
+a :class:`~montecarlo_tpu_torch.parallel.mesh.Mesh` calls the same function
+(SPMD), and each:
+
+- simulates a contiguous run of **global** path ids, ``path_offset +
+  shard * local_n`` (mod 2^32, the uint32 id space), through the same
+  engine entry as one device (``engine.dispatch``: K2, K4, or the torch
+  loop; K5 and K6 for rough Bergomi), so every path is the one an
+  unsharded run draws;
+- reduces its payoffs to per-block moment states over fixed
+  ``block_size``-path blocks, by a fixed pairwise tree (``tree_sum``) whose
+  order depends on the block size alone;
+- gathers the block states in global block order and merges them with
+  ``moments_reduce``'s fixed tree (on a sliced mesh: inside each slice,
+  then one merged state per slice).
+
+Neither the block reduction nor the merge depends on the mesh, so price
+and std-err are bitwise the same at any world size and layout, a one-rank
+mesh included.  Floats are never summed by a collective; only integers
+(bin counts, out-of-range counts) are, and ``min``/``max``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from montecarlo_tpu_torch.engine.dispatch import terminal_prices
+from montecarlo_tpu_torch.parallel.mesh import (ASSETS_AXIS, PATHS_AXIS,
+                                                SLICES_AXIS)
+from montecarlo_tpu_torch.rng.normal import exp32, log32, normal_draw
+from montecarlo_tpu_torch.rng.threefry import MASK32, key_from_seed
+from montecarlo_tpu_torch.stats.quantiles import (HistogramSketch, bin_index,
+                                                  sketch_from_array)
+from montecarlo_tpu_torch.stats.welford import (MomentState, moments_reduce,
+                                                std_error, tree_sum)
+
+#: Paths per statistics block.  Fixed (mesh-independent) by design: scaled
+#: with the rank count, it would break reproducibility across meshes.
+DEFAULT_BLOCK = 4096
+
+
+def _check_divisible(n_paths: int, n_shards: int, block_size: int):
+    if n_paths % (n_shards * block_size) != 0:
+        raise ValueError(
+            f"n_paths={n_paths} must be divisible by n_shards*block_size="
+            f"{n_shards}*{block_size}")
+
+
+def _slice_layout(mesh, axis: str):
+    """(n_slices, n_path_shards, total_shards) for a ([slices,] paths)
+    mesh: shard s of slice k is global shard ``k * n_path_shards + s``."""
+    n_slices = mesh.shape.get(SLICES_AXIS, 1)
+    n_path_shards = mesh.shape[axis]
+    return n_slices, n_path_shards, n_slices * n_path_shards
+
+
+def _check_two_level_tree(blocks_per_slice: int):
+    """The two-level merge (a tree per slice, then a tree over the slices'
+    states) is bitwise the flat tree iff blocks-per-slice is a power of
+    two: ``moments_reduce`` pairs neighbours level by level, and an odd
+    level would pair blocks across a slice boundary."""
+    if blocks_per_slice & (blocks_per_slice - 1):
+        raise ValueError(
+            f"multi-slice meshes need a power-of-two number of stat blocks "
+            f"per slice for the bitwise-invariant two-level merge; got "
+            f"{blocks_per_slice} (adjust n_paths or block_size)")
+
+
+def _check_device(process_device, mesh) -> None:
+    if torch.device(process_device) != mesh.device:
+        raise ValueError(f"the process lies on {process_device} and the "
+                         f"mesh's rank on {mesh.device}")
+
+
+def _shard_offset(mesh, axis: str, local_n: int, path_offset=0) -> int:
+    """The first global path id of this rank's shard, in the uint32 id
+    space."""
+    n_path_shards = mesh.shape[axis]
+    shard = (mesh.coords.get(SLICES_AXIS, 0) * n_path_shards
+             + mesh.coords[axis])
+    return (int(path_offset) + shard * local_n) & MASK32
+
+
+def _layout(mesh, n_paths: int, block_size: int, axis: str):
+    """(local_n, has_slices) after JAX's divisibility and two-level-tree
+    checks."""
+    n_slices, _, n_shards = _slice_layout(mesh, axis)
+    _check_divisible(n_paths, n_shards, block_size)
+    if n_slices > 1:
+        _check_two_level_tree(n_paths // block_size // n_slices)
+    return n_paths // n_shards, n_slices > 1
+
+
+def _gather_two_level(local: MomentState, mesh, axis: str,
+                      has_slices: bool) -> MomentState:
+    """Every block state of the mesh in global block order (one gather of
+    the stacked (3, n_blocks) states over the paths axis); on a sliced
+    mesh each slice merges its blocks and the slices gather one state
+    each, bitwise the flat merge (``_check_two_level_tree``)."""
+    stacked = torch.stack(tuple(local))
+    gathered = mesh.all_gather(stacked.T.contiguous(), axis).T
+    states = MomentState(*gathered)
+    if not has_slices:
+        return states
+    slice_state = torch.stack(tuple(moments_reduce(states)))
+    return MomentState(*mesh.all_gather(slice_state[None], SLICES_AXIS).T)
+
+
+def _estimate(total: MomentState, discount) -> dict:
+    d = torch.as_tensor(discount, dtype=total.mean.dtype,
+                        device=total.mean.device)
+    return {"price": d * total.mean, "std_err": d * std_error(total),
+            "n_paths": total.count}
+
+
+def block_moments(values: torch.Tensor,
+                  block_size: int = DEFAULT_BLOCK) -> MomentState:
+    """Per-block moment states over consecutive blocks of ``block_size``
+    paths: mean and M2 summed by ``tree_sum``'s fixed pairwise tree, so a
+    block's state is the same bits whatever else is in the tensor, on any
+    device.  (A library reduction picks its order from the tensor's
+    shape, which differs with the number of blocks a rank holds.)"""
+    blocks = values.reshape(-1, block_size)
+    mean = tree_sum(blocks, axis=1) / block_size
+    dev = blocks - mean[:, None]
+    m2 = tree_sum(dev * dev, axis=1)
+    return MomentState(count=torch.full_like(mean, float(block_size)),
+                       mean=mean, m2=m2)
+
+
+def sharded_terminal(process, n_paths: int, n_steps: int, *, seed: int,
+                     mesh, stream: int = 0, sampler=None,
+                     axis: str = PATHS_AXIS, path_offset=0) -> torch.Tensor:
+    """Terminal prices of global paths ``path_offset + [0, n_paths)``, in
+    global path order, on every rank; each rank simulates its shard."""
+    _check_device(process.device, mesh)
+    _, _, n_shards = _slice_layout(mesh, axis)
+    if n_paths % n_shards != 0:
+        raise ValueError(f"n_paths={n_paths} not divisible by {n_shards} "
+                         "shards")
+    local_n = n_paths // n_shards
+    local = terminal_prices(process, local_n, n_steps, seed=seed,
+                            stream=stream, sampler=sampler,
+                            path_offset=_shard_offset(mesh, axis, local_n,
+                                                      path_offset))
+    out = mesh.all_gather(local, axis)
+    if SLICES_AXIS in mesh.shape:
+        out = mesh.all_gather(out, SLICES_AXIS)
+    return out
+
+
+def sharded_mc_estimate(process, payoff_fn, n_paths: int, n_steps: int, *,
+                        seed: int, mesh, discount=1.0, stream: int = 0,
+                        sampler=None, block_size: int = DEFAULT_BLOCK,
+                        axis: str = PATHS_AXIS, path_offset=0) -> dict:
+    """Sharded Monte Carlo mean and std-err of ``payoff_fn(terminal
+    prices)``: ``{"price", "std_err", "n_paths"}``, bitwise the same on any
+    mesh, on every rank.  ``path_offset`` starts the global path ids (the
+    chunking hook)."""
+    _check_device(process.device, mesh)
+    local_n, has_slices = _layout(mesh, n_paths, block_size, axis)
+    terminal = terminal_prices(process, local_n, n_steps, seed=seed,
+                               stream=stream, sampler=sampler,
+                               path_offset=_shard_offset(mesh, axis, local_n,
+                                                         path_offset))
+    local = block_moments(payoff_fn(terminal), block_size)
+    total = moments_reduce(_gather_two_level(local, mesh, axis, has_slices))
+    return _estimate(total, discount)
+
+
+def sharded_basket_estimate(basket, payoff_fn, n_paths: int, n_steps: int,
+                            *, seed: int, mesh, discount=1.0,
+                            stream: int = 0,
+                            block_size: int = DEFAULT_BLOCK) -> dict:
+    """A correlated ``BasketGBM`` over a (paths, assets) mesh.
+
+    Every rank regenerates the full shock vector from (seed, global path
+    id, t), so the time loop needs no collective; it updates only its
+    asset shard, correlating with its rows of the Cholesky factor (the
+    unsharded step's left-to-right sum over the factor's columns, zeros
+    included).  The rank's weighted sum of ``exp32`` of its assets is
+    gathered over the assets axis and summed in asset-shard order, then
+    the usual block states over the paths axis.  Bitwise the same across
+    path shardings at a fixed asset sharding; with one asset shard bitwise
+    the unsharded torch loop's basket values; across asset shardings
+    within float round-off (the partial sums group differently)."""
+    _check_device(basket.device, mesh)
+    n_shards_p = mesh.shape[PATHS_AXIS]
+    n_shards_a = mesh.shape.get(ASSETS_AXIS, 1)
+    a_total = basket.n_assets
+    if a_total % n_shards_a or n_paths % (n_shards_p * block_size):
+        raise ValueError("shape not divisible by mesh/block")
+    a_local = a_total // n_shards_a
+    local_n = n_paths // n_shards_p
+    a0 = mesh.coords.get(ASSETS_AXIS, 0) * a_local
+    k0, k1 = key_from_seed(seed, stream)
+    ids = (torch.arange(local_n, dtype=torch.int64, device=mesh.device)
+           + mesh.coords[PATHS_AXIS] * local_n) & MASK32
+    mine = slice(a0, a0 + a_local)
+    chol = basket.chol_flat.reshape(a_total, a_total)[mine]
+    drift, scale = (v[mine] for v in basket.drift_scale())
+    state = log32(basket.s0[mine])[:, None].expand(a_local, local_n).clone()
+    for t in range(n_steps):
+        # The full shock vector, regenerated locally: no collective.
+        z = [normal_draw(k0, k1, ids, (t * a_total + d) & MASK32)
+             for d in range(a_total)]
+        zc = chol[:, :1] * z[0]
+        for b in range(1, a_total):
+            zc = zc + chol[:, b:b + 1] * z[b]
+        state = state + (drift[:, None] + scale[:, None] * zc)
+    w = basket.weights[mine]
+    part = w[0] * exp32(state[0])
+    for a in range(1, a_local):
+        part = part + w[a] * exp32(state[a])
+    parts = mesh.all_gather(part[None], ASSETS_AXIS)
+    value = parts[0]
+    for p in parts[1:]:
+        value = value + p
+    local = block_moments(payoff_fn(value), block_size)
+    total = moments_reduce(_gather_two_level(local, mesh, PATHS_AXIS, False))
+    return _estimate(total, discount)
+
+
+def sharded_functional_estimate(process, functionals, payoff_of,
+                                n_paths: int, n_steps: int, *, seed: int,
+                                mesh, discount=1.0, stream: int = 0,
+                                sampler=None,
+                                block_size: int = DEFAULT_BLOCK,
+                                axis: str = PATHS_AXIS) -> dict:
+    """Path-dependent pricing: ``simulate_functionals`` per shard (K4 where
+    the gate takes the run, else the functionals' torch loop), then the
+    block states as :func:`sharded_mc_estimate`.  ``payoff_of`` maps the
+    shard's dict ("terminal" plus each named functional) to payoffs."""
+    from montecarlo_tpu_torch.engine.functionals import simulate_functionals
+
+    _check_device(process.device, mesh)
+    local_n, has_slices = _layout(mesh, n_paths, block_size, axis)
+    out = simulate_functionals(
+        process, local_n, n_steps, seed=seed, functionals=functionals,
+        stream=stream, sampler=sampler,
+        path_offset=_shard_offset(mesh, axis, local_n))
+    local = block_moments(payoff_of(out), block_size)
+    total = moments_reduce(_gather_two_level(local, mesh, axis, has_slices))
+    return _estimate(total, discount)
+
+
+def sharded_terminal_sketch(process, n_paths: int, n_steps: int, *,
+                            seed: int, mesh, lo: float, hi: float,
+                            bins: int = 4096, stream: int = 0, sampler=None,
+                            block_size: int = DEFAULT_BLOCK,
+                            axis: str = PATHS_AXIS):
+    """(sketch, moments) of the terminal prices: a histogram sketch of
+    O(bins) memory per rank and the exact moments of the block states.
+
+    Bin counts and the under- and overflow (recounted here as integers)
+    are summed as int64 by the collective (exact and order-free); the
+    total is the static ``n_paths``; ``vmin``/``vmax`` by min/max; the
+    moments by the block gather and the fixed tree."""
+    _check_device(process.device, mesh)
+    local_n, has_slices = _layout(mesh, n_paths, block_size, axis)
+    terminal = terminal_prices(process, local_n, n_steps, seed=seed,
+                               stream=stream, sampler=sampler,
+                               path_offset=_shard_offset(mesh, axis,
+                                                         local_n))
+    sk = sketch_from_array(terminal, lo, hi, bins)
+    width = (sk.hi - sk.lo) / bins
+    _, under, over = bin_index(terminal.reshape(-1), sk.lo, width, bins)
+    ints = torch.cat([sk.counts.to(torch.int64),
+                      torch.stack([under.sum(dtype=torch.int64),
+                                   over.sum(dtype=torch.int64)])])
+    axes = (axis, SLICES_AXIS) if has_slices else (axis,)
+    ints = mesh.all_reduce(ints, "sum", axes)
+    ext = mesh.all_reduce(torch.stack([sk.vmin, -sk.vmax]), "min", axes)
+    f = sk.total.dtype
+    merged = HistogramSketch(
+        lo=sk.lo, hi=sk.hi, counts=ints[:bins],
+        total=torch.tensor(float(n_paths), dtype=f, device=mesh.device),
+        underflow=ints[bins].to(f), overflow=ints[bins + 1].to(f),
+        vmin=ext[0], vmax=-ext[1])
+    local = block_moments(terminal, block_size)
+    moments = _gather_two_level(local, mesh, axis, has_slices)
+    return merged, moments_reduce(moments)
+
+
+def sharded_rbergomi_estimate(model, payoff_fn, n_paths: int, *, seed: int,
+                              mesh, discount=1.0, stream: int = 0,
+                              block_size: int = DEFAULT_BLOCK,
+                              axis: str = PATHS_AXIS) -> dict:
+    """Rough Bergomi over a mesh: each rank runs ``rbergomi_simulate`` (K5,
+    the factor product, K6) on fixed ``block_size``-wide blocks of global
+    path ids, one block at a time.  The fixed width is what makes a path's
+    value the same bits on any mesh: the product's library kernel may pick
+    another blocking, and another summation order, for another width."""
+    from montecarlo_tpu_torch.processes.rough_bergomi import (
+        rbergomi_simulate)
+
+    _check_device(model.device, mesh)
+    local_n, has_slices = _layout(mesh, n_paths, block_size, axis)
+    off0 = _shard_offset(mesh, axis, local_n)
+    parts = []
+    for b in range(local_n // block_size):
+        s_t = rbergomi_simulate(model, block_size, seed=seed, stream=stream,
+                                path_offset=(off0 + b * block_size) & MASK32)
+        parts.append(torch.stack(tuple(block_moments(payoff_fn(s_t),
+                                                     block_size))))
+    local = MomentState(*torch.cat(parts, dim=1))
+    total = moments_reduce(_gather_two_level(local, mesh, axis, has_slices))
+    return _estimate(total, discount)
+
+
+def sharded_path_percentiles(process, n_paths: int, n_steps: int, *,
+                             seed: int, mesh, lo: float, hi: float,
+                             bins: int = 1024, stream: int = 0,
+                             axis: str = PATHS_AXIS) -> dict:
+    """Per-step percentile curves over a mesh: each rank's histograms of
+    its shard of global paths, summed as int64 by the collective (exact
+    and order-free, so the same counts on any mesh), then read by
+    ``percentiles_from_histograms`` on every rank.  On a sliced mesh the
+    shards are laid out slice-major and summed over both axes."""
+    from montecarlo_tpu_torch.engine.path_sketch import (
+        path_histograms, percentiles_from_histograms)
+
+    _check_device(process.device, mesh)
+    n_slices, _, n_shards = _slice_layout(mesh, axis)
+    if n_paths % n_shards:
+        raise ValueError(f"n_paths={n_paths} not divisible by {n_shards}")
+    local_n = n_paths // n_shards
+    h = path_histograms(process, local_n, n_steps, seed=seed, lo=lo, hi=hi,
+                        bins=bins, stream=stream,
+                        path_offset=_shard_offset(mesh, axis, local_n))
+    axes = (axis, SLICES_AXIS) if n_slices > 1 else (axis,)
+    h = mesh.all_reduce(h.to(torch.int64), "sum", axes)
+    return percentiles_from_histograms(h.cpu().numpy(), lo, hi)

@@ -46,8 +46,11 @@ def moments_merge(a: MomentState, b: MomentState) -> MomentState:
 
 def moments_reduce(states: MomentState) -> MomentState:
     """Merge the leading axis of ``states`` in a fixed pairwise-tree order
-    (adjacent pairs, odd leftover carried)."""
+    (adjacent pairs, odd leftover carried); the zero state for an empty
+    axis."""
     st = states
+    if st.count.shape[0] == 0:
+        return MomentState(*(v.new_zeros(v.shape[1:]) for v in st))
     while st.count.shape[0] > 1:
         half = st.count.shape[0] // 2
         merged = moments_merge(MomentState(*(v[0:2 * half:2] for v in st)),
@@ -61,8 +64,10 @@ def tree_sum(x: torch.Tensor, axis: int = 0) -> torch.Tensor:
     """Sum along ``axis`` in a fixed adjacent-pair tree order (odd leftover
     carried).  The K3 kernel sums its 128-path rows in exactly this order
     (a warp butterfly, then the four warp partials as (w0+w1)+(w2+w3)), so
-    the two agree bitwise."""
+    the two agree bitwise.  Zero for an empty axis."""
     x = torch.movedim(x, axis, 0)
+    if x.shape[0] == 0:
+        return x.new_zeros(x.shape[1:])
     while x.shape[0] > 1:
         half = x.shape[0] // 2
         x = torch.cat([x[0:2 * half:2] + x[1:2 * half:2], x[2 * half:]])

@@ -177,21 +177,71 @@ def test_note_worst_of_matches_jax_cli(flags, capsys):
         assert abs(got[k] - want[k]) <= tol, k
 
 
-#: The GARCH, QMC and local-vol slices' modules, which the walk below must
-#: reach.
+VAR_FLAGS = ["var", "--paths", "65536", "--chunk", "16384", "--bins",
+             "2048", "--seed", "2"]
+
+
+def test_var_streaming_route_matches_jax_cli(capsys):
+    """``var`` without ``--on-device``: the streaming route (K2's plain
+    version in chunks, the host sketch in float64) against the JAX CLI's,
+    whose moments reduce in float64 here (the conftest's x64).  The same
+    keys and pilot grid; a price moved within its rtol 2e-6 may change
+    bins, so the percentiles agree within one bin width and the moments
+    within rtol 1e-5.  Progress goes to stderr, one line a chunk."""
+    assert jax_main(VAR_FLAGS) == 0
+    want = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert port_main([*VAR_FLAGS, "--device", "cpu"]) == 0
+    out = capsys.readouterr()
+    got = json.loads(out.out.strip().splitlines()[-1])
+    assert sorted(got) == sorted(want) and got["n_paths"] == 65536
+    assert [line.split()[0] for line in out.err.splitlines()] == [
+        "16,384/65,536", "32,768/65,536", "49,152/65,536", "65,536/65,536"]
+    width = want["var_95_grid_err"]  # one bin, in percent of s0 = 100
+    assert got["var_95_grid_err"] == pytest.approx(want["var_95_grid_err"],
+                                                   rel=1e-9)
+    for k, v in want["percentiles"].items():
+        assert abs(got["percentiles"][k] - v) <= width, k
+    for k in ("expected_return", "expected_vol", "std_err", "var_95",
+              "cvar_95", "prob_profit"):
+        tol = 1e-5 * abs(want[k]) + (width if "var" in k else 0.0)
+        assert abs(got[k] - want[k]) <= tol + 1e-9, k
+
+
+def test_var_checkpoint_resumes_to_the_one_shot_json(tmp_path, capsys):
+    """Half the paths with ``--checkpoint``, then all of them from the same
+    checkpoint: only the second half runs, and the JSON is the one-shot
+    run's, bit for bit."""
+    ckpt = str(tmp_path / "var.npz")
+    flags = [*VAR_FLAGS, "--device", "cpu", "--checkpoint", ckpt]
+    half = [*flags]
+    half[half.index("65536")] = "32768"
+    assert port_main(half) == 0
+    capsys.readouterr()
+    assert port_main(flags) == 0
+    out = capsys.readouterr()
+    resumed = json.loads(out.out.strip().splitlines()[-1])
+    assert [line.split()[0] for line in out.err.splitlines()] == [
+        "49,152/65,536", "65,536/65,536"]
+    oneshot = _run(port_main, [*VAR_FLAGS, "--device", "cpu"], capsys)
+    assert resumed == oneshot
+
+
+#: The GARCH, QMC, local-vol and multi-device slices' modules, which the
+#: walk below must reach.
 SLICE_MODULES = ("api.montecarlo", "api.var", "cli.risk", "data.synthetic",
                  "engine.path_sketch", "engine.streaming", "processes.garch",
                  "processes.garch_fit", "stats.quantiles", "stats.risk",
                  "rng.sobol", "samplers", "cli.pricing_models",
-                 "processes.dupire", "processes.local_vol", "processes.slv")
+                 "processes.dupire", "processes.local_vol", "processes.slv",
+                 "parallel", "parallel.mesh", "parallel.sharded")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     """Every module of the port, imported in a fresh interpreter, leaves
     ``jax`` and ``montecarlo_tpu`` out of ``sys.modules``; the walk covers
-    the GARCH, QMC and local-vol slices' modules; ``chip_smoke.py`` imports
-    neither,
-    at any level of the script."""
+    the GARCH, QMC, local-vol and multi-device slices' modules;
+    ``chip_smoke.py`` and the gloo ranks of tests/test_torch_sharded.py
+    import neither, at any level of the script."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import montecarlo_tpu_torch as pkg\n"
@@ -212,17 +262,18 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     missing = [m for m in SLICE_MODULES
                if f"montecarlo_tpu_torch.{m}" not in names]
     assert not missing, missing
-    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
-    imported = set()
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            imported.update(a.name for a in node.names)
-        elif isinstance(node, ast.ImportFrom):
-            imported.add(node.module or "")
-    assert any(m.startswith("montecarlo_tpu_torch") for m in imported)
-    bad = sorted(m for m in imported
-                 if m.split(".")[0] in ("jax", "jaxlib", "montecarlo_tpu"))
-    assert not bad, bad
+    for script in ("chip_smoke.py", "tests/torch_sharded_ranks.py"):
+        tree = ast.parse((ROOT / script).read_text())
+        imported = set()
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                imported.update(a.name for a in node.names)
+            elif isinstance(node, ast.ImportFrom):
+                imported.add(node.module or "")
+        assert any(m.startswith("montecarlo_tpu_torch") for m in imported)
+        bad = sorted(m for m in imported
+                     if m.split(".")[0] in ("jax", "jaxlib", "montecarlo_tpu"))
+        assert not bad, (script, bad)
 
 
 def test_bridge_knock_out_plus_knock_in_is_vanilla(capsys):

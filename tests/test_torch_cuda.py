@@ -1006,3 +1006,180 @@ def test_cuda_calibration_is_reproducible(cuda):
     b = cli_process(flags, cuda)[0]
     assert torch.equal(a.lev_rows, b.lev_rows)
     assert torch.isfinite(a.lev_rows).all()
+
+
+# --- the sharded and streaming path on one NCCL rank ------------------------
+
+@pytest.fixture(scope="module")
+def nccl_mesh(tmp_path_factory):
+    """A one-rank NCCL process group and its mesh on the current card."""
+    import torch.distributed as dist
+
+    from montecarlo_tpu_torch.parallel import make_mesh
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    torch.cuda.set_device(0)
+    init = tmp_path_factory.mktemp("nccl") / "init"
+    dist.init_process_group("nccl", init_method=f"file://{init}", rank=0,
+                            world_size=1)
+    try:
+        yield make_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+def cuda_dev():
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _unsharded(values, block):
+    """The unsharded estimate: block_moments, then the fixed tree."""
+    from montecarlo_tpu_torch.parallel import block_moments
+    from montecarlo_tpu_torch.stats.welford import moments_reduce
+
+    return moments_reduce(block_moments(values, block))
+
+
+@pytest.mark.cuda
+def test_cuda_nccl_mesh_estimates_bitwise_unsharded(nccl_mesh):
+    """On a one-rank NCCL mesh (its collectives run on the card's
+    tensors): the estimate, the sketch, the functional estimate and rough
+    Bergomi are the unsharded computation's bits; a CPU mesh on an NCCL
+    group raises."""
+    from montecarlo_tpu_torch.parallel import (make_mesh,
+                                               sharded_functional_estimate,
+                                               sharded_mc_estimate,
+                                               sharded_rbergomi_estimate,
+                                               sharded_terminal_sketch)
+    from montecarlo_tpu_torch.stats.quantiles import sketch_from_array
+
+    mesh = nccl_mesh
+    assert mesh.backend == "nccl" and mesh.device.type == "cuda"
+    assert mesh.groups["paths"] is not None
+    gbm = GBM.create(100.0, 0.03, 0.2, 1 / 252, device=cuda_dev())
+    call = VanillaPayoff("call", 105.0)
+    n, t = 1 << 18, 64
+    est = sharded_mc_estimate(gbm, call, n, t, seed=3, mesh=mesh)
+    want = _unsharded(call(fused_terminal(gbm, n, t, seed=3)), 4096)
+    assert torch.equal(est["price"], want.mean)
+    sk, mo = sharded_terminal_sketch(gbm, n, t, seed=3, mesh=mesh, lo=40.0,
+                                     hi=250.0, bins=512)
+    term = fused_terminal(gbm, n, t, seed=3)
+    ref = sketch_from_array(term, 40.0, 250.0, 512)
+    assert torch.equal(sk.counts, ref.counts.to(torch.int64))
+    assert torch.equal(mo.mean, _unsharded(term, 4096).mean)
+    asian = lambda o: torch.clamp(o["avg"] - 105.0, min=0.0)
+    fn = sharded_functional_estimate(gbm, {"avg": ARITH_MEAN}, asian, n, t,
+                                     seed=3, mesh=mesh)
+    out = simulate_functionals(gbm, n, t, seed=3,
+                               functionals={"avg": ARITH_MEAN})
+    assert torch.equal(fn["price"], _unsharded(asian(out), 4096).mean)
+    model = RoughBergomi.create(100.0, 0.04, 1.9, -0.9, 0.07, n_steps=32,
+                                T=1.0, device=cuda_dev())
+    pay = lambda s: torch.clamp(s - 100.0, min=0.0)
+    rb = sharded_rbergomi_estimate(model, pay, 1 << 14, seed=5, mesh=mesh)
+    blocks = torch.cat([pay(rbergomi_simulate(model, 4096, seed=5,
+                                              path_offset=4096 * b))
+                        for b in range(4)])
+    assert torch.equal(rb["price"], _unsharded(blocks, 4096).mean)
+    with pytest.raises(ValueError, match="cannot run collectives on cpu"):
+        make_mesh(device="cpu")
+
+
+def _emulated_rank(device, rank, n_ranks):
+    """Rank ``rank`` of an ``n_ranks``-rank paths mesh, run in this
+    process: its collectives hand back the rank's own tensor and keep it
+    in ``sent``, for the test to gather in rank order."""
+    from dataclasses import dataclass, field
+
+    from montecarlo_tpu_torch.parallel import PATHS_AXIS, Mesh
+
+    @dataclass(frozen=True, eq=False)
+    class EmulatedRank(Mesh):
+        sent: list = field(default_factory=list)
+
+        def all_gather(self, x, axis):
+            self._check(x)
+            self.sent.append(x)
+            return x
+
+    return EmulatedRank(shape={PATHS_AXIS: n_ranks},
+                        coords={PATHS_AXIS: rank}, device=device,
+                        groups={PATHS_AXIS: None}, backend=None)
+
+
+@pytest.mark.cuda
+def test_cuda_emulated_ranks_merge_to_world_size_one(nccl_mesh):
+    """Each rank's shard body of a 4-rank mesh, run by
+    ``sharded_mc_estimate`` on that rank's mesh, its block states
+    concatenated in rank order and merged: world size 1's bits."""
+    from montecarlo_tpu_torch.parallel import sharded_mc_estimate
+    from montecarlo_tpu_torch.stats.welford import (MomentState,
+                                                    moments_reduce,
+                                                    std_error)
+
+    gbm = GBM.create(100.0, 0.03, 0.2, 1 / 252, device=cuda_dev())
+    call = VanillaPayoff("call", 105.0)
+    n, t = 1 << 18, 64
+    one = sharded_mc_estimate(gbm, call, n, t, seed=9, mesh=nccl_mesh)
+    ranks = [_emulated_rank(nccl_mesh.device, r, 4) for r in range(4)]
+    for rank in ranks:
+        sharded_mc_estimate(gbm, call, n, t, seed=9, mesh=rank)
+    merged = moments_reduce(MomentState(*torch.cat(
+        [rank.sent[0] for rank in ranks]).T))
+    assert torch.equal(merged.mean, one["price"])
+    assert torch.equal(std_error(merged), one["std_err"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [2**31 - 4096, 2**32 - 4096])
+def test_cuda_k2_past_2_31_bitwise_equal_plain(cuda, offset):
+    """K2 at path offsets past 2^31 (the second wraps the uint32 id
+    space) against its plain version."""
+    gbm = GBM.create(100.0, 0.03, 0.2, 1 / 252, device=cuda)
+    kw = dict(seed=4, path_offset=offset)
+    assert torch.equal(fused_terminal(gbm, 8192, 64, **kw),
+                       fused_terminal_reference(gbm, 8192, 64, **kw))
+
+
+@pytest.mark.cuda
+def test_cuda_streaming_resume_bitwise_and_rows_built_once(nccl_mesh,
+                                                           tmp_path):
+    """A stream stopped by its progress callback after chunk 2 resumes
+    from its .npz to the one-shot run's bits, over the NCCL mesh too; a
+    local-vol surface's rows are built once for every chunk and the
+    sharded estimate of one process and step count."""
+    from montecarlo_tpu_torch.engine.streaming import (StreamingState,
+                                                       streaming_estimate)
+    from montecarlo_tpu_torch.parallel import sharded_mc_estimate
+
+    gbm = GBM.create(100.0, 0.03, 0.2, 1 / 252, device=cuda_dev())
+    kw = dict(seed=5, block_size=4096, lo=40.0, hi=260.0, bins=1024)
+    total = 1 << 18
+    oneshot = streaming_estimate(gbm, total, 64, chunk_paths=total, **kw)
+    ckpt = str(tmp_path / "s.npz")
+
+    def stop(done, total_, se):
+        if done == 2 * (total // 4):
+            raise KeyboardInterrupt
+
+    with pytest.raises(KeyboardInterrupt):
+        streaming_estimate(gbm, total, 64, chunk_paths=total // 4,
+                           checkpoint_path=ckpt, progress_callback=stop,
+                           **kw)
+    resumed = streaming_estimate(gbm, total, 64, chunk_paths=total // 4,
+                                 checkpoint_path=ckpt, mesh=nccl_mesh, **kw)
+    for k in ("block_mean", "block_m2"):
+        np.testing.assert_array_equal(getattr(resumed, k),
+                                      getattr(oneshot, k))
+    np.testing.assert_array_equal(resumed.sketch.counts,
+                                  oneshot.sketch.counts)
+    assert StreamingState.load(ckpt).paths_done == total
+    cev = _cli_proc("cev", 17, cuda_dev())
+    rows = PATH_KERNELS["surface_rows"]
+    b0 = rows.launches
+    streaming_estimate(cev, total, 17, chunk_paths=total // 4, **kw)
+    sharded_mc_estimate(cev, VanillaPayoff("call", 100.0), total, 17,
+                        seed=5, mesh=nccl_mesh)
+    assert rows.launches - b0 == 1

@@ -596,7 +596,7 @@ def test_var_cli_matches_jax(capsys):
 
 
 @pytest.mark.parametrize("argv,match", [
-    (["var", "--device", "cpu", "--paths", "4096"], "item 5"),
+    (["var", "--ticker", "AAPL", "--device", "cpu"], "item 12"),
     (["var", "--on-device", "--ticker", "AAPL", "--device", "cpu"],
      "item 12"),
 ])
