@@ -10,7 +10,9 @@ CUDA kernels from ``montecarlo_tpu_torch/csrc`` and, in phases:
    plain PyTorch versions on 2^20 counters (bitwise), Box-Muller and log32
    (bitwise fraction, max difference); the Sobol integer, Owen key,
    scrambled uniform and Sobol normal of 2^20 (id, dim) pairs and ndtri32
-   (bitwise);
+   (bitwise); the QE and VG functors' inverse normal (``ndtri32_unit``)
+   against ``ndtri32`` on every float32 in [2^-24, 1 - 2^-24] (0
+   mismatches) and against the plain ``ndtri32`` on all 2^23 uniforms;
 3. K1, K2 and K3 (GBM; K2 and K3 also Heston; plain and antithetic) and
    K4 (every device functional, GBM and Heston, plain and antithetic)
    against their plain versions at 2^18 paths x {252, 17} steps;
@@ -106,11 +108,13 @@ CUDA kernels from ``montecarlo_tpu_torch/csrc`` and, in phases:
    and K4 ({avg, geo, mx, mn}) on each against its plain version bitwise,
    plain and antithetic (SABR also under Sobol draws), at 2^18 paths
    (2^18 - 37 for K2 and K4) x 17 steps with ids from 2^30 - 1000, at 252
-   steps K2 antithetic and K4 plain, and the K0 gamma-table inversion on
-   2^20 uniforms; each K2 timed (and held bitwise) at
+   steps K2 antithetic and K4 plain, K2 on the QE pair where every warp
+   is quadratic or most are exponential, and the K0 gamma-table
+   inversion on 2^20 uniforms; each K2 timed (and held bitwise) at
    2^20 x 252 beside its plain version, bound and SASS issue floor, K3 on
-   Merton at two
-   2^22 x 252 tolerance chunks, K4 {avg} on Kou and VG at 2^20 x 252; then,
+   Merton at two 2^22 x 252 tolerance chunks and on HestonQE at one (with
+   its floor), K4 {avg} on Kou and VG at 2^20 x 252 (VG's with its
+   floor); then,
    launch counters reset just before and read just after each run: ``price
    --process <p> --paths 1048576 --steps 252`` for the eight (K2), gated
    within 4 std-err plus a stated slack by the CF price (kou, nig, vg,
@@ -374,6 +378,24 @@ def phase_k0(torch):
         if not same:
             compare(name, got[name].double(), want[name].double())
             raise AssertionError(f"K0 {name} differs from the plain version")
+    # The functors' inverse normal (ndtri32_unit: the QE step's and VG's)
+    # against ndtri32 on every float32 of its range, and against the plain
+    # ndtri32 on every uniform_from_bits value.
+    from montecarlo_tpu_torch.ops.rng_check import (
+        UNIT_RANGE, ndtri_unit_check, ndtri_unit_check_reference)
+
+    t0 = time.perf_counter()
+    got = ndtri_unit_check(dev)
+    want = ndtri_unit_check_reference(dev)
+    torch.cuda.synchronize()
+    n_range = UNIT_RANGE[1] - UNIT_RANGE[0] + 1
+    same = bool(torch.equal(got["uniforms"], want))
+    log(f"  ndtri32_unit: {n_range} float32 in [2^-24, 1 - 2^-24], "
+        f"mismatches against ndtri32 {got['mismatches']} (first "
+        f"{got['first_bits']}); 2^23 uniforms bitwise the plain ndtri32 "
+        f"{same} ({time.perf_counter() - t0:.2f} s)")
+    if got["mismatches"] != 0 or not same:
+        raise AssertionError("K0 ndtri32_unit differs from ndtri32")
 
 
 def phase_parity(torch, errs):
@@ -2365,6 +2387,11 @@ JUMP_COST = {
     "vg": (1, 2, NDTRI_FP + 30 + 2 * EXP32_FP + 8 + 6),
     "sabr": (2, 0, 2 * EXP32_FP + 12),
 }
+#: QE parameter sets beside the CLI's (66% of warp-steps all quadratic,
+#: the rest mixed): Feller's condition holds (every step quadratic), and
+#: a vol of vol of 3 (at 17 steps the exponential branch below v ~ 1).
+QE_MIXES = {"feller": ["--kappa", "2", "--theta", "0.04", "--xi", "0.3"],
+            "exponential": ["--xi", "3"]}
 #: The phase's shapes: K2 at the CLI's 2^20 x 252, K3 at
 #: price_to_tolerance's 2^22 x 252 chunks, K4 {avg} at 2^20 x 252.
 JUMP_PATHS, JUMP_STEPS, JUMP_TOL_CHUNK = 1 << 20, 252, 1 << 22
@@ -2423,8 +2450,9 @@ def phase_jump_parity(torch, errs):
     under Sobol draws) and K4 plain at 2^18 - 37, where phase 10's timed
     launches add K2 plain at 2^20 for every process and K3 on Merton at
     2^22.  A 252-step plain version takes seconds (hundreds of eager
-    operations per step), so 252-step runs are kept to these.  Then the K0
-    gamma functions on 2^20 uniforms."""
+    operations per step), so 252-step runs are kept to these.  Then K2 on
+    HestonQE and BatesQE at QE_MIXES' sets (17 steps, plain and
+    antithetic), and the K0 gamma functions on 2^20 uniforms."""
     import numpy as np
 
     from montecarlo_tpu_torch.engine import (ARITH_MEAN, GEO_MEAN,
@@ -2489,6 +2517,25 @@ def phase_jump_parity(torch, errs):
                 del cases
             torch.cuda.synchronize()
         log(f"  {kind} parity: {time.perf_counter() - t0:.1f} s")
+    # The QE step where every warp takes the quadratic branch (Feller's
+    # condition holds) and where most take the exponential one (vol of
+    # vol 3): K2 at 17 steps, plain and antithetic.
+    from montecarlo_tpu_torch.cli.pricing import cli_process
+
+    for kind in ("heston-qe", "bates-qe"):
+        for mix, flags in QE_MIXES.items():
+            proc = cli_process(["--process", kind, "--steps", "17", *flags],
+                               "cuda")[0]
+            for label, draw in (("plain", {}),
+                                ("antithetic", {"antithetic": True})):
+                kw = dict(seed=17, path_offset=off, **draw)
+                _, max_abs, _ = compare(
+                    f"K2 {kind} {mix} 17 steps {label}",
+                    fused_terminal(proc, n - 37, 17, **kw),
+                    fused_terminal_reference(proc, n - 37, 17, **kw),
+                    BITWISE)
+                key = f"fused_terminal_{kind}"
+                errs[key] = max(errs.get(key, 0.0), max_abs)
     vg = jump_process("vg", JUMP_STEPS)
     rng = np.random.default_rng(10)
     m = 1 << 20
@@ -2508,10 +2555,11 @@ def phase_jump_parity(torch, errs):
 
 
 def phase_jump_shapes(torch, errs, times):
-    """Each new K2 timed at the CLI's 2^20 x 252 beside its plain version
-    and bound, K3 on Merton at price_to_tolerance's 2^22 x 252 (chunks 0
-    and 7), K4 {avg} on Kou and VG at 2^20 x 252; each checked bitwise.
-    Returns the K2 rates in path-steps/s."""
+    """Each new K2 timed at the CLI's 2^20 x 252 beside its plain version,
+    bound and SASS issue floor, K3 on Merton at price_to_tolerance's 2^22 x
+    252 (chunks 0 and 7) and on HestonQE (chunk 0, with its floor), K4
+    {avg} on Kou and VG at 2^20 x 252 (VG's with its floor); each checked
+    bitwise.  Returns the K2 rates in path-steps/s."""
     from montecarlo_tpu_torch.engine import ARITH_MEAN, VanillaPayoff
     from montecarlo_tpu_torch.ops import (fused_block_moments,
                                           fused_block_moments_reference,
@@ -2545,6 +2593,20 @@ def phase_jump_shapes(torch, errs, times):
                     5, BITWISE, fields=("mean", "m2"),
                     bnd=jump_bound("merton", nt, s, out_bytes=8 / 128,
                                    extra_fp=8))
+    # K3 on the HestonQE call at a tolerance chunk, beside its SASS issue
+    # floor.
+    qe = jump_process("heston-qe", s)
+    timed_check(times, errs, "fused_block_moments_heston-qe",
+                f"K3 heston-qe call {nt}x{s}",
+                lambda: fused_block_moments(qe, pay, nt, s, seed=0),
+                lambda: fused_block_moments_reference(qe, pay, nt, s,
+                                                      seed=0),
+                5, BITWISE, fields=("mean", "m2"),
+                bnd=jump_bound("heston-qe", nt, s, out_bytes=8 / 128,
+                               extra_fp=8),
+                floor=issue_floor(("fused_kernel", FUNCTORS["heston-qe"],
+                                   "RowMoments", "ThreefryDrawsILb0E"),
+                                  nt, (s + 1) // 2))
     fns = {"avg": ARITH_MEAN}
     for kind in ("kou", "vg"):
         proc = jump_process(kind, s)
@@ -2556,7 +2618,10 @@ def phase_jump_shapes(torch, errs, times):
                                                         functionals=fns),
                     10, BITWISE,
                     bnd=jump_bound(kind, n, s, out_bytes=8,
-                                   observe_fp=EXP32_FP + 1))
+                                   observe_fp=EXP32_FP + 1),
+                    floor=None if kind == "kou" else issue_floor(
+                        k4_sass(FUNCTORS[kind], "ThreefryDrawsILb0E", (0,)),
+                        n, (s + 1) // 2))
     log("  K2 path-steps/s at 2^20 x 252: " + ", ".join(
         f"{k} {r:.4e}" for k, r in rates.items()))
     return rates

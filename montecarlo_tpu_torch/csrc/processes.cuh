@@ -23,12 +23,15 @@
 // step, one table read through the read-only cache (the 5-year table is 5 KB),
 // a sqrt and 9 float32 operations.  The jump and Levy processes add uniform
 // cipher calls on their second streams and per step the truncated Poisson's
-// four selects, Kou four log32 (one per jump size), the QE step ndtri32 and two
-// log32, VG ndtri32, three log32, two exp32 and four table reads (two 2 KB
-// tables through the read-only cache), SABR two exp32 and a log32 (its
-// Box-Muller pairs from one sincosf).  The local-vol surfaces add per step
-// one IEEE division (the log-moneyness coordinate) and two reads of the
-// step's row through the read-only cache, the same row for every thread;
+// four selects, Kou four log32 (one per jump size), the QE step
+// (qe_step.cuh) ndtri32_unit, two log32 and five divisions (HestonQE's
+// warps whose lanes all take one branch only that branch's), VG
+// ndtri32_unit, three log32, two exp32 and one 16-byte read of its
+// interleaved table (8 KB through the read-only cache), SABR two exp32
+// and a log32; SABR, the QE processes and VG take their Box-Muller pairs
+// from one sincosf.  The local-vol surfaces add per step one IEEE
+// division (the log-moneyness coordinate) and two reads of the step's
+// row through the read-only cache, the same row for every thread;
 // the time blend is the row builder's, once per step and lane.  A Sobol
 // draw is integer work per
 // dimension (the warp's shared Gray-code walk, a load and 11 shuffles; the
@@ -46,6 +49,7 @@
 #pragma once
 
 #include "fused_engine.cuh"
+#include "qe_step.cuh"
 #include "surface.cuh"
 
 namespace mcf {
@@ -199,6 +203,17 @@ __device__ __forceinline__ void normal_pair(uint32_t k0, uint32_t k1,
   uint32_t b0, b1;
   mc::threefry2x32(k0, k1, id, c, &b0, &b1);
   mc::boxmuller_pair(b0, b1, z0, z1);
+}
+
+// normal_pair with the sine and cosine from one sincosf
+// (mc::boxmuller_sincos): the same bits.  HestonQEProc, BatesQEProc and
+// VgProc draw their normals through it.
+__device__ __forceinline__ void normal_pair_sincos(uint32_t k0, uint32_t k1,
+                                                   uint32_t id, uint32_t c,
+                                                   float* z0, float* z1) {
+  uint32_t b0, b1;
+  mc::threefry2x32(k0, k1, id, c, &b0, &b1);
+  mc::boxmuller_sincos(b0, b1, z0, z1);
 }
 
 __device__ __forceinline__ void uniform_pair(uint32_t k0, uint32_t k1,
@@ -441,61 +456,16 @@ struct NigProc : MixedDraws<3, 0b010u> {
   __device__ float log_prices(State s) const { return s.log_s; }
 };
 
-// The QE-M variance transition and martingale-corrected drift constant
-// (processes/heston_qe.py::QEVarianceMixin) from the nine QE leaves q =
-// [e_kdt, c1, c2, k0, k1, k2, k3, k4, mgf_a] and theta.  Both branches are
-// computed and selected, as the plain version's selects do.
-struct QECore {
-  float theta, e_kdt, c1, c2, k0, k1, k2, k3, k4, A, two_A, head_c;
-  __device__ QECore(float theta_, const float* q)
-      : theta(theta_), e_kdt(q[0]), c1(q[1]), c2(q[2]), k0(q[3]), k1(q[4]),
-        k2(q[5]), k3(q[6]), k4(q[7]), A(q[8]) {
-    two_A = 2.0f * A;
-    head_c = -(k1 + 0.5f * k3);
-  }
-  // v' from (v, u); *k0s the per-path K0*, *sq = sqrt(k3 v + k4 v') (0
-  // where that is not positive).
-  __device__ float step(float v, float u, float* k0s, float* sq) const {
-    const float m = theta + (v - theta) * e_kdt;
-    const float s2 = v * c1 + c2;
-    const float m2 = m * m;
-    const bool quad = s2 <= 1.5f * m2;
-    const float inv2 = (2.0f * m2) / s2;
-    const float tw1 = fmaxf(inv2 - 1.0f, 0.0f);
-    const float b2 = fmaxf((inv2 - 1.0f) + sqrtf(inv2 * tw1), 0.0f);
-    const float a = m / (1.0f + b2);
-    const float zq = sqrtf(b2) + mc::ndtri32(u);
-    const float v_quad = a * (zq * zq);
-    const float p = (s2 - m2) / (s2 + m2);
-    const float beta = (1.0f - p) / m;
-    const float tail = mc::log32((1.0f - p) / (1.0f - u)) / beta;
-    const float v_exp = u <= p ? 0.0f : fmaxf(tail, 0.0f);
-    const float v_new = quad ? v_quad : v_exp;
-    // K0* (one log32 on the branch's argument).
-    const float den = 1.0f - two_A * a;
-    const bool ok_q = den > 0.0f;
-    const float den_s = ok_q ? den : 1.0f;
-    const float gap = beta - A;
-    const bool ok_e = gap > 0.0f;
-    const float mgf_e =
-        fmaxf(p + (beta * (1.0f - p)) / (ok_e ? gap : 1.0f), 1e-30f);
-    const float lg = mc::log32(quad ? den_s : mgf_e);
-    const float lm = quad ? ((A * b2) * a) / den_s - 0.5f * lg : lg;
-    const bool ok = quad ? ok_q : ok_e;
-    *k0s = ok ? head_c * v - lm : k0;
-    const float var_s = k3 * v + k4 * v_new;
-    *sq = var_s > 0.0f ? sqrtf(var_s) : 0.0f;
-    return v_new;
-  }
-};
-
 // Heston under QE-M (processes/heston_qe.py): leaves = [s0, v0, mu, kappa,
 // theta, xi, rho, dt, e_kdt, c1, c2, k0, k1, k2, k3, k4, mgf_a]; draws (z,
 // u_variance): the halves of counter j on the main and variance streams.
+// The QE step in its warp-uniform form: only the taken branch where the
+// warp's lanes agree.  (BatesQEProc keeps the selected form: the
+// warp-uniform one ran slower for it at the CLI's parameters.)
 struct HestonQEProc : MixedDraws<2, 0b10u> {
   using State = LogVarState;
   float log_s0, v0, mu_dt;
-  QECore qe;
+  mc::QECore qe;
   __device__ HestonQEProc(const float* leaves, int)
       : qe(leaves[4], leaves + 8) {
     log_s0 = mc::log32(leaves[0]);
@@ -504,13 +474,13 @@ struct HestonQEProc : MixedDraws<2, 0b10u> {
   }
   __device__ static void draws_pair(uint32_t k0, uint32_t k1, uint32_t id,
                                     uint32_t j, float* eps0, float* eps1) {
-    normal_pair(k0, k1, id, j, &eps0[0], &eps1[0]);
+    normal_pair_sincos(k0, k1, id, j, &eps0[0], &eps1[0]);
     uniform_pair(k0, k1 ^ kVStream, id, j, &eps0[1], &eps1[1]);
   }
   __device__ State init() const { return State{log_s0, v0}; }
   __device__ State step(State s, const float* eps) const {
     float k0s, sq;
-    const float v_new = qe.step(s.v, eps[1], &k0s, &sq);
+    const float v_new = qe.step_warp_uniform(s.v, eps[1], &k0s, &sq);
     const float log_s = s.log_s + ((((mu_dt + k0s) + qe.k1 * s.v) +
                                     qe.k2 * v_new) + sq * eps[0]);
     return State{log_s, v_new};
@@ -525,7 +495,7 @@ struct HestonQEProc : MixedDraws<2, 0b10u> {
 struct BatesQEProc : MixedDraws<4, 0b0110u> {
   using State = LogVarState;
   float log_s0, v0, mu_lm_dt, jm, js;
-  QECore qe;
+  mc::QECore qe;
   PoissonLevels pois;
   __device__ BatesQEProc(const float* leaves, int)
       : qe(leaves[4], leaves + 11), pois(leaves[7] * leaves[10]) {
@@ -538,8 +508,8 @@ struct BatesQEProc : MixedDraws<4, 0b0110u> {
   }
   __device__ static void draws_pair(uint32_t k0, uint32_t k1, uint32_t id,
                                     uint32_t j, float* eps0, float* eps1) {
-    normal_pair(k0, k1, id, 2u * j, &eps0[0], &eps0[3]);
-    normal_pair(k0, k1, id, 2u * j + 1u, &eps1[0], &eps1[3]);
+    normal_pair_sincos(k0, k1, id, 2u * j, &eps0[0], &eps0[3]);
+    normal_pair_sincos(k0, k1, id, 2u * j + 1u, &eps1[0], &eps1[3]);
     uniform_pair(k0, k1 ^ kVStream, id, j, &eps0[1], &eps1[1]);
     uniform_pair(k0, k1 ^ kJumpStream, id, j, &eps0[2], &eps1[2]);
   }
@@ -559,18 +529,20 @@ struct BatesQEProc : MixedDraws<4, 0b0110u> {
 };
 
 // Variance gamma (processes/vg.py): leaves = [s0, mu, sigma, theta, nu,
-// dt, gq_z0, gq_dz, gq_resid (n), gq_dresid (n)], n = dims; draws (u_w,
-// u_boost, z).  The subordinator increment is nu times
-// mc::gamma_from_uniforms_table32 over the tables, read through the
-// read-only cache.
+// dt, gq_z0, gq_dz, gq_resid (n), gq_dresid (n)], n = dims, then on the
+// card (ops/fused_engine.py::_launch_leaves) zeros to 16 bytes and the
+// tables interleaved by interval, (resid[i], resid[i + 1], dresid[i],
+// dresid[i + 1]) for i < n - 1; draws (u_w, u_boost, z).  The
+// subordinator increment is nu times mc::gamma_from_uniforms_quad32 over
+// the interleaved table: one 16-byte load through the read-only cache a
+// step, the two tables' floats.
 struct VgProc : MixedDraws<3, 0b011u> {
   using State = LogState;
-  const float* resid;
-  const float* dresid;
+  const float* quad;
   int n;
   float log_s0, drift, sigma, theta, nu, a, z0, dz;
   __device__ VgProc(const float* leaves, int n_table)
-      : resid(leaves + 8), dresid(leaves + 8 + n_table), n(n_table) {
+      : quad(leaves + ((8 + 2 * n_table + 3) & ~3)), n(n_table) {
     const float mu = leaves[1], dt = leaves[5];
     sigma = leaves[2];
     theta = leaves[3];
@@ -587,14 +559,14 @@ struct VgProc : MixedDraws<3, 0b011u> {
   // uniforms both halves of counter 2j or 2j+1 on the VG stream.
   __device__ static void draws_pair(uint32_t k0, uint32_t k1, uint32_t id,
                                     uint32_t j, float* eps0, float* eps1) {
-    normal_pair(k0, k1, id, j, &eps0[2], &eps1[2]);
+    normal_pair_sincos(k0, k1, id, j, &eps0[2], &eps1[2]);
     uniform_pair(k0, k1 ^ kVgStream, id, 2u * j, &eps0[0], &eps0[1]);
     uniform_pair(k0, k1 ^ kVgStream, id, 2u * j + 1u, &eps1[0], &eps1[1]);
   }
   __device__ State init() const { return State{log_s0}; }
   __device__ State step(State s, const float* eps) const {
-    const float g = nu * mc::gamma_from_uniforms_table32(
-                             a, eps[0], eps[1], z0, dz, resid, dresid, n);
+    const float g =
+        nu * mc::gamma_from_uniforms_quad32(a, eps[0], eps[1], z0, dz, quad, n);
     return State{s.log_s + ((drift + theta * g) + (sigma * sqrtf(g)) * eps[2])};
   }
   __device__ float prices(State s) const { return mc::exp32(s.log_s); }

@@ -1,8 +1,9 @@
 // K0 — the device math traced into every kernel of the JAX package:
 // Threefry-2x32-20, uniform_from_bits, Box-Muller, exp32, log32, the
-// randomized Sobol normal (ndtri32, sobol_bits, the Owen hash) and the
+// randomized Sobol normal (ndtri32, sobol_bits, the Owen hash), ndtri32's
+// one-rational form on the functors' uniforms (ndtri32_unit) and the
 // table-inverted gamma variate of variance gamma (expneg_wide32,
-// gamma_from_uniforms_table32).
+// gamma_from_uniforms_table32, and its form over an interleaved table).
 //
 // Replaces montecarlo_tpu/rng/threefry.py::threefry2x32,
 // montecarlo_tpu/rng/normal.py::{uniform_from_bits, boxmuller_pair, exp32,
@@ -112,7 +113,9 @@ MC_HD void boxmuller_pair(uint32_t b0, uint32_t b1, float* z0, float* z1) {
 // calls boxmuller_angle_sincos and is held against the plain version's
 // torch.sin and torch.cos), so the pair is boxmuller_pair's, bit for bit.
 // The host build keeps boxmuller_pair: glibc's sincosf is another libm.
-// Called by K6 (rbergomi_kernel.cu) and SabrProc (processes.cuh).
+// Called by K6 (rbergomi_kernel.cu), SabrProc and, through
+// normal_pair_sincos, HestonQEProc, BatesQEProc and VgProc
+// (processes.cuh).
 __device__ __forceinline__ void boxmuller_angle_sincos(uint32_t b1, float* s,
                                                        float* c) {
   sincosf(6.283185307179586f * uniform_from_bits(b1), s, c);
@@ -185,6 +188,38 @@ MC_HD float ndtri32(float u) {
   float tail = rt <= 5.0f ? mid : far;
   tail = q < 0.0f ? -tail : tail;
   return fabsf(q) <= 0.425f ? central : tail;
+}
+
+// ndtri32 for the functors' uniforms, bit for bit ndtri32's on every u in
+// [2^-24, 1 - 2^-24], with one rational and one division where ndtri32
+// evaluates three rationals and selects.  Called by QECore (qe_step.cuh),
+// whose u is uniform_from_bits' (k + 1/2) 2^-23 >= 2^-24 or its exact
+// mirror 1 - u <= 1 - 2^-24, and by VG's gamma-table inversion
+// (gamma_knot), which clamps u to [6e-8, 1 - 2^-24].  There p = min(u, 1 - u) >= 2^-24 (1 - u
+// is exact for u >= 1/2 and above 1/2 below it, so ndtri32's clamps of p
+// to [1e-30, 1/2] change nothing), so rt = sqrt(-log p) <= sqrt(24 log 2)
+// = 4.08 < 5: the far tail is never selected.  The central and middle
+// rationals share one polynomial pair through selected coefficients:
+// the middle denominator, of degree 2, is padded with a leading 0 (0 r +
+// c = c exactly), the central numerator stays q P(rc), and the tail's
+// sign goes on the numerator, since -(a / b) = (-a) / b in IEEE division.
+// The Sobol sources and the bridge keep ndtri32.
+MC_HD float ndtri32_unit(float u) {
+  const float q = u - 0.5f;
+  const bool central = fabsf(q) <= 0.425f;
+  const float rc = 0.180625f - q * q;
+  const float rt = sqrtf(-logf(fminf(u, 1.0f - u)));
+  const float x = central ? rc : rt - 1.6f;
+  const float num =
+      (((central ? 59.109374720f : 0.17023821103f) * x +
+        (central ? 159.29113202f : 1.3067284816f)) * x +
+       (central ? 50.434271938f : 2.7568153900f)) * x +
+      (central ? 3.3871327179f : 1.4234372777f);
+  const float den =
+      (((central ? 67.187563600f : 0.0f) * x +
+        (central ? 78.757757664f : 0.12021132975f)) * x +
+       (central ? 17.895169469f : 0.73700164250f)) * x + 1.0f;
+  return ((central ? q : (q < 0.0f ? -1.0f : 1.0f)) * num) / den;
 }
 
 // Bits of a Sobol integer (rng/sobol.py::BITS).
@@ -267,23 +302,25 @@ MC_HD float expneg_wide32(float x) {
   return e4 * e4;
 }
 
-// One Gamma(a, 1) variate, a in (0, 1], from two uniforms (rng/gamma.py::
-// gamma_from_uniforms_table32): the shape-(1 + a) quantile of u_w from the
-// residual table (z0, dz, resid[n], dresid[n]) by cubic Hermite at z =
-// ndtri32(u_w), plus log(u_w) / (1 + a), times u_boost^(1/a).  The table
-// is read by plain indexing.
-MC_HD float gamma_from_uniforms_table32(float a, float u_w, float u_boost,
-                                        float z0, float dz,
-                                        const float* resid,
-                                        const float* dresid, int n) {
-  const float u = fminf(fmaxf(u_w, 6e-8f), (float)(1.0 - 6e-8));
-  const float z = ndtri32(u);
+// The first half of the table inversion below: u_w clamped to [6e-8, 1 -
+// 2^-24] (*u), the knot interval i of z = ndtri32(u) (ndtri32_unit's bits
+// on these u) in the table (z0, dz) of n knots, and the fraction into it.
+MC_HD int gamma_knot(float u_w, float z0, float dz, int n, float* u,
+                     float* frac) {
+  *u = fminf(fmaxf(u_w, 6e-8f), (float)(1.0 - 6e-8));
+  const float z = ndtri32_unit(*u);
   const float t = (z - z0) / dz;
   int i = (int)floorf(t);
   i = i < 0 ? 0 : (i > n - 2 ? n - 2 : i);
-  const float frac = fminf(fmaxf(t - (float)i, 0.0f), 1.0f);
-  const float g0 = resid[i], g1 = resid[i + 1];
-  const float m0 = dresid[i] * dz, m1 = dresid[i + 1] * dz;
+  *frac = fminf(fmaxf(t - (float)i, 0.0f), 1.0f);
+  return i;
+}
+
+// The second half: the cubic Hermite residual at frac between the knots'
+// values g0, g1 and slopes (times dz) m0, m1, plus log(u) / (1 + a), times
+// u_boost^(1/a).
+MC_HD float gamma_at_knots(float a, float u, float u_boost, float frac,
+                           float g0, float g1, float m0, float m1) {
   const float f2 = frac * frac;
   const float f3 = f2 * frac;
   const float h = ((g0 * ((2.0f * f3 - 3.0f * f2) + 1.0f) +
@@ -293,6 +330,41 @@ MC_HD float gamma_from_uniforms_table32(float a, float u_w, float u_boost,
   const float b = 1.0f + a;
   const float log_w = fminf(fmaxf(h + log32(u) / b, -20.0f), 20.0f);
   return exp32(log_w) * expneg_wide32(log32(u_boost) / a);
+}
+
+// One Gamma(a, 1) variate, a in (0, 1], from two uniforms (rng/gamma.py::
+// gamma_from_uniforms_table32): the shape-(1 + a) quantile of u_w from the
+// residual table (z0, dz, resid[n], dresid[n]) by cubic Hermite at z =
+// ndtri32(u_w), plus log(u_w) / (1 + a), times u_boost^(1/a).  The table
+// is read by plain indexing.
+MC_HD float gamma_from_uniforms_table32(float a, float u_w, float u_boost,
+                                        float z0, float dz,
+                                        const float* resid,
+                                        const float* dresid, int n) {
+  float u, frac;
+  const int i = gamma_knot(u_w, z0, dz, n, &u, &frac);
+  return gamma_at_knots(a, u, u_boost, frac, resid[i], resid[i + 1],
+                        dresid[i] * dz, dresid[i + 1] * dz);
+}
+
+// gamma_from_uniforms_table32 over the table interleaved by interval:
+// quad[4 i .. 4 i + 3] = (resid[i], resid[i + 1], dresid[i], dresid[i +
+// 1]) for i < n - 1, the same floats, so the same bits.  On the card quad
+// lies on 16 bytes and an interval is one 16-byte load through the
+// read-only cache, where the two tables take four (VgProc).
+MC_HD float gamma_from_uniforms_quad32(float a, float u_w, float u_boost,
+                                       float z0, float dz, const float* quad,
+                                       int n) {
+  float u, frac;
+  const int i = gamma_knot(u_w, z0, dz, n, &u, &frac);
+#ifdef __CUDA_ARCH__
+  const float4 k = __ldg(reinterpret_cast<const float4*>(quad) + i);
+#else
+  const struct {
+    float x, y, z, w;
+  } k = {quad[4 * i], quad[4 * i + 1], quad[4 * i + 2], quad[4 * i + 3]};
+#endif
+  return gamma_at_knots(a, u, u_boost, frac, k.x, k.y, k.z * dz, k.w * dz);
 }
 
 }  // namespace mc

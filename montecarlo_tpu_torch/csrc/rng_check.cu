@@ -1,7 +1,8 @@
 // K0 check entries: run the device functions of rng.cuh elementwise, so the
 // on-card build of the cipher, the float32 math, the Sobol normal and the
 // table-inverted gamma variate can be held against the plain PyTorch
-// versions (rng/threefry.py, rng/normal.py, rng/sobol.py, rng/gamma.py).
+// versions (rng/threefry.py, rng/normal.py, rng/sobol.py, rng/gamma.py),
+// and ndtri32_unit against ndtri32 on every float32 of its range.
 // Not on the pricing path; they exist to test K0 on the card.
 
 #include <cuda_runtime.h>
@@ -67,6 +68,39 @@ __global__ void gamma_check_kernel(const float* __restrict__ u_w,
                                                resid, dresid, n_table);
 }
 
+// ndtri32_unit's range: the float32 bit patterns of 2^-24 and 1 - 2^-24.
+constexpr uint32_t kUnitLo = 0x33800000u;
+constexpr uint32_t kUnitHi = 0x3F7FFFFFu;
+constexpr uint32_t kUniforms = 1u << 23;  // uniform_from_bits' values
+
+// counts[0] += the float32 u in [2^-24, 1 - 2^-24] where ndtri32_unit(u)
+// and ndtri32(u) differ in a bit; counts[1] = min(counts[1], the lowest
+// such u's bit pattern).  A grid-stride walk over every bit pattern.
+__global__ void ndtri_unit_range_kernel(unsigned long long* counts) {
+  unsigned long long bad = 0;
+  unsigned long long first = ~0ull;
+  const uint32_t stride = gridDim.x * blockDim.x;
+  for (uint32_t b = kUnitLo + blockIdx.x * blockDim.x + threadIdx.x;
+       b <= kUnitHi; b += stride) {
+    const float u = __uint_as_float(b);
+    if (__float_as_uint(mc::ndtri32_unit(u)) !=
+        __float_as_uint(mc::ndtri32(u))) {
+      ++bad;
+      first = min(first, (unsigned long long)b);
+    }
+  }
+  if (bad) {
+    atomicAdd(counts, bad);
+    atomicMin(counts + 1, first);
+  }
+}
+
+// out[k] = ndtri32_unit((k + 1/2) 2^-23), k < 2^23.
+__global__ void ndtri_unit_uniforms_kernel(float* __restrict__ out) {
+  const uint32_t k = blockIdx.x * blockDim.x + threadIdx.x;
+  if (k < kUniforms) out[k] = mc::ndtri32_unit(mc::uniform_from_bits(k << 9));
+}
+
 }  // namespace
 
 // bits (2, n) uint32: Threefry words; out (6, n) float32: u0, u1, z0, z1,
@@ -108,5 +142,20 @@ extern "C" int mc_gamma_check(float* out, const float* u_w, const float* u_b,
   const int64_t blocks = (n + threads - 1) / threads;
   gamma_check_kernel<<<(unsigned)blocks, threads, 0, (cudaStream_t)stream>>>(
       u_w, u_b, x, n, a, z0, dz, resid, dresid, n_table, out);
+  return (int)cudaGetLastError();
+}
+
+// counts (2,) int64, zeroed and set to INT64_MAX by the caller: the
+// mismatches of ndtri32_unit against ndtri32 over every float32 in [2^-24,
+// 1 - 2^-24] and the lowest mismatching bit pattern; uniforms (2^23,)
+// float32: ndtri32_unit of every uniform_from_bits value, in word order.
+extern "C" int mc_ndtri_unit_check(int64_t* counts, float* uniforms,
+                                   void* stream) {
+  const int threads = 256;
+  const cudaStream_t st = (cudaStream_t)stream;
+  ndtri_unit_range_kernel<<<132 * 16, threads, 0, st>>>(
+      reinterpret_cast<unsigned long long*>(counts));
+  ndtri_unit_uniforms_kernel<<<kUniforms / threads, threads, 0, st>>>(
+      uniforms);
   return (int)cudaGetLastError();
 }

@@ -179,15 +179,16 @@ def _leaves(process):
     eta2, dt]; Bates: Heston's with [lam, jump_mean, jump_std] before dt;
     NIG: [s0, mu, alpha, beta, delta, dt]; HestonQE and BatesQE: Heston's
     and Bates's, then [e_kdt, c1, c2, k0, k1, k2, k3, k4, mgf_a]; VG: [s0,
-    mu, sigma, theta, nu, dt, gq_z0, gq_dz, gq_resid (n), gq_dresid (n)];
+    mu, sigma, theta, nu, dt, gq_z0, gq_dz, gq_resid (n), gq_dresid (n)],
+    its launch adding the interleaved table;
     SABR: [f0, alpha, beta, nu, rho, dt]; local vol: [s0, rate, dt, x0, dx,
     dt_knot, vol_flat (n_tk * 128)]; SLV: [s0, rate, v0, kappa, theta, xi,
     rho, dt, x0, dx, lev_rows (n_rows * 128)]; SLV on knots: SLV's up to
     dx, then [dt_knot, lev_flat (n_tk * 128)]), and ``dims`` the basket's
     A, GARCH's table length, VG's table length n, the local-vol surfaces'
     time-knot count n_tk or SLV's row count n_rows, an integer that never
-    passes through a float.  A launch on a surface on time knots takes
-    :func:`_launch_leaves`' instead."""
+    passes through a float.  A launch on a surface on time knots or on VG
+    takes :func:`_launch_leaves`' instead."""
     err = kernel_refusal(process)
     if err is not None:
         raise err
@@ -237,39 +238,60 @@ def surface_rows(table: torch.Tensor, n_rows: int, dt: torch.Tensor,
 
 
 #: The launch leaves of the surfaces on time knots, built once per
-#: (process, n_steps): id(process) -> (a weak reference to it, n_steps,
-#: (n_rows, leaves)); an entry goes with its process.
+#: (process, n_steps), and of variance gamma, built once per process:
+#: id(process) -> (a weak reference to it, n_steps, (dims, leaves)); an
+#: entry goes with its process.
 _ROW_LEAVES: dict = {}
+
+
+def vg_quad_table(process: VarianceGamma) -> torch.Tensor:
+    """VG's quantile table interleaved by interval, as ``VgProc`` reads it
+    (``csrc/rng.cuh::gamma_from_uniforms_quad32``): (resid[i], resid[i +
+    1], dresid[i], dresid[i + 1]) for i < n - 1, flattened; the same
+    floats as ``gq_resid`` and ``gq_dresid``."""
+    r, d = process.gq_resid, process.gq_dresid
+    return torch.stack([r[:-1], r[1:], d[:-1], d[1:]], 1).reshape(-1)
 
 
 def _launch_leaves(process, n_steps: int, dims: int, leaves):
     """(dims, leaves) of a launch of ``n_steps`` steps on the card:
-    ``_leaves``' own, or for a surface on time knots (``ROW_HEADS``) its
-    head leaves and then its rows of steps 0 .. max(n_steps, 1) - 1 from
+    ``_leaves``' own; for variance gamma those, zeros to a multiple of 4
+    floats and :func:`vg_quad_table` (on 16 bytes, for ``VgProc``'s
+    16-byte loads); for a surface on time knots (``ROW_HEADS``) its head
+    leaves and then its rows of steps 0 .. max(n_steps, 1) - 1 from
     :func:`surface_rows`, with dims the row count.  Those are built on the
     first launch of a (process, n_steps) and kept for the launches after it
     (a ``price_to_tolerance`` run's chunks); a process's leaves are fixed
     once it is made."""
     dev = process.device
     head = ROW_HEADS.get(type(process))
+    vg = isinstance(process, VarianceGamma)
     if head is None:
         check_cuda_tensor("leaves", leaves, dev, torch.float32)
-        return dims, leaves
+        if not vg:
+            return dims, leaves
     key = id(process)
     hit = _ROW_LEAVES.get(key)
-    if hit is not None and hit[0]() is process and hit[1] == n_steps:
+    if (hit is not None and hit[0]() is process
+            and (vg or hit[1] == n_steps)):
         return hit[2]
-    n_rows = max(n_steps, 1)
-    out = torch.empty(len(head) + n_rows * KNOTS, dtype=torch.float32,
-                      device=dev)
-    out[:len(head)] = torch.stack([getattr(process, f) for f in head])
-    table = (process.vol_flat if isinstance(process, LocalVolGBM)
-             else process.lev_flat)
-    surface_rows(table, n_rows, process.dt, process.dt_knot,
-                 out=out[len(head):])
+    if vg:
+        out = torch.cat([leaves, leaves.new_zeros(-leaves.numel() % 4),
+                         vg_quad_table(process)])
+        if out.data_ptr() % 16:
+            raise ValueError("VG's launch leaves must start on 16 bytes")
+    else:
+        dims = max(n_steps, 1)
+        out = torch.empty(len(head) + dims * KNOTS, dtype=torch.float32,
+                          device=dev)
+        out[:len(head)] = torch.stack([getattr(process, f) for f in head])
+        table = (process.vol_flat if isinstance(process, LocalVolGBM)
+                 else process.lev_flat)
+        surface_rows(table, dims, process.dt, process.dt_knot,
+                     out=out[len(head):])
     ref = weakref.ref(process, lambda _, k=key: _ROW_LEAVES.pop(k, None))
-    _ROW_LEAVES[key] = (ref, n_steps, (n_rows, out))
-    return n_rows, out
+    _ROW_LEAVES[key] = (ref, n_steps, (dims, out))
+    return dims, out
 
 
 def draw_source(sampler, antithetic: bool = False) -> int:

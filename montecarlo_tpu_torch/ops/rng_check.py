@@ -2,8 +2,11 @@
 (``csrc/rng_check.cu``) beside their plain PyTorch versions, so a test or
 ``chip_smoke.py`` can hold the on-card build against ``rng/``: the cipher
 and the float32 math (``rng_check``), the randomized Sobol normal with
-``ndtri32`` (``sobol_check``), and ``expneg_wide32`` with the
-table-inverted gamma variate of variance gamma (``gamma_check``)."""
+``ndtri32`` (``sobol_check``), ``expneg_wide32`` with the
+table-inverted gamma variate of variance gamma (``gamma_check``), and the
+functors' inverse normal ``ndtri32_unit`` against ``ndtri32`` on every
+float32 of its range and against the plain ``ndtri32`` on every uniform
+(``ndtri_unit_check``)."""
 
 from __future__ import annotations
 
@@ -141,3 +144,43 @@ def gamma_check(vg, u_w, u_b, x) -> dict:
                               resid.data_ptr(), dresid.data_ptr(),
                               resid.numel(), cuda_stream(dev))
     return dict(zip(GAMMA_NAMES, out))
+
+
+K0_NDTRI_UNIT_CHECK = CudaKernel("mc_ndtri_unit_check", [
+    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p])
+
+#: uniform_from_bits' values, (k + 1/2) 2^-23 for k < 2^23, and the float32
+#: of ndtri32_unit's range, [2^-24, 1 - 2^-24], by bit pattern.
+N_UNIFORMS = 1 << 23
+UNIT_RANGE = (0x33800000, 0x3F7FFFFF)
+
+
+def unit_uniforms(device) -> torch.Tensor:
+    """Every value ``uniform_from_bits`` gives, in word order."""
+    k = torch.arange(N_UNIFORMS, dtype=torch.float64, device=device)
+    return ((k + 0.5) * 2.0 ** -23).to(torch.float32)
+
+
+def ndtri_unit_check(device) -> dict:
+    """``ndtri32_unit`` on the card: ``mismatches``, the float32 u in
+    [2^-24, 1 - 2^-24] (all UNIT_RANGE[1] - UNIT_RANGE[0] + 1 of them)
+    where it differs from the card's ``ndtri32`` in a bit, with
+    ``first_bits`` the lowest such u's bit pattern (None when there is
+    none), and ``uniforms``, its value on every ``uniform_from_bits``
+    value (``unit_uniforms``' order)."""
+    dev = torch.device(device)
+    counts = torch.tensor([0, 2 ** 63 - 1], dtype=torch.int64, device=dev)
+    uniforms = torch.empty(N_UNIFORMS, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        K0_NDTRI_UNIT_CHECK.launch(counts.data_ptr(), uniforms.data_ptr(),
+                                   cuda_stream(dev))
+    bad, first = counts.tolist()
+    return {"mismatches": bad,
+            "first_bits": None if bad == 0 else first,
+            "uniforms": uniforms}
+
+
+def ndtri_unit_check_reference(device) -> torch.Tensor:
+    """The plain ``ndtri32`` on every ``uniform_from_bits`` value: what
+    ``ndtri_unit_check``'s ``uniforms`` must equal."""
+    return ndtri32(unit_uniforms(device))

@@ -31,9 +31,12 @@ sets of csrc/functionals.cuh's FixedFolds) equal the generic fold's plain
 version bitwise under every draw source, each launch counted as fixed.  The jump, Levy, QE
 and SABR functors (Merton, Kou, Bates, NIG, HestonQE, BatesQE, VG, SABR:
 their draws_pair layouts, second key streams, per-draw mirror, Poisson
-select chains, ndtri32 and the gamma table) equal their plain versions and
-the torch loop bitwise on K2-K4, SABR under Sobol draws too, and the
-device build of the gamma-table inversion equals its plain version.  So
+select chains, the inverse normal, the QE step in its selected and
+warp-uniform forms and VG's interleaved gamma table) equal their plain
+versions and the torch loop bitwise on K2-K4, SABR under Sobol draws too;
+the device build of the gamma-table inversion equals its plain version,
+and the QE and VG functors' one-rational inverse normal equals ndtri32 on
+every float32 of its range.  So
 do the local-vol surfaces (LocalVolProc on the CEV and a time-dependent
 surface, SlvProc's exact rows read through a pointer and an offset, its
 clamp past the last row, SLVKnots on SlvProc) under every draw source each
@@ -769,6 +772,44 @@ def test_cuda_new_process_k2_k3_k4_bitwise_equal_plain(cuda, kind,
         assert torch.equal(got[k], want[k]), k
 
 
+#: QE parameter sets beside the CLI's (where 66% of warp-steps are all
+#: quadratic, the rest mixed): Feller's condition holds (every step
+#: quadratic), and a vol of vol of 3 (at 17 steps the exponential branch
+#: below v ~ 1, so from v0 all exponential, later mixed).
+QE_MIXES = {"feller": ["--kappa", "2", "--theta", "0.04", "--xi", "0.3"],
+            "exponential": ["--xi", "3"]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mix", sorted(QE_MIXES))
+@pytest.mark.parametrize("antithetic", [False, True])
+@pytest.mark.parametrize("kind", ["heston-qe", "bates-qe"])
+def test_cuda_qe_branch_mixes_bitwise_equal_plain(cuda, kind, antithetic,
+                                                  mix):
+    """The QE step's warp-uniform branches (HestonQE: only the taken
+    branch where a warp's lanes agree) and its selected form (BatesQE) at
+    parameters whose warps are all quadratic, all exponential or mixed:
+    K2, K3 and K4 bitwise their plain versions."""
+    from montecarlo_tpu_torch.cli.pricing import cli_process
+
+    tp = cli_process(["--process", kind, "--steps", "17", *QE_MIXES[mix]],
+                     cuda)[0]
+    kw = dict(seed=5, path_offset=WRAP, antithetic=antithetic)
+    n = 4096 * 3
+    assert torch.equal(fused_terminal(tp, n - 37, 17, **kw),
+                       fused_terminal_reference(tp, n - 37, 17, **kw))
+    pay = VanillaPayoff("call", 100.0)
+    got = fused_block_moments(tp, pay, n, 17, **kw)
+    want = fused_block_moments_reference(tp, pay, n, 17, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    fns = {"avg": ARITH_MEAN, "mx": RUNNING_MAX}
+    got = fused_functionals(tp, n - 37, 17, functionals=fns, **kw)
+    want = fused_functionals_reference(tp, n - 37, 17, functionals=fns,
+                                       **kw)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_steps", [9, 17])
 def test_cuda_sabr_under_sobol_draws_bitwise_equal_plain(cuda, n_steps):
@@ -850,6 +891,20 @@ def test_cuda_k0_gamma_functions_equal_plain(cuda):
     want = gamma_check_reference(vg, u_w, u_b, x)
     for k in want:
         assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.cuda
+def test_cuda_k0_ndtri32_unit_equals_ndtri32_on_its_range(cuda):
+    """The functors' inverse normal (ndtri32_unit, called by the QE step
+    and VG's gamma inversion) equals ndtri32 in every bit on every float32
+    in [2^-24, 1 - 2^-24], and the plain ndtri32 on every
+    uniform_from_bits value."""
+    from montecarlo_tpu_torch.ops.rng_check import (
+        ndtri_unit_check, ndtri_unit_check_reference)
+
+    got = ndtri_unit_check(cuda)
+    assert got["mismatches"] == 0, got["first_bits"]
+    assert torch.equal(got["uniforms"], ndtri_unit_check_reference(cuda))
 
 
 # --- local and stochastic-local volatility on K2-K4 --------------------------

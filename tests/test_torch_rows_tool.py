@@ -77,3 +77,32 @@ def test_sass_hot_path_skips_the_slow_path():
     # the CALL's three instructions are skipped; the other branch falls
     # through
     assert hot == [0x10, 0x20, 0x30, 0x70, 0x80, 0x90, 0xa0, 0xb0]
+
+
+# A loop whose branch leaves for a block placed after the loop and comes
+# back with an unconditional branch.
+SASS_OUT_OF_LINE = """
+        /*0000*/                   MOV R1, c[0x0][0x28] ;
+        /*0010*/                   IADD3 R2, R2, 0x1, RZ ;
+        /*0020*/                   FADD R3, R3, R6 ;
+        /*0030*/                   BRA 0x90 ;
+        /*0040*/                   FADD R3, R3, R5 ;
+        /*0050*/                   FADD R3, R3, R6 ;
+        /*0060*/                   ISETP.GE.AND P2, PT, R2, R7, PT ;
+        /*0070*/              @!P2 BRA 0x10 ;
+        /*0080*/                   EXIT ;
+        /*0090*/                   FMUL R3, R3, R4 ;
+        /*00a0*/                   BRA 0x40 ;
+"""
+
+
+def test_sass_hot_path_follows_a_block_after_the_loop():
+    ins = ROWS.parse_sass(SASS_OUT_OF_LINE)
+    hot = [a for a, *_ in ROWS.hot_path(ins)]
+    assert hot == [0x10, 0x20, 0x30, 0x90, 0xa0, 0x40, 0x50, 0x60, 0x70]
+
+
+def test_sass_hot_path_refuses_a_walk_off_the_end():
+    ins = ROWS.parse_sass(SASS_OUT_OF_LINE.replace("BRA 0x40", "NOP"))
+    with pytest.raises(ValueError, match="no hot path"):
+        ROWS.hot_path(ins)

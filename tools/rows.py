@@ -37,6 +37,19 @@ Row sets (``ROW_SETS``):
   252; on the checkout's own library also the row builder alone at 252 x
   128.  Its SASS is that of the Threefry K2 on each functor (SLVKnots'
   own where a checkout has one), K3 on SLV and K6's ring.
+- ``qe_vg``: K2 at the CLI's 2^20 x 252 on HestonQE, BatesQE and VG,
+  plain and antithetic, and on HestonQE and BatesQE where Feller's
+  condition holds (kappa 2, theta 0.04, xi 0.3); K3 on the HestonQE call
+  at a 2^22 x 252 tolerance chunk; K4 {avg} on VG at 2^20 x 252; as
+  controls K2 on Merton and NIG (which keep ``normal_pair``) at 2^20 x
+  252 and the Sobol and bridge K2 on GBM at 2^18 x 252 (which keep
+  ``ndtri32``); on the ``qe mix counter`` variant only, the share of
+  warp-steps of the QE step that are all quadratic, all exponential or
+  mixed at the CLI's and Feller's sets.  Its SASS is that of K2 on the
+  five functors, K3 on HestonQE and the Sobol and bridge K2.  Variants:
+  HestonQE on the selected QE step, BatesQE on the warp-uniform one, the
+  parent's ``ndtri32`` in the QE step, the three functors' normals from
+  ``sinf`` and ``cosf``, VG over its two tables.
 
 A kernel row is timed by CUDA events after a quarter second of warm-up,
 then ``--reps`` calls, beside its bound from ``chip_smoke``'s bound
@@ -56,7 +69,8 @@ stage loop (K6's ring, ``rbergomi_ring_kernel<K, S>``).
 
 ``--variants`` rebuilds the library from edited copies of the sources (the
 set's ``variants``) and times the set's rows on each, the rows of the
-checkout's own library left out.  ``--rounds`` repeats the rows (and the
+checkout's own library left out; a variant with rows of its own (a
+counting variant) runs only those.  ``--rounds`` repeats the rows (and the
 variants').  Needs one CUDA card and nvcc; run from the root of a
 checkout:
 
@@ -126,6 +140,7 @@ class Row(NamedTuple):
     name: str
     measure: Callable   # (torch, reps) -> the row's fields
     own: bool = False   # on the checkout's own library only
+    only: str = ""      # on this variant's library only
 
 
 def timed(name, bnd, fn, profile=False, own=False) -> Row:
@@ -829,6 +844,180 @@ SABR_SURFACE_SASS = (
 )
 
 
+# --------------------------------------------------------------- qe_vg
+
+#: The QE processes where Feller's condition holds (2 kappa theta = 0.16 >
+#: xi^2 = 0.09): every step takes the quadratic branch.
+FELLER = ["--kappa", "2", "--theta", "0.04", "--xi", "0.3"]
+
+
+def _qe_mix(kind, flags, n, s):
+    """The counting row of ``kind`` (``price --process kind`` with
+    ``flags``): K2 at n x s once on the counting variant's library, then
+    its warp-steps that were all quadratic, all exponential or mixed."""
+    def measure(torch, reps):
+        import numpy as np
+
+        from montecarlo_tpu_torch.cli.pricing import cli_process
+        from montecarlo_tpu_torch.ops import _build, fused_terminal
+
+        lib = _build.load_library()
+        read = lib.mc_qe_mix
+        read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+        counts = np.zeros(3, np.uint64)
+        proc = cli_process(["--process", kind, "--steps", str(s), *flags],
+                           "cuda")[0]
+        torch.cuda.synchronize()
+        read(counts.ctypes.data, 1)
+        out = fused_terminal(proc, n, s, seed=0)
+        torch.cuda.synchronize()
+        read(counts.ctypes.data, 1)
+        total = int(counts.sum())
+        return {"warp_steps": total, "digest": digest(out),
+                **{k: round(int(c) / total, 6) for k, c in
+                   zip(("all_quadratic", "all_exponential", "mixed"),
+                       counts)}}
+    return measure
+
+
+def qe_vg_rows(torch):
+    import chip_smoke as cs
+    from montecarlo_tpu_torch.cli.pricing import cli_process
+    from montecarlo_tpu_torch.engine import ARITH_MEAN, VanillaPayoff
+    from montecarlo_tpu_torch.ops import (fused_block_moments,
+                                          fused_functionals, fused_terminal)
+    from montecarlo_tpu_torch.processes import GBM
+    from montecarlo_tpu_torch.rng.sobol import (SobolBridgeKernelSampler,
+                                                SobolDeviceSampler)
+
+    n, s, nt = 1 << 20, 252, 1 << 22
+    procs = {kind: cs.jump_process(kind, s)
+             for kind in ("heston-qe", "bates-qe", "vg", "merton", "nig")}
+    rows = []
+    for kind in ("heston-qe", "bates-qe", "vg"):
+        rows += [timed(f"K2 {kind}{tag} {n}x{s}", cs.jump_bound(kind, n, s),
+                       lambda p=procs[kind], kw=kw: fused_terminal(
+                           p, n, s, seed=0, **kw))
+                 for tag, kw in (("", {}), (" antithetic",
+                                            {"antithetic": True}))]
+    for kind in ("heston-qe", "bates-qe"):
+        feller = cli_process(["--process", kind, "--steps", str(s),
+                              *FELLER], "cuda")[0]
+        rows.append(timed(f"K2 {kind} feller {n}x{s}",
+                          cs.jump_bound(kind, n, s),
+                          lambda p=feller: fused_terminal(p, n, s, seed=0)))
+    pay = VanillaPayoff("call", 105.0)
+    rows += [
+        timed(f"K3 heston-qe call {nt}x{s}",
+              cs.jump_bound("heston-qe", nt, s, out_bytes=8 / 128,
+                            extra_fp=8),
+              lambda: fused_block_moments(procs["heston-qe"], pay, nt, s,
+                                          seed=0),
+              profile=True),
+        timed(f"K4 vg {{avg}} {n}x{s}",
+              cs.jump_bound("vg", n, s, out_bytes=8,
+                            observe_fp=cs.EXP32_FP + 1),
+              lambda: fused_functionals(procs["vg"], n, s, seed=0,
+                                        functionals={"avg": ARITH_MEAN}))]
+    # The controls: Merton and NIG keep normal_pair, the Sobol and bridge
+    # sources ndtri32.
+    rows += [timed(f"K2 {kind} {n}x{s}", cs.jump_bound(kind, n, s),
+                   lambda p=procs[kind]: fused_terminal(p, n, s, seed=0))
+             for kind in ("merton", "nig")]
+    nq = cs.QMC_CHUNK
+    gbm = GBM.create(100.0, 0.03, 0.2, 1.0 / s, device="cuda")
+    for src, smp in (("sobol", SobolDeviceSampler.create(s, 1,
+                                                         device="cuda")),
+                     ("bridge", SobolBridgeKernelSampler.create(
+                         s, device="cuda"))):
+        br = (smp.n_steps, smp.width) if src == "bridge" else None
+        rows.append(timed(f"K2 gbm {src} {nq}x{s}",
+                          cs.sobol_bound(torch, nq, s, extra_fp=cs.EXP32_FP,
+                                         bridge=br),
+                          lambda smp=smp: fused_terminal(gbm, nq, s, seed=1,
+                                                         sampler=smp)))
+    # The branch mix, on the counting variant's library only.
+    rows += [Row(f"qe mix {kind}{tag} {n}x{s}", _qe_mix(kind, flags, n, s),
+                 only=QE_MIX)
+             for kind in ("heston-qe", "bates-qe")
+             for tag, flags in (("", []), (" feller", FELLER))]
+    return rows
+
+
+QE_MIX = "qe mix counter"
+_QE_TOP = ("qe_step.cuh", "struct QECore {\n")
+_QE_TEST = ("qe_step.cuh", "    return *s2 <= 1.5f * *m2;\n")
+_QE_ZQ = "    const float zq = sqrtf(b2) + ndtri32_unit(u);\n"
+_HESTON_QE = ("processes.cuh", "qe.step_warp_uniform(s.v, eps[1], &k0s, "
+              "&sq);")
+_BATES_QE = ("processes.cuh", "    const float v_new = qe.step(s.v, eps[1], "
+             "&k0s, &sq);")
+_VG_AT = ("processes.cuh", "      : quad(leaves + ((8 + 2 * n_table + 3) & "
+          "~3)), n(n_table) {\n")
+_VG_STEP = ("processes.cuh", "nu * mc::gamma_from_uniforms_quad32(a, "
+            "eps[0], eps[1], z0, dz, quad, n);")
+QE_VG_VARIANTS = {
+    # HestonQE on the selected form, both branches on every warp.
+    "selected heston-qe": [(*_HESTON_QE, "qe.step(s.v, eps[1], &k0s, &sq);")],
+    # BatesQE on the warp-uniform form.
+    "warp-uniform bates-qe": [(*_BATES_QE, _BATES_QE[1].replace(
+        "qe.step(", "qe.step_warp_uniform("))],
+    # The parent's inverse normal in the QE step (its three rationals).
+    "qe ndtri32": [("qe_step.cuh", _QE_ZQ + tail, _QE_ZQ.replace(
+        "ndtri32_unit", "ndtri32") + tail)
+        for tail in ("    const float den", "    const float v_quad")],
+    # The three functors' normals from sinf and cosf (normal_pair's).
+    "sinf and cosf": [("processes.cuh",
+                       "  mc::boxmuller_sincos(b0, b1, z0, z1);\n}",
+                       "  mc::boxmuller_pair(b0, b1, z0, z1);\n}")],
+    # VG over its two tables, four 4-byte loads a step (the launch leaves
+    # keep them before the interleaved table).
+    "vg two tables": [
+        (*_VG_AT, "      : quad(leaves + 8), n(n_table) {\n"),
+        (*_VG_STEP, "nu * mc::gamma_from_uniforms_table32(a, eps[0], eps[1], "
+         "z0, dz, quad, quad + n, n);")],
+    # Counts each warp-step of the QE step as all quadratic, all
+    # exponential or mixed (mc_qe_mix reads and zeroes the counts).
+    QE_MIX: [
+        (*_QE_TOP, "#ifdef __CUDACC__\nstatic __device__ unsigned long "
+         "long qe_mix[3];\n#endif\n\n" + _QE_TOP[1]),
+        (*_QE_TEST, """    const bool quad = *s2 <= 1.5f * *m2;
+#ifdef __CUDA_ARCH__
+    const unsigned act = __activemask();
+    const unsigned q = __ballot_sync(act, quad);
+    if ((threadIdx.x & 31u) == (unsigned)(__ffs(act) - 1)) {
+      atomicAdd(&qe_mix[q == act ? 0 : (q == 0u ? 1 : 2)], 1ull);
+    }
+#endif
+    return quad;
+"""),
+        ("fused_engine.cu", "// K2: terminal prices, out (n_paths,).\n",
+         """// The QE branch counts into out (3,) on the host; zeroed after.
+extern "C" int mc_qe_mix(unsigned long long* out, int reset) {
+  cudaMemcpyFromSymbol(out, mc::qe_mix, 3 * sizeof(unsigned long long));
+  if (reset) {
+    const unsigned long long zero[3] = {0, 0, 0};
+    cudaMemcpyToSymbol(mc::qe_mix, zero, sizeof(zero));
+  }
+  return (int)cudaGetLastError();
+}
+
+// K2: terminal prices, out (n_paths,).
+""")],
+}
+
+QE_VG_SASS = tuple(
+    (f"K2 {tag}", (proc, *_K2)) for tag, proc in (
+        ("heston-qe", "HestonQEProc"), ("bates-qe", "BatesQEProc"),
+        ("vg", "VgProc"), ("merton", "MertonProc"), ("nig", "NigProc"))) + (
+    ("K3 heston-qe", ("fused_kernel", "HestonQEProc", "RowMoments",
+                      "ThreefryDrawsILb0E")),
+    ("K2 gbm sobol", ("fused_kernel", "GbmProc", "StoreTerminal",
+                      "SobolDraws")),
+    ("K2 gbm bridge", ("fused_kernel", "GbmProc", "StoreTerminal",
+                       "BridgeDraws")))
+
+
 class RowSet(NamedTuple):
     rows: Callable      # torch -> [Row]
     variants: dict      # name -> [(file, old, new)]
@@ -844,6 +1033,7 @@ ROW_SETS = {
                        (1 << 20, 252)),
     "sabr_surface": RowSet(sabr_surface_rows, SABR_SURFACE_VARIANTS,
                            SABR_SURFACE_SASS, (1 << 20, 252)),
+    "qe_vg": RowSet(qe_vg_rows, QE_VG_VARIANTS, QE_VG_SASS, (1 << 20, 252)),
 }
 
 
@@ -905,14 +1095,16 @@ def hot_path(ins, loop=None):
     when the code it skips is a slow path (at most 8 instructions around
     a CALL, the IEEE division's and square root's, or code holding a loop
     of its own, the sine's and cosine's argument reduction) and falls
-    through otherwise."""
+    through otherwise; an unconditional branch back (from a block the
+    compiler placed after the loop) is followed.  A walk that passes as
+    many instructions as the kernel has, or runs off its end, raises."""
     loop = hottest_loop(ins) if loop is None else loop
     if not loop:
         return []
     back = loop[-1][0]
     at = {x[0]: k for k, x in enumerate(ins)}
     k, path = at[loop[0][0]], []
-    while True:
+    while k < len(ins) and len(path) < len(ins):
         addr, op, rest, pred = ins[k]
         path.append(ins[k])
         if addr == back:
@@ -926,7 +1118,12 @@ def hot_path(ins, loop=None):
             if not pred or slow:
                 k = at[_target(rest)]
                 continue
+        elif op.startswith("BRA") and not pred:
+            k = at[_target(rest)]
+            continue
         k += 1
+    raise ValueError(f"no hot path from {loop[0][0]:#x} to its back-edge "
+                     f"{back:#x}")
 
 
 def stage_steps(name: str) -> int:
@@ -1121,13 +1318,17 @@ def main() -> int:
     for rnd in range(args.rounds):
         run_rows(torch, args.label if rnd == 0 else
                  f"{args.label} round {rnd + 1}", args.reps,
-                 [r for r in rows if rnd == 0 or not r.own])
+                 [r for r in rows if not r.only and (rnd == 0 or not r.own)])
         try:
             for name, so in sos.items():
                 lib = load(so)
                 _build.load_library = lambda lib=lib: lib
+                # A variant that has rows of its own (a counting one) runs
+                # only those.
+                own_rows = [r for r in rows if r.only == name]
                 run_rows(torch, f"{args.label} {name}", args.reps,
-                         [r for r in rows if not r.own])
+                         own_rows or [r for r in rows
+                                      if not r.own and not r.only])
         finally:
             _build.load_library = main_lib
     return 0
