@@ -175,6 +175,26 @@ CUDA kernels from ``montecarlo_tpu_torch/csrc`` and, in phases:
    the world-size-1 sharded estimate timed against the unsharded one in
    turns (the sharded overhead) beside the streaming ``var``'s
    wall-clock.
+13. the short-rate and term-structure processes on K2-K4 (RateProc over
+   csrc/rate_steps.cuh, in csrc/fused_rates.cu: Euler GBM, term-structure
+   GBM, Vasicek, CIR, Hull-White, G2++): K2, K3 (a digital) and K4 ({trap,
+   avg}) on each against its plain version bitwise at 2^18 paths (2^18 -
+   37 for K2 and K4) x 64 steps with ids from 2^30 - 1000, under Threefry
+   plain and antithetic, Sobol and (one draw) bridge draws, G2++ under the
+   bridge routed away from the kernels; a run one step longer than the
+   curves refused before any launch; K2 on each and K4 {trap} on each bond
+   model timed at the bond path's 2^20 x 252, K3 on the Vasicek digital
+   at 2^22 x 252, each beside its plain version and bound (K2 and K3 also
+   beside their SASS issue floors); then, launch counters reset just
+   before and read just after each run: ``bond --paths 1048576 --steps 252`` for the four models (K4)
+   against their closed forms (4 std-err plus the JAX tests' slack), ``bond
+   --option`` (K4) against Jamshidian, ``bond --cap`` (the torch loop)
+   against its closed form, ``bond --model g2pp --swaption`` (the host
+   quadrature) against exact-transition Monte Carlo on the card, and the
+   engine's ``terminal_prices`` on Vasicek (K2: the OU law), Euler GBM (K2:
+   its exact mean) and a dividend-paying term-structure GBM (K2: the
+   forward), ``payoff_block_moments`` of a Vasicek digital (K3: the normal
+   law), each wall-clock by the host clock.
 
 Phase 3 also holds K5 (2^18 paths x {504, 756, 37} columns, ids wrapping
 past 2^32) and K6 (2^18 and 2^18 - 3 paths, its ring and its plain-load
@@ -3549,6 +3569,386 @@ def phase_sharded(torch):
         raise AssertionError(f"phase 12 checks failed: {failed}")
     return counts
 
+# ---- phase 13: the short-rate and term-structure processes on K2-K4 ----------
+
+#: The phase's processes (csrc/fused_rates.cu's RateProc over
+#: csrc/rate_steps.cuh): the bond command's four models, and Euler GBM and
+#: term-structure GBM, which only the engine calls.
+RATE_KINDS = ("euler-gbm", "term-gbm", "vasicek", "cir", "hullwhite", "g2pp")
+#: Per process: the Threefry calls per step pair (a Box-Muller pair each),
+#: the float32 operations of one step as csrc/rate_steps.cuh counts them
+#: (multiplies, adds, max and selects; the IEEE division and sqrtf not
+#: counted) and those of its prices once a path (exp32 for term GBM, G2++'s
+#: two adds).
+RATE_COST = {"euler-gbm": (1, 3, 0), "term-gbm": (1, 8, EXP32_FP),
+             "vasicek": (1, 5, 0), "cir": (1, 7, 0), "hullwhite": (1, 5, 0),
+             "g2pp": (2, 9, 2)}
+#: Each process's step in csrc/rate_steps.cuh (its kernels' symbols name
+#: RateProc<mc::Step, D>).
+RATE_STEP = {"euler-gbm": "EulerGbmStep", "term-gbm": "TermGbmStep",
+             "vasicek": "VasicekStep", "cir": "CirStep",
+             "hullwhite": "HullWhiteStep", "g2pp": "G2ppStep"}
+RATE_MODELS = ("vasicek", "cir", "hullwhite", "g2pp")
+#: K2 and K4 at the bond path's 2^20 x 252; K3 at a tolerance chunk's
+#: 2^22 x 252; the bitwise parity at 2^18 x 64.
+RATE_PATHS, RATE_STEPS, RATE_TOL_CHUNK = 1 << 20, 252, 1 << 22
+RATE_PARITY_PATHS, RATE_PARITY_STEPS = 1 << 18, 64
+#: Each bond model's slack beside 4 std-err against its closed form, its
+#: JAX test's: the trapezoid bias under Vasicek's exact transition
+#: (tests/test_rates.py:44), CIR's full-truncation Euler (:49), Hull-White
+#: repricing its input curve (:75), G2++'s 1e-5 of the price
+#: (tests/test_g2pp.py:52); the bond option's trapezoid bias (:63).
+RATE_SLACK = {"vasicek": 5e-5, "cir": 3e-4, "hullwhite": 2e-4,
+              "g2pp": 1e-5, "option": 5e-5}
+
+
+def bond_args(argv):
+    """The ``bond`` command's parsed arguments for ``argv`` (its flags)."""
+    import argparse
+
+    from montecarlo_tpu_torch.cli import bond
+
+    parser = argparse.ArgumentParser()
+    bond.add_parsers(parser.add_subparsers())
+    return parser.parse_args(["bond", *argv])
+
+
+def rate_procs(steps):
+    """The processes of phase 13 on the card over ``steps`` steps: the
+    bond command's four models as ``bond --model <m> --steps <steps>``
+    builds them (Hull-White on a curve of ``steps`` entries), Euler GBM at
+    the price command's GBM, and a term-structure GBM on seeded curves of
+    ``steps`` entries."""
+    import numpy as np
+
+    from montecarlo_tpu_torch.cli import bond
+    from montecarlo_tpu_torch.processes import EulerGBM, TermStructureGBM
+
+    procs = {m: bond.build_model(bond_args(["--model", m, "--steps",
+                                            str(steps)]), "cuda")[0]
+             for m in RATE_MODELS}
+    rng = np.random.default_rng(steps)
+    procs["euler-gbm"] = EulerGBM.create(100.0, 0.03, 0.2, 1 / 252,
+                                         device="cuda")
+    procs["term-gbm"] = TermStructureGBM.from_curves(
+        100.0, rng.uniform(0.0, 0.05, steps), rng.uniform(0.1, 0.3, steps),
+        1 / 252, device="cuda")
+    return procs
+
+
+def rate_bound(kind, n, steps, out_bytes=4, extra_fp=0, observe_fp=0):
+    """``step_bound`` with the process's draws, step and price counts
+    (RATE_COST), plus ``observe_fp`` a step (K4's observation and
+    fold)."""
+    draws, step_fp, price_fp = RATE_COST[kind]
+    return step_bound(n, steps, draws=draws, step_fp=step_fp + observe_fp,
+                      out_bytes=out_bytes, extra_fp=price_fp + extra_fp)
+
+
+def rate_floor(kind, n, steps, epilogue="StoreTerminal"):
+    """The SASS issue floor of K2 (or K3 with ``epilogue="RowMoments"``)
+    on ``kind``'s functor under plain Threefry draws: a pass of the time
+    loop a step pair.  K4 on these functors runs the generic fold, whose
+    switch over the codes the SASS walker follows down more than the one
+    case a {trap} run takes (its "floor" came out above the kernel's
+    time): no floor is printed for it."""
+    return issue_floor(("fused_kernel", RATE_STEP[kind], epilogue,
+                        "ThreefryDrawsILb0E"), n, (steps + 1) // 2)
+
+
+def phase_rate_parity(torch, errs):
+    """K2, K3 (a digital) and K4 ({trap, avg}) on the six functors against
+    their plain versions, bitwise, at 2^18 paths (2^18 - 37 for K2 and
+    K4) x 64 steps, ids from 2^30 - 1000, under every draw source each
+    takes: Threefry plain and antithetic, Sobol, and the bridge for the
+    five of one draw (G2++ under the bridge goes to the torch loop, as in
+    the JAX package, where the sampler refuses it); then the refusal of a
+    run one step longer than the curves, before any launch."""
+    from montecarlo_tpu_torch.engine import (ARITH_MEAN, VanillaPayoff,
+                                             kernel_route,
+                                             trapezoid_integral)
+    from montecarlo_tpu_torch.ops import (fused_block_moments,
+                                          fused_block_moments_reference,
+                                          fused_functionals,
+                                          fused_functionals_reference,
+                                          fused_terminal,
+                                          fused_terminal_reference,
+                                          launch_counts)
+    from montecarlo_tpu_torch.rng.sobol import (SobolBridgeKernelSampler,
+                                                SobolDeviceSampler)
+
+    n, steps = RATE_PARITY_PATHS, RATE_PARITY_STEPS
+    off = (1 << 30) - 1000
+    procs = rate_procs(steps)
+    for kind in RATE_KINDS:
+        t0 = time.perf_counter()
+        proc = procs[kind]
+        pay = VanillaPayoff("digital", 100.0 if "gbm" in kind else 0.04)
+        fns = {"trap": trapezoid_integral(float(proc.dt)), "avg": ARITH_MEAN}
+        runs = [("plain", {}), ("antithetic", {"antithetic": True}),
+                ("sobol", {"sampler": SobolDeviceSampler.create(
+                    steps, proc.n_draws, scramble_seed=13, device="cuda")})]
+        bridge = SobolBridgeKernelSampler.create(steps, scramble_seed=13,
+                                                 device="cuda")
+        if proc.n_draws == 1:
+            runs.append(("bridge", {"sampler": bridge}))
+        elif kernel_route(proc, bridge, steps):
+            raise AssertionError(f"{kind}: the bridge routed to the kernels")
+        for label, draw in runs:
+            kw = dict(seed=23, path_offset=off, **draw)
+            tag = f"{kind} {steps} steps {label}"
+            cases = [("K2", "fused_terminal_rates",
+                      fused_terminal(proc, n - 37, steps, **kw),
+                      fused_terminal_reference(proc, n - 37, steps, **kw))]
+            got = fused_block_moments(proc, pay, n, steps, **kw)
+            want = fused_block_moments_reference(proc, pay, n, steps, **kw)
+            cases += [(f"K3 {f}", "fused_block_moments_rates",
+                       getattr(got, f), getattr(want, f))
+                      for f in ("mean", "m2")]
+            got = fused_functionals(proc, n - 37, steps, functionals=fns,
+                                    **kw)
+            want = fused_functionals_reference(proc, n - 37, steps,
+                                               functionals=fns, **kw)
+            cases += [(f"K4 {k}", "fused_functionals_rates", got[k], want[k])
+                      for k in want]
+            for name, key, g, w in cases:
+                _, max_abs, _ = compare(f"{name} {tag}", g, w, BITWISE)
+                errs[key] = max(errs.get(key, 0.0), max_abs)
+            del cases
+        torch.cuda.synchronize()
+        log(f"  {kind} parity: {time.perf_counter() - t0:.1f} s")
+    before = launch_counts()
+    fns = {"avg": ARITH_MEAN}
+    for kind in ("term-gbm", "hullwhite"):
+        for run in (lambda: fused_terminal(procs[kind], n, steps + 1, seed=0),
+                    lambda: fused_functionals(procs[kind], n, steps + 1,
+                                              seed=0, functionals=fns)):
+            try:
+                run()
+            except ValueError as e:
+                log(f"  {kind} at {steps + 1} steps refused: {e}")
+            else:
+                raise AssertionError(f"{kind}: {steps + 1} steps ran on a "
+                                     f"curve of {steps}")
+    if launch_counts() != before:
+        raise AssertionError("a refused run launched a kernel")
+
+
+def phase_rate_shapes(torch, errs, times):
+    """K2 on each functor and K4 {trap} on each bond model at the bond
+    path's 2^20 x 252, K3 on the Vasicek digital at a 2^22 x 252 chunk,
+    each timed (CUDA events) beside its plain version, bound and (K2, K3)
+    SASS issue floor, and checked bitwise.  The kernels-line entries report
+    Vasicek's rows."""
+    from montecarlo_tpu_torch.engine import VanillaPayoff, trapezoid_integral
+    from montecarlo_tpu_torch.ops import (fused_block_moments,
+                                          fused_block_moments_reference,
+                                          fused_functionals,
+                                          fused_functionals_reference,
+                                          fused_terminal,
+                                          fused_terminal_reference)
+
+    n, s = RATE_PATHS, RATE_STEPS
+    procs = rate_procs(s)
+    rates = {}
+    for kind in RATE_KINDS:
+        proc = procs[kind]
+        key = f"fused_terminal_rates {kind}"
+        timed_check(times, errs, key, f"K2 {kind} {n}x{s}",
+                    lambda: fused_terminal(proc, n, s, seed=0),
+                    lambda: fused_terminal_reference(proc, n, s, seed=0),
+                    10, BITWISE, bnd=rate_bound(kind, n, s),
+                    floor=rate_floor(kind, n, s))
+        rates[kind] = n * s / (times[key]["ms"] * 1e-3)
+    for kind in RATE_MODELS:
+        proc = procs[kind]
+        fns = {"trap": trapezoid_integral(float(proc.dt))}
+        timed_check(times, errs, f"fused_functionals_rates {kind}",
+                    f"K4 {kind} {{trap}} {n}x{s}",
+                    lambda: fused_functionals(proc, n, s, seed=0,
+                                              functionals=fns),
+                    lambda: fused_functionals_reference(proc, n, s, seed=0,
+                                                        functionals=fns),
+                    10, BITWISE,
+                    bnd=rate_bound(kind, n, s, out_bytes=8, observe_fp=3))
+    # The kernels-line entries: Vasicek's rows, every row's error.
+    for name, kinds in (("fused_terminal_rates", RATE_KINDS),
+                        ("fused_functionals_rates", RATE_MODELS)):
+        times[name] = times[f"{name} vasicek"]
+        errs[name] = max([errs.get(name, 0.0)]
+                         + [errs[f"{name} {k}"] for k in kinds])
+    vas, nt = procs["vasicek"], RATE_TOL_CHUNK
+    pay = VanillaPayoff("digital", 0.05)
+    timed_check(times, errs, "fused_block_moments_rates",
+                f"K3 vasicek digital {nt}x{s}",
+                lambda: fused_block_moments(vas, pay, nt, s, seed=0),
+                lambda: fused_block_moments_reference(vas, pay, nt, s,
+                                                      seed=0),
+                5, BITWISE, fields=("mean", "m2"),
+                bnd=rate_bound("vasicek", nt, s, out_bytes=8 / 128,
+                               extra_fp=8),
+                floor=rate_floor("vasicek", nt, s, "RowMoments"))
+    log("  K2 path-steps/s at 2^20 x 252: " + ", ".join(
+        f"{k} {r:.4e}" for k, r in rates.items()))
+
+
+def check_closed_form(label, price, se, cf, slack):
+    """A Monte Carlo price within 4 std-err plus ``slack`` of its closed
+    form."""
+    ok = math.isfinite(price) and abs(price - cf) < 4 * se + slack
+    log(f"  {label}: {price:.8f} +- {se:.3e} -> closed form {cf:.8f}, "
+        f"|diff| {abs(price - cf):.3e}, 4 se + {slack:g} = "
+        f"{4 * se + slack:.3e} ({'ok' if ok else 'FAIL'})")
+    if not ok:
+        raise AssertionError(f"{label}: {price} vs closed form {cf}")
+
+
+def g2pp_expiry_state(torch, argv):
+    """The ``bond --model g2pp --swaption`` model on the card and, by its
+    exact transition on the torch loop (16 steps to the expiry 0.25, 2^20
+    paths), the factor state at expiry and the pathwise trapezoid
+    discount: (state, discount, model), for the swaption by Monte Carlo
+    with the coupon bond at expiry in closed form."""
+    from montecarlo_tpu_torch.processes import G2PP
+    from montecarlo_tpu_torch.rng.threefry import key_from_seed
+    from montecarlo_tpu_torch.samplers import PlainSampler
+
+    a = bond_args(argv)
+    delta, n, steps = 0.25, RATE_PATHS, 16
+    m = G2PP.create(a.r0, a.kappa, a.sigma, a.g2pp_b, a.g2pp_eta,
+                    a.g2pp_rho, delta / steps, device="cuda")
+    k0, k1 = key_from_seed(3)
+    ids = torch.arange(n, dtype=torch.int64, device="cuda")
+    state = m.init_state(ids)
+    r_prev = m.prices(state).double()
+    integral = torch.zeros(n, dtype=torch.float64, device="cuda")
+    for t in range(steps):
+        state = m.step(state, PlainSampler().draws(m, k0, k1, ids, t), t)
+        r = m.prices(state).double()
+        integral = integral + 0.5 * (r_prev + r) * (delta / steps)
+        r_prev = r
+    return state, torch.exp(-integral), m
+
+
+def phase_rate_path(torch, card):
+    """The slice's path through the CLI and the engine, each run counted
+    by itself (``run_qmc``: exactly the named kernels launched): ``bond
+    --paths 1048576 --steps 252`` for the four models (K4), each against
+    its closed form; ``bond --option`` (K4) against Jamshidian; ``bond
+    --cap`` (the torch loop, no kernel) against its closed form
+    (tests/test_rates.py::test_cli_bond_cap's gate); ``bond --model g2pp
+    --swaption`` (host quadrature, no kernel) against exact-transition
+    Monte Carlo on the card; the engine's ``terminal_prices`` on Vasicek
+    (K2: r_T's mean and variance against the exact OU law), on Euler GBM
+    (K2: E[S_T] = s0 (1 + mu dt)^T) and on a dividend-paying
+    term-structure GBM (K2: the forward), and ``payoff_block_moments`` of
+    the digital r_T > theta (K3: against the normal law).  Returns each
+    kernels-line entry's launches."""
+    import numpy as np
+
+    from montecarlo_tpu_torch.engine import (VanillaPayoff,
+                                             payoff_block_moments,
+                                             terminal_prices)
+    from montecarlo_tpu_torch.processes import (EulerGBM, TermStructureGBM,
+                                                g2pp_bond)
+    from montecarlo_tpu_torch.stats.welford import moments_reduce, std_error
+
+    totals, walls = {}, {}
+    base = ["bond", "--paths", str(RATE_PATHS), "--steps", str(RATE_STEPS)]
+    for model in RATE_MODELS:
+        out, walls[model] = run_qmc(
+            totals, f"bond --model {model}", ("fused_functionals",),
+            lambda: run_cli(base + ["--model", model])[0])
+        check_closed_form(f"bond --model {model} zcb", out["zcb_price"],
+                          out["std_err"], out["closed_form"],
+                          RATE_SLACK[model] * (out["closed_form"]
+                                               if model == "g2pp" else 1.0))
+    out, walls["option"] = run_qmc(
+        totals, "bond --option", ("fused_functionals",),
+        lambda: run_cli(["bond", "--option"])[0])
+    check_closed_form("bond --option", out["bond_option_price"],
+                      out["std_err"], out["jamshidian"],
+                      RATE_SLACK["option"])
+    out, walls["cap"] = run_qmc(totals, "bond --cap", (),
+                                lambda: run_cli(["bond", "--cap"])[0])
+    ok = abs(out["mc_price"] - out["closed_form"]) \
+        < 5 * out["mc_std_err"] + 1e-6
+    log(f"  bond --cap: {json.dumps(out)} ({'ok' if ok else 'FAIL'})")
+    if not ok:
+        raise AssertionError(f"bond --cap: {out}")
+    argv = ["--model", "g2pp", "--swaption"]
+    out, walls["swaption"] = run_qmc(totals, "bond --model g2pp --swaption",
+                                     (), lambda: run_cli(["bond", *argv])[0])
+    state, disc, m = g2pp_expiry_state(torch, argv)
+    pays = [0.25 + (i + 1) * 0.25 for i in range(out["periods"] - 1)]
+    cs = [out["strike"] * 0.25] * len(pays)
+    cs[-1] += 1.0
+    cb = sum(c * g2pp_bond(m, state.x.double(), state.y.double(), t - 0.25)
+             for c, t in zip(cs, pays))
+    v = disc * torch.clamp(1.0 - cb, min=0.0)
+    check_closed_form("bond --model g2pp --swaption vs exact-transition MC",
+                      float(v.mean()), float(v.std() / math.sqrt(v.numel())),
+                      out["g2pp_european_swaption"], 1e-6)
+
+    n, s = RATE_PATHS, RATE_STEPS
+    procs = rate_procs(s)
+    vas = procs["vasicek"]
+    a = bond_args([])
+    r_t, walls["terminal_prices vasicek"] = run_qmc(
+        totals, "terminal_prices(vasicek)", ("fused_terminal",),
+        lambda: terminal_prices(vas, n, s, seed=2))
+    r_t = r_t.double()
+    T = a.maturity
+    mean_cf = a.theta + (a.r0 - a.theta) * math.exp(-a.kappa * T)
+    var_cf = a.sigma**2 / (2 * a.kappa) * (1 - math.exp(-2 * a.kappa * T))
+    se = float(r_t.std()) / math.sqrt(n)
+    check_closed_form("Vasicek E[r_T] (K2)", float(r_t.mean()), se, mean_cf,
+                      0.0)
+    if abs(float(r_t.var()) - var_cf) >= 0.05 * var_cf:
+        raise AssertionError(f"Vasicek Var[r_T] {float(r_t.var())} vs "
+                             f"{var_cf}")
+    p_cf = 0.5 * math.erfc((a.theta - mean_cf) / math.sqrt(2 * var_cf))
+    st, walls["payoff_block_moments vasicek"] = run_qmc(
+        totals, "payoff_block_moments(vasicek, digital r_T > theta)",
+        ("fused_block_moments",),
+        lambda: payoff_block_moments(vas, VanillaPayoff("digital", a.theta),
+                                     n, s, seed=4))
+    st = moments_reduce(st)
+    check_closed_form("Vasicek P(r_T > theta) (K3)", float(st.mean),
+                      float(std_error(st)), p_cf, 0.0)
+    euler = EulerGBM.create(100.0, 0.05, 0.3, 1 / 252, device="cuda")
+    s_t, walls["terminal_prices euler-gbm"] = run_qmc(
+        totals, "terminal_prices(euler-gbm)", ("fused_terminal",),
+        lambda: terminal_prices(euler, n, s, seed=5))
+    s_t = s_t.double()
+    mu32 = float(np.float32(0.05))
+    check_closed_form("Euler GBM E[S_T] = s0 (1 + mu dt)^T (K2)",
+                      float(s_t.mean()), float(s_t.std()) / math.sqrt(n),
+                      100.0 * (1 + mu32 * float(np.float32(1 / 252))) ** s,
+                      0.0)
+    term = TermStructureGBM.with_dividend(100.0, 0.05, 0.02, 0.2, 1 / 252, s,
+                                          device="cuda")
+    f_t, walls["terminal_prices term-gbm"] = run_qmc(
+        totals, "terminal_prices(term-gbm, q = 2%)", ("fused_terminal",),
+        lambda: terminal_prices(term, n, s, seed=6))
+    f_t = f_t.double()
+    check_closed_form("term-structure GBM forward s0 e^{(r - q)T} (K2)",
+                      float(f_t.mean()), float(f_t.std()) / math.sqrt(n),
+                      100.0 * math.exp(0.03), 0.0)
+    log("  bond path wall-clocks (host clock): " + ", ".join(
+        f"{k} {w:.3f} s" for k, w in walls.items()) + f", on {card}")
+    launches = {"fused_terminal_rates": totals.get("fused_terminal", 0),
+                "fused_block_moments_rates": totals.get(
+                    "fused_block_moments", 0),
+                "fused_functionals_rates": totals.get("fused_functionals",
+                                                      0)}
+    log(f"  launches on the rates path: {launches}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"kernels never launched on the rates path: "
+                             f"{launches}")
+    return launches
+
+
 
 KERNELS = [
     ("gbm_terminal", "gbm_kernel.cu", "gbm_kernel.py:118"),
@@ -3587,6 +3987,9 @@ KERNELS = [
      "fused_engine.py:390 (KernelRows: fused_engine.py:44)"),
     ("surface_rows", "fused_engine.cu",
      "fused_engine.py:231 (the surfaces' time blend traced into K2-K4)"),
+    ("fused_terminal_rates", "fused_rates.cu", "fused_engine.py:231"),
+    ("fused_block_moments_rates", "fused_rates.cu", "fused_engine.py:478"),
+    ("fused_functionals_rates", "fused_rates.cu", "fused_engine.py:390"),
 ]
 
 
@@ -3709,6 +4112,18 @@ def main() -> int:
                         "rbergomi_terminal"):
                 counts[name] += n
         log(f"  phase 12 took {time.perf_counter() - t12:.1f} s, on {card}")
+        log("phase 13: the short-rate and term-structure processes on "
+            "K2-K4 (RateProc in fused_rates.cu); the bond path")
+        t13 = time.perf_counter()
+        phase_rate_parity(torch, errs)
+        t_shapes = time.perf_counter()
+        phase_rate_shapes(torch, errs, times)
+        t_path = time.perf_counter()
+        counts.update(phase_rate_path(torch, card))
+        log(f"  phase 13: parity {t_shapes - t13:.1f} s, timed shapes "
+            f"{t_path - t_shapes:.1f} s, bond path "
+            f"{time.perf_counter() - t_path:.1f} s")
+        log(f"  phase 13 took {time.perf_counter() - t13:.1f} s, on {card}")
         k3_ms = times["fused_block_moments"]["ms"]
         kernel_s = k3_ms * 1e-3 * n_paths / (1 << 22)
         log(f"  K1 {bench['value']:.6e} path-steps/s, wall-clock to "

@@ -6,6 +6,6 @@ package, written in PyTorch.  The kernels on the pricing path are CUDA C++
 for Hopper (``csrc/``), built on first use; on a CPU tensor every kernel
 wrapper runs its plain PyTorch version instead.
 
-Entry points: ``python -m montecarlo_tpu_torch price ...`` and
-:mod:`montecarlo_tpu_torch.engine`.
+Entry points: ``python -m montecarlo_tpu_torch price|note|var|bond|bench
+...`` and :mod:`montecarlo_tpu_torch.engine`.
 """

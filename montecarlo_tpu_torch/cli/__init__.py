@@ -15,6 +15,10 @@ Subcommands:
           2^18 paths x 512 steps, one JSON line per row
   var   — portfolio VaR/CVaR: --on-device runs K2 chunks into a histogram
           sketch on the card (GBM; --paths --days --bins --chunk)
+  bond  — short-rate bonds: the zero-coupon bond by simulation (K4) under
+          --model vasicek|cir|hullwhite|g2pp against its closed form;
+          --option (Vasicek bond call), --cap/--floor (Vasicek), --swaption
+          --model g2pp (the European swaption's quadrature)
 
 Usage: python -m montecarlo_tpu_torch <subcommand> [flags]
 """
@@ -35,7 +39,7 @@ def _run_bench(args) -> int:
 
 
 def main(argv=None) -> int:
-    from montecarlo_tpu_torch.cli import note, pricing, risk
+    from montecarlo_tpu_torch.cli import bond, note, pricing, risk
 
     parser = argparse.ArgumentParser(
         prog="montecarlo_tpu_torch",
@@ -44,6 +48,7 @@ def main(argv=None) -> int:
     pricing.add_parsers(sub)
     note.add_parsers(sub)
     risk.add_parsers(sub)
+    bond.add_parsers(sub)
     bench = sub.add_parser("bench", help="GBM path-steps/s through K1 at "
                            "2^20 paths x 1024 steps x 8 reps (CUDA)")
     bench.add_argument("--basket", action="store_true",
@@ -51,5 +56,6 @@ def main(argv=None) -> int:
                             "K2 at 2^18 paths x 512 steps x 4 reps instead")
     args = parser.parse_args(argv)
     handlers = {"price": pricing.cmd_price, "note": note.cmd_note,
-                "bench": _run_bench, "var": risk.cmd_var}
+                "bench": _run_bench, "var": risk.cmd_var,
+                "bond": bond.cmd_bond}
     return handlers[args.cmd](args)

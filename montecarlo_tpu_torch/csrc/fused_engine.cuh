@@ -90,6 +90,13 @@ enum ProcessCode {
   kSabr = 11,
   kLocalVol = 12,
   kSlv = 13,  // also SLV on time knots, on its blended rows
+  // csrc/fused_rates.cu's (launch_rates):
+  kEulerGbm = 14,
+  kTermGbm = 15,
+  kVasicek = 16,
+  kCir = 17,
+  kHullWhite = 18,
+  kG2pp = 19,
 };
 
 // The functors whose step reads the step index t (a time-dependent surface)

@@ -9,13 +9,14 @@
 // ::fused_block_moments_pallas (K3) and ::fused_functionals_pallas (K4)
 // for the process functors GbmProc, HestonProc, GarchProc, MertonProc,
 // KouProc, BatesProc, NigProc, HestonQEProc, BatesQEProc, VgProc,
-// SabrProc, LocalVolProc and SlvProc.  SlvProc's per-step leverage row is
-// the port of the JAX kernels' KernelRows (ops/fused_engine.py:44-66, the
-// dynamic ref slice of a kernel_rows_field leaf): a pointer and a clamped
-// row offset.  The surfaces on hat-blended time knots (local vol, and SLV
-// on knots, which runs as SlvProc) read rows that the row builder
-// (blend_rows_kernel in fused_engine.cu) blends once per launch, one per
-// step, in the same way.
+// SabrProc, LocalVolProc and SlvProc (Euler GBM, term-structure GBM and
+// the short rates: csrc/fused_rates.cu, dispatched from here).  SlvProc's
+// per-step leverage row is the port of the JAX kernels' KernelRows
+// (ops/fused_engine.py:44-66, the dynamic ref slice of a
+// kernel_rows_field leaf): a pointer and a clamped row offset.  The
+// surfaces on hat-blended time knots (local vol, and SLV on knots, which
+// runs as SlvProc) read rows that the row builder (blend_rows_kernel in
+// fused_engine.cu) blends once per launch, one per step, in the same way.
 //
 // Bounds on the H100: compute — integer ALU for Threefry, the SFU for
 // log/sqrt/sin/cos; K2 writes 4 bytes per path, K3 8 bytes per 128 paths, K4 4
@@ -750,10 +751,31 @@ struct SourceTraits<GarchProc> {
   static constexpr bool kBridge = false;
 };
 
+// K2, K3 and K4 on Euler GBM, term-structure GBM, Vasicek, CIR, Hull-White
+// and G2++ (csrc/fused_rates.cu, over csrc/rate_steps.cuh), launched with
+// one thread per path; the arguments of a Launcher's run after the draw
+// source.
+cudaError_t launch_rates(int process, const DrawArgs& a, int dims,
+                         unsigned blocks, cudaStream_t s, int64_t n_paths,
+                         const float* leaves, int n_steps,
+                         uint32_t path_offset, uint32_t k0, uint32_t k1,
+                         StoreTerminal epilogue);
+cudaError_t launch_rates(int process, const DrawArgs& a, int dims,
+                         unsigned blocks, cudaStream_t s, int64_t n_paths,
+                         const float* leaves, int n_steps,
+                         uint32_t path_offset, uint32_t k0, uint32_t k1,
+                         RowMoments epilogue);
+cudaError_t launch_rates(int process, const DrawArgs& a, int dims,
+                         unsigned blocks, cudaStream_t s, int64_t n_paths,
+                         const float* leaves, int n_steps,
+                         uint32_t path_offset, uint32_t k0, uint32_t k1,
+                         FunctionalSpec spec, float* out, int* fixed);
+
 namespace {
 
 // Picks the functor for the process code (the basket's by its asset count,
-// in fused_basket.cuh) and launches it with one thread per path.
+// in fused_basket.cuh; the rate and term-structure processes' in
+// fused_rates.cu) and launches it with one thread per path.
 template <template <class, class> class Launcher, class... Args>
 int dispatch(int process, int dims, const DrawArgs& a, int64_t n_paths,
              void* stream, Args... args) {
@@ -820,6 +842,14 @@ int dispatch(int process, int dims, const DrawArgs& a, int64_t n_paths,
     case kBasket:
       err = launch_basket(a, dims, blocks, s, n_paths, args...);
       break;
+    case kEulerGbm:
+    case kTermGbm:
+    case kVasicek:
+    case kCir:
+    case kHullWhite:
+    case kG2pp:
+      err = launch_rates(process, a, dims, blocks, s, n_paths, args...);
+      break;
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -832,12 +862,14 @@ int dispatch(int process, int dims, const DrawArgs& a, int64_t n_paths,
 
 // Every entry takes the process code and its dimension `dims` (the basket's
 // asset count, GARCH's table length, VG's quantile-table length, the
-// surfaces' row count; ignored by the other processes) after the leaves, and after the key words the draw
-// source (DrawSource): `source`, `antithetic` (Threefry only), the Sobol
-// table `sv` (n_dims, 30) for kSobol and kBridge, and for kBridge the
-// plan's weights `plan_coeffs` (>= n_steps rows of `width` <=
-// mc::kMaxLevels slots) and its load schedule `plan_sched`
-// (rng/sobol.py::bridge_schedule over the bridge's `bridge_T` dims).
+// surfaces' row count, the curve length of term-structure GBM and
+// Hull-White; ignored by the other processes) after the leaves, and after
+// the key words the draw source (DrawSource): `source`, `antithetic`
+// (Threefry only), the Sobol table `sv` (n_dims, 30) for kSobol and
+// kBridge, and for kBridge the plan's weights `plan_coeffs` (>= n_steps
+// rows of `width` <= mc::kMaxLevels slots) and its load schedule
+// `plan_sched` (rng/sobol.py::bridge_schedule over the bridge's `bridge_T`
+// dims).
 // Unused pointers are null.
 #define MC_DRAW_PARAMS                                                      \
   int source, int antithetic, const uint32_t *sv, const float *plan_coeffs, \

@@ -3,6 +3,7 @@ estimators."""
 
 from montecarlo_tpu_torch.engine.simulate import (  # noqa: F401
     check_sampler,
+    check_steps,
     path_ids_for,
     replay_paths,
     simulate,

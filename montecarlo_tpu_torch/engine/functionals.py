@@ -34,7 +34,8 @@ from typing import Callable, Dict, NamedTuple, Optional
 import numpy as np
 import torch
 
-from montecarlo_tpu_torch.engine.simulate import check_sampler, path_ids_for
+from montecarlo_tpu_torch.engine.simulate import (check_sampler, check_steps,
+                                                 path_ids_for)
 from montecarlo_tpu_torch.rng.normal import exp32, log32
 from montecarlo_tpu_torch.rng.threefry import key_from_seed
 from montecarlo_tpu_torch.samplers import PlainSampler
@@ -344,6 +345,7 @@ def _simulate_functionals(process, n_paths: int, n_steps: int, k0: int,
     fns = [f for _, f in functional_items]
     sampler = PlainSampler() if sampler is None else sampler
     check_sampler(sampler, process, n_steps)
+    check_steps(process, n_steps)
     ids = path_ids_for(n_paths, path_offset, process.device)
     state = process.init_state(ids)
     accs = [f.init(o) for f, o in

@@ -39,6 +39,17 @@ def check_sampler(sampler, process, n_steps: int) -> None:
         validate(process, n_steps)
 
 
+def check_steps(process, n_steps: int) -> None:
+    """Raise ``ValueError`` when ``process`` reads per-step curves
+    (``max_steps``: TermStructureGBM, HullWhite) shorter than ``n_steps``.
+    Every route (the torch loop, K2-K4 and their plain versions) asks
+    before its first step."""
+    limit = getattr(process, "max_steps", None)
+    if limit is not None and n_steps > limit:
+        raise ValueError(f"{type(process).__name__} has curves for {limit} "
+                         f"steps, {n_steps} asked for")
+
+
 def path_ids_for(n_paths: int, path_offset=0, device=None) -> torch.Tensor:
     """Global path ids ``path_offset + i`` of a contiguous block, wrapped
     mod 2^32 as the JAX package's uint32 ids are (int64 words)."""
@@ -52,6 +63,7 @@ def _run(process, ids, n_steps, k0, k1, sampler, mode):
         raise ValueError(f"mode must be 'terminal' or 'paths', got {mode!r}")
     sampler = PlainSampler() if sampler is None else sampler
     check_sampler(sampler, process, n_steps)
+    check_steps(process, n_steps)
     state = process.init_state(ids)
     rows = [process.prices(state)] if mode == "paths" else None
     for t in range(n_steps):

@@ -10,7 +10,8 @@ version for a CPU one; nothing falls back from one to the other.
   (each under Threefry, Sobol and bridge-Sobol draws, counted apart as
   ``<name>``, ``<name>_sobol`` and ``<name>_bridge``; K4's launches of a
   fold fixed at compile time also as ``fused_functionals_fixed[_sobol|
-  _bridge]``; the basket's in csrc/fused_basket*.cu)
+  _bridge]``; the basket's in csrc/fused_basket*.cu, the rate and
+  term-structure processes' in csrc/fused_rates.cu)
 - ``surface_rows``            — csrc/fused_engine.cu: the row builder of
   the surfaces on time knots (local vol, SLV on knots), whose rows K2-K4
   read; once per (process, n_steps)

@@ -5,8 +5,12 @@ Port of ``montecarlo_tpu/ops/fused_engine.py::fused_terminal_pallas`` (K2),
 (K4); the kernels are templates over a process functor (GBM, Heston, the
 correlated GBM basket of at most 128 assets, the bootstrap GARCH, Merton,
 Kou, Bates, NIG, HestonQE, BatesQE, variance gamma, SABR, local volatility,
-SLV with exact per-step leverage rows and SLV on leverage time knots) and a
-draw source in ``csrc/fused_engine.cu``.  The exact-rows SLV reads its
+SLV with exact per-step leverage rows and SLV on leverage time knots, and
+in ``csrc/fused_rates.cu`` Euler GBM, term-structure GBM, Vasicek, CIR,
+Hull-White and G2++) and a draw source in ``csrc/fused_engine.cu``.  A
+process on per-step curves (term-structure GBM, Hull-White) reads them at
+the step index; a run of more steps than its curves hold is refused before
+any launch (``engine.simulate.check_steps``).  The exact-rows SLV reads its
 step's row through a pointer and an offset, the port of the JAX kernels'
 ``KernelRows``.  A surface on hat-blended time knots (local vol, SLV on
 knots) has its rows blended once, one per step, by the row builder
@@ -65,14 +69,17 @@ import torch
 from montecarlo_tpu_torch.engine.functionals import (MAX_PARAMS,
                                                      functional_observables)
 from montecarlo_tpu_torch.engine.payoffs import VanillaPayoff
-from montecarlo_tpu_torch.engine.simulate import check_sampler, path_ids_for
+from montecarlo_tpu_torch.engine.simulate import (check_sampler, check_steps,
+                                                 path_ids_for)
 from montecarlo_tpu_torch.ops._build import (CudaKernel, check_cuda_tensor,
                                              cuda_stream)
-from montecarlo_tpu_torch.processes import (NIG, SABR, SLV, BasketGBM,
-                                            Bates, BatesQE, GARCHBootstrap,
-                                            GBM, Heston, HestonQE, Kou,
+from montecarlo_tpu_torch.processes import (CIR, G2PP, NIG, SABR, SLV,
+                                            BasketGBM, Bates, BatesQE,
+                                            EulerGBM, GARCHBootstrap, GBM,
+                                            Heston, HestonQE, HullWhite, Kou,
                                             LocalVolGBM, Merton, SLVKnots,
-                                            VarianceGamma)
+                                            TermStructureGBM, VarianceGamma,
+                                            Vasicek)
 from montecarlo_tpu_torch.processes.basket import kernel_assets_refusal
 from montecarlo_tpu_torch.processes.local_vol import KNOTS, blend_rows
 from montecarlo_tpu_torch.rng.sobol import (SobolBridgeKernelSampler,
@@ -91,7 +98,8 @@ MAX_FUNCTIONALS = 4  # K4's functional slots (kMaxFunctionals)
 PROCESS_CODES = {GBM: 0, Heston: 1, BasketGBM: 2, GARCHBootstrap: 3,
                  Merton: 4, Kou: 5, Bates: 6, NIG: 7, HestonQE: 8,
                  BatesQE: 9, VarianceGamma: 10, SABR: 11, LocalVolGBM: 12,
-                 SLV: 13, SLVKnots: 13}
+                 SLV: 13, SLVKnots: 13, EulerGBM: 14, TermStructureGBM: 15,
+                 Vasicek: 16, CIR: 17, HullWhite: 18, G2PP: 19}
 #: The surfaces on time knots, by the fields their functor's leaves hold
 #: before the rows: LocalVolProc's [s0, rate, dt, x0, dx], and SlvProc's
 #: for SLV on knots.
@@ -181,12 +189,16 @@ def _leaves(process):
     and Bates's, then [e_kdt, c1, c2, k0, k1, k2, k3, k4, mgf_a]; VG: [s0,
     mu, sigma, theta, nu, dt, gq_z0, gq_dz, gq_resid (n), gq_dresid (n)],
     its launch adding the interleaved table;
-    SABR: [f0, alpha, beta, nu, rho, dt]; local vol: [s0, rate, dt, x0, dx,
+    SABR: [f0, alpha, beta, nu, rho, dt]; Euler GBM: [s0, mu, sigma, dt];
+    term-structure GBM: [s0, mu_t (n), sigma_t (n), dt]; Vasicek and CIR:
+    [r0, kappa, theta, sigma, dt]; Hull-White: [r0, a, sigma, theta_t (n),
+    dt]; G2++: [phi, a, sigma, b, eta, rho, dt]; local vol: [s0, rate, dt, x0, dx,
     dt_knot, vol_flat (n_tk * 128)]; SLV: [s0, rate, v0, kappa, theta, xi,
     rho, dt, x0, dx, lev_rows (n_rows * 128)]; SLV on knots: SLV's up to
     dx, then [dt_knot, lev_flat (n_tk * 128)]), and ``dims`` the basket's
     A, GARCH's table length, VG's table length n, the local-vol surfaces'
-    time-knot count n_tk or SLV's row count n_rows, an integer that never
+    time-knot count n_tk, SLV's row count n_rows or the curve length n of
+    term-structure GBM and Hull-White, an integer that never
     passes through a float.  A launch on a surface on time knots or on VG
     takes :func:`_launch_leaves`' instead."""
     err = kernel_refusal(process)
@@ -202,6 +214,8 @@ def _leaves(process):
         dims = process.n_time_knots
     elif isinstance(process, SLV):
         dims = process.lev_rows.shape[0]
+    elif isinstance(process, (TermStructureGBM, HullWhite)):
+        dims = process.max_steps
     fields = [getattr(process, f.name) for f in dataclasses.fields(process)]
     return code, dims, torch.cat([v.reshape(-1) for v in fields
                                   if v.is_floating_point()])
@@ -316,6 +330,7 @@ def _check_draws(process, sampler, n_steps: int, antithetic: bool) -> int:
     if err is not None:
         raise err
     check_sampler(sampler, process, n_steps)
+    check_steps(process, n_steps)
     return source
 
 

@@ -2,15 +2,30 @@
 the bootstrap GARCH, the jump processes Merton, Kou and Bates, the Levy
 processes NIG and variance gamma, HestonQE, BatesQE, SABR, local
 volatility and stochastic-local volatility with its particle calibration
-and the Dupire surface) and the rough-Bergomi sampler."""
+and the Dupire surface, Euler GBM and term-structure GBM, the short rates
+Vasicek, CIR and Hull-White and the two-factor G2++) and the
+rough-Bergomi sampler."""
 
-from montecarlo_tpu_torch.processes.base import NormalDrawsMixin  # noqa: F401
+from montecarlo_tpu_torch.processes.base import (  # noqa: F401
+    NormalDrawsMixin,
+    curve_at,
+    grad_safe_sqrt,
+)
 from montecarlo_tpu_torch.processes.basket import BasketGBM  # noqa: F401
 from montecarlo_tpu_torch.processes.bates import (  # noqa: F401
     Bates,
     bates_log_cf,
 )
 from montecarlo_tpu_torch.processes.bates_qe import BatesQE  # noqa: F401
+from montecarlo_tpu_torch.processes.euler_gbm import EulerGBM  # noqa: F401
+from montecarlo_tpu_torch.processes.g2pp import (  # noqa: F401
+    G2PP,
+    G2State,
+    g2pp_bond,
+    g2pp_swaption,
+    g2pp_v,
+    g2pp_zcb,
+)
 from montecarlo_tpu_torch.processes.garch import (  # noqa: F401
     MIN_HISTORY,
     GARCHBootstrap,
@@ -42,11 +57,20 @@ from montecarlo_tpu_torch.processes.rough_bergomi import (  # noqa: F401
     volterra_joint_chol,
 )
 from montecarlo_tpu_torch.processes.sabr import SABR  # noqa: F401
+from montecarlo_tpu_torch.processes.shortrate import (  # noqa: F401
+    CIR,
+    HullWhite,
+    RateState,
+    Vasicek,
+)
 from montecarlo_tpu_torch.processes.slv import (  # noqa: F401
     SLV,
     SLVKnots,
     SLVState,
     calibrate_slv,
     slv_to_kernel,
+)
+from montecarlo_tpu_torch.processes.term_gbm import (  # noqa: F401
+    TermStructureGBM,
 )
 from montecarlo_tpu_torch.processes.vg import VarianceGamma  # noqa: F401

@@ -37,6 +37,28 @@ def f32_leaves(device, **values) -> dict:
             for k, v in values.items()}
 
 
+def curve_at(curve: torch.Tensor, t) -> torch.Tensor:
+    """Entry ``t`` of a per-step parameter curve (TermStructureGBM's drift
+    and vol, HullWhite's theta): plain indexing, where the JAX package reads
+    a one-hot row inside its kernels.  A step past the curve's end raises
+    ``ValueError``: outside a kernel JAX clamps the index, inside one its
+    one-hot read gives 0, and the port copies neither."""
+    t = int(t)
+    if not 0 <= t < curve.numel():
+        raise ValueError(f"step {t} is past the end of a {curve.numel()}-"
+                         "step curve")
+    return curve[t]
+
+
+def grad_safe_sqrt(q: torch.Tensor) -> torch.Tensor:
+    """``sqrt(max(q, 0))`` with a finite gradient at ``q <= 0``: the
+    double ``where`` of the JAX package (its value is the clamped root,
+    its gradient at q <= 0 is 0)."""
+    pos = q > 0.0
+    return torch.where(pos, torch.sqrt(torch.where(pos, q, 1.0)),
+                       torch.zeros_like(q))
+
+
 class DeviceMixin:
     """The device of a process: the device of its first field."""
 

@@ -43,7 +43,13 @@ clamp past the last row, SLVKnots on SlvProc) under every draw source each
 takes; the row builder of the surfaces on time knots equals blend_rows
 bitwise and runs once per (process, n_steps); SABR's Box-Muller pairs
 from one sincosf equal its plain version's sin and cos; two calibrations
-at one seed give the same leverage bits.
+at one seed give the same leverage bits.  Euler GBM, term-structure GBM,
+Vasicek, CIR, Hull-White and G2++ (RateProc over csrc/rate_steps.cuh, in
+csrc/fused_rates.cu) equal their plain versions and the torch loop bitwise
+on K2-K4 under every draw source each takes; a run longer than a curve is
+refused before any launch; ``bond`` on the card gives the CPU route's
+JSON within rtol 1e-5 and atol 1e-7 (the CPU's libm and sqrt are not
+the card's).
 """
 
 import math
@@ -1238,3 +1244,157 @@ def test_cuda_streaming_resume_bitwise_and_rows_built_once(nccl_mesh,
     sharded_mc_estimate(cev, VanillaPayoff("call", 100.0), total, 17,
                         seed=5, mesh=nccl_mesh)
     assert rows.launches - b0 == 1
+
+
+# --- the rate and term-structure processes (csrc/fused_rates.cu) -------------
+
+def _rate_procs(n_steps, device):
+    """The bond CLI's four models over n_steps (curves of n_steps steps),
+    Euler GBM and a term-structure GBM on seeded curves."""
+    import argparse
+
+    from montecarlo_tpu_torch.cli import bond
+    from montecarlo_tpu_torch.processes import EulerGBM, TermStructureGBM
+
+    parser = argparse.ArgumentParser()
+    bond.add_parsers(parser.add_subparsers())
+    procs = {}
+    for model in ("vasicek", "cir", "hullwhite", "g2pp"):
+        args = parser.parse_args(["bond", "--model", model, "--steps",
+                                  str(n_steps)])
+        procs[model] = bond.build_model(args, device)[0]
+    rng = np.random.default_rng(n_steps)
+    procs["euler-gbm"] = EulerGBM.create(100.0, 0.03, 0.2, 1 / 64,
+                                         device=device)
+    procs["term-gbm"] = TermStructureGBM.from_curves(
+        100.0, rng.uniform(0.0, 0.05, n_steps), rng.uniform(0.1, 0.3,
+                                                            n_steps),
+        1 / 64, device=device)
+    return procs
+
+
+RATE_CASES = [(k, s) for k in ("euler-gbm", "term-gbm", "vasicek", "cir",
+                               "hullwhite", "g2pp")
+              for s in ("plain", "antithetic", "sobol", "bridge")
+              if not (k == "g2pp" and s == "bridge")]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,source", RATE_CASES)
+def test_cuda_rate_processes_k2_k3_k4_bitwise_equal_plain(cuda, kind,
+                                                          source):
+    """K2, K3 and K4 ({trap, avg}) on each rate and term-structure functor
+    against their plain versions and the torch loop, under each draw source
+    it takes, at 9 and 17 steps, on path counts that are no multiple of
+    128, ids from 2^30 - 1000; each launch counted."""
+    from montecarlo_tpu_torch.rng.sobol import (SobolBridgeKernelSampler,
+                                                SobolDeviceSampler)
+
+    pay = VanillaPayoff("digital", 0.04 if kind not in ("euler-gbm",
+                                                        "term-gbm")
+                        else 100.0)
+    n = 4096 * 3
+    for n_steps in (9, 17):
+        tp = _rate_procs(n_steps, cuda)[kind]
+        fns = {"trap": trapezoid_integral(float(tp.dt)), "avg": ARITH_MEAN}
+        kw = dict(seed=3, path_offset=(1 << 30) - 1000)
+        loop_smp = None
+        if source == "antithetic":
+            kw["antithetic"] = True
+            loop_smp = AntitheticSampler()
+        elif source == "sobol":
+            kw["sampler"] = loop_smp = SobolDeviceSampler.create(
+                n_steps, tp.n_draws, scramble_seed=4, device=cuda)
+        elif source == "bridge":
+            kw["sampler"] = loop_smp = SobolBridgeKernelSampler.create(
+                n_steps, scramble_seed=4, device=cuda)
+        counted = {k: PATH_KERNELS[k].launches for k in PATH_KERNELS}
+        got = fused_terminal(tp, n - 37, n_steps, **kw)
+        assert torch.isfinite(got).all()
+        assert torch.equal(got, fused_terminal_reference(tp, n - 37, n_steps,
+                                                         **kw))
+        assert torch.equal(got, simulate(tp, n - 37, n_steps, seed=3,
+                                         path_offset=(1 << 30) - 1000,
+                                         sampler=loop_smp))
+        got = fused_block_moments(tp, pay, n, n_steps, **kw)
+        want = fused_block_moments_reference(tp, pay, n, n_steps, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        got = fused_functionals(tp, n - 37, n_steps, functionals=fns, **kw)
+        want = fused_functionals_reference(tp, n - 37, n_steps,
+                                           functionals=fns, **kw)
+        loop = simulate_functionals(tp, n - 37, n_steps, seed=3,
+                                    path_offset=(1 << 30) - 1000,
+                                    functionals=fns, sampler=loop_smp,
+                                    prefer_fused=False)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+            assert torch.equal(got[k], loop[k]), k
+        sfx = {"sobol": "_sobol", "bridge": "_bridge"}.get(source, "")
+        for name in ("fused_terminal", "fused_block_moments",
+                     "fused_functionals"):
+            assert (PATH_KERNELS[name + sfx].launches
+                    == counted[name + sfx] + 1), name + sfx
+
+
+@pytest.mark.cuda
+def test_cuda_g2pp_under_the_bridge_takes_the_torch_loop(cuda):
+    from montecarlo_tpu_torch.engine import kernel_route
+    from montecarlo_tpu_torch.rng.sobol import SobolBridgeKernelSampler
+
+    g2 = _rate_procs(17, cuda)["g2pp"]
+    bridge = SobolBridgeKernelSampler.create(17, device=cuda)
+    assert not kernel_route(g2, bridge, 17)
+    with pytest.raises(ValueError, match="n_draws == 1"):
+        fused_terminal(g2, 1024, 17, seed=0, sampler=bridge)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["term-gbm", "hullwhite"])
+def test_cuda_curve_refused_before_any_launch(cuda, kind):
+    tp = _rate_procs(8, cuda)[kind]
+    before = {k: v.launches for k, v in PATH_KERNELS.items()}
+    fns = {"avg": ARITH_MEAN}
+    for run in (lambda n: fused_terminal(tp, 1024, n, seed=0),
+                lambda n: fused_block_moments(tp, VanillaPayoff("call", 0.0),
+                                              4096, n, seed=0),
+                lambda n: fused_functionals(tp, 1024, n, seed=0,
+                                            functionals=fns),
+                lambda n: simulate(tp, 1024, n, seed=0)):
+        with pytest.raises(ValueError, match="8 steps, 9"):
+            run(9)
+    assert {k: v.launches for k, v in PATH_KERNELS.items()} == before
+    assert torch.equal(fused_terminal(tp, 1024, 8, seed=0),
+                       fused_terminal_reference(tp, 1024, 8, seed=0))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flags", [
+    ["--model", "vasicek"], ["--model", "cir"], ["--model", "hullwhite"],
+    ["--model", "g2pp"], ["--option"], ["--cap"], ["--cap", "--floor"],
+    ["--model", "g2pp", "--swaption"]])
+def test_cuda_bond_json_matches_the_cpu_route(cuda, flags, capsys):
+    """``bond`` on the card against ``--device cpu``: the same keys, the
+    closed forms equal (host float64), the Monte Carlo values within rtol
+    1e-5 (the CPU's libm and sqrt are not the card's) and atol 1e-7 (the
+    bond option's intrinsic value P(T1, T2) - K is a difference of two
+    numbers near 0.96, whose float32 ULP is 6e-8; the cap's values are
+    rounded to 8 decimals)."""
+    import json
+
+    from montecarlo_tpu_torch.cli import main
+
+    argv = ["bond", "--paths", "16384", "--steps", "32", *flags]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        assert main([*argv, "--device", dev]) == 0
+        out[dev] = json.loads(capsys.readouterr().out.strip()
+                              .splitlines()[-1])
+    got, want = out["cuda"], out["cpu"]
+    assert sorted(got) == sorted(want)
+    for k, w in want.items():
+        if k in ("closed_form", "jamshidian", "strike", "expiry",
+                 "periods", "resets", "instrument", "g2pp_european_swaption"):
+            assert got[k] == w, k
+        else:
+            np.testing.assert_allclose(got[k], w, rtol=1e-5, atol=1e-7,
+                                       err_msg=k)

@@ -12,7 +12,8 @@ Tolerances, and why:
 - Inside the port, across every flat and sliced mesh and every rank:
   bitwise (``sharded_mc_estimate`` on GBM, Heston, MultiGBM through the
   torch loop and under a ``SobolDeviceSampler``, the functional and
-  rough-Bergomi estimates, the sketch, the percentile curves, the
+  rough-Bergomi estimates, the Vasicek zero-coupon bond (bitwise the
+  unsharded run's block states too), the sketch, the percentile curves, the
   gathered terminals, the streaming route); the basket across path
   shardings at a fixed asset sharding.
 - Against JAX: a path's terminal price is within rtol 2e-6 (the port's
@@ -49,6 +50,7 @@ from montecarlo_tpu.parallel import sharded as jsh
 from montecarlo_tpu.processes import GBM as JGBM
 from montecarlo_tpu.processes import BasketGBM as JBasket
 from montecarlo_tpu.processes import Heston as JHeston
+from montecarlo_tpu.processes import Vasicek as JVasicek
 from montecarlo_tpu.processes import MultiGBM as JMulti
 from montecarlo_tpu.processes.rough_bergomi import RoughBergomi as JRB
 from montecarlo_tpu.rng import sobol as jsobol
@@ -103,6 +105,11 @@ def _jax_refs() -> dict:
         procs["gbm"], {"avg": jf.ARITH_MEAN},
         lambda o: jf.asian_call(o["avg"], R.STRIKE), R.N_PATHS, R.N_STEPS,
         seed=11, mesh=_jmesh("flat8"), block_size=R.BLOCK)
+    refs["vasicek_zcb"] = jsh.sharded_functional_estimate(
+        JVasicek.create(*R.VASICEK_ARGS, dtype=jnp.float32),
+        {"I": jf.trapezoid_integral(R.VASICEK_ARGS[-1])},
+        lambda o: jnp.exp(-o["I"]), R.N_PATHS, R.N_STEPS, seed=13,
+        mesh=_jmesh("flat8"), block_size=R.BLOCK)
     refs["rbergomi"] = jsh.sharded_rbergomi_estimate(
         JRB.create(*R.RB_ARGS, n_steps=R.RB_STEPS, T=1.0),
         lambda s: jnp.maximum(s - 100.0, 0.0), R.RB_PATHS, seed=5,
@@ -206,7 +213,8 @@ def test_meshes_lay_out_ranks_as_jax(ranks):
 
 
 @pytest.mark.parametrize("case", ["gbm", "heston", "multigbm", "sobol",
-                                  "asian", "rbergomi", "sketch",
+                                  "asian", "vasicek_zcb", "rbergomi",
+                                  "sketch",
                                   "percentiles", "terminal", "half_b",
                                   "streaming", "var"])
 def test_bitwise_across_every_mesh_and_rank(ranks, case):
@@ -332,6 +340,28 @@ def test_mc_estimate_matches_jax(ranks, jax_refs, kind, layout):
 
 def test_functional_estimate_matches_jax(ranks, jax_refs):
     _close(ranks[0]["flat8"]["asian"], jax_refs["asian"], EST_RTOL)
+
+
+def test_vasicek_zcb_bitwise_unsharded_and_matches_jax(ranks, jax_refs):
+    """The sharded Vasicek zero-coupon bond (every mesh gives the one-rank
+    mesh's bits, above) is the unsharded run's: K4's discount integral on
+    all the paths, 1024-path block states merged by the fixed tree,
+    bitwise; and JAX's sharded estimate within EST_RTOL."""
+    from montecarlo_tpu_torch.engine import (simulate_functionals,
+                                             trapezoid_integral)
+    from montecarlo_tpu_torch.parallel import block_moments
+    from montecarlo_tpu_torch.processes import Vasicek
+    from montecarlo_tpu_torch.stats.welford import moments_reduce, std_error
+
+    model = Vasicek.create(*R.VASICEK_ARGS, device="cpu")
+    out = simulate_functionals(
+        model, R.N_PATHS, R.N_STEPS, seed=13,
+        functionals={"I": trapezoid_integral(R.VASICEK_ARGS[-1])})
+    want = moments_reduce(block_moments(torch.exp(-out["I"]), R.BLOCK))
+    got = ranks[0]["flat8"]["vasicek_zcb"]
+    np.testing.assert_array_equal(got["price"], want.mean.numpy())
+    np.testing.assert_array_equal(got["std_err"], std_error(want).numpy())
+    _close(got, jax_refs["vasicek_zcb"], EST_RTOL)
 
 
 def test_rbergomi_estimate_matches_jax(ranks, jax_refs):

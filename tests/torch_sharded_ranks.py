@@ -20,7 +20,8 @@ import torch
 import torch.distributed as dist
 
 from montecarlo_tpu_torch.engine import (ARITH_MEAN, asian_call,
-                                         european_call, max_call)
+                                         european_call, max_call,
+                                         trapezoid_integral)
 from montecarlo_tpu_torch.engine.path_sketch import sharded_path_percentiles
 from montecarlo_tpu_torch.engine.streaming import streaming_estimate
 from montecarlo_tpu_torch.api import portfolio_var
@@ -31,7 +32,7 @@ from montecarlo_tpu_torch.parallel import (make_mesh, sharded_basket_estimate,
                                            sharded_terminal,
                                            sharded_terminal_sketch, subgroup)
 from montecarlo_tpu_torch.processes import (GBM, BasketGBM, Heston,
-                                            MultiGBM)
+                                            MultiGBM, Vasicek)
 from montecarlo_tpu_torch.processes.rough_bergomi import RoughBergomi
 from montecarlo_tpu_torch.rng.sobol import SobolDeviceSampler
 
@@ -45,6 +46,9 @@ MULTI_KW = dict(s0=[100.0, 50.0, 75.0], mu=[0.03, 0.02, 0.04],
                 corr=[[1.0, 0.5, 0.2], [0.5, 1.0, 0.4], [0.2, 0.4, 1.0]],
                 dt=1 / 252)
 SOBOL_SEED = 3
+#: The bond CLI's Vasicek (r0, kappa, theta, sigma, dt) over 2 years: its
+#: zero-coupon bond by the discount integral (engine/rates.py).
+VASICEK_ARGS = (0.03, 0.8, 0.05, 0.015, 2.0 / N_STEPS)
 #: Rough Bergomi: tests/test_sharded_rbergomi.py's model and sizes.
 RB_ARGS, RB_STEPS, RB_PATHS, RB_BLOCK = ((100.0, 0.235 ** 2, 1.9, -0.9,
                                           0.07), 32, 4096, 512)
@@ -97,6 +101,11 @@ def path_estimates(mesh, procs) -> dict:
         procs["gbm"], {"avg": ARITH_MEAN},
         lambda o: asian_call(o["avg"], STRIKE), N_PATHS, N_STEPS, seed=11,
         mesh=mesh, block_size=BLOCK)
+    dt = VASICEK_ARGS[-1]
+    out["vasicek_zcb"] = sharded_functional_estimate(
+        Vasicek.create(*VASICEK_ARGS, device="cpu"),
+        {"I": trapezoid_integral(dt)}, lambda o: torch.exp(-o["I"]),
+        N_PATHS, N_STEPS, seed=13, mesh=mesh, block_size=BLOCK)
     sk, mo = sharded_terminal_sketch(procs["gbm"], N_PATHS, N_STEPS, seed=7,
                                      mesh=mesh, lo=SK_LO, hi=SK_HI,
                                      bins=SK_BINS, block_size=BLOCK)
