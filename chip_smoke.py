@@ -74,8 +74,8 @@ CUDA kernels from ``montecarlo_tpu_torch/csrc`` and, in phases:
    run's, bands within a bin width), the 30000-sim statistics against a
    NumPy oracle of the reference recurrence (4 sigma), antithetic bands
    and spread, ``fit_params``; ``portfolio_var_on_device`` at 2^30 x 20
-   in 2^24-path chunks on GARCH and GBM (one K2 launch per chunk; GBM's
-   VaR at its closed form; the sketch at 2^22 within its grid errors of
+   in 2^24-path chunks on GARCH and GBM (one K2 launch per chunk, and one
+   for the pilot range; GBM's VaR at its closed form; the sketch at 2^22 within its grid errors of
    the exact statistics of the same terminals) and ``var --on-device``
    (the JAX CLI's keys); the VaR at 2^28 and ``garch_monte_carlo`` under
    the profiler (device busy share, kernels by device time);
@@ -164,7 +164,8 @@ CUDA kernels from ``montecarlo_tpu_torch/csrc`` and, in phases:
    ``sharded_rbergomi_estimate`` at 2^20 x 252 (K5 and K6 on 4096-path
    blocks), a ``streaming_estimate`` of 2^22 x 252 in 2^20-path chunks
    stopped by its progress callback after chunk 2 and resumed from its
-   .npz over the mesh, and ``var --paths 2^26 --days 20`` (64 K2 chunks);
+   .npz over the mesh, and ``var --paths 2^26 --days 20`` (64 K2 chunks
+   and the pilot range's launch);
    then each result bitwise the unsharded computation (K2's terminals,
    ``block_moments``, ``moments_reduce``), a 4-rank mesh emulated rank by
    rank (the sharded functions run on each rank's mesh, their collectives'
@@ -195,6 +196,28 @@ CUDA kernels from ``montecarlo_tpu_torch/csrc`` and, in phases:
    its exact mean) and a dividend-paying term-structure GBM (K2: the
    forward), ``payoff_block_moments`` of a Vasicek digital (K3: the normal
    law), each wall-clock by the host clock.
+14. the multi-asset state processes on K2-K4 (StateProc over
+   csrc/mgarch_steps.cuh, in csrc/fused_term_basket.cu, fused_ccc.cu and
+   fused_dcc{,_k4}.cu: TermBasketGBM, CCC-GARCH, DCC-GARCH at 1..8 assets):
+   K2, K3 (a put) and K4 ({avg, mn}) on each against its plain version
+   bitwise at A = 3 and 8, 2^18 paths (2^18 - 37 for K2 and K4) x 17
+   steps with ids from 2^30 - 1000, under Threefry plain and antithetic and
+   Sobol draws; 9 assets routed to the torch loop, the bridge and a run
+   past the term basket's curves refused, before any launch; K2 on each
+   timed at 2^20 x 252 (the term basket at 5 assets, the books at 8), and
+   K2, K3 (a 95% put) and K4 ({mn}) on the books at a VaR chunk's 2^24 x
+   10, the term basket's K3 at a tolerance chunk's 2^22 x 252 and K4
+   {avg} at 2^20 x 252, each beside its plain version and bound (K2 and
+   K3 beside their SASS issue floors); then, launch counters reset just
+   before and read just after each run: on the 5-asset term basket over
+   252-step curves ``terminal_prices`` (K2, the forward),
+   ``price_to_tolerance`` on its ATM call to std-err 1e-3 (K3) and its
+   Asian by ``simulate_functionals`` (K4, below the call); on the 8-asset
+   CCC and DCC books ``portfolio_var_on_device`` at 2^28 x 10 days (K2),
+   the sketch at 2^20 within its grid errors of the exact statistics, the
+   stream ``portfolio_var`` at 2^24 at the device sketch, K2 against a
+   NumPy oracle of the recurrence fed the same normals, a put's
+   ``payoff_block_moments`` (K3) and the running minimum (K4).
 
 Phase 3 also holds K5 (2^18 paths x {504, 756, 37} columns, ids wrapping
 past 2^32) and K6 (2^18 and 2^18 - 3 paths, its ring and its plain-load
@@ -1881,8 +1904,9 @@ def phase_garch_var(torch, procs, chunk_ms):
         res, wall, counts = run_counted(
             portfolio_var_on_device, proc, VAR_PATHS, GARCH_DAYS, s0,
             seed=0, bins=VAR_BINS, chunk_paths=VAR_CHUNK)
+        # One launch a chunk a pass, and one for the pilot range.
         k2 = counts["fused_terminal"]
-        passes = k2 // n_chunks
+        passes = (k2 - 1) // n_chunks
         out[name] = res
         share = (f"K2 ~{100 * k2 * chunk_ms * 1e-3 / wall:.1f}% of it"
                  if name.startswith("GARCH") else "")
@@ -1890,8 +1914,8 @@ def phase_garch_var(torch, procs, chunk_ms):
             f"in {n_chunks} chunks: {wall:.3f} s wall-clock, "
             f"{VAR_PATHS / wall:.4e} paths/s, {k2} K2 launches ({passes} "
             f"pass(es)) {share}; {json.dumps(res)}")
-        checks[f"{name}: K2 launched once per chunk"] = (
-            k2 == passes * n_chunks and passes in (1, 2))
+        checks[f"{name}: K2 launched once per chunk and for the pilot"] = (
+            k2 == passes * n_chunks + 1 and passes in (1, 2))
         checks[f"{name}: n_paths"] = res["n_paths"] == VAR_PATHS
     # The lognormal closed form of the GBM p5 (float32 dt as the process).
     g = out["GBM"]
@@ -3408,7 +3432,10 @@ def phase_sharded(torch):
             res, counts, var_wall = phase_sharded_path(torch, mesh, tmp)
             log(f"  the main path took {time.perf_counter() - t0:.1f} s; "
                 f"launches: {counts}")
-            want = {"fused_terminal": 2 + 4 + VAR_STREAM_PATHS // (1 << 20),
+            # K2: the two sharded calls, the stream's 4 chunks, the var's
+            # chunks and its pilot range.
+            want = {"fused_terminal": (2 + 4 + VAR_STREAM_PATHS // (1 << 20)
+                                       + 1),
                     "fused_functionals": 1, "fused_functionals_fixed": 1,
                     "normal_matrix": RB_SHARD_PATHS // 4096,
                     "rbergomi_terminal": RB_SHARD_PATHS // 4096}
@@ -3949,6 +3976,539 @@ def phase_rate_path(torch, card):
     return launches
 
 
+# ---- phase 14: the multi-asset state processes ------------------------------
+
+STATE_KINDS = ("term-basket", "ccc-garch", "dcc-garch")
+#: Each process's step in csrc/mgarch_steps.cuh (its kernels' symbols name
+#: StateProc<mc::Step<A>, A>), its kernels-line suffix and its unit.
+STATE_STEP = {"term-basket": "TermBasketStep", "ccc-garch": "CccStep",
+              "dcc-garch": "DccStep"}
+STATE_KEY = {"term-basket": "term_basket", "ccc-garch": "ccc",
+             "dcc-garch": "dcc"}
+STATE_UNIT = {"term-basket": "fused_term_basket.cu",
+              "ccc-garch": "fused_ccc.cu", "dcc-garch": "fused_dcc.cu"}
+#: K4's unit where it is not the process's own (DCC's, built apart).
+STATE_K4_UNIT = {"dcc-garch": "fused_dcc_k4.cu"}
+#: The slice's books: the 5-asset term basket of the pricing path, the
+#: 8-asset CCC and DCC books of the VaR path.
+STATE_ASSETS = {"term-basket": 5, "ccc-garch": 8, "dcc-garch": 8}
+#: The bitwise parity at 2^18 x 17; the VaR at 2^28 x 10 days in 2^24-path
+#: chunks (the K2, K3 and K4 rows of the books at that chunk), the stream
+#: at 2^24 in 2^22-path chunks; the term basket's K2 and K4 at 2^20 x 252,
+#: its K3 at price_to_tolerance's 2^22 x 252 chunks.
+STATE_PARITY_PATHS, STATE_PARITY_STEPS = 1 << 18, 17
+STATE_VAR_PATHS, STATE_VAR_DAYS, STATE_VAR_CHUNK = 1 << 28, 10, 1 << 24
+STATE_STREAM_PATHS, STATE_STREAM_CHUNK = 1 << 24, 1 << 22
+#: The DCC book's (a, b), the JAX tests'.
+DCC_AB = (0.05, 0.9)
+
+
+def state_book(a_n):
+    """(corr, s0, var0, weights) of an A-asset book from
+    ``np.random.default_rng(a_n)``: half a sample correlation of 4A draws
+    and half the identity, spots in [50, 150], daily variances in [1e-4,
+    4e-4] (1.0-2.0% a day), equal weights."""
+    import numpy as np
+
+    rng = np.random.default_rng(a_n)
+    c = np.atleast_2d(np.corrcoef(rng.normal(size=(a_n, 4 * a_n))))
+    return (0.5 * c + 0.5 * np.eye(a_n), rng.uniform(50.0, 150.0, a_n),
+            rng.uniform(1e-4, 4e-4, a_n), np.full(a_n, 1.0 / a_n))
+
+
+def state_curves(a_n, steps):
+    """The term basket's (mu, sigma) curves over ``steps`` days: a forward
+    rate rising from 2% to 4% less a dividend yield in [0, 2%] per asset,
+    and each asset's vol in [0.15, 0.35] falling to 0.8 of itself (a
+    forward-vol strip)."""
+    import numpy as np
+
+    rng = np.random.default_rng(100 + a_n)
+    x = np.arange(steps) / max(steps, 1)
+    q = rng.uniform(0.0, 0.02, a_n)
+    vol = rng.uniform(0.15, 0.35, a_n)
+    return ((0.02 + 0.02 * x)[None, :] - q[:, None],
+            vol[:, None] * (1.0 - 0.2 * x)[None, :])
+
+
+def state_proc(kind, a_n, steps, device="cuda"):
+    """``kind`` on the A-asset book on the card: the term basket on
+    ``steps``-day curves at dt = 1/252; CCC and DCC at GARCH(1,1) (omega,
+    alpha, beta) = (0.02 var0, 0.08, 0.9) per asset (long-run variance
+    var0), DCC at DCC_AB."""
+    from montecarlo_tpu_torch.processes import (CCCGarch, DCCGarch,
+                                                TermBasketGBM)
+
+    corr, s0, var0, w = state_book(a_n)
+    if kind == "term-basket":
+        mu, sig = state_curves(a_n, steps)
+        return TermBasketGBM.create(s0, mu, sig, corr, w, 1 / 252,
+                                    device=device)
+    g = dict(omega=0.02 * var0, alpha=[0.08] * a_n, beta=[0.9] * a_n)
+    if kind == "ccc-garch":
+        return CCCGarch.create(s0, var0, corr=corr, weights=w, device=device,
+                               **g)
+    return DCCGarch.create(s0, var0, qbar=corr, weights=w, a_dcc=DCC_AB[0],
+                           b_dcc=DCC_AB[1], device=device, **g)
+
+
+def state_step_fp(kind, a_n):
+    """The float32 operations of one step as csrc/mgarch_steps.cuh counts
+    them (multiplies, adds, max; the IEEE divisions and sqrtf not
+    counted): the correlated draws' A^2, the term basket's 8 an asset, CCC's
+    7, and DCC's Cholesky (a multiply and a subtraction a term, a max a
+    pivot), row scales (a max each), scaling (a multiply an entry) and
+    recursion (6 an entry)."""
+    fp = a_n * a_n + (8 if kind == "term-basket" else 7) * a_n
+    if kind == "dcc-garch":
+        pairs = a_n * (a_n + 1) // 2
+        chol = sum(2 * j for i in range(a_n) for j in range(i + 1)) + a_n
+        fp += chol + a_n + pairs + 6 * pairs + 2
+    return fp
+
+
+def state_bound(kind, a_n, n, steps, out_bytes=4, extra_fp=0,
+                observe=False):
+    """``step_bound`` with A cipher calls a step pair, the step's
+    operations (``state_step_fp``) and the portfolio value (A exp32 and A
+    multiply-adds) once a path, and after every step too when ``observe``
+    (K4's observation, plus its fold)."""
+    value = a_n * (EXP32_FP + 2)
+    step_fp = state_step_fp(kind, a_n) + (value + 1 if observe else 0)
+    return step_bound(n, steps, draws=a_n, step_fp=step_fp,
+                      out_bytes=out_bytes, extra_fp=value + extra_fp)
+
+
+def state_floor(kind, a_n, n, steps, epilogue="StoreTerminal"):
+    """The SASS issue floor of K2 (or K3 with ``epilogue="RowMoments"``)
+    on ``kind``'s functor at A assets under plain Threefry draws: a pass of
+    the time loop a step pair.  K4 runs the generic fold (no floor, as the
+    rate functors')."""
+    return issue_floor(("fused_kernel", f"{STATE_STEP[kind]}ILi{a_n}E",
+                        epilogue, "ThreefryDrawsILb0E"), n, (steps + 1) // 2)
+
+
+def phase_state_parity(torch, errs):
+    """K2, K3 (a put at the start value) and K4 ({avg, mn}) on the three
+    functors against their plain versions, bitwise, at A = 3 and 8, 2^18
+    paths (2^18 - 37 for K2 and K4) x 17 steps, ids from 2^30 - 1000,
+    under Threefry plain and antithetic and Sobol draws; then, before any
+    launch, the refusals: 9 assets (routed to the torch loop), the bridge
+    at 1 and 8 assets, a term basket run one step past its curves."""
+    from montecarlo_tpu_torch.engine import (ARITH_MEAN, RUNNING_MIN,
+                                             VanillaPayoff, kernel_route,
+                                             simulate, terminal_prices)
+    from montecarlo_tpu_torch.ops import (fused_block_moments,
+                                          fused_block_moments_reference,
+                                          fused_functionals,
+                                          fused_functionals_reference,
+                                          fused_terminal,
+                                          fused_terminal_reference,
+                                          launch_counts)
+    from montecarlo_tpu_torch.rng.sobol import (SobolBridgeKernelSampler,
+                                                SobolDeviceSampler)
+
+    n, steps = STATE_PARITY_PATHS, STATE_PARITY_STEPS
+    off = (1 << 30) - 1000
+    fns = {"avg": ARITH_MEAN, "mn": RUNNING_MIN}
+    for kind in STATE_KINDS:
+        key = STATE_KEY[kind]
+        for a_n in (3, 8):
+            t0 = time.perf_counter()
+            proc = state_proc(kind, a_n, steps)
+            pay = VanillaPayoff("put", float(torch.dot(proc.weights,
+                                                       proc.s0)))
+            runs = [("plain", {}), ("antithetic", {"antithetic": True}),
+                    ("sobol", {"sampler": SobolDeviceSampler.create(
+                        steps, a_n, scramble_seed=13, device="cuda")})]
+            for label, draw in runs:
+                kw = dict(seed=23, path_offset=off, **draw)
+                tag = f"{kind} A={a_n} {steps} steps {label}"
+                cases = [("K2", f"fused_terminal_{key}",
+                          fused_terminal(proc, n - 37, steps, **kw),
+                          fused_terminal_reference(proc, n - 37, steps,
+                                                   **kw))]
+                got = fused_block_moments(proc, pay, n, steps, **kw)
+                want = fused_block_moments_reference(proc, pay, n, steps,
+                                                     **kw)
+                cases += [(f"K3 {f}", f"fused_block_moments_{key}",
+                           getattr(got, f), getattr(want, f))
+                          for f in ("mean", "m2")]
+                got = fused_functionals(proc, n - 37, steps, functionals=fns,
+                                        **kw)
+                want = fused_functionals_reference(proc, n - 37, steps,
+                                                   functionals=fns, **kw)
+                cases += [(f"K4 {k}", f"fused_functionals_{key}", got[k],
+                           want[k]) for k in want]
+                for name, ekey, g, w in cases:
+                    _, max_abs, _ = compare(f"{name} {tag}", g, w, BITWISE)
+                    errs[ekey] = max(errs.get(ekey, 0.0), max_abs)
+                del cases, got, want
+            torch.cuda.synchronize()
+            log(f"  {kind} A={a_n} parity: {time.perf_counter() - t0:.1f} s")
+    before = launch_counts()
+    bridge = SobolBridgeKernelSampler.create(10, scramble_seed=13,
+                                             device="cuda")
+    for kind in STATE_KINDS:
+        nine = state_proc(kind, 9, 10)
+        if kernel_route(nine, None, 10):
+            raise AssertionError(f"{kind}: 9 assets routed to the kernels")
+        if not torch.equal(terminal_prices(nine, 4096, 10, seed=1),
+                           simulate(nine, 4096, 10, seed=1)):
+            raise AssertionError(f"{kind}: 9 assets off the torch loop")
+        refused = [(f"{kind} A=9", lambda: fused_terminal(nine, 4096, 10,
+                                                          seed=1))]
+        for a_n in (1, 8):
+            proc = state_proc(kind, a_n, 10)
+            if kernel_route(proc, bridge, 10):
+                raise AssertionError(f"{kind}: the bridge routed to the "
+                                     "kernels")
+            refused.append((f"{kind} A={a_n} under the bridge",
+                            lambda p=proc: fused_terminal(p, 4096, 10, seed=1,
+                                                          sampler=bridge)))
+        if kind == "term-basket":
+            refused.append(("term basket 11 steps on 10-day curves",
+                            lambda: fused_functionals(
+                                state_proc(kind, 3, 10), 4096, 11, seed=1,
+                                functionals=fns)))
+        for label, run in refused:
+            try:
+                run()
+            except ValueError as e:
+                log(f"  {label} refused: {e}")
+            else:
+                raise AssertionError(f"{label}: ran on the kernels")
+    if launch_counts() != before:
+        raise AssertionError("a refused or rerouted run launched a kernel")
+
+
+def phase_state_shapes(torch, errs, times):
+    """Each functor's K2 at 2^20 x 252 (the term basket at 5 assets, CCC
+    and DCC at 8) beside its plain version, bound and SASS issue floor;
+    CCC's and DCC's K2, K3 (a 95% put) and K4 ({mn}) at a VaR chunk's 2^24
+    x 10, the term basket's K3 (its call) at a tolerance chunk's 2^22 x
+    252 (with floors) and K4 ({avg}) at the Asian's 2^20 x 252; each timed
+    by CUDA events and checked bitwise.  The kernels-line entries report
+    the rows at the path's shapes: the term basket's 2^20 x 252 K2, CCC's
+    and DCC's VaR chunk."""
+    from montecarlo_tpu_torch.engine import (ARITH_MEAN, RUNNING_MIN,
+                                             VanillaPayoff)
+    from montecarlo_tpu_torch.ops import (fused_block_moments,
+                                          fused_block_moments_reference,
+                                          fused_functionals,
+                                          fused_functionals_reference,
+                                          fused_terminal,
+                                          fused_terminal_reference)
+
+    n, s = 1 << 20, 252
+    rates = {}
+    for kind in STATE_KINDS:
+        a_n, key = STATE_ASSETS[kind], STATE_KEY[kind]
+        proc = state_proc(kind, a_n, s)
+        row = f"fused_terminal_{key} {n}x{s}"
+        timed_check(times, errs, row, f"K2 {kind} A={a_n} {n}x{s}",
+                    lambda: fused_terminal(proc, n, s, seed=0),
+                    lambda: fused_terminal_reference(proc, n, s, seed=0),
+                    10, BITWISE, bnd=state_bound(kind, a_n, n, s),
+                    floor=state_floor(kind, a_n, n, s))
+        rates[kind] = n * s / (times[row]["ms"] * 1e-3)
+        errs[f"fused_terminal_{key}"] = max(errs.get(f"fused_terminal_{key}",
+                                                     0.0), errs[row])
+        if kind == "term-basket":
+            times[f"fused_terminal_{key}"] = times[row]
+            nt, v0 = TOL_CHUNK, float(torch.dot(proc.weights, proc.s0))
+            call = VanillaPayoff("call", v0)
+            timed_check(times, errs, f"fused_block_moments_{key}",
+                        f"K3 term basket call {nt}x{s}",
+                        lambda: fused_block_moments(proc, call, nt, s,
+                                                    seed=0),
+                        lambda: fused_block_moments_reference(
+                            proc, call, nt, s, seed=0),
+                        5, BITWISE, fields=("mean", "m2"),
+                        bnd=state_bound(kind, a_n, nt, s, out_bytes=8 / 128,
+                                        extra_fp=8),
+                        floor=state_floor(kind, a_n, nt, s, "RowMoments"))
+            fns = {"avg": ARITH_MEAN}
+            timed_check(times, errs, f"fused_functionals_{key}",
+                        f"K4 term basket {{avg}} {n}x{s}",
+                        lambda: fused_functionals(proc, n, s, seed=0,
+                                                  functionals=fns),
+                        lambda: fused_functionals_reference(
+                            proc, n, s, seed=0, functionals=fns),
+                        10, BITWISE,
+                        bnd=state_bound(kind, a_n, n, s, out_bytes=8,
+                                        observe=True))
+            continue
+        nv, d = STATE_VAR_CHUNK, STATE_VAR_DAYS
+        proc = state_proc(kind, a_n, d)
+        v0 = float(torch.dot(proc.weights, proc.s0))
+        timed_check(times, errs, f"fused_terminal_{key}",
+                    f"K2 {kind} A={a_n} VaR chunk {nv}x{d}",
+                    lambda: fused_terminal(proc, nv, d, seed=0),
+                    lambda: fused_terminal_reference(proc, nv, d, seed=0),
+                    10, BITWISE, bnd=state_bound(kind, a_n, nv, d),
+                    floor=state_floor(kind, a_n, nv, d))
+        put = VanillaPayoff("put", 0.95 * v0)
+        timed_check(times, errs, f"fused_block_moments_{key}",
+                    f"K3 {kind} 95% put {nv}x{d}",
+                    lambda: fused_block_moments(proc, put, nv, d, seed=0),
+                    lambda: fused_block_moments_reference(proc, put, nv, d,
+                                                          seed=0),
+                    5, BITWISE, fields=("mean", "m2"),
+                    bnd=state_bound(kind, a_n, nv, d, out_bytes=8 / 128,
+                                    extra_fp=8),
+                    floor=state_floor(kind, a_n, nv, d, "RowMoments"))
+        fns = {"mn": RUNNING_MIN}
+        timed_check(times, errs, f"fused_functionals_{key}",
+                    f"K4 {kind} {{mn}} {nv}x{d}",
+                    lambda: fused_functionals(proc, nv, d, seed=0,
+                                              functionals=fns),
+                    lambda: fused_functionals_reference(proc, nv, d, seed=0,
+                                                        functionals=fns),
+                    5, BITWISE,
+                    bnd=state_bound(kind, a_n, nv, d, out_bytes=8,
+                                    observe=True))
+    log("  K2 path-steps/s at 2^20 x 252: " + ", ".join(
+        f"{k} {r:.4e}" for k, r in rates.items()))
+
+
+def garch_book_oracle(proc, kind, n, days, seed):
+    """The book's terminal values by an independent float64 NumPy port of
+    its recurrence (tests/test_dcc_garch.py's oracle: DCC's R normalized
+    from Q and factorized by np.linalg.cholesky per path; CCC's correlation
+    factorized once), fed the process's own normals for paths 0 .. n-1."""
+    import numpy as np
+    import torch
+
+    from montecarlo_tpu_torch.rng.threefry import key_from_seed
+
+    a_n = proc.n_assets
+    k0, k1 = key_from_seed(seed, 0)
+    ids = torch.arange(n, dtype=torch.int64, device=proc.device)
+    f64 = lambda t: t.double().cpu().numpy()
+    s0, var0, w = f64(proc.s0), f64(proc.var0), f64(proc.weights)
+    om, al, be = f64(proc.omega), f64(proc.alpha), f64(proc.beta)
+    log_s = np.log(s0)[None, :] * np.ones((n, a_n))
+    var = var0[None, :] * np.ones((n, a_n))
+    if kind == "dcc-garch":
+        qbar = f64(proc.qbar_flat).reshape(a_n, a_n)
+        a_d, b_d = float(proc.a_dcc), float(proc.b_dcc)
+        q = np.broadcast_to(qbar, (n, a_n, a_n)).copy()
+    else:
+        chol = f64(proc.chol_flat).reshape(a_n, a_n)
+    for t in range(days):
+        eps = np.stack([f64(e) for e in proc.draws(k0, k1, ids, t)], axis=1)
+        if kind == "dcc-garch":
+            d = 1.0 / np.sqrt(np.einsum("kii->ki", q))
+            r = q * d[:, :, None] * d[:, None, :]
+            eta = np.einsum("kij,kj->ki", np.linalg.cholesky(r), eps)
+        else:
+            eta = eps @ chol.T
+        ret = np.sqrt(var) * eta
+        log_s = log_s + ret
+        var = om + al * ret**2 + be * var
+        if kind == "dcc-garch":
+            q = ((1 - a_d - b_d) * qbar + a_d * eta[:, :, None]
+                 * eta[:, None, :] + b_d * q)
+    return (w[None, :] * np.exp(log_s)).sum(axis=1)
+
+
+def term_basket_forward(proc, steps):
+    """E[V_T] = sum_a w_a s0_a exp(sum_t mu_a(t) dt), from the process's
+    float32 leaves in float64."""
+    import numpy as np
+
+    f64 = lambda t: t.double().cpu().numpy()
+    mu = f64(proc.mu_t)[:, :steps]
+    return float((f64(proc.weights) * f64(proc.s0)
+                  * np.exp(mu.sum(axis=1) * float(proc.dt))).sum())
+
+
+def phase_state_path(torch, card):
+    """The slice's path through the engine API, each run counted by itself
+    (``run_qmc``: exactly the named kernels launched): on the 5-asset term
+    basket over 252-step curves, ``terminal_prices`` at 2^20 x 252 (K2,
+    the forward within 4 std-err), ``price_to_tolerance`` on its ATM call
+    to std-err 1e-3 in 2^22 x 252 chunks (K3) and its arithmetic Asian by
+    ``simulate_functionals`` at 2^20 x 252 (K4, below the call); on the
+    8-asset CCC and DCC books, ``portfolio_var_on_device`` at 2^28 x 10 in
+    2^24-path chunks (K2 once a chunk a pass and once for the pilot), the
+    stream ``portfolio_var`` at 2^24 in 2^22-path chunks against the
+    device sketch of the same paths, ``payoff_block_moments`` of a 95% put
+    (K3, at the mean of the put over K2's terminals of the same paths)
+    and the 10-day running minimum by ``simulate_functionals`` (K4, at
+    most the terminal and the start, to exp32's rounding); beside them,
+    runs made only to check (``checked``, not in the launch counts): the
+    sketch at 2^20 within its grid errors of the exact statistics of the
+    same K2 terminals, the device sketch at 2^24, K2 at 4096 paths
+    against a NumPy oracle of the recurrence fed the same normals (rtol
+    5e-4, tests/test_dcc_garch.py's) and K2's terminals under the put.
+    Returns each kernels-line entry's launches: the entry calls' alone."""
+    import numpy as np
+
+    from montecarlo_tpu_torch.api import (portfolio_var,
+                                          portfolio_var_on_device)
+    from montecarlo_tpu_torch.engine import (ARITH_MEAN, RUNNING_MIN,
+                                             VanillaPayoff, asian_call,
+                                             mc_estimate,
+                                             payoff_block_moments,
+                                             price_to_tolerance,
+                                             simulate_functionals,
+                                             terminal_prices)
+    from montecarlo_tpu_torch.ops import fused_terminal
+    from montecarlo_tpu_torch.stats.risk import terminal_statistics
+    from montecarlo_tpu_torch.stats.welford import moments_reduce, std_error
+
+    walls, launches, checks, checked = {}, {}, {}, {}
+    totals = {k: {} for k in STATE_KINDS}
+    s = TOL_STEPS
+    tb = state_proc("term-basket", STATE_ASSETS["term-basket"], s)
+    tot = totals["term-basket"]
+    v0 = float(torch.dot(tb.weights, tb.s0))
+    v_t, walls["terminal_prices term basket"] = run_qmc(
+        tot, "terminal_prices(term basket, 2^20 x 252)", ("fused_terminal",),
+        lambda: terminal_prices(tb, ASIAN_PATHS, s, seed=6))
+    v_t = v_t.double()
+    check_closed_form("term basket forward E[V_T] (K2)", float(v_t.mean()),
+                      float(v_t.std()) / math.sqrt(ASIAN_PATHS),
+                      term_basket_forward(tb, s), 0.0)
+    disc = math.exp(-0.03)
+    est, walls["price_to_tolerance term basket"] = run_qmc(
+        tot, "price_to_tolerance(term basket ATM call, 1e-3)",
+        ("fused_block_moments",),
+        lambda: price_to_tolerance(tb, VanillaPayoff("call", v0),
+                                   target_std_err=1e-3, seed=0,
+                                   chunk_paths=TOL_CHUNK, n_steps=s,
+                                   discount=disc))
+    price, se = float(est["price"]), float(est["std_err"])
+    out, walls["asian term basket"] = run_qmc(
+        tot, "simulate_functionals(term basket Asian, 2^20 x 252)",
+        ("fused_functionals",),
+        lambda: simulate_functionals(tb, ASIAN_PATHS, s, seed=0,
+                                     functionals={"avg": ARITH_MEAN}))
+    asian = mc_estimate(asian_call(out["avg"], v0), disc)
+    a_price, a_se = float(asian["price"]), float(asian["std_err"])
+    del out
+    log(f"  term basket ATM call {price:.6f} +- {se:.2e} "
+        f"({int(est['n_paths'])} paths, {est['n_chunks']} chunks); Asian "
+        f"{a_price:.6f} +- {a_se:.2e}")
+    checks["term basket tolerance run reached 1e-3"] = (
+        math.isfinite(price) and se <= 1e-3)
+    checks["term basket Asian below its call"] = (
+        math.isfinite(a_price) and a_price < price + 4 * (se + a_se))
+
+    days, n1 = STATE_VAR_DAYS, 1 << 20
+    n_chunks = STATE_VAR_PATHS // STATE_VAR_CHUNK
+    for kind in ("ccc-garch", "dcc-garch"):
+        proc = state_proc(kind, STATE_ASSETS[kind], days)
+        tot = totals[kind]
+        v0 = float(torch.dot(proc.weights, proc.s0))
+        res, walls[f"VaR {kind}"] = run_qmc(
+            tot, f"portfolio_var_on_device({kind}, 2^28 x {days})",
+            ("fused_terminal",),
+            lambda: portfolio_var_on_device(proc, STATE_VAR_PATHS, days, v0,
+                                            seed=0, bins=VAR_BINS,
+                                            chunk_paths=STATE_VAR_CHUNK))
+        k2 = tot["fused_terminal"]
+        log(f"  portfolio_var_on_device {kind}: {walls[f'VaR {kind}']:.3f} "
+            f"s, {STATE_VAR_PATHS / walls[f'VaR {kind}']:.4e} paths/s, "
+            f"{k2} K2 launches; {json.dumps(res)}")
+        checks[f"{kind}: K2 once a chunk and for the pilot"] = k2 in (
+            n_chunks + 1, 2 * n_chunks + 1)
+        checks[f"{kind}: n_paths"] = res["n_paths"] == STATE_VAR_PATHS
+        checks[f"{kind}: VaR finite and positive"] = (
+            math.isfinite(res["var_95"]) and 0 < res["var_95"]
+            < res["cvar_95"])
+        sk, _ = run_qmc(checked, f"portfolio_var_on_device({kind}, 2^20)",
+                        ("fused_terminal",),
+                        lambda: portfolio_var_on_device(
+                            proc, n1, days, v0, seed=5, bins=VAR_BINS,
+                            chunk_paths=n1))
+        term, _ = run_qmc(checked, f"fused_terminal({kind}, 2^20)",
+                          ("fused_terminal",),
+                          lambda: fused_terminal(proc, n1, days, seed=5))
+        exact = terminal_statistics(term, v0)
+        for k in ("var_95", "cvar_95"):
+            d = abs(sk[k] - float(exact[k]))
+            log(f"  {kind} {k} at 2^20, sketch {sk[k]:.5f}% vs exact "
+                f"{float(exact[k]):.5f}%: |diff| {d:.2e} (grid error "
+                f"{sk[k + '_grid_err']:.2e})")
+            checks[f"{kind} {k} sketch within its grid error"] = (
+                d <= sk[k + "_grid_err"])
+        stream, walls[f"stream {kind}"] = run_qmc(
+            tot, f"portfolio_var({kind}, 2^24, stream)", ("fused_terminal",),
+            lambda: portfolio_var(proc, STATE_STREAM_PATHS, days, v0, seed=0,
+                                  bins=VAR_BINS,
+                                  chunk_paths=STATE_STREAM_CHUNK))
+        dev, _ = run_qmc(checked, f"portfolio_var_on_device({kind}, 2^24)",
+                         ("fused_terminal",),
+                         lambda: portfolio_var_on_device(
+                             proc, STATE_STREAM_PATHS, days, v0, seed=0,
+                             bins=VAR_BINS, chunk_paths=STATE_STREAM_CHUNK))
+        d = abs(stream["var_95"] - dev["var_95"])
+        log(f"  {kind} stream var_95 {stream['var_95']:.5f}% vs device "
+            f"{dev['var_95']:.5f}% at 2^24 ({walls[f'stream {kind}']:.3f} s "
+            f"host clock)")
+        checks[f"{kind} stream at the device sketch"] = (
+            d <= dev["var_95_grid_err"])
+        n_or = 4096
+        got, _ = run_qmc(checked, f"fused_terminal({kind}, {n_or})",
+                         ("fused_terminal",),
+                         lambda: fused_terminal(proc, n_or, days, seed=0))
+        want = garch_book_oracle(proc, kind, n_or, days, 0)
+        rel = float(np.max(np.abs(got.double().cpu().numpy() - want)
+                           / np.abs(want)))
+        log(f"  {kind} K2 vs the NumPy oracle at {n_or} x {days}: max rel "
+            f"{rel:.2e}")
+        checks[f"{kind} at its NumPy oracle"] = rel < 5e-4
+        put = VanillaPayoff("put", 0.95 * v0)
+        st, walls[f"put {kind}"] = run_qmc(
+            tot, f"payoff_block_moments({kind}, 95% put, 2^24)",
+            ("fused_block_moments",),
+            lambda: payoff_block_moments(proc, put, STATE_VAR_CHUNK, days,
+                                         seed=7))
+        st = moments_reduce(st)
+        term, _ = run_qmc(checked, f"fused_terminal({kind}, 2^24)",
+                          ("fused_terminal",),
+                          lambda: fused_terminal(proc, STATE_VAR_CHUNK, days,
+                                                 seed=7))
+        want = float(put(term).double().mean())
+        log(f"  {kind} 95% put {float(st.mean):.6f} +- "
+            f"{float(std_error(st)):.2e} (K3) vs {want:.6f} over K2's paths")
+        checks[f"{kind} put at the K2 paths' mean"] = (
+            abs(float(st.mean) - want) <= 1e-5 * max(want, 1e-3))
+        mn, walls[f"min {kind}"] = run_qmc(
+            tot, f"simulate_functionals({kind}, running min, 2^22)",
+            ("fused_functionals",),
+            lambda: simulate_functionals(proc, 1 << 22, days, seed=7,
+                                         functionals={"mn": RUNNING_MIN}))
+        start = proc.prices(proc.init_state(torch.zeros(1, dtype=torch.int64,
+                                                        device="cuda")))
+        # The minimum is folded in log space and finalized by exp32:
+        # exp32(log32(x)) is within a few ULPs of x, hence the 1e-6.
+        top = torch.minimum(mn["terminal"], start) * (1 + 1e-6)
+        checks[f"{kind} running min below terminal and start"] = bool(
+            (mn["mn"] <= top).all())
+        log(f"  {kind} 10-day running minimum: mean "
+            f"{float(mn['mn'].mean()):.4f} against the start "
+            f"{float(start):.4f}")
+        del mn, term, got
+    log("  state path wall-clocks (host clock): " + ", ".join(
+        f"{k} {w:.3f} s" for k, w in walls.items()) + f", on {card}")
+    for kind in STATE_KINDS:
+        for name in ("fused_terminal", "fused_block_moments",
+                     "fused_functionals"):
+            launches[f"{name}_{STATE_KEY[kind]}"] = totals[kind].get(name, 0)
+    log(f"  launches on the state path: {launches}; in the runs made only "
+        f"to check: {checked}")
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"state path checks failed: {failed}")
+    if min(launches.values()) < 1:
+        raise AssertionError(f"kernels never launched on the state path: "
+                             f"{launches}")
+    return launches
+
 
 KERNELS = [
     ("gbm_terminal", "gbm_kernel.cu", "gbm_kernel.py:118"),
@@ -3990,6 +4550,13 @@ KERNELS = [
     ("fused_terminal_rates", "fused_rates.cu", "fused_engine.py:231"),
     ("fused_block_moments_rates", "fused_rates.cu", "fused_engine.py:478"),
     ("fused_functionals_rates", "fused_rates.cu", "fused_engine.py:390"),
+    *((f"{name}_{STATE_KEY[kind]}",
+       STATE_K4_UNIT.get(kind, STATE_UNIT[kind]) if name == "fused_functionals"
+       else STATE_UNIT[kind], f"fused_engine.py:{line}")
+      for kind in STATE_KINDS
+      for name, line in (("fused_terminal", 231),
+                         ("fused_block_moments", 478),
+                         ("fused_functionals", 390))),
 ]
 
 
@@ -4124,6 +4691,21 @@ def main() -> int:
             f"{t_path - t_shapes:.1f} s, bond path "
             f"{time.perf_counter() - t_path:.1f} s")
         log(f"  phase 13 took {time.perf_counter() - t13:.1f} s, on {card}")
+        log("phase 14: the multi-asset state processes on K2-K4 "
+            "(StateProc in fused_term_basket.cu, fused_ccc.cu, "
+            "fused_dcc{,_k4}.cu); the term basket's pricing and the GARCH "
+            "books' "
+            "VaR")
+        t14 = time.perf_counter()
+        phase_state_parity(torch, errs)
+        t_shapes = time.perf_counter()
+        phase_state_shapes(torch, errs, times)
+        t_path = time.perf_counter()
+        counts.update(phase_state_path(torch, card))
+        log(f"  phase 14: parity {t_shapes - t14:.1f} s, timed shapes "
+            f"{t_path - t_shapes:.1f} s, path "
+            f"{time.perf_counter() - t_path:.1f} s")
+        log(f"  phase 14 took {time.perf_counter() - t14:.1f} s, on {card}")
         k3_ms = times["fused_block_moments"]["ms"]
         kernel_s = k3_ms * 1e-3 * n_paths / (1 << 22)
         log(f"  K1 {bench['value']:.6e} path-steps/s, wall-clock to "

@@ -17,7 +17,6 @@ import numpy as np
 import torch
 
 from montecarlo_tpu_torch.engine.dispatch import terminal_prices
-from montecarlo_tpu_torch.engine.simulate import simulate
 from montecarlo_tpu_torch.engine.streaming import (risk_dict,
                                                    risk_from_state,
                                                    streaming_estimate)
@@ -33,7 +32,11 @@ _OOB_RERANGE_THRESHOLD = 1e-6
 
 
 def _pilot_range(process, n_steps: int, seed: int, margin: float = 0.5):
-    pilot = simulate(process, 4096, n_steps, seed=seed, stream=999)
+    # The JAX package's pilot (its scan engine's 4096 paths on stream 999)
+    # through the dispatch gate: K2 where it takes the process, the same
+    # bits as the torch loop, one launch where the loop takes hundreds a
+    # step.
+    pilot = terminal_prices(process, 4096, n_steps, seed=seed, stream=999)
     lo, hi = float(pilot.min()), float(pilot.max())
     span = hi - lo
     return lo - margin * span, hi + margin * span

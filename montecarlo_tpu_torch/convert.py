@@ -10,10 +10,10 @@ its ``n_table`` valid entries (``GARCHBootstrap.numpy_fields``).  The
 variance gamma carries its quantile table (two 512-entry leaves) and the
 QE processes their create-time constants, as leaves like any other, and
 the local-vol surfaces their tables (SLV's ``lev_rows`` keeps its
-(n_steps, 128) shape).  Term-structure GBM's and Hull-White's curves come
-across as they are, the JAX package's padding included: a run reads the
-same entries on both sides, zeros inside the padding, and the port refuses
-steps past the padded length.
+(n_steps, 128) shape).  Term-structure GBM's, Hull-White's and the term
+basket's curves come across as they are, the JAX package's padding
+included: a run reads the same entries on both sides, zeros inside the
+padding, and the port refuses steps past the padded length.
 """
 
 from __future__ import annotations
@@ -26,12 +26,13 @@ import torch
 from montecarlo_tpu_torch.device import resolve_device
 from montecarlo_tpu_torch.processes import (CIR, G2PP, NIG, SABR, SLV,
                                             BasketGBM, Bates, BatesQE,
-                                            EulerGBM, GARCHBootstrap, GBM,
-                                            Heston, HestonQE, HullWhite, Kou,
+                                            CCCGarch, DCCGarch, EulerGBM,
+                                            GARCHBootstrap, GBM, Heston,
+                                            HestonQE, HullWhite, Kou,
                                             LocalVolGBM, Merton, MultiGBM,
                                             RoughBergomi, SLVKnots,
-                                            TermStructureGBM, VarianceGamma,
-                                            Vasicek)
+                                            TermBasketGBM, TermStructureGBM,
+                                            VarianceGamma, Vasicek)
 
 PROCESSES = {"gbm": GBM, "heston": Heston, "rbergomi": RoughBergomi,
              "basket": BasketGBM, "multigbm": MultiGBM,
@@ -41,7 +42,8 @@ PROCESSES = {"gbm": GBM, "heston": Heston, "rbergomi": RoughBergomi,
              "local-vol": LocalVolGBM, "slv": SLV, "slv-knots": SLVKnots,
              "euler-gbm": EulerGBM, "term-gbm": TermStructureGBM,
              "vasicek": Vasicek, "cir": CIR, "hull-white": HullWhite,
-             "g2pp": G2PP}
+             "g2pp": G2PP, "term-basket": TermBasketGBM,
+             "ccc-garch": CCCGarch, "dcc-garch": DCCGarch}
 
 
 def _tensor(name: str, value, device) -> torch.Tensor:

@@ -97,6 +97,11 @@ enum ProcessCode {
   kCir = 17,
   kHullWhite = 18,
   kG2pp = 19,
+  // csrc/fused_term_basket.cu's, fused_ccc.cu's and fused_dcc{,_k4}.cu's
+  // (launch_term_basket, launch_ccc_garch, launch_dcc_garch):
+  kTermBasket = 20,
+  kCccGarch = 21,
+  kDccGarch = 22,
 };
 
 // The functors whose step reads the step index t (a time-dependent surface)

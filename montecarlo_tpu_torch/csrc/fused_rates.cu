@@ -23,26 +23,6 @@
 namespace mcf {
 namespace {
 
-// NormalDraws<D> with each Box-Muller pair's sine and cosine from one
-// sincosf: D cipher calls a step pair at counters j D + c, the same bits.
-template <int D>
-struct SincosDraws : NormalDraws<D> {
-  __device__ static void draws_pair(uint32_t k0, uint32_t k1, uint32_t id,
-                                    uint32_t j, float* eps0, float* eps1) {
-    float flat[2 * D];
-#pragma unroll
-    for (int c = 0; c < D; ++c) {
-      normal_pair_sincos(k0, k1, id, j * (uint32_t)D + (uint32_t)c,
-                         &flat[2 * c], &flat[2 * c + 1]);
-    }
-#pragma unroll
-    for (int d = 0; d < D; ++d) {
-      eps0[d] = flat[d];
-      eps1[d] = flat[D + d];
-    }
-  }
-};
-
 // A step of rate_steps.cuh with D normals a step: a TimedStep functor (the
 // curves are read at t; the other steps ignore it).
 template <class Step, int D>

@@ -10,8 +10,9 @@
 // for the process functors GbmProc, HestonProc, GarchProc, MertonProc,
 // KouProc, BatesProc, NigProc, HestonQEProc, BatesQEProc, VgProc,
 // SabrProc, LocalVolProc and SlvProc (Euler GBM, term-structure GBM and
-// the short rates: csrc/fused_rates.cu, dispatched from here).  SlvProc's
-// per-step leverage row is the port of the JAX kernels' KernelRows
+// the short rates: csrc/fused_rates.cu; the term basket, CCC-GARCH and
+// DCC-GARCH: csrc/fused_mgarch.cuh's units; each dispatched from here).
+// SlvProc's per-step leverage row is the port of the JAX kernels' KernelRows
 // (ops/fused_engine.py:44-66, the dynamic ref slice of a
 // kernel_rows_field leaf): a pointer and a clamped row offset.  The
 // surfaces on hat-blended time knots (local vol, and SLV on knots, which
@@ -216,6 +217,27 @@ __device__ __forceinline__ void normal_pair_sincos(uint32_t k0, uint32_t k1,
   mc::threefry2x32(k0, k1, id, c, &b0, &b1);
   mc::boxmuller_sincos(b0, b1, z0, z1);
 }
+
+// NormalDraws<D> with each Box-Muller pair's sine and cosine from one
+// sincosf: D cipher calls a step pair at counters j D + c, the same bits
+// (the rate and multi-asset state functors' draws).
+template <int D>
+struct SincosDraws : NormalDraws<D> {
+  __device__ static void draws_pair(uint32_t k0, uint32_t k1, uint32_t id,
+                                    uint32_t j, float* eps0, float* eps1) {
+    float flat[2 * D];
+#pragma unroll
+    for (int c = 0; c < D; ++c) {
+      normal_pair_sincos(k0, k1, id, j * (uint32_t)D + (uint32_t)c,
+                         &flat[2 * c], &flat[2 * c + 1]);
+    }
+#pragma unroll
+    for (int d = 0; d < D; ++d) {
+      eps0[d] = flat[d];
+      eps1[d] = flat[D + d];
+    }
+  }
+};
 
 __device__ __forceinline__ void uniform_pair(uint32_t k0, uint32_t k1,
                                              uint32_t id, uint32_t c,
@@ -771,11 +793,36 @@ cudaError_t launch_rates(int process, const DrawArgs& a, int dims,
                          uint32_t path_offset, uint32_t k0, uint32_t k1,
                          FunctionalSpec spec, float* out, int* fixed);
 
+// K2, K3 and K4 on the multi-asset state processes of 1..8 assets
+// (csrc/fused_mgarch.cuh's StateProc over csrc/mgarch_steps.cuh): the term
+// basket in csrc/fused_term_basket.cu, CCC-GARCH in csrc/fused_ccc.cu,
+// DCC-GARCH in csrc/fused_dcc.cu (K4 in fused_dcc_k4.cu); one thread per
+// path, the arguments of a
+// Launcher's run after the draw source.
+#define MC_STATE_LAUNCHES(name)                                              \
+  cudaError_t name(const DrawArgs& a, int dims, unsigned blocks,             \
+                   cudaStream_t s, int64_t n_paths, const float* leaves,     \
+                   int n_steps, uint32_t path_offset, uint32_t k0,           \
+                   uint32_t k1, StoreTerminal epilogue);                     \
+  cudaError_t name(const DrawArgs& a, int dims, unsigned blocks,             \
+                   cudaStream_t s, int64_t n_paths, const float* leaves,     \
+                   int n_steps, uint32_t path_offset, uint32_t k0,           \
+                   uint32_t k1, RowMoments epilogue);                        \
+  cudaError_t name(const DrawArgs& a, int dims, unsigned blocks,             \
+                   cudaStream_t s, int64_t n_paths, const float* leaves,     \
+                   int n_steps, uint32_t path_offset, uint32_t k0,           \
+                   uint32_t k1, FunctionalSpec spec, float* out, int* fixed);
+MC_STATE_LAUNCHES(launch_term_basket)
+MC_STATE_LAUNCHES(launch_ccc_garch)
+MC_STATE_LAUNCHES(launch_dcc_garch)
+#undef MC_STATE_LAUNCHES
+
 namespace {
 
 // Picks the functor for the process code (the basket's by its asset count,
 // in fused_basket.cuh; the rate and term-structure processes' in
-// fused_rates.cu) and launches it with one thread per path.
+// fused_rates.cu; the multi-asset state processes' in their units) and
+// launches it with one thread per path.
 template <template <class, class> class Launcher, class... Args>
 int dispatch(int process, int dims, const DrawArgs& a, int64_t n_paths,
              void* stream, Args... args) {
@@ -850,6 +897,15 @@ int dispatch(int process, int dims, const DrawArgs& a, int64_t n_paths,
     case kG2pp:
       err = launch_rates(process, a, dims, blocks, s, n_paths, args...);
       break;
+    case kTermBasket:
+      err = launch_term_basket(a, dims, blocks, s, n_paths, args...);
+      break;
+    case kCccGarch:
+      err = launch_ccc_garch(a, dims, blocks, s, n_paths, args...);
+      break;
+    case kDccGarch:
+      err = launch_dcc_garch(a, dims, blocks, s, n_paths, args...);
+      break;
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -863,7 +919,8 @@ int dispatch(int process, int dims, const DrawArgs& a, int64_t n_paths,
 // Every entry takes the process code and its dimension `dims` (the basket's
 // asset count, GARCH's table length, VG's quantile-table length, the
 // surfaces' row count, the curve length of term-structure GBM and
-// Hull-White; ignored by the other processes) after the leaves, and after
+// Hull-White, CCC's and DCC's asset count A, the term basket's A + 16 n;
+// ignored by the other processes) after the leaves, and after
 // the key words the draw source (DrawSource): `source`, `antithetic`
 // (Threefry only), the Sobol table `sv` (n_dims, 30) for kSobol and
 // kBridge, and for kBridge the plan's weights `plan_coeffs` (>= n_steps

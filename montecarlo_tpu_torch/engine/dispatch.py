@@ -7,7 +7,8 @@ before anything launches (the counterpart of the JAX package's
 - **the kernels** (K2, K3, K4; their plain versions for a CPU process)
   for a process the kernels take (``ops.fused_engine.kernel_refusal`` is
   None: a type in ``PROCESS_CODES``, a :class:`BasketGBM` of at most
-  ``MAX_ASSETS`` assets) with no sampler,
+  ``MAX_ASSETS`` assets, a TermBasketGBM, CCCGarch or DCCGarch of at most
+  ``MAX_STATE_ASSETS`` assets and not under the bridge) with no sampler,
   the plain or antithetic sampler, a :class:`SobolDeviceSampler` whose
   table covers ``n_steps * n_draws`` dims, or a
   :class:`SobolBridgeKernelSampler` on a single-draw process built for at
@@ -51,7 +52,8 @@ def _kernel_sampler_ok(sampler, process, n_steps: int) -> bool:
 def kernel_route(process, sampler, n_steps: int) -> bool:
     """True when K2-K4 (or their plain versions) run this process and
     sampler; False for the torch time loop (also for a process the
-    kernels' wrappers refuse, such as a basket larger than they take)."""
+    kernels' wrappers refuse, such as a basket larger than they take or a
+    CCC book of more than MAX_STATE_ASSETS assets)."""
     return (kernel_refusal(process, sampler) is None
             and _kernel_sampler_ok(sampler, process, n_steps))
 

@@ -41,7 +41,8 @@ def check_sampler(sampler, process, n_steps: int) -> None:
 
 def check_steps(process, n_steps: int) -> None:
     """Raise ``ValueError`` when ``process`` reads per-step curves
-    (``max_steps``: TermStructureGBM, HullWhite) shorter than ``n_steps``.
+    (``max_steps``: TermStructureGBM, HullWhite, TermBasketGBM) shorter
+    than ``n_steps``.
     Every route (the torch loop, K2-K4 and their plain versions) asks
     before its first step."""
     limit = getattr(process, "max_steps", None)

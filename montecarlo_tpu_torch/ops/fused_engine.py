@@ -5,12 +5,16 @@ Port of ``montecarlo_tpu/ops/fused_engine.py::fused_terminal_pallas`` (K2),
 (K4); the kernels are templates over a process functor (GBM, Heston, the
 correlated GBM basket of at most 128 assets, the bootstrap GARCH, Merton,
 Kou, Bates, NIG, HestonQE, BatesQE, variance gamma, SABR, local volatility,
-SLV with exact per-step leverage rows and SLV on leverage time knots, and
-in ``csrc/fused_rates.cu`` Euler GBM, term-structure GBM, Vasicek, CIR,
-Hull-White and G2++) and a draw source in ``csrc/fused_engine.cu``.  A
-process on per-step curves (term-structure GBM, Hull-White) reads them at
-the step index; a run of more steps than its curves hold is refused before
-any launch (``engine.simulate.check_steps``).  The exact-rows SLV reads its
+SLV with exact per-step leverage rows and SLV on leverage time knots, in
+``csrc/fused_rates.cu`` Euler GBM, term-structure GBM, Vasicek, CIR,
+Hull-White and G2++, and in ``csrc/fused_term_basket.cu``,
+``csrc/fused_ccc.cu`` and ``csrc/fused_dcc{,_k4}.cu`` the multi-asset state
+processes TermBasketGBM, CCC-GARCH and DCC-GARCH of 1 to
+``MAX_STATE_ASSETS`` assets) and a draw source in
+``csrc/fused_engine.cu``.  A process on per-step curves (term-structure
+GBM, Hull-White, the term basket) reads them at the step index; a run of
+more steps than its curves hold is refused before any launch
+(``engine.simulate.check_steps``).  The exact-rows SLV reads its
 step's row through a pointer and an offset, the port of the JAX kernels'
 ``KernelRows``.  A surface on hat-blended time knots (local vol, SLV on
 knots) has its rows blended once, one per step, by the row builder
@@ -32,7 +36,9 @@ functor, ``SlvProc``).  Draw sources (``sampler=``):
   bridge normals, one held per tree level in registers and each computed
   once per path (``csrc/bridge_levels.cuh``); no workspace.  A plan wider
   than ``MAX_BRIDGE_LEVELS`` levels (T > 2^15 steps) is refused
-  (:func:`kernel_refusal`).
+  (:func:`kernel_refusal`), and so is the bridge on the multi-asset state
+  processes at any asset count, as the JAX package takes it for
+  single-draw processes only.
 
 The plain versions below run the process's own ``draws_pair``/``step``/
 ``prices`` (or the sampler's draws) in the kernel's order and agree with
@@ -75,11 +81,12 @@ from montecarlo_tpu_torch.ops._build import (CudaKernel, check_cuda_tensor,
                                              cuda_stream)
 from montecarlo_tpu_torch.processes import (CIR, G2PP, NIG, SABR, SLV,
                                             BasketGBM, Bates, BatesQE,
-                                            EulerGBM, GARCHBootstrap, GBM,
-                                            Heston, HestonQE, HullWhite, Kou,
+                                            CCCGarch, DCCGarch, EulerGBM,
+                                            GARCHBootstrap, GBM, Heston,
+                                            HestonQE, HullWhite, Kou,
                                             LocalVolGBM, Merton, SLVKnots,
-                                            TermStructureGBM, VarianceGamma,
-                                            Vasicek)
+                                            TermBasketGBM, TermStructureGBM,
+                                            VarianceGamma, Vasicek)
 from montecarlo_tpu_torch.processes.basket import kernel_assets_refusal
 from montecarlo_tpu_torch.processes.local_vol import KNOTS, blend_rows
 from montecarlo_tpu_torch.rng.sobol import (SobolBridgeKernelSampler,
@@ -99,7 +106,16 @@ PROCESS_CODES = {GBM: 0, Heston: 1, BasketGBM: 2, GARCHBootstrap: 3,
                  Merton: 4, Kou: 5, Bates: 6, NIG: 7, HestonQE: 8,
                  BatesQE: 9, VarianceGamma: 10, SABR: 11, LocalVolGBM: 12,
                  SLV: 13, SLVKnots: 13, EulerGBM: 14, TermStructureGBM: 15,
-                 Vasicek: 16, CIR: 17, HullWhite: 18, G2PP: 19}
+                 Vasicek: 16, CIR: 17, HullWhite: 18, G2PP: 19,
+                 TermBasketGBM: 20, CCCGarch: 21, DCCGarch: 22}
+#: The multi-asset state processes and the most assets their functors
+#: take (csrc/mgarch_steps.cuh::kMaxStateAssets: one instantiation per
+#: asset count).  Above it ``kernel_route`` sends them to the torch loop.
+STATE_PROCESSES = (TermBasketGBM, CCCGarch, DCCGarch)
+MAX_STATE_ASSETS = 8
+#: The term basket's ``dims``: A + (curve length << CURVE_SHIFT)
+#: (csrc/mgarch_steps.cuh::kCurveShift; A < 2^CURVE_SHIFT).
+CURVE_SHIFT = 4
 #: The surfaces on time knots, by the fields their functor's leaves hold
 #: before the rows: LocalVolProc's [s0, rate, dt, x0, dx], and SlvProc's
 #: for SLV on knots.
@@ -161,20 +177,37 @@ def _bridge_refusal(sampler) -> Exception | None:
     return None
 
 
+def _state_refusal(process, sampler) -> Exception | None:
+    name = type(process).__name__
+    if not 1 <= process.n_assets <= MAX_STATE_ASSETS:
+        return ValueError(
+            f"the kernels' {name} takes 1 to at most {MAX_STATE_ASSETS} "
+            f"assets, got {process.n_assets}; run it on the torch loop")
+    if isinstance(sampler, SobolBridgeKernelSampler):
+        return ValueError(f"the kernels run {name} under Threefry and Sobol "
+                          "draws, not the bridge; run it on the torch loop")
+    return None
+
+
 def kernel_refusal(process, sampler=None) -> Exception | None:
     """Why K2-K4 do not run ``process`` under ``sampler``, as the error
     their wrappers raise (a type with no functor; a basket of more assets
-    than the kernels take; a bridge plan wider than MAX_BRIDGE_LEVELS), or
-    None when they run it.  ``engine.dispatch.kernel_route`` asks it
-    before it routes a run."""
+    than the kernels take; a multi-asset state process of more than
+    MAX_STATE_ASSETS assets, or under the bridge; a bridge plan wider than
+    MAX_BRIDGE_LEVELS), or None when they run it.
+    ``engine.dispatch.kernel_route`` asks it before it routes a run."""
     if type(process) not in PROCESS_CODES:
         others = ", ".join(c.__name__ for c in list(PROCESS_CODES)[2:])
         return TypeError("the fused kernels run GBM and Heston (and "
                          f"{others}) in this port, got "
                          f"{type(process).__name__}")
     if isinstance(process, BasketGBM):
-        return kernel_assets_refusal(process.n_draws)
-    return _bridge_refusal(sampler)
+        err = kernel_assets_refusal(process.n_draws)
+    elif isinstance(process, STATE_PROCESSES):
+        err = _state_refusal(process, sampler)
+    else:
+        err = None
+    return err if err is not None else _bridge_refusal(sampler)
 
 
 def _leaves(process):
@@ -195,11 +228,16 @@ def _leaves(process):
     dt]; G2++: [phi, a, sigma, b, eta, rho, dt]; local vol: [s0, rate, dt, x0, dx,
     dt_knot, vol_flat (n_tk * 128)]; SLV: [s0, rate, v0, kappa, theta, xi,
     rho, dt, x0, dx, lev_rows (n_rows * 128)]; SLV on knots: SLV's up to
-    dx, then [dt_knot, lev_flat (n_tk * 128)]), and ``dims`` the basket's
-    A, GARCH's table length, VG's table length n, the local-vol surfaces'
-    time-knot count n_tk, SLV's row count n_rows or the curve length n of
-    term-structure GBM and Hull-White, an integer that never
-    passes through a float.  A launch on a surface on time knots or on VG
+    dx, then [dt_knot, lev_flat (n_tk * 128)]; the term basket: [s0 (A),
+    mu_t (A * n, a row an asset), sigma_t (A * n), chol_flat (A * A), weights
+    (A), dt]; CCC-GARCH: [s0, var0, omega, alpha, beta (A each), chol_flat
+    (A * A), weights (A)]; DCC-GARCH: [s0, var0, omega, alpha, beta (A
+    each), qbar_flat (A * A), a_dcc, b_dcc, weights (A)]), and ``dims`` the
+    basket's A, GARCH's table length, VG's table length n, the local-vol
+    surfaces' time-knot count n_tk, SLV's row count n_rows, the curve
+    length n of term-structure GBM and Hull-White, CCC's and DCC's A or
+    the term basket's A + (n << CURVE_SHIFT), an integer that never passes
+    through a float.  A launch on a surface on time knots or on VG
     takes :func:`_launch_leaves`' instead."""
     err = kernel_refusal(process)
     if err is not None:
@@ -216,6 +254,8 @@ def _leaves(process):
         dims = process.lev_rows.shape[0]
     elif isinstance(process, (TermStructureGBM, HullWhite)):
         dims = process.max_steps
+    elif isinstance(process, TermBasketGBM):
+        dims = process.n_assets + (process.max_steps << CURVE_SHIFT)
     fields = [getattr(process, f.name) for f in dataclasses.fields(process)]
     return code, dims, torch.cat([v.reshape(-1) for v in fields
                                   if v.is_floating_point()])
@@ -326,7 +366,7 @@ def draw_source(sampler, antithetic: bool = False) -> int:
 
 def _check_draws(process, sampler, n_steps: int, antithetic: bool) -> int:
     source = draw_source(sampler, antithetic)
-    err = _bridge_refusal(sampler)
+    err = kernel_refusal(process, sampler)
     if err is not None:
         raise err
     check_sampler(sampler, process, n_steps)

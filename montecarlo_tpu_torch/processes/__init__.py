@@ -3,7 +3,8 @@ the bootstrap GARCH, the jump processes Merton, Kou and Bates, the Levy
 processes NIG and variance gamma, HestonQE, BatesQE, SABR, local
 volatility and stochastic-local volatility with its particle calibration
 and the Dupire surface, Euler GBM and term-structure GBM, the short rates
-Vasicek, CIR and Hull-White and the two-factor G2++) and the
+Vasicek, CIR and Hull-White and the two-factor G2++, and the multi-asset
+state processes TermBasketGBM, CCC-GARCH and DCC-GARCH) and the
 rough-Bergomi sampler."""
 
 from montecarlo_tpu_torch.processes.base import (  # noqa: F401
@@ -17,6 +18,8 @@ from montecarlo_tpu_torch.processes.bates import (  # noqa: F401
     bates_log_cf,
 )
 from montecarlo_tpu_torch.processes.bates_qe import BatesQE  # noqa: F401
+from montecarlo_tpu_torch.processes.ccc_garch import CCCGarch  # noqa: F401
+from montecarlo_tpu_torch.processes.dcc_garch import DCCGarch  # noqa: F401
 from montecarlo_tpu_torch.processes.euler_gbm import EulerGBM  # noqa: F401
 from montecarlo_tpu_torch.processes.g2pp import (  # noqa: F401
     G2PP,
@@ -69,6 +72,9 @@ from montecarlo_tpu_torch.processes.slv import (  # noqa: F401
     SLVState,
     calibrate_slv,
     slv_to_kernel,
+)
+from montecarlo_tpu_torch.processes.term_basket import (  # noqa: F401
+    TermBasketGBM,
 )
 from montecarlo_tpu_torch.processes.term_gbm import (  # noqa: F401
     TermStructureGBM,

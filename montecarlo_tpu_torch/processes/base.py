@@ -39,15 +39,15 @@ def f32_leaves(device, **values) -> dict:
 
 def curve_at(curve: torch.Tensor, t) -> torch.Tensor:
     """Entry ``t`` of a per-step parameter curve (TermStructureGBM's drift
-    and vol, HullWhite's theta): plain indexing, where the JAX package reads
-    a one-hot row inside its kernels.  A step past the curve's end raises
-    ``ValueError``: outside a kernel JAX clamps the index, inside one its
-    one-hot read gives 0, and the port copies neither."""
-    t = int(t)
-    if not 0 <= t < curve.numel():
-        raise ValueError(f"step {t} is past the end of a {curve.numel()}-"
-                         "step curve")
-    return curve[t]
+    and vol, HullWhite's theta), or column ``t`` of per-asset curves, one
+    row an asset (TermBasketGBM's): plain indexing, where the JAX package
+    reads a one-hot row inside its kernels.  A step past the curve's end
+    raises ``ValueError``: outside a kernel JAX clamps the index, inside one
+    its one-hot read gives 0, and the port copies neither."""
+    t, n = int(t), curve.shape[-1]
+    if not 0 <= t < n:
+        raise ValueError(f"step {t} is past the end of a {n}-step curve")
+    return curve[..., t]
 
 
 def grad_safe_sqrt(q: torch.Tensor) -> torch.Tensor:

@@ -43,6 +43,24 @@ def kernel_assets_refusal(n_assets: int) -> ValueError | None:
                       f" assets, got {n_assets}")
 
 
+def correlate(chol_flat: torch.Tensor, eps, a: int, a_n: int):
+    """``zc_a = L[a,0] z_0 + ... + L[a,a] z_a`` from the row-major factor,
+    left to right, the first term a product (the correlated draws of the
+    basket, the term basket and the GARCH books)."""
+    zc = chol_flat[a * a_n] * eps[0]
+    for b in range(1, a + 1):
+        zc = zc + chol_flat[a * a_n + b] * eps[b]
+    return zc
+
+
+def basket_value(weights: torch.Tensor, log_s):
+    """``sum_a w_a exp32(log S_a)``, the assets in order."""
+    out = weights[0] * exp32(log_s[0])
+    for a in range(1, len(log_s)):
+        out = out + weights[a] * exp32(log_s[a])
+    return out
+
+
 def check_kernel_assets(n_assets: int) -> None:
     """Raise :func:`kernel_assets_refusal`'s error, if there is one."""
     err = kernel_assets_refusal(n_assets)
@@ -93,20 +111,12 @@ class BasketGBM(NormalDrawsMixin):
 
     def step(self, state, eps, t):
         a_n = self.n_assets
-        chol = self.chol_flat
         drift, scale = self.drift_scale()
-        new = []
-        for a in range(a_n):
-            zc = chol[a * a_n] * eps[0]
-            for b in range(1, a + 1):
-                zc = zc + chol[a * a_n + b] * eps[b]
-            new.append(state[a] + (drift[a] + scale[a] * zc))
-        return tuple(new)
+        return tuple(
+            state[a] + (drift[a] + scale[a] * correlate(self.chol_flat, eps,
+                                                        a, a_n))
+            for a in range(a_n))
 
     def prices(self, state):
         """The basket value ``sum_a w_a exp32(log S_a)``, assets in order."""
-        w = self.weights
-        out = w[0] * exp32(state[0])
-        for a in range(1, self.n_assets):
-            out = out + w[a] * exp32(state[a])
-        return out
+        return basket_value(self.weights, state)

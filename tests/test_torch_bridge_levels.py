@@ -44,7 +44,7 @@ from montecarlo_tpu_torch.ops import fused_engine
 from montecarlo_tpu_torch.ops.fused_engine import (_step_draws,
                                                    fused_terminal,
                                                    kernel_refusal)
-from montecarlo_tpu_torch.processes import GBM
+from montecarlo_tpu_torch.processes import BasketGBM, GBM
 from montecarlo_tpu_torch.rng.sobol import (SobolBridgeKernelSampler,
                                             bridge_schedule, sobol_bits)
 from montecarlo_tpu_torch.rng.threefry import MASK32, key_from_seed
@@ -235,3 +235,23 @@ def test_refused_plan_prices_on_the_torch_loop_like_jax(monkeypatch):
     for k in want:
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]),
                                    rtol=PRICE_RTOL, err_msg=k)
+
+
+def test_one_asset_basket_under_a_wide_plan_is_refused_before_any_launch(
+        monkeypatch):
+    """A one-asset basket runs under the bridge; a plan wider than the
+    kernels hold (the bound lowered to 4 levels, so that 17 steps' 6 are
+    too many) is refused for it by the gate and by the wrappers and plain
+    versions before any launch, as for GBM, and routed to the torch
+    loop."""
+    basket = BasketGBM.create([100.0], [0.03], [0.2], [[1.0]], [1.0],
+                              1 / 17, device="cpu")
+    ts = SobolBridgeKernelSampler.create(17, scramble_seed=3, device="cpu")
+    assert kernel_refusal(basket, ts) is None
+    assert dispatch.kernel_route(basket, ts, 17)
+    monkeypatch.setattr(fused_engine, "MAX_BRIDGE_LEVELS", 4)
+    assert isinstance(kernel_refusal(basket, ts), ValueError)
+    assert not dispatch.kernel_route(basket, ts, 17)
+    for run in (fused_terminal, fused_engine.fused_terminal_reference):
+        with pytest.raises(ValueError, match="tree levels"):
+            run(basket, 64, 17, seed=0, sampler=ts)

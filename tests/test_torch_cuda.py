@@ -49,7 +49,11 @@ csrc/fused_rates.cu) equal their plain versions and the torch loop bitwise
 on K2-K4 under every draw source each takes; a run longer than a curve is
 refused before any launch; ``bond`` on the card gives the CPU route's
 JSON within rtol 1e-5 and atol 1e-7 (the CPU's libm and sqrt are not
-the card's).
+the card's).  TermBasketGBM, CCC-GARCH and DCC-GARCH (StateProc over
+csrc/mgarch_steps.cuh, at every asset count 1..8 of their functors) equal
+their plain versions and the torch loop bitwise on K2-K4 under Threefry
+and Sobol draws; nine assets take the torch loop, and the bridge and a
+run past the term basket's curves are refused, before any launch.
 """
 
 import math
@@ -1398,3 +1402,111 @@ def test_cuda_bond_json_matches_the_cpu_route(cuda, flags, capsys):
         else:
             np.testing.assert_allclose(got[k], w, rtol=1e-5, atol=1e-7,
                                        err_msg=k)
+
+
+def _state_proc(kind, a_n, n_steps, device):
+    """TermBasketGBM, CCC-GARCH or DCC-GARCH on a seeded A-asset book:
+    half a sample correlation and half the identity, spots in [50, 150],
+    daily variances in [1e-4, 4e-4], equal weights; the term basket on
+    seeded curves of n_steps entries."""
+    from montecarlo_tpu_torch.processes import (CCCGarch, DCCGarch,
+                                                TermBasketGBM)
+
+    rng = np.random.default_rng(a_n)
+    c = np.atleast_2d(np.corrcoef(rng.normal(size=(a_n, 4 * a_n))))
+    corr = 0.5 * c + 0.5 * np.eye(a_n)
+    s0, var0 = rng.uniform(50, 150, a_n), rng.uniform(1e-4, 4e-4, a_n)
+    w = np.full(a_n, 1.0 / a_n)
+    if kind == "term-basket":
+        return TermBasketGBM.create(
+            s0, rng.uniform(0.0, 0.05, (a_n, n_steps)),
+            rng.uniform(0.1, 0.3, (a_n, n_steps)), corr, w, 1 / 252,
+            device=device)
+    g = dict(omega=0.02 * var0, alpha=[0.08] * a_n, beta=[0.9] * a_n)
+    if kind == "ccc-garch":
+        return CCCGarch.create(s0, var0, corr=corr, weights=w,
+                               device=device, **g)
+    return DCCGarch.create(s0, var0, qbar=corr, weights=w, a_dcc=0.05,
+                           b_dcc=0.9, device=device, **g)
+
+
+STATE_CASES = [(k, a) for k in ("term-basket", "ccc-garch", "dcc-garch")
+               for a in range(1, 9)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,a_n", STATE_CASES)
+def test_cuda_state_processes_k2_k3_k4_bitwise_equal_plain(cuda, kind,
+                                                           a_n):
+    """K2, K3 (a put) and K4 ({avg, mn}) on TermBasketGBM, CCC-GARCH and
+    DCC-GARCH at every asset count of their functors (StateProc<Step<A>,
+    A>, A = 1..8) against their plain versions and the torch loop, under
+    Threefry plain and antithetic and Sobol draws, at 9 steps, on path
+    counts that are no multiple of 128, ids from 2^30 - 1000; each launch
+    counted."""
+    from montecarlo_tpu_torch.rng.sobol import SobolDeviceSampler
+
+    n, n_steps = 4096 * 3, 9
+    tp = _state_proc(kind, a_n, n_steps, cuda)
+    pay = VanillaPayoff("put", float(torch.dot(tp.weights, tp.s0)))
+    fns = {"avg": ARITH_MEAN, "mn": RUNNING_MIN}
+    sobol = SobolDeviceSampler.create(n_steps, a_n, scramble_seed=4,
+                                      device=cuda)
+    for source, extra, loop_smp in (("", {}, None),
+                                    ("", {"antithetic": True},
+                                     AntitheticSampler()),
+                                    ("_sobol", {"sampler": sobol}, sobol)):
+        kw = dict(seed=3, path_offset=(1 << 30) - 1000, **extra)
+        counted = {k: PATH_KERNELS[k].launches for k in PATH_KERNELS}
+        got = fused_terminal(tp, n - 37, n_steps, **kw)
+        assert torch.isfinite(got).all()
+        assert torch.equal(got, fused_terminal_reference(tp, n - 37, n_steps,
+                                                         **kw))
+        assert torch.equal(got, simulate(tp, n - 37, n_steps, seed=3,
+                                         path_offset=(1 << 30) - 1000,
+                                         sampler=loop_smp))
+        got = fused_block_moments(tp, pay, n, n_steps, **kw)
+        want = fused_block_moments_reference(tp, pay, n, n_steps, **kw)
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+        got = fused_functionals(tp, n - 37, n_steps, functionals=fns, **kw)
+        want = fused_functionals_reference(tp, n - 37, n_steps,
+                                           functionals=fns, **kw)
+        loop = simulate_functionals(tp, n - 37, n_steps, seed=3,
+                                    path_offset=(1 << 30) - 1000,
+                                    functionals=fns, sampler=loop_smp,
+                                    prefer_fused=False)
+        for k in want:
+            assert torch.equal(got[k], want[k]), k
+            assert torch.equal(got[k], loop[k]), k
+        for name in ("fused_terminal", "fused_block_moments",
+                     "fused_functionals"):
+            assert (PATH_KERNELS[name + source].launches
+                    == counted[name + source] + 1), name + source
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["term-basket", "ccc-garch", "dcc-garch"])
+def test_cuda_state_processes_refused_before_any_launch(cuda, kind):
+    """Nine assets go to the torch loop, the bridge is refused at one and
+    eight, and the term basket refuses a run past its curves, before any
+    launch."""
+    from montecarlo_tpu_torch.engine import kernel_route, terminal_prices
+    from montecarlo_tpu_torch.rng.sobol import SobolBridgeKernelSampler
+
+    before = {k: v.launches for k, v in PATH_KERNELS.items()}
+    nine = _state_proc(kind, 9, 8, cuda)
+    assert not kernel_route(nine, None, 8)
+    assert torch.equal(terminal_prices(nine, 1024, 8, seed=0),
+                       simulate(nine, 1024, 8, seed=0))
+    with pytest.raises(ValueError, match="at most 8"):
+        fused_terminal(nine, 1024, 8, seed=0)
+    bridge = SobolBridgeKernelSampler.create(8, device=cuda)
+    for a_n in (1, 8):
+        tp = _state_proc(kind, a_n, 8, cuda)
+        with pytest.raises(ValueError, match="bridge"):
+            fused_terminal(tp, 1024, 8, seed=0, sampler=bridge)
+        if kind == "term-basket":
+            with pytest.raises(ValueError, match="8 steps, 9"):
+                fused_functionals(tp, 1024, 9, seed=0,
+                                  functionals={"avg": ARITH_MEAN})
+    assert {k: v.launches for k, v in PATH_KERNELS.items()} == before

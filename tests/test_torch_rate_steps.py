@@ -23,13 +23,9 @@ exact.)
 """
 
 import ctypes
-import shutil
-import subprocess
-from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
 
 from montecarlo_tpu_torch.engine.simulate import path_ids_for
 from montecarlo_tpu_torch.ops.fused_engine import (_leaves, _step_draws,
@@ -37,47 +33,13 @@ from montecarlo_tpu_torch.ops.fused_engine import (_leaves, _step_draws,
 from montecarlo_tpu_torch.processes import (CIR, G2PP, EulerGBM, HullWhite,
                                             TermStructureGBM, Vasicek)
 from montecarlo_tpu_torch.rng.threefry import key_from_seed
+from tests.torch_host_shim import (TABLE_PRELUDE, build, ptr, recorded,
+                                   set_tables)
 
-CSRC = Path(__file__).resolve().parent.parent / "montecarlo_tpu_torch" / "csrc"
 N_PATHS = 4096
 SEED = 19
 
-_SHIM = r"""
-#include <math.h>
-#include <stdint.h>
-#include <string.h>
-#include <algorithm>
-#include <utility>
-#include <vector>
-
-// sqrtf and logf: torch's value for the same argument, looked up by its
-// bits (NaN for an argument the plain version never took).
-static std::vector<std::pair<uint32_t, float>> g_roots, g_logs;
-static float given(const std::vector<std::pair<uint32_t, float>>& table,
-                   float x) {
-  uint32_t k;
-  memcpy(&k, &x, sizeof k);
-  auto it = std::lower_bound(table.begin(), table.end(),
-                             std::make_pair(k, -INFINITY));
-  return it != table.end() && it->first == k ? it->second : NAN;
-}
-static float given_sqrtf(float x) { return given(g_roots, x); }
-static float given_logf(float x) { return given(g_logs, x); }
-static void set_table(std::vector<std::pair<uint32_t, float>>* table,
-                      const uint32_t* keys, const float* values, long n) {
-  table->clear();
-  for (long i = 0; i < n; ++i) table->emplace_back(keys[i], values[i]);
-  std::sort(table->begin(), table->end());
-}
-extern "C" void host_set_tables(const uint32_t* rk, const float* rv, long nr,
-                                const uint32_t* lk, const float* lv,
-                                long nl) {
-  set_table(&g_roots, rk, rv, nr);
-  set_table(&g_logs, lk, lv, nl);
-}
-#define sqrtf given_sqrtf
-#define logf given_logf
-
+_SHIM = TABLE_PRELUDE + r"""
 #include "rate_steps.cuh"
 
 // A Hull-White step with its mean regrouped, and Vasicek's step in the
@@ -129,16 +91,7 @@ WALK(walk_vasicek_textbook, VasicekTextbook)
 
 @pytest.fixture(scope="module")
 def lib(tmp_path_factory):
-    cxx = shutil.which("g++") or shutil.which("c++")
-    if cxx is None:
-        pytest.skip("no C++ compiler to build rate_steps.cuh for the host")
-    d = tmp_path_factory.mktemp("rate_steps")
-    src, so = d / "shim.cpp", d / "shim.so"
-    src.write_text(_SHIM)
-    subprocess.run([cxx, "-O2", "-ffp-contract=off", "-std=c++17",
-                    "-shared", "-fPIC", f"-I{CSRC}", "-o", str(so),
-                    str(src)], check=True, capture_output=True)
-    return ctypes.CDLL(str(so))
+    return build(tmp_path_factory, "rate_steps", _SHIM)
 
 
 def _processes():
@@ -164,40 +117,6 @@ def _processes():
 PROCS = _processes()
 
 
-def _recorded(fn, *args, **kw):
-    """``fn(*args, **kw)`` and, for torch.sqrt and torch.log, the
-    (argument bits, value) pairs of every call it made."""
-    seen = {"sqrt": [], "log": []}
-    saved = {k: getattr(torch, k) for k in seen}
-
-    def recording(name):
-        def call(x, *a, **k):
-            y = saved[name](x, *a, **k)
-            seen[name].append((x.detach().reshape(-1),
-                               y.detach().reshape(-1)))
-            return y
-        return call
-
-    for k in seen:
-        setattr(torch, k, recording(k))
-    try:
-        out = fn(*args, **kw)
-    finally:
-        for k, f in saved.items():
-            setattr(torch, k, f)
-    tables = []
-    for k in ("sqrt", "log"):
-        xs = torch.cat([x for x, _ in seen[k]] or [torch.zeros(0)])
-        ys = torch.cat([y for _, y in seen[k]] or [torch.zeros(0)])
-        tables += [np.ascontiguousarray(xs.numpy().view(np.uint32)),
-                   np.ascontiguousarray(ys.numpy(), np.float32)]
-    return out, tables
-
-
-def _ptr(a):
-    return a.ctypes.data_as(ctypes.c_void_p)
-
-
 def _walk(lib, name, proc, T, antithetic):
     """The header's walk on the plain version's draws, roots and logs,
     beside the plain version's terminal prices."""
@@ -208,14 +127,12 @@ def _walk(lib, name, proc, T, antithetic):
                     _step_draws(proc, T, k0, k1, ids, antithetic)])
     eps = np.ascontiguousarray(eps, np.float32)      # (T, D, n)
     leaves = np.ascontiguousarray(leaves.numpy(), np.float32)
-    want, (rk, rv, lk, lv) = _recorded(
-        fused_terminal_reference, proc, N_PATHS, T, seed=SEED,
-        antithetic=antithetic)
-    lib.host_set_tables(_ptr(rk), _ptr(rv), ctypes.c_long(rk.size),
-                        _ptr(lk), _ptr(lv), ctypes.c_long(lk.size))
+    want, tables = recorded(fused_terminal_reference, proc, N_PATHS, T,
+                            seed=SEED, antithetic=antithetic)
+    set_tables(lib, tables)
     out = np.empty(N_PATHS, np.float32)
-    getattr(lib, name)(_ptr(leaves), dims, ctypes.c_long(N_PATHS), T,
-                       _ptr(eps), proc.n_draws, _ptr(out))
+    getattr(lib, name)(ptr(leaves), dims, ctypes.c_long(N_PATHS), T,
+                       ptr(eps), proc.n_draws, ptr(out))
     return out, want.numpy()
 
 
