@@ -4058,12 +4058,13 @@ def state_step_fp(kind, a_n):
     counted): the correlated draws' A^2, the term basket's 8 an asset, CCC's
     7, and DCC's Cholesky (a multiply and a subtraction a term, a max a
     pivot), row scales (a max each), scaling (a multiply an entry) and
-    recursion (6 an entry)."""
+    recursion (4 an entry and a eta_i a row: c qbar_ij is the wrapper's,
+    once a launch)."""
     fp = a_n * a_n + (8 if kind == "term-basket" else 7) * a_n
     if kind == "dcc-garch":
         pairs = a_n * (a_n + 1) // 2
         chol = sum(2 * j for i in range(a_n) for j in range(i + 1)) + a_n
-        fp += chol + a_n + pairs + 6 * pairs + 2
+        fp += chol + a_n + pairs + 4 * pairs + a_n
     return fp
 
 
@@ -4082,10 +4083,43 @@ def state_bound(kind, a_n, n, steps, out_bytes=4, extra_fp=0,
 def state_floor(kind, a_n, n, steps, epilogue="StoreTerminal"):
     """The SASS issue floor of K2 (or K3 with ``epilogue="RowMoments"``)
     on ``kind``'s functor at A assets under plain Threefry draws: a pass of
-    the time loop a step pair.  K4 runs the generic fold (no floor, as the
-    rate functors')."""
-    return issue_floor(("fused_kernel", f"{STATE_STEP[kind]}ILi{a_n}E",
-                        epilogue, "ThreefryDrawsILb0E"), n, (steps + 1) // 2)
+    the time loop a step pair, or a step in CCC's and DCC's kernels at an
+    even A (``tools/rows.py::stage_steps``).  K4 runs the generic fold (no
+    floor, as the rate functors')."""
+    return issue_floor(state_sass(kind, a_n, epilogue), n,
+                       lambda name: _rows_tool().passes(name, steps))
+
+
+def state_sass(kind, a_n, epilogue="StoreTerminal"):
+    """The patterns of K2 (K3) on ``kind``'s functor at A assets under
+    plain Threefry draws: CCC's and DCC's by-value kernel (state_kernel,
+    csrc/fused_mgarch.cuh), the term basket's fused_kernel."""
+    kernel = "fused_kernel" if kind == "term-basket" else "state_kernel"
+    return (kernel, f"{STATE_STEP[kind]}ILi{a_n}E", epilogue,
+            "ThreefryDrawsILb0E")
+
+
+@functools.lru_cache(maxsize=1)
+def _res_usage():
+    """{mangled name: resources} of the built library's kernels."""
+    from montecarlo_tpu_torch.ops import _build
+
+    return _rows_tool().res_usage(_build.library_path())
+
+
+def state_regs(kind, a_n, epilogue="StoreTerminal"):
+    """'R registers, W warps an SM' of the kernel ``state_sass`` names."""
+    import re
+
+    found = [u for name, u in _res_usage().items()
+             if all(re.search(p, name) for p in state_sass(kind, a_n,
+                                                            epilogue))]
+    if len(found) != 1:
+        raise AssertionError(f"{len(found)} kernels match "
+                             f"{state_sass(kind, a_n, epilogue)}")
+    regs = found[0]["REG"]
+    warps = _rows_tool().warps_per_sm(regs, found[0].get("SHARED", 0))
+    return f"{regs} registers, {warps} warps an SM"
 
 
 def phase_state_parity(torch, errs):
@@ -4206,7 +4240,8 @@ def phase_state_shapes(torch, errs, times):
         a_n, key = STATE_ASSETS[kind], STATE_KEY[kind]
         proc = state_proc(kind, a_n, s)
         row = f"fused_terminal_{key} {n}x{s}"
-        timed_check(times, errs, row, f"K2 {kind} A={a_n} {n}x{s}",
+        timed_check(times, errs, row, f"K2 {kind} A={a_n} {n}x{s} "
+                    f"({state_regs(kind, a_n)})",
                     lambda: fused_terminal(proc, n, s, seed=0),
                     lambda: fused_terminal_reference(proc, n, s, seed=0),
                     10, BITWISE, bnd=state_bound(kind, a_n, n, s),
@@ -4243,14 +4278,16 @@ def phase_state_shapes(torch, errs, times):
         proc = state_proc(kind, a_n, d)
         v0 = float(torch.dot(proc.weights, proc.s0))
         timed_check(times, errs, f"fused_terminal_{key}",
-                    f"K2 {kind} A={a_n} VaR chunk {nv}x{d}",
+                    f"K2 {kind} A={a_n} VaR chunk {nv}x{d} "
+                    f"({state_regs(kind, a_n)})",
                     lambda: fused_terminal(proc, nv, d, seed=0),
                     lambda: fused_terminal_reference(proc, nv, d, seed=0),
                     10, BITWISE, bnd=state_bound(kind, a_n, nv, d),
                     floor=state_floor(kind, a_n, nv, d))
         put = VanillaPayoff("put", 0.95 * v0)
         timed_check(times, errs, f"fused_block_moments_{key}",
-                    f"K3 {kind} 95% put {nv}x{d}",
+                    f"K3 {kind} 95% put {nv}x{d} "
+                    f"({state_regs(kind, a_n, 'RowMoments')})",
                     lambda: fused_block_moments(proc, put, nv, d, seed=0),
                     lambda: fused_block_moments_reference(proc, put, nv, d,
                                                           seed=0),

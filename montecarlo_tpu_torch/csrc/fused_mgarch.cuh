@@ -12,19 +12,35 @@
 // ::fused_functionals_pallas (K4) that trace these processes' steps.
 // Bounds and numerics: csrc/mgarch_steps.cuh.  Design: csrc/
 // fused_engine.cuh's, one thread per path with its state in registers (at
-// A = 8, DCC's 52 words and its step's 36-word factor); A normals a step,
-// drawn by SincosDraws<A> (NormalDrawsMixin's counters j A + c, each
-// Box-Muller pair from one sincosf, the plain version's bits) under
-// Threefry, plain and antithetic, or by the Sobol source (dimension t A +
-// d); the bridge takes one draw, and the wrappers refuse it here at every
-// A (ops/fused_engine.py::kernel_refusal).  K4 observes the portfolio
-// value, its log as log32 of it (ProcTraits::kLogOfPrice: no log price of
-// its own), and runs the generic fold (SpecFold) for every set.  A launch
-// whose dims or steps the process does not take (an asset count outside
-// 1..8, a run longer than the term basket's curves) is an invalid value;
-// the wrappers refuse it first.
+// A = 8, DCC's 52 words and its step's factor); A normals a step, drawn
+// under Threefry, plain and antithetic (NormalDrawsMixin's counters j A +
+// c, each Box-Muller pair from one sincosf, the plain version's bits), or
+// by the Sobol source (dimension t A + d); the bridge takes one draw, and
+// the wrappers refuse it here at every A (ops/fused_engine.py::
+// kernel_refusal).  K4 observes the portfolio value, its log as log32 of
+// it (ProcTraits::kLogOfPrice: no log price of its own), and runs the
+// generic fold (SpecFold) for every set.  A launch whose dims or steps the
+// process does not take (an asset count outside 1..8, a run longer than
+// the term basket's curves) is an invalid value; the wrappers refuse it
+// first.
+//
+// CCC and DCC (ByValue: their steps take their constants as a struct,
+// Step::Leaves) launch kernels of their own, state_kernel and
+// state_functional_kernel: the launch copies the wrapper's launch leaves,
+// a host array, into the kernel's parameter space (__grid_constant__), so
+// the step reads every constant from the constant bank with no load from
+// device memory.  At an even A they draw a step at a time (step_normals:
+// step 2j's A normals are the first A/2 of the pair's calls, step 2j+1's
+// the last A/2), so no step holds the next one's normals, in a loop of
+// one step a pass; at an odd A the middle call feeds both steps and they
+// keep ThreefryDraws' pair.  The term basket keeps its
+// leaves pointer (its curves are 2 A n floats) and fused_engine.cuh's
+// kernels.
 #pragma once
 
+#include <string.h>
+
+#include <type_traits>
 #include <utility>
 
 #include "mgarch_steps.cuh"
@@ -33,14 +49,111 @@
 namespace mcf {
 namespace {
 
+// Whether a step takes its constants by value (Step::Leaves).
+template <class Step, class = void>
+struct ByValue : std::false_type {};
+template <class Step>
+struct ByValue<Step, std::void_t<typename Step::Leaves>> : std::true_type {};
+
+// The A normals of step t of path `id` (its draw id) at an even A: cipher
+// calls (t >> 1) A + (t & 1) A / 2 + c, c < A / 2, each a Box-Muller pair
+// from one sincosf; the pair's flat normals split as SincosDraws<A>::
+// draws_pair's eps0 and eps1, negated when mirrored.
+template <int A>
+__device__ __forceinline__ void step_normals(uint32_t k0, uint32_t k1,
+                                             uint32_t id, bool mirror,
+                                             int t, float* eps) {
+  static_assert(A % 2 == 0, "an odd A shares a call between two steps");
+  const uint32_t base =
+      (uint32_t)(t >> 1) * A + (uint32_t)(t & 1) * (uint32_t)(A / 2);
+#pragma unroll
+  for (int c = 0; c < A / 2; ++c) {
+    normal_pair_sincos(k0, k1, id, base + (uint32_t)c, &eps[2 * c],
+                       &eps[2 * c + 1]);
+  }
+  if (mirror) {
+#pragma unroll
+    for (int d = 0; d < A; ++d) eps[d] = -eps[d];
+  }
+}
+
 // A step of mgarch_steps.cuh with its A normals a step: a TimedStep
 // functor (the term basket's curves are read at t; the GARCH steps ignore
-// it).
+// it), built on the leaves pointer and dims or on the step's Leaves.
 template <class Step, int A>
 struct StateProc : SincosDraws<A>, TimedStep, Step {
   using State = typename Step::State;
-  __device__ StateProc(const float* leaves, int dims) : Step(leaves, dims) {}
+  template <class... Args>
+  __device__ explicit StateProc(const Args&... args) : Step(args...) {}
+  // Threefry at an even A (Streams): each step's normals drawn just
+  // before it, a pass of the loop a step (half the code of a pass a step
+  // pair: DCC's step at A = 8 is ~1750 instructions).
+  template <bool Anti, class After>
+  __device__ void run(const ThreefryDraws<Anti>&, uint32_t k0, uint32_t k1,
+                      uint32_t id, int n_steps, State& st,
+                      After& after) const {
+    const uint32_t did = ThreefryDraws<Anti>::draw_id(id);
+    const bool mirror = ThreefryDraws<Anti>::mirrored(id);
+    for (int t = 0; t < n_steps; ++t) {
+      float eps[A];
+      step_normals<A>(k0, k1, did, mirror, t, eps);
+      st = this->step(st, eps, t);
+      after(t);
+    }
+  }
 };
+
+// K2 and K3 on a by-value functor: fused_kernel with the constants as a
+// kernel parameter.
+template <class Proc, class Draws, class Epilogue>
+__global__ void state_kernel(
+    const __grid_constant__ typename Proc::Leaves leaves, int64_t n_paths,
+    int n_steps, uint32_t path_offset, uint32_t k0, uint32_t k1,
+    Draws draws, Epilogue epilogue) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool active = i < n_paths;
+  const Proc proc(leaves);
+  typename Proc::State state = proc.init();
+  if (active || Draws::kWholeBlock) {
+    const uint32_t id = path_offset + (uint32_t)i;  // wraps mod 2^32
+    auto none = [](int) {};
+    run_path(proc, draws, k0, k1, id, i, n_steps, state, none);
+  }
+  epilogue(i, active, proc.prices(state));
+}
+
+// K4 on a by-value functor: fused_functional_kernel's generic fold with
+// the constants as a kernel parameter; the log price is log32 of the
+// price (ProcTraits::kLogOfPrice).
+template <class Proc, class Draws>
+__global__ void state_functional_kernel(
+    const __grid_constant__ typename Proc::Leaves leaves, int64_t n_paths,
+    int n_steps, uint32_t path_offset, uint32_t k0, uint32_t k1,
+    Draws draws, FunctionalSpec spec, float* __restrict__ out) {
+  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  const bool active = i < n_paths;
+  if (!active && !Draws::kWholeBlock) return;
+  const Proc proc(leaves);
+  const Needs need = SpecFold::needs(spec);
+  float price, logp;
+  auto observe = [&](const typename Proc::State& s) {
+    price = need.price || need.log ? proc.prices(s) : 0.0f;
+    logp = need.log ? mc::log32(price) : 0.0f;
+  };
+  SpecFold fold;
+  typename Proc::State state = proc.init();
+  observe(state);
+  fold.init(spec, price, logp);
+  const uint32_t id = path_offset + (uint32_t)i;  // wraps mod 2^32
+  auto after = [&](int t) {
+    observe(state);
+    fold.update(spec, price, logp, t + 1);
+  };
+  run_path(proc, draws, k0, k1, id, i, n_steps, state, after);
+  if (!active) return;
+  out[i] = proc.prices(state);
+  fold.finalize(spec, out, i, n_steps);
+}
 
 }  // namespace
 
@@ -54,6 +167,9 @@ struct SourceTraits<StateProc<Step, A>> {
   static constexpr bool kSobol = true;
   static constexpr bool kBridge = false;
 };
+template <class Step, int A, bool Anti>
+struct Streams<StateProc<Step, A>, ThreefryDraws<Anti>>
+    : std::bool_constant<ByValue<Step>::value && A % 2 == 0> {};
 
 namespace {
 
@@ -94,6 +210,55 @@ cudaError_t launch_state(StateAssets<As...>, int process, const DrawArgs& a,
   return err;
 }
 
+// K2 and K3 (Epilogue) and K4 (SpecFold) on functor Proc under draw
+// source Draws: a by-value functor's kernels on a copy of the launch
+// leaves (`leaves` points to host memory), the others fused_engine.cuh's.
+template <class Epilogue>
+struct StateLauncher {
+  template <class Proc, class Draws>
+  struct With {
+    static cudaError_t run(unsigned blocks, cudaStream_t s, int dims,
+                           Draws draws, int64_t n_paths, const float* leaves,
+                           int n_steps, uint32_t path_offset, uint32_t k0,
+                           uint32_t k1, Epilogue epilogue) {
+      if constexpr (ByValue<Proc>::value) {
+        typename Proc::Leaves lv;
+        memcpy(&lv, leaves, sizeof lv);
+        state_kernel<Proc, Draws, Epilogue><<<blocks, kRow, 0, s>>>(
+            lv, n_paths, n_steps, path_offset, k0, k1, draws, epilogue);
+        return cudaSuccess;
+      } else {
+        return FusedLauncher<Epilogue>::template With<Proc, Draws>::run(
+            blocks, s, dims, draws, n_paths, leaves, n_steps, path_offset,
+            k0, k1, epilogue);
+      }
+    }
+  };
+};
+struct StateFoldLauncher {
+  template <class Proc, class Draws>
+  struct With {
+    static cudaError_t run(unsigned blocks, cudaStream_t s, int dims,
+                           Draws draws, int64_t n_paths, const float* leaves,
+                           int n_steps, uint32_t path_offset, uint32_t k0,
+                           uint32_t k1, FunctionalSpec spec, float* out,
+                           int* fixed) {
+      if constexpr (ByValue<Proc>::value) {
+        *fixed = 0;
+        typename Proc::Leaves lv;
+        memcpy(&lv, leaves, sizeof lv);
+        state_functional_kernel<Proc, Draws><<<blocks, kRow, 0, s>>>(
+            lv, n_paths, n_steps, path_offset, k0, k1, draws, spec, out);
+        return cudaSuccess;
+      } else {
+        return FoldLauncher<SpecFold>::template With<Proc, Draws>::run(
+            blocks, s, dims, draws, n_paths, leaves, n_steps, path_offset,
+            k0, k1, spec, out, fixed);
+      }
+    }
+  };
+};
+
 }  // namespace
 
 // The definitions of csrc/processes.cuh's MC_STATE_LAUNCHES(name) for the
@@ -105,7 +270,7 @@ cudaError_t launch_state(StateAssets<As...>, int process, const DrawArgs& a,
                    cudaStream_t s, int64_t n_paths, const float* leaves,     \
                    int n_steps, uint32_t path_offset, uint32_t k0,           \
                    uint32_t k1, Epilogue epilogue) {                         \
-    return launch_state<FusedLauncher<Epilogue>::With, Step>(                \
+    return launch_state<StateLauncher<Epilogue>::With, Step>(                \
         AllStateAssets{}, code, a, dims, blocks, s, n_paths, leaves,         \
         n_steps, path_offset, k0, k1, epilogue);                             \
   }
@@ -117,7 +282,7 @@ cudaError_t launch_state(StateAssets<As...>, int process, const DrawArgs& a,
                    cudaStream_t s, int64_t n_paths, const float* leaves,     \
                    int n_steps, uint32_t path_offset, uint32_t k0,           \
                    uint32_t k1, FunctionalSpec spec, float* out, int* fixed) { \
-    return launch_state<FoldLauncher<SpecFold>::With, Step>(                 \
+    return launch_state<StateFoldLauncher::With, Step>(                      \
         AllStateAssets{}, code, a, dims, blocks, s, n_paths, leaves,         \
         n_steps, path_offset, k0, k1, spec, out, fixed);                     \
   }

@@ -9,13 +9,14 @@
 // processes of the same names.  __host__ __device__ like rng.cuh, so the
 // tests build the same text with g++ and walk it against them.
 //
-// Each step's constructor takes the process's float32 leaves in field
-// order (ops/fused_engine.py::_leaves) and `dims` (the term basket's A +
-// 16 n, n its curve length); the constants are read from the leaves where
-// the step uses them (__ldg on the card: the same address for every
-// thread).  Every state array is indexed statically after unrolling, so a
-// path's state stays in registers.  The arithmetic is the plain versions',
-// operation for operation:
+// The term basket's constructor takes the process's float32 leaves in
+// field order (ops/fused_engine.py::_leaves) and `dims` (A + 16 n, n its
+// curve length), and reads its constants from the leaves where the step
+// uses them (__ldg on the card: the same address for every thread).  CCC's
+// and DCC's take their Leaves struct, the kernel's by-value parameter
+// (CccLeaves, DccLeaves below).  Every state array is indexed statically
+// after unrolling, so a path's state stays in registers.  The arithmetic
+// is the plain versions', operation for operation:
 //   - the correlated draws zc_a = L[a,0] z_0 + L[a,1] z_1 + ... + L[a,a]
 //     z_a, left to right, the first term a product (correlate);
 //   - the term basket: log_s_a + ((mu_a(t) - 0.5 sigma_a(t)^2) dt +
@@ -28,7 +29,7 @@
 //     version's form of JAX's rsqrt), CCC's update on eta = the scaled
 //     factor times z, then q_ij' = ((c qbar_ij) + ((a eta_i) eta_j)) + b
 //     q_ij with c = (1 - a) - b, over the A(A+1)/2 words of the lower
-//     triangle (row-major pairs i >= j);
+//     triangle (row-major pairs i >= j), a row at a time;
 //   - the value sum_a w_a exp32(log_s_a), the assets in order.
 // max is max_nan: NaN in its first argument comes out, as torch.maximum's
 // and jnp.maximum's does (fmaxf would drop it).
@@ -39,9 +40,10 @@
 // the read-only cache; CCC 7A and A sqrtf; DCC CCC's plus A(A-1)(A+1)/3
 // multiplies and subtractions of the Cholesky, A(A-1)/2 divisions, 2A
 // sqrtf, A divisions of the row scales, A(A+1)/2 multiplies of the
-// scaling and 5 A(A+1)/2 of the recursion.  The value's A exp32 once a
-// path (and after every step in K4).  Numerics: -fmad=false, IEEE division
-// and sqrtf (ops/_build.py); the host build uses -ffp-contract=off.
+// scaling and 4 A(A+1)/2 of the recursion (c qbar_ij is the wrapper's).
+// The value's A exp32 once a path (and after every step in K4).
+// Numerics: -fmad=false, IEEE division and sqrtf (ops/_build.py); the
+// host build uses -ffp-contract=off.
 #pragma once
 
 #include "rng.cuh"
@@ -136,25 +138,24 @@ struct TermBasketStep {
   }
 };
 
-// The start and the GARCH(1,1) leaves shared by CCC and DCC: [s0, var0,
-// omega, alpha, beta], A each.
+// CCC's and DCC's constants, passed to the kernels by value: the launch
+// copies the wrapper's launch leaves (ops/fused_engine.py::
+// state_launch_leaves, floats in this field order) into the kernel's
+// parameter space (csrc/fused_mgarch.cuh).  Every read is at an index fixed
+// after unrolling, so on the card each comes from the constant bank (a
+// uniform-register ULDC, shared by the warp) and none from device memory.
+// The per-launch constants are the wrapper's, computed with torch by the
+// plain versions' own operations: log32(s0), and DCC's ((1 - a) - b)
+// qbar_ij.
 template <int A>
-struct GarchLeaves {
-  const float* s0;
-  const float* var0;
-  const float* omega;
-  const float* alpha;
-  const float* beta;
-  MC_HD explicit GarchLeaves(const float* leaves)
-      : s0(leaves),
-        var0(leaves + A),
-        omega(leaves + 2 * A),
-        alpha(leaves + 3 * A),
-        beta(leaves + 4 * A) {}
+struct GarchConsts {
+  float log_s0[A];  // log32(s0): the plain init_state's
+  float var0[A], omega[A], alpha[A], beta[A];
+  // The start of a path.
   MC_HD void start(float* log_s, float* var) const {
 #pragma unroll
     for (int a = 0; a < A; ++a) {
-      log_s[a] = log32(s0[a]);
+      log_s[a] = log_s0[a];
       var[a] = var0[a];
     }
   }
@@ -163,45 +164,75 @@ struct GarchLeaves {
   MC_HD void update(int a, float zc, float* log_s, float* var) const {
     const float r = sqrtf(var[a]) * zc;
     log_s[a] = log_s[a] + r;
-    var[a] = garch_update(MC_LDG(omega + a), MC_LDG(alpha + a),
-                          MC_LDG(beta + a), var[a], r);
+    var[a] = garch_update(omega[a], alpha[a], beta[a], var[a], r);
   }
 };
 
-// processes/ccc_garch.py: leaves = [s0, var0, omega, alpha, beta (A
-// each), chol_flat (A A), weights (A)].
+// sum_a w_a exp32(log_s_a), the assets in order (weighted_value's, the
+// weights by value).
 template <int A>
-struct CccStep : GarchLeaves<A> {
+MC_HD float book_value(const float (&w)[A], const float* log_s) {
+  float out = w[0] * exp32(log_s[0]);
+#pragma unroll
+  for (int a = 1; a < A; ++a) out = out + w[a] * exp32(log_s[a]);
+  return out;
+}
+
+// processes/ccc_garch.py: the launch leaves are [log32(s0), var0, omega,
+// alpha, beta (A each), chol_flat (A A), weights (A)].
+template <int A>
+struct CccLeaves {
+  GarchConsts<A> g;
+  float chol[A * A];
+  float w[A];
+};
+
+template <int A>
+struct CccStep {
+  using Leaves = CccLeaves<A>;
   struct State {
     float log_s[A];
     float var[A];
   };
-  const float* chol;
-  const float* w;
-  MC_HD CccStep(const float* leaves, int)
-      : GarchLeaves<A>(leaves), chol(leaves + 5 * A), w(chol + A * A) {}
+  const Leaves& c;
+  MC_HD explicit CccStep(const Leaves& leaves) : c(leaves) {}
   MC_HD State init() const {
     State s;
-    this->start(s.log_s, s.var);
+    c.g.start(s.log_s, s.var);
     return s;
   }
+  // correlate's sums, each asset updated on its own.
   MC_HD State step(const State& s, const float* eps, int) const {
-    float zc[A];
-    correlate<A>(chol, eps, zc);
     State out = s;
 #pragma unroll
-    for (int a = 0; a < A; ++a) this->update(a, zc[a], out.log_s, out.var);
+    for (int a = 0; a < A; ++a) {
+      float z = c.chol[a * A] * eps[0];
+#pragma unroll
+      for (int b = 1; b <= a; ++b) z = z + c.chol[a * A + b] * eps[b];
+      c.g.update(a, z, out.log_s, out.var);
+    }
     return out;
   }
   MC_HD float prices(const State& s) const {
-    return weighted_value<A>(w, s.log_s);
+    return book_value<A>(c.w, s.log_s);
   }
 };
 
-// processes/dcc_garch.py: leaves = [s0, var0, omega, alpha, beta (A
-// each), qbar_flat (A A), a_dcc, b_dcc, weights (A)].
+// processes/dcc_garch.py: the launch leaves are [log32(s0), var0, omega,
+// alpha, beta (A each), qbar_flat (A A), a_dcc, b_dcc, weights (A),
+// ((1 - a_dcc) - b_dcc) qbar_flat (A A)].
 template <int A>
-struct DccStep : GarchLeaves<A> {
+struct DccLeaves {
+  GarchConsts<A> g;
+  float qbar[A * A];
+  float a, b;
+  float w[A];
+  float cqbar[A * A];
+};
+
+template <int A>
+struct DccStep {
+  using Leaves = DccLeaves<A>;
   static constexpr int kPairs = A * (A + 1) / 2;
   struct State {
     float log_s[A];
@@ -210,29 +241,28 @@ struct DccStep : GarchLeaves<A> {
   };
   // Pair (i, j), i >= j, in the lower triangle.
   MC_HD static constexpr int tri(int i, int j) { return i * (i + 1) / 2 + j; }
-  const float* qbar;
-  const float* w;
-  float a_dcc, b_dcc;
-  MC_HD DccStep(const float* leaves, int)
-      : GarchLeaves<A>(leaves), qbar(leaves + 5 * A) {
-    a_dcc = qbar[A * A];
-    b_dcc = qbar[A * A + 1];
-    w = qbar + A * A + 2;
-  }
+  const Leaves& c;
+  MC_HD explicit DccStep(const Leaves& leaves) : c(leaves) {}
   MC_HD State init() const {
     State s;
-    this->start(s.log_s, s.var);
+    c.g.start(s.log_s, s.var);
 #pragma unroll
     for (int i = 0; i < A; ++i) {
 #pragma unroll
-      for (int j = 0; j <= i; ++j) s.q[tri(i, j)] = qbar[i * A + j];
+      for (int j = 0; j <= i; ++j) s.q[tri(i, j)] = c.qbar[i * A + j];
     }
     return s;
   }
+  // A row at a time: row i of the Cholesky factor of Q (it reads the
+  // factor's earlier rows), its scale 1 / sqrt(q_ii) (the factor of R =
+  // diag(Q)^-1/2 Q diag(Q)^-1/2 is the factor's row i times it), eta_i,
+  // asset i's update, then Q's new row i, which needs eta_0..eta_i only.
+  // Q's old row i dies as its new row is written, and the scaled factor
+  // is never stored.
   MC_HD State step(const State& s, const float* eps, int) const {
-    // The Cholesky factor of Q, then each row scaled by 1 / sqrt(q_ii):
-    // the factor of R = diag(Q)^-1/2 Q diag(Q)^-1/2.
     float l[kPairs];
+    float eta[A];
+    State out;
 #pragma unroll
     for (int i = 0; i < A; ++i) {
 #pragma unroll
@@ -243,11 +273,6 @@ struct DccStep : GarchLeaves<A> {
         l[tri(i, j)] = j == i ? sqrtf(max_nan(sum, kDccEps))
                               : sum / l[tri(j, j)];
       }
-    }
-    float eta[A];
-    State out;
-#pragma unroll
-    for (int i = 0; i < A; ++i) {
       const float dinv = 1.0f / sqrtf(max_nan(s.q[tri(i, i)], kDccEps));
       float z = (l[tri(i, 0)] * dinv) * eps[0];
 #pragma unroll
@@ -255,22 +280,18 @@ struct DccStep : GarchLeaves<A> {
       eta[i] = z;
       out.log_s[i] = s.log_s[i];
       out.var[i] = s.var[i];
-      this->update(i, z, out.log_s, out.var);
-    }
-    const float c = (1.0f - a_dcc) - b_dcc;
-#pragma unroll
-    for (int i = 0; i < A; ++i) {
+      c.g.update(i, z, out.log_s, out.var);
+      const float ae = c.a * eta[i];
 #pragma unroll
       for (int j = 0; j <= i; ++j) {
-        const float* qb = qbar + i * A + j;
-        out.q[tri(i, j)] = (c * MC_LDG(qb) + (a_dcc * eta[i]) * eta[j]) +
-                           b_dcc * s.q[tri(i, j)];
+        out.q[tri(i, j)] = (c.cqbar[i * A + j] + ae * eta[j]) +
+                           c.b * s.q[tri(i, j)];
       }
     }
     return out;
   }
   MC_HD float prices(const State& s) const {
-    return weighted_value<A>(w, s.log_s);
+    return book_value<A>(c.w, s.log_s);
   }
 };
 

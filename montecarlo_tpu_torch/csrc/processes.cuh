@@ -927,7 +927,9 @@ int dispatch(int process, int dims, const DrawArgs& a, int64_t n_paths,
 // rows of `width` <= mc::kMaxLevels slots) and its load schedule
 // `plan_sched` (rng/sobol.py::bridge_schedule over the bridge's `bridge_T`
 // dims).
-// Unused pointers are null.
+// Unused pointers are null.  The leaves are device memory, but CCC's and
+// DCC's launch leaves are host memory: their launch copies them into the
+// kernel's parameters (csrc/fused_mgarch.cuh).
 #define MC_DRAW_PARAMS                                                      \
   int source, int antithetic, const uint32_t *sv, const float *plan_coeffs, \
       const uint32_t *plan_sched, int bridge_T, int width

@@ -89,6 +89,7 @@ from montecarlo_tpu_torch.processes import (CIR, G2PP, NIG, SABR, SLV,
                                             VarianceGamma, Vasicek)
 from montecarlo_tpu_torch.processes.basket import kernel_assets_refusal
 from montecarlo_tpu_torch.processes.local_vol import KNOTS, blend_rows
+from montecarlo_tpu_torch.rng.normal import log32
 from montecarlo_tpu_torch.rng.sobol import (SobolBridgeKernelSampler,
                                             SobolDeviceSampler)
 from montecarlo_tpu_torch.rng.threefry import MASK32, key_from_seed
@@ -113,6 +114,10 @@ PROCESS_CODES = {GBM: 0, Heston: 1, BasketGBM: 2, GARCHBootstrap: 3,
 #: asset count).  Above it ``kernel_route`` sends them to the torch loop.
 STATE_PROCESSES = (TermBasketGBM, CCCGarch, DCCGarch)
 MAX_STATE_ASSETS = 8
+#: The processes whose kernels take their constants by value: the launch
+#: copies :func:`state_launch_leaves`, a host array, into the kernel's
+#: parameters (csrc/fused_mgarch.cuh::state_kernel).
+BY_VALUE = (CCCGarch, DCCGarch)
 #: The term basket's ``dims``: A + (curve length << CURVE_SHIFT)
 #: (csrc/mgarch_steps.cuh::kCurveShift; A < 2^CURVE_SHIFT).
 CURVE_SHIFT = 4
@@ -292,10 +297,26 @@ def surface_rows(table: torch.Tensor, n_rows: int, dt: torch.Tensor,
 
 
 #: The launch leaves of the surfaces on time knots, built once per
-#: (process, n_steps), and of variance gamma, built once per process:
-#: id(process) -> (a weak reference to it, n_steps, (dims, leaves)); an
-#: entry goes with its process.
+#: (process, n_steps), and of variance gamma and the by-value processes,
+#: built once per process: id(process) -> (a weak reference to it, n_steps,
+#: (dims, leaves)); an entry goes with its process.
 _ROW_LEAVES: dict = {}
+
+
+def state_launch_leaves(process) -> torch.Tensor:
+    """CCC's or DCC's launch leaves, float32 on the process's device, in
+    the field order of their kernels' constants (csrc/mgarch_steps.cuh::
+    CccLeaves, DccLeaves): ``_leaves``' own with s0 replaced by
+    ``log32(s0)``, the plain ``init_state``'s, and for DCC ``((1 - a_dcc) -
+    b_dcc) * qbar_flat`` after them, the plain step's ``c_d *
+    qbar_flat[i * A + j]``: each by the plain versions' own float32
+    operations, so the kernels start and recur on the same bits."""
+    _, _, leaves = _leaves(process)
+    parts = [log32(process.s0), leaves[process.n_assets:]]
+    if isinstance(process, DCCGarch):
+        c_d = (1.0 - process.a_dcc) - process.b_dcc
+        parts.append(c_d * process.qbar_flat)
+    return torch.cat(parts)
 
 
 def vg_quad_table(process: VarianceGamma) -> torch.Tensor:
@@ -313,23 +334,28 @@ def _launch_leaves(process, n_steps: int, dims: int, leaves):
     floats and :func:`vg_quad_table` (on 16 bytes, for ``VgProc``'s
     16-byte loads); for a surface on time knots (``ROW_HEADS``) its head
     leaves and then its rows of steps 0 .. max(n_steps, 1) - 1 from
-    :func:`surface_rows`, with dims the row count.  Those are built on the
-    first launch of a (process, n_steps) and kept for the launches after it
-    (a ``price_to_tolerance`` run's chunks); a process's leaves are fixed
-    once it is made."""
+    :func:`surface_rows`, with dims the row count; for CCC and DCC
+    (``BY_VALUE``) :func:`state_launch_leaves` copied to the host.  Those
+    are built on the first launch of a (process, n_steps), or of the
+    process for VG, CCC and DCC, and kept for the launches after it (a
+    ``price_to_tolerance`` run's chunks, a VaR's); a process's leaves are
+    fixed once it is made."""
     dev = process.device
     head = ROW_HEADS.get(type(process))
     vg = isinstance(process, VarianceGamma)
+    by_value = isinstance(process, BY_VALUE)
     if head is None:
         check_cuda_tensor("leaves", leaves, dev, torch.float32)
-        if not vg:
+        if not (vg or by_value):
             return dims, leaves
     key = id(process)
     hit = _ROW_LEAVES.get(key)
     if (hit is not None and hit[0]() is process
-            and (vg or hit[1] == n_steps)):
+            and (vg or by_value or hit[1] == n_steps)):
         return hit[2]
-    if vg:
+    if by_value:
+        out = state_launch_leaves(process).cpu()
+    elif vg:
         out = torch.cat([leaves, leaves.new_zeros(-leaves.numel() % 4),
                          vg_quad_table(process)])
         if out.data_ptr() % 16:

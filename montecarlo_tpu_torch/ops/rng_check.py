@@ -6,7 +6,9 @@ and the float32 math (``rng_check``), the randomized Sobol normal with
 table-inverted gamma variate of variance gamma (``gamma_check``), and the
 functors' inverse normal ``ndtri32_unit`` against ``ndtri32`` on every
 float32 of its range and against the plain ``ndtri32`` on every uniform
-(``ndtri_unit_check``)."""
+(``ndtri_unit_check``); and the normals CCC's and DCC's kernels draw a step
+at a time at an even asset count (``state_draws_check``, in
+``csrc/fused_ccc.cu``) against the pair's draws of their plain versions."""
 
 from __future__ import annotations
 
@@ -184,3 +186,52 @@ def ndtri_unit_check_reference(device) -> torch.Tensor:
     """The plain ``ndtri32`` on every ``uniform_from_bits`` value: what
     ``ndtri_unit_check``'s ``uniforms`` must equal."""
     return ndtri32(unit_uniforms(device))
+
+
+K0_STATE_DRAWS_CHECK = CudaKernel("mc_state_draws_check", [
+    ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int,
+    ctypes.c_uint32, ctypes.c_uint32, ctypes.c_uint32, ctypes.c_int,
+    ctypes.c_void_p])
+
+
+def state_draws_check_reference(process, n_paths: int, n_steps: int, *,
+                                seed, path_offset=0,
+                                antithetic: bool = False) -> torch.Tensor:
+    """(n_steps, A, n_paths) float32: the normals of every step as the
+    plain versions of K2-K4 draw them, a ``draws_pair`` per pair of steps
+    (``ops.fused_engine._step_draws``)."""
+    from montecarlo_tpu_torch.engine.simulate import path_ids_for
+    from montecarlo_tpu_torch.ops.fused_engine import _step_draws
+    from montecarlo_tpu_torch.rng.threefry import key_from_seed
+
+    k0, k1 = key_from_seed(seed, 0)
+    ids = path_ids_for(n_paths, path_offset, process.device)
+    steps = [torch.stack(eps) for _, eps in
+             _step_draws(process, n_steps, k0, k1, ids, antithetic)]
+    if not steps:
+        return torch.empty((0, process.n_draws, n_paths),
+                           dtype=torch.float32, device=process.device)
+    return torch.stack(steps)
+
+
+def state_draws_check(process, n_paths: int, n_steps: int, *, seed,
+                      path_offset=0, antithetic: bool = False
+                      ) -> torch.Tensor:
+    """The same normals from the check kernel, each step's drawn just
+    before it (``csrc/fused_mgarch.cuh::step_normals``): a CCC or DCC
+    process on the card of 2, 4, 6 or 8 assets."""
+    from montecarlo_tpu_torch.rng.threefry import key_from_seed
+
+    dev = process.device
+    a_n = process.n_draws
+    if a_n not in (2, 4, 6, 8):
+        raise ValueError(f"the per-step draws take an even asset count up "
+                         f"to 8, got {a_n}")
+    k0, k1 = key_from_seed(seed, 0)
+    out = torch.empty((n_steps, a_n, n_paths), dtype=torch.float32,
+                      device=dev)
+    with torch.cuda.device(dev):
+        K0_STATE_DRAWS_CHECK.launch(out.data_ptr(), a_n, n_paths, n_steps,
+                                    int(path_offset) & MASK32, k0, k1,
+                                    int(antithetic), cuda_stream(dev))
+    return out

@@ -52,8 +52,11 @@ JSON within rtol 1e-5 and atol 1e-7 (the CPU's libm and sqrt are not
 the card's).  TermBasketGBM, CCC-GARCH and DCC-GARCH (StateProc over
 csrc/mgarch_steps.cuh, at every asset count 1..8 of their functors) equal
 their plain versions and the torch loop bitwise on K2-K4 under Threefry
-and Sobol draws; nine assets take the torch loop, and the bridge and a
-run past the term basket's curves are refused, before any launch.
+and Sobol draws, at odd and even step counts; CCC's and DCC's kernels
+take their constants by value and, at an even A, draw a step at a time,
+the same normals as the pair's; nine assets take the torch loop, and the
+bridge and a run past the term basket's curves are refused, before any
+launch.
 """
 
 import math
@@ -1435,18 +1438,20 @@ STATE_CASES = [(k, a) for k in ("term-basket", "ccc-garch", "dcc-garch")
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("n_steps", [9, 10])
 @pytest.mark.parametrize("kind,a_n", STATE_CASES)
 def test_cuda_state_processes_k2_k3_k4_bitwise_equal_plain(cuda, kind,
-                                                           a_n):
+                                                           a_n, n_steps):
     """K2, K3 (a put) and K4 ({avg, mn}) on TermBasketGBM, CCC-GARCH and
     DCC-GARCH at every asset count of their functors (StateProc<Step<A>,
-    A>, A = 1..8) against their plain versions and the torch loop, under
-    Threefry plain and antithetic and Sobol draws, at 9 steps, on path
-    counts that are no multiple of 128, ids from 2^30 - 1000; each launch
-    counted."""
+    A>, A = 1..8; CCC and DCC on their by-value leaves, a step's draws
+    just before it at an even A) against their plain versions and the
+    torch loop, under Threefry plain and antithetic and Sobol draws, at 9
+    steps (the pair's dropped final step) and 10, on path counts that are
+    no multiple of 128, ids from 2^30 - 1000; each launch counted."""
     from montecarlo_tpu_torch.rng.sobol import SobolDeviceSampler
 
-    n, n_steps = 4096 * 3, 9
+    n = 4096 * 3
     tp = _state_proc(kind, a_n, n_steps, cuda)
     pay = VanillaPayoff("put", float(torch.dot(tp.weights, tp.s0)))
     fns = {"avg": ARITH_MEAN, "mn": RUNNING_MIN}
@@ -1482,6 +1487,49 @@ def test_cuda_state_processes_k2_k3_k4_bitwise_equal_plain(cuda, kind,
                      "fused_functionals"):
             assert (PATH_KERNELS[name + source].launches
                     == counted[name + source] + 1), name + source
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("antithetic", [False, True])
+@pytest.mark.parametrize("n_steps", [9, 10])
+@pytest.mark.parametrize("a_n", [2, 4, 6, 8])
+def test_cuda_state_draws_a_step_at_a_time_are_the_pairs(cuda, a_n,
+                                                         n_steps,
+                                                         antithetic):
+    """At an even asset count CCC's and DCC's kernels draw each step's A
+    normals just before it (csrc/fused_mgarch.cuh::step_normals): bitwise
+    the normals of the plain versions' draws_pair per pair of steps, the
+    odd final step's the pair's first half, ids across 2^32."""
+    from montecarlo_tpu_torch.ops.rng_check import (
+        state_draws_check, state_draws_check_reference)
+
+    kw = dict(seed=11, path_offset=2**32 - 300, antithetic=antithetic)
+    for kind in ("ccc-garch", "dcc-garch"):
+        tp = _state_proc(kind, a_n, n_steps, cuda)
+        got = state_draws_check(tp, 1000, n_steps, **kw)
+        want = state_draws_check_reference(tp, 1000, n_steps, **kw)
+        assert got.shape == (n_steps, a_n, 1000)
+        assert torch.isfinite(got).all()
+        assert torch.equal(got, want), kind
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["ccc-garch", "dcc-garch"])
+def test_cuda_state_launch_leaves_built_once_on_the_host(cuda, kind):
+    """CCC's and DCC's launch leaves are the plain versions' constants
+    (log32(s0) and DCC's c qbar from torch on the card) copied once per
+    process to the host, whence every launch copies them into the
+    kernel's parameters."""
+    from montecarlo_tpu_torch.ops.fused_engine import (_ROW_LEAVES,
+                                                       state_launch_leaves)
+
+    tp = _state_proc(kind, 8, 10, cuda)
+    fused_terminal(tp, 1024, 10, seed=0)
+    hit = _ROW_LEAVES[id(tp)][2][1]
+    assert hit.device.type == "cpu"
+    assert torch.equal(hit, state_launch_leaves(tp).cpu())
+    fused_block_moments(tp, VanillaPayoff("put", 100.0), 4096, 10, seed=0)
+    assert _ROW_LEAVES[id(tp)][2][1] is hit
 
 
 @pytest.mark.cuda

@@ -45,7 +45,8 @@ from montecarlo_tpu_torch.ops import fused_functionals, fused_terminal
 from montecarlo_tpu_torch.ops.fused_engine import (MAX_STATE_ASSETS, _leaves,
                                                    _step_draws,
                                                    fused_terminal_reference,
-                                                   kernel_refusal)
+                                                   kernel_refusal,
+                                                   state_launch_leaves)
 from montecarlo_tpu_torch.processes import CCCGarch, DCCGarch
 from montecarlo_tpu_torch.rng.sobol import SobolBridgeKernelSampler
 from montecarlo_tpu_torch.rng.threefry import key_from_seed
@@ -215,19 +216,25 @@ def test_portfolio_var_matches_jax():
 N_WALK, SEED = 1024, 19
 
 _SHIM = TABLE_PRELUDE + r"""
+#include <type_traits>
+
 #include "mgarch_steps.cuh"
 
-// DCC with its recursion regrouped, c qbar + a (eta_i eta_j): the form the
-// walk must tell apart (the header's step, carried here with that one
-// change).
-template <int A>
+// DCC with its recursion regrouped: c qbar + a (eta_i eta_j) (Regroup 1)
+// or (c qbar + b q_ij) + (a eta_i) eta_j (Regroup 2), the forms the walk
+// must tell apart (the header's row-at-a-time step, carried here with
+// that one change).
+template <int A, int Regroup>
 struct DccRegrouped : mc::DccStep<A> {
   using Base = mc::DccStep<A>;
   using typename Base::State;
   using Base::Base;
   using Base::tri;
   State step(const State& s, const float* eps, int) const {
+    const auto& c = this->c;
     float l[Base::kPairs];
+    float eta[A];
+    State out;
     for (int i = 0; i < A; ++i) {
       for (int j = 0; j <= i; ++j) {
         float sum = s.q[tri(i, j)];
@@ -235,10 +242,6 @@ struct DccRegrouped : mc::DccStep<A> {
         l[tri(i, j)] = j == i ? sqrtf(mc::max_nan(sum, mc::kDccEps))
                               : sum / l[tri(j, j)];
       }
-    }
-    float eta[A];
-    State out;
-    for (int i = 0; i < A; ++i) {
       const float dinv = 1.0f / sqrtf(mc::max_nan(s.q[tri(i, i)],
                                                   mc::kDccEps));
       float z = (l[tri(i, 0)] * dinv) * eps[0];
@@ -246,24 +249,42 @@ struct DccRegrouped : mc::DccStep<A> {
       eta[i] = z;
       out.log_s[i] = s.log_s[i];
       out.var[i] = s.var[i];
-      this->update(i, z, out.log_s, out.var);
-    }
-    const float c = (1.0f - this->a_dcc) - this->b_dcc;
-    for (int i = 0; i < A; ++i) {
+      c.g.update(i, z, out.log_s, out.var);
       for (int j = 0; j <= i; ++j) {
-        out.q[tri(i, j)] =
-            (c * this->qbar[i * A + j] + this->a_dcc * (eta[i] * eta[j])) +
-            this->b_dcc * s.q[tri(i, j)];
+        const float cq = c.cqbar[i * A + j], bq = c.b * s.q[tri(i, j)];
+        out.q[tri(i, j)] = Regroup == 1
+                               ? (cq + c.a * (eta[i] * eta[j])) + bq
+                               : (cq + bq) + (c.a * eta[i]) * eta[j];
       }
     }
     return out;
   }
 };
 
+// A step on the launch leaves: the term basket on the leaves pointer, CCC
+// and DCC on a copy of them in their Leaves struct, as the kernels' launch
+// makes it.
+template <class Step, class = void>
+struct Built {
+  static constexpr long kFloats = -1;
+  Step step;
+  Built(const float* leaves, int dims) : step(leaves, dims) {}
+};
+template <class Step>
+struct Built<Step, std::void_t<typename Step::Leaves>> {
+  static constexpr long kFloats = sizeof(typename Step::Leaves) / 4;
+  typename Step::Leaves lv;
+  Step step;
+  Built(const float* leaves, int) : lv(), step(lv) {
+    memcpy(&lv, leaves, sizeof lv);
+  }
+};
+
 template <class Step>
 static void walk(const float* leaves, int dims, long n, int T,
                  const float* eps, int D, float* out) {
-  const Step step(leaves, dims);
+  const Built<Step> built(leaves, dims);
+  const Step& step = built.step;
   for (long i = 0; i < n; ++i) {
     typename Step::State s = step.init();
     float e[8];
@@ -279,17 +300,28 @@ static void walk(const float* leaves, int dims, long n, int T,
   extern "C" void name(const float* leaves, int dims, long n, int T,      \
                        const float* eps, int D, float* out) {             \
     walk<type>(leaves, dims, n, T, eps, D, out);                          \
-  }
-WALK(walk_term_basket_1, mc::TermBasketStep<1>)
-WALK(walk_term_basket_3, mc::TermBasketStep<3>)
-WALK(walk_term_basket_8, mc::TermBasketStep<8>)
-WALK(walk_ccc_garch_1, mc::CccStep<1>)
-WALK(walk_ccc_garch_3, mc::CccStep<3>)
-WALK(walk_ccc_garch_8, mc::CccStep<8>)
-WALK(walk_dcc_garch_1, mc::DccStep<1>)
-WALK(walk_dcc_garch_3, mc::DccStep<3>)
-WALK(walk_dcc_garch_8, mc::DccStep<8>)
-WALK(walk_dcc_regrouped_3, DccRegrouped<3>)
+  }                                                                       \
+  extern "C" long name##_floats() { return Built<type>::kFloats; }
+#define WALKS(A)                                                          \
+  WALK(walk_term_basket_##A, mc::TermBasketStep<A>)                       \
+  WALK(walk_ccc_garch_##A, mc::CccStep<A>)                                \
+  WALK(walk_dcc_garch_##A, mc::DccStep<A>)
+WALKS(1)
+WALKS(2)
+WALKS(3)
+WALKS(4)
+WALKS(5)
+WALKS(6)
+WALKS(7)
+WALKS(8)
+using Regrouped3 = DccRegrouped<3, 1>;
+using Regrouped8 = DccRegrouped<8, 1>;
+using RegroupedTwo3 = DccRegrouped<3, 2>;
+using RegroupedTwo8 = DccRegrouped<8, 2>;
+WALK(walk_dcc_regrouped_3, Regrouped3)
+WALK(walk_dcc_regrouped_8, Regrouped8)
+WALK(walk_dcc_regrouped2_3, RegroupedTwo3)
+WALK(walk_dcc_regrouped2_8, RegroupedTwo8)
 """
 
 
@@ -300,8 +332,13 @@ def lib(tmp_path_factory):
 
 def walk(lib, name, proc, T, antithetic):
     """The header's walk on the plain version's draws, roots and logs,
-    beside the plain version's terminal values."""
+    beside the plain version's terminal values: the term basket on its
+    leaves, CCC and DCC on their launch leaves (``state_launch_leaves``,
+    the floats their Leaves struct holds)."""
     _, dims, leaves = _leaves(proc)
+    if isinstance(proc, (CCCGarch, DCCGarch)):
+        leaves = state_launch_leaves(proc)
+        assert getattr(lib, name + "_floats")() == leaves.numel()
     k0, k1 = key_from_seed(SEED, 0)
     ids = path_ids_for(N_WALK, 0, proc.device)
     eps = np.stack([np.stack([e.numpy() for e in eps]) for _, eps in
@@ -319,9 +356,11 @@ def walk(lib, name, proc, T, antithetic):
 
 @pytest.mark.parametrize("antithetic", [False, True])
 @pytest.mark.parametrize("T", [1, 17])
-@pytest.mark.parametrize("a_n", [1, 3, 8])
+@pytest.mark.parametrize("a_n", range(1, MAX_STATE_ASSETS + 1))
 @pytest.mark.parametrize("kind", ["term-basket", "ccc-garch", "dcc-garch"])
 def test_header_step_is_the_plain_version(lib, kind, a_n, T, antithetic):
+    """Every asset count of the functors; CCC and DCC on their by-value
+    leaves, DCC a row at a time."""
     _, proc = pair(kind, a_n)
     name = f"walk_{kind.replace('-', '_')}_{a_n}"
     got, want = walk(lib, name, proc, T, antithetic)
@@ -329,12 +368,58 @@ def test_header_step_is_the_plain_version(lib, kind, a_n, T, antithetic):
     np.testing.assert_array_equal(got, want)
 
 
-def test_a_regrouped_dcc_recursion_changes_bits(lib):
-    _, proc = pair("dcc-garch", 3)
+def _regrouped(lib, name, a_n):
+    _, proc = pair("dcc-garch", a_n)
     lib.host_set_fallback(1)
     try:
-        got, want = walk(lib, "walk_dcc_regrouped_3", proc, 17, False)
+        got, want = walk(lib, name, proc, 17, False)
     finally:
         lib.host_set_fallback(0)
     assert (got != want).any(), "the walk cannot tell the forms apart"
     np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+def test_a_regrouped_dcc_recursion_changes_bits(lib):
+    _regrouped(lib, "walk_dcc_regrouped_3", 3)
+
+
+@pytest.mark.parametrize("name,a_n", [("walk_dcc_regrouped_8", 8),
+                                      ("walk_dcc_regrouped2_3", 3),
+                                      ("walk_dcc_regrouped2_8", 8)])
+def test_a_regrouped_row_at_a_time_recursion_changes_bits(lib, name, a_n):
+    """The row-at-a-time step with c qbar + a (eta_i eta_j) at 8 assets,
+    and with (c qbar + b q_ij) + (a eta_i) eta_j at 3 and 8."""
+    _regrouped(lib, name, a_n)
+
+
+@pytest.mark.parametrize("a_n", range(1, MAX_STATE_ASSETS + 1))
+def test_launch_leaves_are_the_plain_versions_bits(a_n):
+    """The wrapper's per-launch constants, bitwise what the plain versions
+    compute: log32(s0) as CCC's and DCC's init_state starts every path,
+    and DCC's ((1 - a) - b) qbar_ij as its step's first term (seen alone
+    in a step with b = 0 on zero draws: cq + (a 0) 0 + 0 q is cq)."""
+    ids = torch.arange(4)
+    for kind in KINDS:
+        proc = _book(kind, a_n)
+        lv = state_launch_leaves(proc)
+        log_s, _ = proc.init_state(ids)[:2]
+        for a in range(a_n):
+            assert torch.equal(lv[a].expand(4), log_s[a]), (kind, a)
+        _, _, leaves = _leaves(proc)
+        assert torch.equal(lv[a_n:leaves.numel()], leaves[a_n:]), kind
+    for a_dcc, b_dcc in ((0.05, 0.9), (0.03, 0.95), (0.1, 0.0)):
+        corr, s0, var0, w = book(a_n)
+        proc = DCCGarch.create(s0, var0, qbar=corr, weights=w, a_dcc=a_dcc,
+                               b_dcc=b_dcc, device="cpu",
+                               omega=[1e-5] * a_n, alpha=[0.1] * a_n,
+                               beta=[0.85] * a_n)
+        cq = state_launch_leaves(proc)[-a_n * a_n:]
+        c_d = (1.0 - proc.a_dcc) - proc.b_dcc
+        assert torch.equal(cq, torch.stack([c_d * proc.qbar_flat[k]
+                                            for k in range(a_n * a_n)]))
+        if b_dcc == 0.0:
+            zero = tuple(torch.zeros(4) for _ in range(a_n))
+            q = proc.step(proc.init_state(ids), zero, 0)[2]
+            want = [cq[i * a_n + j].expand(4) for i in range(a_n)
+                    for j in range(i + 1)]
+            assert all(torch.equal(g, w) for g, w in zip(q, want))

@@ -106,3 +106,23 @@ def test_sass_hot_path_refuses_a_walk_off_the_end():
     ins = ROWS.parse_sass(SASS_OUT_OF_LINE.replace("BRA 0x40", "NOP"))
     with pytest.raises(ValueError, match="no hot path"):
         ROWS.hot_path(ins)
+
+
+_STATE_K2 = ("_ZN3mcf12_GLOBAL__N_112state_kernelINS0_9StateProcIN2mc7DccStep"
+             "ILi{a}EEELi{a}EEENS_{draws}ENS_13StoreTerminalEEEvNT_6Leaves"
+             "Elijjjj")
+
+
+@pytest.mark.parametrize("name,steps", [
+    (_STATE_K2.format(a=8, draws="13ThreefryDrawsILb0EE"), 1),
+    (_STATE_K2.format(a=8, draws="13ThreefryDrawsILb1EE"), 1),
+    (_STATE_K2.format(a=5, draws="13ThreefryDrawsILb0EE"), 2),
+    (_STATE_K2.format(a=8, draws="10SobolDrawsE"), 2),
+    (_STATE_K2.format(a=8, draws="13ThreefryDrawsILb0EE").replace(
+        "state_kernel", "fused_kernel"), 2),
+    ("_ZN3mcf12_GLOBAL__N_120rbergomi_ring_kernelILi4ELi3EEEvPKf", 4)])
+def test_stage_steps_reads_the_symbol(name, steps):
+    """A pass of the time loop: a step in CCC's and DCC's by-value kernels
+    at an even A under Threefry draws, K in K6's ring, else a step pair."""
+    assert ROWS.stage_steps(name) == steps
+    assert ROWS.passes(name, 10) == -(-10 // steps)

@@ -50,6 +50,24 @@ Row sets (``ROW_SETS``):
   HestonQE on the selected QE step, BatesQE on the warp-uniform one, the
   parent's ``ndtri32`` in the QE step, the three functors' normals from
   ``sinf`` and ``cosf``, VG over its two tables.
+- ``mgarch``: the 8-asset CCC and DCC books of ``chip_smoke.py``'s phase
+  14 (``state_proc``): K2 at the VaR chunk 2^24 x 10, plain and
+  antithetic, and at 2^20 x 252, K3 on the 95% put and K4 {mn} at the
+  chunk; DCC's K2 at the chunk under Sobol draws and at 3 and 5 assets
+  (an odd A keeps the pair's draws); as controls the 5-asset term
+  basket's K2 at 2^20 x 252, Vasicek's K2 at 2^20 x 252 (a SincosDraws
+  functor), GARCH's K2 at its VaR chunk (2^24 x 20, the 5-year table) and
+  GBM's Threefry K2 at 2^20 x 252.  Its SASS is that of the Threefry K2
+  and K3 on CCC and DCC at A = 8 and DCC's K2 at 3 and 5, at the chunk;
+  its resources the registers, stack and local bytes (a spill's) and the
+  warps an SM they leave, of every ``StateProc`` kernel.  Variants, each one
+  element of the redesign undone: the constants loaded from device memory
+  (``constants loaded``), DCC's c qbar_ij recomputed every step (``c qbar
+  in the step``), the pair's draws at an even A (``pair draws``), DCC's
+  whole factor before the rows (``factor then rows``); and ``Q in shared
+  memory`` (DCC's Q in a [word][thread] column of shared memory), ``pair
+  loop`` (a pass of the time loop a step pair, not a step), ``24 warps``
+  (``__launch_bounds__(128, 6)``) and both of the last but one.
 
 A kernel row is timed by CUDA events after a quarter second of warm-up,
 then ``--reps`` calls, beside its bound from ``chip_smoke``'s bound
@@ -145,7 +163,9 @@ class Row(NamedTuple):
 
 def timed(name, bnd, fn, profile=False, own=False) -> Row:
     """A kernel row: ``fn`` by CUDA events beside its bound ``bnd`` (ms,
-    bound_by), with the profiler's device time when ``profile``."""
+    bound_by), with the profiler's device time when ``profile``: of the
+    kernels whose names hold ``fused_kernel``, or the string ``profile``
+    gives."""
     def measure(torch, reps):
         import chip_smoke as cs
 
@@ -154,7 +174,8 @@ def timed(name, bnd, fn, profile=False, own=False) -> Row:
                "bound_by": bnd[1], "digest": digest(out)}
         del out
         if profile:
-            d = cs.device_ms(torch, fn, reps)
+            d = cs.device_ms(torch, fn, reps, *(
+                (profile,) if isinstance(profile, str) else ()))
             row["device_ms"] = None if d is None else round(d, 4)
         return row
     return Row(name, measure, own)
@@ -1018,11 +1039,290 @@ QE_VG_SASS = tuple(
                        "BridgeDraws")))
 
 
+# ---------------------------------------------------------------- mgarch
+
+def mgarch_rows(torch):
+    import chip_smoke as cs
+    from montecarlo_tpu_torch.engine import RUNNING_MIN, VanillaPayoff
+    from montecarlo_tpu_torch.ops import (fused_block_moments,
+                                          fused_functionals, fused_terminal)
+    from montecarlo_tpu_torch.processes import GBM
+    from montecarlo_tpu_torch.rng.sobol import SobolDeviceSampler
+
+    nv, d = cs.STATE_VAR_CHUNK, cs.STATE_VAR_DAYS
+    n, s = 1 << 20, 252
+    rows = []
+    for kind in ("ccc-garch", "dcc-garch"):
+        book = cs.state_proc(kind, 8, d)
+        long = cs.state_proc(kind, 8, s)
+        put = VanillaPayoff("put", 0.95 * float(torch.dot(book.weights,
+                                                          book.s0)))
+        rows += [
+            timed(f"K2 {kind} A=8 {nv}x{d}", cs.state_bound(kind, 8, nv, d),
+                  lambda p=book: fused_terminal(p, nv, d, seed=0)),
+            timed(f"K2 {kind} A=8 antithetic {nv}x{d}",
+                  cs.state_bound(kind, 8, nv, d),
+                  lambda p=book: fused_terminal(p, nv, d, seed=0,
+                                                antithetic=True)),
+            timed(f"K2 {kind} A=8 {n}x{s}", cs.state_bound(kind, 8, n, s),
+                  lambda p=long: fused_terminal(p, n, s, seed=0)),
+            timed(f"K3 {kind} A=8 95% put {nv}x{d}",
+                  cs.state_bound(kind, 8, nv, d, out_bytes=8 / 128,
+                                 extra_fp=8),
+                  lambda p=book, put=put: fused_block_moments(p, put, nv, d,
+                                                              seed=0),
+                  profile="mcf::"),
+            timed(f"K4 {kind} A=8 {{mn}} {nv}x{d}",
+                  cs.state_bound(kind, 8, nv, d, out_bytes=8, observe=True),
+                  lambda p=book: fused_functionals(
+                      p, nv, d, seed=0, functionals={"mn": RUNNING_MIN}))]
+    dcc = cs.state_proc("dcc-garch", 8, d)
+    sobol = SobolDeviceSampler.create(d, 8, scramble_seed=13, device="cuda")
+    rows.append(timed(f"K2 dcc-garch A=8 sobol {nv}x{d}",
+                      cs.state_bound("dcc-garch", 8, nv, d),
+                      lambda: fused_terminal(dcc, nv, d, seed=0,
+                                             sampler=sobol)))
+    for a_n in (3, 5):
+        p = cs.state_proc("dcc-garch", a_n, d)
+        rows.append(timed(f"K2 dcc-garch A={a_n} {nv}x{d}",
+                          cs.state_bound("dcc-garch", a_n, nv, d),
+                          lambda p=p: fused_terminal(p, nv, d, seed=0)))
+    # The controls: the term basket (a leaves pointer, the pair's draws at
+    # A = 5), Vasicek (SincosDraws<1>), GARCH and GBM.
+    tb = cs.state_proc("term-basket", 5, s)
+    vas = cs.rate_procs(s)["vasicek"]
+    garch = cs.garch_process(*cs.garch_history(1259))
+    gbm = GBM.create(100.0, 0.03, 0.2, 1.0 / s, device="cuda")
+    gv, gd = cs.VAR_CHUNK, cs.GARCH_DAYS
+    rows += [
+        timed(f"K2 term-basket A=5 {n}x{s}",
+              cs.state_bound("term-basket", 5, n, s),
+              lambda: fused_terminal(tb, n, s, seed=0)),
+        timed(f"K2 vasicek {n}x{s}", cs.rate_bound("vasicek", n, s),
+              lambda: fused_terminal(vas, n, s, seed=0)),
+        timed(f"K2 garch 5y {gv}x{gd}", cs.garch_bound(gv, gd),
+              lambda: fused_terminal(garch, gv, gd, seed=0)),
+        timed(f"K2 gbm threefry {n}x{s}",
+              cs.step_bound(n, s, extra_fp=cs.EXP32_FP),
+              lambda: fused_terminal(gbm, n, s, seed=0))]
+    return rows
+
+
+_DCC_STEP = """      c.g.update(i, z, out.log_s, out.var);
+      const float ae = c.a * eta[i];
+#pragma unroll
+      for (int j = 0; j <= i; ++j) {
+        out.q[tri(i, j)] = (c.cqbar[i * A + j] + ae * eta[j]) +
+                           c.b * s.q[tri(i, j)];
+      }
+    }
+    return out;
+"""
+_DCC_FACTOR = """        l[tri(i, j)] = j == i ? sqrtf(max_nan(sum, kDccEps))
+                              : sum / l[tri(j, j)];
+      }
+      const float dinv"""
+_K2_HEAD = """    const __grid_constant__ typename Proc::Leaves leaves, int64_t n_paths,
+    int n_steps, uint32_t path_offset, uint32_t k0, uint32_t k1,
+    Draws draws, Epilogue epilogue) {"""
+_K4_HEAD = """    const __grid_constant__ typename Proc::Leaves leaves, int64_t n_paths,
+    int n_steps, uint32_t path_offset, uint32_t k0, uint32_t k1,
+    Draws draws, FunctionalSpec spec, float* __restrict__ out) {"""
+_GLOBAL_LEAVES = """        typename Proc::Leaves* dev;
+        cudaMallocAsync((void**)&dev, sizeof lv, s);
+        cudaMemcpyAsync(dev, &lv, sizeof lv, cudaMemcpyHostToDevice, s);
+"""
+_RUN_STEP = """    for (int t = 0; t < n_steps; ++t) {
+      float eps[A];
+      step_normals<A>(k0, k1, did, mirror, t, eps);
+      st = this->step(st, eps, t);
+      after(t);
+    }
+"""
+_Q_SHARED = r"""// DccStep with Q in shared memory: a [word][thread] column of kPairs
+// words a path, read and written once a step, in place, a row at a time.
+template <int A>
+struct DccStepShared {
+  using Leaves = DccLeaves<A>;
+  static constexpr int kPairs = A * (A + 1) / 2;
+  static constexpr int kStride = 128;  // a block's threads
+  struct State {
+    float log_s[A];
+    float var[A];
+  };
+  MC_HD static constexpr int tri(int i, int j) { return i * (i + 1) / 2 + j; }
+  const Leaves& c;
+  float* q;
+  __device__ explicit DccStepShared(const Leaves& leaves) : c(leaves) {
+    __shared__ float qs[kPairs * kStride];
+    q = qs + threadIdx.x;
+  }
+  __device__ State init() const {
+    State s;
+    c.g.start(s.log_s, s.var);
+#pragma unroll
+    for (int i = 0; i < A; ++i) {
+#pragma unroll
+      for (int j = 0; j <= i; ++j) q[tri(i, j) * kStride] = c.qbar[i * A + j];
+    }
+    return s;
+  }
+  __device__ State step(const State& s, const float* eps, int) const {
+    float l[kPairs];
+    float eta[A];
+    State out;
+#pragma unroll
+    for (int i = 0; i < A; ++i) {
+      float qi[A];
+#pragma unroll
+      for (int j = 0; j <= i; ++j) qi[j] = q[tri(i, j) * kStride];
+#pragma unroll
+      for (int j = 0; j <= i; ++j) {
+        float sum = qi[j];
+#pragma unroll
+        for (int k = 0; k < j; ++k) sum = sum - l[tri(i, k)] * l[tri(j, k)];
+        l[tri(i, j)] = j == i ? sqrtf(max_nan(sum, kDccEps))
+                              : sum / l[tri(j, j)];
+      }
+      const float dinv = 1.0f / sqrtf(max_nan(qi[i], kDccEps));
+      float z = (l[tri(i, 0)] * dinv) * eps[0];
+#pragma unroll
+      for (int b = 1; b <= i; ++b) z = z + (l[tri(i, b)] * dinv) * eps[b];
+      eta[i] = z;
+      out.log_s[i] = s.log_s[i];
+      out.var[i] = s.var[i];
+      c.g.update(i, z, out.log_s, out.var);
+      const float ae = c.a * eta[i];
+#pragma unroll
+      for (int j = 0; j <= i; ++j) {
+        q[tri(i, j) * kStride] = (c.cqbar[i * A + j] + ae * eta[j]) +
+                                 c.b * qi[j];
+      }
+    }
+    return out;
+  }
+  __device__ float prices(const State& s) const {
+    return book_value<A>(c.w, s.log_s);
+  }
+};
+
+}  // namespace mc
+"""
+MGARCH_VARIANTS = {
+    # Element 1 undone: the launch leaves in device memory, every constant
+    # a load through a pointer.
+    "constants loaded": [
+        ("fused_mgarch.cuh", _K2_HEAD, _K2_HEAD.replace(
+            "const __grid_constant__ typename Proc::Leaves leaves",
+            "const typename Proc::Leaves* __restrict__ leaves")),
+        ("fused_mgarch.cuh", _K4_HEAD, _K4_HEAD.replace(
+            "const __grid_constant__ typename Proc::Leaves leaves",
+            "const typename Proc::Leaves* __restrict__ leaves")),
+        ("fused_mgarch.cuh", "  const Proc proc(leaves);\n  typename Proc",
+         "  const Proc proc(*leaves);\n  typename Proc"),
+        ("fused_mgarch.cuh", "  const Proc proc(leaves);\n  const Needs",
+         "  const Proc proc(*leaves);\n  const Needs"),
+        ("fused_mgarch.cuh", """        state_kernel<Proc, Draws, Epilogue><<<blocks, kRow, 0, s>>>(
+            lv, n_paths, n_steps, path_offset, k0, k1, draws, epilogue);
+""", _GLOBAL_LEAVES + """        state_kernel<Proc, Draws, Epilogue><<<blocks, kRow, 0, s>>>(
+            dev, n_paths, n_steps, path_offset, k0, k1, draws, epilogue);
+        cudaFreeAsync(dev, s);
+"""),
+        ("fused_mgarch.cuh", """        state_functional_kernel<Proc, Draws><<<blocks, kRow, 0, s>>>(
+            lv, n_paths, n_steps, path_offset, k0, k1, draws, spec, out);
+""", _GLOBAL_LEAVES + """        state_functional_kernel<Proc, Draws><<<blocks, kRow, 0, s>>>(
+            dev, n_paths, n_steps, path_offset, k0, k1, draws, spec, out);
+        cudaFreeAsync(dev, s);
+""")],
+    # Element 2 undone for DCC: c qbar_ij recomputed every step (the same
+    # bits).
+    "c qbar in the step": [
+        ("mgarch_steps.cuh", "(c.cqbar[i * A + j] + ae * eta[j])",
+         "(((1.0f - c.a) - c.b) * c.qbar[i * A + j] + ae * eta[j])")],
+    # Element 3 undone: ThreefryDraws' pair at every A.
+    "pair draws": [
+        ("fused_mgarch.cuh",
+         "    : std::bool_constant<ByValue<Step>::value && A % 2 == 0> {};",
+         "    : std::false_type {};")],
+    # Element 4 undone: DCC's whole factor first, then each row's eta,
+    # update and recursion.
+    "factor then rows": [
+        ("mgarch_steps.cuh", _DCC_FACTOR, """        l[tri(i, j)] = j == i ? sqrtf(max_nan(sum, kDccEps))
+                              : sum / l[tri(j, j)];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < A; ++i) {
+      const float dinv"""),
+        ("mgarch_steps.cuh", _DCC_STEP, """      c.g.update(i, z, out.log_s, out.var);
+    }
+#pragma unroll
+    for (int i = 0; i < A; ++i) {
+      const float ae = c.a * eta[i];
+#pragma unroll
+      for (int j = 0; j <= i; ++j) {
+        out.q[tri(i, j)] = (c.cqbar[i * A + j] + ae * eta[j]) +
+                           c.b * s.q[tri(i, j)];
+      }
+    }
+    return out;
+""")],
+    "Q in shared memory": [
+        ("mgarch_steps.cuh", "}  // namespace mc\n", _Q_SHARED),
+        ("fused_dcc.cu", "kDccGarch, mc::DccStep)",
+         "kDccGarch, mc::DccStepShared)"),
+        ("fused_dcc_k4.cu", "kDccGarch, mc::DccStep)",
+         "kDccGarch, mc::DccStepShared)")],
+    # A pass of the time loop a step pair, each step's draws just before
+    # it.
+    "pair loop": [
+        ("fused_mgarch.cuh", _RUN_STEP, """    const int n_pairs = (n_steps + 1) / 2;
+    for (int j = 0; j < n_pairs; ++j) {
+      float eps[A];
+      step_normals<A>(k0, k1, did, mirror, 2 * j, eps);
+      st = this->step(st, eps, 2 * j);
+      after(2 * j);
+      if (2 * j + 1 < n_steps) {
+        step_normals<A>(k0, k1, did, mirror, 2 * j + 1, eps);
+        st = this->step(st, eps, 2 * j + 1);
+        after(2 * j + 1);
+      }
+    }
+""")],
+}
+# 24 warps an SM: at most 80 registers a thread; and with Q in shared
+# memory.
+_BOUNDS = [
+    ("fused_mgarch.cuh", "__global__ void state_kernel(",
+     "__global__ void __launch_bounds__(kRow, 6) state_kernel("),
+    ("fused_mgarch.cuh", "__global__ void state_functional_kernel(",
+     "__global__ void __launch_bounds__(kRow, 6) state_functional_kernel(")]
+MGARCH_VARIANTS["24 warps"] = _BOUNDS
+MGARCH_VARIANTS["Q in shared memory, 24 warps"] = (
+    MGARCH_VARIANTS["Q in shared memory"] + _BOUNDS)
+
+# K2 and K3 under plain Threefry draws, the parent's fused_kernel or the
+# change's state_kernel.
+_STATE_K = r"(fused|state)_kernel"
+MGARCH_SASS = tuple(
+    (f"K{k} {tag}", (_STATE_K, rf"{step}[A-Za-z]*ILi{a_n}E", epi,
+                     "ThreefryDrawsILb0E"))
+    for k, epi in ((2, "StoreTerminal"), (3, "RowMoments"))
+    for tag, step, a_n in (("ccc A=8", "CccStep", 8),
+                           ("dcc A=8", "DccStep", 8),
+                           ("dcc A=3", "DccStep", 3),
+                           ("dcc A=5", "DccStep", 5))
+    if k == 2 or a_n == 8) + (
+    ("K2 dcc A=8 antithetic", (_STATE_K, r"DccStep[A-Za-z]*ILi8E",
+                               "StoreTerminal", "ThreefryDrawsILb1E")),)
+
+
 class RowSet(NamedTuple):
     rows: Callable      # torch -> [Row]
     variants: dict      # name -> [(file, old, new)]
     sass: tuple         # (tag, patterns)
     floor_shape: tuple = (1 << 22, 252)  # (paths, steps) of the SASS floor
+    resources: str = ""  # the kernels whose registers the set reports
 
 
 ROW_SETS = {
@@ -1034,6 +1334,8 @@ ROW_SETS = {
     "sabr_surface": RowSet(sabr_surface_rows, SABR_SURFACE_VARIANTS,
                            SABR_SURFACE_SASS, (1 << 20, 252)),
     "qe_vg": RowSet(qe_vg_rows, QE_VG_VARIANTS, QE_VG_SASS, (1 << 20, 252)),
+    "mgarch": RowSet(mgarch_rows, MGARCH_VARIANTS, MGARCH_SASS,
+                     (1 << 24, 10), "StateProc"),
 }
 
 
@@ -1128,9 +1430,15 @@ def hot_path(ins, loop=None):
 
 def stage_steps(name: str) -> int:
     """The steps one pass of a kernel's time loop takes: K in K6's ring
-    (``rbergomi_ring_kernel<K, S>``), else a step pair."""
+    (``rbergomi_ring_kernel<K, S>``), one in CCC's and DCC's by-value
+    kernels at an even A under Threefry draws (``StateProc::run``), else a
+    step pair."""
     m = re.search(r"rbergomi_ring_kernelILi(\d+)E", name)
-    return int(m.group(1)) if m else 2
+    if m:
+        return int(m.group(1))
+    m = re.search(r"state_(?:functional_)?kernel.*?Step[A-Za-z]*ILi(\d+)E"
+                  r".*ThreefryDraws", name)
+    return 1 if m and int(m.group(1)) % 2 == 0 else 2
 
 
 def passes(name: str, steps: int) -> int:
@@ -1179,6 +1487,65 @@ def sass(label: str, out_dir: Path, so: Path, kernels,
                  "hot_ops": dict(Counter(o for _, o, _, _ in hot)
                                  .most_common()),
                  "top": Counter(o for _, o, _, _ in ins).most_common(10)})
+
+
+def warps_per_sm(regs: int, shared: int = 0, threads: int = 128) -> int:
+    """The warps an H100 SM holds of a kernel of ``regs`` registers a
+    thread (allocated per warp in units of 256) and ``shared`` bytes of
+    static shared memory a block (228 KB an SM, 1 KB reserved a block), in
+    blocks of ``threads``."""
+    per_warp = -(-regs * 32 // 256) * 256
+    warps = min(64, 65536 // per_warp)
+    blocks = min(32, warps // (threads // 32))
+    if shared:
+        blocks = min(blocks, 233472 // (shared + 1024))
+    return blocks * (threads // 32)
+
+
+def _kernel_tag(name: str) -> str:
+    """K2, K3 or K4, the step, A and the draw source of a StateProc
+    kernel's mangled name."""
+    k = ("K4" if "functional" in name else
+         "K3" if "RowMoments" in name else "K2")
+    step = re.search(r"\d([A-Za-z]+Step[A-Za-z]*)ILi(\d+)E", name)
+    src = ("sobol" if "SobolDraws" in name else
+           "antithetic" if "ThreefryDrawsILb1E" in name else "plain")
+    return (f"{k} {step.group(1)} A={step.group(2)} {src}" if step
+            else f"{k} {name[:60]}")
+
+
+def res_usage(so: Path) -> dict:
+    """{mangled name: {"REG": n, "STACK": n, "SHARED": n, "LOCAL": n,
+    ...}} of every kernel in library ``so`` (cuobjdump -res-usage)."""
+    from montecarlo_tpu_torch.ops import _build
+
+    tool = Path(_build._nvcc()).with_name("cuobjdump")
+    text = subprocess.run([str(tool), "-res-usage", str(so)],
+                          capture_output=True, text=True, check=True).stdout
+    out, name = {}, None
+    for line in text.splitlines():
+        m = re.match(r"\s*Function (\S+):", line)
+        if m:
+            name = m.group(1)
+        elif name is not None and "REG:" in line:
+            out[name] = {k: int(v) for k, v in
+                         re.findall(r"(\w+)(?:\[\d+\])?:(\d+)", line)}
+            name = None
+    return out
+
+
+def resources(label: str, so: Path, pattern: str) -> None:
+    """Registers, stack and local bytes of every kernel in library ``so``
+    whose mangled name matches ``pattern``, with the warps an SM they
+    leave: one line a kernel.  Stack or local bytes are a spill's (or a
+    local array's)."""
+    for name, use in res_usage(so).items():
+        if re.search(pattern, name):
+            log({"label": label, "resources": _kernel_tag(name),
+                 "reg": use.get("REG"), "stack": use.get("STACK"),
+                 "local": use.get("LOCAL"), "shared": use.get("SHARED"),
+                 "warps_per_sm": warps_per_sm(use.get("REG", 255),
+                                              use.get("SHARED", 0))})
 
 
 # -------------------------------------------------------------- variants
@@ -1311,6 +1678,10 @@ def main() -> int:
              rs.floor_shape)
         for name, so in sos.items():
             sass(f"{args.label} {name}", out_dir, so, rs.sass, rs.floor_shape)
+        if rs.resources:
+            resources(args.label, _build.library_path(), rs.resources)
+            for name, so in sos.items():
+                resources(f"{args.label} {name}", so, rs.resources)
     if args.sass_only:
         return 0
     rows = rs.rows(torch)
