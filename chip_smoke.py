@@ -182,14 +182,18 @@ CUDA kernels from ``montecarlo_tpu_torch/csrc`` and, in phases:
    avg}) on each against its plain version bitwise at 2^18 paths (2^18 -
    37 for K2 and K4) x 64 steps with ids from 2^30 - 1000, under Threefry
    plain and antithetic, Sobol and (one draw) bridge draws, G2++ under the
-   bridge routed away from the kernels; a run one step longer than the
+   bridge routed away from the kernels; K4 {trap} alone bitwise on each,
+   the bond models' plain and antithetic launches counted as fixed-fold
+   launches (FixedFold<kTrapezoid>), every other run on the generic fold;
+   a run one step longer than the
    curves refused before any launch; K2 on each and K4 {trap} on each bond
    model timed at the bond path's 2^20 x 252, K3 on the Vasicek digital
-   at 2^22 x 252, each beside its plain version and bound (K2 and K3 also
-   beside their SASS issue floors); then, launch counters reset just
-   before and read just after each run: ``bond --paths 1048576 --steps 252`` for the four models (K4)
+   at 2^22 x 252, each beside its plain version, bound and SASS issue
+   floor (K4's on its fixed fold, with its registers); then, launch
+   counters reset just
+   before and read just after each run: ``bond --paths 1048576 --steps 252`` for the four models (K4, on its fixed fold)
    against their closed forms (4 std-err plus the JAX tests' slack), ``bond
-   --option`` (K4) against Jamshidian, ``bond --cap`` (the torch loop)
+   --option`` (K4, fixed) against Jamshidian, ``bond --cap`` (the torch loop)
    against its closed form, ``bond --model g2pp --swaption`` (the host
    quadrature) against exact-transition Monte Carlo on the card, and the
    engine's ``terminal_prices`` on Vasicek (K2: the OU law), Euler GBM (K2:
@@ -197,27 +201,32 @@ CUDA kernels from ``montecarlo_tpu_torch/csrc`` and, in phases:
    forward), ``payoff_block_moments`` of a Vasicek digital (K3: the normal
    law), each wall-clock by the host clock.
 14. the multi-asset state processes on K2-K4 (StateProc over
-   csrc/mgarch_steps.cuh, in csrc/fused_term_basket.cu, fused_ccc.cu and
-   fused_dcc{,_k4}.cu: TermBasketGBM, CCC-GARCH, DCC-GARCH at 1..8 assets):
-   K2, K3 (a put) and K4 ({avg, mn}) on each against its plain version
-   bitwise at A = 3 and 8, 2^18 paths (2^18 - 37 for K2 and K4) x 17
-   steps with ids from 2^30 - 1000, under Threefry plain and antithetic and
-   Sobol draws; 9 assets routed to the torch loop, the bridge and a run
+   csrc/mgarch_steps.cuh, in csrc/fused_term_basket{,_k4}.cu, fused_ccc.cu
+   and fused_dcc{,_k4}.cu: TermBasketGBM, CCC-GARCH, DCC-GARCH at 1..8
+   assets): K2, K3 (a put) and K4 ({avg, mn}) on each against its plain
+   version bitwise at A = 3 and 8, 2^18 paths (2^18 - 37 for K2 and K4) x
+   17 steps with ids from 2^30 - 1000, under Threefry plain and antithetic
+   and Sobol draws; the term basket's K4 {avg} at every A, plain and
+   antithetic, bitwise and counted as fixed-fold launches
+   (FixedFold<kArithMean>), CCC's and DCC's {mn} counted as generic ones;
+   9 assets routed to the torch loop, the bridge and a run
    past the term basket's curves refused, before any launch; K2 on each
    timed at 2^20 x 252 (the term basket at 5 assets, the books at 8), and
    K2, K3 (a 95% put) and K4 ({mn}) on the books at a VaR chunk's 2^24 x
    10, the term basket's K3 at a tolerance chunk's 2^22 x 252 and K4
-   {avg} at 2^20 x 252, each beside its plain version and bound (K2 and
-   K3 beside their SASS issue floors); then, launch counters reset just
+   {avg} at 2^20 x 252, each beside its plain version and bound (K2, K3
+   and the term basket's K4 beside their SASS issue floors); then, launch
+   counters reset just
    before and read just after each run: on the 5-asset term basket over
    252-step curves ``terminal_prices`` (K2, the forward),
    ``price_to_tolerance`` on its ATM call to std-err 1e-3 (K3) and its
-   Asian by ``simulate_functionals`` (K4, below the call); on the 8-asset
+   Asian by ``simulate_functionals`` (K4 on its fixed fold, below the
+   call); on the 8-asset
    CCC and DCC books ``portfolio_var_on_device`` at 2^28 x 10 days (K2),
    the sketch at 2^20 within its grid errors of the exact statistics, the
    stream ``portfolio_var`` at 2^24 at the device sketch, K2 against a
    NumPy oracle of the recurrence fed the same normals, a put's
-   ``payoff_block_moments`` (K3) and the running minimum (K4).
+   ``payoff_block_moments`` (K3) and the running minimum (K4, generic).
 
 Phase 3 also holds K5 (2^18 paths x {504, 756, 37} columns, ids wrapping
 past 2^32) and K6 (2^18 and 2^18 - 3 paths, its ring and its plain-load
@@ -3675,22 +3684,30 @@ def rate_bound(kind, n, steps, out_bytes=4, extra_fp=0, observe_fp=0):
 def rate_floor(kind, n, steps, epilogue="StoreTerminal"):
     """The SASS issue floor of K2 (or K3 with ``epilogue="RowMoments"``)
     on ``kind``'s functor under plain Threefry draws: a pass of the time
-    loop a step pair.  K4 on these functors runs the generic fold, whose
-    switch over the codes the SASS walker follows down more than the one
-    case a {trap} run takes (its "floor" came out above the kernel's
-    time): no floor is printed for it."""
+    loop a step pair."""
     return issue_floor(("fused_kernel", RATE_STEP[kind], epilogue,
                         "ThreefryDrawsILb0E"), n, (steps + 1) // 2)
 
 
+def rate_k4_sass(kind):
+    """The patterns of K4 {trap} on ``kind``'s functor under plain
+    Threefry draws, on its fixed fold (FixedFold<kTrapezoid>, the code 8).
+    The generic fold has no floor: the SASS walker follows its switch over
+    the codes down more than the one case a {trap} run takes."""
+    return k4_sass(RATE_STEP[kind], "ThreefryDrawsILb0E", (8,))
+
+
 def phase_rate_parity(torch, errs):
-    """K2, K3 (a digital) and K4 ({trap, avg}) on the six functors against
-    their plain versions, bitwise, at 2^18 paths (2^18 - 37 for K2 and
-    K4) x 64 steps, ids from 2^30 - 1000, under every draw source each
-    takes: Threefry plain and antithetic, Sobol, and the bridge for the
-    five of one draw (G2++ under the bridge goes to the torch loop, as in
-    the JAX package, where the sampler refuses it); then the refusal of a
-    run one step longer than the curves, before any launch."""
+    """K2, K3 (a digital) and K4 ({trap, avg}, the generic fold, and
+    {trap} alone) on the six functors against their plain versions,
+    bitwise, at 2^18 paths (2^18 - 37 for K2 and K4) x 64 steps, ids from
+    2^30 - 1000, under every draw source each takes: Threefry plain and
+    antithetic, Sobol, and the bridge for the five of one draw (G2++ under
+    the bridge goes to the torch loop, as in the JAX package, where the
+    sampler refuses it); {trap} alone counted as a fixed-fold launch on the
+    bond models under Threefry draws and as a generic one elsewhere; then
+    the refusal of a run one step longer than the curves, before any
+    launch."""
     from montecarlo_tpu_torch.engine import (ARITH_MEAN, VanillaPayoff,
                                              kernel_route,
                                              trapezoid_integral)
@@ -3738,10 +3755,31 @@ def phase_rate_parity(torch, errs):
                                                functionals=fns, **kw)
             cases += [(f"K4 {k}", "fused_functionals_rates", got[k], want[k])
                       for k in want]
+            # {trap} alone: the bond models' fixed fold under Threefry
+            # draws, the generic fold elsewhere; the launch counted so.
+            trap = {"trap": fns["trap"]}
+            fixed = kind in RATE_MODELS and label in ("plain", "antithetic")
+            sfx = {"sobol": "_sobol", "bridge": "_bridge"}.get(label, "")
+            before = launch_counts()
+            got = fused_functionals(proc, n - 37, steps, functionals=trap,
+                                    **kw)
+            ran = {k: v - before[k] for k, v in launch_counts().items()
+                   if v != before[k]}
+            expect = {f"fused_functionals{sfx}": 1}
+            if fixed:
+                expect["fused_functionals_fixed"] = 1
+            if ran != expect:
+                raise AssertionError(f"K4 {{trap}} {tag}: launched {ran}, "
+                                     f"expected {expect}")
+            want = fused_functionals_reference(proc, n - 37, steps,
+                                               functionals=trap, **kw)
+            fold = "fixed" if fixed else "generic"
+            cases += [(f"K4 {{trap}} {fold} {k}", "fused_functionals_rates",
+                       got[k], want[k]) for k in want]
             for name, key, g, w in cases:
                 _, max_abs, _ = compare(f"{name} {tag}", g, w, BITWISE)
                 errs[key] = max(errs.get(key, 0.0), max_abs)
-            del cases
+            del cases, got, want
         torch.cuda.synchronize()
         log(f"  {kind} parity: {time.perf_counter() - t0:.1f} s")
     before = launch_counts()
@@ -3762,11 +3800,11 @@ def phase_rate_parity(torch, errs):
 
 
 def phase_rate_shapes(torch, errs, times):
-    """K2 on each functor and K4 {trap} on each bond model at the bond
-    path's 2^20 x 252, K3 on the Vasicek digital at a 2^22 x 252 chunk,
-    each timed (CUDA events) beside its plain version, bound and (K2, K3)
-    SASS issue floor, and checked bitwise.  The kernels-line entries report
-    Vasicek's rows."""
+    """K2 on each functor and K4 {trap} on each bond model (its fixed
+    fold, with its registers) at the bond path's 2^20 x 252, K3 on the
+    Vasicek digital at a 2^22 x 252 chunk, each timed (CUDA events) beside
+    its plain version, bound and SASS issue floor, and checked bitwise.
+    The kernels-line entries report Vasicek's rows."""
     from montecarlo_tpu_torch.engine import VanillaPayoff, trapezoid_integral
     from montecarlo_tpu_torch.ops import (fused_block_moments,
                                           fused_block_moments_reference,
@@ -3791,13 +3829,15 @@ def phase_rate_shapes(torch, errs, times):
         proc = procs[kind]
         fns = {"trap": trapezoid_integral(float(proc.dt))}
         timed_check(times, errs, f"fused_functionals_rates {kind}",
-                    f"K4 {kind} {{trap}} {n}x{s}",
+                    f"K4 {kind} {{trap}} {n}x{s} "
+                    f"({kernel_regs(rate_k4_sass(kind))})",
                     lambda: fused_functionals(proc, n, s, seed=0,
                                               functionals=fns),
                     lambda: fused_functionals_reference(proc, n, s, seed=0,
                                                         functionals=fns),
                     10, BITWISE,
-                    bnd=rate_bound(kind, n, s, out_bytes=8, observe_fp=3))
+                    bnd=rate_bound(kind, n, s, out_bytes=8, observe_fp=3),
+                    floor=issue_floor(rate_k4_sass(kind), n, (s + 1) // 2))
     # The kernels-line entries: Vasicek's rows, every row's error.
     for name, kinds in (("fused_terminal_rates", RATE_KINDS),
                         ("fused_functionals_rates", RATE_MODELS)):
@@ -3860,8 +3900,9 @@ def g2pp_expiry_state(torch, argv):
 def phase_rate_path(torch, card):
     """The slice's path through the CLI and the engine, each run counted
     by itself (``run_qmc``: exactly the named kernels launched): ``bond
-    --paths 1048576 --steps 252`` for the four models (K4), each against
-    its closed form; ``bond --option`` (K4) against Jamshidian; ``bond
+    --paths 1048576 --steps 252`` for the four models (K4 on its fixed
+    fold: each launch counted as a fixed-fold one too), each against its
+    closed form; ``bond --option`` (K4, fixed) against Jamshidian; ``bond
     --cap`` (the torch loop, no kernel) against its closed form
     (tests/test_rates.py::test_cli_bond_cap's gate); ``bond --model g2pp
     --swaption`` (host quadrature, no kernel) against exact-transition
@@ -3882,17 +3923,22 @@ def phase_rate_path(torch, card):
 
     totals, walls = {}, {}
     base = ["bond", "--paths", str(RATE_PATHS), "--steps", str(RATE_STEPS)]
+    k4 = ("fused_functionals", "fused_functionals_fixed")
     for model in RATE_MODELS:
         out, walls[model] = run_qmc(
-            totals, f"bond --model {model}", ("fused_functionals",),
+            totals, f"bond --model {model}", k4,
             lambda: run_cli(base + ["--model", model])[0])
         check_closed_form(f"bond --model {model} zcb", out["zcb_price"],
                           out["std_err"], out["closed_form"],
                           RATE_SLACK[model] * (out["closed_form"]
                                                if model == "g2pp" else 1.0))
     out, walls["option"] = run_qmc(
-        totals, "bond --option", ("fused_functionals",),
+        totals, "bond --option", k4,
         lambda: run_cli(["bond", "--option"])[0])
+    if totals["fused_functionals_fixed"] != totals["fused_functionals"]:
+        raise AssertionError(f"bond: {totals['fused_functionals']} K4 "
+                             f"launches, {totals['fused_functionals_fixed']}"
+                             " of them on the fixed fold")
     check_closed_form("bond --option", out["bond_option_price"],
                       out["std_err"], out["jamshidian"],
                       RATE_SLACK["option"])
@@ -3969,7 +4015,8 @@ def phase_rate_path(torch, card):
                     "fused_block_moments", 0),
                 "fused_functionals_rates": totals.get("fused_functionals",
                                                       0)}
-    log(f"  launches on the rates path: {launches}")
+    log(f"  launches on the rates path: {launches}, of K4's "
+        f"{totals['fused_functionals_fixed']} on the fixed fold")
     if min(launches.values()) < 1:
         raise AssertionError(f"kernels never launched on the rates path: "
                              f"{launches}")
@@ -3987,8 +4034,10 @@ STATE_KEY = {"term-basket": "term_basket", "ccc-garch": "ccc",
              "dcc-garch": "dcc"}
 STATE_UNIT = {"term-basket": "fused_term_basket.cu",
               "ccc-garch": "fused_ccc.cu", "dcc-garch": "fused_dcc.cu"}
-#: K4's unit where it is not the process's own (DCC's, built apart).
-STATE_K4_UNIT = {"dcc-garch": "fused_dcc_k4.cu"}
+#: K4's unit where it is not the process's own (the term basket's and
+#: DCC's, built apart).
+STATE_K4_UNIT = {"term-basket": "fused_term_basket_k4.cu",
+                 "dcc-garch": "fused_dcc_k4.cu"}
 #: The slice's books: the 5-asset term basket of the pricing path, the
 #: 8-asset CCC and DCC books of the VaR path.
 STATE_ASSETS = {"term-basket": 5, "ccc-garch": 8, "dcc-garch": 8}
@@ -4084,8 +4133,9 @@ def state_floor(kind, a_n, n, steps, epilogue="StoreTerminal"):
     """The SASS issue floor of K2 (or K3 with ``epilogue="RowMoments"``)
     on ``kind``'s functor at A assets under plain Threefry draws: a pass of
     the time loop a step pair, or a step in CCC's and DCC's kernels at an
-    even A (``tools/rows.py::stage_steps``).  K4 runs the generic fold (no
-    floor, as the rate functors')."""
+    even A (``tools/rows.py::stage_steps``).  K4's generic fold has no
+    floor (``rate_k4_sass``); the term basket's fixed one does
+    (``term_basket_k4_sass``)."""
     return issue_floor(state_sass(kind, a_n, epilogue), n,
                        lambda name: _rows_tool().passes(name, steps))
 
@@ -4107,28 +4157,41 @@ def _res_usage():
     return _rows_tool().res_usage(_build.library_path())
 
 
-def state_regs(kind, a_n, epilogue="StoreTerminal"):
-    """'R registers, W warps an SM' of the kernel ``state_sass`` names."""
+def term_basket_k4_sass(a_n):
+    """The patterns of K4 {avg} on the term basket at A assets under plain
+    Threefry draws, on its fixed fold (FixedFold<kArithMean>)."""
+    return k4_sass(f"TermBasketStepILi{a_n}E", "ThreefryDrawsILb0E", (0,))
+
+
+def kernel_regs(patterns):
+    """'R registers, W warps an SM' of the one kernel whose mangled name
+    matches every regular expression of ``patterns``."""
     import re
 
     found = [u for name, u in _res_usage().items()
-             if all(re.search(p, name) for p in state_sass(kind, a_n,
-                                                            epilogue))]
+             if all(re.search(p, name) for p in patterns)]
     if len(found) != 1:
-        raise AssertionError(f"{len(found)} kernels match "
-                             f"{state_sass(kind, a_n, epilogue)}")
+        raise AssertionError(f"{len(found)} kernels match {patterns}")
     regs = found[0]["REG"]
     warps = _rows_tool().warps_per_sm(regs, found[0].get("SHARED", 0))
     return f"{regs} registers, {warps} warps an SM"
+
+
+def state_regs(kind, a_n, epilogue="StoreTerminal"):
+    """``kernel_regs`` of the kernel ``state_sass`` names."""
+    return kernel_regs(state_sass(kind, a_n, epilogue))
 
 
 def phase_state_parity(torch, errs):
     """K2, K3 (a put at the start value) and K4 ({avg, mn}) on the three
     functors against their plain versions, bitwise, at A = 3 and 8, 2^18
     paths (2^18 - 37 for K2 and K4) x 17 steps, ids from 2^30 - 1000,
-    under Threefry plain and antithetic and Sobol draws; then, before any
-    launch, the refusals: 9 assets (routed to the torch loop), the bridge
-    at 1 and 8 assets, a term basket run one step past its curves."""
+    under Threefry plain and antithetic and Sobol draws; the term basket's
+    K4 {avg} at every A, plain and antithetic, each launch counted as a
+    fixed-fold one, and CCC's and DCC's {mn} at 8 assets, counted as
+    generic ones; then, before any launch, the refusals: 9 assets (routed
+    to the torch loop), the bridge at 1 and 8 assets, a term basket run one
+    step past its curves."""
     from montecarlo_tpu_torch.engine import (ARITH_MEAN, RUNNING_MIN,
                                              VanillaPayoff, kernel_route,
                                              simulate, terminal_prices)
@@ -4180,6 +4243,36 @@ def phase_state_parity(torch, errs):
                 del cases, got, want
             torch.cuda.synchronize()
             log(f"  {kind} A={a_n} parity: {time.perf_counter() - t0:.1f} s")
+    # K4's folds: the term basket's {avg} on its fixed fold at every A,
+    # plain and antithetic; CCC's and DCC's {mn} on the generic fold.
+    t0 = time.perf_counter()
+    folds = [("term-basket", a_n, {"avg": ARITH_MEAN}, anti, True)
+             for a_n in range(1, 9) for anti in (False, True)]
+    folds += [(kind, 8, {"mn": RUNNING_MIN}, False, False)
+              for kind in ("ccc-garch", "dcc-garch")]
+    for kind, a_n, one, anti, fixed in folds:
+        proc = state_proc(kind, a_n, steps)
+        kw = dict(seed=29, path_offset=off, antithetic=anti)
+        tag = (f"K4 {set(one)} {'fixed' if fixed else 'generic'} {kind} "
+               f"A={a_n} {steps} steps {'antithetic' if anti else 'plain'}")
+        before = launch_counts()
+        got = fused_functionals(proc, n - 37, steps, functionals=one, **kw)
+        ran = {k: v - before[k] for k, v in launch_counts().items()
+               if v != before[k]}
+        expect = {"fused_functionals": 1}
+        if fixed:
+            expect["fused_functionals_fixed"] = 1
+        if ran != expect:
+            raise AssertionError(f"{tag}: launched {ran}, expected {expect}")
+        want = fused_functionals_reference(proc, n - 37, steps,
+                                           functionals=one, **kw)
+        for k in want:
+            _, max_abs, _ = compare(f"{tag} {k}", got[k], want[k], BITWISE)
+            key = f"fused_functionals_{STATE_KEY[kind]}"
+            errs[key] = max(errs.get(key, 0.0), max_abs)
+        del got, want
+    torch.cuda.synchronize()
+    log(f"  K4 folds parity: {time.perf_counter() - t0:.1f} s")
     before = launch_counts()
     bridge = SobolBridgeKernelSampler.create(10, scramble_seed=13,
                                              device="cuda")
@@ -4221,8 +4314,9 @@ def phase_state_shapes(torch, errs, times):
     and DCC at 8) beside its plain version, bound and SASS issue floor;
     CCC's and DCC's K2, K3 (a 95% put) and K4 ({mn}) at a VaR chunk's 2^24
     x 10, the term basket's K3 (its call) at a tolerance chunk's 2^22 x
-    252 (with floors) and K4 ({avg}) at the Asian's 2^20 x 252; each timed
-    by CUDA events and checked bitwise.  The kernels-line entries report
+    252 (with floors) and K4 ({avg}, its fixed fold, with its floor and
+    registers) at the Asian's 2^20 x 252; each timed by CUDA events and
+    checked bitwise.  The kernels-line entries report
     the rows at the path's shapes: the term basket's 2^20 x 252 K2, CCC's
     and DCC's VaR chunk."""
     from montecarlo_tpu_torch.engine import (ARITH_MEAN, RUNNING_MIN,
@@ -4264,15 +4358,18 @@ def phase_state_shapes(torch, errs, times):
                                         extra_fp=8),
                         floor=state_floor(kind, a_n, nt, s, "RowMoments"))
             fns = {"avg": ARITH_MEAN}
+            k4 = term_basket_k4_sass(a_n)
             timed_check(times, errs, f"fused_functionals_{key}",
-                        f"K4 term basket {{avg}} {n}x{s}",
+                        f"K4 term basket {{avg}} {n}x{s} "
+                        f"({kernel_regs(k4)})",
                         lambda: fused_functionals(proc, n, s, seed=0,
                                                   functionals=fns),
                         lambda: fused_functionals_reference(
                             proc, n, s, seed=0, functionals=fns),
                         10, BITWISE,
                         bnd=state_bound(kind, a_n, n, s, out_bytes=8,
-                                        observe=True))
+                                        observe=True),
+                        floor=issue_floor(k4, n, (s + 1) // 2))
             continue
         nv, d = STATE_VAR_CHUNK, STATE_VAR_DAYS
         proc = state_proc(kind, a_n, d)
@@ -4367,7 +4464,8 @@ def phase_state_path(torch, card):
     basket over 252-step curves, ``terminal_prices`` at 2^20 x 252 (K2,
     the forward within 4 std-err), ``price_to_tolerance`` on its ATM call
     to std-err 1e-3 in 2^22 x 252 chunks (K3) and its arithmetic Asian by
-    ``simulate_functionals`` at 2^20 x 252 (K4, below the call); on the
+    ``simulate_functionals`` at 2^20 x 252 (K4 on its fixed fold, below
+    the call); on the
     8-asset CCC and DCC books, ``portfolio_var_on_device`` at 2^28 x 10 in
     2^24-path chunks (K2 once a chunk a pass and once for the pilot), the
     stream ``portfolio_var`` at 2^24 in 2^22-path chunks against the
@@ -4420,7 +4518,7 @@ def phase_state_path(torch, card):
     price, se = float(est["price"]), float(est["std_err"])
     out, walls["asian term basket"] = run_qmc(
         tot, "simulate_functionals(term basket Asian, 2^20 x 252)",
-        ("fused_functionals",),
+        ("fused_functionals", "fused_functionals_fixed"),
         lambda: simulate_functionals(tb, ASIAN_PATHS, s, seed=0,
                                      functionals={"avg": ARITH_MEAN}))
     asian = mc_estimate(asian_call(out["avg"], v0), disc)
@@ -4519,6 +4617,7 @@ def phase_state_path(torch, card):
             ("fused_functionals",),
             lambda: simulate_functionals(proc, 1 << 22, days, seed=7,
                                          functionals={"mn": RUNNING_MIN}))
+        # run_qmc held it to ("fused_functionals",): the generic fold.
         start = proc.prices(proc.init_state(torch.zeros(1, dtype=torch.int64,
                                                         device="cuda")))
         # The minimum is folded in log space and finalized by exp32:
@@ -4729,10 +4828,9 @@ def main() -> int:
             f"{time.perf_counter() - t_path:.1f} s")
         log(f"  phase 13 took {time.perf_counter() - t13:.1f} s, on {card}")
         log("phase 14: the multi-asset state processes on K2-K4 "
-            "(StateProc in fused_term_basket.cu, fused_ccc.cu, "
+            "(StateProc in fused_term_basket{,_k4}.cu, fused_ccc.cu, "
             "fused_dcc{,_k4}.cu); the term basket's pricing and the GARCH "
-            "books' "
-            "VaR")
+            "books' VaR")
         t14 = time.perf_counter()
         phase_state_parity(torch, errs)
         t_shapes = time.perf_counter()

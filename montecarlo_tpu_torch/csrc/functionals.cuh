@@ -449,15 +449,19 @@ template <class... Folds>
 struct FoldList {};
 
 // The sets the main paths launch, which K4 is built for: {avg} (the Asian
-// CLI, the Sobol and bridge Asians, the basket Asian, Kou, VG, SLV), {avg,
-// mx, mn} (the app's set, GARCH's), {surv} (the bridge barriers), the
-// autocall note and the cliquet leg.  Which process and draw source take
-// each is the kernels' choice (FixedFor, csrc/fused_k4.cu).
+// CLI, the Sobol and bridge Asians, the basket and term basket Asians,
+// Kou, VG, SLV), {avg, mx, mn} (the app's set, GARCH's), {surv} (the
+// bridge barriers), the autocall note, the cliquet leg and {trap} (the
+// bond command's discount integral), in that order: an entry's index is
+// what mc_fused_functionals reports, so a new set goes last.  Which
+// process and draw source take each is the kernels' choice (FixedFor:
+// csrc/fused_k4.cu, fused_basket.cuh, fused_rates.cu,
+// fused_term_basket_k4.cu).
 using FixedFolds =
     FoldList<FixedFold<kArithMean>,
              FixedFold<kArithMean, kRunningMax, kRunningMin>,
              FixedFold<kBarrierUp>, FixedFold<kAutocall>,
-             FixedFold<kCliquet>>;
+             FixedFold<kCliquet>, FixedFold<kTrapezoid>>;
 
 // The index in FixedFolds of the set `spec` names, or -1.
 template <class... Folds>

@@ -97,7 +97,7 @@ enum ProcessCode {
   kCir = 17,
   kHullWhite = 18,
   kG2pp = 19,
-  // csrc/fused_term_basket.cu's, fused_ccc.cu's and fused_dcc{,_k4}.cu's
+  // csrc/fused_term_basket{,_k4}.cu's, fused_ccc.cu's, fused_dcc{,_k4}.cu's
   // (launch_term_basket, launch_ccc_garch, launch_dcc_garch):
   kTermBasket = 20,
   kCccGarch = 21,

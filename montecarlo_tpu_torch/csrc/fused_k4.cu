@@ -21,10 +21,13 @@ namespace mcf {
 using Avg = FixedFold<kArithMean>;
 using AvgMaxMin = FixedFold<kArithMean, kRunningMax, kRunningMin>;
 
-// GBM under every draw source and every set of FixedFolds: the Asian,
-// barrier, note and app paths, iid, antithetic, Sobol and bridge-Sobol.
+// GBM under every draw source and every set of FixedFolds but {trap} (the
+// rate functors' set, csrc/fused_rates.cu): the Asian, barrier, note and
+// app paths, iid, antithetic, Sobol and bridge-Sobol.
 template <class Draws, int... Codes>
 struct FixedFor<GbmProc, Draws, FixedFold<Codes...>> : std::true_type {};
+template <class Draws>
+struct FixedFor<GbmProc, Draws, FixedFold<kTrapezoid>> : std::false_type {};
 // Heston and GARCH: {avg} and {avg, mx, mn} under Threefry draws, Heston's
 // {avg} also under Sobol draws.
 template <bool Anti>

@@ -3,9 +3,10 @@
 // csrc/mgarch_steps.cuh, the draw sources it takes, and its launch by asset
 // count, A = 1..mc::kMaxStateAssets, one instantiation each.  The units
 // that instantiate it, each in its own nvcc process so that none of them
-// grows past about a minute of build: csrc/fused_term_basket.cu,
-// csrc/fused_ccc.cu, and csrc/fused_dcc.cu with fused_dcc_k4.cu (DCC's K4
-// apart: its unrolled Cholesky makes the largest kernels).
+// grows past about a minute of build: csrc/fused_term_basket.cu with
+// fused_term_basket_k4.cu (the term basket's K4 apart: its fixed fold's
+// kernels), csrc/fused_ccc.cu, and csrc/fused_dcc.cu with fused_dcc_k4.cu
+// (DCC's K4 apart: its unrolled Cholesky makes the largest kernels).
 //
 // Replaces the parts of montecarlo_tpu/ops/fused_engine.py::
 // fused_terminal_pallas (K2), ::fused_block_moments_pallas (K3) and
@@ -18,8 +19,11 @@
 // by the Sobol source (dimension t A + d); the bridge takes one draw, and
 // the wrappers refuse it here at every A (ops/fused_engine.py::
 // kernel_refusal).  K4 observes the portfolio value, its log as log32 of
-// it (ProcTraits::kLogOfPrice: no log price of its own), and runs the
-// generic fold (SpecFold) for every set.  A launch whose dims or steps the
+// it (ProcTraits::kLogOfPrice: no log price of its own), on the fold the
+// spec names (with_fold): a fixed fold where the unit declares FixedFor
+// (the term basket's {avg} under Threefry draws), else the generic fold
+// (SpecFold); CCC's and DCC's by-value K4 always runs the generic fold.
+// A launch whose dims or steps the
 // process does not take (an asset count outside 1..8, a run longer than
 // the term basket's curves) is an invalid value; the wrappers refuse it
 // first.
@@ -210,9 +214,11 @@ cudaError_t launch_state(StateAssets<As...>, int process, const DrawArgs& a,
   return err;
 }
 
-// K2 and K3 (Epilogue) and K4 (SpecFold) on functor Proc under draw
-// source Draws: a by-value functor's kernels on a copy of the launch
-// leaves (`leaves` points to host memory), the others fused_engine.cuh's.
+// K2 and K3 (Epilogue) and K4 (the fold Fold that with_fold chose) on
+// functor Proc under draw source Draws: a by-value functor's kernels on a
+// copy of the launch leaves (`leaves` points to host memory), its K4 on
+// SpecFold whatever the spec; the others fused_engine.cuh's, K4 through
+// FoldLauncher<Fold> (Fold where FixedFor says so, else SpecFold).
 template <class Epilogue>
 struct StateLauncher {
   template <class Proc, class Draws>
@@ -235,6 +241,7 @@ struct StateLauncher {
     }
   };
 };
+template <class Fold>
 struct StateFoldLauncher {
   template <class Proc, class Draws>
   struct With {
@@ -251,7 +258,7 @@ struct StateFoldLauncher {
             lv, n_paths, n_steps, path_offset, k0, k1, draws, spec, out);
         return cudaSuccess;
       } else {
-        return FoldLauncher<SpecFold>::template With<Proc, Draws>::run(
+        return FoldLauncher<Fold>::template With<Proc, Draws>::run(
             blocks, s, dims, draws, n_paths, leaves, n_steps, path_offset,
             k0, k1, spec, out, fixed);
       }
@@ -263,7 +270,8 @@ struct StateFoldLauncher {
 
 // The definitions of csrc/processes.cuh's MC_STATE_LAUNCHES(name) for the
 // step template Step of process code `code`: K2 and K3 by MC_STATE_K2_K3,
-// K4 by MC_STATE_K4 (DCC's in a unit of its own), all three by
+// K4 by MC_STATE_K4 on the fold with_fold picks from the spec (the term
+// basket's and DCC's in units of their own), all three by
 // MC_STATE_DEFINE_LAUNCHES.
 #define MC_STATE_EPILOGUE(name, code, Step, Epilogue)                        \
   cudaError_t name(const DrawArgs& a, int dims, unsigned blocks,             \
@@ -282,9 +290,12 @@ struct StateFoldLauncher {
                    cudaStream_t s, int64_t n_paths, const float* leaves,     \
                    int n_steps, uint32_t path_offset, uint32_t k0,           \
                    uint32_t k1, FunctionalSpec spec, float* out, int* fixed) { \
-    return launch_state<StateFoldLauncher::With, Step>(                      \
-        AllStateAssets{}, code, a, dims, blocks, s, n_paths, leaves,         \
-        n_steps, path_offset, k0, k1, spec, out, fixed);                     \
+    return with_fold(spec, [&](auto fold) {                                  \
+      return launch_state<StateFoldLauncher<decltype(fold)>::template With,  \
+                          Step>(AllStateAssets{}, code, a, dims, blocks, s,  \
+                                n_paths, leaves, n_steps, path_offset, k0,   \
+                                k1, spec, out, fixed);                       \
+    });                                                                      \
   }
 #define MC_STATE_DEFINE_LAUNCHES(name, code, Step)                           \
   MC_STATE_K2_K3(name, code, Step)                                           \

@@ -12,10 +12,14 @@
 // thread per path with its state in registers; the Box-Muller pairs from
 // one sincosf (mc::boxmuller_sincos, the same bits as the plain version's
 // sin and cos); the single-draw steps take Threefry, Sobol and bridge
-// draws, G2++ Threefry and Sobol; K4 runs the generic fold (SpecFold) for
-// every set.  A launch of more steps than a curve holds is an invalid
-// value (the wrappers refuse it first).  Numerics: as
-// csrc/processes.cuh.
+// draws, G2++ Threefry and Sobol.  K4 picks its fold from the spec
+// (with_fold): the bond command's {trap} on Vasicek, CIR, Hull-White and
+// G2++ under Threefry draws, plain and antithetic, runs the fixed fold
+// FixedFold<kTrapezoid> (two floats of state, a multiply and two adds an
+// observation, no switch over codes, the price observed and no log); every
+// other set, functor and draw source the generic fold (SpecFold).  A
+// launch of more steps than a curve holds is an invalid value (the
+// wrappers refuse it first).  Numerics: as csrc/processes.cuh.
 
 #include "processes.cuh"
 #include "rate_steps.cuh"
@@ -54,6 +58,18 @@ struct SourceTraits<RateProc<Step, D>> {
   static constexpr bool kSobol = true;
   static constexpr bool kBridge = D == 1;
 };
+// K4 {trap} on the bond models under Threefry draws (engine/rates.py's
+// zero-coupon bond and bond option), on its fixed fold.
+using Trap = FixedFold<kTrapezoid>;
+template <bool Anti>
+struct FixedFor<VasicekProc, ThreefryDraws<Anti>, Trap> : std::true_type {};
+template <bool Anti>
+struct FixedFor<CirProc, ThreefryDraws<Anti>, Trap> : std::true_type {};
+template <bool Anti>
+struct FixedFor<HullWhiteProc, ThreefryDraws<Anti>, Trap>
+    : std::true_type {};
+template <bool Anti>
+struct FixedFor<G2ppProc, ThreefryDraws<Anti>, Trap> : std::true_type {};
 
 namespace {
 
@@ -121,9 +137,11 @@ cudaError_t launch_rates(int process, const DrawArgs& a, int dims,
                          const float* leaves, int n_steps,
                          uint32_t path_offset, uint32_t k0, uint32_t k1,
                          FunctionalSpec spec, float* out, int* fixed) {
-  return launch_rate<FoldLauncher<SpecFold>::With>(
-      process, a, dims, blocks, s, n_paths, leaves, n_steps, path_offset, k0,
-      k1, spec, out, fixed);
+  return with_fold(spec, [&](auto fold) {
+    return launch_rate<FoldLauncher<decltype(fold)>::template With>(
+        process, a, dims, blocks, s, n_paths, leaves, n_steps, path_offset,
+        k0, k1, spec, out, fixed);
+  });
 }
 
 }  // namespace mcf

@@ -795,10 +795,10 @@ cudaError_t launch_rates(int process, const DrawArgs& a, int dims,
 
 // K2, K3 and K4 on the multi-asset state processes of 1..8 assets
 // (csrc/fused_mgarch.cuh's StateProc over csrc/mgarch_steps.cuh): the term
-// basket in csrc/fused_term_basket.cu, CCC-GARCH in csrc/fused_ccc.cu,
-// DCC-GARCH in csrc/fused_dcc.cu (K4 in fused_dcc_k4.cu); one thread per
-// path, the arguments of a
-// Launcher's run after the draw source.
+// basket in csrc/fused_term_basket.cu (K4 in fused_term_basket_k4.cu),
+// CCC-GARCH in csrc/fused_ccc.cu, DCC-GARCH in csrc/fused_dcc.cu (K4 in
+// fused_dcc_k4.cu); one thread per path, the arguments of a Launcher's run
+// after the draw source.
 #define MC_STATE_LAUNCHES(name)                                              \
   cudaError_t name(const DrawArgs& a, int dims, unsigned blocks,             \
                    cudaStream_t s, int64_t n_paths, const float* leaves,     \

@@ -12,8 +12,8 @@ version for a CPU one; nothing falls back from one to the other.
   fold fixed at compile time also as ``fused_functionals_fixed[_sobol|
   _bridge]``; the basket's in csrc/fused_basket*.cu, the rate and
   term-structure processes' in csrc/fused_rates.cu, the term basket's,
-  CCC-GARCH's and DCC-GARCH's in csrc/fused_term_basket.cu, fused_ccc.cu
-  and fused_dcc{,_k4}.cu)
+  CCC-GARCH's and DCC-GARCH's in csrc/fused_term_basket{,_k4}.cu,
+  fused_ccc.cu and fused_dcc{,_k4}.cu)
 - ``surface_rows``            — csrc/fused_engine.cu: the row builder of
   the surfaces on time knots (local vol, SLV on knots), whose rows K2-K4
   read; once per (process, n_steps)

@@ -7,7 +7,7 @@ correlated GBM basket of at most 128 assets, the bootstrap GARCH, Merton,
 Kou, Bates, NIG, HestonQE, BatesQE, variance gamma, SABR, local volatility,
 SLV with exact per-step leverage rows and SLV on leverage time knots, in
 ``csrc/fused_rates.cu`` Euler GBM, term-structure GBM, Vasicek, CIR,
-Hull-White and G2++, and in ``csrc/fused_term_basket.cu``,
+Hull-White and G2++, and in ``csrc/fused_term_basket{,_k4}.cu``,
 ``csrc/fused_ccc.cu`` and ``csrc/fused_dcc{,_k4}.cu`` the multi-asset state
 processes TermBasketGBM, CCC-GARCH and DCC-GARCH of 1 to
 ``MAX_STATE_ASSETS`` assets) and a draw source in
@@ -55,8 +55,10 @@ K4 folds up to four path functionals after every step, each given by its
 device form (``engine.functionals.DeviceForm``), and writes the terminal
 prices plus each finalized functional.  The sets the main paths launch
 run a fold fixed at compile time where the kernels are built for it
-(``csrc/functionals.cuh``'s ``FixedFolds``, ``csrc/fused_k4.cu``); the
-others the generic fold, the codes read at run time.
+(``csrc/functionals.cuh``'s ``FixedFolds``; ``FixedFor`` in
+``csrc/fused_k4.cu``, ``fused_basket.cuh``, ``fused_rates.cu`` (the bond
+models' {trap}) and ``fused_term_basket_k4.cu`` (the term basket's
+{avg})); the others the generic fold, the codes read at run time.
 
 Each wrapper counts its launches per draw source (``K2``, ``K2_SOBOL``,
 ``K2_BRIDGE``, ...; ``ops.PATH_KERNELS`` names them); K4's launches that

@@ -14,7 +14,7 @@ basket value ``sum_a w_a exp32(log S_a)`` summed over the assets in order;
 there is no ``log_prices``.
 
 K2, K3 and K4 run it as ``StateProc<mc::TermBasketStep<A>, A>``
-(``csrc/fused_term_basket.cu`` over ``csrc/mgarch_steps.cuh``) for ``A <=
+(``csrc/fused_term_basket{,_k4}.cu`` over ``csrc/mgarch_steps.cuh``) for ``A <=
 ops.fused_engine.MAX_STATE_ASSETS``, the curves read at the step index.
 """
 

@@ -1558,3 +1558,104 @@ def test_cuda_state_processes_refused_before_any_launch(cuda, kind):
                 fused_functionals(tp, 1024, 9, seed=0,
                                   functionals={"avg": ARITH_MEAN})
     assert {k: v.launches for k, v in PATH_KERNELS.items()} == before
+
+
+# --- K4's fixed folds on the bond models and the term basket -----------------
+
+def _k4_counted(tp, n, n_steps, fns, **kw):
+    """K4 on ``tp`` and its plain version, bitwise, and the launch's count
+    deltas: (K4's, the fixed folds')."""
+    from montecarlo_tpu_torch.rng.sobol import SobolDeviceSampler
+
+    sfx = ("_sobol" if isinstance(kw.get("sampler"), SobolDeviceSampler)
+           else "_bridge" if kw.get("sampler") is not None else "")
+    k4 = PATH_KERNELS["fused_functionals" + sfx].launches
+    fixed = PATH_KERNELS["fused_functionals_fixed" + sfx].launches
+    got = fused_functionals(tp, n, n_steps, functionals=fns, **kw)
+    counts = (PATH_KERNELS["fused_functionals" + sfx].launches - k4,
+              PATH_KERNELS["fused_functionals_fixed" + sfx].launches - fixed)
+    want = fused_functionals_reference(tp, n, n_steps, functionals=fns, **kw)
+    for k in want:
+        assert torch.isfinite(got[k]).all(), k
+        assert torch.equal(got[k], want[k]), k
+    return counts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("antithetic", [False, True])
+@pytest.mark.parametrize("n_steps", [9, 17])
+@pytest.mark.parametrize("kind", ["vasicek", "cir", "hullwhite", "g2pp"])
+def test_cuda_k4_trap_on_the_bond_models_runs_its_fixed_fold(cuda, kind,
+                                                            n_steps,
+                                                            antithetic):
+    """K4 {trap} (the bond command's discount integral) on Vasicek, CIR,
+    Hull-White and G2++ under Threefry draws, plain and antithetic: the
+    fixed fold (csrc/fused_rates.cu, FixedFold<kTrapezoid>), bitwise its
+    plain version, each launch counted as K4's and as a fixed fold's."""
+    tp = _rate_procs(n_steps, cuda)[kind]
+    fns = {"trap": trapezoid_integral(float(tp.dt))}
+    assert _k4_counted(tp, 4096 * 3 - 37, n_steps, fns, seed=5,
+                       path_offset=(1 << 30) - 1000,
+                       antithetic=antithetic) == (1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("antithetic", [False, True])
+@pytest.mark.parametrize("n_steps", [9, 10])
+@pytest.mark.parametrize("a_n", range(1, 9))
+def test_cuda_k4_term_basket_avg_runs_its_fixed_fold(cuda, a_n, n_steps,
+                                                     antithetic):
+    """K4 {avg} (the term basket's Asian) at every asset count under
+    Threefry draws, plain and antithetic: the fixed fold
+    (csrc/fused_term_basket_k4.cu, FixedFold<kArithMean>), bitwise its
+    plain version, each launch counted as K4's and as a fixed fold's."""
+    tp = _state_proc("term-basket", a_n, n_steps, cuda)
+    assert _k4_counted(tp, 4096 * 3 - 37, n_steps, {"avg": ARITH_MEAN},
+                       seed=5, path_offset=(1 << 30) - 1000,
+                       antithetic=antithetic) == (1, 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["vasicek", "g2pp", "euler-gbm",
+                                  "term-gbm", "gbm", "term-basket"])
+def test_cuda_k4_trap_and_avg_elsewhere_run_the_generic_fold(cuda, kind):
+    """{trap} and the term basket's {avg} where no fixed fold is built for
+    them: under Sobol draws, under the bridge (one draw), {trap} on Euler
+    GBM, term-structure GBM and GBM: the generic fold, bitwise its plain
+    version, counted as K4's only."""
+    from montecarlo_tpu_torch.rng.sobol import (SobolBridgeKernelSampler,
+                                                SobolDeviceSampler)
+
+    n_steps, n = 17, 4096 * 3 - 37
+    if kind == "gbm":
+        tp = _process("gbm", n_steps, cuda)
+    elif kind == "term-basket":
+        tp = _state_proc(kind, 5, n_steps, cuda)
+    else:
+        tp = _rate_procs(n_steps, cuda)[kind]
+    fns = ({"avg": ARITH_MEAN} if kind == "term-basket"
+           else {"trap": trapezoid_integral(float(tp.dt))})
+    runs = [{"sampler": SobolDeviceSampler.create(
+        n_steps, tp.n_draws, scramble_seed=4, device=cuda)}]
+    if tp.n_draws == 1:
+        runs.append({"sampler": SobolBridgeKernelSampler.create(
+            n_steps, scramble_seed=4, device=cuda)})
+    if kind in ("euler-gbm", "term-gbm", "gbm"):
+        runs += [{}, {"antithetic": True}]
+    for extra in runs:
+        assert _k4_counted(tp, n, n_steps, fns, seed=6, **extra) == (1, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("a_n", [3, 8])
+@pytest.mark.parametrize("kind", ["ccc-garch", "dcc-garch"])
+def test_cuda_k4_ccc_and_dcc_keep_the_generic_fold(cuda, kind, a_n):
+    """CCC's and DCC's by-value K4 (state_functional_kernel) runs the
+    generic fold for every set, the ones FixedFolds names too ({avg}) and
+    the running minimum of the VaR path ({mn}): bitwise its plain version,
+    counted as K4's only."""
+    tp = _state_proc(kind, a_n, 10, cuda)
+    for fns in ({"avg": ARITH_MEAN}, {"mn": RUNNING_MIN}):
+        for anti in (False, True):
+            assert _k4_counted(tp, 4096 * 3 - 37, 10, fns, seed=7,
+                               antithetic=anti) == (1, 0)

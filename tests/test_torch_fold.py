@@ -287,12 +287,14 @@ def _codes(fns, n_steps=63):
 
 
 def test_kernels_fixed_sets_and_the_generic_fold(lib):
-    """The kernels' FixedFolds: {avg}, {avg, mx, mn}, {surv}, the autocall
-    and the cliquet, in that order; a set outside them ({avg, geo}; the
-    app's set in another order; {mx} alone) reaches the generic fold."""
+    """The kernels' FixedFolds: {avg}, {avg, mx, mn}, {surv}, the autocall,
+    the cliquet and the bond models' {trap}, in that order (a set added
+    goes last, so the indices before it keep their sets); a set outside
+    them ({avg, geo}; the app's set in another order; {mx} alone) reaches
+    the generic fold."""
     sets = _sets(3)
     fixed = [sets["avg"], sets["avg_mx_mn"], sets["surv"], sets["autocall"],
-             sets["cliquet"]]
+             sets["cliquet"], sets["tr"]]
     for k, fns in enumerate(fixed):
         codes = _codes(fns)
         assert lib.fold_choice(ctypes.c_int(len(codes)), _ptr(codes)) == k

@@ -1,8 +1,10 @@
 """``tools/rows.py``, the script that times the port's kernel rows on the
 card, checked here where its sources are: every variant's text edits find
 what they replace exactly once in the current ``csrc`` (the kernels have no
-measurement switch, so a variant is an edited copy of their text), and
-the SASS reader finds a loop's hot path around a slow path.
+measurement switch, so a variant is an edited copy of their text), the
+SASS reader finds a loop's hot path around a slow path, and a kernel's
+resources line reads its kernel, fold, step and draw source from its
+symbol.
 """
 
 import importlib.util
@@ -126,3 +128,40 @@ def test_stage_steps_reads_the_symbol(name, steps):
     at an even A under Threefry draws, K in K6's ring, else a step pair."""
     assert ROWS.stage_steps(name) == steps
     assert ROWS.passes(name, 10) == -(-10 // steps)
+
+
+# K4's and K2's symbols as cuobjdump names them (the anonymous namespace's
+# tag is the unit's).
+_RATES = "NS_47_GLOBAL__N__1c5e0394_14_fused_rates_cu_6f6817a28RateProcIN2mc"
+_TB_K4 = ("NS_56_GLOBAL__N__bd7da0ec_23_fused_term_basket_k4_cu_fa681790"
+          "9StateProcIN2mc14TermBasketStepILi{a}EEELi{a}EEE")
+_K4 = ("_ZN3mcf23fused_functional_kernelI{proc}NS_{draws}E{fold}EEvPKfilijjj"
+       "T0_NS_14FunctionalSpecEPf")
+
+
+@pytest.mark.parametrize("name,tag", [
+    (_K4.format(proc=_RATES + "11VasicekStepELi1EEE",
+                draws="13ThreefryDrawsILb0EE", fold="NS_9FixedFoldIJLi8EEEE"),
+     "K4 fixed {8} VasicekStep D=1 plain"),
+    (_K4.format(proc=_RATES + "8G2ppStepELi2EEE",
+                draws="13ThreefryDrawsILb1EE", fold="NS_8SpecFoldE"),
+     "K4 generic G2ppStep D=2 antithetic"),
+    (_K4.format(proc=_TB_K4.format(a=5), draws="13ThreefryDrawsILb0EE",
+                fold="NS_9FixedFoldIJLi0EEEE"),
+     "K4 fixed {0} TermBasketStep A=5 plain"),
+    (_K4.format(proc=_TB_K4.format(a=8), draws="10SobolDrawsE",
+                fold="NS_8SpecFoldE"),
+     "K4 generic TermBasketStep A=8 sobol"),
+    ("_ZN3mcf12fused_kernelI" + _RATES + "11VasicekStepELi1EEENS_13"
+     "ThreefryDrawsILb0EEENS_13StoreTerminalEEEvPKfilijjjT0_T1_",
+     "K2 VasicekStep D=1 plain"),
+    (_STATE_K2.format(a=8, draws="13ThreefryDrawsILb0EE"),
+     "K2 DccStep A=8 plain"),
+    (_STATE_K2.format(a=3, draws="13ThreefryDrawsILb1EE").replace(
+        "13StoreTerminal", "10RowMoments"),
+     "K3 DccStep A=3 antithetic")])
+def test_kernel_tag_reads_the_symbol(name, tag):
+    """A kernel's tag in the resources lines: K2, K3 or K4 with its fold
+    (fixed and its codes, or generic), the step with its asset count A or
+    its draws a step D, and the draw source."""
+    assert ROWS._kernel_tag(name) == tag

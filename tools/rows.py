@@ -68,6 +68,17 @@ Row sets (``ROW_SETS``):
   memory`` (DCC's Q in a [word][thread] column of shared memory), ``pair
   loop`` (a pass of the time loop a step pair, not a step), ``24 warps``
   (``__launch_bounds__(128, 6)``) and both of the last but one.
+- ``fold_state``: K4 {trap} on the bond models (Vasicek, CIR, Hull-White,
+  G2++; ``chip_smoke.rate_procs``) and K4 {avg} on the 5-asset term
+  basket (``state_proc``), both at 2^20 x 252, which run a fixed fold
+  where the checkout has one and the generic fold in an older one; as
+  controls the same models' K2 at 2^20 x 252, the term basket's K2 and
+  its K3 (the call) at a 2^22 x 252 chunk, GBM's fixed K4 {avg} at 2^20 x
+  252, and CCC's and DCC's K4 {mn} at the VaR chunk 2^24 x 10 (their
+  by-value kernels keep the generic fold).  Its SASS is that of K4 on
+  each row's fixed fold and on the generic fold and of K2, under plain
+  Threefry draws; its resources the registers and warps an SM of K2 and
+  K4 on the rate functors and the term basket.
 
 A kernel row is timed by CUDA events after a quarter second of warm-up,
 then ``--reps`` calls, beside its bound from ``chip_smoke``'s bound
@@ -1317,6 +1328,94 @@ MGARCH_SASS = tuple(
                                "StoreTerminal", "ThreefryDrawsILb1E")),)
 
 
+# ------------------------------------------------------------ fold_state
+
+def fold_state_rows(torch):
+    import chip_smoke as cs
+    from montecarlo_tpu_torch.engine import (ARITH_MEAN, RUNNING_MIN,
+                                             VanillaPayoff,
+                                             trapezoid_integral)
+    from montecarlo_tpu_torch.ops import (fused_block_moments,
+                                          fused_functionals, fused_terminal)
+    from montecarlo_tpu_torch.processes import GBM
+
+    n, s = 1 << 20, 252
+    procs = cs.rate_procs(s)
+    tb = cs.state_proc("term-basket", 5, s)
+    avg = {"avg": ARITH_MEAN}
+    rows = []
+    # The rows: K4 {trap} on the bond models at the bond path's shape, K4
+    # {avg} on the 5-asset term basket at its Asian's.
+    for kind in cs.RATE_MODELS:
+        p = procs[kind]
+        fns = {"trap": trapezoid_integral(float(p.dt))}
+        rows.append(timed(f"K4 {kind} {{trap}} {n}x{s}",
+                          cs.rate_bound(kind, n, s, out_bytes=8,
+                                        observe_fp=3),
+                          lambda p=p, fns=fns: fused_functionals(
+                              p, n, s, seed=0, functionals=fns)))
+    rows.append(timed(f"K4 term-basket A=5 {{avg}} {n}x{s}",
+                      cs.state_bound("term-basket", 5, n, s, out_bytes=8,
+                                     observe=True),
+                      lambda: fused_functionals(tb, n, s, seed=0,
+                                                functionals=avg)))
+    # The controls: the same loops' K2 (and the term basket's K3), GBM's
+    # fixed K4 {avg}, and CCC's and DCC's K4 {mn} at the VaR chunk, whose
+    # by-value kernels keep the generic fold.
+    for kind in cs.RATE_MODELS:
+        rows.append(timed(f"K2 {kind} {n}x{s}", cs.rate_bound(kind, n, s),
+                          lambda p=procs[kind]: fused_terminal(p, n, s,
+                                                               seed=0)))
+    nt = cs.TOL_CHUNK
+    call = VanillaPayoff("call", float(torch.dot(tb.weights, tb.s0)))
+    gbm = GBM.create(100.0, 0.03, 0.2, 1.0 / s, device="cuda")
+    rows += [
+        timed(f"K2 term-basket A=5 {n}x{s}",
+              cs.state_bound("term-basket", 5, n, s),
+              lambda: fused_terminal(tb, n, s, seed=0)),
+        timed(f"K3 term-basket A=5 call {nt}x{s}",
+              cs.state_bound("term-basket", 5, nt, s, out_bytes=8 / 128,
+                             extra_fp=8),
+              lambda: fused_block_moments(tb, call, nt, s, seed=0),
+              profile="mcf::"),
+        timed(f"K4 gbm {{avg}} {n}x{s}",
+              cs.step_bound(n, s, step_fp=3 + cs.EXP32_FP + 1, out_bytes=8,
+                            extra_fp=cs.EXP32_FP),
+              lambda: fused_functionals(gbm, n, s, seed=0, functionals=avg))]
+    nv, d = cs.STATE_VAR_CHUNK, cs.STATE_VAR_DAYS
+    for kind in ("ccc-garch", "dcc-garch"):
+        rows.append(timed(f"K4 {kind} A=8 {{mn}} {nv}x{d}",
+                          cs.state_bound(kind, 8, nv, d, out_bytes=8,
+                                         observe=True),
+                          lambda p=cs.state_proc(kind, 8, d):
+                          fused_functionals(p, nv, d, seed=0,
+                                            functionals={"mn": RUNNING_MIN})))
+    return rows
+
+
+# K4 under plain Threefry draws on the fixed fold of the row's set (none in
+# the parent) and on the generic one, and K2 beside them: (tag, step, the
+# fixed fold's mangled codes).
+_FOLD_STEPS = (("vasicek", "VasicekStep", "Li8E"),
+               ("cir", "CirStep", "Li8E"),
+               ("hullwhite", "HullWhiteStep", "Li8E"),
+               ("g2pp", "G2ppStep", "Li8E"),
+               ("term-basket A=5", "TermBasketStepILi5E", "Li0E"))
+_TF = "ThreefryDrawsILb0E"
+FOLD_STATE_SASS = tuple(
+    (f"K4 {kind} {tag}", ("fused_functional_kernel", step, _TF, fold))
+    for kind, step, codes in _FOLD_STEPS
+    for tag, fold in (("fixed", f"FixedFoldIJ{codes}EE"),
+                      ("generic", "SpecFold"))
+) + tuple((f"K2 {kind}", ("fused_kernel", step, "StoreTerminal", _TF))
+          for kind, step, _ in _FOLD_STEPS) + (
+    ("K4 gbm {avg} fixed", ("fused_functional_kernel", "GbmProc", _TF,
+                            "FixedFoldIJLi0EEE")),)
+FOLD_STATE_RESOURCES = (r"fused_(functional_)?kernel.*(VasicekStep|CirStep|"
+                        r"HullWhiteStep|G2ppStep|TermBasketStep).*"
+                        r"(StoreTerminal|ThreefryDraws.*Fold)")
+
+
 class RowSet(NamedTuple):
     rows: Callable      # torch -> [Row]
     variants: dict      # name -> [(file, old, new)]
@@ -1336,6 +1435,8 @@ ROW_SETS = {
     "qe_vg": RowSet(qe_vg_rows, QE_VG_VARIANTS, QE_VG_SASS, (1 << 20, 252)),
     "mgarch": RowSet(mgarch_rows, MGARCH_VARIANTS, MGARCH_SASS,
                      (1 << 24, 10), "StateProc"),
+    "fold_state": RowSet(fold_state_rows, {}, FOLD_STATE_SASS,
+                         (1 << 20, 252), FOLD_STATE_RESOURCES),
 }
 
 
@@ -1503,15 +1604,25 @@ def warps_per_sm(regs: int, shared: int = 0, threads: int = 128) -> int:
 
 
 def _kernel_tag(name: str) -> str:
-    """K2, K3 or K4, the step, A and the draw source of a StateProc
-    kernel's mangled name."""
+    """K2, K3 or K4 (with its fold: fixed and its codes, or generic), the
+    step, A (StateProc) or D (RateProc) and the draw source of a StateProc
+    or RateProc kernel's mangled name."""
     k = ("K4" if "functional" in name else
          "K3" if "RowMoments" in name else "K2")
+    if k == "K4":
+        fold = re.search(r"FixedFoldIJ((?:Li\d+E)+)E", name)
+        k += (" fixed {" + ",".join(re.findall(r"\d+", fold.group(1))) + "}"
+              if fold else " generic")
     step = re.search(r"\d([A-Za-z]+Step[A-Za-z]*)ILi(\d+)E", name)
+    rate = re.search(r"mc\d+([A-Za-z][A-Za-z0-9]*Step)ELi(\d+)E", name)
     src = ("sobol" if "SobolDraws" in name else
+           "bridge" if "BridgeDraws" in name else
            "antithetic" if "ThreefryDrawsILb1E" in name else "plain")
-    return (f"{k} {step.group(1)} A={step.group(2)} {src}" if step
-            else f"{k} {name[:60]}")
+    if step:
+        return f"{k} {step.group(1)} A={step.group(2)} {src}"
+    if rate:
+        return f"{k} {rate.group(1)} D={rate.group(2)} {src}"
+    return f"{k} {name[:60]}"
 
 
 def res_usage(so: Path) -> dict:
