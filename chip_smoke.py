@@ -228,6 +228,29 @@ CUDA kernels from ``montecarlo_tpu_torch/csrc`` and, in phases:
    NumPy oracle of the recurrence fed the same normals, a put's
    ``payoff_block_moments`` (K3) and the running minimum (K4, generic).
 
+15. greeks, variance reduction and the implied-vol surface (K4's snapshot
+   fold, kSnapshot on the generic fold; K2): K4 {snapshot} on GBM and
+   Heston against its plain version bitwise at 2^18 - 37 paths x 17 and
+   252 steps, plain and antithetic, snapshots at steps 0, 1, the middle
+   one and the last, each bitwise K2's terminal of a run stopped at its step; a
+   six-maturity grid's two K4 launches bitwise one torch-loop run; the
+   snapshot launches of 2-, 4- and 6-maturity grids timed at 2^17 and
+   2^20 x 252 beside their plain version, bound and K2; then, counters
+   reset just before and read just after each run: ``greeks`` at the JAX
+   command's 200,000 x 252 (pathwise on GBM and Heston, LR on a GBM
+   digital through K2, second order on GBM at width 1.5 and on Heston,
+   ``--mesh 1`` on a one-rank NCCL mesh), each with its wall-clock, peak
+   memory and busy share, against Black-Scholes's delta (0.01), vega
+   (3%), gamma (15%) and the digital's delta (4 std-err + 1e-4); the
+   pathwise passes' split and peak with and without remat;
+   ``mc_implied_vol_surface`` on GBM and Heston at 2^17 over 4 and 6
+   maturities (1 and 2 K4 launches), GBM flat at sigma within 0.01 where
+   4 std-err of a cell's price move its iv by at most 0.01, Heston
+   skewed; ``importance_sampled_estimate`` on
+   a 150 call and ``cv_estimate`` at 2^20 x 252 on K2 within 4 std-err of
+   Black-Scholes.  K4's snapshot launches count in K4's entry of the
+   kernels line, the LR, IS and CV runs' in K2's.
+
 Phase 3 also holds K5 (2^18 paths x {504, 756, 37} columns, ids wrapping
 past 2^32) and K6 (2^18 and 2^18 - 3 paths, its ring and its plain-load
 form, x {252, 17} steps, fed one joint matrix) against their plain
@@ -2053,6 +2076,14 @@ def phase_garch_profile(torch, procs):
 # depend on the path, so the bound counts it once (the kernel computes it
 # once per block).
 SOBOL_INT, NDTRI_FP = 16, 52
+# The QE and VG functors' inverse normal, ndtri32_unit (csrc/rng.cuh), is
+# one rational with its coefficients selected: a subtract, the |q| compare,
+# the central r, 1 - u and the min, the tail's negated log, the shifted
+# argument and its select, the numerator's 3 multiplies, 3 adds and 4
+# selects, the denominator's 3, 3 and 3, the sign's compare and 2 selects
+# and the product: 33 float32 operations (its log, sqrt and division not
+# counted), where NDTRI_FP counts ndtri32's three rationals.
+NDTRI_UNIT_FP = 33
 RQMC_REPS = 8
 #: The RQMC cells: the tolerance run's per-replicate chunk (K2/K3), the
 #: path-dependent CLI's 2^20 paths over 8 replicates (K4), the steps.
@@ -2424,12 +2455,13 @@ def phase_qmc_path(torch):
 #: and uniforms (two uniform_from_bits each), and the float32 adds and
 #: multiplies of one step (selects and compares counted as one each;
 #: log32, logf, sqrtf and the Box-Muller transcendentals not counted, so
-#: every bound below is loose where they matter; exp32 and ndtri32's
-#: rationals are float32 arithmetic and counted).
+#: every bound below is loose where they matter; exp32 and
+#: ndtri32_unit's rational, the QE and VG functors' inverse normal, are
+#: float32 arithmetic and counted).
 JUMP_KINDS = ("merton", "kou", "bates", "nig", "heston-qe", "bates-qe", "vg",
               "sabr")
 UNIFORM_FP = 6  # two halves: a shift, a convert, an add and a multiply
-QE_STEP_FP = 50 + NDTRI_FP
+QE_STEP_FP = 50 + NDTRI_UNIT_FP
 JUMP_COST = {
     "merton": (2, 1, 12),                   # 4 Poisson selects + 8
     "kou": (1, 5, 4 + 4 * 5 + 4),           # Poisson, 4 jump sizes, 4
@@ -2437,7 +2469,7 @@ JUMP_COST = {
     "nig": (2, 1, 16),
     "heston-qe": (1, 1, QE_STEP_FP + 7),
     "bates-qe": (2, 2, QE_STEP_FP + 7 + 4 + 4),
-    "vg": (1, 2, NDTRI_FP + 30 + 2 * EXP32_FP + 8 + 6),
+    "vg": (1, 2, NDTRI_UNIT_FP + 30 + 2 * EXP32_FP + 8 + 6),
     "sabr": (2, 0, 2 * EXP32_FP + 12),
 }
 #: QE parameter sets beside the CLI's (66% of warp-steps all quadratic,
@@ -4646,6 +4678,442 @@ def phase_state_path(torch, card):
     return launches
 
 
+# ---- Phase 15: greeks, variance reduction and the implied-vol surface ----
+
+#: The JAX greeks command's defaults: 200,000 paths x 252 steps, S0 100,
+#: K 105, r 0.03, sigma 0.2, 1 year (its Heston: v0 0.04, kappa 2, theta
+#: 0.04, xi 0.5, rho -0.7).
+GREEKS_PATHS, GREEKS_STEPS, GREEKS_STRIKE, GREEKS_RATE = 200_000, 252, 105.0, 0.03
+#: The surface: 2^17 paths (mc_implied_vol_surface's default), the
+#: maturities 21, 63, 126 and 252 steps (one K4 launch) and a six-maturity
+#: grid (two launches), strikes 70 to 130 by 7.5.
+IV_PATHS = 1 << 17
+IV_GRID = [21, 63, 126, 252]
+IV_GRID6 = [21, 42, 63, 126, 189, 252]
+IV_STRIKES = [70.0 + 7.5 * k for k in range(9)]
+#: K4's snapshot grids timed: 2, 4 and 6 maturities over 252 steps.
+SNAPSHOT_GRIDS = {2: [126, 252], 4: IV_GRID, 6: IV_GRID6}
+#: The variance-reduction estimators' shape and the IS strike.
+VR_PATHS, VR_STEPS, IS_STRIKE = 1 << 20, 252, 150.0
+#: A snapshot's latch: one compare and one select a step.
+LATCH_FP = 2
+#: The snapshot parity runs (paths, step counts) and the timed shapes
+#: (paths, steps): the surface's 2^17 and a 2^20 beside K2's rows.
+SNAPSHOT_PARITY = ((1 << 18) - 37, (17, 252))
+SNAPSHOT_PATHS, SNAPSHOT_STEPS = (1 << 17, 1 << 20), 252
+
+
+def snapshot_bound(n, grid, draws=1, step_fp=3):
+    """The least time of K4's snapshot launches for the maturity grid
+    ``grid`` (``engine.surface.snapshot_groups``): each launch a time loop
+    of its steps over n paths with ``draws`` cipher calls a step pair,
+    ``step_fp`` a step, the price-space observation's exp32 a step
+    (K4's generic fold observes the price every step) and a latch per
+    snapshot, the terminal's exp32 a path, 4 bytes out a path per row."""
+    from montecarlo_tpu_torch.engine.surface import snapshot_groups
+
+    total, by = 0.0, set()
+    for steps, snaps in snapshot_groups(grid):
+        ms, b = step_bound(n, steps, draws=draws,
+                           step_fp=step_fp + EXP32_FP + LATCH_FP * len(snaps),
+                           out_bytes=4 * (1 + len(snaps)),
+                           extra_fp=EXP32_FP)
+        total += ms
+        by.add(b)
+    return total, "bytes" if by == {"bytes"} else "operations"
+
+
+def snapshot_launches(proc, n, grid, k4=None):
+    """The K4 launches of a grid's snapshots (``fused_functionals`` per
+    group of ``snapshot_groups``; ``k4`` another function of its
+    signature, such as its plain version), their outputs merged into one
+    dict."""
+    from montecarlo_tpu_torch.engine.surface import (price_snapshot,
+                                                     snapshot_groups)
+    from montecarlo_tpu_torch.ops import fused_functionals
+
+    out = {}
+    for g, (steps, snaps) in enumerate(snapshot_groups(grid)):
+        got = (k4 or fused_functionals)(proc, n, steps, seed=0, functionals={
+            f"m{s}": price_snapshot(s) for s in snaps})
+        out.update({f"{k} (launch {g})": v for k, v in got.items()})
+    return out
+
+
+def phase_snapshot_parity(torch, errs):
+    """K4's snapshot fold (kSnapshot, the generic fold) on GBM and Heston
+    against its plain version bitwise, plain and antithetic, at 2^18 - 37
+    paths with ids from 2^30 - 1000 x 17 and 252 steps, snapshots at
+    steps 0, 1, the middle one and the last; each snapshot bitwise K2's
+    terminal of a run stopped at its step (0: the spot), the last one
+    K4's own terminal; a six-maturity grid's two launches bitwise one
+    torch-loop run holding every snapshot."""
+    from montecarlo_tpu_torch.engine import simulate_functionals
+    from montecarlo_tpu_torch.engine.surface import (price_snapshot,
+                                                     snapshot_terminals)
+    from montecarlo_tpu_torch.ops import (fused_functionals,
+                                          fused_functionals_reference,
+                                          fused_terminal)
+    from montecarlo_tpu_torch.processes import GBM
+
+    (n, all_steps), off = SNAPSHOT_PARITY, (1 << 30) - 1000
+    checks = 0
+    for steps in all_steps:
+        procs = {"gbm": GBM.create(100.0, 0.03, 0.2, 1.0 / steps,
+                                   device="cuda"),
+                 "heston": heston(steps)}
+        for kind, proc in procs.items():
+            picks = (0, 1, steps // 2, steps)
+            fns = {f"s{s}": price_snapshot(s) for s in picks}
+            for anti in (False, True):
+                kw = dict(seed=7, path_offset=off, antithetic=anti)
+                got = fused_functionals(proc, n, steps, functionals=fns,
+                                        **kw)
+                want = fused_functionals_reference(proc, n, steps,
+                                                   functionals=fns, **kw)
+                for k in want:
+                    _, max_abs, _ = compare(
+                        f"K4 {kind} {{snapshot}} {k} T={steps} "
+                        f"{'antithetic' if anti else 'plain'}", got[k],
+                        want[k], BITWISE)
+                    errs["fused_functionals"] = max(
+                        errs.get("fused_functionals", 0.0), max_abs)
+                for s in picks:
+                    short = fused_terminal(proc, n, s, **kw)
+                    if not torch.equal(got[f"s{s}"], short):
+                        raise AssertionError(
+                            f"K4 {kind} snapshot at step {s} of {steps} is "
+                            f"not K2's terminal at {s} steps ({anti})")
+                    checks += 1
+                if not torch.equal(got[f"s{steps}"], got["terminal"]):
+                    raise AssertionError("the last snapshot is not K4's "
+                                         "terminal")
+    proc = heston(IV_GRID6[-1])
+    rows = snapshot_terminals(proc, n, IV_GRID6, seed=3)
+    one = simulate_functionals(proc, n, IV_GRID6[-1], seed=3,
+                               prefer_fused=False, functionals={
+        f"m{j}": price_snapshot(s) for j, s in enumerate(IV_GRID6)})
+    for j in range(len(IV_GRID6)):
+        if not torch.equal(rows[j], one[f"m{j}"]):
+            raise AssertionError(f"grid row {j}: the grouped K4 launches "
+                                 "differ from one torch-loop run")
+    log(f"  {checks} snapshots bitwise K2's terminal at their step; the "
+        f"six-maturity grid's two K4 launches bitwise one torch-loop run")
+
+
+def phase_snapshot_shapes(torch, errs, times):
+    """K4's snapshot launches of the 2-, 4- and 6-maturity grids on GBM at
+    2^17 and 2^20 paths x 252 steps (and the 4-maturity grid on Heston),
+    timed beside their plain version and bound, and K2 at the same shape:
+    what the snapshots add to the terminal's loop."""
+    from montecarlo_tpu_torch.ops import (fused_functionals_reference,
+                                          fused_terminal)
+    from montecarlo_tpu_torch.processes import GBM
+
+    plain = fused_functionals_reference
+    s = SNAPSHOT_STEPS
+    gbm = GBM.create(100.0, 0.03, 0.2, 1.0 / s, device="cuda")
+    for n in SNAPSHOT_PATHS:
+        k2_ms, _ = cuda_ms(lambda: fused_terminal(gbm, n, s, seed=0), 10)
+        log(f"  K2 gbm {n}x{s}: {k2_ms:.3f} ms (bound "
+            f"{step_bound(n, s)[0]:.4f} ms), beside the snapshot grids")
+        for m, grid in SNAPSHOT_GRIDS.items():
+            timed_check(times, errs, "fused_functionals_snapshot",
+                        f"K4 gbm snapshot grid of {m} maturities {n}x{s}",
+                        lambda g=grid: snapshot_launches(gbm, n, g),
+                        lambda g=grid: snapshot_launches(gbm, n, g, plain),
+                        10,
+                        BITWISE, bnd=snapshot_bound(n, grid))
+    hp, n = heston(s), SNAPSHOT_PATHS[-1]
+    timed_check(times, errs, "fused_functionals_snapshot",
+                f"K4 heston snapshot grid of 4 maturities {n}x{s}",
+                lambda: snapshot_launches(hp, n, IV_GRID),
+                lambda: snapshot_launches(hp, n, IV_GRID, plain), 10, BITWISE,
+                bnd=snapshot_bound(n, IV_GRID, draws=2,
+                                   step_fp=HESTON_STEP_FP))
+
+
+def greeks_argv(*extra):
+    return ["greeks", "--paths", str(GREEKS_PATHS), "--steps",
+            str(GREEKS_STEPS), *extra]
+
+
+def busy_share(torch, fn):
+    """(wall-clock s, device busy s, device operations) of one call of
+    ``fn`` under torch.profiler's CUDA activity, summed from its raw
+    device events (kernels, copies, sets on one stream): the eager time
+    loops launch ~10^5 kernels a call, too many for ``key_averages``'
+    parse."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [e for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+    return wall, sum(e.duration_ns() for e in events) * 1e-9, len(events)
+
+
+def measured_cli(torch, label, argv):
+    """One ``greeks`` run: its JSON, host wall-clock, peak device memory and
+    K2/K3/K4 launches (counters reset just before, read just after), then
+    the same run again under the profiler for the device's busy share."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (out, _), wall, counts = run_counted(run_cli, argv)
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    p_wall, busy, n_ops = busy_share(torch, lambda: run_cli(argv))
+    log(f"  {label}: {json.dumps(out)}; {wall:.3f} s wall-clock, peak "
+        f"{peak:.1f} MiB, launches "
+        f"{ {k: v for k, v in counts.items() if v} }; profiled "
+        f"{p_wall:.3f} s, device busy {busy:.3f} s "
+        f"({100 * busy / p_wall:.1f}%) in {n_ops} device operations")
+    return out, wall, peak, busy / p_wall, counts
+
+
+def pathwise_split(torch, proc, remat):
+    """(forward s, backward s, peak MiB) of ``price_and_greeks``' two
+    passes on ``proc`` at the command's shape, by the host clock around
+    synchronised passes, and the draws alone (s): the 252 steps' normals
+    without the step arithmetic."""
+    import dataclasses
+
+    from montecarlo_tpu_torch.engine.greeks import float_leaves
+    from montecarlo_tpu_torch.engine.simulate import path_ids_for, simulate
+    from montecarlo_tpu_torch.rng.threefry import key_from_seed
+
+    n, s = GREEKS_PATHS, GREEKS_STEPS
+    leaves = {k: v.detach().requires_grad_(True)
+              for k, v in float_leaves(proc).items()}
+    p = dataclasses.replace(proc, **leaves)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    price = torch.mean(torch.clamp(simulate(p, n, s, seed=0, remat=remat)
+                                   - GREEKS_STRIKE, min=0.0))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    torch.autograd.grad(price, list(leaves.values()))
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    k0, k1 = key_from_seed(0, 0)
+    ids = path_ids_for(n, 0, proc.device)
+    t3 = time.perf_counter()
+    for t in range(s):
+        proc.draws(k0, k1, ids, t)
+    torch.cuda.synchronize()
+    return t1 - t0, t2 - t1, peak, time.perf_counter() - t3
+
+
+def phase_greeks_path(torch, card):
+    """The ``greeks`` command at the JAX command's defaults (200,000 paths
+    x 252 steps): pathwise on GBM and Heston, LR on a GBM digital (K2),
+    second order on GBM (width 1.5) and Heston, and ``--mesh 1`` on a
+    one-rank NCCL mesh, each with its wall-clock, peak memory, busy share
+    and launches, against Black-Scholes's delta, vega, gamma and the
+    digital's delta; the pathwise passes' split and peak with and without
+    remat.  Returns the K2 launches of the path."""
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+    from scipy.stats import norm
+
+    from montecarlo_tpu_torch.engine.greeks import (black_scholes_delta,
+                                                    black_scholes_vega)
+    from montecarlo_tpu_torch.processes import GBM
+
+    k, r, sig, t = GREEKS_STRIKE, GREEKS_RATE, 0.2, 1.0
+    bs_delta = float(black_scholes_delta(100.0, k, r, sig, t))
+    bs_vega = float(black_scholes_vega(100.0, k, r, sig, t))
+    d1 = (math.log(100.0 / k) + (r + sig ** 2 / 2) * t) / sig
+    d2 = d1 - sig
+    bs_gamma = float(norm.pdf(d1)) / (100.0 * sig)
+    disc = math.exp(-r * t)
+    dig_delta = disc * float(norm.pdf(d2)) / (100.0 * sig)
+    checks, k2 = {}, 0
+    gbm, _, _, _, c = measured_cli(torch, "greeks pathwise gbm",
+                                   greeks_argv())
+    checks["pathwise GBM delta within 0.01 of Black-Scholes"] = (
+        abs(gbm["d_s0"] - bs_delta) < 0.01)
+    checks["pathwise GBM vega within 3% of Black-Scholes"] = (
+        abs(gbm["d_sigma"] - bs_vega) / bs_vega < 0.03)
+    checks["pathwise runs the torch loop, no kernel"] = not any(c.values())
+    hes, *_ = measured_cli(torch, "greeks pathwise heston",
+                           greeks_argv("--process", "heston"))
+    checks["Heston grads finite, delta in (0, 1)"] = (
+        all(math.isfinite(v) for v in hes.values())
+        and 0.0 < hes["d_s0"] < 1.0)
+    lr, _, _, _, c = measured_cli(
+        torch, "greeks lr digital gbm",
+        greeks_argv("--method", "lr", "--payoff", "digital"))
+    k2 += c["fused_terminal"]
+    checks["LR terminal prices through K2 (1 launch)"] = (
+        c["fused_terminal"] == 1)
+    checks["LR digital delta within 4 std-err + 1e-4 of its closed form"] = (
+        abs(lr["delta"] - dig_delta) < 4 * lr["delta_std_err"] + 1e-4)
+    so, *_ = measured_cli(torch, "greeks second-order gbm",
+                          greeks_argv("--method", "second-order",
+                                      "--smooth-width", "1.5"))
+    checks["second-order gamma within 15% of Black-Scholes"] = (
+        abs(so["gamma"] - bs_gamma) < 0.15 * bs_gamma)
+    so_h, *_ = measured_cli(torch, "greeks second-order heston",
+                            greeks_argv("--method", "second-order",
+                                        "--process", "heston"))
+    checks["Heston second order finite"] = all(
+        math.isfinite(v) for v in so_h.values())
+    log(f"  Black-Scholes delta {bs_delta:.6f}, vega {bs_vega:.6f}, gamma "
+        f"{bs_gamma:.6f}; the digital's delta {dig_delta:.6f}")
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/init",
+                                rank=0, world_size=1)
+        try:
+            mesh, *_ = measured_cli(torch, "greeks --mesh 1 (NCCL)",
+                                    greeks_argv("--mesh", "1"))
+        finally:
+            dist.destroy_process_group()
+    rounded = -(-GREEKS_PATHS // 4096) * 4096
+    checks[f"--mesh 1 on {rounded} paths: delta within 0.01 of BS"] = (
+        mesh["n_paths"] == rounded and abs(mesh["d_s0"] - bs_delta) < 0.01
+        and mesh["d_s0_std_err"] > 0)
+    proc = GBM.create(100.0, r, sig, t / GREEKS_STEPS, device="cuda")
+    for kind, p in (("gbm", proc), ("heston", heston(GREEKS_STEPS))):
+        for remat in (False, True):
+            fwd, bwd, peak, draws = pathwise_split(torch, p, remat)
+            log(f"  pathwise {kind} remat={remat}: forward {fwd:.3f} s "
+                f"(the draws alone {draws:.3f} s), backward {bwd:.3f} s, "
+                f"peak {peak:.1f} MiB, on {card}")
+    failed = [name for name, ok in checks.items() if not ok]
+    for name, ok in checks.items():
+        log(f"  {'ok' if ok else 'FAIL'}: {name}")
+    if failed:
+        raise AssertionError(f"greeks checks failed: {failed}")
+    return k2
+
+
+def phase_iv_surface_path(torch, card):
+    """``mc_implied_vol_surface`` on GBM and Heston at 2^17 paths over
+    steps 21, 63, 126, 252 (one K4 launch) and the six-maturity grid (two
+    launches), strikes 70 to 130 by 7.5, launches counted around each
+    call: GBM flat at sigma within 0.01 (tests/test_surface.py's bound) on
+    every cell where four standard errors of its price move its iv by at
+    most 0.01 (the wings carry too few paying paths, or too little time
+    value beside the forward's error, to invert); Heston skewed at 1
+    year.  Returns the K4 launches."""
+    import numpy as np
+
+    from montecarlo_tpu_torch.engine import (black_scholes_vega,
+                                             mc_implied_vol_surface)
+    from montecarlo_tpu_torch.processes import GBM
+
+    s, r, sig = IV_GRID[-1], 0.03, 0.2
+    gbm = GBM.create(100.0, r, sig, 1.0 / s, device="cuda")
+    checks, k4 = {}, 0
+    for kind, proc in (("gbm", gbm), ("heston", heston(s))):
+        for grid, launches in ((IV_GRID, 1), (IV_GRID6, 2)):
+            surf, wall, c = run_counted(
+                mc_implied_vol_surface, proc, IV_STRIKES, grid, 1.0 / s,
+                rate=r, n_paths=IV_PATHS, seed=3)
+            k4 += c["fused_functionals"]
+            checks[f"{kind} {len(grid)} maturities: {launches} K4 "
+                   "launches"] = c["fused_functionals"] == launches
+            ivs, mats = surf["ivs"], surf["maturities"]
+            log(f"  {kind} surface, {len(grid)} maturities: {wall:.3f} s "
+                f"wall-clock, {c['fused_functionals']} K4 launches, NaN "
+                f"cells {int(np.isnan(ivs).sum())} of {ivs.size}; ivs at "
+                f"1 y {np.round(ivs[-1], 4).tolist()}, on {card}")
+            if kind == "gbm":
+                # A cell's iv error is its price's error over vega; the
+                # call is 1-Lipschitz in S_T, so its discounted standard
+                # error is at most S0 sqrt(exp(sigma^2 T) - 1) / sqrt(N).
+                vega = black_scholes_vega(100.0, np.asarray(IV_STRIKES)[None],
+                                          r, sig, mats[:, None]).numpy()
+                se = (100.0 * np.sqrt(np.expm1(sig ** 2 * mats))[:, None]
+                      / math.sqrt(IV_PATHS))
+                m = 4 * se / vega <= 0.01
+                err = np.abs(ivs[m] - sig) if m.any() else np.array([np.nan])
+                checks[f"gbm {len(grid)} maturities flat within 0.01 on "
+                       f"{int(m.sum())} cells"] = bool(
+                    m.sum() >= len(grid) and np.isfinite(ivs[m]).all()
+                    and err.max() < 0.01)
+                log(f"  gbm surface: max |iv - sigma| {err.max():.2e} on "
+                    f"the {int(m.sum())} cells where 4 std-err of the price "
+                    "move the iv by at most 0.01")
+            else:
+                row = ivs[-1]
+                checks[f"heston {len(grid)} maturities skewed at 1 y"] = bool(
+                    np.isfinite(row[2:7]).all() and row[2] > row[4] > row[6])
+    failed = [name for name, ok in checks.items() if not ok]
+    for name, ok in checks.items():
+        log(f"  {'ok' if ok else 'FAIL'}: {name}")
+    if failed:
+        raise AssertionError(f"surface checks failed: {failed}")
+    return k4
+
+
+def phase_variance_reduction_path(torch, card):
+    """``importance_sampled_estimate`` on a 150-strike GBM call and
+    ``cv_estimate`` (the terminal price as the control of the 105 call) at
+    2^20 x 252, each on K2, within 4 std-err of Black-Scholes.  Returns
+    the K2 launches."""
+    from montecarlo_tpu_torch.engine import (black_scholes_call, cv_estimate,
+                                             importance_sampled_estimate,
+                                             mc_estimate, shift_to_strike,
+                                             terminal_prices)
+    from montecarlo_tpu_torch.processes import GBM
+
+    n, s, r, sig = VR_PATHS, VR_STEPS, 0.03, 0.2
+    proc = GBM.create(100.0, r, sig, 1.0 / s, device="cuda")
+    disc = math.exp(-r)
+    checks = {}
+    shift = float(shift_to_strike(proc, IS_STRIKE, s))
+    est, wall, c = run_counted(
+        importance_sampled_estimate, proc,
+        lambda x: torch.clamp(x - IS_STRIKE, min=0.0), n, s, seed=5,
+        shift=shift, discount=disc)
+    k2 = c["fused_terminal"]
+    bs = black_scholes_call(100.0, IS_STRIKE, r, sig, 1.0)
+    log(f"  IS 150-call: {float(est['price']):.6e} +- "
+        f"{float(est['std_err']):.2e} (Black-Scholes {bs:.6e}), ess "
+        f"{float(est['ess']):.1f} of {n}, shift {shift:.5f}; {wall:.3f} s, "
+        f"K2 launches {c['fused_terminal']}, on {card}")
+    checks["IS within 4 std-err of Black-Scholes"] = (
+        abs(float(est["price"]) - bs) < 4 * float(est["std_err"]))
+    checks["IS on K2 (1 launch)"] = c["fused_terminal"] == 1
+
+    def cv():
+        term = terminal_prices(proc, n, s, seed=6)
+        pay = torch.clamp(term - GREEKS_STRIKE, min=0.0)
+        return (cv_estimate(pay, term, 100.0 * math.exp(r), discount=disc),
+                mc_estimate(pay, disc))
+
+    (est, plain), wall, c = run_counted(cv)
+    k2 += c["fused_terminal"]
+    bs = black_scholes_call(100.0, GREEKS_STRIKE, r, sig, 1.0)
+    log(f"  CV 105-call: {float(est['price']):.6f} +- "
+        f"{float(est['std_err']):.2e} (plain {float(plain['std_err']):.2e}; "
+        f"Black-Scholes {bs:.6f}), beta {float(est['beta']):.4f}, variance "
+        f"ratio {float(est['variance_ratio']):.4f}; {wall:.3f} s, K2 "
+        f"launches {c['fused_terminal']}")
+    checks["CV within 4 std-err of Black-Scholes"] = (
+        abs(float(est["price"]) - bs) < 4 * float(est["std_err"]))
+    checks["CV on K2 (1 launch), below plain's error"] = (
+        c["fused_terminal"] == 1
+        and float(est["std_err"]) < float(plain["std_err"]))
+    failed = [name for name, ok in checks.items() if not ok]
+    for name, ok in checks.items():
+        log(f"  {'ok' if ok else 'FAIL'}: {name}")
+    if failed:
+        raise AssertionError(f"variance-reduction checks failed: {failed}")
+    return k2
+
+
 KERNELS = [
     ("gbm_terminal", "gbm_kernel.cu", "gbm_kernel.py:118"),
     ("fused_terminal", "fused_engine.cu", "fused_engine.py:231"),
@@ -4841,6 +5309,24 @@ def main() -> int:
             f"{t_path - t_shapes:.1f} s, path "
             f"{time.perf_counter() - t_path:.1f} s")
         log(f"  phase 14 took {time.perf_counter() - t14:.1f} s, on {card}")
+        log("phase 15: greeks, variance reduction and the implied-vol "
+            "surface (K4's snapshot fold; K2)")
+        t15 = time.perf_counter()
+        phase_snapshot_parity(torch, errs)
+        t_shapes = time.perf_counter()
+        phase_snapshot_shapes(torch, errs, times)
+        t_path = time.perf_counter()
+        k2 = phase_greeks_path(torch, card)
+        t_surf = time.perf_counter()
+        counts["fused_functionals"] += phase_iv_surface_path(torch, card)
+        t_vr = time.perf_counter()
+        k2 += phase_variance_reduction_path(torch, card)
+        counts["fused_terminal"] += k2
+        log(f"  phase 15: parity {t_shapes - t15:.1f} s, timed shapes "
+            f"{t_path - t_shapes:.1f} s, greeks {t_surf - t_path:.1f} s, "
+            f"surface {t_vr - t_surf:.1f} s, variance reduction "
+            f"{time.perf_counter() - t_vr:.1f} s")
+        log(f"  phase 15 took {time.perf_counter() - t15:.1f} s, on {card}")
         k3_ms = times["fused_block_moments"]["ms"]
         kernel_s = k3_ms * 1e-3 * n_paths / (1 << 22)
         log(f"  K1 {bench['value']:.6e} path-steps/s, wall-clock to "

@@ -19,6 +19,11 @@ Subcommands:
           --model vasicek|cir|hullwhite|g2pp against its closed form;
           --option (Vasicek bond call), --cap/--floor (Vasicek), --swaption
           --model g2pp (the European swaption's quadrature)
+  greeks — option sensitivities on GBM and Heston: --method pathwise
+          (reverse mode through the torch time loop), lr (likelihood
+          ratio, GBM; terminal prices through K2), second-order (gamma,
+          vanna, volga of the smoothed call); --mesh N (pathwise over a
+          mesh of N ranks)
 
 Usage: python -m montecarlo_tpu_torch <subcommand> [flags]
 """
@@ -39,7 +44,7 @@ def _run_bench(args) -> int:
 
 
 def main(argv=None) -> int:
-    from montecarlo_tpu_torch.cli import bond, note, pricing, risk
+    from montecarlo_tpu_torch.cli import bond, greeks, note, pricing, risk
 
     parser = argparse.ArgumentParser(
         prog="montecarlo_tpu_torch",
@@ -49,6 +54,7 @@ def main(argv=None) -> int:
     note.add_parsers(sub)
     risk.add_parsers(sub)
     bond.add_parsers(sub)
+    greeks.add_parsers(sub)
     bench = sub.add_parser("bench", help="GBM path-steps/s through K1 at "
                            "2^20 paths x 1024 steps x 8 reps (CUDA)")
     bench.add_argument("--basket", action="store_true",
@@ -57,5 +63,5 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     handlers = {"price": pricing.cmd_price, "note": note.cmd_note,
                 "bench": _run_bench, "var": risk.cmd_var,
-                "bond": bond.cmd_bond}
+                "bond": bond.cmd_bond, "greeks": greeks.cmd_greeks}
     return handlers[args.cmd](args)

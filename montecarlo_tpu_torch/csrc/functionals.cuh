@@ -39,6 +39,7 @@ enum FunctionalCode {
                      //         -r_dt * n_steps
   kRealizedVar = 7,
   kTrapezoid = 8,    // params: half_dt
+  kSnapshot = 9,     // period: the step it latches (0: the spot)
 };
 
 constexpr int kMaxFunctionals = 4;
@@ -87,7 +88,8 @@ MC_HD void observations(const FunctionalSpec& spec, float price, float logp,
 }
 
 // init(obs0) of engine/functionals.py.
-MC_HD void fn_init(int code, const float* p, float obs, float* acc) {
+MC_HD void fn_init(int code, int period, const float* p, float obs,
+                   float* acc) {
   switch (code) {
     case kBarrierUp:
       acc[0] = obs < p[0] ? 1.0f : 0.0f;
@@ -104,6 +106,9 @@ MC_HD void fn_init(int code, const float* p, float obs, float* acc) {
       acc[1] = 0.0f;
       acc[2] = obs;
       acc[3] = obs;
+      break;
+    case kSnapshot:  // the spot for step 0, else 0 until its step
+      acc[0] = period == 0 ? obs : 0.0f;
       break;
     default:  // means, running max / min
       acc[0] = obs;
@@ -161,6 +166,9 @@ MC_HD void fn_update(int code, int period, const float* p, float obs, int t,
       acc[0] = acc[0] + (acc[1] + obs) * p[0];
       acc[1] = obs;
       break;
+    case kSnapshot:
+      if (t == period) acc[0] = obs;
+      break;
   }
 }
 
@@ -182,7 +190,7 @@ MC_HD float fn_finalize(int code, const float* p, const float* acc,
       const bool breached = acc[2] <= p[3];
       return df_t * (breached ? fminf(acc[3] / p[4], 1.0f) : 1.0f);
     }
-    default:  // barrier survival, cliquet leg, sums
+    default:  // barrier survival, cliquet leg, sums, snapshot
       return acc[0];
   }
 }
@@ -204,7 +212,9 @@ struct SpecFold {
     observations(spec, price, logp, obs);
 #pragma unroll
     for (int k = 0; k < kMaxFunctionals; ++k) {
-      if (k < spec.n) fn_init(spec.code[k], spec.p[k], obs[k], acc[k]);
+      if (k < spec.n) {
+        fn_init(spec.code[k], spec.period[k], spec.p[k], obs[k], acc[k]);
+      }
     }
   }
   MC_HD void update(const FunctionalSpec& spec, float price, float logp,

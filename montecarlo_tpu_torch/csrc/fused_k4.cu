@@ -76,7 +76,10 @@ extern "C" int mc_fused_functionals(float* out, const float* leaves,
   spec.n = n_functionals;
   for (int k = 0; k < n_functionals; ++k) {
     spec.code[k] = codes[k];
-    spec.period[k] = periods[k] < 1 ? 1 : periods[k];
+    // A period divides t (the cliquet, the autocall): at least 1; a
+    // snapshot's is its step, 0 for the spot.
+    spec.period[k] =
+        periods[k] < 1 && codes[k] != kSnapshot ? 1 : periods[k];
     for (int q = 0; q < kMaxParams; ++q) {
       spec.p[k][q] = params[k * kMaxParams + q];
     }

@@ -12,13 +12,16 @@ from montecarlo_tpu_torch.engine.payoffs import (  # noqa: F401
     VanillaPayoff,
     basket_call,
     black_scholes_call,
+    black_scholes_call_tensor,
     black_scholes_digital,
     black_scholes_put,
+    black_scholes_quanto_call,
     digital_call,
     discount_factor,
     european_call,
     european_put,
     max_call,
+    quanto_drift,
 )
 from montecarlo_tpu_torch.engine.dispatch import (  # noqa: F401
     kernel_route,
@@ -50,4 +53,28 @@ from montecarlo_tpu_torch.engine.pricing import (  # noqa: F401
     price_to_tolerance,
     price_to_tolerance_rqmc,
     rqmc_estimate,
+)
+from montecarlo_tpu_torch.engine.greeks import (  # noqa: F401
+    black_scholes_delta,
+    black_scholes_vega,
+    lr_greeks_gbm,
+    price_and_greeks,
+    second_order_greeks,
+    smoothed_call,
+    smoothed_digital,
+)
+from montecarlo_tpu_torch.engine.control_variate import (  # noqa: F401
+    cv_estimate,
+)
+from montecarlo_tpu_torch.engine.importance import (  # noqa: F401
+    importance_sampled_estimate,
+    shift_to_strike,
+    stratified_terminal_estimate,
+)
+from montecarlo_tpu_torch.engine.implied_vol import (  # noqa: F401
+    implied_vol_call,
+)
+from montecarlo_tpu_torch.engine.surface import (  # noqa: F401
+    mc_implied_vol_surface,
+    price_snapshot,
 )

@@ -45,7 +45,7 @@ F32 = torch.float32
 # Device codes of the K4 kernel (csrc/fused_engine.cu, enum FunctionalCode).
 ARITH_MEAN_CODE, GEO_MEAN_CODE, RUNNING_MAX_CODE, RUNNING_MIN_CODE = 0, 1, 2, 3
 BARRIER_UP_CODE, CLIQUET_CODE, AUTOCALL_CODE = 4, 5, 6
-REALIZED_VAR_CODE, TRAPEZOID_CODE = 7, 8
+REALIZED_VAR_CODE, TRAPEZOID_CODE, SNAPSHOT_CODE = 7, 8, 9
 #: Float parameters a device form may carry (the kernel's kMaxParams).
 MAX_PARAMS = 6
 

@@ -1,10 +1,16 @@
 """Payoff functions and the Black-Scholes closed forms used as oracles.
 
 The port of ``montecarlo_tpu/engine/payoffs.py`` (European call/put, the
-basket and max calls, discount factor, Black-Scholes call/put), plus
-:class:`VanillaPayoff`: the call/put/digital payoff as data, which the K3
-kernel evaluates in its epilogue.  Any other payoff callable runs in torch
-after K2.
+basket and max calls, discount factor, Black-Scholes call/put, the quanto
+drift and call), plus :class:`VanillaPayoff`: the call/put/digital payoff
+as data, which the K3 kernel evaluates in its epilogue.  Any other payoff
+callable runs in torch after K2.
+
+The Black-Scholes closed forms come in two forms: python floats
+(:func:`black_scholes_call`, ``_put``, ``_digital``), and float64 host
+tensors that broadcast over their inputs (:func:`black_scholes_call_tensor`,
+:func:`black_scholes_quanto_call`), which the greeks' oracles and the
+implied-vol solver take, as JAX's return arrays.
 """
 
 from __future__ import annotations
@@ -12,6 +18,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 
@@ -84,6 +91,37 @@ def black_scholes_call(s0, strike, r, sigma, T) -> float:
     return s0 * _norm_cdf(d1) - strike * math.exp(-r * T) * _norm_cdf(d2)
 
 
+def host64(x) -> torch.Tensor:
+    """``x`` (a number, a list, an array or a tensor on any device) as a
+    float64 tensor on the host.  A python float goes to float64 directly,
+    never through torch's float32 default."""
+    if torch.is_tensor(x):
+        return x.detach().to("cpu", torch.float64)
+    return torch.as_tensor(np.asarray(x, dtype=np.float64))
+
+
+def norm_pdf(x: torch.Tensor) -> torch.Tensor:
+    """The standard normal density."""
+    return torch.exp(-0.5 * x * x) / math.sqrt(2.0 * math.pi)
+
+
+def black_scholes_d1(s0, strike, r, sigma, T) -> torch.Tensor:
+    """d1 of the Black-Scholes call, float64 on the host, broadcast."""
+    s0, strike, r, sigma, T = map(host64, (s0, strike, r, sigma, T))
+    return ((torch.log(s0 / strike) + (r + 0.5 * sigma ** 2) * T)
+            / (sigma * torch.sqrt(T)))
+
+
+def black_scholes_call_tensor(s0, strike, r, sigma, T) -> torch.Tensor:
+    """The Black-Scholes call as a float64 host tensor broadcast over its
+    inputs (JAX's ``black_scholes_call``, which returns arrays)."""
+    s0, strike, r, sigma, T = map(host64, (s0, strike, r, sigma, T))
+    d1 = black_scholes_d1(s0, strike, r, sigma, T)
+    d2 = d1 - sigma * torch.sqrt(T)
+    return (s0 * torch.special.ndtr(d1)
+            - strike * torch.exp(-r * T) * torch.special.ndtr(d2))
+
+
 def black_scholes_put(s0, strike, r, sigma, T) -> float:
     """Put by put-call parity."""
     return (black_scholes_call(s0, strike, r, sigma, T) - s0
@@ -95,3 +133,29 @@ def black_scholes_digital(s0, strike, r, sigma, T) -> float:
     d2 = ((math.log(s0 / strike) + (r - 0.5 * sigma ** 2) * T)
           / (sigma * math.sqrt(T)))
     return math.exp(-r * T) * _norm_cdf(d2)
+
+
+def quanto_drift(r_foreign, sigma_asset, sigma_fx, rho):
+    """Risk-neutral drift of a foreign asset under the domestic measure for
+    a quanto payoff (paid in domestic currency at a fixed conversion
+    rate): ``r_f - rho * sigma_S * sigma_FX``, the Girsanov correction of
+    the asset/FX covariance.  A GBM with this ``mu``, discounted at the
+    domestic rate, prices the quanto as its vanilla; its closed form is
+    :func:`black_scholes_quanto_call`."""
+    return r_foreign - rho * sigma_asset * sigma_fx
+
+
+def black_scholes_quanto_call(s0, strike, r_dom, r_for, sigma, sigma_fx,
+                              rho, T) -> torch.Tensor:
+    """Closed-form quanto call (fixed FX conversion, unit notional),
+    ``e^{-r_d T} E^d[(S_T - K)^+]`` with S drifting at
+    :func:`quanto_drift`; a float64 host tensor."""
+    mu = quanto_drift(host64(r_for), host64(sigma), host64(sigma_fx),
+                      host64(rho))
+    s0, strike, sigma, T = map(host64, (s0, strike, sigma, T))
+    fwd = s0 * torch.exp(mu * T)
+    d1 = ((torch.log(fwd / strike) + 0.5 * sigma ** 2 * T)
+          / (sigma * torch.sqrt(T)))
+    d2 = d1 - sigma * torch.sqrt(T)
+    return torch.exp(-host64(r_dom) * T) * (fwd * torch.special.ndtr(d1)
+                                            - strike * torch.special.ndtr(d2))

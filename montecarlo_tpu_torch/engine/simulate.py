@@ -59,26 +59,39 @@ def path_ids_for(n_paths: int, path_offset=0, device=None) -> torch.Tensor:
             + offset) & MASK32
 
 
-def _run(process, ids, n_steps, k0, k1, sampler, mode):
+def _run(process, ids, n_steps, k0, k1, sampler, mode, remat=False,
+         observe=None):
     if mode not in ("terminal", "paths"):
         raise ValueError(f"mode must be 'terminal' or 'paths', got {mode!r}")
     sampler = PlainSampler() if sampler is None else sampler
     check_sampler(sampler, process, n_steps)
     check_steps(process, n_steps)
+    obs = observe or (lambda p, s: p.prices(s))
+
+    def body(state, t):
+        return process.step(state, sampler.draws(process, k0, k1, ids, t), t)
+
+    step = body
+    if remat:
+        from torch.utils.checkpoint import checkpoint
+
+        def step(state, t):
+            return checkpoint(body, state, t, use_reentrant=False)
+
     state = process.init_state(ids)
-    rows = [process.prices(state)] if mode == "paths" else None
+    rows = [obs(process, state)] if mode == "paths" else None
     for t in range(n_steps):
-        eps = sampler.draws(process, k0, k1, ids, t)
-        state = process.step(state, eps, t)
+        state = step(state, t)
         if rows is not None:
-            rows.append(process.prices(state))
+            rows.append(obs(process, state))
     if rows is not None:
         return torch.stack(rows)
-    return process.prices(state)
+    return obs(process, state)
 
 
 def simulate(process, n_paths: int, n_steps: int, *, seed, stream=0,
-             sampler=None, mode: str = "terminal", path_offset=0):
+             sampler=None, mode: str = "terminal", path_offset=0,
+             remat: bool = False, observe=None):
     """Simulate ``n_paths`` paths for ``n_steps`` steps on the process's
     device.
 
@@ -86,10 +99,20 @@ def simulate(process, n_paths: int, n_steps: int, *, seed, stream=0,
     Threefry key words once, here.  ``path_offset`` is the global id of the
     first path: a shard simulating paths [o, o+n) gets exactly the paths it
     would own inside a bigger run.
+
+    ``remat``: run each step under ``torch.utils.checkpoint`` (non-reentrant),
+    so that reverse mode (pathwise greeks) keeps one state per step instead
+    of every intermediate of the step, and recomputes the step's draws from
+    their counters in the backward pass; the values and gradients are the
+    same bits.  ``observe(process, state)`` replaces ``process.prices`` in
+    every output row (and the terminal): how a multi-state process exposes
+    its full state; an (n_paths, C) observation gives (n_steps + 1,
+    n_paths, C) paths.
     """
     k0, k1 = key_from_seed(seed, stream)
     ids = path_ids_for(n_paths, path_offset, process.device)
-    return _run(process, ids, n_steps, k0, k1, sampler, mode)
+    return _run(process, ids, n_steps, k0, k1, sampler, mode, remat,
+                observe)
 
 
 def replay_paths(process, path_ids, n_steps: int, *, seed, stream=0,

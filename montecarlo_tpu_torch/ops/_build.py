@@ -166,3 +166,26 @@ def check_cuda_tensor(name: str, t, device, dtype) -> None:
     if t.device != device or t.dtype != dtype or not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous {dtype} tensor on "
                          f"{device}, got {t.dtype} on {t.device}")
+
+
+def check_no_grad(process) -> None:
+    """Raise ``TypeError`` when grad mode is on and a leaf of ``process``
+    (a process dataclass) requires grad.  The kernels are launched on
+    ``data_ptr()`` and define no backward, so their output would carry no
+    autograd graph, and their plain versions refuse too, so that the CPU
+    shows what the card does.  Every wrapper asks before it runs either."""
+    import dataclasses
+
+    import torch
+
+    if not torch.is_grad_enabled():
+        return
+    for f in dataclasses.fields(process):
+        v = getattr(process, f.name)
+        if torch.is_tensor(v) and v.requires_grad:
+            raise TypeError(
+                f"{type(process).__name__}.{f.name} requires grad, and the "
+                "kernels define no backward: differentiate through the "
+                "torch time loop, engine.simulate, as "
+                "engine.greeks.price_and_greeks does (or run under "
+                "torch.no_grad())")

@@ -27,7 +27,8 @@ import torch
 
 from montecarlo_tpu_torch.engine.simulate import path_ids_for
 from montecarlo_tpu_torch.ops._build import (CudaKernel, check_cuda_tensor,
-                                             cuda_stream, load_library)
+                                             check_no_grad, cuda_stream,
+                                             load_library)
 from montecarlo_tpu_torch.processes.basket import check_kernel_assets
 from montecarlo_tpu_torch.rng.normal import boxmuller_pair, exp32, log32
 from montecarlo_tpu_torch.rng.threefry import (MASK32, key_from_seed,
@@ -59,6 +60,7 @@ def k7_attributes(n_assets: int) -> dict:
 
 
 def _check(basket, n_paths: int, n_steps: int) -> int:
+    check_no_grad(basket)
     a_n = basket.n_assets
     check_kernel_assets(a_n)
     if n_paths < 1 or n_steps < 0:

@@ -80,7 +80,7 @@ from montecarlo_tpu_torch.engine.payoffs import VanillaPayoff
 from montecarlo_tpu_torch.engine.simulate import (check_sampler, check_steps,
                                                  path_ids_for)
 from montecarlo_tpu_torch.ops._build import (CudaKernel, check_cuda_tensor,
-                                             cuda_stream)
+                                             check_no_grad, cuda_stream)
 from montecarlo_tpu_torch.processes import (CIR, G2PP, NIG, SABR, SLV,
                                             BasketGBM, Bates, BatesQE,
                                             CCCGarch, DCCGarch, EulerGBM,
@@ -393,6 +393,7 @@ def draw_source(sampler, antithetic: bool = False) -> int:
 
 
 def _check_draws(process, sampler, n_steps: int, antithetic: bool) -> int:
+    check_no_grad(process)
     source = draw_source(sampler, antithetic)
     err = kernel_refusal(process, sampler)
     if err is not None:

@@ -15,7 +15,7 @@ import torch
 
 from montecarlo_tpu_torch.engine.simulate import path_ids_for
 from montecarlo_tpu_torch.ops._build import (CudaKernel, check_cuda_tensor,
-                                             cuda_stream)
+                                             check_no_grad, cuda_stream)
 from montecarlo_tpu_torch.processes.gbm import GBM
 from montecarlo_tpu_torch.rng.normal import boxmuller_pair
 from montecarlo_tpu_torch.rng.threefry import (MASK32, key_from_seed,
@@ -31,6 +31,7 @@ def _params(process: GBM) -> torch.Tensor:
     the TPU wrapper computes them (platform log, not log32)."""
     if not isinstance(process, GBM):
         raise TypeError(f"gbm_terminal runs GBM, got {type(process).__name__}")
+    check_no_grad(process)
     drift, scale = process.drift_scale()
     return torch.stack([drift, scale, torch.log(process.s0)])
 

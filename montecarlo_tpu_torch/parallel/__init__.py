@@ -15,6 +15,7 @@ from montecarlo_tpu_torch.parallel.sharded import (  # noqa: F401
     sharded_functional_estimate,
     sharded_mc_estimate,
     sharded_path_percentiles,
+    sharded_price_and_greeks,
     sharded_rbergomi_estimate,
     sharded_terminal,
     sharded_terminal_sketch,

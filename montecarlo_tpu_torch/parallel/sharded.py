@@ -3,10 +3,11 @@
 The port of the main path of ``montecarlo_tpu/parallel/sharded.py``
 (``sharded_terminal``, ``block_moments``, ``sharded_mc_estimate``,
 ``sharded_basket_estimate``, ``sharded_functional_estimate``,
-``sharded_terminal_sketch``, ``sharded_rbergomi_estimate``) and of
-``montecarlo_tpu/engine/path_sketch.py::sharded_path_percentiles``.  Every rank of
-a :class:`~montecarlo_tpu_torch.parallel.mesh.Mesh` calls the same function
-(SPMD), and each:
+``sharded_terminal_sketch``, ``sharded_rbergomi_estimate``,
+``sharded_price_and_greeks``) and of
+``montecarlo_tpu/engine/path_sketch.py::sharded_path_percentiles``.  Every
+rank of a :class:`~montecarlo_tpu_torch.parallel.mesh.Mesh` calls the same
+function (SPMD), and each:
 
 - simulates a contiguous run of **global** path ids, ``path_offset +
   shard * local_n`` (mod 2^32, the uint32 id space), through the same
@@ -27,6 +28,8 @@ mesh included.  Floats are never summed by a collective; only integers
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -100,16 +103,15 @@ def _layout(mesh, n_paths: int, block_size: int, axis: str):
 def _gather_two_level(local: MomentState, mesh, axis: str,
                       has_slices: bool) -> MomentState:
     """Every block state of the mesh in global block order (one gather of
-    the stacked (3, n_blocks) states over the paths axis); on a sliced
-    mesh each slice merges its blocks and the slices gather one state
-    each, bitwise the flat merge (``_check_two_level_tree``)."""
-    stacked = torch.stack(tuple(local))
-    gathered = mesh.all_gather(stacked.T.contiguous(), axis).T
-    states = MomentState(*gathered)
+    the stacked (n_blocks, 3, ...) states over the paths axis); on a
+    sliced mesh each slice merges its blocks and the slices gather one
+    state each, bitwise the flat merge (``_check_two_level_tree``)."""
+    stacked = torch.stack(tuple(local), dim=1)
+    states = MomentState(*mesh.all_gather(stacked, axis).unbind(1))
     if not has_slices:
         return states
-    slice_state = torch.stack(tuple(moments_reduce(states)))
-    return MomentState(*mesh.all_gather(slice_state[None], SLICES_AXIS).T)
+    slice_state = torch.stack(tuple(moments_reduce(states)))[None]
+    return MomentState(*mesh.all_gather(slice_state, SLICES_AXIS).unbind(1))
 
 
 def _estimate(total: MomentState, discount) -> dict:
@@ -337,3 +339,116 @@ def sharded_path_percentiles(process, n_paths: int, n_steps: int, *,
     axes = (axis, SLICES_AXIS) if n_slices > 1 else (axis,)
     h = mesh.all_reduce(h.to(torch.int64), "sum", axes)
     return percentiles_from_histograms(h.cpu().numpy(), lo, hi)
+
+
+def _block_grads(values: torch.Tensor, block_size: int) -> torch.Tensor:
+    """(n_blocks,) block means of per-path gradient contributions, summed
+    by ``tree_sum``'s fixed tree, as ``block_moments`` sums the payoffs."""
+    return tree_sum(values.reshape(-1, block_size), axis=1) / block_size
+
+
+def _per_path_greeks(process, payoff_fn, local_n, n_steps, offset, seed,
+                     stream, block_size, remat):
+    """(payoffs, {field: (n_blocks,) block gradients}) of a process whose
+    float leaves are all scalars: one forward and one backward pass over
+    the shard, each leaf expanded to one copy per path.  The backward of
+    the summed payoffs then gives each path's own contribution, with no
+    sum across paths, and the blocks sum them in a fixed order."""
+    from montecarlo_tpu_torch.engine.greeks import float_leaves
+    from montecarlo_tpu_torch.engine.simulate import simulate
+
+    leaves = {k: v.detach().expand(local_n).clone().requires_grad_(True)
+              for k, v in float_leaves(process).items()}
+    proc = dataclasses.replace(process, **leaves)
+    with torch.enable_grad():
+        pay = payoff_fn(simulate(proc, local_n, n_steps, seed=seed,
+                                 stream=stream, path_offset=offset,
+                                 remat=remat))
+        grads = {}
+        if pay.requires_grad:
+            got = torch.autograd.grad(pay.sum(), list(leaves.values()),
+                                      allow_unused=True)
+            grads = {k: _block_grads(g, block_size)
+                     for k, g in zip(leaves, got) if g is not None}
+    return pay.detach(), grads
+
+
+def _block_by_block_greeks(process, payoff_fn, local_n, n_steps, offset,
+                           seed, stream, block_size, remat):
+    """The same for a process with a non-scalar float leaf (a table, a
+    basket's vectors): one forward and backward pass per block, each
+    block's gradient of its ``tree_sum`` mean."""
+    from montecarlo_tpu_torch.engine.greeks import float_leaves
+    from montecarlo_tpu_torch.engine.simulate import simulate
+
+    leaves = {k: v.detach().requires_grad_(True)
+              for k, v in float_leaves(process).items()}
+    proc = dataclasses.replace(process, **leaves)
+    pays, blocks = [], []
+    for b in range(local_n // block_size):
+        with torch.enable_grad():
+            pay = payoff_fn(simulate(
+                proc, block_size, n_steps, seed=seed, stream=stream,
+                path_offset=(offset + b * block_size) & MASK32, remat=remat))
+            got = [None] * len(leaves)
+            if pay.requires_grad:
+                got = torch.autograd.grad(tree_sum(pay) / block_size,
+                                          list(leaves.values()),
+                                          allow_unused=True)
+        pays.append(pay.detach())
+        blocks.append(got)
+    grads = {}
+    for j, k in enumerate(leaves):
+        if blocks[0][j] is not None:
+            grads[k] = torch.stack([g[j] for g in blocks])
+    return torch.cat(pays), grads
+
+
+def sharded_price_and_greeks(process, payoff_fn, n_paths: int, n_steps: int,
+                             *, seed: int, mesh, discount=1.0,
+                             stream: int = 0,
+                             block_size: int = DEFAULT_BLOCK,
+                             axis: str = PATHS_AXIS,
+                             remat: bool = True) -> dict:
+    """Pathwise Greeks over a mesh: ``engine.greeks.price_and_greeks``
+    under the fixed-block contract of :func:`sharded_mc_estimate`.
+
+    Each rank differentiates its shard of global paths through the torch
+    time loop (the kernels define no backward).  A leaf that is a scalar
+    becomes one copy per path, so one backward pass gives every path's own
+    gradient contribution with no sum across paths; each ``block_size``
+    block of global paths sums its contributions by ``tree_sum``'s fixed
+    tree.  (A process with a non-scalar float leaf runs one backward pass
+    per block instead.)  The block gradients are gathered in global block
+    order and merged as moment states of count 1 by ``moments_reduce``'s
+    fixed tree, as the payoffs' block states are.  So price, grads and
+    their error bars are bitwise the same on any mesh.
+
+    ``remat`` (default True, as in JAX) checkpoints every step.  Returns
+    ``{"price", "std_err", "n_paths", "grads", "grad_std_err"}`` on every
+    rank, ``grads`` and ``grad_std_err`` dataclasses shaped like
+    ``process`` (integer leaves: zeros), ``grad_std_err`` the blockwise
+    CLT error of the block gradient means."""
+    from montecarlo_tpu_torch.engine.greeks import float_leaves, grads_like
+
+    _check_device(process.device, mesh)
+    local_n, has_slices = _layout(mesh, n_paths, block_size, axis)
+    offset = _shard_offset(mesh, axis, local_n)
+    scalar = all(v.dim() == 0 for v in float_leaves(process).values())
+    run = _per_path_greeks if scalar else _block_by_block_greeks
+    pay, blocks = run(process, payoff_fn, local_n, n_steps, offset, seed,
+                      stream, block_size, remat)
+    total = moments_reduce(_gather_two_level(
+        block_moments(pay, block_size), mesh, axis, has_slices))
+    est = _estimate(total, discount)
+    d = torch.as_tensor(discount, dtype=total.mean.dtype,
+                        device=total.mean.device)
+    means, errs = {}, {}
+    for k, g in blocks.items():
+        state = MomentState(count=torch.ones_like(g), mean=g,
+                            m2=torch.zeros_like(g))
+        g_total = moments_reduce(_gather_two_level(state, mesh, axis,
+                                                   has_slices))
+        means[k], errs[k] = d * g_total.mean, d * std_error(g_total)
+    return {**est, "grads": grads_like(process, means),
+            "grad_std_err": grads_like(process, errs)}

@@ -117,7 +117,8 @@ void run(float* out, const float* leaves, int64_t n, int n_steps,
     };
     observe();
     for (int k = 0; k < spec.n; ++k) {
-      mcf::fn_init(spec.code[k], spec.p[k], obs[k], acc[k]);
+      mcf::fn_init(spec.code[k], spec.period[k], spec.p[k], obs[k],
+                   acc[k]);
     }
     auto after = [&](int t) {
       observe();

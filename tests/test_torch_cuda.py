@@ -1659,3 +1659,89 @@ def test_cuda_k4_ccc_and_dcc_keep_the_generic_fold(cuda, kind, a_n):
         for anti in (False, True):
             assert _k4_counted(tp, 4096 * 3 - 37, 10, fns, seed=7,
                                antithetic=anti) == (1, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("antithetic", [False, True])
+@pytest.mark.parametrize("kind", ["gbm", "heston"])
+def test_cuda_k4_snapshot_is_its_plain_version_and_the_shorter_run(
+        cuda, kind, antithetic):
+    """K4 {snapshot} at steps 0, 1, 9 and the last, at 17 steps: bitwise
+    its plain version (the generic fold, counted as K4's only) and each
+    snapshot K2's terminal of a run stopped at its step."""
+    from montecarlo_tpu_torch.engine.surface import price_snapshot
+
+    tp, n, steps = _process(kind, 17, cuda), 4096 * 3 - 37, 17
+    fns = {f"s{s}": price_snapshot(s) for s in (0, 1, 9, steps)}
+    kw = dict(seed=4, path_offset=(1 << 30) - 1000, antithetic=antithetic)
+    assert _k4_counted(tp, n, steps, fns, **kw) == (1, 0)
+    got = fused_functionals(tp, n, steps, functionals=fns, **kw)
+    for s in (0, 1, 9, steps):
+        assert torch.equal(got[f"s{s}"], fused_terminal(tp, n, s, **kw)), s
+
+
+@pytest.mark.cuda
+def test_cuda_surface_grid_launches_are_one_long_run(cuda):
+    """A six-maturity grid on the card: two K4 launches, bitwise one
+    torch-loop run holding every snapshot."""
+    from montecarlo_tpu_torch.engine.surface import (price_snapshot,
+                                                     snapshot_terminals)
+
+    steps, tp = [3, 8, 13, 21, 30, 47], _process("heston", 64, cuda)
+    k4 = PATH_KERNELS["fused_functionals"].launches
+    rows = snapshot_terminals(tp, 4096, steps, seed=2)
+    assert PATH_KERNELS["fused_functionals"].launches - k4 == 2
+    one = simulate_functionals(tp, 4096, steps[-1], seed=2,
+                               prefer_fused=False, functionals={
+        f"m{j}": price_snapshot(s) for j, s in enumerate(steps)})
+    for j in range(len(steps)):
+        assert torch.equal(rows[j], one[f"m{j}"]), j
+
+
+@pytest.mark.cuda
+def test_cuda_greeks_command_and_pathwise_gradients(cuda, capsys):
+    """``greeks`` on the card at a small size: pathwise gradients through
+    the torch loop, non-zero and finite (the case the kernels' missing
+    backward would have zeroed), within the CPU route's values; LR through
+    K2 (one launch); second order finite."""
+    import json
+
+    from montecarlo_tpu_torch import cli
+
+    def run(*argv):
+        assert cli.main(["greeks", "--paths", "8192", "--steps", "16",
+                         *argv]) == 0
+        return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+    for proc in ("gbm", "heston"):
+        card = run("--process", proc)
+        cpu = run("--process", proc, "--device", "cpu")
+        assert card.keys() == cpu.keys()
+        for k, v in card.items():
+            assert math.isfinite(v) and (k == "price" or v != 0.0), k
+            assert abs(v - cpu[k]) <= 1e-4 * abs(cpu[k]) + 1e-6, k
+    k2 = PATH_KERNELS["fused_terminal"].launches
+    lr = run("--method", "lr", "--payoff", "digital")
+    assert PATH_KERNELS["fused_terminal"].launches - k2 == 1
+    assert lr["delta"] > 0
+    so = run("--method", "second-order")
+    assert all(math.isfinite(v) for v in so.values()) and so["gamma"] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_routes_refuse_a_leaf_that_requires_grad(cuda):
+    """On the card as on the CPU: TypeError before any launch."""
+    import dataclasses
+
+    from montecarlo_tpu_torch.engine import terminal_prices
+
+    tp = _process("gbm", 16, cuda)
+    tp = dataclasses.replace(tp, s0=tp.s0.clone().requires_grad_(True))
+    before = {k: v.launches for k, v in PATH_KERNELS.items()}
+    for run in (lambda: terminal_prices(tp, 4096, 16, seed=1),
+                lambda: fused_functionals(tp, 4096, 16, seed=1,
+                                          functionals={"avg": ARITH_MEAN}),
+                lambda: gbm_terminal(tp, 4096, 16, seed=1)):
+        with pytest.raises(TypeError, match="price_and_greeks"):
+            run()
+    assert {k: v.launches for k, v in PATH_KERNELS.items()} == before

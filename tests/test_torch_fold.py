@@ -32,6 +32,7 @@ from montecarlo_tpu_torch.engine import (ARITH_MEAN, GEO_MEAN, RUNNING_MAX,
                                          trapezoid_integral)
 from montecarlo_tpu_torch.engine.functionals import MAX_PARAMS
 from montecarlo_tpu_torch.engine.simulate import path_ids_for
+from montecarlo_tpu_torch.engine.surface import price_snapshot
 from montecarlo_tpu_torch.ops.fused_engine import (
     _device_forms, _step_draws, fused_functionals_reference)
 from montecarlo_tpu_torch.processes import GBM
@@ -61,7 +62,9 @@ mcf::FunctionalSpec make_spec(int n_fn, const int* codes, const int* periods,
   spec.n = n_fn;
   for (int k = 0; k < n_fn; ++k) {
     spec.code[k] = codes[k];
-    spec.period[k] = periods[k] < 1 ? 1 : periods[k];
+    // As csrc/fused_k4.cu builds the spec: a snapshot keeps step 0.
+    spec.period[k] =
+        periods[k] < 1 && codes[k] != mcf::kSnapshot ? 1 : periods[k];
     for (int q = 0; q < mcf::kMaxParams; ++q) {
       spec.p[k][q] = params[k * mcf::kMaxParams + q];
     }
@@ -300,7 +303,7 @@ def test_kernels_fixed_sets_and_the_generic_fold(lib):
         assert lib.fold_choice(ctypes.c_int(len(codes)), _ptr(codes)) == k
     outside = [{"avg": ARITH_MEAN, "geo": GEO_MEAN},
                {"mx": RUNNING_MAX, "avg": ARITH_MEAN, "mn": RUNNING_MIN},
-               {"mx": RUNNING_MAX}, {}]
+               {"mx": RUNNING_MAX}, {"m": price_snapshot(3)}, {}]
     for fns in outside:
         codes = _codes(fns) if fns else np.zeros(1, np.int32)
         assert lib.fold_choice(ctypes.c_int(len(fns)), _ptr(codes)) == -1
@@ -316,3 +319,30 @@ def test_fixed_fold_needs_only_what_its_codes_read(lib):
     for name, need in expect.items():
         codes = _codes(sets[name])
         assert lib.fold_needs(ctypes.c_int(len(codes)), _ptr(codes)) == need
+
+
+@pytest.mark.parametrize("antithetic", [False, True])
+@pytest.mark.parametrize("n_steps", STEPS)
+def test_snapshot_on_the_generic_fold(lib, n_steps, antithetic):
+    """K4's snapshot (kSnapshot, the generic fold) at step 0 (the spot),
+    step 1, a middle step, the last step and one past it (never latched:
+    0), alone and four at a time: bitwise its plain fold, K4's plain
+    version, and the price observed at its step."""
+    proc = _gbm()
+    price, logp = _observations(proc, n_steps, antithetic)
+    picks = sorted({0, 1, max(n_steps // 2, 1), n_steps, n_steps + 1})
+    sets = [{f"s{s}": price_snapshot(s)} for s in picks]
+    sets.append({f"s{s}": price_snapshot(s) for s in picks[-4:]})
+    for fns in sets:
+        generic = _fold(lib, 0, fns, n_steps, price, logp, n_steps)
+        plain = _plain(fns, n_steps, price, logp, n_steps)
+        want = fused_functionals_reference(
+            proc, N, n_steps, seed=4, path_offset=2**32 - 20,
+            antithetic=antithetic, functionals=fns)
+        for k, f in fns.items():
+            step = f.device(n_steps).period
+            latched = (price[step] if step <= n_steps
+                       else np.zeros(N, np.float32))
+            assert np.array_equal(generic[k], plain[k]), k
+            assert np.array_equal(generic[k], want[k].numpy()), k
+            assert np.array_equal(generic[k], latched), k

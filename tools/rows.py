@@ -68,6 +68,15 @@ Row sets (``ROW_SETS``):
   memory`` (DCC's Q in a [word][thread] column of shared memory), ``pair
   loop`` (a pass of the time loop a step pair, not a step), ``24 warps``
   (``__launch_bounds__(128, 6)``) and both of the last but one.
+- ``snapshot``: K4's snapshot launches of ``chip_smoke.py``'s 2-, 4- and
+  6-maturity grids on GBM at 2^17 and 2^20 x 252 and the 4-maturity grid
+  on Heston at 2^20 (in a checkout that has the snapshot fold); as
+  controls the generic fold, whose switch the snapshot case joins, on
+  GBM's {mn} (the lookback), {mx} (the barrier) and {avg, geo, mx, mn},
+  Heston's {mn} at 2^20 x 252 and CCC's and DCC's {mn} at the VaR chunk,
+  GBM's fixed K4 {avg} and K2 at 2^20 x 252.  Its SASS is that of K4 on
+  the generic fold on GBM and Heston, the fixed {avg} and K2; its
+  resources the registers of K4 on GBM and Heston.
 - ``fold_state``: K4 {trap} on the bond models (Vasicek, CIR, Hull-White,
   G2++; ``chip_smoke.rate_procs``) and K4 {avg} on the 5-asset term
   basket (``state_proc``), both at 2^20 x 252, which run a fixed fold
@@ -1416,6 +1425,83 @@ FOLD_STATE_RESOURCES = (r"fused_(functional_)?kernel.*(VasicekStep|CirStep|"
                         r"(StoreTerminal|ThreefryDraws.*Fold)")
 
 
+# ------------------------------------------------------------ snapshot
+
+def snapshot_rows(torch):
+    import chip_smoke as cs
+    from montecarlo_tpu_torch.engine import (ARITH_MEAN, GEO_MEAN,
+                                             RUNNING_MAX, RUNNING_MIN)
+    from montecarlo_tpu_torch.ops import fused_functionals, fused_terminal
+    from montecarlo_tpu_torch.processes import GBM
+
+    s = 252
+    gbm = GBM.create(100.0, 0.03, 0.2, 1.0 / s, device="cuda")
+    hp = cs.heston(s)
+    rows = []
+    # The rows, in a checkout that has K4's snapshot fold: each grid's
+    # snapshot launches on GBM at 2^17 and 2^20 x 252, the 4-maturity grid
+    # on Heston at 2^20.
+    if hasattr(cs, "snapshot_launches"):
+        for n in cs.SNAPSHOT_PATHS:
+            for m, grid in cs.SNAPSHOT_GRIDS.items():
+                rows.append(timed(
+                    f"K4 gbm snapshot {m} maturities {n}x{s}",
+                    cs.snapshot_bound(n, grid),
+                    lambda n=n, g=grid: cs.snapshot_launches(gbm, n, g)))
+        n = cs.SNAPSHOT_PATHS[-1]
+        rows.append(timed(
+            f"K4 heston snapshot 4 maturities {n}x{s}",
+            cs.snapshot_bound(n, cs.IV_GRID, draws=2,
+                              step_fp=cs.HESTON_STEP_FP),
+            lambda: cs.snapshot_launches(hp, n, cs.IV_GRID)))
+    # The controls, on the generic fold (whose switch the snapshot case
+    # joins) and off it: the lookback's {mn} and the barrier's {mx} and
+    # {avg, geo, mx, mn} on GBM at 2^20 x 252, CCC's and DCC's {mn} at the
+    # VaR chunk; GBM's fixed K4 {avg} and K2 at 2^20 x 252.
+    n, obs = 1 << 20, 3 + cs.EXP32_FP
+    sets = {"{mn}": ({"mn": RUNNING_MIN}, obs + 1, 8),
+            "{mx}": ({"mx": RUNNING_MAX}, obs + 1, 8),
+            "{avg,geo,mx,mn}": ({"avg": ARITH_MEAN, "geo": GEO_MEAN,
+                                 "mx": RUNNING_MAX, "mn": RUNNING_MIN},
+                                obs + 4, 20),
+            "{avg} (fixed)": ({"avg": ARITH_MEAN}, obs + 1, 8)}
+    for tag, (fns, step_fp, out) in sets.items():
+        rows.append(timed(f"K4 gbm {tag} {n}x{s}",
+                          cs.step_bound(n, s, step_fp=step_fp, out_bytes=out,
+                                        extra_fp=cs.EXP32_FP),
+                          lambda fns=fns: fused_functionals(
+                              gbm, n, s, seed=0, functionals=fns)))
+    rows.append(timed(f"K4 heston {{mn}} {n}x{s}",
+                      cs.step_bound(n, s, draws=2,
+                                    step_fp=cs.HESTON_STEP_FP + obs - 2,
+                                    out_bytes=8, extra_fp=cs.EXP32_FP),
+                      lambda: fused_functionals(
+                          hp, n, s, seed=0,
+                          functionals={"mn": RUNNING_MIN})))
+    nv, d = cs.STATE_VAR_CHUNK, cs.STATE_VAR_DAYS
+    for kind in ("ccc-garch", "dcc-garch"):
+        rows.append(timed(f"K4 {kind} A=8 {{mn}} {nv}x{d}",
+                          cs.state_bound(kind, 8, nv, d, out_bytes=8,
+                                         observe=True),
+                          lambda p=cs.state_proc(kind, 8, d):
+                          fused_functionals(p, nv, d, seed=0,
+                                            functionals={"mn": RUNNING_MIN})))
+    rows.append(timed(f"K2 gbm {n}x{s}", cs.step_bound(n, s),
+                      lambda: fused_terminal(gbm, n, s, seed=0)))
+    return rows
+
+
+SNAPSHOT_SASS = (
+    ("K4 gbm generic", ("fused_functional_kernel", "GbmProc", _TF,
+                        "SpecFold")),
+    ("K4 heston generic", ("fused_functional_kernel", "HestonProc", _TF,
+                           "SpecFold")),
+    ("K4 gbm {avg} fixed", ("fused_functional_kernel", "GbmProc", _TF,
+                            "FixedFoldIJLi0EEE")),
+    ("K2 gbm", ("fused_kernel", "GbmProc", "StoreTerminal", _TF)),
+)
+
+
 class RowSet(NamedTuple):
     rows: Callable      # torch -> [Row]
     variants: dict      # name -> [(file, old, new)]
@@ -1437,6 +1523,9 @@ ROW_SETS = {
                      (1 << 24, 10), "StateProc"),
     "fold_state": RowSet(fold_state_rows, {}, FOLD_STATE_SASS,
                          (1 << 20, 252), FOLD_STATE_RESOURCES),
+    "snapshot": RowSet(snapshot_rows, {}, SNAPSHOT_SASS, (1 << 20, 252),
+                       r"fused_functional_kernel.*(GbmProc|HestonProc)"
+                       r".*ThreefryDrawsILb0E.*Fold"),
 }
 
 
