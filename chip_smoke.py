@@ -228,14 +228,17 @@ CUDA kernels from ``montecarlo_tpu_torch/csrc`` and, in phases:
    NumPy oracle of the recurrence fed the same normals, a put's
    ``payoff_block_moments`` (K3) and the running minimum (K4, generic).
 
-15. greeks, variance reduction and the implied-vol surface (K4's snapshot
-   fold, kSnapshot on the generic fold; K2): K4 {snapshot} on GBM and
-   Heston against its plain version bitwise at 2^18 - 37 paths x 17 and
-   252 steps, plain and antithetic, snapshots at steps 0, 1, the middle
-   one and the last, each bitwise K2's terminal of a run stopped at its step; a
-   six-maturity grid's two K4 launches bitwise one torch-loop run; the
-   snapshot launches of 2-, 4- and 6-maturity grids timed at 2^17 and
-   2^20 x 252 beside their plain version, bound and K2; then, counters
+15. greeks, variance reduction and the implied-vol surface (the snapshot
+   kernel, csrc/fused_k4_snapshot.cu; K2): K4 on snapshot sets, the
+   snapshot kernel, on GBM and Heston against its plain version and K4's
+   bitwise at 2^18 - 37 paths x 17 and 252 steps, plain and antithetic
+   (and at 17 steps under Sobol draws, GBM also the bridge), snapshots at
+   steps 0, 1, the middle one twice, the last and one past it, each
+   bitwise K2's terminal of a run stopped at its step, one launch a call
+   and none of K4's; a six-maturity grid in one launch bitwise one
+   torch-loop run; the snapshot launches of 2-, 4- and 6-maturity grids
+   timed at 2^17 and 2^20 x 252 beside their plain version, bound, SASS
+   issue floor and K2; then, counters
    reset just before and read just after each run: ``greeks`` at the JAX
    command's 200,000 x 252 (pathwise on GBM and Heston, LR on a GBM
    digital through K2, second order on GBM at width 1.5 and on Heston,
@@ -244,12 +247,12 @@ CUDA kernels from ``montecarlo_tpu_torch/csrc`` and, in phases:
    (3%), gamma (15%) and the digital's delta (4 std-err + 1e-4); the
    pathwise passes' split and peak with and without remat;
    ``mc_implied_vol_surface`` on GBM and Heston at 2^17 over 4 and 6
-   maturities (1 and 2 K4 launches), GBM flat at sigma within 0.01 where
+   maturities (one snapshot launch each), GBM flat at sigma within 0.01 where
    4 std-err of a cell's price move its iv by at most 0.01, Heston
    skewed; ``importance_sampled_estimate`` on
    a 150 call and ``cv_estimate`` at 2^20 x 252 on K2 within 4 std-err of
-   Black-Scholes.  K4's snapshot launches count in K4's entry of the
-   kernels line, the LR, IS and CV runs' in K2's.
+   Black-Scholes.  The surfaces' snapshot launches count in the snapshot
+   kernel's entry of the kernels line, the LR, IS and CV runs' in K2's.
 
 Phase 3 also holds K5 (2^18 paths x {504, 756, 37} columns, ids wrapping
 past 2^32) and K6 (2^18 and 2^18 - 3 paths, its ring and its plain-load
@@ -4685,8 +4688,8 @@ def phase_state_path(torch, card):
 #: 0.04, xi 0.5, rho -0.7).
 GREEKS_PATHS, GREEKS_STEPS, GREEKS_STRIKE, GREEKS_RATE = 200_000, 252, 105.0, 0.03
 #: The surface: 2^17 paths (mc_implied_vol_surface's default), the
-#: maturities 21, 63, 126 and 252 steps (one K4 launch) and a six-maturity
-#: grid (two launches), strikes 70 to 130 by 7.5.
+#: maturities 21, 63, 126 and 252 steps and a six-maturity grid (one
+#: launch of the snapshot kernel each), strikes 70 to 130 by 7.5.
 IV_PATHS = 1 << 17
 IV_GRID = [21, 63, 126, 252]
 IV_GRID6 = [21, 42, 63, 126, 189, 252]
@@ -4695,59 +4698,78 @@ IV_STRIKES = [70.0 + 7.5 * k for k in range(9)]
 SNAPSHOT_GRIDS = {2: [126, 252], 4: IV_GRID, 6: IV_GRID6}
 #: The variance-reduction estimators' shape and the IS strike.
 VR_PATHS, VR_STEPS, IS_STRIKE = 1 << 20, 252, 150.0
-#: A snapshot's latch: one compare and one select a step.
-LATCH_FP = 2
 #: The snapshot parity runs (paths, step counts) and the timed shapes
 #: (paths, steps): the surface's 2^17 and a 2^20 beside K2's rows.
 SNAPSHOT_PARITY = ((1 << 18) - 37, (17, 252))
 SNAPSHOT_PATHS, SNAPSHOT_STEPS = (1 << 17, 1 << 20), 252
+#: The snapshot kernel on GBM and Heston under plain Threefry draws.
+SNAPSHOT_SASS = {kind: ("fused_snapshot_kernel", functor, "ThreefryDrawsILb0E")
+                 for kind, functor in (("gbm", "GbmProc"),
+                                       ("heston", "HestonProc"))}
 
 
 def snapshot_bound(n, grid, draws=1, step_fp=3):
-    """The least time of K4's snapshot launches for the maturity grid
-    ``grid`` (``engine.surface.snapshot_groups``): each launch a time loop
-    of its steps over n paths with ``draws`` cipher calls a step pair,
-    ``step_fp`` a step, the price-space observation's exp32 a step
-    (K4's generic fold observes the price every step) and a latch per
-    snapshot, the terminal's exp32 a path, 4 bytes out a path per row."""
-    from montecarlo_tpu_torch.engine.surface import snapshot_groups
-
-    total, by = 0.0, set()
-    for steps, snaps in snapshot_groups(grid):
-        ms, b = step_bound(n, steps, draws=draws,
-                           step_fp=step_fp + EXP32_FP + LATCH_FP * len(snaps),
-                           out_bytes=4 * (1 + len(snaps)),
-                           extra_fp=EXP32_FP)
-        total += ms
-        by.add(b)
-    return total, "bytes" if by == {"bytes"} else "operations"
+    """The least time of a maturity grid's prices, whatever computes them:
+    one time loop to the last maturity over n paths with ``draws`` cipher
+    calls a step pair and ``step_fp`` a step, a price's exp32 a path for
+    each maturity (each snapshot and the terminal) and 4 bytes out a path
+    for each."""
+    m = len(grid)
+    return step_bound(n, grid[-1], draws=draws, step_fp=step_fp,
+                      out_bytes=4 * m, extra_fp=EXP32_FP * m)
 
 
 def snapshot_launches(proc, n, grid, k4=None):
-    """The K4 launches of a grid's snapshots (``fused_functionals`` per
-    group of ``snapshot_groups``; ``k4`` another function of its
-    signature, such as its plain version), their outputs merged into one
-    dict."""
-    from montecarlo_tpu_torch.engine.surface import (price_snapshot,
-                                                     snapshot_groups)
+    """The surface's launches of a maturity grid: ``fused_functionals``
+    (the snapshot kernel) with a snapshot at each maturity before the
+    last, one run to the last; ``k4`` another function of its signature,
+    such as :func:`snapshot_plain`."""
+    from montecarlo_tpu_torch.engine.surface import price_snapshot
     from montecarlo_tpu_torch.ops import fused_functionals
 
-    out = {}
-    for g, (steps, snaps) in enumerate(snapshot_groups(grid)):
-        got = (k4 or fused_functionals)(proc, n, steps, seed=0, functionals={
-            f"m{s}": price_snapshot(s) for s in snaps})
-        out.update({f"{k} (launch {g})": v for k, v in got.items()})
-    return out
+    return (k4 or fused_functionals)(proc, n, grid[-1], seed=0, functionals={
+        f"m{s}": price_snapshot(s) for s in grid[:-1]})
+
+
+def snapshot_plain(proc, n, n_steps, *, functionals, **kw):
+    """The snapshot kernel's plain version (``fused_snapshots_reference``)
+    on a set of snapshots, keyed as ``fused_functionals`` keys them."""
+    from montecarlo_tpu_torch.ops import fused_snapshots_reference
+
+    steps = [f.device(n_steps).period for f in functionals.values()]
+    rows = fused_snapshots_reference(proc, n, n_steps, steps, **kw)
+    return {"terminal": rows[0],
+            **{k: rows[j + 1] for j, k in enumerate(functionals)}}
+
+
+def snapshot_counted(fn, *args, **kw):
+    """(result, the snapshot kernel's launches, K4's) of one call, summed
+    over the draw sources."""
+    from montecarlo_tpu_torch.ops import launch_counts
+
+    def counts():
+        c = launch_counts()
+        return [sum(c[f"{name}{sfx}"] for sfx in ("", "_sobol", "_bridge"))
+                for name in ("fused_functionals_snapshot",
+                             "fused_functionals")]
+
+    before = counts()
+    out = fn(*args, **kw)
+    after = counts()
+    return out, after[0] - before[0], after[1] - before[1]
 
 
 def phase_snapshot_parity(torch, errs):
-    """K4's snapshot fold (kSnapshot, the generic fold) on GBM and Heston
-    against its plain version bitwise, plain and antithetic, at 2^18 - 37
-    paths with ids from 2^30 - 1000 x 17 and 252 steps, snapshots at
-    steps 0, 1, the middle one and the last; each snapshot bitwise K2's
-    terminal of a run stopped at its step (0: the spot), the last one
-    K4's own terminal; a six-maturity grid's two launches bitwise one
-    torch-loop run holding every snapshot."""
+    """The snapshot kernel (csrc/fused_k4_snapshot.cu) on GBM and Heston
+    against its plain version and K4's bitwise, plain and antithetic, at
+    2^18 - 37 paths with ids from 2^30 - 1000 x 17 and 252 steps,
+    snapshots at steps 0, 1, the middle one twice, the last and one past
+    it, out of order; at 17 steps also under Sobol draws (and the bridge
+    on GBM); each snapshot bitwise K2's terminal of a run stopped at its
+    step (0: the spot), the last one the kernel's own terminal, the one
+    past it 0; each call one launch of the snapshot kernel and none of
+    K4's; the six-maturity grid in one launch bitwise one torch-loop run
+    holding every snapshot."""
     from montecarlo_tpu_torch.engine import simulate_functionals
     from montecarlo_tpu_torch.engine.surface import (price_snapshot,
                                                      snapshot_terminals)
@@ -4755,6 +4777,8 @@ def phase_snapshot_parity(torch, errs):
                                           fused_functionals_reference,
                                           fused_terminal)
     from montecarlo_tpu_torch.processes import GBM
+    from montecarlo_tpu_torch.rng.sobol import (SobolBridgeKernelSampler,
+                                                SobolDeviceSampler)
 
     (n, all_steps), off = SNAPSHOT_PARITY, (1 << 30) - 1000
     checks = 0
@@ -4762,75 +4786,103 @@ def phase_snapshot_parity(torch, errs):
         procs = {"gbm": GBM.create(100.0, 0.03, 0.2, 1.0 / steps,
                                    device="cuda"),
                  "heston": heston(steps)}
+        mid = steps // 2 | 1
+        picks = (mid, 0, steps, steps + 1, 1, mid)
+        fns = {f"s{k}": price_snapshot(s) for k, s in enumerate(picks)}
         for kind, proc in procs.items():
-            picks = (0, 1, steps // 2, steps)
-            fns = {f"s{s}": price_snapshot(s) for s in picks}
-            for anti in (False, True):
-                kw = dict(seed=7, path_offset=off, antithetic=anti)
-                got = fused_functionals(proc, n, steps, functionals=fns,
-                                        **kw)
-                want = fused_functionals_reference(proc, n, steps,
-                                                   functionals=fns, **kw)
-                for k in want:
+            sources = {"plain": {}, "antithetic": {"antithetic": True}}
+            if steps == all_steps[0]:
+                sources["sobol"] = {"sampler": SobolDeviceSampler.create(
+                    steps, proc.n_draws, scramble_seed=3, device="cuda")}
+                if kind == "gbm":
+                    sources["bridge"] = {
+                        "sampler": SobolBridgeKernelSampler.create(
+                            steps, scramble_seed=4, device="cuda")}
+            for src, extra in sources.items():
+                kw = dict(seed=7, path_offset=off, **extra)
+                got, snaps, k4 = snapshot_counted(
+                    fused_functionals, proc, n, steps, functionals=fns, **kw)
+                if (snaps, k4) != (1, 0):
+                    raise AssertionError(
+                        f"{kind} {src}: {snaps} snapshot and {k4} K4 "
+                        "launches, not 1 and 0")
+                plain = snapshot_plain(proc, n, steps, functionals=fns, **kw)
+                k4_plain = fused_functionals_reference(
+                    proc, n, steps, functionals=fns, **kw)
+                for k in plain:
                     _, max_abs, _ = compare(
-                        f"K4 {kind} {{snapshot}} {k} T={steps} "
-                        f"{'antithetic' if anti else 'plain'}", got[k],
-                        want[k], BITWISE)
-                    errs["fused_functionals"] = max(
-                        errs.get("fused_functionals", 0.0), max_abs)
-                for s in picks:
-                    short = fused_terminal(proc, n, s, **kw)
-                    if not torch.equal(got[f"s{s}"], short):
+                        f"K4 snapshot kernel {kind} {k} T={steps} {src}",
+                        got[k], plain[k], BITWISE)
+                    errs["fused_functionals_snapshot"] = max(
+                        errs.get("fused_functionals_snapshot", 0.0), max_abs)
+                    if not torch.equal(got[k], k4_plain[k]):
+                        raise AssertionError(f"{kind} {k} T={steps} {src}: "
+                                             "not K4's plain version")
+                for k, s in enumerate(picks):
+                    want = (fused_terminal(proc, n, s, **kw) if s <= steps
+                            else torch.zeros_like(got["terminal"]))
+                    if not torch.equal(got[f"s{k}"], want):
                         raise AssertionError(
-                            f"K4 {kind} snapshot at step {s} of {steps} is "
-                            f"not K2's terminal at {s} steps ({anti})")
+                            f"{kind} snapshot at step {s} of {steps} is "
+                            f"not K2's terminal at {s} steps ({src})")
                     checks += 1
-                if not torch.equal(got[f"s{steps}"], got["terminal"]):
-                    raise AssertionError("the last snapshot is not K4's "
-                                         "terminal")
+                if not torch.equal(got["s2"], got["terminal"]):
+                    raise AssertionError("the last snapshot is not the "
+                                         "kernel's terminal")
     proc = heston(IV_GRID6[-1])
-    rows = snapshot_terminals(proc, n, IV_GRID6, seed=3)
+    rows, snaps, k4 = snapshot_counted(snapshot_terminals, proc, n, IV_GRID6,
+                                       seed=3)
+    if (snaps, k4) != (1, 0):
+        raise AssertionError(f"the six-maturity grid took {snaps} snapshot "
+                             f"and {k4} K4 launches, not 1 and 0")
     one = simulate_functionals(proc, n, IV_GRID6[-1], seed=3,
                                prefer_fused=False, functionals={
         f"m{j}": price_snapshot(s) for j, s in enumerate(IV_GRID6)})
     for j in range(len(IV_GRID6)):
         if not torch.equal(rows[j], one[f"m{j}"]):
-            raise AssertionError(f"grid row {j}: the grouped K4 launches "
-                                 "differ from one torch-loop run")
-    log(f"  {checks} snapshots bitwise K2's terminal at their step; the "
-        f"six-maturity grid's two K4 launches bitwise one torch-loop run")
+            raise AssertionError(f"grid row {j}: the snapshot launch "
+                                 "differs from one torch-loop run")
+    log(f"  {checks} snapshots bitwise K2's terminal at their step (0 past "
+        "the run); the six-maturity grid's one snapshot launch bitwise one "
+        "torch-loop run")
 
 
 def phase_snapshot_shapes(torch, errs, times):
-    """K4's snapshot launches of the 2-, 4- and 6-maturity grids on GBM at
-    2^17 and 2^20 paths x 252 steps (and the 4-maturity grid on Heston),
-    timed beside their plain version and bound, and K2 at the same shape:
-    what the snapshots add to the terminal's loop."""
-    from montecarlo_tpu_torch.ops import (fused_functionals_reference,
-                                          fused_terminal)
+    """The surface's snapshot launches of the 2-, 4- and 6-maturity grids
+    on GBM at 2^17 and 2^20 paths x 252 steps (and the 4-maturity grid on
+    Heston), one launch each, timed beside their plain version, bound and
+    SASS issue floor, and K2 at the same shape: what the snapshots add to
+    the terminal's loop."""
+    from montecarlo_tpu_torch.ops import fused_terminal
     from montecarlo_tpu_torch.processes import GBM
 
-    plain = fused_functionals_reference
     s = SNAPSHOT_STEPS
     gbm = GBM.create(100.0, 0.03, 0.2, 1.0 / s, device="cuda")
+    regs = {k: kernel_regs(p) for k, p in SNAPSHOT_SASS.items()}
     for n in SNAPSHOT_PATHS:
         k2_ms, _ = cuda_ms(lambda: fused_terminal(gbm, n, s, seed=0), 10)
         log(f"  K2 gbm {n}x{s}: {k2_ms:.3f} ms (bound "
             f"{step_bound(n, s)[0]:.4f} ms), beside the snapshot grids")
         for m, grid in SNAPSHOT_GRIDS.items():
             timed_check(times, errs, "fused_functionals_snapshot",
-                        f"K4 gbm snapshot grid of {m} maturities {n}x{s}",
+                        f"K4 gbm snapshot grid of {m} maturities {n}x{s} "
+                        f"({regs['gbm']})",
                         lambda g=grid: snapshot_launches(gbm, n, g),
-                        lambda g=grid: snapshot_launches(gbm, n, g, plain),
-                        10,
-                        BITWISE, bnd=snapshot_bound(n, grid))
+                        lambda g=grid: snapshot_launches(gbm, n, g,
+                                                         snapshot_plain),
+                        10, BITWISE, bnd=snapshot_bound(n, grid),
+                        floor=issue_floor(SNAPSHOT_SASS["gbm"], n,
+                                          (s + 1) // 2))
     hp, n = heston(s), SNAPSHOT_PATHS[-1]
     timed_check(times, errs, "fused_functionals_snapshot",
-                f"K4 heston snapshot grid of 4 maturities {n}x{s}",
+                f"K4 heston snapshot grid of 4 maturities {n}x{s} "
+                f"({regs['heston']})",
                 lambda: snapshot_launches(hp, n, IV_GRID),
-                lambda: snapshot_launches(hp, n, IV_GRID, plain), 10, BITWISE,
+                lambda: snapshot_launches(hp, n, IV_GRID, snapshot_plain),
+                10, BITWISE,
                 bnd=snapshot_bound(n, IV_GRID, draws=2,
-                                   step_fp=HESTON_STEP_FP))
+                                   step_fp=HESTON_STEP_FP),
+                floor=issue_floor(SNAPSHOT_SASS["heston"], n, (s + 1) // 2))
 
 
 def greeks_argv(*extra):
@@ -4999,13 +5051,13 @@ def phase_greeks_path(torch, card):
 
 def phase_iv_surface_path(torch, card):
     """``mc_implied_vol_surface`` on GBM and Heston at 2^17 paths over
-    steps 21, 63, 126, 252 (one K4 launch) and the six-maturity grid (two
-    launches), strikes 70 to 130 by 7.5, launches counted around each
-    call: GBM flat at sigma within 0.01 (tests/test_surface.py's bound) on
-    every cell where four standard errors of its price move its iv by at
-    most 0.01 (the wings carry too few paying paths, or too little time
-    value beside the forward's error, to invert); Heston skewed at 1
-    year.  Returns the K4 launches."""
+    steps 21, 63, 126, 252 and the six-maturity grid, one launch of the
+    snapshot kernel each and none of K4's, strikes 70 to 130 by 7.5,
+    launches counted around each call: GBM flat at sigma within 0.01
+    (tests/test_surface.py's bound) on every cell where four standard
+    errors of its price move its iv by at most 0.01 (the wings carry too
+    few paying paths, or too little time value beside the forward's
+    error, to invert); Heston skewed at 1 year.  Returns the snapshot kernel's launches."""
     import numpy as np
 
     from montecarlo_tpu_torch.engine import (black_scholes_vega,
@@ -5014,18 +5066,20 @@ def phase_iv_surface_path(torch, card):
 
     s, r, sig = IV_GRID[-1], 0.03, 0.2
     gbm = GBM.create(100.0, r, sig, 1.0 / s, device="cuda")
-    checks, k4 = {}, 0
+    checks, snaps = {}, 0
     for kind, proc in (("gbm", gbm), ("heston", heston(s))):
-        for grid, launches in ((IV_GRID, 1), (IV_GRID6, 2)):
+        for grid in (IV_GRID, IV_GRID6):
             surf, wall, c = run_counted(
                 mc_implied_vol_surface, proc, IV_STRIKES, grid, 1.0 / s,
                 rate=r, n_paths=IV_PATHS, seed=3)
-            k4 += c["fused_functionals"]
-            checks[f"{kind} {len(grid)} maturities: {launches} K4 "
-                   "launches"] = c["fused_functionals"] == launches
+            snaps += c["fused_functionals_snapshot"]
+            checks[f"{kind} {len(grid)} maturities: 1 snapshot launch, 0 "
+                   "K4 launches"] = (c["fused_functionals_snapshot"] == 1
+                                     and c["fused_functionals"] == 0)
             ivs, mats = surf["ivs"], surf["maturities"]
             log(f"  {kind} surface, {len(grid)} maturities: {wall:.3f} s "
-                f"wall-clock, {c['fused_functionals']} K4 launches, NaN "
+                f"wall-clock, {c['fused_functionals_snapshot']} snapshot "
+                f"launches, {c['fused_functionals']} K4 launches, NaN "
                 f"cells {int(np.isnan(ivs).sum())} of {ivs.size}; ivs at "
                 f"1 y {np.round(ivs[-1], 4).tolist()}, on {card}")
             if kind == "gbm":
@@ -5054,7 +5108,7 @@ def phase_iv_surface_path(torch, card):
         log(f"  {'ok' if ok else 'FAIL'}: {name}")
     if failed:
         raise AssertionError(f"surface checks failed: {failed}")
-    return k4
+    return snaps
 
 
 def phase_variance_reduction_path(torch, card):
@@ -5137,6 +5191,8 @@ KERNELS = [
     ("fused_block_moments_bridge", "fused_engine.cu", "fused_engine.py:478"),
     ("fused_functionals_bridge", "fused_k4.cu", "fused_engine.py:390"),
     ("fused_functionals_fixed_bridge", "fused_k4.cu", "fused_engine.py:390"),
+    ("fused_functionals_snapshot", "fused_k4_snapshot.cu",
+     "fused_engine.py:390"),
     *((f"fused_terminal_{k}", "fused_engine.cu", "fused_engine.py:231")
       for k in JUMP_KINDS),
     ("fused_block_moments_merton", "fused_engine.cu", "fused_engine.py:478"),
@@ -5310,7 +5366,7 @@ def main() -> int:
             f"{time.perf_counter() - t_path:.1f} s")
         log(f"  phase 14 took {time.perf_counter() - t14:.1f} s, on {card}")
         log("phase 15: greeks, variance reduction and the implied-vol "
-            "surface (K4's snapshot fold; K2)")
+            "surface (the snapshot kernel; K2)")
         t15 = time.perf_counter()
         phase_snapshot_parity(torch, errs)
         t_shapes = time.perf_counter()
@@ -5318,7 +5374,8 @@ def main() -> int:
         t_path = time.perf_counter()
         k2 = phase_greeks_path(torch, card)
         t_surf = time.perf_counter()
-        counts["fused_functionals"] += phase_iv_surface_path(torch, card)
+        counts["fused_functionals_snapshot"] = phase_iv_surface_path(
+            torch, card)
         t_vr = time.perf_counter()
         k2 += phase_variance_reduction_path(torch, card)
         counts["fused_terminal"] += k2

@@ -12,7 +12,8 @@
 // time, and replaces `t % period == 0` by an integer countdown (the
 // updates come with t = 1, 2, ... in order, so both are true at the same
 // steps).  FixedFolds lists the sets K4 is built for; with_fold picks the
-// one that a spec names, or SpecFold.
+// one that a spec names, or SpecFold.  SnapshotFold is the snapshot
+// kernel's: a set of price snapshots only, latched at their steps.
 //
 // Written as __host__ __device__ functions so that the same text runs in
 // K4 (csrc/fused_engine.cuh, nvcc) and in the host shims of
@@ -496,5 +497,63 @@ template <class F>
 auto with_fold(const FunctionalSpec& spec, F&& f) -> decltype(f(SpecFold{})) {
   return with_fold(FixedFolds{}, spec, f);
 }
+
+// ---- The snapshot fold: prices latched at their steps -----------------------
+
+// The most snapshots one launch of the snapshot kernel takes
+// (csrc/fused_k4_snapshot.cu): a surface's maturity grid before its last.
+constexpr int kMaxSnapshots = 64;
+
+// A launch's snapshots, by value, sorted by step on the host
+// (ops/fused_engine.py::fused_snapshots): snapshot k latches the price
+// after step[k] steps (0: the spot; a step past the run's last is written
+// 0) into output row row[k] + 1.
+struct SnapshotPlan {
+  int64_t out_stride;  // row stride of out (the launch's path count)
+  int n;
+  int step[kMaxSnapshots];
+  int row[kMaxSnapshots];
+};
+
+// K4 on a set of snapshots only, kSnapshot's fold without the generic
+// fold's switch and accumulators: every path has the same steps, so one
+// cursor walks the sorted plan, and the time loop asks at each step only
+// whether it is the cursor's (`due`, one integer compare, the same answer
+// for every thread).  At such a step the kernel takes the price of the
+// state, which the fold stores straight to each row that latches it;
+// the snapshots of the last step get the terminal price at finalize, and
+// those past it 0, as kSnapshot's fold leaves them.  The price is thus
+// computed only at a latched step and at the end, the same prices() of
+// the same states as the generic fold takes at every step.
+struct SnapshotFold {
+  int next;  // the first snapshot not yet latched
+  int due;   // its step while that lies before the last step, else -1
+  MC_HD void seek(const SnapshotPlan& p, int n_steps) {
+    due = next < p.n && p.step[next] < n_steps ? p.step[next] : -1;
+  }
+  MC_HD void init(const SnapshotPlan& p, int n_steps) {
+    next = 0;
+    seek(p, n_steps);
+  }
+  // Whether the state after step t (0: the initial state) is latched.
+  MC_HD bool due_at(int t) const { return t == due; }
+  // Latches `price`, the price after step t, into every row of step t
+  // (stores only when `store`: a thread past the paths) and moves on.
+  MC_HD void latch(const SnapshotPlan& p, int n_steps, int t, float price,
+                   float* out, int64_t i, bool store) {
+    for (; next < p.n && p.step[next] == t; ++next) {
+      if (store) out[(p.row[next] + 1) * p.out_stride + i] = price;
+    }
+    seek(p, n_steps);
+  }
+  // The snapshots of the last step get the terminal price, the rest 0.
+  MC_HD void finalize(const SnapshotPlan& p, int n_steps, float terminal,
+                      float* out, int64_t i) {
+    latch(p, n_steps, n_steps, terminal, out, i, true);
+    for (; next < p.n; ++next) {
+      out[(p.row[next] + 1) * p.out_stride + i] = 0.0f;
+    }
+  }
+};
 
 }  // namespace mcf

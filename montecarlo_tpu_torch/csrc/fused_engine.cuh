@@ -41,6 +41,9 @@
 //     observes the price only when a functional reads it and the log price
 //     only when one reads that; a functor whose log price is log32 of its
 //     price (the basket) computes its price once per observation.
+//   K4 on a set of price snapshots only is a kernel of its own,
+//     csrc/fused_k4_snapshot.cu's fused_snapshot_kernel over the same
+//     draw sources and run_path.
 //
 // Design: one thread per path with the state and the functional
 // accumulators in registers for the whole time loop (SpecFold's at most 4

@@ -819,10 +819,59 @@ MC_STATE_LAUNCHES(launch_dcc_garch)
 
 namespace {
 
-// Picks the functor for the process code (the basket's by its asset count,
-// in fused_basket.cuh; the rate and term-structure processes' in
-// fused_rates.cu; the multi-asset state processes' in their units) and
-// launches it with one thread per path.
+// Launches `Launcher` on this header's functor for the process code with
+// one thread per path; an invalid value for a code that is none of them.
+// The snapshot kernel's unit (csrc/fused_k4_snapshot.cu) dispatches here
+// alone.
+template <template <class, class> class Launcher, class... Args>
+cudaError_t launch_functor(int process, int dims, const DrawArgs& a,
+                           unsigned blocks, cudaStream_t s, Args... args) {
+  switch (process) {
+    case kGbm:
+      return launch_source<Launcher, GbmProc>(a, dims, blocks, s, args...);
+    case kHeston:
+      return launch_source<Launcher, HestonProc>(a, dims, blocks, s,
+                                                 args...);
+    case kGarch:
+      if (dims < 1) return cudaErrorInvalidValue;
+      return launch_source<Launcher, GarchProc>(a, dims, blocks, s, args...);
+    case kMerton:
+      return launch_source<Launcher, MertonProc>(a, dims, blocks, s,
+                                                 args...);
+    case kKou:
+      return launch_source<Launcher, KouProc>(a, dims, blocks, s, args...);
+    case kBates:
+      return launch_source<Launcher, BatesProc>(a, dims, blocks, s, args...);
+    case kNig:
+      return launch_source<Launcher, NigProc>(a, dims, blocks, s, args...);
+    case kHestonQE:
+      return launch_source<Launcher, HestonQEProc>(a, dims, blocks, s,
+                                                   args...);
+    case kBatesQE:
+      return launch_source<Launcher, BatesQEProc>(a, dims, blocks, s,
+                                                  args...);
+    case kVg:
+      if (dims < 2) return cudaErrorInvalidValue;
+      return launch_source<Launcher, VgProc>(a, dims, blocks, s, args...);
+    case kSabr:
+      return launch_source<Launcher, SabrProc>(a, dims, blocks, s, args...);
+    case kLocalVol:
+      if (dims < 1) return cudaErrorInvalidValue;
+      return launch_source<Launcher, LocalVolProc>(a, dims, blocks, s,
+                                                   args...);
+    case kSlv:
+      if (dims < 1) return cudaErrorInvalidValue;
+      return launch_source<Launcher, SlvProc>(a, dims, blocks, s, args...);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+// Picks the functor for the process code (this header's by
+// launch_functor; the basket's by its asset count, in fused_basket.cuh;
+// the rate and term-structure processes' in fused_rates.cu; the
+// multi-asset state processes' in their units) and launches it with one
+// thread per path.
 template <template <class, class> class Launcher, class... Args>
 int dispatch(int process, int dims, const DrawArgs& a, int64_t n_paths,
              void* stream, Args... args) {
@@ -830,62 +879,6 @@ int dispatch(int process, int dims, const DrawArgs& a, int64_t n_paths,
   const cudaStream_t s = (cudaStream_t)stream;
   cudaError_t err;
   switch (process) {
-    case kGbm:
-      err = launch_source<Launcher, GbmProc>(a, dims, blocks, s, n_paths,
-                                             args...);
-      break;
-    case kHeston:
-      err = launch_source<Launcher, HestonProc>(a, dims, blocks, s,
-                                                n_paths, args...);
-      break;
-    case kGarch:
-      if (dims < 1) return (int)cudaErrorInvalidValue;
-      err = launch_source<Launcher, GarchProc>(a, dims, blocks, s, n_paths,
-                                               args...);
-      break;
-    case kMerton:
-      err = launch_source<Launcher, MertonProc>(a, dims, blocks, s, n_paths,
-                                                args...);
-      break;
-    case kKou:
-      err = launch_source<Launcher, KouProc>(a, dims, blocks, s, n_paths,
-                                             args...);
-      break;
-    case kBates:
-      err = launch_source<Launcher, BatesProc>(a, dims, blocks, s, n_paths,
-                                               args...);
-      break;
-    case kNig:
-      err = launch_source<Launcher, NigProc>(a, dims, blocks, s, n_paths,
-                                             args...);
-      break;
-    case kHestonQE:
-      err = launch_source<Launcher, HestonQEProc>(a, dims, blocks, s,
-                                                  n_paths, args...);
-      break;
-    case kBatesQE:
-      err = launch_source<Launcher, BatesQEProc>(a, dims, blocks, s,
-                                                 n_paths, args...);
-      break;
-    case kVg:
-      if (dims < 2) return (int)cudaErrorInvalidValue;
-      err = launch_source<Launcher, VgProc>(a, dims, blocks, s, n_paths,
-                                            args...);
-      break;
-    case kSabr:
-      err = launch_source<Launcher, SabrProc>(a, dims, blocks, s, n_paths,
-                                              args...);
-      break;
-    case kLocalVol:
-      if (dims < 1) return (int)cudaErrorInvalidValue;
-      err = launch_source<Launcher, LocalVolProc>(a, dims, blocks, s,
-                                                  n_paths, args...);
-      break;
-    case kSlv:
-      if (dims < 1) return (int)cudaErrorInvalidValue;
-      err = launch_source<Launcher, SlvProc>(a, dims, blocks, s, n_paths,
-                                             args...);
-      break;
     case kBasket:
       err = launch_basket(a, dims, blocks, s, n_paths, args...);
       break;
@@ -907,7 +900,8 @@ int dispatch(int process, int dims, const DrawArgs& a, int64_t n_paths,
       err = launch_dcc_garch(a, dims, blocks, s, n_paths, args...);
       break;
     default:
-      return (int)cudaErrorInvalidValue;
+      err = launch_functor<Launcher>(process, dims, a, blocks, s, n_paths,
+                                     args...);
   }
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();

@@ -8,13 +8,14 @@ the (maturity, strike) grid are priced on the run's device and inverted by
 
     surface = mc_implied_vol_surface(proc, strikes, step_grid, dt, rate=...)
 
-On the kernel route the snapshots are K4's snapshot fold (``SNAPSHOT_CODE``,
-``csrc/functionals.cuh::kSnapshot``, the generic fold).  K4 folds at most
-``MAX_FUNCTIONALS`` functionals a launch, so the last maturity is the run's
-terminal and the others are grouped four snapshots a launch, each launch
-running to its group's last step (the last one to the last maturity).  The
-draws are keyed by (path, step), so the grouped launches give the bits of
-one long run.
+One run to the last maturity gives the grid: the last maturity is the
+run's terminal and every one before it a snapshot.  On the kernel route
+that run is the snapshot kernel (``ops.fused_engine.fused_snapshots``,
+``csrc/fused_k4_snapshot.cu``), one launch for a grid of up to
+``MAX_SNAPSHOTS`` + 1 maturities; a functor or draw source it is not
+built for runs ``SNAPSHOT_CODE`` on K4's generic fold, four snapshots a
+launch (``ops.fused_engine.k4_launches``).  The draws are keyed by (path,
+step), so any split gives the bits of one long run.
 """
 
 from __future__ import annotations
@@ -27,7 +28,6 @@ from montecarlo_tpu_torch.engine.functionals import (SNAPSHOT_CODE,
                                                      PathFunctional,
                                                      simulate_functionals)
 from montecarlo_tpu_torch.engine.implied_vol import implied_vol_call
-from montecarlo_tpu_torch.ops.fused_engine import MAX_FUNCTIONALS
 
 
 def price_snapshot(step: int) -> PathFunctional:
@@ -49,33 +49,16 @@ def price_snapshot(step: int) -> PathFunctional:
                           device=lambda n_steps: form)
 
 
-def snapshot_groups(steps) -> list:
-    """The runs of a maturity grid: ``[(n_steps, snapshot steps)]``, the
-    maturities before the last grouped ``MAX_FUNCTIONALS`` a run, each run
-    to its group's last step, the last run to the last maturity (its
-    terminal).  A grid of one maturity is one run with no snapshot."""
-    snaps = list(steps[:-1])
-    groups = [snaps[i:i + MAX_FUNCTIONALS]
-              for i in range(0, len(snaps), MAX_FUNCTIONALS)] or [[]]
-    runs = [(g[-1], g) for g in groups[:-1]]
-    runs.append((steps[-1], groups[-1]))
-    return runs
-
-
 def snapshot_terminals(process, n_paths: int, steps, *, seed: int,
                        **sim_kw) -> torch.Tensor:
     """The (T, n_paths) prices at each step of the increasing grid
-    ``steps``: the snapshots of :func:`snapshot_groups`' runs through
-    ``simulate_functionals`` (K4 on the kernel route), the last row the
-    last run's terminal."""
-    rows = []
-    for n_steps, group in snapshot_groups(steps):
-        funcs = {f"m{j}": price_snapshot(s) for j, s in enumerate(group)}
-        out = simulate_functionals(process, n_paths, n_steps, seed=seed,
-                                   functionals=funcs, **sim_kw)
-        rows += [out[f"m{j}"] for j in range(len(group))]
-    rows.append(out["terminal"])
-    return torch.stack(rows)
+    ``steps``: one ``simulate_functionals`` run to the last step (the
+    snapshot kernel on the kernel route) with a snapshot at each step
+    before it, the last row its terminal."""
+    funcs = {f"m{j}": price_snapshot(s) for j, s in enumerate(steps[:-1])}
+    out = simulate_functionals(process, n_paths, steps[-1], seed=seed,
+                               functionals=funcs, **sim_kw)
+    return torch.stack([out[k] for k in funcs] + [out["terminal"]])
 
 
 def mc_implied_vol_surface(process, strikes, step_grid, dt: float, *,

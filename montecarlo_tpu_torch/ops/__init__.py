@@ -14,6 +14,8 @@ version for a CPU one; nothing falls back from one to the other.
   term-structure processes' in csrc/fused_rates.cu, the term basket's,
   CCC-GARCH's and DCC-GARCH's in csrc/fused_term_basket{,_k4}.cu,
   fused_ccc.cu and fused_dcc{,_k4}.cu)
+- K4 on price snapshots ``fused_snapshots`` — csrc/fused_k4_snapshot.cu
+  (counted as ``fused_functionals_snapshot[_sobol|_bridge]``, not as K4's)
 - ``surface_rows``            — csrc/fused_engine.cu: the row builder of
   the surfaces on time knots (local vol, SLV on knots), whose rows K2-K4
   read; once per (process, n_steps)
@@ -43,12 +45,17 @@ from montecarlo_tpu_torch.ops.fused_engine import (  # noqa: F401
     K4_FIXED,
     K4_FIXED_BRIDGE,
     K4_FIXED_SOBOL,
+    K4_SNAPSHOT,
+    K4_SNAPSHOT_BRIDGE,
+    K4_SNAPSHOT_SOBOL,
     K4_SOBOL,
     SURFACE_ROWS,
     fused_block_moments,
     fused_block_moments_reference,
     fused_functionals,
     fused_functionals_reference,
+    fused_snapshots,
+    fused_snapshots_reference,
     fused_terminal,
     fused_terminal_reference,
     surface_rows,
@@ -85,6 +92,9 @@ PATH_KERNELS = {"gbm_terminal": K1, "fused_terminal": K2,
                 "fused_functionals_fixed": K4_FIXED,
                 "fused_functionals_fixed_sobol": K4_FIXED_SOBOL,
                 "fused_functionals_fixed_bridge": K4_FIXED_BRIDGE,
+                "fused_functionals_snapshot": K4_SNAPSHOT,
+                "fused_functionals_snapshot_sobol": K4_SNAPSHOT_SOBOL,
+                "fused_functionals_snapshot_bridge": K4_SNAPSHOT_BRIDGE,
                 "surface_rows": SURFACE_ROWS}
 
 

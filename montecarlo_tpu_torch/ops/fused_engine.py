@@ -51,19 +51,27 @@ K3 applies a :class:`VanillaPayoff` in the kernel and writes (mean, M2) per
 into 4096-path :class:`MomentState` blocks in torch, by the same pairwise
 tree as the JAX package.
 
-K4 folds up to four path functionals after every step, each given by its
-device form (``engine.functionals.DeviceForm``), and writes the terminal
-prices plus each finalized functional.  The sets the main paths launch
-run a fold fixed at compile time where the kernels are built for it
-(``csrc/functionals.cuh``'s ``FixedFolds``; ``FixedFor`` in
-``csrc/fused_k4.cu``, ``fused_basket.cuh``, ``fused_rates.cu`` (the bond
-models' {trap}) and ``fused_term_basket_k4.cu`` (the term basket's
-{avg})); the others the generic fold, the codes read at run time.
+K4 folds path functionals after every step, each given by its device
+form (``engine.functionals.DeviceForm``), and writes the terminal prices
+plus each finalized functional; any number of them, as JAX's K4 takes,
+in the launches of :func:`k4_launches`.  A launch folds up to
+``MAX_FUNCTIONALS``.  The sets the main paths launch run a fold fixed at
+compile time where the kernels are built for it (``csrc/functionals.cuh``'s
+``FixedFolds``; ``FixedFor`` in ``csrc/fused_k4.cu``, ``fused_basket.cuh``,
+``fused_rates.cu`` (the bond models' {trap}) and
+``fused_term_basket_k4.cu`` (the term basket's {avg})); the others the
+generic fold, the codes read at run time.  A set of price snapshots only
+(``engine.surface.price_snapshot``) runs the snapshot kernel
+(:func:`fused_snapshots`, ``csrc/fused_k4_snapshot.cu``), up to
+``MAX_SNAPSHOTS`` a launch, on the functors and draw sources of
+``SNAPSHOT_SOURCES``; elsewhere the generic fold.
 
 Each wrapper counts its launches per draw source (``K2``, ``K2_SOBOL``,
 ``K2_BRIDGE``, ...; ``ops.PATH_KERNELS`` names them); K4's launches that
 ran a fixed fold are counted again in ``K4_FIXED``, ``K4_FIXED_SOBOL`` and
-``K4_FIXED_BRIDGE``; the row builder's in ``SURFACE_ROWS``.
+``K4_FIXED_BRIDGE``; the snapshot kernel's in ``K4_SNAPSHOT``,
+``K4_SNAPSHOT_SOBOL`` and ``K4_SNAPSHOT_BRIDGE`` (and not in K4's); the
+row builder's in ``SURFACE_ROWS``.
 """
 
 from __future__ import annotations
@@ -71,10 +79,12 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import weakref
+from typing import NamedTuple
 
 import torch
 
 from montecarlo_tpu_torch.engine.functionals import (MAX_PARAMS,
+                                                     SNAPSHOT_CODE,
                                                      functional_observables)
 from montecarlo_tpu_torch.engine.payoffs import VanillaPayoff
 from montecarlo_tpu_torch.engine.simulate import (check_sampler, check_steps,
@@ -100,7 +110,8 @@ from montecarlo_tpu_torch.stats.welford import (MomentState, moments_reduce,
 
 LANES = 128          # paths per stats row (K3's block)
 STATS_BLOCK = 4096   # paths per MomentState block
-MAX_FUNCTIONALS = 4  # K4's functional slots (kMaxFunctionals)
+MAX_FUNCTIONALS = 4  # K4's functional slots a launch (kMaxFunctionals)
+MAX_SNAPSHOTS = 64   # the snapshot kernel's a launch (kMaxSnapshots)
 
 #: The processes the kernels run, by the code of their functor
 #: (csrc/fused_engine.cuh::ProcessCode): SLV on knots runs SLV's, on the
@@ -132,6 +143,15 @@ ROW_HEADS = {LocalVolGBM: ("s0", "rate", "dt", "x0", "dx"),
 
 #: Draw-source codes of the kernels (csrc/fused_engine.cuh::DrawSource).
 THREEFRY, SOBOL, BRIDGE = 0, 1, 2
+#: The functors and draw sources the snapshot kernel is built for
+#: (csrc/fused_k4_snapshot.cu::kSnapshotBuilt): GBM under every source,
+#: Heston under Threefry and Sobol, the other functors of
+#: csrc/processes.cuh under Threefry.
+SNAPSHOT_SOURCES = {
+    GBM: (THREEFRY, SOBOL, BRIDGE), Heston: (THREEFRY, SOBOL),
+    **{t: (THREEFRY,) for t in (GARCHBootstrap, Merton, Kou, Bates, NIG,
+                                HestonQE, BatesQE, VarianceGamma, SABR,
+                                LocalVolGBM, SLV, SLVKnots)}}
 #: The widest bridge plan the kernels take: the tree levels whose normals a
 #: path holds in registers (csrc/bridge_levels.cuh::kMaxLevels; T <= 2^15).
 MAX_BRIDGE_LEVELS = 16
@@ -164,6 +184,12 @@ K4_BRIDGE = CudaKernel("mc_fused_functionals", _K4_ARGS)
 K4_FIXED = CudaKernel("mc_fused_functionals", _K4_ARGS)
 K4_FIXED_SOBOL = CudaKernel("mc_fused_functionals", _K4_ARGS)
 K4_FIXED_BRIDGE = CudaKernel("mc_fused_functionals", _K4_ARGS)
+# The snapshot kernel: ... n_snapshots, steps, rows, out_stride, the stream.
+_SNAPSHOT_ARGS = _COMMON + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                            ctypes.c_int64, ctypes.c_void_p]
+K4_SNAPSHOT = CudaKernel("mc_fused_snapshots", _SNAPSHOT_ARGS)
+K4_SNAPSHOT_SOBOL = CudaKernel("mc_fused_snapshots", _SNAPSHOT_ARGS)
+K4_SNAPSHOT_BRIDGE = CudaKernel("mc_fused_snapshots", _SNAPSHOT_ARGS)
 # rows, table, dt, dt_knot, n_tk, n_rows, stream
 SURFACE_ROWS = CudaKernel("mc_surface_rows", [
     ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -171,7 +197,9 @@ SURFACE_ROWS = CudaKernel("mc_surface_rows", [
 _BY_SOURCE = {"K2": (K2, K2_SOBOL, K2_BRIDGE),
               "K3": (K3, K3_SOBOL, K3_BRIDGE),
               "K4": (K4, K4_SOBOL, K4_BRIDGE),
-              "K4_FIXED": (K4_FIXED, K4_FIXED_SOBOL, K4_FIXED_BRIDGE)}
+              "K4_FIXED": (K4_FIXED, K4_FIXED_SOBOL, K4_FIXED_BRIDGE),
+              "K4_SNAPSHOT": (K4_SNAPSHOT, K4_SNAPSHOT_SOBOL,
+                              K4_SNAPSHOT_BRIDGE)}
 
 
 def _bridge_refusal(sampler) -> Exception | None:
@@ -570,9 +598,6 @@ def fused_block_moments(process, payoff: VanillaPayoff, n_paths: int,
 def _device_forms(items, n_steps: int):
     """The K4 device form of each (name, functional); raises TypeError for
     a functional that has none."""
-    if len(items) > MAX_FUNCTIONALS:
-        raise ValueError(f"K4 folds at most {MAX_FUNCTIONALS} functionals, "
-                         f"got {len(items)}")
     forms = []
     for name, f in items:
         if f.device is None:
@@ -592,8 +617,8 @@ def fused_functionals_reference(process, n_paths: int, n_steps: int, *,
                                 antithetic: bool = False,
                                 sampler=None) -> dict:
     """The plain PyTorch version of K4: the functionals' own torch folds,
-    one update after every step with its 1-based index, over the kernels'
-    draws (:func:`_step_draws`)."""
+    any number of them, one update after every step with its 1-based
+    index, over the kernels' draws (:func:`_step_draws`)."""
     items = tuple(functionals.items())
     _leaves(process)
     _device_forms(items, n_steps)
@@ -615,27 +640,133 @@ def fused_functionals_reference(process, n_paths: int, n_steps: int, *,
     return out
 
 
-def fused_functionals(process, n_paths: int, n_steps: int, *, seed,
-                      functionals, stream=0, path_offset=0,
-                      antithetic: bool = False, sampler=None) -> dict:
-    """Terminal prices plus named path functionals, ``{"terminal": ...,
-    name: ...}``, each (n_paths,) float32: K4 on a CUDA process, the plain
-    version on a CPU one.  ``functionals`` maps names to
-    :class:`PathFunctional` s with a device form (at most four).  Any
-    ``n_paths >= 1``; the kernel masks the ragged edge.  ``sampler`` as in
-    :func:`fused_terminal`."""
-    items = tuple(functionals.items())
-    code, dims, leaves = _leaves(process)
-    forms = _device_forms(items, n_steps)
+def _check_snapshots(process, steps, source: int) -> None:
+    if len(steps) > MAX_SNAPSHOTS:
+        raise ValueError(f"the snapshot kernel takes at most {MAX_SNAPSHOTS} "
+                         f"snapshots a launch, got {len(steps)}")
+    if min(steps, default=0) < 0:
+        raise ValueError(f"snapshot steps must be >= 0, got {list(steps)}")
+    if source not in SNAPSHOT_SOURCES.get(type(process), ()):
+        raise ValueError(
+            f"the snapshot kernel is not built for {type(process).__name__} "
+            f"under draw source {source}; its snapshots run on K4's "
+            "generic fold (k4_launches)")
+
+
+def fused_snapshots_reference(process, n_paths: int, n_steps: int, steps, *,
+                              seed, stream=0, path_offset=0,
+                              antithetic: bool = False,
+                              sampler=None) -> torch.Tensor:
+    """The plain PyTorch version of the snapshot kernel: (1 + len(steps),
+    n_paths) float32, row 0 the terminal prices and row k + 1 the price
+    after ``steps[k]`` steps (step 0 the spot; 0 for a step past
+    ``n_steps``), the price taken only at a latched step, over the
+    kernels' draws (:func:`_step_draws`)."""
+    _leaves(process)
     source = _check_draws(process, sampler, n_steps, antithetic)
+    _check_snapshots(process, steps, source)
+    k0, k1 = key_from_seed(seed, stream)
+    ids = path_ids_for(n_paths, path_offset, process.device)
+    state = process.init_state(ids)
+    out = torch.zeros((1 + len(steps), n_paths), dtype=torch.float32,
+                      device=process.device)
+    rows = {}
+    for k, s in enumerate(steps):
+        rows.setdefault(int(s), []).append(k + 1)
+
+    def latch(t):
+        if t in rows:
+            out[rows[t]] = process.prices(state)
+
+    latch(0)
+    for t, eps in _step_draws(process, n_steps, k0, k1, ids, antithetic,
+                              sampler):
+        state = process.step(state, eps, t)
+        latch(t + 1)
+    out[0] = process.prices(state)
+    return out
+
+
+def fused_snapshots(process, n_paths: int, n_steps: int, steps, *, seed,
+                    stream=0, path_offset=0, antithetic: bool = False,
+                    sampler=None) -> torch.Tensor:
+    """The prices after each of ``steps`` (at most ``MAX_SNAPSHOTS``, any
+    order and repeats) in one run of ``n_steps``: (1 + len(steps),
+    n_paths) float32, row 0 the terminal prices, row k + 1 the price after
+    ``steps[k]`` steps (0: the spot; 0 past ``n_steps``).  The snapshot
+    kernel (``csrc/fused_k4_snapshot.cu``) on a CUDA process, its plain
+    version on a CPU one; for the functors and sources of
+    ``SNAPSHOT_SOURCES`` only.  ``sampler`` as in :func:`fused_terminal`."""
+    code, dims, leaves = _leaves(process)
+    source = _check_draws(process, sampler, n_steps, antithetic)
+    steps = [int(s) for s in steps]
+    _check_snapshots(process, steps, source)
     dev = process.device
     if dev.type == "cpu":
-        return fused_functionals_reference(
-            process, n_paths, n_steps, seed=seed, functionals=functionals,
-            stream=stream, path_offset=path_offset, antithetic=antithetic,
-            sampler=sampler)
+        return fused_snapshots_reference(
+            process, n_paths, n_steps, steps, seed=seed, stream=stream,
+            path_offset=path_offset, antithetic=antithetic, sampler=sampler)
     if n_paths < 1 or n_steps < 0:
         raise ValueError(f"n_paths={n_paths}, n_steps={n_steps}")
+    draw = _draw_args(process, sampler, source, antithetic)
+    dims, leaves = _launch_leaves(process, n_steps, dims, leaves)
+    out = torch.empty((1 + len(steps), n_paths), dtype=torch.float32,
+                      device=dev)
+    # The plan, sorted by step: each step (one past the last for any
+    # later: never latched, written 0) and its output row less one.
+    order = sorted(range(len(steps)), key=lambda k: steps[k])
+    n = len(steps)
+    plan_steps = (ctypes.c_int * max(n, 1))(
+        *[min(steps[k], n_steps + 1) for k in order])
+    plan_rows = (ctypes.c_int * max(n, 1))(*order)
+    k0, k1 = key_from_seed(seed, stream)
+    with torch.cuda.device(dev):
+        _BY_SOURCE["K4_SNAPSHOT"][source].launch(
+            out.data_ptr(), leaves.data_ptr(), code, dims, n_paths, n_steps,
+            int(path_offset) & MASK32, k0, k1, *draw, n, plan_steps,
+            plan_rows, n_paths, cuda_stream(dev))
+    return out
+
+
+class K4Launch(NamedTuple):
+    """One launch of a functional set: the snapshot kernel or K4's fold,
+    its time loop's steps, and the set's entries it folds, in its output
+    rows' order."""
+
+    snapshot: bool
+    n_steps: int
+    items: tuple
+
+
+def k4_launches(process, source: int, forms, n_steps: int) -> list:
+    """The launches that fold the device forms ``forms`` over a run of
+    ``n_steps`` (draw source ``source``), the run's terminal the last
+    one's.  A set of snapshots only is sorted by step and split by the
+    capacity of the kernel that takes it, the snapshot kernel's
+    ``MAX_SNAPSHOTS`` where ``SNAPSHOT_SOURCES`` has the functor and
+    source, else the generic fold's ``MAX_FUNCTIONALS``; each launch but
+    the last runs to its own last step.  Any other set runs K4 in launches
+    of ``MAX_FUNCTIONALS``, each over the whole run.  The draws are keyed
+    by (path, step), so the launches give the bits of one run."""
+    if not forms or any(f.code != SNAPSHOT_CODE for f in forms):
+        chunks = [tuple(range(k, min(k + MAX_FUNCTIONALS, len(forms))))
+                  for k in range(0, len(forms), MAX_FUNCTIONALS)] or [()]
+        return [K4Launch(False, n_steps, c) for c in chunks]
+    kernel = source in SNAPSHOT_SOURCES.get(type(process), ())
+    cap = MAX_SNAPSHOTS if kernel else MAX_FUNCTIONALS
+    order = sorted(range(len(forms)), key=lambda k: forms[k].period)
+    chunks = [tuple(order[k:k + cap]) for k in range(0, len(order), cap)]
+    return [K4Launch(kernel, n_steps if j == len(chunks) - 1
+                     else min(n_steps, forms[c[-1]].period), c)
+            for j, c in enumerate(chunks)]
+
+
+def _fold_launch(process, n_paths: int, n_steps: int, items, forms, *,
+                 seed, stream, path_offset, antithetic, sampler) -> dict:
+    """One launch of K4's fold over at most ``MAX_FUNCTIONALS`` items."""
+    code, dims, leaves = _leaves(process)
+    source = draw_source(sampler, antithetic)
+    dev = process.device
     draw = _draw_args(process, sampler, source, antithetic)
     dims, leaves = _launch_leaves(process, n_steps, dims, leaves)
     out = torch.empty((1 + len(forms), n_paths), dtype=torch.float32,
@@ -659,3 +790,42 @@ def fused_functionals(process, n_paths: int, n_steps: int, *, seed,
     for k, (name, _) in enumerate(items):
         result[name] = out[k + 1]
     return result
+
+
+def fused_functionals(process, n_paths: int, n_steps: int, *, seed,
+                      functionals, stream=0, path_offset=0,
+                      antithetic: bool = False, sampler=None) -> dict:
+    """Terminal prices plus named path functionals, ``{"terminal": ...,
+    name: ...}``, each (n_paths,) float32: the launches of
+    :func:`k4_launches` (K4's fold or the snapshot kernel) on a CUDA
+    process, each one's plain version on a CPU one.  ``functionals`` maps
+    names to :class:`PathFunctional` s with a device form, any number of
+    them.  Any ``n_paths >= 1``; the kernels mask the ragged edge.
+    ``sampler`` as in :func:`fused_terminal`."""
+    items = tuple(functionals.items())
+    _leaves(process)
+    forms = _device_forms(items, n_steps)
+    source = _check_draws(process, sampler, n_steps, antithetic)
+    cpu = process.device.type == "cpu"
+    if not cpu and (n_paths < 1 or n_steps < 0):
+        raise ValueError(f"n_paths={n_paths}, n_steps={n_steps}")
+    kw = dict(seed=seed, stream=stream, path_offset=path_offset,
+              antithetic=antithetic, sampler=sampler)
+    result = {}
+    for launch in k4_launches(process, source, forms, n_steps):
+        sub = [items[k] for k in launch.items]
+        if launch.snapshot:
+            rows = fused_snapshots(process, n_paths, launch.n_steps,
+                                   [forms[k].period for k in launch.items],
+                                   **kw)
+            got = {"terminal": rows[0]}
+            got.update((name, rows[j + 1]) for j, (name, _) in enumerate(sub))
+        elif cpu:
+            got = fused_functionals_reference(
+                process, n_paths, launch.n_steps, functionals=dict(sub), **kw)
+        else:
+            got = _fold_launch(process, n_paths, launch.n_steps, sub,
+                               [forms[k] for k in launch.items], **kw)
+        result.update(got)  # the last launch's terminal: the whole run's
+    return {"terminal": result["terminal"],
+            **{name: result[name] for name, _ in items}}

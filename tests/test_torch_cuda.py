@@ -1661,41 +1661,147 @@ def test_cuda_k4_ccc_and_dcc_keep_the_generic_fold(cuda, kind, a_n):
                                antithetic=anti) == (1, 0)
 
 
+def _snapshot_counts(sfx=""):
+    """(the snapshot kernel's launches, K4's) under the counters' suffix."""
+    return (PATH_KERNELS["fused_functionals_snapshot" + sfx].launches,
+            PATH_KERNELS["fused_functionals" + sfx].launches)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("antithetic", [False, True])
 @pytest.mark.parametrize("kind", ["gbm", "heston"])
 def test_cuda_k4_snapshot_is_its_plain_version_and_the_shorter_run(
         cuda, kind, antithetic):
-    """K4 {snapshot} at steps 0, 1, 9 and the last, at 17 steps: bitwise
-    its plain version (the generic fold, counted as K4's only) and each
-    snapshot K2's terminal of a run stopped at its step."""
+    """K4 {snapshot} at steps 0, 1, 9 and the last, at 17 steps: the
+    snapshot kernel, one launch and none of K4's, bitwise its plain
+    version and K4's, and each snapshot K2's terminal of a run stopped at
+    its step."""
     from montecarlo_tpu_torch.engine.surface import price_snapshot
 
     tp, n, steps = _process(kind, 17, cuda), 4096 * 3 - 37, 17
     fns = {f"s{s}": price_snapshot(s) for s in (0, 1, 9, steps)}
     kw = dict(seed=4, path_offset=(1 << 30) - 1000, antithetic=antithetic)
-    assert _k4_counted(tp, n, steps, fns, **kw) == (1, 0)
+    before = _snapshot_counts()
     got = fused_functionals(tp, n, steps, functionals=fns, **kw)
+    after = _snapshot_counts()
+    assert (after[0] - before[0], after[1] - before[1]) == (1, 0)
+    want = fused_functionals_reference(tp, n, steps, functionals=fns, **kw)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
     for s in (0, 1, 9, steps):
         assert torch.equal(got[f"s{s}"], fused_terminal(tp, n, s, **kw)), s
 
 
 @pytest.mark.cuda
 def test_cuda_surface_grid_launches_are_one_long_run(cuda):
-    """A six-maturity grid on the card: two K4 launches, bitwise one
-    torch-loop run holding every snapshot."""
+    """A six-maturity grid on the card: one launch of the snapshot kernel
+    and none of K4's, bitwise one torch-loop run holding every
+    snapshot."""
     from montecarlo_tpu_torch.engine.surface import (price_snapshot,
                                                      snapshot_terminals)
 
     steps, tp = [3, 8, 13, 21, 30, 47], _process("heston", 64, cuda)
-    k4 = PATH_KERNELS["fused_functionals"].launches
+    before = _snapshot_counts()
     rows = snapshot_terminals(tp, 4096, steps, seed=2)
-    assert PATH_KERNELS["fused_functionals"].launches - k4 == 2
+    after = _snapshot_counts()
+    assert (after[0] - before[0], after[1] - before[1]) == (1, 0)
     one = simulate_functionals(tp, 4096, steps[-1], seed=2,
                                prefer_fused=False, functionals={
         f"m{j}": price_snapshot(s) for j, s in enumerate(steps)})
     for j in range(len(steps)):
         assert torch.equal(rows[j], one[f"m{j}"]), j
+
+
+#: The snapshot kernel's draw sources on GBM and Heston
+#: (ops/fused_engine.py::SNAPSHOT_SOURCES).
+SNAPSHOT_CASES = ([("gbm", s) for s in ("plain", "antithetic", "sobol",
+                                        "bridge")]
+                  + [("heston", s) for s in ("plain", "antithetic",
+                                             "sobol")])
+
+
+def _snapshot_draws(tp, source, n_steps, device):
+    """The launch arguments of ``source`` and its counters' suffix."""
+    from montecarlo_tpu_torch.rng.sobol import (SobolBridgeKernelSampler,
+                                                SobolDeviceSampler)
+
+    if source == "sobol":
+        return {"sampler": SobolDeviceSampler.create(
+            n_steps, tp.n_draws, scramble_seed=3, device=device)}, "_sobol"
+    if source == "bridge":
+        return {"sampler": SobolBridgeKernelSampler.create(
+            n_steps, scramble_seed=4, device=device)}, "_bridge"
+    return {"antithetic": source == "antithetic"}, ""
+
+
+def _snapshot_steps(n_steps, m, seed):
+    """m snapshot steps out of order: the middle (odd) step, 0, the last,
+    one past it, 1 and the middle again, then random steps in [0, n_steps
+    + 1]."""
+    mid = n_steps // 2 | 1
+    rest = np.random.default_rng(seed).integers(0, n_steps + 2, 64)
+    return ([mid, 0, n_steps, n_steps + 1, 1, mid] + rest.tolist())[:m]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_steps", [17, 252])
+@pytest.mark.parametrize("kind,source", SNAPSHOT_CASES)
+def test_cuda_snapshot_kernel_is_its_plain_version(cuda, kind, source,
+                                                   n_steps):
+    """The snapshot kernel (csrc/fused_k4_snapshot.cu) on grids of 1, 4, 6,
+    64 and 65 snapshots, the last split by the wrapper into 64 and 1:
+    bitwise its plain version and K4's, on a ragged path count with ids
+    from 2^30 - 1000, each launch counted once on the snapshot kernel's
+    counter and none on K4's."""
+    from montecarlo_tpu_torch.engine.surface import price_snapshot
+    from montecarlo_tpu_torch.ops import (fused_snapshots,
+                                          fused_snapshots_reference)
+
+    tp = _process(kind, n_steps, cuda)
+    draws, sfx = _snapshot_draws(tp, source, n_steps, cuda)
+    kw = dict(seed=4, path_offset=(1 << 30) - 1000, **draws)
+    n = 4096 * 3 - 37
+    for m in (1, 4, 6, 64, 65):
+        steps = _snapshot_steps(n_steps, m, m)
+        fns = {f"s{k}": price_snapshot(s) for k, s in enumerate(steps)}
+        before = _snapshot_counts(sfx)
+        got = fused_functionals(tp, n, n_steps, functionals=fns, **kw)
+        after = _snapshot_counts(sfx)
+        assert (after[0] - before[0], after[1] - before[1]) == (
+            1 if m <= 64 else 2, 0), m
+        want = fused_functionals_reference(tp, n, n_steps, functionals=fns,
+                                           **kw)
+        for k in want:
+            assert torch.isfinite(got[k]).all(), (m, k)
+            assert torch.equal(got[k], want[k]), (m, k)
+        if m <= 64:
+            rows = fused_snapshots(tp, n, n_steps, steps, **kw)
+            assert torch.equal(rows, fused_snapshots_reference(
+                tp, n, n_steps, steps, **kw)), m
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("antithetic", [False, True])
+def test_cuda_snapshot_kernel_on_every_functor(cuda, antithetic):
+    """The snapshot kernel on the other functors it is built for, under
+    Threefry draws (GARCH, the jump, Levy, QE and SABR functors, local vol
+    and SLV on rows and on knots) at 17 steps, six snapshots: bitwise its
+    plain version, one launch each."""
+    from montecarlo_tpu_torch.ops import (fused_snapshots,
+                                          fused_snapshots_reference)
+
+    procs = {kind: _cli_proc(kind, 17, cuda) for kind in NEW_KINDS}
+    procs["garch"] = _garch(503, cuda)
+    procs.update(_surface_procs(17, cuda))
+    steps = _snapshot_steps(17, 6, 0)
+    kw = dict(seed=6, path_offset=WRAP, antithetic=antithetic)
+    for kind, tp in procs.items():
+        before = _snapshot_counts()
+        got = fused_snapshots(tp, 4096 - 37, 17, steps, **kw)
+        assert _snapshot_counts()[0] == before[0] + 1, kind
+        want = fused_snapshots_reference(tp, 4096 - 37, 17, steps, **kw)
+        assert torch.isfinite(got).all(), kind
+        assert torch.equal(got, want), kind
 
 
 @pytest.mark.cuda

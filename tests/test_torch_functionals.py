@@ -41,7 +41,8 @@ from montecarlo_tpu_torch.engine import functionals as tf
 from montecarlo_tpu_torch.engine import mc_estimate, simulate_functionals
 from montecarlo_tpu_torch.ops import (fused_functionals,
                                       fused_functionals_reference,
-                                      launch_counts)
+                                      fused_snapshots, launch_counts)
+from montecarlo_tpu_torch.ops.fused_engine import THREEFRY, k4_launches
 from montecarlo_tpu_torch.processes import GBM
 from montecarlo_tpu_torch.processes.gbm import GBMState
 from montecarlo_tpu_torch.samplers import AntitheticSampler
@@ -152,6 +153,60 @@ def test_k4_plain_matches_pallas_interpret(kind, n_steps, group):
         _assert_close_to_jax(got, want)
 
 
+def _many(count):
+    """Five or six functionals, JAX and port: the app's four, realized
+    variance and the trapezoid integral."""
+    names = [("avg", "ARITH_MEAN"), ("geo", "GEO_MEAN"),
+             ("mx", "RUNNING_MAX"), ("mn", "RUNNING_MIN"),
+             ("rv", "realized_variance"), ("tr", "trapezoid_integral")]
+
+    def build(mod, name):
+        if name == "realized_variance":
+            return mod.realized_variance()
+        if name == "trapezoid_integral":
+            return mod.trapezoid_integral(1 / 252)
+        return getattr(mod, name)
+
+    return ({k: build(jf, n) for k, n in names[:count]},
+            {k: build(tf, n) for k, n in names[:count]})
+
+
+@pytest.mark.parametrize("count", [5, 6])
+@pytest.mark.parametrize("kind", ["gbm", "heston"])
+def test_more_than_four_functionals_as_jax_k4(kind, count):
+    """K4 over five and six functionals, as JAX's K4 takes any number:
+    ``simulate_functionals`` on the kernel route (two launches of K4's
+    plain version here) bitwise K4's plain version in one pass and the
+    torch loop, and within PRICE_RTOL (realized variance its atol) of
+    JAX's ``fused_functionals_pallas`` in interpret mode with the same
+    functionals, at a path offset, plain and antithetic."""
+    jp, tp = _pair(kind)
+    jfns, tfns = _many(count)
+    forms = [f.device(17) for f in tfns.values()]
+    assert [launch.items for launch in k4_launches(
+        tp, THREEFRY, forms, 17)] == [(0, 1, 2, 3), tuple(range(4, count))]
+    for antithetic in (False, True):
+        ts = AntitheticSampler() if antithetic else None
+        got = simulate_functionals(tp, N, 17, seed=9, functionals=tfns,
+                                   path_offset=OFFSET, sampler=ts)
+        assert list(got) == ["terminal", *tfns]
+        one = fused_functionals_reference(tp, N, 17, seed=9,
+                                          functionals=tfns,
+                                          path_offset=OFFSET,
+                                          antithetic=antithetic)
+        loop = simulate_functionals(tp, N, 17, seed=9, functionals=tfns,
+                                    path_offset=OFFSET, sampler=ts,
+                                    prefer_fused=False)
+        for k in got:
+            assert torch.equal(got[k], one[k]), k
+            assert torch.equal(got[k], loop[k]), k
+        want = fused_functionals_pallas(
+            jp, N, 17, seed=9, functional_items=tuple(jfns.items()),
+            path_offset=OFFSET, block_rows=8, interpret=True,
+            antithetic=antithetic)
+        _assert_close_to_jax(got, want)
+
+
 def test_dispatch_runs_k4_plain_version_on_the_cpu():
     _, tp = _pair("heston")
     fns = _groups(16)[1][1]
@@ -248,9 +303,8 @@ def test_k4_refusals_name_the_cause():
     with pytest.raises(TypeError, match="GBM and Heston"):
         fused_functionals(object(), 64, 16, seed=0,
                           functionals={"avg": tf.ARITH_MEAN})
-    five = {f"a{i}": tf.ARITH_MEAN for i in range(5)}
-    with pytest.raises(ValueError, match="at most 4"):
-        fused_functionals(tp, 64, 16, seed=0, functionals=five)
+    with pytest.raises(ValueError, match="at most 64"):
+        fused_snapshots(tp, 64, 80, list(range(65)), seed=0)
 
 
 def test_worst_of_single_asset_equals_autocallable():

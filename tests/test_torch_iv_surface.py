@@ -9,8 +9,10 @@ Tolerances, and why:
   iteration; the normal CDFs are two float64 implementations).
 - Inside the port: bitwise.  A snapshot folded by K4's plain version
   equals the torch loop's and the terminal of a run stopped at its step
-  (the draws are keyed by path and step); a grid split into K4 launches of
-  at most four snapshots equals one torch-loop run with every snapshot.
+  (the draws are keyed by path and step); a grid split into launches (K4's
+  generic fold, four snapshots a launch, where the snapshot kernel is not
+  built; the snapshot kernel past 64 snapshots) equals one torch-loop run
+  with every snapshot.
 - Against JAX's K4 in interpret mode and JAX's surface in float32: a
   path's price within PRICE_RTOL = 2e-6 (the normals differ by up to
   4.8e-7); the surface's prices, means over the paths summed in another
@@ -37,11 +39,13 @@ from montecarlo_tpu_torch.engine import (black_scholes_call_tensor,
                                          mc_implied_vol_surface,
                                          price_snapshot,
                                          simulate_functionals)
-from montecarlo_tpu_torch.engine.surface import (snapshot_groups,
-                                                 snapshot_terminals)
+from montecarlo_tpu_torch.engine.functionals import SNAPSHOT_CODE, DeviceForm
+from montecarlo_tpu_torch.engine.surface import snapshot_terminals
 from montecarlo_tpu_torch.ops import (fused_functionals_reference,
                                       fused_terminal_reference)
-from montecarlo_tpu_torch.processes import GBM, Heston
+from montecarlo_tpu_torch.ops.fused_engine import (THREEFRY, K4Launch,
+                                                   k4_launches)
+from montecarlo_tpu_torch.processes import GBM, BasketGBM, Heston
 
 S0, R, SIGMA = 100.0, 0.03, 0.2
 PRICE_RTOL = 2e-6
@@ -133,24 +137,44 @@ def test_snapshot_plain_k4_matches_pallas_interpret():
                                    rtol=PRICE_RTOL, err_msg=k)
 
 
+def _snapshot_forms(steps):
+    return [DeviceForm(SNAPSHOT_CODE, s) for s in steps]
+
+
 def test_grouped_launches_are_one_long_run():
-    """A 6-maturity grid takes two K4 launches (four snapshots, then one
-    and the terminal), each to its own last step; their rows are bitwise
-    one torch-loop run holding every snapshot."""
+    """What still groups.  A 6-maturity grid on a functor the snapshot
+    kernel is not built for (the basket) takes two launches of K4's
+    generic fold (four snapshots sorted by step, then one and the
+    terminal), each to its own last step; on Heston one launch of the
+    snapshot kernel; a grid of 66 maturities on GBM two snapshot launches
+    (64 snapshots, then one).  Their rows are bitwise one torch-loop run
+    holding every snapshot."""
     steps = [3, 8, 13, 21, 30, 47]
-    assert snapshot_groups(steps) == [(21, [3, 8, 13, 21]), (47, [30])]
-    assert snapshot_groups([5]) == [(5, [])]
-    assert snapshot_groups([5, 9]) == [(9, [5])]
-    proc = _proc("heston", 1 / 64)
-    rows = snapshot_terminals(proc, 1024, steps, seed=2)
-    one = simulate_functionals(
-        proc, 1024, steps[-1], seed=2, prefer_fused=False,
-        functionals={f"m{j}": price_snapshot(s)
-                     for j, s in enumerate(steps)})
-    assert rows.shape == (6, 1024)
-    for j in range(6):
-        assert torch.equal(rows[j], one[f"m{j}"]), j
-    assert torch.equal(rows[-1], one["terminal"])
+    basket = BasketGBM.create([100.0, 90.0], [0.03, 0.03], [0.2, 0.3],
+                              [[1.0, 0.4], [0.4, 1.0]], [0.6, 0.4], 1 / 64,
+                              device="cpu")
+    heston = _proc("heston", 1 / 64)
+    shuffled = _snapshot_forms([21, 3, 30, 13, 8])
+    assert k4_launches(basket, THREEFRY, shuffled, 47) == [
+        K4Launch(False, 21, (1, 4, 3, 0)), K4Launch(False, 47, (2,))]
+    assert k4_launches(heston, THREEFRY, shuffled, 47) == [
+        K4Launch(True, 47, (1, 4, 3, 0, 2))]
+    assert k4_launches(heston, THREEFRY, [], 5) == [K4Launch(False, 5, ())]
+    long_grid = list(range(1, 67))
+    assert k4_launches(_proc("gbm", 1 / 64), THREEFRY,
+                       _snapshot_forms(long_grid[:-1]), 66) == [
+        K4Launch(True, 64, tuple(range(64))), K4Launch(True, 66, (64,))]
+    for proc, grid, n in ((basket, steps, 1024), (heston, steps, 1024),
+                          (_proc("gbm", 1 / 64), long_grid, 256)):
+        rows = snapshot_terminals(proc, n, grid, seed=2)
+        one = simulate_functionals(
+            proc, n, grid[-1], seed=2, prefer_fused=False,
+            functionals={f"m{j}": price_snapshot(s)
+                         for j, s in enumerate(grid)})
+        assert rows.shape == (len(grid), n)
+        for j in range(len(grid)):
+            assert torch.equal(rows[j], one[f"m{j}"]), (type(proc), j)
+        assert torch.equal(rows[-1], one["terminal"])
 
 
 def test_price_snapshot_device_form():
@@ -167,7 +191,7 @@ def test_price_snapshot_device_form():
 @pytest.mark.parametrize("kind", ["gbm", "heston"])
 def test_surface_matches_jax(kind):
     """The port's surface against JAX's ``mc_implied_vol_surface`` in
-    float32 on the CPU, over a 6-maturity grid (two K4 launches)."""
+    float32 on the CPU, over a 6-maturity grid (one snapshot launch)."""
     dt = 1 / 64
     if kind == "gbm":
         jp = JGBM.create(S0, R, SIGMA, dt, dtype=F32)

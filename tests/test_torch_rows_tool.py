@@ -165,3 +165,19 @@ def test_kernel_tag_reads_the_symbol(name, tag):
     (fixed and its codes, or generic), the step with its asset count A or
     its draws a step D, and the draw source."""
     assert ROWS._kernel_tag(name) == tag
+
+
+def test_grid_rows_reads_either_launch_keying():
+    """The snapshot rows' digest view: a grid's rows in maturity order from
+    one launch's keys (``m<step>``, ``terminal``) and from grouped
+    launches' (``m<step> (launch g)``, the last launch's terminal), so a
+    checkout of either kind digests the same rows."""
+    one = {"terminal": "T", "m63": "c", "m21": "a", "m42": "b"}
+    grouped = {"terminal (launch 0)": "x", "m21 (launch 0)": "a",
+               "m42 (launch 0)": "b", "terminal (launch 1)": "T",
+               "m63 (launch 1)": "c"}
+    want = {0: "a", 1: "b", 2: "c", 3: "T"}
+    assert ROWS.grid_rows(one) == ROWS.grid_rows(grouped) == want
+    snap = ("_ZN3mcf21fused_snapshot_kernelINS_12_GLOBAL__N_17GbmProcENS_"
+            "13ThreefryDrawsILb0EEEEEvPKfilijjjT0_NS_12SnapshotPlanEPf")
+    assert ROWS._kernel_tag(snap).startswith("K4 snapshot _ZN3mcf21")

@@ -68,15 +68,20 @@ Row sets (``ROW_SETS``):
   memory`` (DCC's Q in a [word][thread] column of shared memory), ``pair
   loop`` (a pass of the time loop a step pair, not a step), ``24 warps``
   (``__launch_bounds__(128, 6)``) and both of the last but one.
-- ``snapshot``: K4's snapshot launches of ``chip_smoke.py``'s 2-, 4- and
-  6-maturity grids on GBM at 2^17 and 2^20 x 252 and the 4-maturity grid
-  on Heston at 2^20 (in a checkout that has the snapshot fold); as
-  controls the generic fold, whose switch the snapshot case joins, on
-  GBM's {mn} (the lookback), {mx} (the barrier) and {avg, geo, mx, mn},
-  Heston's {mn} at 2^20 x 252 and CCC's and DCC's {mn} at the VaR chunk,
-  GBM's fixed K4 {avg} and K2 at 2^20 x 252.  Its SASS is that of K4 on
+- ``snapshot``: the surface's snapshot launches of ``chip_smoke.py``'s
+  2-, 4- and 6-maturity grids on GBM at 2^17 and 2^20 x 252 and the
+  4-maturity grid on Heston at 2^20 (in a checkout that has snapshots:
+  the snapshot kernel, or K4's generic fold four snapshots a launch in
+  an older one), each beside one bound for either (one time loop to the
+  last maturity, a price a path for each maturity) and with the digest
+  of the grid's rows in maturity order, however the checkout's launches
+  key them; as controls the generic fold on GBM's {mn} (the lookback),
+  {mx} (the barrier) and {avg, geo, mx, mn}, Heston's {mn} at 2^20 x 252
+  and CCC's and DCC's {mn} at the VaR chunk, GBM's fixed K4 {avg} and K2
+  at 2^20 x 252.  Its SASS is that of the snapshot kernel and of K4 on
   the generic fold on GBM and Heston, the fixed {avg} and K2; its
-  resources the registers of K4 on GBM and Heston.
+  resources the registers of both kernels on GBM and Heston.  Variant:
+  the snapshot kernel's latch marked unlikely (``latch unlikely``).
 - ``fold_state``: K4 {trap} on the bond models (Vasicek, CIR, Hull-White,
   G2++; ``chip_smoke.rate_procs``) and K4 {avg} on the 5-asset term
   basket (``state_proc``), both at 2^20 x 252, which run a fixed fold
@@ -181,17 +186,18 @@ class Row(NamedTuple):
     only: str = ""      # on this variant's library only
 
 
-def timed(name, bnd, fn, profile=False, own=False) -> Row:
+def timed(name, bnd, fn, profile=False, own=False, view=None) -> Row:
     """A kernel row: ``fn`` by CUDA events beside its bound ``bnd`` (ms,
     bound_by), with the profiler's device time when ``profile``: of the
     kernels whose names hold ``fused_kernel``, or the string ``profile``
-    gives."""
+    gives; the digest of ``view(out)`` where a ``view`` is given."""
     def measure(torch, reps):
         import chip_smoke as cs
 
         ms, out = cuda_ms(torch, fn, reps)
         row = {"ms": round(ms, 4), "bound_ms": round(bnd[0], 4),
-               "bound_by": bnd[1], "digest": digest(out)}
+               "bound_by": bnd[1],
+               "digest": digest(out if view is None else view(out))}
         del out
         if profile:
             d = cs.device_ms(torch, fn, reps, *(
@@ -1427,6 +1433,22 @@ FOLD_STATE_RESOURCES = (r"fused_(functional_)?kernel.*(VasicekStep|CirStep|"
 
 # ------------------------------------------------------------ snapshot
 
+def grid_rows(out: dict) -> dict:
+    """A maturity grid's rows in maturity order, however a checkout's
+    launches key them: the snapshots ``m<step>`` by step, then the
+    terminal of the last launch (grouped launches key theirs ``m<step>
+    (launch g)`` and ``terminal (launch g)``)."""
+    snaps, terms = {}, {}
+    for key, v in out.items():
+        m = re.fullmatch(r"(?:m(\d+)|terminal)(?: \(launch (\d+)\))?", key)
+        if m.group(1) is None:
+            terms[int(m.group(2) or 0)] = v
+        else:
+            snaps[int(m.group(1))] = v
+    rows = [snaps[s] for s in sorted(snaps)] + [terms[max(terms)]]
+    return dict(enumerate(rows))
+
+
 def snapshot_rows(torch):
     import chip_smoke as cs
     from montecarlo_tpu_torch.engine import (ARITH_MEAN, GEO_MEAN,
@@ -1438,22 +1460,29 @@ def snapshot_rows(torch):
     gbm = GBM.create(100.0, 0.03, 0.2, 1.0 / s, device="cuda")
     hp = cs.heston(s)
     rows = []
-    # The rows, in a checkout that has K4's snapshot fold: each grid's
-    # snapshot launches on GBM at 2^17 and 2^20 x 252, the 4-maturity grid
-    # on Heston at 2^20.
+    # The rows, in a checkout that has snapshots: each grid's launches on
+    # GBM at 2^17 and 2^20 x 252, the 4-maturity grid on Heston at 2^20,
+    # each beside the work of the grid whatever computes it (one loop to
+    # the last maturity; a price and 4 bytes a path for each maturity).
+    def grid_bound(n, grid, draws=1, step_fp=3):
+        return cs.step_bound(n, grid[-1], draws=draws, step_fp=step_fp,
+                             out_bytes=4 * len(grid),
+                             extra_fp=cs.EXP32_FP * len(grid))
+
     if hasattr(cs, "snapshot_launches"):
         for n in cs.SNAPSHOT_PATHS:
             for m, grid in cs.SNAPSHOT_GRIDS.items():
                 rows.append(timed(
                     f"K4 gbm snapshot {m} maturities {n}x{s}",
-                    cs.snapshot_bound(n, grid),
-                    lambda n=n, g=grid: cs.snapshot_launches(gbm, n, g)))
+                    grid_bound(n, grid),
+                    lambda n=n, g=grid: cs.snapshot_launches(gbm, n, g),
+                    view=grid_rows))
         n = cs.SNAPSHOT_PATHS[-1]
         rows.append(timed(
             f"K4 heston snapshot 4 maturities {n}x{s}",
-            cs.snapshot_bound(n, cs.IV_GRID, draws=2,
-                              step_fp=cs.HESTON_STEP_FP),
-            lambda: cs.snapshot_launches(hp, n, cs.IV_GRID)))
+            grid_bound(n, cs.IV_GRID, draws=2, step_fp=cs.HESTON_STEP_FP),
+            lambda: cs.snapshot_launches(hp, n, cs.IV_GRID),
+            view=grid_rows))
     # The controls, on the generic fold (whose switch the snapshot case
     # joins) and off it: the lookback's {mn} and the barrier's {mx} and
     # {avg, geo, mx, mn} on GBM at 2^20 x 252, CCC's and DCC's {mn} at the
@@ -1491,7 +1520,16 @@ def snapshot_rows(torch):
     return rows
 
 
+# The snapshot kernel's latch marked unlikely, so that the compiler lays
+# it out off the time loop's straight path.
+SNAPSHOT_VARIANTS = {"latch unlikely": [(
+    "fused_k4_snapshot.cu", "    if (fold.due_at(t + 1)) latch(t + 1);",
+    "    if (__builtin_expect(fold.due_at(t + 1), 0)) latch(t + 1);")]}
+
 SNAPSHOT_SASS = (
+    ("K4 gbm snapshot kernel", ("fused_snapshot_kernel", "GbmProc", _TF)),
+    ("K4 heston snapshot kernel", ("fused_snapshot_kernel", "HestonProc",
+                                   _TF)),
     ("K4 gbm generic", ("fused_functional_kernel", "GbmProc", _TF,
                         "SpecFold")),
     ("K4 heston generic", ("fused_functional_kernel", "HestonProc", _TF,
@@ -1523,9 +1561,10 @@ ROW_SETS = {
                      (1 << 24, 10), "StateProc"),
     "fold_state": RowSet(fold_state_rows, {}, FOLD_STATE_SASS,
                          (1 << 20, 252), FOLD_STATE_RESOURCES),
-    "snapshot": RowSet(snapshot_rows, {}, SNAPSHOT_SASS, (1 << 20, 252),
-                       r"fused_functional_kernel.*(GbmProc|HestonProc)"
-                       r".*ThreefryDrawsILb0E.*Fold"),
+    "snapshot": RowSet(snapshot_rows, SNAPSHOT_VARIANTS, SNAPSHOT_SASS,
+                       (1 << 20, 252),
+                       r"fused_(functional_kernel|snapshot_kernel)"
+                       r".*(GbmProc|HestonProc).*ThreefryDrawsILb0E"),
 }
 
 
@@ -1662,7 +1701,10 @@ def sass(label: str, out_dir: Path, so: Path, kernels,
                 continue
             ins = parse_sass(body)
             loop, hot = hottest_loop(ins), hot_path(ins)
-            inner = hot_path(ins, nested_loop(ins))
+            try:
+                inner = hot_path(ins, nested_loop(ins))
+            except ValueError:  # a loop off the hot path that exits early
+                inner = []      # (the snapshot kernel's latch)
             fname = f"sass_{label}_{tag}.txt".replace(" ", "_")
             (out_dir / fname).write_text(body)
             floor = (-(-n // 32) * passes(name, steps) * len(hot)
@@ -1696,7 +1738,8 @@ def _kernel_tag(name: str) -> str:
     """K2, K3 or K4 (with its fold: fixed and its codes, or generic), the
     step, A (StateProc) or D (RateProc) and the draw source of a StateProc
     or RateProc kernel's mangled name."""
-    k = ("K4" if "functional" in name else
+    k = ("K4 snapshot" if "snapshot_kernel" in name else
+         "K4" if "functional" in name else
          "K3" if "RowMoments" in name else "K2")
     if k == "K4":
         fold = re.search(r"FixedFoldIJ((?:Li\d+E)+)E", name)
