@@ -253,6 +253,23 @@ CUDA kernels from ``montecarlo_tpu_torch/csrc`` and, in phases:
    a 150 call and ``cv_estimate`` at 2^20 x 252 on K2 within 4 std-err of
    Black-Scholes.  The surfaces' snapshot launches count in the snapshot
    kernel's entry of the kernels line, the LR, IS and CV runs' in K2's.
+16. calibration, multilevel Monte Carlo and the gamma Newton sampler: the
+   seven ``calibrate --model`` demos (heston, vg, nig, merton, kou,
+   vasicek, sabr) on the card, one process each, all at once, each
+   recovering its parameters to the JAX tests' tolerances, with its
+   wall-clock and Adam steps/s; ``--model lmm`` exiting non-zero; the
+   calibrators' pricers (Heston's CF, the four Levy CFs, the Vasicek
+   swaptions) on the card in float32 and float64 against the CPU's float64
+   within stated bounds; the busy share of 50 Adam steps of the Heston
+   and VG fits; then, launch counters reset just before and read just
+   after each run: ``price --mlmc --mlmc-rmse 0.01`` on Euler GBM (within
+   4 rmse of Black-Scholes; level 0 on K2, counted in the rate functors'
+   K2 row) and Heston (within 4 rmse of its CF price; K2's Heston row),
+   a coupled level's busy share, the Asian telescope's levels 0 (K4's
+   {avg} on its fixed fold) and 2 on exact GBM; level 0 through K2 and
+   K4 bitwise its torch loop at those runs' shapes; levels 0 and 2 over
+   a one-rank NCCL mesh bitwise the unsharded levels; and
+   ``gamma_from_uniforms32`` on 2^20 draws against the CPU.
 
 Phase 3 also holds K5 (2^18 paths x {504, 756, 37} columns, ids wrapping
 past 2^32) and K6 (2^18 and 2^18 - 3 paths, its ring and its plain-load
@@ -5168,6 +5185,423 @@ def phase_variance_reduction_path(torch, card):
     return k2
 
 
+# ---- Phase 16: calibration, multilevel Monte Carlo, the gamma sampler -------
+
+#: The calibrate demos, each with its gate (the JAX tests' tolerances:
+#: tests/test_heston_analytic.py, test_levy_calibration.py,
+#: test_rates_calibration.py's CLI test, test_sabr_calibration.py).
+CALIBRATE_MODELS = ("heston", "vg", "nig", "merton", "kou", "vasicek",
+                    "sabr")
+#: The card's pricers in float32 against the CPU's float64 forms at the
+#: demos' parameters: Heston's and the Levy CF prices (0.02-26) within
+#: 2e-4 absolute (s0 P1 - K e^{-rT} P2, two terms of ~100 carrying
+#: float32 rounding through 96-256 complex nodes: 2-6e-5 on the CPU's
+#: float32), the swaption premia (1.4e-4 to 0.044) within 1e-6 absolute;
+#: in float64 on the card within 1e-9 (premia rtol 1e-10).
+PRICER_F32_ATOL, SWAPTION_F32_ATOL = 2e-4, 1e-6
+#: The MLMC command's target RMSE (JAX's default) and the Asian telescope
+#: and sharded level's shape.
+MLMC_RMSE, MLMC_LEVEL_PATHS = 0.01, 1 << 18
+#: The gamma Newton sampler on the card against the CPU: 2^20 draws.
+GAMMA_DRAWS = 1 << 20
+
+
+def calibrate_gate(out, ivs_err=None):
+    """The JAX tests' gate of one ``calibrate`` demo's JSON."""
+    truth = out["demo_truth"]
+    if "v0" in out:
+        return ivs_err < 0.004 and abs(out["v0"] - truth["v0"]) < 0.02
+    if "kappa" in out:
+        return (out["rmse_rel"] < 2e-3
+                and abs(out["kappa"] - truth["kappa"]) < 0.1)
+    if "nu" in truth and "rho" in truth:   # SABR
+        return (out["rmse_vol"] < 5e-4
+                and abs(out["alpha"] - truth["alpha"]) / truth["alpha"] < 0.05
+                and abs(out["nu"] - truth["nu"]) < 0.05
+                and abs(out["rho"] - truth["rho"]) < 0.08)
+    if "theta" in truth:                   # VG
+        return out["rmse_vol"] < 5e-4 and all(
+            abs(out[k] - v) < 0.01 * max(abs(v), 0.1)
+            for k, v in truth.items())
+    if "delta" in truth:                   # NIG
+        return (out["rmse_vol"] < 5e-4
+                and abs(out["delta"] - truth["delta"]) < 0.02
+                and abs(out["beta"] - truth["beta"]) < 0.2
+                and abs(out["alpha"] - truth["alpha"]) < 0.5)
+    slack = 0.015 if "jump_mean" in truth else 0.02   # Merton, Kou
+    return (out["rmse_vol"] < 1e-3
+            and abs(out["sigma"] - truth["sigma"]) < slack)
+
+
+def heston_demo_iv_error(torch, out):
+    """The worst implied-vol error of a Heston fit's repriced demo surface
+    (on the card) against the demo's."""
+    from montecarlo_tpu_torch.cli.calibrate import demo_surface
+    from montecarlo_tpu_torch.engine.heston_analytic import (HestonParams,
+                                                             heston_call_cf)
+    from montecarlo_tpu_torch.engine.implied_vol import implied_vol_call
+
+    class Args:
+        s0, rate = 100.0, 0.03
+
+    ks, ts, ivs, _ = demo_surface("heston", Args, torch.device("cuda"))
+    f32 = dict(dtype=torch.float32, device="cuda")
+    fit = HestonParams(**{k: torch.tensor(out[k], **f32)
+                          for k in HestonParams._fields})
+    kt, tt = torch.tensor(ks, **f32), torch.tensor(ts, **f32)
+    fit_iv = implied_vol_call(heston_call_cf(100.0, kt, tt, 0.03, fit), 100.0,
+                              kt, 0.03, tt)
+    return float(torch.max(torch.abs(fit_iv.double().cpu()
+                                     - torch.tensor(ivs))))
+
+
+def phase_pricers(torch, card):
+    """The calibrators' pricers on the card (float32 and float64) against
+    the CPU's float64 forms at the demos' parameters."""
+    from montecarlo_tpu_torch.cli.calibrate import (DEMO_MATURITIES,
+                                                    DEMO_STRIKES,
+                                                    HESTON_DEMO, LEVY_DEMOS,
+                                                    VASICEK_DEMO)
+    from montecarlo_tpu_torch.engine import cf_pricing as cf
+    from montecarlo_tpu_torch.engine import heston_analytic as ha
+    from montecarlo_tpu_torch.engine import rates_calibration as rc
+
+    ks = DEMO_STRIKES * len(DEMO_MATURITIES)
+    ts = [t for t in DEMO_MATURITIES for _ in DEMO_STRIKES]
+    grid = [(t0, m, k) for t0 in (1.0, 2.0, 3.0) for m in (4, 8)
+            for k in (0.036, 0.045, 0.054)]
+
+    def prices(dtype, device):
+        t = lambda x: torch.tensor(x, dtype=dtype, device=device)
+        out = {"heston": ha.heston_call_cf(100.0, t(ks), t(ts), 0.03,
+                                           ha.HestonParams(**{
+                                               k: t(v) for k, v in
+                                               HESTON_DEMO.items()}))}
+        for m, p in LEVY_DEMOS.items():
+            phi = getattr(cf, f"{m}_log_cf_tensor")(t(100.0), 0.03,
+                                                    *p.values(), t(ts))
+            out[m] = cf.cf_call_price_impl(phi, 100.0, t(ks), t(ts), 0.03)
+        out["vasicek"] = rc.vasicek_swaption_prices(
+            0.03, *VASICEK_DEMO.values(), [g[0] for g in grid],
+            [0.5] * len(grid), [g[2] for g in grid], [g[1] for g in grid],
+            dtype=dtype, device=device)
+        return {k: v.cpu().double() for k, v in out.items()}
+
+    ref = prices(torch.float64, "cpu")
+    got32 = prices(torch.float32, "cuda")
+    got64 = prices(torch.float64, "cuda")
+    ok = True
+    for name, want in ref.items():
+        e32 = float((got32[name] - want).abs().max())
+        e64 = float((got64[name] - want).abs().max())
+        b32 = SWAPTION_F32_ATOL if name == "vasicek" else PRICER_F32_ATOL
+        b64 = (1e-10 * float(want.abs().max()) if name == "vasicek"
+               else 1e-9)
+        good = e32 <= b32 and e64 <= b64
+        ok &= good
+        log(f"  pricer {name}: card float32 max |err| {e32:.3e} (bound "
+            f"{b32:.0e}), card float64 {e64:.3e} (bound {b64:.1e}) against "
+            f"the CPU's float64 ({'ok' if good else 'FAIL'})")
+    return ok
+
+
+def calibration_busy_shares(torch, card):
+    """The Heston-to-IVs and VG fits alone on their demo surfaces: 100
+    Adam steps timed by the host clock, then 50 under the profiler for
+    the device's busy share."""
+    from montecarlo_tpu_torch.cli.calibrate import demo_surface
+    from montecarlo_tpu_torch.engine import heston_analytic as ha
+    from montecarlo_tpu_torch.engine import levy_calibration as lc
+
+    class Args:
+        s0, rate, beta, maturity = 100.0, 0.03, 0.7, 1.0
+
+    dev = torch.device("cuda")
+    shares = {}
+    for model in ("heston", "vg"):
+        ks, ts, ivs, _ = demo_surface(model, Args, dev)
+        if model == "heston":
+            raw0 = torch.tensor(ha.RAW0, dtype=torch.float32, device=dev)
+            fit = lambda n: ha._calibrate_iv(ks, ts, ivs, 100.0, 0.03, raw0,
+                                             n, 96, 0.05)
+        else:
+            raw0 = torch.tensor(lc.FAMILIES["vg"][2], dtype=torch.float32,
+                                device=dev)
+            fit = lambda n: lc._calibrate_iv("vg", ks, ts, ivs, 100.0, 0.03,
+                                             raw0, n, 0.03)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fit(100)
+        torch.cuda.synchronize()
+        alone = time.perf_counter() - t0
+        wall, busy, n_ops = busy_share(torch, lambda: fit(50))
+        shares[model] = busy / wall
+        log(f"  {model} fit alone: 100 Adam steps {alone:.3f} s "
+            f"({100 / alone:.1f} steps/s); 50 profiled {wall:.3f} s, device "
+            f"busy {busy:.3f} s ({100 * busy / wall:.1f}%) in {n_ops} device "
+            f"operations ({n_ops / 50:.0f} a step), on {card}")
+    return shares
+
+
+#: One ``calibrate`` command in a process of its own, timed around the
+#: CLI's entry (``cli.main``) in that process: its JSON on stdout, its
+#: wall-clock on stderr's last line.
+TIMED_CLI = ("import sys, time\n"
+             "from montecarlo_tpu_torch.cli import main\n"
+             "t0 = time.perf_counter()\n"
+             "rc = main(sys.argv[1:])\n"
+             "print(time.perf_counter() - t0, file=sys.stderr)\n"
+             "sys.exit(rc)\n")
+
+
+def calibrate_demos(models, while_running, timeout=600):
+    """Every ``calibrate --model M`` demo of ``models`` on the card, each
+    in a process of its own, all at once (each eager fit keeps a host core
+    busy and the card a few per cent busy, so they share the card and the
+    host's cores); ``while_running()`` runs here meanwhile.  Returns
+    ({model: (JSON, wall-clock s of the command in its process)},
+    ``while_running()``'s result); every process is waited for, or killed
+    at ``timeout``."""
+    import os
+
+    import montecarlo_tpu_torch
+
+    root = os.path.dirname(os.path.dirname(montecarlo_tpu_torch.__file__))
+    env = {**os.environ, "OMP_NUM_THREADS": "1", "PYTHONPATH": root}
+    procs = {m: subprocess.Popen(
+        [sys.executable, "-c", TIMED_CLI, "calibrate", "--model", m],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for m in models}
+    out = {}
+    try:
+        meanwhile = while_running()
+        for m, p in procs.items():
+            stdout, stderr = p.communicate(timeout=timeout)
+            if p.returncode != 0:
+                raise AssertionError(f"calibrate --model {m}: exit code "
+                                     f"{p.returncode}: {stderr[-2000:]}")
+            out[m] = (json.loads(stdout.strip().splitlines()[-1]),
+                      float(stderr.strip().splitlines()[-1]))
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    return out, meanwhile
+
+
+def lmm_exits():
+    """``calibrate --model lmm`` exits non-zero, naming its ROADMAP item."""
+    try:
+        run_cli(["calibrate", "--model", "lmm"])
+    except SystemExit as e:
+        log(f"  calibrate --model lmm: exits: {e}")
+        return "Queue 1 item 10" in str(e)
+    return False
+
+
+def phase_calibration(torch, card):
+    """Every ``calibrate --model`` demo on the card (the default device),
+    seven processes at once: its JSON, wall-clock and Adam steps/s, gated
+    by the JAX tests' tolerances; meanwhile ``--model lmm`` exits
+    non-zero naming its ROADMAP item and the pricers run against the
+    CPU's float64; then two fits alone, timed and profiled."""
+    t0 = time.perf_counter()
+    demos, checks = calibrate_demos(CALIBRATE_MODELS, lambda: {
+        "pricers on the card against the CPU's float64":
+        phase_pricers(torch, card),
+        "calibrate --model lmm exits naming Queue 1 item 10": lmm_exits()})
+    log(f"  the seven calibrate demos, one process each, all at once: "
+        f"{time.perf_counter() - t0:.1f} s, on {card}")
+    for model in CALIBRATE_MODELS:
+        steps = {"heston": 800, "sabr": 2000}.get(model, 1500)
+        out, wall = demos[model]
+        err = heston_demo_iv_error(torch, out) if model == "heston" else None
+        ok = calibrate_gate(out, err)
+        checks[f"calibrate --model {model} recovers its demo"] = ok
+        extra = f", worst iv error {err:.2e}" if err is not None else ""
+        log(f"  calibrate --model {model}: {json.dumps(out)}{extra}; "
+            f"{wall:.3f} s in its process beside the six others, "
+            f"{steps / wall:.1f} Adam steps/s ({'ok' if ok else 'FAIL'}), "
+            f"on {card}")
+    shares = calibration_busy_shares(torch, card)
+    return checks, shares
+
+
+def mlmc_call(label, argv):
+    """One ``price --mlmc`` run, launch counters reset just before and
+    read just after: (JSON, wall-clock s, launches)."""
+    (out, _), wall, counts = run_counted(run_cli, argv)
+    log(f"  {label}: {json.dumps(out)}; {wall:.3f} s, launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    return out, wall, counts
+
+
+def phase_mlmc(torch, card):
+    """``price --mlmc`` on Euler GBM (against Black-Scholes) and Heston
+    (against its CF price), level 0 on K2; the Asian telescope's levels 0
+    (K4 {avg} on its fixed fold) and 2 on exact GBM; level 0 through K2
+    and K4 bitwise its torch loop at those runs' shapes; a level sharded
+    over a one-rank NCCL mesh bitwise the unsharded level.  Returns
+    (checks, launches by kernel row)."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from montecarlo_tpu_torch.engine import mlmc
+    from montecarlo_tpu_torch.engine.heston_analytic import (HestonParams,
+                                                             heston_call_cf)
+    from montecarlo_tpu_torch.parallel import make_mesh
+    from montecarlo_tpu_torch.processes import GBM, EulerGBM, Heston
+
+    checks, rows = {}, {}
+    rmse = ["--mlmc-rmse", str(MLMC_RMSE)]
+    gbm, wall, c = mlmc_call("price --mlmc (Euler GBM)",
+                             ["price", "--mlmc", *rmse])
+    rows["fused_terminal_rates"] = c["fused_terminal"]
+    log(f"  Euler GBM ladder {gbm['level_paths']}, vs single-level cost "
+        f"{gbm['vs_single_level_cost']:.3f}x, {wall:.3f} s, on {card}")
+    checks["MLMC Euler GBM within 4 rmse of Black-Scholes"] = (
+        abs(gbm["price"] - gbm["black_scholes"]) < 4 * MLMC_RMSE)
+    checks["MLMC Euler GBM level 0 on K2"] = c["fused_terminal"] > 0
+    hes, wall, c = mlmc_call("price --mlmc --process heston",
+                             ["price", "--mlmc", *rmse, "--process",
+                              "heston"])
+    rows["fused_terminal"] = c["fused_terminal"]
+    cf = float(heston_call_cf(100.0, 105.0, 1.0, 0.03, HestonParams(
+        *(torch.tensor(v, dtype=torch.float64)
+          for v in (0.04, 2.0, 0.04, 0.5, -0.7)))))
+    log(f"  Heston ladder {hes['level_paths']}, vs single-level cost "
+        f"{hes['vs_single_level_cost']:.3f}x, {wall:.3f} s; the CF price "
+        f"{cf:.6f}, on {card}")
+    checks["MLMC Heston within 4 rmse of its CF price"] = (
+        abs(hes["price"] - cf) < 4 * MLMC_RMSE)
+    checks["MLMC Heston level 0 on K2"] = c["fused_terminal"] > 0
+    heston_at = lambda n: Heston.create(
+        s0=100.0, v0=0.04, mu=0.03, kappa=2.0, theta=0.04, xi=0.5, rho=-0.7,
+        dt=1.0 / n, device="cuda")
+    p_wall, busy, n_ops = busy_share(torch, lambda: mlmc.mlmc_level_moments(
+        heston_at, lambda s: torch.clamp(s - 105.0, min=0.0), 3, 1 << 16,
+        seed=0, n0_steps=4))
+    log(f"  a coupled Heston level (3: 32 fine steps, 65536 paths) "
+        f"profiled: {p_wall:.3f} s, device busy {busy:.3f} s "
+        f"({100 * busy / p_wall:.1f}%) in {n_ops} device operations, on "
+        f"{card}")
+
+    call = lambda s: torch.clamp(s - 100.0, min=0.0)
+    exact = lambda n: GBM.create(100.0, 0.05, 0.2, 1.0 / n, device="cuda")
+    (l0, l2), wall, c = run_counted(lambda: [
+        mlmc.mlmc_level_moments(exact, call, lvl, MLMC_LEVEL_PATHS, seed=21,
+                                n0_steps=4, payoff_on="mean")
+        for lvl in (0, 2)])
+    for key in ("fused_functionals", "fused_functionals_fixed"):
+        rows[key] = c[key]
+    v0 = float(l0[0].m2 / l0[0].count)
+    v2 = float(l2[0].m2 / l2[0].count)
+    log(f"  Asian telescope (exact GBM, {MLMC_LEVEL_PATHS} paths): level 0 "
+        f"mean {float(l0[0].mean):.6f} var {v0:.4e}, level 2 mean Y "
+        f"{float(l2[0].mean):.3e} var Y {v2:.4e}; {wall:.3f} s, launches "
+        f"{ {k: v for k, v in c.items() if v} }")
+    checks["Asian telescope: level 0 on K4's fixed {avg}"] = (
+        c["fused_functionals_fixed"] == 1)
+    checks["Asian telescope: var Y_2 < 1% of var P_0"] = 0 < v2 < 0.01 * v0
+
+    euler = lambda n: EulerGBM.create(100.0, 0.05, 0.2, 1.0 / n,
+                                      device="cuda")
+    # Level 0 through K2/K4 against its torch loop, bitwise, at the shapes
+    # the runs above give it: a run of mlmc.RUN_PATHS paths x 4 steps
+    # (Euler GBM, Heston) and the telescope's 2^18 x 4 ({avg}).
+    for label, make, n, on in (
+            ("Euler GBM (K2)", euler, mlmc.RUN_PATHS, "terminal"),
+            ("Heston (K2)", heston_at, mlmc.RUN_PATHS, "terminal"),
+            ("exact GBM {avg} (K4)", exact, MLMC_LEVEL_PATHS, "mean")):
+        proc = make(4)
+        kern = mlmc._level0_values(proc, call, n, 4, 0, 0, 1 << 16, on)
+        loop, _ = mlmc._coupled_values(proc, None, call, n, 4, 1, 0, 0,
+                                       torch.float32, 1 << 16, on)
+        same = torch.equal(kern, loop)
+        checks[f"MLMC level 0 of {label} bitwise its torch loop"] = same
+        log(f"  level 0 of {label}, {n} paths x 4 steps from path 65536: "
+            f"bitwise the torch loop: {same}")
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/init",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_mesh()
+            for lvl in (0, 2):
+                kw = dict(seed=31, n0_steps=4, path_offset=4096)
+                sh, wall, c = run_counted(
+                    mlmc.mlmc_level_moments, euler, call, lvl,
+                    MLMC_LEVEL_PATHS, mesh=mesh, **kw)
+                rows["fused_terminal_rates"] += c["fused_terminal"]
+                un = mlmc.mlmc_level_moments(euler, call, lvl,
+                                             MLMC_LEVEL_PATHS, **kw)
+                same = all(torch.equal(a, b) for a, b in
+                           zip(tuple(sh[0]) + tuple(sh[1]),
+                               tuple(un[0]) + tuple(un[1])))
+                checks[f"level {lvl} over the NCCL mesh bitwise unsharded"] \
+                    = same
+                log(f"  level {lvl} on {mesh.shape} ({mesh.backend}): mean "
+                    f"Y {float(sh[0].mean):.6e}, {wall:.3f} s, bitwise the "
+                    f"unsharded level: {same}")
+        finally:
+            dist.destroy_process_group()
+    return checks, rows
+
+
+def phase_gamma_newton(torch, card):
+    """``gamma_from_uniforms32`` on 2^20 uniform pairs on the card against
+    the CPU: the largest ULP difference, and the test file's bound."""
+    from montecarlo_tpu_torch.rng.gamma import gamma_from_uniforms32
+    from montecarlo_tpu_torch.rng.normal import uniform_draw
+
+    ids = torch.arange(GAMMA_DRAWS, dtype=torch.int64, device="cuda")
+    u_w, u_b = uniform_draw(3, 0, ids, 0), uniform_draw(3, 0, ids, 1)
+    a = 0.02 + 0.98 * uniform_draw(3, 0, ids, 2)
+    t0 = time.perf_counter()
+    card_g = gamma_from_uniforms32(a, u_w, u_b)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    host = gamma_from_uniforms32(a.cpu(), u_w.cpu(), u_b.cpu())
+    got = card_g.cpu()
+    normal = host >= torch.finfo(torch.float32).tiny
+    ulps = (got.view(torch.int32).long()
+            - host.view(torch.int32).long()).abs()
+    bound = 64 * 2.0 ** -24 * (1.0 + torch.log(u_b.cpu().double()).abs()
+                               / a.cpu().double())
+    rel = ((got.double() - host.double()).abs() / host.double())[normal]
+    ok = bool((rel <= bound[normal]).all()) and bool(
+        ((got - host).abs()[~normal] <= 16 * 2.0 ** -126).all())
+    log(f"  gamma_from_uniforms32, {GAMMA_DRAWS} draws (a in [0.02, 1]): "
+        f"card {1e3 * wall:.3f} ms; max ULP difference from the CPU "
+        f"{int(ulps[normal].max())} where normal "
+        f"({100 * float((ulps == 0).double().mean()):.2f}% bitwise), "
+        f"{int((~normal).sum())} below the normal range; within the "
+        f"stated bound: {ok}, on {card}")
+    return {"gamma Newton sampler within its bound of the CPU": ok}
+
+
+def phase_calibration_mlmc(torch, card):
+    """Phase 16.  Returns (the K2/K4 launches of MLMC's level 0 by kernel
+    row, the fits' busy shares)."""
+    t0 = time.perf_counter()
+    checks, shares = phase_calibration(torch, card)
+    t1 = time.perf_counter()
+    mchecks, rows = phase_mlmc(torch, card)
+    checks.update(mchecks)
+    t2 = time.perf_counter()
+    checks.update(phase_gamma_newton(torch, card))
+    log(f"  phase 16: calibration {t1 - t0:.1f} s, MLMC {t2 - t1:.1f} s, "
+        f"gamma {time.perf_counter() - t2:.1f} s")
+    failed = [name for name, ok in checks.items() if not ok]
+    for name, ok in checks.items():
+        log(f"  {'ok' if ok else 'FAIL'}: {name}")
+    if failed:
+        raise AssertionError(f"phase 16 checks failed: {failed}")
+    return rows, shares
+
+
 KERNELS = [
     ("gbm_terminal", "gbm_kernel.cu", "gbm_kernel.py:118"),
     ("fused_terminal", "fused_engine.cu", "fused_engine.py:231"),
@@ -5384,6 +5818,13 @@ def main() -> int:
             f"surface {t_vr - t_surf:.1f} s, variance reduction "
             f"{time.perf_counter() - t_vr:.1f} s")
         log(f"  phase 15 took {time.perf_counter() - t15:.1f} s, on {card}")
+        log("phase 16: calibration, multilevel Monte Carlo (level 0 on K2 "
+            "and K4) and the gamma Newton sampler")
+        t16 = time.perf_counter()
+        mlmc_rows, _ = phase_calibration_mlmc(torch, card)
+        for name, n in mlmc_rows.items():
+            counts[name] += n
+        log(f"  phase 16 took {time.perf_counter() - t16:.1f} s, on {card}")
         k3_ms = times["fused_block_moments"]["ms"]
         kernel_s = k3_ms * 1e-3 * n_paths / (1 << 22)
         log(f"  K1 {bench['value']:.6e} path-steps/s, wall-clock to "

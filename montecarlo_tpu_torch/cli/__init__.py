@@ -7,6 +7,8 @@ Subcommands:
           --eta); --device cuda (default) or cpu
   price --payoff max-call — the best-of-A call on correlated GBM
           (--n-assets --asset-corr --div)
+  price --mlmc — multilevel Monte Carlo to --mlmc-rmse on Euler GBM or
+          Heston (level 0 through K2)
   note  — structured notes: autocallable (worst-of with --n-assets > 1)
           and cliquet
   bench — GBM path-steps/s through the K1 kernel at 2^20 paths x 1024
@@ -24,6 +26,10 @@ Subcommands:
           ratio, GBM; terminal prices through K2), second-order (gamma,
           vanna, volga of the smoothed call); --mesh N (pathwise over a
           mesh of N ranks)
+  calibrate — fit Heston, SABR, VG, NIG, Merton or Kou to an
+          implied-vol surface, Vasicek to payer-swaption premia (Adam on
+          exact gradients; without --surface a demo surface is generated
+          and recovered); --model lmm exits (ROADMAP Queue 1 item 10)
 
 Usage: python -m montecarlo_tpu_torch <subcommand> [flags]
 """
@@ -44,7 +50,8 @@ def _run_bench(args) -> int:
 
 
 def main(argv=None) -> int:
-    from montecarlo_tpu_torch.cli import bond, greeks, note, pricing, risk
+    from montecarlo_tpu_torch.cli import (bond, calibrate, greeks, note,
+                                          pricing, risk)
 
     parser = argparse.ArgumentParser(
         prog="montecarlo_tpu_torch",
@@ -55,6 +62,7 @@ def main(argv=None) -> int:
     risk.add_parsers(sub)
     bond.add_parsers(sub)
     greeks.add_parsers(sub)
+    calibrate.add_parsers(sub)
     bench = sub.add_parser("bench", help="GBM path-steps/s through K1 at "
                            "2^20 paths x 1024 steps x 8 reps (CUDA)")
     bench.add_argument("--basket", action="store_true",
@@ -63,5 +71,6 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     handlers = {"price": pricing.cmd_price, "note": note.cmd_note,
                 "bench": _run_bench, "var": risk.cmd_var,
-                "bond": bond.cmd_bond, "greeks": greeks.cmd_greeks}
+                "bond": bond.cmd_bond, "greeks": greeks.cmd_greeks,
+                "calibrate": calibrate.cmd_calibrate}
     return handlers[args.cmd](args)

@@ -18,9 +18,11 @@ cev``: the CEV surface sigma (S/s0)^(beta - 1)) and stochastic-local
 volatility (``--process slv``: leverage particle-calibrated on the card to
 the Dupire local vol of a demo skewed implied-vol surface) on the same
 kernels; the rough-Bergomi call and put
-(``--process rbergomi``, K5 and K6, in ``pricing_modes``) and the European
+(``--process rbergomi``, K5 and K6, in ``pricing_modes``), the European
 best-of-A call on correlated GBM (``--payoff max-call``, the torch time
-loop on MultiGBM, in ``pricing_modes``).  The output JSON has the JAX CLI's
+loop on MultiGBM, in ``pricing_modes``) and multilevel Monte Carlo
+(``--mlmc --mlmc-rmse``: Euler GBM or Heston, level 0 on K2, in
+``pricing_modes``).  The output JSON has the JAX CLI's
 keys: ``price``, ``std_err``, ``n_paths`` and, for the GBM call and
 digital, ``black_scholes``; for the call on Kou, NIG, VG, Bates and BatesQE
 ``cf_price``, the characteristic-function oracle; rough Bergomi adds
@@ -75,6 +77,12 @@ def add_parsers(sub):
     p.add_argument("--bridge", action="store_true",
                    help="up-and-out/in: Brownian-bridge continuous-barrier "
                         "correction (gbm)")
+    p.add_argument("--mlmc", action="store_true",
+                   help="multilevel Monte Carlo (Giles) over a geometric "
+                        "step ladder: Euler-discretized gbm or heston, "
+                        "European call/put; prices to --mlmc-rmse")
+    p.add_argument("--mlmc-rmse", type=float, default=0.01,
+                   help="total RMSE target for --mlmc (bias + statistical)")
     p.add_argument("--target-se", type=float, default=None,
                    help="price until the discounted std-err reaches this "
                         "target instead of a fixed --paths (vanilla "
@@ -153,21 +161,26 @@ def resolve_cli_device(name: str):
 def cmd_price(args) -> int:
     from montecarlo_tpu_torch.cli import pricing_models as pm
     from montecarlo_tpu_torch.cli.pricing_modes import (run_max_call,
+                                                        run_mlmc,
                                                         run_rbergomi)
     from montecarlo_tpu_torch.engine import (black_scholes_call,
                                              black_scholes_digital,
                                              discount_factor)
 
-    if args.target_se is not None and (args.payoff not in VANILLA
+    if args.target_se is not None and (args.mlmc
+                                       or args.payoff not in VANILLA
                                        or args.process == "rbergomi"):
         raise SystemExit("--target-se applies to vanilla European payoffs "
-                         "(call/put/digital) outside the own-simulator "
-                         "process (rbergomi)")
+                         "(call/put/digital) without --mlmc and outside "
+                         "the own-simulator process (rbergomi); for --mlmc "
+                         "the tolerance knob is --mlmc-rmse")
     if args.bridge and args.process != "gbm":
         raise SystemExit("--bridge requires --process gbm (constant vol for "
                          "the bridge law)")
     if args.process == "rbergomi":
         return run_rbergomi(args)
+    if args.mlmc:
+        return run_mlmc(args)
     device = resolve_cli_device(args.device)
     dt = args.maturity / args.steps
     proc = pm.build_process(args, dt, device)

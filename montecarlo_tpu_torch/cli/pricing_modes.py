@@ -1,6 +1,7 @@
 """Dedicated run modes of the `price` subcommand, as in
 ``montecarlo_tpu/cli/pricing_modes.py``: the own-simulator processes (rough
-Bergomi in this port) and the multi-asset max-call print their own JSON."""
+Bergomi in this port), multilevel Monte Carlo and the multi-asset max-call
+print their own JSON."""
 
 from __future__ import annotations
 
@@ -34,6 +35,62 @@ def run_rbergomi(args) -> int:
                       "std_err": float(est["std_err"]),
                       "n_paths": int(est["n_paths"]),
                       "hurst": args.hurst}))
+    return 0
+
+
+def run_mlmc(args) -> int:
+    """``price --mlmc``: the European call or put to total RMSE
+    ``--mlmc-rmse`` by adaptive multilevel Monte Carlo
+    (``engine.mlmc.mlmc_estimate``, 4 steps at level 0, refinement 2) on
+    the Euler GBM (``--process gbm``) or Heston; level 0 runs K2, the
+    coupled levels the torch loop, in the JAX command's chunks of
+    2^16 >> l paths on every device.  JSON: price, std_err, bias_est,
+    rmse_est, n_levels, level_paths, cost_path_steps,
+    vs_single_level_cost and, for the GBM call, black_scholes."""
+    from montecarlo_tpu_torch.cli.pricing import resolve_cli_device
+    from montecarlo_tpu_torch.engine import (black_scholes_call,
+                                             discount_factor, european_call,
+                                             european_put)
+    from montecarlo_tpu_torch.engine.mlmc import mlmc_estimate
+    from montecarlo_tpu_torch.processes import EulerGBM, Heston
+
+    if args.payoff not in ("call", "put"):
+        raise SystemExit("--mlmc supports European call/put payoffs")
+    if args.sampler != "plain":
+        raise SystemExit("--mlmc uses its own coupled plain draws; "
+                         "--sampler has no effect there (remove it)")
+    device = resolve_cli_device(args.device)
+    if args.process == "gbm":
+        def make(n):
+            return EulerGBM.create(args.s0, args.rate, args.sigma,
+                                   args.maturity / n, device=device)
+    elif args.process == "heston":
+        def make(n):
+            return Heston.create(s0=args.s0, v0=args.v0, mu=args.rate,
+                                 kappa=args.kappa, theta=args.theta,
+                                 xi=args.xi, rho=args.rho,
+                                 dt=args.maturity / n, device=device)
+    else:
+        raise SystemExit("--mlmc supports gbm (Euler scheme) and heston")
+    pay = european_call if args.payoff == "call" else european_put
+    res = mlmc_estimate(make, lambda s: pay(s, args.strike),
+                        target_rmse=args.mlmc_rmse, seed=args.seed,
+                        n0_steps=4,
+                        discount=float(discount_factor(args.rate,
+                                                       args.maturity)))
+    out = {"price": float(res["price"]),
+           "std_err": float(res["std_err"]),
+           "bias_est": float(res["bias_est"]),
+           "rmse_est": float(res["rmse_est"]),
+           "n_levels": res["n_levels"],
+           "level_paths": [l.n_paths for l in res["levels"]],
+           "cost_path_steps": res["cost_path_steps"],
+           "vs_single_level_cost": res["single_level_cost_est"]
+           / max(res["cost_path_steps"], 1.0)}
+    if args.process == "gbm" and args.payoff == "call":
+        out["black_scholes"] = black_scholes_call(
+            args.s0, args.strike, args.rate, args.sigma, args.maturity)
+    print(json.dumps(out))
     return 0
 
 

@@ -14,6 +14,12 @@ the local-vol surfaces their tables (SLV's ``lev_rows`` keeps its
 basket's curves come across as they are, the JAX package's padding
 included: a run reads the same entries on both sides, zeros inside the
 padding, and the port refuses steps past the padded length.
+
+``heston_params_from_numpy(fields, device, dtype)`` carries the
+semi-analytic Heston pricer's parameters (``HestonParams``, a NamedTuple
+of 0-d tensors) the same way, ``fields = {k: np.asarray(v) for k, v in
+jax_params._asdict().items()}``, in float32 or float64;
+``heston_params_to_numpy`` is its inverse.
 """
 
 from __future__ import annotations
@@ -71,3 +77,25 @@ def process_to_numpy(process) -> dict:
     """The inverse: a dict of numpy leaves, in field order."""
     return {f.name: getattr(process, f.name).cpu().numpy()
             for f in dataclasses.fields(process)}
+
+
+def heston_params_from_numpy(fields: dict, device="cuda",
+                             dtype=torch.float32):
+    """``engine.heston_analytic.HestonParams`` of 0-d ``dtype`` tensors on
+    ``device`` from a dict of numpy (or python) values by field name."""
+    from montecarlo_tpu_torch.engine.heston_analytic import HestonParams
+
+    names = HestonParams._fields
+    if sorted(fields) != sorted(names):
+        raise ValueError(f"HestonParams takes fields {list(names)}, got "
+                         f"{sorted(fields)}")
+    dev = resolve_device(device)
+    return HestonParams(**{k: torch.as_tensor(np.array(fields[k]),
+                                              dtype=dtype, device=dev)
+                           for k in names})
+
+
+def heston_params_to_numpy(params) -> dict:
+    """The inverse: a dict of numpy values, in field order."""
+    return {k: np.asarray(torch.as_tensor(v).detach().cpu().numpy())
+            for k, v in params._asdict().items()}

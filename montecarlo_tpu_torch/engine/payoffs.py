@@ -15,6 +15,7 @@ implied-vol solver take, as JAX's return arrays.
 
 from __future__ import annotations
 
+import functools
 import math
 from dataclasses import dataclass
 
@@ -98,6 +99,25 @@ def host64(x) -> torch.Tensor:
     if torch.is_tensor(x):
         return x.detach().to("cpu", torch.float64)
     return torch.as_tensor(np.asarray(x, dtype=np.float64))
+
+
+def common_operands(*xs):
+    """``xs`` as tensors of one float dtype on one device: the promoted
+    float type of the tensor and numpy inputs (float64 when none is a
+    float), on the first CUDA device among them, else the host.  A tensor
+    already of that dtype and device comes back as it is, graph
+    included."""
+    strong = [torch.from_numpy(np.asarray(x)) if isinstance(x, np.ndarray)
+              else x for x in xs]
+    tensors = [x for x in strong if torch.is_tensor(x)]
+    floats = [t.dtype for t in tensors if t.is_floating_point()]
+    dtype = (functools.reduce(torch.promote_types, floats) if floats
+             else torch.float64)
+    devices = [t.device for t in tensors]
+    device = next((d for d in devices if d.type == "cuda"),
+                  devices[0] if devices else torch.device("cpu"))
+    return tuple(torch.as_tensor(x, dtype=dtype, device=device)
+                 for x in strong)
 
 
 def norm_pdf(x: torch.Tensor) -> torch.Tensor:

@@ -78,13 +78,21 @@ def _like(r, *values):
                  for v in values))
 
 
+def vasicek_affine(kappa, theta, sigma, tau):
+    """(A, B) of Vasicek's ``P(t, t + tau) = A exp(-B r_t)``, tensors in
+    the dtype and on the device of ``kappa`` (a tensor), broadcasting."""
+    k, th, s, tau = _like(kappa, theta, sigma, tau)
+    B = (1.0 - torch.exp(-k * tau)) / k
+    A = torch.exp((th - s * s / (2.0 * k * k)) * (B - tau)
+                  - s * s * B * B / (4.0 * k))
+    return A, B
+
+
 def vasicek_bond_from_rate(r, kappa, theta, sigma, tau):
     """P(t, t + tau) as the affine function of the rate r_t, in r's dtype,
     broadcasting."""
     r, k, th, s, tau = _like(r, kappa, theta, sigma, tau)
-    B = (1.0 - torch.exp(-k * tau)) / k
-    A = torch.exp((th - s * s / (2.0 * k * k)) * (B - tau)
-                  - s * s * B * B / (4.0 * k))
+    A, B = vasicek_affine(k, th, s, tau)
     return A * torch.exp(-B * r)
 
 
@@ -162,7 +170,7 @@ def bond_option_mc(model: Vasicek, T1: float, T2: float, strike: float,
 
 
 __all__ = [
-    "vasicek_zcb", "cir_zcb", "vasicek_bond_option",
+    "vasicek_zcb", "cir_zcb", "vasicek_bond_option", "vasicek_affine",
     "vasicek_bond_from_rate", "vasicek_bond_option_from_rate",
     "vasicek_cap_price", "zcb_price_mc", "bond_option_mc",
 ]

@@ -59,7 +59,11 @@ from montecarlo_tpu_torch.processes.rough_bergomi import (  # noqa: F401
     rbergomi_simulate,
     volterra_joint_chol,
 )
-from montecarlo_tpu_torch.processes.sabr import SABR  # noqa: F401
+from montecarlo_tpu_torch.processes.sabr import (  # noqa: F401
+    SABR,
+    calibrate_sabr,
+    sabr_hagan_iv,
+)
 from montecarlo_tpu_torch.processes.shortrate import (  # noqa: F401
     CIR,
     HullWhite,

@@ -95,11 +95,13 @@ class NormalDrawsMixin(DeviceMixin):
     """Default innovations: i.i.d. standard normals keyed by (global path
     id, draw index ``m = t * n_draws + d``), so streams are shard-invariant.
     Innovations are a tuple of per-dimension tensors shaped like
-    ``path_ids``."""
+    ``path_ids``, float32 unless ``dtype`` asks for float64 (the JAX
+    package's float64 draws, which multilevel Monte Carlo takes)."""
 
-    def draws(self, seed, stream, path_ids, t):
+    def draws(self, seed, stream, path_ids, t, dtype=torch.float32):
         d0 = int(t) * self.n_draws
-        return tuple(normal_draw(seed, stream, path_ids, (d0 + d) & MASK32)
+        return tuple(normal_draw(seed, stream, path_ids, (d0 + d) & MASK32,
+                                 dtype)
                      for d in range(self.n_draws))
 
     def draws_pair(self, seed, stream, path_ids, j):

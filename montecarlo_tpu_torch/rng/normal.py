@@ -5,6 +5,10 @@ The same functions as ``montecarlo_tpu/rng/normal.py``, keyed only by
 constant is rounded to float32 once, as the JAX package does, so the
 integer-only steps (`uniform_from_bits`, `exp32`) agree with it bitwise and
 the ones that call the platform's log/sqrt/sin/cos agree to a few ULP.
+The draws also come in float64 (``dtype=torch.float64``), as the JAX
+package's do: a uniform from all 32 bits of its word and Box-Muller in
+float64; ``exp32`` and ``log32`` pass float64 through to the platform's
+``exp`` and ``log``.
 """
 
 from __future__ import annotations
@@ -23,39 +27,46 @@ def _f32(x: float) -> float:
 
 
 _TWO_PI = _f32(6.283185307179586)
+_TWO_PI_64 = 6.283185307179586
+F64 = torch.float64
 
 
 def _device(x):
     return x.device if torch.is_tensor(x) else None
 
 
-def uniform_from_bits(bits: torch.Tensor) -> torch.Tensor:
-    """Map uint32 words to a float32 uniform in the *open* interval (0, 1):
-    u = ((bits >> 9) + 0.5) * 2^-23, exact at every step."""
+def uniform_from_bits(bits: torch.Tensor, dtype=F32) -> torch.Tensor:
+    """Map uint32 words to a uniform in the *open* interval (0, 1): in
+    float32 u = ((bits >> 9) + 0.5) * 2^-23, exact at every step; in
+    float64 all 32 bits, ((bits >> 1) * 2 + (bits & 1) + 0.5) * 2^-32."""
+    if dtype == F64:
+        hi = (bits >> 1).to(F64)
+        lo = (bits & 1).to(F64)
+        return (hi * 2.0 + lo + 0.5) * 2.0 ** -32
     hi = (bits >> 9).to(F32)
     return (hi + 0.5) * _f32(2.0 ** -23)
 
 
-def boxmuller_pair(b0: torch.Tensor, b1: torch.Tensor):
+def boxmuller_pair(b0: torch.Tensor, b1: torch.Tensor, dtype=F32):
     """Two independent standard normals from two uint32 word tensors."""
-    u1 = uniform_from_bits(b0)
-    u2 = uniform_from_bits(b1)
+    u1 = uniform_from_bits(b0, dtype)
+    u2 = uniform_from_bits(b1, dtype)
     r = torch.sqrt(-2.0 * torch.log(u1))
-    theta = _TWO_PI * u2
+    theta = (_TWO_PI_64 if dtype == F64 else _TWO_PI) * u2
     return r * torch.cos(theta), r * torch.sin(theta)
 
 
-def normal_pair(seed: int, stream: int, c0, c1):
+def normal_pair(seed: int, stream: int, c0, c1, dtype=F32):
     """The canonical Box-Muller pair for counter (c0, c1)."""
     b0, b1 = random_bits(seed, stream, c0, c1)
-    return boxmuller_pair(b0, b1)
+    return boxmuller_pair(b0, b1, dtype)
 
 
-def normal_draw(seed: int, stream: int, path_ids, draw_index):
+def normal_draw(seed: int, stream: int, path_ids, draw_index, dtype=F32):
     """One standard normal per (global path id, draw index): component
     ``m & 1`` of the Box-Muller pair from counter ``(i, m >> 1)``."""
     m = as_words(draw_index, _device(path_ids))
-    z0, z1 = normal_pair(seed, stream, path_ids, m >> 1)
+    z0, z1 = normal_pair(seed, stream, path_ids, m >> 1, dtype)
     return torch.where((m & 1) == 0, z0, z1)
 
 
@@ -93,7 +104,10 @@ def exp32(x: torch.Tensor) -> torch.Tensor:
     """Accurate float32 exp from IEEE-exact f32 mul/add and integer shifts
     (Cody-Waite reduction + the Cephes expf polynomial) — bitwise equal to
     ``montecarlo_tpu.rng.normal.exp32`` on every backend.  Domain |x| <= 20;
-    inputs outside clamp to the boundary."""
+    inputs outside clamp to the boundary.  A float64 input is the
+    platform's float64 ``exp``, as in the JAX package."""
+    if x.dtype == F64:
+        return torch.exp(x)
     x = torch.clamp(x.to(F32), -20.0, 20.0)
     nf = torch.floor(x * _LOG2E + 0.5)
     r = x - nf * _LN2_HI
@@ -118,7 +132,11 @@ _LOG_HI = _f32(5e8)
 
 def log32(x: torch.Tensor) -> torch.Tensor:
     """Accurate float32 log: one Newton step y + (x*exp32(-y) - 1) from the
-    platform log's seed.  Domain [2.5e-9, 5e8]; inputs clamp to it."""
+    platform log's seed.  Domain [2.5e-9, 5e8]; inputs clamp to it.  A
+    float64 input is the platform's float64 ``log``, as in the JAX
+    package."""
+    if x.dtype == F64:
+        return torch.log(x)
     x = torch.clamp(x.to(F32), _LOG_LO, _LOG_HI)
     y = torch.log(x)
     return y + (x * exp32(-y) - 1.0)

@@ -56,7 +56,11 @@ and Sobol draws, at odd and even step counts; CCC's and DCC's kernels
 take their constants by value and, at an even A, draw a step at a time,
 the same normals as the pair's; nine assets take the torch loop, and the
 bridge and a run past the term basket's curves are refused, before any
-launch.
+launch.  Every ``calibrate`` demo recovers its parameters on the card (the
+seven in processes of their own, at once) to the JAX tests' tolerances,
+and every tensor a card fit saves for its backward pass lies on the card;
+MLMC's level 0 through K2 or K4 ({avg}) is the bits of its torch loop; the
+gamma Newton sampler on the card is within 64 ULPs of the CPU's.
 """
 
 import math
@@ -1851,3 +1855,209 @@ def test_cuda_kernel_routes_refuse_a_leaf_that_requires_grad(cuda):
         with pytest.raises(TypeError, match="price_and_greeks"):
             run()
     assert {k: v.launches for k, v in PATH_KERNELS.items()} == before
+
+
+# --- calibration, multilevel Monte Carlo and the gamma sampler ----------------
+
+CALIBRATE_MODELS = ("heston", "vg", "nig", "merton", "kou", "vasicek",
+                    "sabr")
+
+
+@pytest.fixture(scope="module")
+def calibrate_demos():
+    """Every ``calibrate --model M`` demo on the card (the default device),
+    each in a process of its own, all at once: {model: JSON}."""
+    import json
+    import os
+    import subprocess
+    import sys
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    procs = {m: subprocess.Popen(
+        [sys.executable, "-m", "montecarlo_tpu_torch", "calibrate",
+         "--model", m], stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+        text=True, env=env) for m in CALIBRATE_MODELS}
+    out = {}
+    try:
+        for m, p in procs.items():
+            stdout, stderr = p.communicate(timeout=600)
+            assert p.returncode == 0, (m, stderr[-2000:])
+            out[m] = json.loads(stdout.strip().splitlines()[-1])
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model", CALIBRATE_MODELS)
+def test_cuda_calibrate_recovers_every_demo(cuda, calibrate_demos, model):
+    """``calibrate --model M`` on the card, each demo to the JAX tests'
+    tolerances (tests/test_heston_analytic.py, test_levy_calibration.py,
+    test_rates_calibration.py's CLI test, test_sabr_calibration.py)."""
+    out = calibrate_demos[model]
+    truth = out["demo_truth"]
+    if model == "heston":
+        from montecarlo_tpu_torch.cli.calibrate import demo_surface
+        from montecarlo_tpu_torch.engine.heston_analytic import (
+            HestonParams, heston_call_cf)
+        from montecarlo_tpu_torch.engine.implied_vol import implied_vol_call
+
+        class Args:
+            s0, rate = 100.0, 0.03
+
+        ks, ts, ivs, _ = demo_surface("heston", Args, cuda)
+        f32 = dict(dtype=torch.float32, device=cuda)
+        fit = HestonParams(**{k: torch.tensor(out[k], **f32)
+                              for k in HestonParams._fields})
+        kt, tt = torch.tensor(ks, **f32), torch.tensor(ts, **f32)
+        fit_iv = implied_vol_call(heston_call_cf(100.0, kt, tt, 0.03, fit),
+                                  100.0, kt, 0.03, tt)
+        assert float(torch.max(torch.abs(fit_iv.double().cpu()
+                                         - torch.tensor(ivs)))) < 0.004, out
+        assert abs(out["v0"] - truth["v0"]) < 0.02, out
+    elif model in ("vg", "nig"):
+        assert out["rmse_vol"] < 5e-4, out
+        if model == "vg":
+            for k, v in truth.items():
+                assert abs(out[k] - v) < 0.01 * max(abs(v), 0.1), (k, out)
+        else:
+            assert abs(out["delta"] - truth["delta"]) < 0.02, out
+            assert abs(out["beta"] - truth["beta"]) < 0.2, out
+            assert abs(out["alpha"] - truth["alpha"]) < 0.5, out
+    elif model in ("merton", "kou"):
+        assert out["rmse_vol"] < 1e-3, out
+        slack = 0.015 if model == "merton" else 0.02
+        assert abs(out["sigma"] - truth["sigma"]) < slack, out
+    elif model == "vasicek":
+        assert out["rmse_rel"] < 2e-3, out
+        assert abs(out["kappa"] - truth["kappa"]) < 0.1, out
+    else:
+        assert out["rmse_vol"] < 5e-4, out
+        assert abs(out["alpha"] - truth["alpha"]) / truth["alpha"] < 0.05
+        assert abs(out["nu"] - truth["nu"]) < 0.05, out
+        assert abs(out["rho"] - truth["rho"]) < 0.08, out
+
+
+@pytest.mark.cuda
+def test_cuda_calibration_graphs_hold_no_host_tensor(cuda):
+    """Every tensor a card fit's loss saves for its backward pass lies on
+    the card: nothing of the graph round-trips through the host."""
+    from montecarlo_tpu_torch.engine import heston_analytic as ha
+    from montecarlo_tpu_torch.engine import levy_calibration as lc
+    from montecarlo_tpu_torch.engine import rates_calibration as rc
+    from montecarlo_tpu_torch.processes import sabr
+
+    f32 = dict(dtype=torch.float32, device=cuda)
+    ks = torch.tensor([80.0, 90.0, 100.0, 110.0, 120.0] * 3, **f32)
+    ts = torch.tensor([0.25] * 5 + [0.5] * 5 + [1.0] * 5, **f32)
+    ivs = torch.full((15,), 0.2, **f32)
+    s0, r = torch.tensor(100.0, **f32), torch.tensor(0.03, **f32)
+    e = torch.tensor([1.0, 2.0, 3.0], **f32)
+    prices = torch.tensor([0.01, 0.012, 0.013], **f32)
+    losses = {
+        "heston": (ha._iv_loss(ks, ts, ivs, s0, r, 96), ha.RAW0),
+        "vasicek": (rc._swaption_loss(
+            r, e, torch.full((3,), 0.5, **f32), torch.full((3,), 0.045,
+                                                           **f32),
+            torch.tensor([4, 8, 8], device=cuda), prices, 8), rc.RAW0),
+        "sabr": (sabr._smile_loss(ks[:5], ivs[:5], 100.0, 1.0, 0.7),
+                 sabr.SABR_RAW0),
+        **{f: (lc._iv_loss(f, ks, ts, ivs, s0, r), lc.FAMILIES[f][2])
+           for f in lc.FAMILIES}}
+    for name, (loss_fn, raw0) in losses.items():
+        seen = []
+
+        def pack(t):
+            seen.append(t.device)
+            return t
+
+        raw = torch.tensor(raw0, **f32).requires_grad_(True)
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            loss = loss_fn(raw)
+        (g,) = torch.autograd.grad(loss, raw)
+        assert seen and all(d.type == "cuda" for d in seen), (
+            name, sorted({str(d) for d in seen}))
+        assert g.device.type == "cuda" and torch.isfinite(g).all(), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,on,key", [
+    ("euler", "terminal", "fused_terminal"),
+    ("heston", "terminal", "fused_terminal"),
+    ("gbm", "mean", "fused_functionals_fixed"),
+    ("euler", "mean", "fused_functionals")])
+def test_cuda_mlmc_level0_kernel_route_is_the_torch_loop(cuda, kind, on,
+                                                         key):
+    """MLMC's level 0 in float32 runs the engine's gate (K2 for terminals;
+    K4's {avg}, on its fixed fold for GBM) and gives the bits of the
+    coupled loop's level 0 on the card's torch loop."""
+    from montecarlo_tpu_torch.engine import mlmc
+    from montecarlo_tpu_torch.processes import EulerGBM
+
+    n, steps = 3 * 4096 + 5, 16
+    make = {"euler": lambda: EulerGBM.create(100.0, 0.05, 0.2, 1 / steps,
+                                             device=cuda),
+            "gbm": lambda: GBM.create(100.0, 0.05, 0.2, 1 / steps,
+                                      device=cuda),
+            "heston": lambda: Heston.create(100.0, 0.04, 0.05, 1.5, 0.04,
+                                            0.4, -0.6, 1 / steps,
+                                            device=cuda)}[kind]
+    call = lambda s: torch.clamp(s - 100.0, min=0.0)
+    before = PATH_KERNELS[key].launches
+    got = mlmc._level0_values(make(), call, n, steps, 9, 2, 4096, on)
+    assert PATH_KERNELS[key].launches == before + 1
+    want, _ = mlmc._coupled_values(make(), None, call, n, steps, 1, 9, 2,
+                                   torch.float32, 4096, on)
+    assert got.device.type == "cuda" and torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("process", ["gbm", "heston"])
+def test_cuda_price_mlmc_matches_the_cpu_run(cuda, process, capsys):
+    """``price --mlmc`` on the card samples the CPU run's chunks, so it
+    takes the same ladder (every N_l) as ``--device cpu``, which the CPU
+    tests hold to the JAX command's; the price and std-err within rtol
+    1e-5, the bias and RMSE estimates within 1e-5 absolute (float32
+    sums of the finest levels' mean Y, in another order)."""
+    import json
+
+    from montecarlo_tpu_torch import cli
+
+    argv = ["price", "--mlmc", "--mlmc-rmse", "0.05", "--process", process]
+    runs = []
+    for device in ("cuda", "cpu"):
+        assert cli.main(argv + ["--device", device]) == 0
+        runs.append(json.loads(
+            capsys.readouterr().out.strip().splitlines()[-1]))
+    got, want = runs
+    assert got["level_paths"] == want["level_paths"], (got, want)
+    for k in ("price", "std_err", "vs_single_level_cost"):
+        assert abs(got[k] - want[k]) <= 1e-5 * abs(want[k]), (k, got, want)
+    for k in ("bias_est", "rmse_est"):
+        assert abs(got[k] - want[k]) < 1e-5, (k, got, want)
+
+
+@pytest.mark.cuda
+def test_cuda_price_mlmc_and_gamma_newton(cuda, capsys):
+    """``price --mlmc`` on the card near Black-Scholes; the gamma Newton
+    sampler on the card within 64 ULPs of the CPU's."""
+    import json
+
+    from montecarlo_tpu_torch import cli
+    from montecarlo_tpu_torch.rng.gamma import gamma_icdf_boost32
+
+    assert cli.main(["price", "--mlmc", "--mlmc-rmse", "0.05"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert abs(out["price"] - out["black_scholes"]) < 4 * 0.05, out
+    g = torch.Generator().manual_seed(3)
+    b = 1.0 + torch.rand(1 << 16, generator=g)
+    u = torch.rand(1 << 16, generator=g).clamp(1e-6, 1 - 6e-8)
+    card = gamma_icdf_boost32(b.to(cuda), u.to(cuda)).cpu()
+    host = gamma_icdf_boost32(b, u)
+    ulps = (card.view(torch.int32).long() - host.view(torch.int32).long())
+    assert int(ulps.abs().max()) <= 64
