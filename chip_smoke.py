@@ -240,7 +240,8 @@ CUDA kernels from ``montecarlo_tpu_torch/csrc`` and, in phases:
    timed at 2^17 and 2^20 x 252 beside their plain version, bound, SASS
    issue floor and K2; then, counters
    reset just before and read just after each run: ``greeks`` at the JAX
-   command's 200,000 x 252 (pathwise on GBM and Heston, LR on a GBM
+   command's 200,000 paths and 126 steps (its 252 halved since PR 25, to
+   keep the script inside its limit; pathwise on GBM and Heston, LR on a GBM
    digital through K2, second order on GBM at width 1.5 and on Heston,
    ``--mesh 1`` on a one-rank NCCL mesh), each with its wall-clock, peak
    memory and busy share, against Black-Scholes's delta (0.01), vega
@@ -270,6 +271,26 @@ CUDA kernels from ``montecarlo_tpu_torch/csrc`` and, in phases:
    K4 bitwise its torch loop at those runs' shapes; levels 0 and 2 over
    a one-rank NCCL mesh bitwise the unsharded levels; and
    ``gamma_from_uniforms32`` on 2^20 draws against the CPU.
+17. American and Bermudan exercise (no kernel: the torch loop and eager
+   regressions, as JAX's scan), each command with its wall-clock and the
+   card's busy share from the profiler's device events: ``price
+   --american --american-bound`` on the American put of
+   tests/test_american.py at the CLI's 100,000 x 252 (the bracket holds
+   the 1000-step binomial price: lower - 4 std-err - 0.05 <= binomial <=
+   upper + 4 std-err), on Heston (upper >= lower - 4 std-err), ``--payoff
+   asian --american`` against the European Asian (K4, counted), the
+   published 2-asset max-call bracket (13.902), ``greeks --american``
+   (delta within 0.02 of the binomial central difference), ``bond
+   --swaption --n-exercise 1`` within 4 std-err of Jamshidian and ``4``
+   dates above it; ``sharded_lsm_price`` (2^16 x 252) within 4 std-err
+   of ``lsm_price`` and ``sharded_andersen_broadie_bound`` (4096 x 256 x
+   252) on a one-rank NCCL mesh, the dual's per-path maxima over 2
+   emulated ranks' ids bitwise the unsharded run's; ``lsm_policy`` in
+   float64 on the card within rtol 1e-9 of the CPU's at 2^14 x 16.  The
+   busy share is profiled for the put with its bound, the max-call and
+   the 4-date swaption (the profiler takes ~25 us of its own a device
+   operation to collect; PERF.md has the others' from a run of this
+   phase alone).
 
 Phase 3 also holds K5 (2^18 paths x {504, 756, 37} columns, ids wrapping
 past 2^32) and K6 (2^18 and 2^18 - 3 paths, its ring and its plain-load
@@ -374,12 +395,12 @@ def compare(name, got, want, rtol=None):
     return same, max_abs, max_rel
 
 
-def cuda_ms(fn, reps: int):
-    """Milliseconds per call of ``fn`` by CUDA events, after one warm-up,
-    and the last call's result."""
+def cuda_ms(fn, reps: int, warm: bool = True):
+    """Milliseconds per call of ``fn`` by CUDA events, after one warm-up
+    call unless ``warm`` is False, and the last call's result."""
     import torch
 
-    out = fn()
+    out = fn() if warm else None
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -401,7 +422,12 @@ def timed_check(times, errs, key, label, kernel, plain, reps, rtol, *, bnd,
     import torch
 
     ms, got = cuda_ms(kernel, reps)
-    plain_ms, want = cuda_ms(plain, 1)
+    # The plain version is timed on its first call at this shape, with no
+    # warm-up: the parity runs before have loaded its eager ops, and its
+    # seconds of host-bound launches dwarf the allocations a first call
+    # makes; a warm-up call doubled the script's ~150 s of plain versions
+    # (PR 25).
+    plain_ms, want = cuda_ms(plain, 1, warm=False)
     times.setdefault(key, {"ms": ms, "plain_ms": plain_ms,
                            "bound_ms": bnd[0], "bound_by": bnd[1]})
     log(f"  {label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
@@ -4700,10 +4726,11 @@ def phase_state_path(torch, card):
 
 # ---- Phase 15: greeks, variance reduction and the implied-vol surface ----
 
-#: The JAX greeks command's defaults: 200,000 paths x 252 steps, S0 100,
-#: K 105, r 0.03, sigma 0.2, 1 year (its Heston: v0 0.04, kappa 2, theta
-#: 0.04, xi 0.5, rho -0.7).
-GREEKS_PATHS, GREEKS_STEPS, GREEKS_STRIKE, GREEKS_RATE = 200_000, 252, 105.0, 0.03
+#: The JAX greeks command's defaults (200,000 paths, S0 100, K 105, r 0.03,
+#: sigma 0.2, 1 year; its Heston: v0 0.04, kappa 2, theta 0.04, xi 0.5,
+#: rho -0.7) at half its 252 steps: the depth cut that keeps the whole
+#: script inside its time limit (PR 25).
+GREEKS_PATHS, GREEKS_STEPS, GREEKS_STRIKE, GREEKS_RATE = 200_000, 126, 105.0, 0.03
 #: The surface: 2^17 paths (mc_implied_vol_surface's default), the
 #: maturities 21, 63, 126 and 252 steps and a six-maturity grid (one
 #: launch of the snapshot kernel each), strikes 70 to 130 by 7.5.
@@ -4927,21 +4954,26 @@ def busy_share(torch, fn):
     return wall, sum(e.duration_ns() for e in events) * 1e-9, len(events)
 
 
-def measured_cli(torch, label, argv):
-    """One ``greeks`` run: its JSON, host wall-clock, peak device memory and
-    K2/K3/K4 launches (counters reset just before, read just after), then
-    the same run again under the profiler for the device's busy share."""
+def measured_cli(torch, label, argv, profile=True):
+    """One CLI run: its JSON, host wall-clock, peak device memory and
+    K2/K3/K4 launches (counters reset just before, read just after), then,
+    under ``profile``, the same run again under the profiler for the
+    device's busy share (None without)."""
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     (out, _), wall, counts = run_counted(run_cli, argv)
     peak = torch.cuda.max_memory_allocated() / 2**20
-    p_wall, busy, n_ops = busy_share(torch, lambda: run_cli(argv))
-    log(f"  {label}: {json.dumps(out)}; {wall:.3f} s wall-clock, peak "
-        f"{peak:.1f} MiB, launches "
-        f"{ {k: v for k, v in counts.items() if v} }; profiled "
-        f"{p_wall:.3f} s, device busy {busy:.3f} s "
-        f"({100 * busy / p_wall:.1f}%) in {n_ops} device operations")
-    return out, wall, peak, busy / p_wall, counts
+    msg = (f"  {label}: {json.dumps(out)}; {wall:.3f} s wall-clock, peak "
+           f"{peak:.1f} MiB, launches "
+           f"{ {k: v for k, v in counts.items() if v} }")
+    share = None
+    if profile:
+        p_wall, busy, n_ops = busy_share(torch, lambda: run_cli(argv))
+        share = busy / p_wall
+        msg += (f"; profiled {p_wall:.3f} s, device busy {busy:.3f} s "
+                f"({100 * share:.1f}%) in {n_ops} device operations")
+    log(msg)
+    return out, wall, peak, share, counts
 
 
 def pathwise_split(torch, proc, remat):
@@ -4980,8 +5012,8 @@ def pathwise_split(torch, proc, remat):
 
 
 def phase_greeks_path(torch, card):
-    """The ``greeks`` command at the JAX command's defaults (200,000 paths
-    x 252 steps): pathwise on GBM and Heston, LR on a GBM digital (K2),
+    """The ``greeks`` command at the JAX command's 200,000 paths and
+    ``GREEKS_STEPS``: pathwise on GBM and Heston, LR on a GBM digital (K2),
     second order on GBM (width 1.5) and Heston, and ``--mesh 1`` on a
     one-rank NCCL mesh, each with its wall-clock, peak memory, busy share
     and launches, against Black-Scholes's delta, vega, gamma and the
@@ -5305,10 +5337,15 @@ def phase_pricers(torch, card):
     return ok
 
 
+#: Adam steps of each fit timed alone (PR 24 took 100; 50 since PR 25, a
+#: depth cut that keeps the whole script inside its time limit).
+FIT_STEPS = 50
+
+
 def calibration_busy_shares(torch, card):
-    """The Heston-to-IVs and VG fits alone on their demo surfaces: 100
-    Adam steps timed by the host clock, then 50 under the profiler for
-    the device's busy share."""
+    """The Heston-to-IVs and VG fits alone on their demo surfaces:
+    ``FIT_STEPS`` Adam steps timed by the host clock, then half as many
+    under the profiler for the device's busy share."""
     from montecarlo_tpu_torch.cli.calibrate import demo_surface
     from montecarlo_tpu_torch.engine import heston_analytic as ha
     from montecarlo_tpu_torch.engine import levy_calibration as lc
@@ -5331,15 +5368,17 @@ def calibration_busy_shares(torch, card):
                                              raw0, n, 0.03)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        fit(100)
+        fit(FIT_STEPS)
         torch.cuda.synchronize()
         alone = time.perf_counter() - t0
-        wall, busy, n_ops = busy_share(torch, lambda: fit(50))
+        half = FIT_STEPS // 2
+        wall, busy, n_ops = busy_share(torch, lambda: fit(half))
         shares[model] = busy / wall
-        log(f"  {model} fit alone: 100 Adam steps {alone:.3f} s "
-            f"({100 / alone:.1f} steps/s); 50 profiled {wall:.3f} s, device "
-            f"busy {busy:.3f} s ({100 * busy / wall:.1f}%) in {n_ops} device "
-            f"operations ({n_ops / 50:.0f} a step), on {card}")
+        log(f"  {model} fit alone: {FIT_STEPS} Adam steps {alone:.3f} s "
+            f"({FIT_STEPS / alone:.1f} steps/s); {half} profiled "
+            f"{wall:.3f} s, device busy {busy:.3f} s "
+            f"({100 * busy / wall:.1f}%) in {n_ops} device operations "
+            f"({n_ops / half:.0f} a step), on {card}")
     return shares
 
 
@@ -5601,6 +5640,199 @@ def phase_calibration_mlmc(torch, card):
         raise AssertionError(f"phase 16 checks failed: {failed}")
     return rows, shares
 
+#: Phase 17: the American put of tests/test_american.py (the CLI's 100,000
+#: paths x 252 steps), the published 2-asset max-call (Andersen-Broadie
+#: 2004: 13.902), the sharded LSM's and dual's sizes, and the card-against-
+#: CPU float64 LSM's.
+AMERICAN_PUT = ["--payoff", "put", "--s0", "36", "--strike", "40", "--rate",
+                "0.06", "--sigma", "0.2", "--maturity", "1"]
+MAX_CALL = ["--payoff", "max-call", "--n-assets", "2", "--s0", "100",
+            "--strike", "100", "--rate", "0.05", "--div", "0.10", "--sigma",
+            "0.2", "--asset-corr", "0", "--maturity", "3", "--steps", "9"]
+MAX_CALL_TRUE = 13.902
+SHARDED_LSM = (1 << 16, 252)
+SHARDED_AB = (4096, 256, 252)  # one 4096-path block
+#: The sharded dual's policy: ``lsm_policy`` at this many paths.
+SHARDED_POLICY = 1 << 15
+CPU_LSM = (1 << 14, 16)
+
+
+def american_sharded(torch, checks):
+    """``sharded_lsm_price`` and ``sharded_andersen_broadie_bound`` on a
+    one-rank NCCL mesh: the LSM within 4 std-err of ``lsm_price``; the
+    dual's per-path maxima over 2 emulated ranks' ids bitwise the
+    unsharded run's, and its bound the unsharded maxima's block states."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from montecarlo_tpu_torch.engine.american import (_ab_best, lsm_policy,
+                                                      lsm_price)
+    from montecarlo_tpu_torch.engine.simulate import path_ids_for
+    from montecarlo_tpu_torch.parallel import (block_moments, make_mesh,
+                                               sharded_andersen_broadie_bound,
+                                               sharded_lsm_price)
+    from montecarlo_tpu_torch.processes import GBM
+    from montecarlo_tpu_torch.stats.welford import moments_reduce
+
+    n, steps = SHARDED_LSM
+    outer, inner, ab_steps = SHARDED_AB
+    r, dt = 0.06, 1.0 / steps
+    gbm = GBM.create(36.0, r, 0.2, dt)
+    put = lambda s: torch.clamp(40.0 - s, min=0.0)
+    kw = dict(rate=r, dt=dt, degree=3)
+    torch.cuda.set_device(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/init",
+                                rank=0, world_size=1)
+        try:
+            mesh = make_mesh()
+            t0 = time.perf_counter()
+            lsm = sharded_lsm_price(gbm, put, n, steps, seed=0, mesh=mesh,
+                                    **kw)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _, policy = lsm_policy(gbm, put, SHARDED_POLICY, steps, seed=0,
+                                   **kw)
+            t2 = time.perf_counter()
+            ab = sharded_andersen_broadie_bound(
+                gbm, put, policy, outer, inner, ab_steps, seed=1, mesh=mesh,
+                **kw)
+            torch.cuda.synchronize()
+            t3 = time.perf_counter()
+        finally:
+            dist.destroy_process_group()
+    plain = lsm_price(gbm, put, n, steps, seed=0, **kw)
+    full = _ab_best(gbm, put, policy, path_ids_for(outer, 0, "cuda"), inner,
+                    ab_steps, seed=1, value_degree=None, dtype=torch.float32,
+                    **kw)
+    half = outer // 2
+    ranks = torch.cat([
+        _ab_best(gbm, put, policy, path_ids_for(half, k * half, "cuda"),
+                 inner, ab_steps, seed=1, value_degree=None,
+                 dtype=torch.float32, **kw)
+        for k in range(2)])
+    whole = moments_reduce(block_moments(full))
+    log(f"  sharded LSM {n} x {steps} on the NCCL mesh: "
+        f"{float(lsm['price']):.6f} +- {float(lsm['std_err']):.6f} in "
+        f"{t1 - t0:.3f} s; lsm_price {float(plain['price']):.6f}; sharded "
+        f"dual {outer} x {inner}: {float(ab['upper']):.6f} +- "
+        f"{float(ab['std_err']):.6f} in {t3 - t2:.3f} s")
+    checks["sharded LSM within 4 std-err of lsm_price"] = (
+        abs(float(lsm["price"]) - float(plain["price"]))
+        < 4 * float(plain["std_err"]))
+    checks["dual's per-path maxima on 2 emulated ranks bitwise unsharded"] = (
+        torch.equal(ranks, full))
+    checks["sharded dual's bound = the unsharded maxima's block states"] = (
+        torch.equal(ab["upper"], whole.mean))
+
+
+def american_card_vs_cpu(torch, checks):
+    """``lsm_policy`` in float64 (float64 leaves) on the card against the
+    same call on the CPU: price within rtol 1e-9 (the platforms' float64
+    log, sin and cos; sums in each device's order)."""
+    from montecarlo_tpu_torch.engine.american import lsm_policy
+    from montecarlo_tpu_torch.processes import GBM
+
+    n, steps = CPU_LSM
+    vals = dict(s0=36.0, mu=0.06, sigma=0.2, dt=1.0 / steps)
+    put = lambda s: torch.clamp(40.0 - s, min=0.0)
+    got = {}
+    for dev in ("cuda", "cpu"):
+        gbm = GBM(**{k: torch.tensor(v, dtype=torch.float64, device=dev)
+                     for k, v in vals.items()})
+        got[dev], _ = lsm_policy(gbm, put, n, steps, seed=4, rate=0.06,
+                                 dt=1.0 / steps, degree=3,
+                                 dtype=torch.float64)
+    card, cpu = float(got["cuda"]["price"]), float(got["cpu"]["price"])
+    log(f"  lsm_policy float64 at {n} x {steps}: card {card!r}, CPU "
+        f"{cpu!r}, rel {abs(card - cpu) / cpu:.3e}")
+    checks["float64 LSM on the card within rtol 1e-9 of the CPU"] = (
+        abs(card - cpu) <= 1e-9 * abs(cpu))
+
+
+def phase_american(torch, card):
+    """Phase 17: American and Bermudan exercise (9c) on the card, through
+    the CLI and the engine, each command's wall-clock and busy share; the
+    American paths launch no kernel (the torch loop, as JAX's scan), the
+    European Asian they are held against launches K4.  Returns the
+    European Asian's K2-K4 launches."""
+    from montecarlo_tpu_torch.engine.american import binomial_american_put
+
+    t0 = time.perf_counter()
+    checks = {}
+    put, *_ = measured_cli(torch, "price --american --american-bound (GBM "
+                           "put)", ["price", "--american", "--american-bound",
+                                    *AMERICAN_PUT])
+    tree = binomial_american_put(36.0, 40.0, 0.06, 0.2, 1.0, 1000)
+    lo, lo_se = put["price"], put["std_err"]
+    hi, hi_se = put["upper_bound"], put["upper_bound_std_err"]
+    log(f"  binomial (1000 steps) {tree:.6f}: bracket [{lo:.6f}, "
+        f"{hi:.6f}]")
+    checks["GBM put: lower - 4 se - 0.05 <= binomial <= upper + 4 se"] = (
+        lo - 4 * lo_se - 0.05 <= tree <= hi + 4 * hi_se)
+    # Heston's busy share is not profiled: its 4x10^5 device operations
+    # cost the profiler ~20 s to collect, and its loop is the GBM put's
+    # kind (PERF.md's PR 25 entry has it from a run of this phase alone).
+    hes, *_ = measured_cli(torch, "price --american --american-bound "
+                           "--process heston", ["price", "--american",
+                                                "--american-bound",
+                                                "--process", "heston",
+                                                *AMERICAN_PUT], profile=False)
+    checks["Heston put: upper >= lower - 4 se"] = (
+        hes["upper_bound"] >= hes["price"] - 4 * hes["std_err"])
+    asian, *_, c = measured_cli(torch, "price --payoff asian --american",
+                                ["price", "--payoff", "asian", "--american"],
+                                profile=False)
+    checks["the American paths launch no kernel"] = not any(c.values())
+    euro, *_, k4 = measured_cli(torch, "price --payoff asian (K4)",
+                                ["price", "--payoff", "asian"],
+                                profile=False)
+    checks["the European Asian launches K4"] = (
+        k4["fused_functionals"] + k4["fused_functionals_fixed"] >= 1)
+    checks["American Asian >= European Asian - 4 se"] = (
+        asian["price"] >= euro["price"] - 4 * euro["std_err"])
+    mx, *_ = measured_cli(torch, "price --payoff max-call --american "
+                          "--american-bound", ["price", *MAX_CALL,
+                                               "--american",
+                                               "--american-bound"])
+    checks[f"max-call bracket holds {MAX_CALL_TRUE}"] = (
+        mx["price"] - 4 * mx["std_err"] <= MAX_CALL_TRUE
+        <= mx["upper_bound"] + 4 * mx["upper_bound_std_err"])
+    g, *_ = measured_cli(torch, "greeks --american (put)",
+                         ["greeks", "--american", *AMERICAN_PUT],
+                         profile=False)
+    h = 0.25
+    fd = (binomial_american_put(36.0 + h, 40.0, 0.06, 0.2, 1.0, 1500)
+          - binomial_american_put(36.0 - h, 40.0, 0.06, 0.2, 1.0, 1500)) \
+        / (2 * h)
+    log(f"  binomial central-difference delta {fd:.6f}")
+    checks["American put delta within 0.02 of the binomial difference"] = (
+        abs(g["delta"] - fd) < 0.02)
+    one, *_ = measured_cli(torch, "bond --swaption --n-exercise 1",
+                           ["bond", "--swaption", "--n-exercise", "1"],
+                           profile=False)
+    checks["European swaption within 4 se of Jamshidian"] = (
+        abs(one["bermudan_swaption"] - one["jamshidian_european"])
+        < 4 * one["std_err"])
+    four, *_ = measured_cli(torch, "bond --swaption --n-exercise 4",
+                            ["bond", "--swaption", "--n-exercise", "4"])
+    checks["4 exercise dates >= the European"] = (
+        four["bermudan_swaption"] >= one["bermudan_swaption"])
+    t1 = time.perf_counter()
+    american_sharded(torch, checks)
+    t2 = time.perf_counter()
+    american_card_vs_cpu(torch, checks)
+    log(f"  phase 17: the CLI {t1 - t0:.1f} s, sharded "
+        f"{t2 - t1:.1f} s, card against CPU "
+        f"{time.perf_counter() - t2:.1f} s, on {card}")
+    failed = [name for name, ok in checks.items() if not ok]
+    for name, ok in checks.items():
+        log(f"  {'ok' if ok else 'FAIL'}: {name}")
+    if failed:
+        raise AssertionError(f"phase 17 checks failed: {failed}")
+    return k4
+
 
 KERNELS = [
     ("gbm_terminal", "gbm_kernel.cu", "gbm_kernel.py:118"),
@@ -5825,6 +6057,14 @@ def main() -> int:
         for name, n in mlmc_rows.items():
             counts[name] += n
         log(f"  phase 16 took {time.perf_counter() - t16:.1f} s, on {card}")
+        log("phase 17: American and Bermudan exercise (LSM, the "
+            "Andersen-Broadie dual, policy-frozen greeks, the Vasicek "
+            "Bermudan swaption, sharded LSM)")
+        t17 = time.perf_counter()
+        for name, n in phase_american(torch, card).items():
+            if name in counts:
+                counts[name] += n
+        log(f"  phase 17 took {time.perf_counter() - t17:.1f} s, on {card}")
         k3_ms = times["fused_block_moments"]["ms"]
         kernel_s = k3_ms * 1e-3 * n_paths / (1 << 22)
         log(f"  K1 {bench['value']:.6e} path-steps/s, wall-clock to "

@@ -9,6 +9,10 @@ Subcommands:
           (--n-assets --asset-corr --div)
   price --mlmc — multilevel Monte Carlo to --mlmc-rmse on Euler GBM or
           Heston (level 0 through K2)
+  price --american — American exercise by Longstaff-Schwartz (call/put,
+          the Asian on (spot, average), the SV processes on (spot,
+          variance), the max-call); --american-bound adds the
+          Andersen-Broadie dual upper bound
   note  — structured notes: autocallable (worst-of with --n-assets > 1)
           and cliquet
   bench — GBM path-steps/s through the K1 kernel at 2^20 paths x 1024
@@ -20,12 +24,13 @@ Subcommands:
   bond  — short-rate bonds: the zero-coupon bond by simulation (K4) under
           --model vasicek|cir|hullwhite|g2pp against its closed form;
           --option (Vasicek bond call), --cap/--floor (Vasicek), --swaption
-          --model g2pp (the European swaption's quadrature)
+          (the Vasicek Bermudan payer swaption by LSM; --model g2pp the
+          European swaption's quadrature)
   greeks — option sensitivities on GBM and Heston: --method pathwise
           (reverse mode through the torch time loop), lr (likelihood
           ratio, GBM; terminal prices through K2), second-order (gamma,
           vanna, volga of the smoothed call); --mesh N (pathwise over a
-          mesh of N ranks)
+          mesh of N ranks); --american (policy-frozen American greeks)
   calibrate — fit Heston, SABR, VG, NIG, Merton or Kou to an
           implied-vol surface, Vasicek to payer-swaption premia (Adam on
           exact gradients; without --surface a demo surface is generated

@@ -9,9 +9,12 @@ Vasicek bond call by simulation (K4) against Jamshidian's formula;
 ``--cap`` (``--floor``), the Vasicek cap's closed form with a Monte Carlo
 cross-check on the rate paths (the torch time loop, as the JAX package's
 scan); ``--swaption --model g2pp``, the European payer swaption by the
-Brigo–Mercurio quadrature (host float64, no simulation).  ``--swaption``
-on Vasicek (the Bermudan LSM, ROADMAP Queue 1 item 9) and ``--model lmm``
-(item 10) exit naming the item they wait for.  ``--device cuda`` (the
+Brigo–Mercurio quadrature (host float64, no simulation); ``--swaption``
+on Vasicek, the Bermudan payer swaption by pathwise-discounted LSM in
+float64 (``engine.bermudan``, 16 steps a quarterly period, the par strike
+unless ``--swap-strike``) and, with one exercise date, Jamshidian's
+European beside it.  ``--model lmm`` (ROADMAP Queue 1 item 10) exits
+naming the item it waits for.  ``--device cuda`` (the
 default; an error without a card) or ``cpu`` (the kernels' plain
 versions).
 """
@@ -59,10 +62,11 @@ def add_parsers(sub):
     p.add_argument("--cap-resets", type=int, default=4,
                    help="number of caplets (quarterly from 0.25y)")
     p.add_argument("--swaption", action="store_true",
-                   help="with --model g2pp: the European payer swaption by "
-                        "the Brigo-Mercurio quadrature (the Vasicek "
-                        "Bermudan LSM and the LMM swaption are not ported "
-                        "yet)")
+                   help="Bermudan payer swaption by pathwise-discounted "
+                        "LSM (vasicek; --n-exercise 1 = European, checked "
+                        "against Jamshidian); with --model g2pp the "
+                        "European payer swaption by the Brigo-Mercurio "
+                        "quadrature (the LMM swaption is not ported yet)")
     p.add_argument("--caplet", action="store_true",
                    help="lmm: MC caplet vs its Black closed form (not "
                         "ported yet)")
@@ -80,8 +84,7 @@ def add_parsers(sub):
     p.add_argument("--periods", type=int, default=8,
                    help="swaption: quarterly payment count")
     p.add_argument("--n-exercise", type=int, default=4,
-                   help="swaption: number of Bermudan exercise dates (the "
-                        "Bermudan LSM is not ported yet)")
+                   help="swaption: number of Bermudan exercise dates")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="cuda (default; an error without a card) or cpu "
@@ -158,6 +161,47 @@ def _g2pp_swaption(args, device) -> dict:
             "periods": args.periods}
 
 
+def _vasicek_swaption(args, device) -> dict:
+    """The Bermudan payer swaption under Vasicek: quarterly periods of 16
+    steps, exercise at the first ``--n-exercise`` resets into the swap
+    paying to ``--periods`` quarters, in float64 (the process's leaves
+    too, as the JAX command builds it), at the forward par rate of the
+    swap entered at the first reset unless ``--swap-strike``."""
+    import torch
+
+    from montecarlo_tpu_torch.engine.bermudan import (
+        bermudan_swaption_lsm, vasicek_swaption_jamshidian)
+    from montecarlo_tpu_torch.engine.rates import vasicek_zcb
+    from montecarlo_tpu_torch.processes import Vasicek
+
+    delta, spp = 0.25, 16
+    zcb = lambda t: vasicek_zcb(args.r0, args.kappa, args.theta, args.sigma,
+                                t)
+    if args.swap_strike is None:
+        # K = (P(delta) - P(n delta)) / (delta sum_{i>=2} P(i delta)): the
+        # float leg starts at the first reset, the annuity one period on.
+        ps = [zcb(i * delta) for i in range(2, args.periods + 1)]
+        strike = ((zcb(delta) - ps[-1]) / (delta * sum(ps)) if ps
+                  else args.theta)
+    else:
+        strike = args.swap_strike
+    proc = Vasicek(**{k: torch.tensor(v, dtype=torch.float64, device=device)
+                      for k, v in dict(r0=args.r0, kappa=args.kappa,
+                                       theta=args.theta, sigma=args.sigma,
+                                       dt=delta / spp).items()})
+    res = bermudan_swaption_lsm(
+        proc, strike, n_paths=args.paths, steps_per_period=spp,
+        n_periods=args.periods, n_exercise=args.n_exercise, seed=args.seed)
+    out = {"bermudan_swaption": float(res["price"]),
+           "std_err": float(res["std_err"]), "strike": float(strike),
+           "n_exercise": args.n_exercise}
+    if args.n_exercise == 1:
+        out["jamshidian_european"] = vasicek_swaption_jamshidian(
+            (args.kappa, args.theta, args.sigma), strike, t0=delta,
+            delta=delta, n_periods=args.periods - 1, r0=args.r0)
+    return out
+
+
 def build_model(args, device):
     """(process, closed-form P(0, T)) of ``--model`` (not lmm) over
     ``--steps`` steps to ``--maturity`` on ``device``."""
@@ -213,13 +257,10 @@ def cmd_bond(args) -> int:
         if args.model == "g2pp":
             print(json.dumps(_g2pp_swaption(args, device)))
             return 0
-        if args.model == "vasicek":
-            raise SystemExit(
-                "bond --swaption on Vasicek (the Bermudan LSM) needs "
-                "engine/bermudan.py, which the port has not yet (ROADMAP "
-                "Queue 1 item 9); --model g2pp prices the European "
-                "swaption")
-        raise SystemExit("--swaption requires --model vasicek or g2pp")
+        if args.model != "vasicek":
+            raise SystemExit("--swaption requires --model vasicek or g2pp")
+        print(json.dumps(_vasicek_swaption(args, device)))
+        return 0
     if args.option:
         if args.model != "vasicek":
             raise SystemExit("--option requires --model vasicek (affine "

@@ -4,10 +4,11 @@ The port of ``montecarlo_tpu/cli/greeks.py`` with its flags, defaults and
 JSON keys: ``--method pathwise`` (reverse mode through the torch time
 loop, ``engine.greeks.price_and_greeks``), ``lr`` (likelihood ratio on
 GBM, its terminal prices through K2), ``second-order`` (gamma, vanna and
-volga of the smoothed call) and ``--mesh N`` (pathwise greeks over a mesh
-of N ranks, ``sharded_price_and_greeks``).  ``--american`` (policy-frozen
-American greeks) exits naming ROADMAP Queue 1 item 9c, which ports it.
-``--device cuda`` (the default; an error without a card) or ``cpu`` (the
+volga of the smoothed call), ``--mesh N`` (pathwise greeks over a mesh
+of N ranks, ``sharded_price_and_greeks``) and ``--american`` (policy-frozen
+American greeks, pathwise on a call or put: ``lsm_exercise_policy`` fits
+the exercise rule, ``american_price_and_greeks`` differentiates the
+stopped value on a fresh stream).  ``--device cuda`` (the default; an error without a card) or ``cpu`` (the
 kernels' plain versions).
 """
 
@@ -40,8 +41,10 @@ def add_parsers(sub):
                    help="payoff smoothing width for --method second-order "
                         "(price units; bias O(w^2), gamma noise O(1/w))")
     p.add_argument("--american", action="store_true",
-                   help="American-exercise greeks by policy freezing (not "
-                        "ported yet: ROADMAP Queue 1 item 9c)")
+                   help="American-exercise Greeks by policy freezing: LSM "
+                        "fits the exercise rule, then pathwise-"
+                        "differentiates the frozen stopped value "
+                        "(envelope theorem; call/put, pathwise method)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--mesh", type=int, default=0, metavar="N",
                    help="pathwise greeks over a mesh of N ranks "
@@ -104,6 +107,28 @@ def _mesh_greeks(args, proc, payoff, disc, device) -> dict:
     return out
 
 
+def _american_greeks(args, proc, payoff, dt) -> dict:
+    """Policy-frozen American price and greeks (degree 3, the exercise
+    rule fitted on the pricing paths' seed): price and delta, with vega
+    and the drift sensitivity on GBM, d/dv0 and d/dxi on Heston."""
+    from montecarlo_tpu_torch.engine.american import (
+        american_price_and_greeks, lsm_exercise_policy)
+
+    if args.method != "pathwise" or args.payoff == "digital":
+        raise SystemExit("--american greeks use the pathwise method on "
+                         "call/put payoffs")
+    kw = dict(seed=args.seed, rate=args.rate, dt=dt, degree=3)
+    policy = lsm_exercise_policy(proc, payoff, args.paths, args.steps, **kw)
+    price, g = american_price_and_greeks(proc, payoff, policy, args.paths,
+                                         args.steps, **kw)
+    out = {"price": float(price), "delta": float(g.s0)}
+    if args.process == "gbm":
+        out.update(vega=float(g.sigma), drift_sens=float(g.mu))
+    else:
+        out.update(vega_v0=float(g.v0), xi_sens=float(g.xi))
+    return out
+
+
 def cmd_greeks(args) -> int:
     import math
 
@@ -118,10 +143,6 @@ def cmd_greeks(args) -> int:
         # Reject rather than silently ignore.
         raise SystemExit("--mesh applies to the pathwise method only "
                          "(not --method lr/second-order, not --american)")
-    if args.american:
-        raise SystemExit("greeks --american needs engine/american.py "
-                         "(policy-frozen American greeks), which the port "
-                         "has not yet (ROADMAP Queue 1 item 9c)")
     device = resolve_cli_device(args.device)
     dt = args.maturity / args.steps
     disc = math.exp(-args.rate * args.maturity)
@@ -133,6 +154,10 @@ def cmd_greeks(args) -> int:
         proc = Heston.create(s0=args.s0, v0=args.v0, mu=args.rate,
                              kappa=args.kappa, theta=args.theta, xi=args.xi,
                              rho=args.rho, dt=dt, device=device)
+
+    if args.american:
+        print(json.dumps(_american_greeks(args, proc, payoff, dt)))
+        return 0
 
     if args.method == "lr":
         if args.process != "gbm":

@@ -26,7 +26,10 @@ loop on MultiGBM, in ``pricing_modes``) and multilevel Monte Carlo
 keys: ``price``, ``std_err``, ``n_paths`` and, for the GBM call and
 digital, ``black_scholes``; for the call on Kou, NIG, VG, Bates and BatesQE
 ``cf_price``, the characteristic-function oracle; rough Bergomi adds
-``hurst``, the max-call ``n_assets``.
+``hurst``, the max-call ``n_assets``.  ``--american`` prices American
+exercise by LSM (``pricing_modes.run_american``; ``--american-bound`` adds
+``upper_bound`` and ``upper_bound_std_err``, the Andersen-Broadie dual) and
+prints no closed form.
 """
 
 from __future__ import annotations
@@ -77,6 +80,12 @@ def add_parsers(sub):
     p.add_argument("--bridge", action="store_true",
                    help="up-and-out/in: Brownian-bridge continuous-barrier "
                         "correction (gbm)")
+    p.add_argument("--american", action="store_true",
+                   help="American exercise via Longstaff-Schwartz "
+                        "(call/put payoffs)")
+    p.add_argument("--american-bound", action="store_true",
+                   help="with --american: also report the Andersen-Broadie "
+                        "duality upper bound (brackets the true price)")
     p.add_argument("--mlmc", action="store_true",
                    help="multilevel Monte Carlo (Giles) over a geometric "
                         "step ladder: Euler-discretized gbm or heston, "
@@ -160,20 +169,21 @@ def resolve_cli_device(name: str):
 
 def cmd_price(args) -> int:
     from montecarlo_tpu_torch.cli import pricing_models as pm
-    from montecarlo_tpu_torch.cli.pricing_modes import (run_max_call,
+    from montecarlo_tpu_torch.cli.pricing_modes import (run_american,
+                                                        run_max_call,
                                                         run_mlmc,
                                                         run_rbergomi)
     from montecarlo_tpu_torch.engine import (black_scholes_call,
                                              black_scholes_digital,
                                              discount_factor)
 
-    if args.target_se is not None and (args.mlmc
+    if args.target_se is not None and (args.american or args.mlmc
                                        or args.payoff not in VANILLA
                                        or args.process == "rbergomi"):
         raise SystemExit("--target-se applies to vanilla European payoffs "
-                         "(call/put/digital) without --mlmc and outside "
-                         "the own-simulator process (rbergomi); for --mlmc "
-                         "the tolerance knob is --mlmc-rmse")
+                         "(call/put/digital) without --american/--mlmc and "
+                         "outside the own-simulator process (rbergomi); for "
+                         "--mlmc the tolerance knob is --mlmc-rmse")
     if args.bridge and args.process != "gbm":
         raise SystemExit("--bridge requires --process gbm (constant vol for "
                          "the bridge law)")
@@ -188,19 +198,27 @@ def cmd_price(args) -> int:
     disc = float(discount_factor(args.rate, args.maturity))
     if args.payoff == "max-call":
         return run_max_call(args, dt, disc, device)
-    if args.payoff in PATH_DEPENDENT:
+    if args.american:
+        est = run_american(args, proc, dt)
+        if isinstance(est, int):
+            return est
+    elif args.payoff in PATH_DEPENDENT:
         est = _estimate_functional(args, proc, sampler, disc, dt)
     else:
         est = _estimate_vanilla(args, proc, sampler, disc, device)
 
     out = {"price": float(est["price"]), "std_err": float(est["std_err"]),
            "n_paths": int(est["n_paths"])}
+    if "upper_bound" in est:
+        out["upper_bound"] = float(est["upper_bound"])
+        out["upper_bound_std_err"] = float(est["upper_bound_std_err"])
     oracle = {"call": black_scholes_call,
               "digital": black_scholes_digital}.get(args.payoff)
-    if args.process == "gbm" and oracle is not None:
-        out["black_scholes"] = oracle(args.s0, args.strike, args.rate,
-                                      args.sigma, args.maturity)
-    pm.append_oracles(out, args)
+    if not args.american:  # the closed forms price no early exercise
+        if args.process == "gbm" and oracle is not None:
+            out["black_scholes"] = oracle(args.s0, args.strike, args.rate,
+                                          args.sigma, args.maturity)
+        pm.append_oracles(out, args)
     print(json.dumps(out))
     return 0
 

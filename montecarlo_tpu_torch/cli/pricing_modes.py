@@ -1,7 +1,8 @@
 """Dedicated run modes of the `price` subcommand, as in
 ``montecarlo_tpu/cli/pricing_modes.py``: the own-simulator processes (rough
 Bergomi in this port), multilevel Monte Carlo and the multi-asset max-call
-print their own JSON."""
+print their own JSON; American exercise (``run_american``) returns its
+estimate to the shared output, or prints the American Asian's."""
 
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ def run_rbergomi(args) -> int:
                                              european_put, mc_estimate)
     from montecarlo_tpu_torch.processes import RoughBergomi, rbergomi_simulate
 
-    if args.payoff not in ("call", "put"):
+    if args.american or args.payoff not in ("call", "put"):
         raise SystemExit("--process rbergomi prices European call/put")
     if args.sampler != "plain":
         raise SystemExit("--process rbergomi uses its own "
@@ -54,7 +55,7 @@ def run_mlmc(args) -> int:
     from montecarlo_tpu_torch.engine.mlmc import mlmc_estimate
     from montecarlo_tpu_torch.processes import EulerGBM, Heston
 
-    if args.payoff not in ("call", "put"):
+    if args.american or args.payoff not in ("call", "put"):
         raise SystemExit("--mlmc supports European call/put payoffs")
     if args.sampler != "plain":
         raise SystemExit("--mlmc uses its own coupled plain draws; "
@@ -99,8 +100,11 @@ def run_max_call(args, dt, disc, device) -> int:
     Bermudan max-call benchmark family, Andersen-Broadie 2004) on
     ``--n-assets`` symmetric GBM assets with drift ``rate - div`` and one
     pairwise correlation, through the torch time loop on MultiGBM, as the
-    JAX CLI runs its scan engine.  (The American half, LSM, comes with the
-    pricing toolkit.)"""
+    JAX CLI runs its scan engine.  ``--american``: the Bermudan max-call
+    over the ``--steps`` dates by multi-asset LSM (degree 3, value degree
+    3); ``--american-bound`` adds the dual on min(paths, 4096) x 256 outer
+    and inner paths at ``--seed`` + 1 (``upper_bound``,
+    ``upper_bound_std_err``)."""
     from montecarlo_tpu_torch.engine import max_call, mc_estimate, simulate
 
     if args.process != "gbm":
@@ -110,13 +114,90 @@ def run_max_call(args, dt, disc, device) -> int:
         raise SystemExit("--payoff max-call uses plain Threefry "
                          "draws; --sampler has no effect there")
     proc = symmetric_multi_gbm(args, dt, device)
-    terminal = simulate(proc, args.paths, args.steps, seed=args.seed)
-    est = mc_estimate(max_call(terminal, args.strike), disc)
-    print(json.dumps({"price": float(est["price"]),
-                      "std_err": float(est["std_err"]),
-                      "n_paths": int(est["n_paths"]),
-                      "n_assets": args.n_assets}))
+    payoff = lambda p: max_call(p, args.strike)
+    if args.american:
+        from montecarlo_tpu_torch.engine.american import (
+            andersen_broadie_bound_multi, lsm_policy_multi)
+
+        kw = dict(rate=args.rate, dt=dt, degree=3, value_degree=3)
+        est, policy = lsm_policy_multi(proc, payoff, args.paths, args.steps,
+                                       seed=args.seed,
+                                       fit_value=args.american_bound, **kw)
+    else:
+        terminal = simulate(proc, args.paths, args.steps, seed=args.seed)
+        est = mc_estimate(payoff(terminal), disc)
+    out = {"price": float(est["price"]), "std_err": float(est["std_err"]),
+           "n_paths": int(est["n_paths"]), "n_assets": args.n_assets}
+    if args.american and args.american_bound:
+        ab = andersen_broadie_bound_multi(
+            proc, payoff, policy, min(args.paths, 4096), 256, args.steps,
+            seed=args.seed + 1, **kw)
+        out["upper_bound"] = float(ab["upper"])
+        out["upper_bound_std_err"] = float(ab["std_err"])
+    print(json.dumps(out))
     return 0
+
+
+#: The stochastic-vol processes, priced on the joint (spot, variance) LSM.
+SV_PROCESSES = ("heston", "heston-qe", "bates", "bates-qe", "slv")
+
+
+def run_american(args, proc, dt):
+    """``price --american``: LSM on the spot (degree 3), on the joint
+    (spot, variance) state for the stochastic-vol processes (degree 2,
+    value degree 5) or on (spot, running average) for ``--payoff asian``
+    (degree 2), with JAX's sizes for ``--american-bound``'s dual at
+    ``--seed`` + 1: min(paths, 4096) x 512 (SV min(paths, 2048) x 256).
+    Returns the exit code when it printed the Asian's JSON itself, else
+    the estimate (with ``upper_bound`` and ``upper_bound_std_err`` under
+    ``--american-bound``)."""
+    import torch
+
+    from montecarlo_tpu_torch.engine.american import (
+        andersen_broadie_bound, andersen_broadie_bound_sv, lsm_policy,
+        lsm_policy_sv, lsm_price_path_dependent)
+    from montecarlo_tpu_torch.engine.functionals import ARITH_MEAN
+
+    if args.sampler != "plain":
+        raise SystemExit("--american uses plain Threefry draws; "
+                         "--sampler has no effect there (remove it)")
+    k = args.strike
+    if args.payoff == "asian":
+        # The American average-price call: LSM on the joint (spot, running
+        # average) state (Longstaff-Schwartz 2001 sec. 5).
+        if args.american_bound:
+            raise SystemExit("--american-bound covers call/put only")
+        est = lsm_price_path_dependent(
+            proc, lambda s, a: torch.clamp(a - k, min=0.0), ARITH_MEAN,
+            args.paths, args.steps, seed=args.seed, rate=args.rate, dt=dt,
+            degree=2)
+        print(json.dumps({"price": float(est["price"]),
+                          "std_err": float(est["std_err"]),
+                          "n_paths": int(est["n_paths"])}))
+        return 0
+    if args.payoff not in ("call", "put"):
+        raise SystemExit(
+            f"--american supports call/put exercise (or asian via the "
+            f"path-dependent LSM), not {args.payoff!r}")
+    payoff = ((lambda s: torch.clamp(s - k, min=0.0)) if args.payoff == "call"
+              else (lambda s: torch.clamp(k - s, min=0.0)))
+    kw = dict(rate=args.rate, dt=dt)
+    if args.process in SV_PROCESSES:
+        kw.update(degree=2, value_degree=5)
+        est, policy = lsm_policy_sv(proc, payoff, args.paths, args.steps,
+                                    seed=args.seed, **kw)
+        bound, outer, inner = andersen_broadie_bound_sv, 2048, 256
+    else:
+        kw.update(degree=3)
+        est, policy = lsm_policy(proc, payoff, args.paths, args.steps,
+                                 seed=args.seed, **kw)
+        bound, outer, inner = andersen_broadie_bound, 4096, 512
+    if args.american_bound:
+        ab = bound(proc, payoff, policy, min(args.paths, outer), inner,
+                   args.steps, seed=args.seed + 1, **kw)
+        est = {**est, "upper_bound": ab["upper"],
+               "upper_bound_std_err": ab["std_err"]}
+    return est
 
 
 def symmetric_multi_gbm(args, dt: float, device):

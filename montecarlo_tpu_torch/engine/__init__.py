@@ -78,3 +78,22 @@ from montecarlo_tpu_torch.engine.surface import (  # noqa: F401
     mc_implied_vol_surface,
     price_snapshot,
 )
+from montecarlo_tpu_torch.engine.bermudan import (  # noqa: F401
+    bermudan_swaption_lsm,
+    vasicek_swaption_jamshidian,
+)
+from montecarlo_tpu_torch.engine.american import (  # noqa: F401
+    american_price_and_greeks,
+    andersen_broadie_bound,
+    andersen_broadie_bound_multi,
+    andersen_broadie_bound_sv,
+    binomial_american_put,
+    lsm_exercise_policy,
+    lsm_policy,
+    lsm_policy_multi,
+    lsm_policy_sv,
+    lsm_price,
+    lsm_price_multi,
+    lsm_price_path_dependent,
+    lsm_price_sv,
+)

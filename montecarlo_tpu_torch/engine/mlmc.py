@@ -36,7 +36,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from montecarlo_tpu_torch.engine.simulate import path_ids_for
+from montecarlo_tpu_torch.engine.simulate import cast_state, path_ids_for
 from montecarlo_tpu_torch.processes.base import NormalDrawsMixin
 from montecarlo_tpu_torch.rng.threefry import key_from_seed
 from montecarlo_tpu_torch.stats.welford import (MomentState,
@@ -48,10 +48,6 @@ from montecarlo_tpu_torch.stats.welford import (MomentState,
 BLOCK = 4096
 #: Most paths ``mlmc_estimate`` simulates in one run of a level.
 RUN_PATHS = 1 << 22
-
-
-def _cast_state(state, dtype):
-    return type(state)(*(v.to(dtype) for v in state))
 
 
 def _coupled_values(fine, coarse, payoff_fn, n_paths: int,
@@ -66,9 +62,9 @@ def _coupled_values(fine, coarse, payoff_fn, n_paths: int,
     Asian telescope, where each level refines the monitoring grid."""
     k0, k1 = key_from_seed(seed, stream)
     ids = path_ids_for(n_paths, path_offset, fine.device)
-    fs = _cast_state(fine.init_state(ids), dtype)
+    fs = cast_state(fine.init_state(ids), dtype)
     cs = (None if coarse is None
-          else _cast_state(coarse.init_state(ids), dtype))
+          else cast_state(coarse.init_state(ids), dtype))
     inv_sqrt_m = torch.full((), 1.0 / math.sqrt(m_refine), dtype=dtype,
                             device=ids.device)
     track_mean = payoff_on == "mean"

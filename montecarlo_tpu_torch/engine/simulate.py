@@ -59,8 +59,16 @@ def path_ids_for(n_paths: int, path_offset=0, device=None) -> torch.Tensor:
             + offset) & MASK32
 
 
+def cast_state(state, dtype):
+    """``state`` with every field in ``dtype`` (the JAX package's
+    ``init_state(path_ids, dtype)``: the float32 start, cast)."""
+    if dtype == torch.float32:
+        return state
+    return type(state)(*(v.to(dtype) for v in state))
+
+
 def _run(process, ids, n_steps, k0, k1, sampler, mode, remat=False,
-         observe=None):
+         observe=None, dtype=torch.float32):
     if mode not in ("terminal", "paths"):
         raise ValueError(f"mode must be 'terminal' or 'paths', got {mode!r}")
     sampler = PlainSampler() if sampler is None else sampler
@@ -68,8 +76,14 @@ def _run(process, ids, n_steps, k0, k1, sampler, mode, remat=False,
     check_steps(process, n_steps)
     obs = observe or (lambda p, s: p.prices(s))
 
+    # Another dtype than float32 asks the sampler for draws in it, as the
+    # JAX package's samplers take a dtype (PlainSampler passes it on to
+    # the process's own draws).
+    extra = () if dtype == torch.float32 else (dtype,)
+
     def body(state, t):
-        return process.step(state, sampler.draws(process, k0, k1, ids, t), t)
+        return process.step(state, sampler.draws(process, k0, k1, ids, t,
+                                                 *extra), t)
 
     step = body
     if remat:
@@ -78,7 +92,7 @@ def _run(process, ids, n_steps, k0, k1, sampler, mode, remat=False,
         def step(state, t):
             return checkpoint(body, state, t, use_reentrant=False)
 
-    state = process.init_state(ids)
+    state = cast_state(process.init_state(ids), dtype)
     rows = [obs(process, state)] if mode == "paths" else None
     for t in range(n_steps):
         state = step(state, t)
@@ -91,7 +105,7 @@ def _run(process, ids, n_steps, k0, k1, sampler, mode, remat=False,
 
 def simulate(process, n_paths: int, n_steps: int, *, seed, stream=0,
              sampler=None, mode: str = "terminal", path_offset=0,
-             remat: bool = False, observe=None):
+             remat: bool = False, observe=None, dtype=torch.float32):
     """Simulate ``n_paths`` paths for ``n_steps`` steps on the process's
     device.
 
@@ -107,12 +121,15 @@ def simulate(process, n_paths: int, n_steps: int, *, seed, stream=0,
     same bits.  ``observe(process, state)`` replaces ``process.prices`` in
     every output row (and the terminal): how a multi-state process exposes
     its full state; an (n_paths, C) observation gives (n_steps + 1,
-    n_paths, C) paths.
+    n_paths, C) paths.  ``dtype`` (float32 by default) is the state's and
+    the draws' dtype, as the JAX package's ``dtype``: float64 casts the
+    float32 start and draws float64 normals (the process's leaves keep
+    their own dtype).
     """
     k0, k1 = key_from_seed(seed, stream)
     ids = path_ids_for(n_paths, path_offset, process.device)
     return _run(process, ids, n_steps, k0, k1, sampler, mode, remat,
-                observe)
+                observe, dtype)
 
 
 def replay_paths(process, path_ids, n_steps: int, *, seed, stream=0,

@@ -11,8 +11,10 @@ from montecarlo_tpu_torch.parallel.mesh import (  # noqa: F401
 from montecarlo_tpu_torch.parallel.sharded import (  # noqa: F401
     DEFAULT_BLOCK,
     block_moments,
+    sharded_andersen_broadie_bound,
     sharded_basket_estimate,
     sharded_functional_estimate,
+    sharded_lsm_price,
     sharded_mc_estimate,
     sharded_path_percentiles,
     sharded_price_and_greeks,

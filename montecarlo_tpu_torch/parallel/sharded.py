@@ -452,3 +452,118 @@ def sharded_price_and_greeks(process, payoff_fn, n_paths: int, n_steps: int,
         means[k], errs[k] = d * g_total.mean, d * std_error(g_total)
     return {**est, "grads": grads_like(process, means),
             "grad_std_err": grads_like(process, errs)}
+
+
+def _block_sums(x: torch.Tensor, block_size: int) -> torch.Tensor:
+    """(local_n, C) -> (local_blocks, C): each block of ``block_size``
+    consecutive paths summed by ``tree_sum``'s fixed tree, the same bits
+    whatever else the rank holds."""
+    return tree_sum(x.reshape(-1, block_size, x.shape[-1]), axis=1)
+
+
+def _global_sum(x: torch.Tensor, mesh, axis: str, block_size: int,
+                has_slices: bool) -> torch.Tensor:
+    """The mesh's sum of ``x`` (local_n, C) over paths: per-block sums,
+    gathered in global block order (slice-major on a sliced mesh) and
+    summed by the fixed tree, identical on every rank and every mesh."""
+    blocks = mesh.all_gather(_block_sums(x, block_size), axis)
+    if has_slices:
+        blocks = mesh.all_gather(blocks, SLICES_AXIS)
+    return tree_sum(blocks, axis=0)
+
+
+def sharded_lsm_price(process, payoff_fn, n_paths: int, n_steps: int, *,
+                      seed: int, rate, dt, mesh, degree: int = 3,
+                      dtype=torch.float32, block_size: int = DEFAULT_BLOCK,
+                      axis: str = PATHS_AXIS) -> dict:
+    """Longstaff-Schwartz LSM sharded over the paths axis.
+
+    Each rank simulates its own (T+1, local_n) paths (the torch loop at
+    its global offset) and the backward induction runs in lockstep; at
+    each exercise date the ranks exchange only the regression's
+    sufficient statistics, in two gathers of per-block partial sums: the
+    ITM sums (w, w s, w s^2), which the standardization needs before the
+    basis exists, then the fused [Gram | rhs] of the weighted basis.  Each
+    is summed in global block order by a fixed tree and the (degree+1)^2
+    solve runs on every rank from the same inputs, so price and std-err
+    are bitwise the same on any mesh, a one-rank mesh included.  No float
+    goes through an all-reduce.
+
+    Against ``engine.american.lsm_price`` (the same policy family, not its
+    bits): the ITM std is the one-pass E[s^2] - m^2 (block sums compose)
+    and the sums are block-ordered, as in the JAX package.  Returns
+    ``{"price", "std_err", "n_paths"}``."""
+    from montecarlo_tpu_torch.engine.american import (_basis,
+                                                      _check_solves, _dot)
+    from montecarlo_tpu_torch.engine.simulate import simulate
+
+    _check_device(process.device, mesh)
+    local_n, has_slices = _layout(mesh, n_paths, block_size, axis)
+    k = degree + 1
+    paths = simulate(process, local_n, n_steps, seed=seed, mode="paths",
+                     dtype=dtype,
+                     path_offset=_shard_offset(mesh, axis, local_n))
+    dev = paths.device
+    df = torch.exp(torch.as_tensor(-rate * dt, dtype=dtype, device=dev))
+    ridge = 1e-6 * torch.eye(k, dtype=dtype, device=dev)
+
+    def total(x):
+        return _global_sum(x, mesh, axis, block_size, has_slices)
+
+    cashflow = payoff_fn(paths[-1])
+    infos = []
+    for t in range(n_steps - 1, 0, -1):
+        s_t = paths[t]
+        disc = df * cashflow
+        exercise = payoff_fn(s_t)
+        itm = exercise > 0
+        w = itm.to(dtype)
+        sums = total(torch.stack([w, w * s_t, w * s_t * s_t], dim=-1))
+        wsum = torch.clamp(sums[0], min=1.0)
+        m = sums[1] / wsum
+        sd = torch.sqrt(torch.clamp(sums[2] / wsum - m * m, min=0.0)
+                        + 1e-12)
+        x = _basis((s_t - m) / sd, degree)
+        xw = x * w[:, None]
+        gram = (xw[:, :, None] * x[:, None, :]).reshape(local_n, k * k)
+        fused = total(torch.cat([gram, xw * disc[:, None]], dim=1)) / wsum
+        beta, info = torch.linalg.solve_ex(
+            fused[:k * k].reshape(k, k) + ridge, fused[k * k:])
+        infos.append(info)
+        take = itm & (exercise >= _dot(x, beta))
+        cashflow = torch.where(take, exercise, disc)
+    _check_solves(infos)
+    local = block_moments(df * cashflow, block_size)
+    return _estimate(
+        moments_reduce(_gather_two_level(local, mesh, axis, has_slices)),
+        1.0)
+
+
+def sharded_andersen_broadie_bound(process, payoff_fn, policy, n_outer: int,
+                                   n_inner: int, n_steps: int, *, seed: int,
+                                   rate, dt, mesh, degree: int = 2,
+                                   value_degree: int | None = None,
+                                   dtype=torch.float32,
+                                   block_size: int = DEFAULT_BLOCK,
+                                   axis: str = PATHS_AXIS) -> dict:
+    """The Andersen-Broadie dual sharded over the outer paths: each rank
+    takes its run of global outer ids, whose inner sample ids derive from
+    them (``engine.american._ab_best``), so its per-path maxima are the
+    unsharded run's bits; the only collective is the final block-state
+    gather and fixed-tree merge.  ``policy`` is ``lsm_policy``'s value
+    surrogate on the mesh's device.  Returns ``{"upper", "std_err",
+    "n_paths"}``, bitwise the same on any mesh."""
+    from montecarlo_tpu_torch.engine.american import _ab_best
+    from montecarlo_tpu_torch.engine.simulate import path_ids_for
+
+    _check_device(process.device, mesh)
+    local_n, has_slices = _layout(mesh, n_outer, block_size, axis)
+    ids = path_ids_for(local_n, _shard_offset(mesh, axis, local_n),
+                       mesh.device)
+    best = _ab_best(process, payoff_fn, policy, ids, n_inner, n_steps,
+                    seed=seed, rate=rate, dt=dt, degree=degree,
+                    value_degree=value_degree, dtype=dtype)
+    total = moments_reduce(_gather_two_level(block_moments(best, block_size),
+                                             mesh, axis, has_slices))
+    return {"upper": total.mean, "std_err": std_error(total),
+            "n_paths": total.count}

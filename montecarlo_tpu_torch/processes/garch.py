@@ -114,9 +114,11 @@ class GARCHBootstrap:
         return GARCHState(log_s=log32(self.s0).expand(shape).clone(),
                           var=self.var0.expand(shape).clone())
 
-    def draws(self, seed, stream, path_ids, t):
-        """The raw uniform of step ``t`` (draw index m = t)."""
-        return (uniform_draw(seed, stream, path_ids, int(t) & MASK32),)
+    def draws(self, seed, stream, path_ids, t, dtype=torch.float32):
+        """The raw uniform of step ``t`` (draw index m = t), drawn in
+        float32 and cast to ``dtype`` as the JAX package does."""
+        return (uniform_draw(seed, stream, path_ids,
+                             int(t) & MASK32).to(dtype),)
 
     def draws_pair(self, seed, stream, path_ids, j):
         """The uniforms of steps (2j, 2j+1): both halves of cipher call

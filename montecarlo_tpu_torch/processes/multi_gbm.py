@@ -59,7 +59,10 @@ class MultiGBM(NormalDrawsMixin):
                                                  self.n_draws).clone())
 
     def step(self, state: MultiGBMState, eps, t) -> MultiGBMState:
-        zc = factor_product(torch.stack(eps, dim=-1), self.chol.T)
+        # A float32 product, as JAX's ``preferred_element_type=float32``
+        # gives it for a float64 state too.
+        zc = factor_product(torch.stack(eps, dim=-1), self.chol.T).to(
+            torch.float32).to(state.log_s.dtype)
         drift = (self.mu - 0.5 * torch.square(self.sigma)) * self.dt
         scale = self.sigma * torch.sqrt(self.dt)
         return MultiGBMState(log_s=state.log_s + (drift + scale * zc))

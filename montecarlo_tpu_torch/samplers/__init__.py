@@ -22,10 +22,12 @@ from montecarlo_tpu_torch.device import resolve_device
 
 @dataclass(frozen=True)
 class PlainSampler:
-    """Process-native pseudo-random draws (counter-based Threefry)."""
+    """Process-native pseudo-random draws (counter-based Threefry); a
+    ``dtype`` after ``t`` goes on to the process's draws (the JAX package's
+    float64 draws)."""
 
-    def draws(self, process, seed, stream, path_ids, t):
-        return process.draws(seed, stream, path_ids, t)
+    def draws(self, process, seed, stream, path_ids, t, *dtype):
+        return process.draws(seed, stream, path_ids, t, *dtype)
 
 
 @dataclass(frozen=True)

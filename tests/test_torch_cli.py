@@ -11,7 +11,16 @@ A payoff with a discontinuity (a discretely monitored barrier, the
 autocall's trigger and capital barrier) can flip on a path that sits on it
 within the normals' difference.  Those runs allow FLIPS such paths: the
 rtol 1e-5 plus FLIPS times the largest jump of one path's payoff over the
-path count.
+path count.  American exercise (``--american``) is such a run too: an
+exercise decision flips where the two packages' float32 regressions
+(sums in two orders, ~1e-6 apart) straddle a path's payoff, and a flipped
+path moves by at most its payoff's range (the strike for a put, the
+largest payoff for a call), so the price and std-err allow FLIPS such
+paths.  The Andersen-Broadie bound takes no decision, but its surrogate
+is a float32 least-squares fit (up to 21 basis terms for Heston's degree
+5), whose betas move with the sums' order: ``upper_bound`` and
+``upper_bound_std_err`` within AB_SHARE = 5% of the bound's std-err (the
+measured gap is below 1.5%).
 """
 
 import ast
@@ -87,6 +96,7 @@ def test_rbergomi_guards_exit_as_in_jax(flags, capsys):
 
 
 FLIPS = 1
+AB_SHARE = 0.05
 
 
 @pytest.mark.parametrize("flags,jump", [
@@ -233,7 +243,8 @@ SLICE_MODULES = ("api.montecarlo", "api.var", "cli.risk", "data.synthetic",
                  "processes.garch_fit", "stats.quantiles", "stats.risk",
                  "rng.sobol", "samplers", "cli.pricing_models",
                  "processes.dupire", "processes.local_vol", "processes.slv",
-                 "parallel", "parallel.mesh", "parallel.sharded")
+                 "parallel", "parallel.mesh", "parallel.sharded",
+                 "engine.american", "engine.bermudan")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -366,3 +377,60 @@ def test_python_dash_m_note_entry_point():
     assert set(res) == {"autocall_note", "std_err", "n_paths", "n_assets",
                         "observations"}
     assert res["n_paths"] == 4096 and 0.5 < res["autocall_note"] < 1.2
+
+
+@pytest.mark.parametrize("flags,jump", [
+    (["--payoff", "put", "--s0", "36", "--strike", "40", "--rate", "0.06",
+      "--american", "--american-bound", "--paths", "1024", "--steps", "8"],
+     40.0),
+    (["--american"], 60.0),
+    (["--payoff", "put", "--american", "--steps", "17", "--seed", "3"],
+     105.0),
+    (["--process", "heston", "--payoff", "put", "--american",
+      "--american-bound", "--paths", "1024", "--steps", "8"], 105.0),
+    (["--payoff", "asian", "--american"], 60.0),
+    (["--payoff", "max-call", "--n-assets", "2", "--s0", "100", "--strike",
+      "100", "--rate", "0.05", "--div", "0.10", "--asset-corr", "0",
+      "--maturity", "3", "--steps", "9", "--american", "--american-bound",
+      "--paths", "1024"], 80.0),
+    (["--payoff", "max-call", "--n-assets", "3", "--american", "--steps",
+      "9"], 80.0),
+])
+def test_price_american_matches_jax_cli(flags, jump, capsys):
+    """``price --american [--american-bound]`` on GBM, Heston (the joint
+    (spot, variance) LSM), the Asian (the path-dependent LSM) and the
+    max-call (the multi-asset LSM): JAX's keys, the prices within FLIPS
+    paths of ``jump`` (the payoff's range), the bound within AB_SHARE of
+    its std-err."""
+    argv = ["price", "--paths", "2048", "--steps", "16", *flags]
+    want = _run(jax_main, argv, capsys)
+    got = _run(port_main, [*argv, "--device", "cpu"], capsys)
+    assert sorted(got) == sorted(want)
+    assert ("upper_bound" in got) == ("--american-bound" in flags)
+    assert got["n_paths"] == want["n_paths"]
+    for k in ("price", "std_err"):
+        tol = 1e-5 * abs(want[k]) + FLIPS * jump / want["n_paths"]
+        assert abs(got[k] - want[k]) <= tol, (k, got[k], want[k])
+    for k in ("upper_bound", "upper_bound_std_err"):
+        if k in want:
+            assert abs(got[k] - want[k]) <= \
+                AB_SHARE * want["upper_bound_std_err"], (k, got[k], want[k])
+    for k in ("n_assets",):
+        assert got.get(k) == want.get(k)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--american", "--sampler", "antithetic"],
+    ["--american", "--american-bound", "--payoff", "asian"],
+    ["--american", "--payoff", "lookback"],
+    ["--american", "--target-se", "0.1"],
+    ["--american", "--process", "rbergomi"],
+    ["--american", "--mlmc"],
+])
+def test_american_refusals_exit_as_in_jax(flags, capsys):
+    argv = ["price", "--paths", "256", "--steps", "4", *flags]
+    for main, extra in ((jax_main, []), (port_main, ["--device", "cpu"])):
+        with pytest.raises(SystemExit) as e:
+            main([*argv, *extra])
+        assert e.value.code not in (0, None)
+        assert capsys.readouterr().out == ""

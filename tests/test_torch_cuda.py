@@ -61,6 +61,13 @@ seven in processes of their own, at once) to the JAX tests' tolerances,
 and every tensor a card fit saves for its backward pass lies on the card;
 MLMC's level 0 through K2 or K4 ({avg}) is the bits of its torch loop; the
 gamma Newton sampler on the card is within 64 ULPs of the CPU's.
+American and Bermudan exercise (LSM, the Andersen-Broadie dual,
+policy-frozen greeks, the Vasicek Bermudan swaption) run the torch loop
+and launch no kernel; ``price --american --american-bound`` brackets the
+binomial put; in float64 the LSM, the dual and the Bermudan on the card
+are within rtol 1e-9 of the CPU's (the platforms' float64 log, sin and
+cos, sums in each device's order); the dual's per-path maxima over four
+emulated ranks' ids are the unsharded run's bits.
 """
 
 import math
@@ -2061,3 +2068,119 @@ def test_cuda_price_mlmc_and_gamma_newton(cuda, capsys):
     host = gamma_icdf_boost32(b, u)
     ulps = (card.view(torch.int32).long() - host.view(torch.int32).long())
     assert int(ulps.abs().max()) <= 64
+
+
+# --- American and Bermudan exercise (9c) -------------------------------------
+
+def _american_put(device, dtype=torch.float32, steps=16):
+    vals = dict(s0=36.0, mu=0.06, sigma=0.2, dt=1.0 / steps)
+    return GBM(**{k: torch.tensor(v, dtype=dtype, device=device)
+                  for k, v in vals.items()})
+
+
+def _put40(s):
+    return torch.clamp(40.0 - s, min=0.0)
+
+
+@pytest.mark.cuda
+def test_cuda_price_american_brackets_the_binomial(cuda, capsys):
+    """``price --american --american-bound`` on the card at 8192 x 50: the
+    bracket holds the binomial put (4 std-err, 0.05 below), and no kernel
+    launches (the torch loop)."""
+    import json
+
+    from montecarlo_tpu_torch import cli
+    from montecarlo_tpu_torch.engine.american import binomial_american_put
+    from montecarlo_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    reset_launch_counts()
+    assert cli.main(["price", "--american", "--american-bound", "--payoff",
+                     "put", "--s0", "36", "--strike", "40", "--rate",
+                     "0.06", "--paths", "8192", "--steps", "50"]) == 0
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert not any(launch_counts().values())
+    tree = binomial_american_put(36.0, 40.0, 0.06, 0.2, 1.0, 1000)
+    assert (out["price"] - 4 * out["std_err"] - 0.05 <= tree
+            <= out["upper_bound"] + 4 * out["upper_bound_std_err"]), out
+
+
+@pytest.mark.cuda
+def test_cuda_float64_american_and_bermudan_match_the_cpu(cuda):
+    from montecarlo_tpu_torch.engine.american import (andersen_broadie_bound,
+                                                      lsm_policy)
+    from montecarlo_tpu_torch.engine.bermudan import bermudan_swaption_lsm
+    from montecarlo_tpu_torch.processes import Vasicek
+
+    f64 = torch.float64
+    got = {}
+    for dev in (cuda, torch.device("cpu")):
+        gbm = _american_put(dev, f64)
+        kw = dict(rate=0.06, dt=1.0 / 16, degree=3, dtype=f64)
+        res, policy = lsm_policy(gbm, _put40, 4096, 16, seed=4, **kw)
+        ab = andersen_broadie_bound(gbm, _put40, policy, 512, 64, 16, seed=5,
+                                    **kw)
+        vas = Vasicek(**{k: torch.tensor(v, dtype=f64, device=dev)
+                         for k, v in dict(r0=0.03, kappa=0.8, theta=0.05,
+                                          sigma=0.015, dt=0.25 / 16).items()})
+        berm = bermudan_swaption_lsm(vas, 0.0413, n_paths=4096,
+                                     steps_per_period=16, n_periods=8,
+                                     n_exercise=4, seed=0)
+        got[dev.type] = [float(res["price"]), float(ab["upper"]),
+                         float(berm["price"])]
+    np.testing.assert_allclose(got["cuda"], got["cpu"], rtol=1e-9)
+
+
+@pytest.mark.cuda
+def test_cuda_dual_maxima_bitwise_across_emulated_ranks(cuda):
+    """``_ab_best`` over four quarters of the outer ids is the whole run's
+    bits (the sharded dual's premise); the one-rank sharded LSM within 4
+    std-err of ``lsm_price``."""
+    from montecarlo_tpu_torch.engine.american import (_ab_best, lsm_policy,
+                                                      lsm_price)
+    from montecarlo_tpu_torch.engine.simulate import path_ids_for
+    from montecarlo_tpu_torch.parallel import make_mesh, sharded_lsm_price
+
+    gbm = _american_put(cuda)
+    kw = dict(rate=0.06, dt=1.0 / 16, degree=3)
+    _, policy = lsm_policy(gbm, _put40, 8192, 16, seed=1, **kw)
+    ab = dict(seed=2, value_degree=None, dtype=torch.float32, **kw)
+    full = _ab_best(gbm, _put40, policy, path_ids_for(1024, 0, cuda), 64,
+                    16, **ab)
+    parts = torch.cat([_ab_best(gbm, _put40, policy,
+                                path_ids_for(256, 256 * k, cuda), 64, 16,
+                                **ab) for k in range(4)])
+    assert torch.equal(parts, full)
+    sharded = sharded_lsm_price(gbm, _put40, 8192, 16, seed=1,
+                                mesh=make_mesh(device=cuda), **kw)
+    plain = lsm_price(gbm, _put40, 8192, 16, seed=1, **kw)
+    assert abs(float(sharded["price"]) - float(plain["price"])) < \
+        4 * float(plain["std_err"])
+
+
+@pytest.mark.cuda
+def test_cuda_american_greeks_and_swaption_commands(cuda, capsys):
+    """``greeks --american`` on the card: the put's delta within 0.02 of
+    the binomial central difference (tests/test_american_greeks.py's gate
+    at 2^15 x 50); ``bond --swaption --n-exercise 1`` within rtol 1e-9 of
+    the CPU run and 4 std-err of Jamshidian."""
+    import json
+
+    from montecarlo_tpu_torch import cli
+    from montecarlo_tpu_torch.engine.american import binomial_american_put
+
+    def run(*argv):
+        assert cli.main(list(argv)) == 0
+        return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+    g = run("greeks", "--american", "--payoff", "put", "--s0", "36",
+            "--strike", "40", "--rate", "0.06", "--paths", "32768",
+            "--steps", "50")
+    fd = (binomial_american_put(36.25, 40.0, 0.06, 0.2, 1.0, 1500)
+          - binomial_american_put(35.75, 40.0, 0.06, 0.2, 1.0, 1500)) / 0.5
+    assert abs(g["delta"] - fd) < 0.02, (g, fd)
+    card = run("bond", "--swaption", "--n-exercise", "1")
+    cpu = run("bond", "--swaption", "--n-exercise", "1", "--device", "cpu")
+    assert abs(card["bermudan_swaption"] - cpu["bermudan_swaption"]) <= \
+        1e-9 * cpu["bermudan_swaption"]
+    assert abs(card["bermudan_swaption"] - card["jamshidian_european"]) < \
+        4 * card["std_err"]

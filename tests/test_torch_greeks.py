@@ -21,6 +21,12 @@ processes and calls are pinned to float32).  Tolerances, and why:
   -1.25e4 differ by 1.6e-3 of it).  The port's Hessian
   is symmetric within 1e-4 relative (its two off-diagonals come from two
   reverse passes in float32; JAX's test holds 1e-8 in float64).
+- ``greeks --american`` (policy-frozen American greeks, float32 on both
+  sides): rtol 1e-4 on price and every gradient, the pathwise tolerance
+  above; here a path could also flip its exercise decision where the two
+  packages' fitted continuations (float32 sums in two orders, ~1e-6
+  apart) straddle its payoff, and none does at these seeds (measured
+  agreement ~1e-6).
 - ``remat=True`` against ``remat=False``: bitwise (the checkpointed steps
   recompute the same float32 operations).
 - The JAX test file's Black-Scholes gates (tests/test_greeks.py) run on
@@ -325,10 +331,31 @@ def test_cli_greeks_matches_jax(capsys, argv):
             assert abs(v - want[k]) <= tol, (k, v, want[k])
 
 
+@pytest.mark.parametrize("argv", [
+    ["--payoff", "put", "--s0", "36", "--strike", "40", "--rate", "0.06"],
+    [],
+    ["--process", "heston", "--payoff", "put", "--strike", "100"],
+])
+def test_cli_greeks_american_matches_jax(capsys, argv):
+    """``greeks --american``: the JAX command's keys (price, delta and vega
+    and drift_sens on GBM, vega_v0 and xi_sens on Heston) within rtol
+    1e-4."""
+    base = ["greeks", "--american", "--paths", "4096", "--steps", "16"] + argv
+    rc, got = _run(capsys, cli, base + ["--device", "cpu"])
+    jrc, want = _run(capsys, jcli, base)
+    assert rc == jrc == 0
+    assert list(got) == list(want)
+    for k, v in got.items():
+        np.testing.assert_allclose(v, want[k], rtol=1e-4, err_msg=k)
+    put = "put" in argv
+    assert (got["delta"] < 0) == put and got["price"] > 0
+
+
 def test_cli_greeks_mesh_and_refusals(capsys):
     """``--mesh 1`` on the one-rank mesh (paths rounded up to the block),
     and JAX's refusals: --mesh with another method or --american, LR on
-    Heston, second order on a put; --american names ROADMAP item 9c."""
+    Heston, second order on a put; --american with another method or a
+    digital."""
     rc, out = _run(capsys, cli, ["greeks", "--mesh", "1", "--paths", "5000",
                                  "--steps", "16", "--device", "cpu"])
     assert rc == 0 and out["mesh"] == 1 and out["n_paths"] == 8192
@@ -340,8 +367,9 @@ def test_cli_greeks_mesh_and_refusals(capsys):
             cli.main(["greeks", *argv, "--device", "cpu"])
     with pytest.raises(SystemExit, match="only 1 rank"):
         cli.main(["greeks", "--mesh", "2", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="9c"):
-        cli.main(["greeks", "--american", "--device", "cpu"])
+    for argv in (["--method", "lr"], ["--payoff", "digital"]):
+        with pytest.raises(SystemExit, match="pathwise method on call/put"):
+            cli.main(["greeks", "--american", *argv, "--device", "cpu"])
     assert cli.main(["greeks", "--method", "lr", "--process", "heston",
                      "--device", "cpu"]) == 2
     assert cli.main(["greeks", "--method", "second-order", "--payoff", "put",

@@ -575,11 +575,36 @@ def test_bond_g2pp_swaption_matches_jax_cli(flags, capsys):
 @pytest.mark.parametrize("argv,item", [
     (["bond", "--model", "lmm"], "item 10"),
     (["bond", "--model", "lmm", "--caplet"], "item 10"),
-    (["bond", "--swaption"], "item 9"),
 ])
 def test_bond_unported_modes_name_their_item(argv, item):
     with pytest.raises(SystemExit, match=item):
         port_main([*argv, "--device", "cpu"])
+
+
+@pytest.mark.parametrize("flags", [
+    ["--paths", "4096"],
+    ["--paths", "4096", "--n-exercise", "1", "--seed", "2"],
+    ["--paths", "2048", "--n-exercise", "2", "--periods", "6",
+     "--swap-strike", "0.045"],
+])
+def test_bond_vasicek_swaption_matches_jax_cli(flags, capsys):
+    """``bond --swaption`` on Vasicek (the default model): the Bermudan LSM
+    in float64 on both sides, at rtol 1e-12 (tests/test_torch_bermudan.py's
+    float64 tolerance); the par strike and Jamshidian's European exact."""
+    argv = ["bond", "--swaption", *flags]
+    want = run_cli(jax_main, argv, capsys)
+    got = run_cli(port_main, [*argv, "--device", "cpu"], capsys)
+    _hold_json(got, want, exact=("strike", "jamshidian_european"),
+               mc_rtol=1e-12)
+    assert got["bermudan_swaption"] > 0
+
+
+def test_bond_swaption_exercise_bounds_raise_as_in_jax():
+    """``--n-exercise`` outside [1, periods - 1]: the engine's ValueError
+    on both sides, before any simulation."""
+    for main, extra in ((jax_main, []), (port_main, ["--device", "cpu"])):
+        with pytest.raises(ValueError, match="n_exercise=8 must be in"):
+            main(["bond", "--swaption", "--n-exercise", "8", *extra])
 
 
 def test_bond_flags_are_jaxs():

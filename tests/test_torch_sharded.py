@@ -27,6 +27,16 @@ Tolerances, and why:
   (tests/test_sharded_rbergomi.py).  Sketch quantiles and percentile
   curves within one bin width (a price that moves by 2e-6 may change
   bins); their moments within rtol 1e-5.
+- The sharded LSM and Andersen-Broadie dual (``sharded_lsm_price``,
+  ``sharded_andersen_broadie_bound``), float32 and float64: bitwise across
+  every mesh and rank like the rest, the dual bitwise the unsharded
+  per-path maxima's block states; in float64 (float64 leaves and draws on
+  both sides) within rtol 1e-9 of JAX's sharded versions on its 8 virtual
+  devices (tests/test_torch_american.py's float64 tolerance: ULPs of the
+  platforms' log, sin and cos, sums in each library's order, no exercise
+  decision flipped); the sharded LSM within 4 std-err of the unsharded
+  ``lsm_price`` (the one-pass ITM std and block-ordered sums make it
+  another estimator of the same policy family, as in JAX).
 """
 
 from __future__ import annotations
@@ -42,6 +52,7 @@ import numpy as np
 import pytest
 import torch
 
+from montecarlo_tpu.engine import american as jamerican
 from montecarlo_tpu.engine import functionals as jf
 from montecarlo_tpu.engine.path_sketch import (
     sharded_path_percentiles as jpercentiles)
@@ -120,6 +131,18 @@ def _jax_refs() -> dict:
     refs["percentiles"] = jpercentiles(
         procs["gbm"], R.N_PATHS, R.PCT_STEPS, seed=2, mesh=_jmesh("flat8"),
         lo=60.0, hi=140.0, bins=R.PCT_BINS)
+    jgbm = JGBM.create(**R.AM_GBM, dtype=jnp.float64)
+    jput = lambda v: jnp.maximum(R.AM_STRIKE - v, 0.0)
+    akw = dict(rate=R.AM_GBM["mu"], dt=R.AM_GBM["dt"], degree=3,
+               dtype=jnp.float64)
+    refs["lsm64"] = jsh.sharded_lsm_price(
+        jgbm, jput, R.LSM_PATHS, R.LSM_STEPS, seed=1, mesh=_jmesh("flat8"),
+        block_size=R.LSM_BLOCK, **akw)
+    _, policy = jamerican.lsm_policy(jgbm, jput, R.POLICY_PATHS,
+                                     R.LSM_STEPS, seed=1, **akw)
+    refs["ab64"] = jsh.sharded_andersen_broadie_bound(
+        jgbm, jput, policy, R.AB_OUTER, R.AB_INNER, R.LSM_STEPS, seed=2,
+        mesh=_jmesh("s2p4"), block_size=R.AB_BLOCK, **akw)
     refs["basket"] = jsh.sharded_basket_estimate(
         JBasket.create(**{**R.BASKET_KW,
                           "corr": np.array(R.BASKET_KW["corr"])}),
@@ -216,7 +239,8 @@ def test_meshes_lay_out_ranks_as_jax(ranks):
                                   "asian", "vasicek_zcb", "rbergomi",
                                   "sketch",
                                   "percentiles", "terminal", "half_b",
-                                  "streaming", "var"])
+                                  "streaming", "var", "lsm32", "lsm64",
+                                  "ab32", "ab64"])
 def test_bitwise_across_every_mesh_and_rank(ranks, case):
     """Every flat mesh (1, 2, 4, 8 ranks) and sliced mesh gives every one
     of its ranks the same bits as the one-rank mesh."""
@@ -472,3 +496,52 @@ def test_streaming_over_a_mesh_matches_local(ranks):
     np.testing.assert_array_equal(got["block_mean"], local.block_mean)
     np.testing.assert_array_equal(got["block_m2"], local.block_m2)
     np.testing.assert_array_equal(got["counts"], local.sketch.counts)
+
+
+@pytest.mark.parametrize("case,layout,keys", [
+    ("lsm64", "flat8", ("price", "std_err")),
+    ("ab64", "s2p4", ("upper", "std_err"))])
+def test_sharded_american_matches_jax(ranks, jax_refs, case, layout, keys):
+    _close(ranks[0][layout][case], jax_refs[case], 1e-9, keys=keys)
+
+
+@pytest.mark.parametrize("tag,dtype", [("32", torch.float32),
+                                       ("64", torch.float64)])
+def test_sharded_dual_is_the_unsharded_maxima(ranks, tag, dtype):
+    """The sharded dual's bound is the block states of the unsharded
+    per-path maxima (``_ab_best`` over every outer id), bitwise."""
+    from montecarlo_tpu_torch.engine.american import _ab_best, lsm_policy
+    from montecarlo_tpu_torch.engine.simulate import path_ids_for
+    from montecarlo_tpu_torch.parallel import block_moments
+    from montecarlo_tpu_torch.stats.welford import moments_reduce, std_error
+
+    gbm = R.american_gbm(dtype)
+    kw = dict(rate=R.AM_GBM["mu"], dt=R.AM_GBM["dt"], degree=3, dtype=dtype)
+    # The ranks' policy: their library sums run on one thread.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        _, policy = lsm_policy(gbm, R.put, R.POLICY_PATHS, R.LSM_STEPS,
+                               seed=1, **kw)
+    finally:
+        torch.set_num_threads(threads)
+    best = _ab_best(gbm, R.put, policy, path_ids_for(R.AB_OUTER),
+                    R.AB_INNER, R.LSM_STEPS, seed=2, value_degree=None, **kw)
+    want = moments_reduce(block_moments(best, R.AB_BLOCK))
+    got = ranks[0]["s2p4"][f"ab{tag}"]
+    np.testing.assert_array_equal(got["upper"], want.mean.numpy())
+    np.testing.assert_array_equal(got["std_err"], std_error(want).numpy())
+
+
+@pytest.mark.parametrize("tag,dtype", [("32", torch.float32),
+                                       ("64", torch.float64)])
+def test_sharded_lsm_within_4_std_err_of_lsm_price(ranks, tag, dtype):
+    from montecarlo_tpu_torch.engine.american import lsm_price
+
+    got = ranks[0]["flat4"][f"lsm{tag}"]
+    want = lsm_price(R.american_gbm(dtype), R.put, R.LSM_PATHS, R.LSM_STEPS,
+                     seed=1, rate=R.AM_GBM["mu"], dt=R.AM_GBM["dt"],
+                     degree=3, dtype=dtype)
+    assert abs(float(got["price"]) - float(want["price"])) < \
+        4 * float(want["std_err"])
+    assert float(got["n_paths"]) == R.LSM_PATHS

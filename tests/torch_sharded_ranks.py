@@ -25,8 +25,12 @@ from montecarlo_tpu_torch.engine import (ARITH_MEAN, asian_call,
 from montecarlo_tpu_torch.engine.path_sketch import sharded_path_percentiles
 from montecarlo_tpu_torch.engine.streaming import streaming_estimate
 from montecarlo_tpu_torch.api import portfolio_var
-from montecarlo_tpu_torch.parallel import (make_mesh, sharded_basket_estimate,
+from montecarlo_tpu_torch.engine.american import lsm_policy
+from montecarlo_tpu_torch.parallel import (make_mesh,
+                                           sharded_andersen_broadie_bound,
+                                           sharded_basket_estimate,
                                            sharded_functional_estimate,
+                                           sharded_lsm_price,
                                            sharded_mc_estimate,
                                            sharded_rbergomi_estimate,
                                            sharded_terminal,
@@ -64,6 +68,14 @@ BASKET_PATHS, BASKET_STEPS, BASKET_BLOCK, BASKET_STRIKE = 1 << 13, 16, 512, 85.0
 ST_STEPS, ST_CHUNK, ST_TOTAL, ST_BLOCK = 16, 4096, 4 * 4096, 1024
 ST_LO, ST_HI, ST_BINS = 40.0, 260.0, 512
 
+#: The sharded LSM (its paths, steps and blocks) and the dual (outer
+#: paths, inner samples, blocks) on the American put of
+#: tests/test_american.py, in float32 and float64 (float64 leaves).
+LSM_PATHS, LSM_STEPS, LSM_BLOCK = 8192, 16, 1024
+AB_OUTER, AB_INNER, AB_BLOCK, POLICY_PATHS = 1024, 32, 128, 4096
+AM_GBM = dict(s0=36.0, mu=0.06, sigma=0.2, dt=1 / LSM_STEPS)
+AM_STRIKE = 40.0
+
 #: name -> (n_path_shards, n_asset_shards, n_slices); the mesh's ranks are
 #: consecutive, so each rank is in one mesh of every size.
 LAYOUTS = {
@@ -84,9 +96,37 @@ def processes():
             "multigbm": MultiGBM.create(**MULTI_KW, **cpu)}
 
 
+def put(s):
+    return torch.clamp(AM_STRIKE - s, min=0.0)
+
+
+def american_gbm(dtype):
+    """The American put's GBM on ``dtype`` leaves."""
+    return GBM(**{k: torch.tensor(v, dtype=dtype)
+                  for k, v in AM_GBM.items()})
+
+
+def american(mesh) -> dict:
+    """The sharded LSM and dual in float32 and float64; the dual's policy
+    is the unsharded ``lsm_policy``'s on every rank."""
+    out = {}
+    for tag, dtype in (("32", torch.float32), ("64", torch.float64)):
+        gbm = american_gbm(dtype)
+        kw = dict(rate=AM_GBM["mu"], dt=AM_GBM["dt"], degree=3, dtype=dtype)
+        out[f"lsm{tag}"] = sharded_lsm_price(
+            gbm, put, LSM_PATHS, LSM_STEPS, seed=1, mesh=mesh,
+            block_size=LSM_BLOCK, **kw)
+        _, policy = lsm_policy(gbm, put, POLICY_PATHS, LSM_STEPS, seed=1,
+                               **kw)
+        out[f"ab{tag}"] = sharded_andersen_broadie_bound(
+            gbm, put, policy, AB_OUTER, AB_INNER, LSM_STEPS, seed=2,
+            mesh=mesh, block_size=AB_BLOCK, **kw)
+    return out
+
+
 def path_estimates(mesh, procs) -> dict:
     """Every estimator on a ([slices,] paths) mesh."""
-    out = {}
+    out = american(mesh)
     for kind, payoff in (("gbm", call), ("heston", call),
                          ("multigbm", lambda s: max_call(s, STRIKE))):
         out[kind] = sharded_mc_estimate(procs[kind], payoff, N_PATHS,
