@@ -258,7 +258,7 @@ CUDA kernels from ``montecarlo_tpu_torch/csrc`` and, in phases:
    seven ``calibrate --model`` demos (heston, vg, nig, merton, kou,
    vasicek, sabr) on the card, one process each, all at once, each
    recovering its parameters to the JAX tests' tolerances, with its
-   wall-clock and Adam steps/s; ``--model lmm`` exiting non-zero; the
+   wall-clock and Adam steps/s; the
    calibrators' pricers (Heston's CF, the four Levy CFs, the Vasicek
    swaptions) on the card in float32 and float64 against the CPU's float64
    within stated bounds; the busy share of 50 Adam steps of the Heston
@@ -291,6 +291,26 @@ CUDA kernels from ``montecarlo_tpu_torch/csrc`` and, in phases:
    the 4-date swaption (the profiler takes ~25 us of its own a device
    operation to collect; PERF.md has the others' from a run of this
    phase alone).
+18. the LIBOR market model, the equity-Vasicek hybrid, Heston exposure
+   and the ``stress`` command (no kernel but stress's K2): the LMM at
+   ``experiments/lmm_bench.py``'s (K, paths) = (16, 2^19), (32, 2^18) and
+   (64, 2^17) over K steps in float32, each after one warm run timed by
+   the host clock (live-forward updates/s, n K (K - 1) / 2 a run) and
+   profiled (device operations a step, busy share), gated by the ZCB
+   martingale E[1/B(T_K)] against ``lmm_zcb0`` and ``lmm_caplet_mc`` (2^17
+   paths, float64, as the test) against Black (4 std-err plus
+   tests/test_lmm.py's slack); then, launch
+   counters reset just before and read just after each run: ``bond
+   --model lmm`` (against the initial curve), ``--caplet`` (Black),
+   ``--swaption`` (Rebonato) and ``--swaption --n-exercise 4`` (above the
+   European less 4 std-err), ``calibrate --model lmm`` (beta and the vols
+   recovered), ``price --process hybrid`` (its closed form), Heston
+   exposure's accrued variance (the CIR expectation), each without a
+   kernel launch, and ``stress --process gbm|heston`` at the command's
+   65,536 x 64 with ``--grid 5``, 34 K2 launches each, every GBM scenario
+   within 4 std-err of Black-Scholes at its bumped (s0, sigma); and the
+   kernel-route grid at 2^14 x 16 bitwise the grid through the torch loop
+   on GBM and Heston.
 
 Phase 3 also holds K5 (2^18 paths x {504, 756, 37} columns, ids wrapping
 past 2^32) and K6 (2^18 and 2^18 - 3 paths, its ring and its plain-load
@@ -5429,27 +5449,16 @@ def calibrate_demos(models, while_running, timeout=600):
     return out, meanwhile
 
 
-def lmm_exits():
-    """``calibrate --model lmm`` exits non-zero, naming its ROADMAP item."""
-    try:
-        run_cli(["calibrate", "--model", "lmm"])
-    except SystemExit as e:
-        log(f"  calibrate --model lmm: exits: {e}")
-        return "Queue 1 item 10" in str(e)
-    return False
-
-
 def phase_calibration(torch, card):
     """Every ``calibrate --model`` demo on the card (the default device),
     seven processes at once: its JSON, wall-clock and Adam steps/s, gated
-    by the JAX tests' tolerances; meanwhile ``--model lmm`` exits
-    non-zero naming its ROADMAP item and the pricers run against the
-    CPU's float64; then two fits alone, timed and profiled."""
+    by the JAX tests' tolerances; meanwhile the pricers run against the
+    CPU's float64; then two fits alone, timed and profiled.  (``--model
+    lmm`` is phase 18's.)"""
     t0 = time.perf_counter()
     demos, checks = calibrate_demos(CALIBRATE_MODELS, lambda: {
         "pricers on the card against the CPU's float64":
-        phase_pricers(torch, card),
-        "calibrate --model lmm exits naming Queue 1 item 10": lmm_exits()})
+        phase_pricers(torch, card)})
     log(f"  the seven calibrate demos, one process each, all at once: "
         f"{time.perf_counter() - t0:.1f} s, on {card}")
     for model in CALIBRATE_MODELS:
@@ -5834,6 +5843,238 @@ def phase_american(torch, card):
     return k4
 
 
+#: Phase 18: experiments/lmm_bench.py's (forwards, paths) shapes and
+#: model; the stress command's default shape.
+LMM_SHAPES = ((16, 1 << 19), (32, 1 << 18), (64, 1 << 17))
+STRESS_PATHS, STRESS_STEPS, STRESS_GRID = 65536, 64, 5
+
+
+def lmm_bench_model(k):
+    from montecarlo_tpu_torch.processes import LMM
+
+    return LMM.create([0.03] * k, [0.2] * k, 0.25, corr_beta=0.1)
+
+
+def lmm_shapes(torch, card, checks):
+    """The LMM at each of LMM_SHAPES: a warm run, a timed run (host
+    clock, synchronised), a profiled run; the ZCB martingale and a caplet
+    against Black at the shape.  Returns {K: updates/s}."""
+    from montecarlo_tpu_torch.engine.simulate import simulate
+    from montecarlo_tpu_torch.processes import lmm_caplet_mc, lmm_zcb0
+
+    rates = {}
+    for k, n in LMM_SHAPES:
+        m = lmm_bench_model(k)
+
+        def run(seed=0):
+            return simulate(m, n, k, seed=seed,
+                            observe=lambda p, s: p.exposure_obs(s))
+
+        run()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        obs = run(1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        updates = n * k * (k - 1) // 2
+        p_wall, busy, n_ops = busy_share(torch, lambda: run(2))
+        rates[k] = updates / wall
+        d = torch.exp(-obs[:, -1].double())
+        se = float(d.std()) / math.sqrt(n)
+        zcb, cf = float(d.mean()), lmm_zcb0(m, k)
+        # tests/test_lmm.py's caplet gate: 2^17 paths in float64.
+        cap = lmm_caplet_mc(m, k // 2, 0.03, 1 << 17, seed=3)
+        log(f"  LMM K={k} paths 2^{n.bit_length() - 1}: {wall * 1e3:.1f} ms "
+            f"a run, {rates[k]:.6e} live-forward updates/s; profiled "
+            f"{p_wall * 1e3:.1f} ms, device busy {busy * 1e3:.1f} ms "
+            f"({100 * busy / p_wall:.1f}%), {n_ops / k:.1f} device "
+            f"operations a step; E[1/B(T_K)] {zcb:.8f} +- {se:.2e} vs "
+            f"P(0, T_K) {cf:.8f}; caplet {cap['price']:.8f} +- "
+            f"{cap['std_err']:.2e} vs Black {cap['black']:.8f}, on {card}")
+        checks[f"LMM K={k}: E[1/B(T_K)] within 4 se + 2e-5 of P(0, T_K)"] = (
+            abs(zcb - cf) < 4 * se + 2e-5)
+        checks[f"LMM K={k}: caplet within 4 se + 2e-4 Black of Black"] = (
+            abs(cap["price"] - cap["black"])
+            < 4 * cap["std_err"] + 2e-4 * cap["black"])
+    return rates
+
+
+def item10_commands(torch, checks):
+    """``bond --model lmm`` (four instruments), ``calibrate --model lmm``,
+    ``price --process hybrid`` and Heston exposure's accrued variance,
+    each against its oracle and launching no kernel."""
+    from montecarlo_tpu_torch.engine.simulate import simulate
+    from montecarlo_tpu_torch.processes import (
+        HestonExposure, heston_varswap_expected_total)
+
+    def quiet(label, argv):
+        out, *_, c = measured_cli(torch, label, argv, profile=False)
+        checks[f"{label}: no kernel launched"] = not any(c.values())
+        return out
+
+    zcb = quiet("bond --model lmm", ["bond", "--model", "lmm"])
+    checks["LMM ZCB within 4 se + 1e-4 of the curve"] = (
+        abs(zcb["zcb_price"] - zcb["closed_form"])
+        < 4 * zcb["std_err"] + 1e-4)
+    cap = quiet("bond --model lmm --caplet", ["bond", "--model", "lmm",
+                                              "--caplet"])
+    checks["LMM caplet within 4 se + 2e-3 Black of Black"] = (
+        abs(cap["mc_price"] - cap["black_exact"])
+        < 4 * cap["mc_std_err"] + 2e-3 * cap["black_exact"])
+    eur = quiet("bond --model lmm --swaption --n-exercise 1",
+                ["bond", "--model", "lmm", "--swaption", "--maturity", "3.0",
+                 "--n-exercise", "1"])
+    checks["LMM swaption within 4 se + 1% of Rebonato"] = (
+        abs(eur["mc_price"] - eur["rebonato"])
+        < 4 * eur["mc_std_err"] + 0.01 * eur["rebonato"])
+    berm = quiet("bond --model lmm --swaption --n-exercise 4",
+                 ["bond", "--model", "lmm", "--swaption", "--maturity",
+                  "3.0", "--n-exercise", "4"])
+    checks["LMM Bermudan >= the European - 4 se"] = (
+        berm["bermudan_price"] >= berm["mc_price"] - 4 * berm["mc_std_err"])
+    cal = quiet("calibrate --model lmm", ["calibrate", "--model", "lmm"])
+    checks["calibrate --model lmm recovers beta and the vols"] = (
+        abs(cal["corr_beta"] - 0.35) < 1e-3 and cal["vol_max_abs_err"] < 1e-9)
+    hyb = quiet("price --process hybrid", ["price", "--process", "hybrid"])
+    checks["hybrid call within 4 se of its closed form"] = (
+        abs(hyb["price"] - hyb["closed_form"]) < 4 * hyb["std_err"])
+    proc = HestonExposure.create(100.0, 0.09, 0.0, 2.0, 0.04, 0.3, -0.5,
+                                 1 / 252)
+    (ivar, _), wall, c = run_counted(lambda: (simulate(
+        proc, 1 << 20, 252, seed=5, observe=lambda p, s: s.ivar), None))
+    ivar = ivar.double()
+    mean, se = float(ivar.mean()), float(ivar.std()) / math.sqrt(1 << 20)
+    want = heston_varswap_expected_total(proc, 1.0)
+    log(f"  HestonExposure 2^20 x 252: accrued variance {mean:.8f} +- "
+        f"{se:.2e} vs the CIR expectation {want:.8f}; {wall:.3f} s")
+    checks["Heston exposure's ivar within 4 se + 0.003 of E[int v]"] = (
+        abs(mean - want) < 4 * se + 0.003 and not any(c.values()))
+
+
+def stress_path(torch, checks):
+    """``stress --process gbm|heston`` at the command's defaults, 34 K2
+    launches each; the command's report and grid again on the kernel
+    route and through the torch loop (``prefer_fused=False``) at the same
+    shape, bitwise the same, and the command's JSON equal to the kernel
+    route's; every GBM scenario within 4 std-err of Black-Scholes at its
+    bumped (s0, sigma), the std-err the discounted call's exact standard
+    deviation over the root of the path count.  Returns the commands' K2
+    launches."""
+    from montecarlo_tpu_torch.api import (ladder, standard_scenarios,
+                                          stress_grid, stress_report)
+    from montecarlo_tpu_torch.engine import black_scholes_call
+    from montecarlo_tpu_torch.processes import GBM, Heston
+
+    import numpy as np
+
+    r, t, k, s0, sigma = 0.03, 1.0, 105.0, 100.0, 0.2
+    disc = float(np.exp(-r * t))                        # as the command's
+    dt = t / STRESS_STEPS
+    ba = ladder(-0.2, 0.2, STRESS_GRID)
+    bb = ladder(-0.5, 0.5, STRESS_GRID)
+    call = lambda s: torch.clamp(s - k, min=0.0)
+    k2 = 0
+    for kind, proc, fields in (
+            ("gbm", GBM.create(s0=s0, mu=r, sigma=sigma, dt=dt),
+             ("s0", "sigma")),
+            ("heston", Heston.create(s0=s0, v0=0.04, mu=r, kappa=2.0,
+                                     theta=0.04, xi=0.5, rho=-0.7, dt=dt),
+             ("s0", "v0"))):
+        res, *_, c = measured_cli(
+            torch, f"stress --process {kind}", ["stress", "--process", kind],
+            profile=kind == "gbm")
+        checks[f"stress --process {kind}: 34 K2 launches"] = (
+            c["fused_terminal"] == 34
+            and sum(c.values()) == c["fused_terminal"])
+        checks[f"stress --process {kind}: base P&L exactly 0"] = (
+            res["scenarios"]["base"]["pnl"] == 0.0)
+        k2 += c["fused_terminal"]
+
+        def both(**kw):
+            return (stress_report(proc, call, STRESS_PATHS, STRESS_STEPS,
+                                  seed=0, fields=fields, discount=disc, **kw),
+                    stress_grid(proc, call, STRESS_PATHS, STRESS_STEPS,
+                                bumps_a=ba, bumps_b=bb, seed=0,
+                                fields=fields, discount=disc, **kw))
+
+        (rep, grid), f_wall, fc = run_counted(both)
+        (l_rep, l_grid), l_wall, lc = run_counted(both, prefer_fused=False)
+        same = (all(rep["scenarios"][n]["price"]
+                    == l_rep["scenarios"][n]["price"] for n in rep["scenarios"])
+                and bool((grid["prices"] == l_grid["prices"]).all()))
+        cli_same = (
+            all(res["scenarios"][n]["price"] == rep["scenarios"][n]["price"]
+                for n in rep["scenarios"])
+            and res["grid"]["prices"] == grid["prices"].round(6).tolist())
+        log(f"  stress {kind} at {STRESS_PATHS} x {STRESS_STEPS}, 9 named + "
+            f"{STRESS_GRID ** 2} grid scenarios: kernel route "
+            f"{f_wall:.3f} s ({fc['fused_terminal']} K2 launches), torch "
+            f"loop {l_wall:.3f} s ({lc['fused_terminal']}); "
+            f"{'bitwise' if same else 'NOT bitwise'} the same; the command's "
+            f"JSON {'equal to' if cli_same else 'NOT'} the kernel route's")
+        checks[f"stress {kind}: K2 route bitwise the torch loop at the "
+               f"command's shape"] = (
+            same and fc["fused_terminal"] == 34
+            and lc["fused_terminal"] == 0)
+        checks[f"stress {kind}: the command's JSON is the kernel route's"] = (
+            cli_same)
+        if kind != "gbm":
+            continue
+        named = standard_scenarios()
+        scen = [(n, *named[n], row["price"])
+                for n, row in rep["scenarios"].items()]
+        scen += [(f"grid {a:+.1f} {b:+.2f}", a, b, float(grid["prices"][i, j]))
+                 for i, a in enumerate(ba) for j, b in enumerate(bb)]
+        worst = 0.0
+        for n, a, b, price in scen:
+            sp, vol = s0 * (1 + a), sigma * (1 + b)
+            bs = float(black_scholes_call(sp, k, r, vol, t))
+            se = disc * math.sqrt(bs_call_var(sp, k, r, vol, t)
+                                  / STRESS_PATHS)
+            worst = max(worst, abs(price - bs) / se)
+            checks[f"stress gbm {n}: within 4 se of Black-Scholes"] = (
+                abs(price - bs) < 4 * se + 1e-6)
+        log(f"  stress gbm: every scenario against Black-Scholes, worst "
+            f"|price - bs| / se {worst:.2f}")
+    return k2
+
+
+def bs_call_var(s0, k, r, sigma, t):
+    """The variance of the undiscounted call payoff (S_T - k)+ under GBM:
+    E[S^2; S > k] - 2k E[S; S > k] + k^2 P(S > k) - E[(S_T - k)+]^2."""
+    ncdf = lambda x: 0.5 * math.erfc(-x / math.sqrt(2.0))
+    st = sigma * math.sqrt(t)
+    d1 = (math.log(s0 / k) + (r + 0.5 * sigma * sigma) * t) / st
+    d2 = d1 - st
+    fwd = s0 * math.exp(r * t)
+    mean = fwd * ncdf(d1) - k * ncdf(d2)
+    second = (fwd * fwd * math.exp(sigma * sigma * t) * ncdf(d1 + st)
+              - 2 * k * fwd * ncdf(d1) + k * k * ncdf(d2))
+    return second - mean * mean
+
+
+def phase_item10(torch, card):
+    """Phase 18: the LMM, the hybrid, Heston exposure and ``stress``.
+    Returns K2's launches (stress)."""
+    checks = {}
+    t0 = time.perf_counter()
+    rates = lmm_shapes(torch, card, checks)
+    t1 = time.perf_counter()
+    item10_commands(torch, checks)
+    t2 = time.perf_counter()
+    k2 = stress_path(torch, checks)
+    log(f"  phase 18: LMM shapes {t1 - t0:.1f} s, commands {t2 - t1:.1f} "
+        f"s, stress {time.perf_counter() - t2:.1f} s; LMM updates/s "
+        + ", ".join(f"K={k} {v:.6e}" for k, v in rates.items())
+        + f", on {card}")
+    failed = [name for name, ok in checks.items() if not ok]
+    for name, ok in checks.items():
+        log(f"  {'ok' if ok else 'FAIL'}: {name}")
+    if failed:
+        raise AssertionError(f"phase 18 checks failed: {failed}")
+    return k2
+
+
 KERNELS = [
     ("gbm_terminal", "gbm_kernel.cu", "gbm_kernel.py:118"),
     ("fused_terminal", "fused_engine.cu", "fused_engine.py:231"),
@@ -6065,6 +6306,11 @@ def main() -> int:
             if name in counts:
                 counts[name] += n
         log(f"  phase 17 took {time.perf_counter() - t17:.1f} s, on {card}")
+        log("phase 18: the LIBOR market model, the equity-Vasicek hybrid, "
+            "Heston exposure and the stress command (K2)")
+        t18 = time.perf_counter()
+        counts["fused_terminal"] += phase_item10(torch, card)
+        log(f"  phase 18 took {time.perf_counter() - t18:.1f} s, on {card}")
         k3_ms = times["fused_block_moments"]["ms"]
         kernel_s = k3_ms * 1e-3 * n_paths / (1 << 22)
         log(f"  K1 {bench['value']:.6e} path-steps/s, wall-clock to "

@@ -19,13 +19,18 @@ Subcommands:
           steps x 8 chained reps, on the card; --basket: correlated-basket
           path-steps/s through K7 (A = 8..128) and K2 (A = 5, 8, 16) at
           2^18 paths x 512 steps, one JSON line per row
+  price --process hybrid — the European call/put under GBM with a
+          Vasicek short rate (exact joint transition; --sigma-r)
   var   — portfolio VaR/CVaR: --on-device runs K2 chunks into a histogram
           sketch on the card (GBM; --paths --days --bins --chunk)
+  stress — named-scenario and spot x vol grid P&L on GBM or Heston under
+          common random numbers, each scenario through K2
   bond  — short-rate bonds: the zero-coupon bond by simulation (K4) under
           --model vasicek|cir|hullwhite|g2pp against its closed form;
           --option (Vasicek bond call), --cap/--floor (Vasicek), --swaption
           (the Vasicek Bermudan payer swaption by LSM; --model g2pp the
-          European swaption's quadrature)
+          European swaption's quadrature); --model lmm: the LIBOR market
+          model's zero-coupon bond, --caplet, --swaption [--n-exercise N]
   greeks — option sensitivities on GBM and Heston: --method pathwise
           (reverse mode through the torch time loop), lr (likelihood
           ratio, GBM; terminal prices through K2), second-order (gamma,
@@ -34,7 +39,8 @@ Subcommands:
   calibrate — fit Heston, SABR, VG, NIG, Merton or Kou to an
           implied-vol surface, Vasicek to payer-swaption premia (Adam on
           exact gradients; without --surface a demo surface is generated
-          and recovered); --model lmm exits (ROADMAP Queue 1 item 10)
+          and recovered); --model lmm: the cap-strip vol bootstrap and the
+          correlation decay fitted to swaptions
 
 Usage: python -m montecarlo_tpu_torch <subcommand> [flags]
 """
@@ -76,6 +82,7 @@ def main(argv=None) -> int:
     args = parser.parse_args(argv)
     handlers = {"price": pricing.cmd_price, "note": note.cmd_note,
                 "bench": _run_bench, "var": risk.cmd_var,
+                "stress": risk.cmd_stress,
                 "bond": bond.cmd_bond, "greeks": greeks.cmd_greeks,
                 "calibrate": calibrate.cmd_calibrate}
     return handlers[args.cmd](args)

@@ -13,10 +13,16 @@ Brigo–Mercurio quadrature (host float64, no simulation); ``--swaption``
 on Vasicek, the Bermudan payer swaption by pathwise-discounted LSM in
 float64 (``engine.bermudan``, 16 steps a quarterly period, the par strike
 unless ``--swap-strike``) and, with one exercise date, Jamshidian's
-European beside it.  ``--model lmm`` (ROADMAP Queue 1 item 10) exits
-naming the item it waits for.  ``--device cuda`` (the
-default; an error without a card) or ``cpu`` (the kernels' plain
-versions).
+European beside it.  ``--model lmm``: the LIBOR market model on a
+``--tenor`` grid to ``--maturity`` (flat forwards at ``--r0``, flat vol
+``--lmm-sigma``, ``--corr-beta``, ``--lmm-shift``), float32 on the torch
+loop (no kernel runs the LMM): the zero-coupon bond by the bank-account
+martingale E[1/B(T)] against the initial curve, ``--caplet`` against its
+Black closed form, ``--swaption`` (expiry a quarter of the way, par
+strike unless ``--swap-strike``) against Rebonato's approximation, with
+``--n-exercise N`` > 1 the co-terminal Bermudan by LSM beside it.
+``--device cuda`` (the default; an error without a card) or ``cpu`` (the
+kernels' plain versions).
 """
 
 from __future__ import annotations
@@ -66,10 +72,14 @@ def add_parsers(sub):
                         "LSM (vasicek; --n-exercise 1 = European, checked "
                         "against Jamshidian); with --model g2pp the "
                         "European payer swaption by the Brigo-Mercurio "
-                        "quadrature (the LMM swaption is not ported yet)")
+                        "quadrature; with --model lmm the European payer "
+                        "swaption, MC vs the Rebonato frozen-weight "
+                        "approximation (--n-exercise > 1 adds the "
+                        "Bermudan)")
     p.add_argument("--caplet", action="store_true",
-                   help="lmm: MC caplet vs its Black closed form (not "
-                        "ported yet)")
+                   help="lmm: MC caplet vs its exact Black closed form "
+                        "(struck at the forward; reset at --t1 snapped to "
+                        "the tenor grid)")
     p.add_argument("--lmm-sigma", type=float, default=0.2,
                    help="lmm: flat lognormal forward vol")
     p.add_argument("--lmm-shift", type=float, default=0.0,
@@ -202,6 +212,67 @@ def _vasicek_swaption(args, device) -> dict:
     return out
 
 
+def _bond_lmm(args, device) -> dict:
+    """``bond --model lmm``: the zero-coupon bond, ``--caplet`` or
+    ``--swaption`` (and its Bermudan) on a flat curve, float32."""
+    import numpy as np
+    import torch
+
+    from montecarlo_tpu_torch.engine.simulate import simulate
+    from montecarlo_tpu_torch.processes import (LMM, lmm_caplet_mc,
+                                                lmm_par_strike,
+                                                lmm_swaption_mc, lmm_zcb0)
+
+    f32 = torch.float32
+    delta = args.tenor
+    k_fwd = max(int(round(args.maturity / delta)), 2)
+    m = LMM.create([args.r0] * k_fwd, [args.lmm_sigma] * k_fwd, delta,
+                   corr_beta=args.corr_beta, shift=args.lmm_shift,
+                   dtype=f32, device=device)
+    if args.caplet:
+        k_idx = min(max(int(round(args.t1 / delta)), 1), k_fwd - 1)
+        strike = (args.option_strike if args.option_strike is not None
+                  else args.r0)
+        est = lmm_caplet_mc(m, k_idx, strike, args.paths, seed=args.seed,
+                            dtype=f32)
+        return {"instrument": "caplet", "reset": k_idx * delta,
+                "strike": strike,
+                "mc_price": round(est["price"], 8),
+                "mc_std_err": round(est["std_err"], 8),
+                "black_exact": round(est["black"], 8)}
+    if args.swaption:
+        s = max(k_fwd // 4, 1)
+        strike = (args.swap_strike if args.swap_strike is not None
+                  else lmm_par_strike(m, s, k_fwd))
+        est = lmm_swaption_mc(m, s, k_fwd, strike, args.paths,
+                              seed=args.seed, dtype=f32)
+        out = {"instrument": "lmm_european_swaption",
+               "expiry": s * delta, "strike": round(float(strike), 8),
+               "periods": k_fwd - s,
+               "mc_price": round(est["price"], 8),
+               "mc_std_err": round(est["std_err"], 8),
+               "rebonato": round(est["rebonato"], 8)}
+        if args.n_exercise > 1:
+            from montecarlo_tpu_torch.engine.bermudan import (
+                lmm_bermudan_swaption_lsm)
+
+            n_ex = min(args.n_exercise, k_fwd - s)
+            berm = lmm_bermudan_swaption_lsm(
+                m, float(strike), s, k_fwd, n_exercise=n_ex,
+                n_paths=args.paths, seed=args.seed, dtype=f32)
+            out["instrument"] = "lmm_bermudan_swaption"
+            out["bermudan_price"] = round(float(berm["price"]), 8)
+            out["n_exercise"] = n_ex
+        return out
+    obs = simulate(m, args.paths, k_fwd, seed=args.seed, dtype=f32,
+                   observe=lambda p, s_: p.exposure_obs(s_))
+    d = torch.exp(-obs[:, -1]).cpu().numpy().astype(np.float64)
+    return {"zcb_price": round(float(d.mean()), 8),
+            "std_err": round(float(d.std(ddof=1) / np.sqrt(args.paths)), 8),
+            "closed_form": round(lmm_zcb0(m, k_fwd), 8),
+            "forwards": k_fwd, "tenor": delta}
+
+
 def build_model(args, device):
     """(process, closed-form P(0, T)) of ``--model`` (not lmm) over
     ``--steps`` steps to ``--maturity`` on ``device``."""
@@ -240,11 +311,10 @@ def cmd_bond(args) -> int:
                                                    vasicek_zcb, zcb_price_mc)
     from montecarlo_tpu_torch.processes import Vasicek
 
-    if args.model == "lmm":
-        raise SystemExit("bond --model lmm needs the LIBOR market model, "
-                         "which the port has not yet (ROADMAP Queue 1 item "
-                         "10)")
     device = resolve_cli_device(args.device)
+    if args.model == "lmm":
+        print(json.dumps(_bond_lmm(args, device)))
+        return 0
     T, n_steps = args.maturity, args.steps
     proc, cf = build_model(args, device)
 

@@ -5,8 +5,11 @@ gradients through the differentiable pricers).
 The port of ``montecarlo_tpu/cli/calibrate.py``, float32 on ``--device``
 (the card by default), as the JAX command runs without x64.  Without
 ``--surface`` each model generates a demo surface from known parameters
-and recovers them (``demo_truth`` in the JSON).  ``--model lmm`` waits for
-the LMM (ROADMAP Queue 1 item 10).
+and recovers them (``demo_truth`` in the JSON).  ``--model lmm`` is the
+LMM's two-stage market-model calibration, demo only as in the JAX command
+(host float64): a co-terminal cap strip from a humped vol curve, the vols
+bootstrapped back from it, then the correlation decay fitted to three
+European swaptions' Rebonato premia.
 """
 
 from __future__ import annotations
@@ -135,16 +138,70 @@ def _vasicek(args, device) -> dict:
     return out
 
 
+#: The LMM demo: tenor, forwards, the generating correlation decay and the
+#: swaptions (start, end) quoted.
+LMM_DEMO = dict(delta=0.25, k_fwd=16, corr_beta=0.35,
+                swaptions=((2, 8), (4, 16), (8, 16)))
+
+
+def _lmm(args, device) -> dict:
+    """Cap strip -> per-tenor vols (exact Black inversion), then
+    swaptions -> the correlation decay (Rebonato map); the demo's quotes
+    from a humped vol curve and a known decay, recovered."""
+    import numpy as np
+    from scipy.stats import norm
+
+    from montecarlo_tpu_torch.engine.rates_calibration import (
+        bootstrap_lmm_vols, calibrate_lmm_corr_to_swaptions)
+    from montecarlo_tpu_torch.processes import (LMM, lmm_par_strike,
+                                                lmm_swaption_rebonato)
+
+    if args.surface:
+        raise SystemExit("--model lmm is demo-only in the CLI (cap-strip + "
+                         "swaption file formats vary by desk); call "
+                         "engine.rates_calibration.bootstrap_lmm_vols / "
+                         "calibrate_lmm_corr_to_swaptions directly")
+    delta, k_fwd = LMM_DEMO["delta"], LMM_DEMO["k_fwd"]
+    beta_true = LMM_DEMO["corr_beta"]
+    t = delta * np.arange(k_fwd)
+    sig_true = 0.12 + 0.25 * (0.3 + t) * np.exp(-0.8 * t)  # humped
+    f0 = np.full(k_fwd, args.rate)
+    m_true = LMM.create(f0, sig_true, delta, corr_beta=beta_true,
+                        device=device)
+    # The co-terminal ATM-forward cap strip: sums of exact Black caplets.
+    p = np.cumprod(1.0 / (1.0 + delta * f0))
+
+    def black(f, k_, sd):
+        d1 = (np.log(f / k_) + 0.5 * sd * sd) / sd
+        return f * norm.cdf(d1) - k_ * norm.cdf(d1 - sd)
+
+    caplets = np.array([delta * p[k] * black(
+        f0[k], args.rate, sig_true[k] * np.sqrt(k * delta))
+        for k in range(1, k_fwd)])
+    sig_fit = bootstrap_lmm_vols(f0, delta, args.rate, np.cumsum(caplets))
+    quotes = []
+    for s, e in LMM_DEMO["swaptions"]:
+        k_par = lmm_par_strike(m_true, s, e)
+        quotes.append((s, e, k_par,
+                       lmm_swaption_rebonato(m_true, s, e, k_par)))
+    fit = calibrate_lmm_corr_to_swaptions(f0, sig_fit, delta, quotes)
+    return {"corr_beta": round(fit["corr_beta"], 6),
+            "rmse_rel": round(fit["rmse_rel"], 9),
+            "vol_max_abs_err": round(
+                float(np.abs(sig_fit[1:] - sig_true[1:]).max()), 9),
+            "demo_truth": {"corr_beta": beta_true,
+                           "vols": "humped, recovered exactly"}}
+
+
 def cmd_calibrate(args) -> int:
     import numpy as np
 
     from montecarlo_tpu_torch.cli.pricing import resolve_cli_device
 
-    if args.model == "lmm":
-        raise SystemExit("calibrate --model lmm waits for the LMM "
-                         "(processes/lmm.py), ROADMAP Queue 1 item 10; "
-                         "this port has no LMM yet")
     device = resolve_cli_device(args.device)
+    if args.model == "lmm":
+        print(json.dumps(_lmm(args, device)))
+        return 0
     if args.model == "vasicek":
         print(json.dumps(_vasicek(args, device)))
         return 0

@@ -29,16 +29,20 @@ digital, ``black_scholes``; for the call on Kou, NIG, VG, Bates and BatesQE
 ``hurst``, the max-call ``n_assets``.  ``--american`` prices American
 exercise by LSM (``pricing_modes.run_american``; ``--american-bound`` adds
 ``upper_bound`` and ``upper_bound_std_err``, the Andersen-Broadie dual) and
-prints no closed form.
+prints no closed form.  ``--process hybrid`` (``pricing_modes.run_hybrid``)
+prices the European call or put under GBM with a Vasicek short rate
+(``--sigma-r``, ``--kappa``, ``--theta``, ``--rho``) by its exact joint
+transition on the torch loop, with ``closed_form`` beside the call.
 """
 
 from __future__ import annotations
 
 import json
 
-#: The ``--process`` menu: the JAX CLI's, less hybrid.
+#: The ``--process`` menu: the JAX CLI's.
 PROCESSES = ["gbm", "cev", "heston", "heston-qe", "bates", "bates-qe",
-             "merton", "kou", "nig", "vg", "sabr", "rbergomi", "slv"]
+             "merton", "kou", "nig", "vg", "sabr", "rbergomi", "slv",
+             "hybrid"]
 VANILLA = ("call", "put", "digital")
 PATH_DEPENDENT = ("asian", "lookback", "up-and-out", "up-and-in")
 MULTI_ASSET = ("max-call",)
@@ -47,7 +51,8 @@ MULTI_ASSET = ("max-call",)
 def add_parsers(sub):
     p = sub.add_parser("price", help="Monte Carlo option pricing (GBM, "
                                      "CEV, Heston, jump, Levy and SABR "
-                                     "processes, rough Bergomi, SLV)")
+                                     "processes, rough Bergomi, SLV, the "
+                                     "equity-Vasicek hybrid)")
     p.add_argument("--process", default="gbm", choices=PROCESSES)
     p.add_argument("--s0", type=float, default=100.0)
     p.add_argument("--strike", type=float, default=105.0)
@@ -55,6 +60,9 @@ def add_parsers(sub):
     p.add_argument("--sigma", type=float, default=0.2)
     p.add_argument("--beta", type=float, default=0.7,
                    help="CEV elasticity (--process cev); SABR: CEV exponent")
+    p.add_argument("--sigma-r", type=float, default=0.015,
+                   help="hybrid: Vasicek rate vol (equity-rate corr via "
+                        "--rho, mean reversion --kappa, level --theta)")
     p.add_argument("--skew", type=float, default=-0.1,
                    help="slv: demo-surface IV skew per unit log-moneyness "
                         "(iv = sigma + skew*log(K/S0))")
@@ -170,6 +178,7 @@ def resolve_cli_device(name: str):
 def cmd_price(args) -> int:
     from montecarlo_tpu_torch.cli import pricing_models as pm
     from montecarlo_tpu_torch.cli.pricing_modes import (run_american,
+                                                        run_hybrid,
                                                         run_max_call,
                                                         run_mlmc,
                                                         run_rbergomi)
@@ -179,11 +188,15 @@ def cmd_price(args) -> int:
 
     if args.target_se is not None and (args.american or args.mlmc
                                        or args.payoff not in VANILLA
-                                       or args.process == "rbergomi"):
+                                       or args.process in ("rbergomi",
+                                                           "hybrid")):
         raise SystemExit("--target-se applies to vanilla European payoffs "
                          "(call/put/digital) without --american/--mlmc and "
-                         "outside the own-simulator process (rbergomi); for "
-                         "--mlmc the tolerance knob is --mlmc-rmse")
+                         "outside the own-simulator processes "
+                         "(rbergomi/hybrid); for --mlmc the tolerance knob "
+                         "is --mlmc-rmse")
+    if args.process == "hybrid":
+        return run_hybrid(args, args.maturity / args.steps)
     if args.bridge and args.process != "gbm":
         raise SystemExit("--bridge requires --process gbm (constant vol for "
                          "the bridge law)")

@@ -1,12 +1,47 @@
 """Dedicated run modes of the `price` subcommand, as in
-``montecarlo_tpu/cli/pricing_modes.py``: the own-simulator processes (rough
-Bergomi in this port), multilevel Monte Carlo and the multi-asset max-call
+``montecarlo_tpu/cli/pricing_modes.py``: the own-simulator processes (the
+equity-Vasicek hybrid, rough Bergomi), multilevel Monte Carlo and the multi-asset max-call
 print their own JSON; American exercise (``run_american``) returns its
 estimate to the shared output, or prints the American Asian's."""
 
 from __future__ import annotations
 
 import json
+
+
+def run_hybrid(args, dt) -> int:
+    """``price --process hybrid``: the European call or put under GBM with a
+    Vasicek short rate (exact joint transition, the discount in the state)
+    on the torch loop; the call's closed form beside it."""
+    import torch
+
+    from montecarlo_tpu_torch.cli.pricing import resolve_cli_device
+    from montecarlo_tpu_torch.processes import (EquityVasicekHybrid,
+                                                hybrid_call_closed_form,
+                                                hybrid_price_mc)
+
+    if args.american or args.payoff not in ("call", "put"):
+        raise SystemExit("--process hybrid prices European call/put")
+    if args.sampler != "plain":
+        raise SystemExit("--process hybrid uses plain draws; remove "
+                         "--sampler")
+    device = resolve_cli_device(args.device)
+    hyb = EquityVasicekHybrid.create(
+        args.s0, args.rate, args.kappa, args.theta, args.sigma_r,
+        args.sigma, args.rho, dt, device=device)
+    pay = ((lambda s: torch.clamp(s - args.strike, min=0.0))
+           if args.payoff == "call"
+           else (lambda s: torch.clamp(args.strike - s, min=0.0)))
+    est = hybrid_price_mc(hyb, pay, args.paths, args.steps, seed=args.seed)
+    out = {"price": float(est["price"]),
+           "std_err": float(est["std_err"]),
+           "n_paths": int(est["n_paths"])}
+    if args.payoff == "call":
+        out["closed_form"] = hybrid_call_closed_form(
+            args.s0, args.strike, args.maturity, args.rate, args.kappa,
+            args.theta, args.sigma_r, args.sigma, args.rho)
+    print(json.dumps(out))
+    return 0
 
 
 def run_rbergomi(args) -> int:

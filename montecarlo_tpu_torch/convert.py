@@ -32,9 +32,11 @@ import torch
 from montecarlo_tpu_torch.device import resolve_device
 from montecarlo_tpu_torch.processes import (CIR, G2PP, NIG, SABR, SLV,
                                             BasketGBM, Bates, BatesQE,
-                                            CCCGarch, DCCGarch, EulerGBM,
+                                            CCCGarch, DCCGarch,
+                                            EquityVasicekHybrid, EulerGBM,
                                             GARCHBootstrap, GBM, Heston,
-                                            HestonQE, HullWhite, Kou,
+                                            HestonExposure, HestonQE,
+                                            HullWhite, Kou, LMM,
                                             LocalVolGBM, Merton, MultiGBM,
                                             RoughBergomi, SLVKnots,
                                             TermBasketGBM, TermStructureGBM,
@@ -49,7 +51,9 @@ PROCESSES = {"gbm": GBM, "heston": Heston, "rbergomi": RoughBergomi,
              "euler-gbm": EulerGBM, "term-gbm": TermStructureGBM,
              "vasicek": Vasicek, "cir": CIR, "hull-white": HullWhite,
              "g2pp": G2PP, "term-basket": TermBasketGBM,
-             "ccc-garch": CCCGarch, "dcc-garch": DCCGarch}
+             "ccc-garch": CCCGarch, "dcc-garch": DCCGarch, "lmm": LMM,
+             "hybrid": EquityVasicekHybrid,
+             "heston_exposure": HestonExposure}
 
 
 def _tensor(name: str, value, device) -> torch.Tensor:

@@ -80,6 +80,7 @@ from montecarlo_tpu_torch.engine.surface import (  # noqa: F401
 )
 from montecarlo_tpu_torch.engine.bermudan import (  # noqa: F401
     bermudan_swaption_lsm,
+    lmm_bermudan_swaption_lsm,
     vasicek_swaption_jamshidian,
 )
 from montecarlo_tpu_torch.engine.american import (  # noqa: F401

@@ -1,7 +1,7 @@
-"""Bermudan swaptions under Vasicek: pathwise-discounted LSM.
+"""Bermudan swaptions by pathwise-discounted LSM, under Vasicek and under
+the LIBOR market model.
 
-The port of ``montecarlo_tpu/engine/bermudan.py`` (its Vasicek part; the
-LIBOR-market-model Bermudan waits for the LMM).  The equity LSM
+The port of ``montecarlo_tpu/engine/bermudan.py``.  The equity LSM
 (:mod:`montecarlo_tpu_torch.engine.american`) carried to rates: the
 numeraire is the bank account, the discount along each path the trapezoid
 ``exp(-sum (r_t + r_{t+1})/2 dt)``, and the exercise value at a reset date
@@ -16,6 +16,13 @@ paths from the torch time loop in that dtype).  With one exercise date the
 Bermudan is the European payer swaption, priced in closed form by
 Jamshidian's (1989) decomposition (:func:`vasicek_swaption_jamshidian`);
 more dates can only add value.
+
+Under the LMM (:func:`lmm_bermudan_swaption_lsm`) the paths are the
+model's ``exposure_obs`` rows on the reset grid, the exercise value the
+remaining swap's forward-curve closed form (``lmm_swap_value_fn``), the
+discount the exact bank account, and the regression state the remaining
+swap's par rate; one exercise date is ``lmm_swaption_mc`` at the same
+seed.
 """
 
 from __future__ import annotations
@@ -78,11 +85,19 @@ def bermudan_swaption_lsm(model, strike: float, *, n_paths: int,
                             device=dev) * delta
         return r, _swap_value(r, model, taus, strike, delta), disc_to[step]
 
-    r, ex, d = exercise_value(n_exercise)
+    return _result(_lsm_backward(exercise_value, 1, n_exercise, degree,
+                                 dtype), n_paths)
+
+
+def _lsm_backward(at, first, last, degree, dtype):
+    """The backward induction over exercise dates ``last .. first``:
+    ``at(j)`` gives (regression state, exercise value, discount to 0) at
+    date j; returns the pathwise cash flows discounted to 0."""
+    r, ex, d = at(last)
     cash = torch.clamp(ex, min=0.0) * d  # discounted to 0
     infos = []
-    for j in range(n_exercise - 1, 0, -1):
-        r, ex, d = exercise_value(j)
+    for j in range(last - 1, first - 1, -1):
+        r, ex, d = at(j)
         itm, w, wsum = _itm(ex, dtype)
         m, sd = _itm_stats(r, w, wsum)
         x = _basis((r - m) / sd, degree)
@@ -91,7 +106,51 @@ def bermudan_swaption_lsm(model, strike: float, *, n_paths: int,
         take = itm & (ex >= x @ beta)  # continuation in t_j dollars
         cash = torch.where(take, ex * d, cash)
     _check_solves(infos)
-    return _result(cash, n_paths)
+    return cash
+
+
+def lmm_bermudan_swaption_lsm(model, strike: float, start_idx: int,
+                              end_idx: int, *, n_exercise: int,
+                              n_paths: int, seed: int, degree: int = 3,
+                              dtype=torch.float64) -> dict:
+    """Bermudan payer swaption under the LIBOR market model by LSM:
+    exercise at resets ``start_idx .. start_idx + n_exercise - 1``, each
+    into the remaining swap to ``end_idx`` (co-terminal).  ``n_exercise=1``
+    is the European ``lmm_swaption_mc`` at the same seed.  Returns
+    ``{"price", "std_err", "n_paths"}`` (tensors and the count)."""
+    from montecarlo_tpu_torch.processes.lmm import lmm_swap_value_fn
+
+    k_fwd = int(model.sigma.shape[0])
+    if not 1 <= start_idx < end_idx <= k_fwd:
+        raise ValueError(f"need 1 <= start ({start_idx}) < end "
+                         f"({end_idx}) <= K ({k_fwd})")
+    if not 1 <= n_exercise <= end_idx - start_idx:
+        raise ValueError(f"n_exercise={n_exercise} must be in "
+                         f"[1, {end_idx - start_idx}]")
+    dlt = model.delta.to(dtype)
+    last_ex = start_idx + n_exercise - 1
+    obs = simulate(model, n_paths, last_ex, seed=seed, mode="paths",
+                   dtype=dtype, observe=lambda p, s: p.exposure_obs(s))
+    obs = torch.movedim(obs, -1, 1)  # (T+1, C, N): the closure's layout
+    v_fn = lmm_swap_value_fn(model, strike, start_idx, end_idx, dtype=dtype)
+    jj = torch.arange(k_fwd, device=obs.device)[:, None]
+    dlt_host = float(dlt)
+
+    def at(j):
+        cols = obs[j]                                   # (C, N)
+        ex = v_fn(cols, j * dlt_host)
+        d = torch.exp(-cols[-1])                        # 1/B(T_j)
+        # The remaining swap's par rate: the regression state.
+        f = cols[:k_fwd]
+        dfac = torch.where(jj >= j, 1.0 / (1.0 + dlt * f), 1.0)
+        p = torch.cumprod(dfac, dim=0)
+        pay = (jj >= j) & (jj < end_idx)
+        annuity = dlt * torch.sum(torch.where(pay, p, 0.0), dim=0)
+        rate = (1.0 - p[end_idx - 1]) / torch.clamp(annuity, min=1e-30)
+        return rate, ex, d
+
+    return _result(_lsm_backward(at, start_idx, last_ex, degree, dtype),
+                   n_paths)
 
 
 def vasicek_swaption_jamshidian(model_params, strike: float, t0: float,
@@ -124,4 +183,5 @@ def vasicek_swaption_jamshidian(model_params, strike: float, t0: float,
     return total
 
 
-__all__ = ["bermudan_swaption_lsm", "vasicek_swaption_jamshidian"]
+__all__ = ["bermudan_swaption_lsm", "lmm_bermudan_swaption_lsm",
+           "vasicek_swaption_jamshidian"]

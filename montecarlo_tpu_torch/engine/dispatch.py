@@ -26,6 +26,8 @@ is a :class:`VanillaPayoff` and the path count is a multiple of the
 
 from __future__ import annotations
 
+import torch
+
 from montecarlo_tpu_torch.engine.payoffs import VanillaPayoff
 from montecarlo_tpu_torch.engine.simulate import simulate
 from montecarlo_tpu_torch.ops.fused_engine import (STATS_BLOCK,
@@ -66,15 +68,19 @@ def _kernel_args(sampler) -> dict:
 
 
 def terminal_prices(process, n_paths: int, n_steps: int, *, seed, stream=0,
-                    sampler=None, path_offset=0, prefer_fused: bool = True):
+                    sampler=None, path_offset=0, prefer_fused: bool = True,
+                    dtype=torch.float32):
     """Terminal prices through K2 when the gate takes the run (its plain
-    version on the CPU), else the torch loop; the same draw streams."""
-    if prefer_fused and kernel_route(process, sampler, n_steps):
+    version on the CPU), else the torch loop; the same draw streams.  The
+    kernels are float32: a run in another ``dtype`` takes the torch loop
+    in it (``simulate(dtype=)``)."""
+    if (prefer_fused and dtype == torch.float32
+            and kernel_route(process, sampler, n_steps)):
         return fused_terminal(process, n_paths, n_steps, seed=seed,
                               stream=stream, path_offset=path_offset,
                               **_kernel_args(sampler))
     return simulate(process, n_paths, n_steps, seed=seed, stream=stream,
-                    sampler=sampler, path_offset=path_offset)
+                    sampler=sampler, path_offset=path_offset, dtype=dtype)
 
 
 def functional_run(process, n_paths: int, n_steps: int, *, seed,

@@ -9,9 +9,15 @@ forms are ``engine.rates``'s (``vasicek_affine``, the (A, B) of
 ``vasicek_bond_from_rate``, and ``vasicek_bond_option_from_rate``), in the
 parameters' dtype.
 
-The LMM calibration (``bootstrap_lmm_vols``,
-``calibrate_lmm_corr_to_swaptions``) waits for the LMM itself (ROADMAP
-Queue 1 item 10).
+The LMM's two-stage market-model calibration, host float64 NumPy and
+SciPy as in the JAX package: ``bootstrap_lmm_vols`` (per-forward vols) and
+``bootstrap_lmm_ttm_vols`` (the time-homogeneous table) invert a
+co-terminal cap strip caplet by caplet through Black's formula (bisection
+on the monotone total-stddev map, ``_caplet_total_sds``), then
+``calibrate_lmm_corr_to_swaptions`` fits the forward-correlation decay
+beta to European swaption premia by a golden section over Rebonato's
+frozen-weight map (``processes.lmm.lmm_swaption_rebonato``, on CPU
+models whose leaves are float32, as the JAX package's default).
 """
 
 from __future__ import annotations
@@ -135,4 +141,130 @@ def calibrate_vasicek_to_swaptions(expiries, pay_dts, strikes, n_periods,
     return out
 
 
-__all__ = ["vasicek_swaption_prices", "calibrate_vasicek_to_swaptions"]
+def _black76_np(f, k, sd):
+    """Undiscounted Black-76 call (host float64; vector in any argument)."""
+    import numpy as np
+    from scipy.stats import norm
+
+    f = np.asarray(f, np.float64)
+    sd = np.asarray(sd, np.float64)
+    with np.errstate(divide="ignore"):
+        d1 = np.where(sd > 0, (np.log(f / k) + 0.5 * sd * sd)
+                      / np.where(sd > 0, sd, 1.0), np.inf)
+    return np.where(sd > 0, f * norm.cdf(d1) - k * norm.cdf(d1 - sd),
+                    np.maximum(f - k, 0.0))
+
+
+def _caplet_total_sds(f0, delta, strike, cap_prices):
+    """Invert a co-terminal cap strip into per-caplet total stddevs
+    (bisection on the monotone Black map; shared by both bootstraps)."""
+    import numpy as np
+
+    f0 = np.asarray(f0, np.float64)
+    k_fwd = f0.shape[0]
+    cap_prices = np.asarray(cap_prices, np.float64)
+    if cap_prices.shape != (k_fwd - 1,):
+        raise ValueError(f"need {k_fwd - 1} co-terminal cap quotes "
+                         f"(resets 1..{k_fwd - 1}); got "
+                         f"{cap_prices.shape}")
+    caplets = np.diff(np.concatenate([[0.0], cap_prices]))
+    if np.any(caplets <= 0.0):
+        raise ValueError("cap strip is not strictly increasing — caplet "
+                         "premia must be positive")
+    dlt = float(delta)
+    p = np.cumprod(1.0 / (1.0 + dlt * f0))
+    sds = np.zeros(k_fwd)
+    for k in range(1, k_fwd):
+        undisc = caplets[k - 1] / (dlt * p[k])
+        if undisc >= f0[k]:
+            raise ValueError(f"caplet {k} price {caplets[k - 1]:.6g} "
+                             "exceeds its undiscounted forward bound")
+        lo_sd, hi_sd = 0.0, 1e2
+        for _ in range(200):  # bisection: exact to float64
+            mid = 0.5 * (lo_sd + hi_sd)
+            if _black76_np(f0[k], strike, mid) < undisc:
+                lo_sd = mid
+            else:
+                hi_sd = mid
+        sds[k] = 0.5 * (lo_sd + hi_sd)
+    return sds
+
+
+def bootstrap_lmm_ttm_vols(f0, delta, strike, cap_prices):
+    """The time-homogeneous vol table ``vol_ttm`` (``LMM.create(...,
+    vol_ttm=)``) from a co-terminal cap strip: caplet k's total variance is
+    ``delta * sum_{m < k} ttm[m]^2``, so consecutive differences pin each
+    ``ttm[m]``.  Raises when the caplet variances are not increasing."""
+    import numpy as np
+
+    sds = _caplet_total_sds(f0, delta, strike, cap_prices)
+    dv = np.diff(np.square(sds))
+    if np.any(dv <= 0.0):
+        raise ValueError(
+            "caplet total variances are not increasing — no "
+            "time-homogeneous vol table reproduces this strip "
+            "(use the per-forward bootstrap_lmm_vols instead)")
+    k_fwd = len(sds)
+    ttm = np.zeros(k_fwd)
+    ttm[0] = sds[1] / np.sqrt(float(delta))
+    ttm[1:k_fwd - 1] = np.sqrt(dv[1:] / float(delta))
+    ttm[k_fwd - 1] = ttm[k_fwd - 2]  # never observed by any quoted caplet
+    return ttm
+
+
+def bootstrap_lmm_vols(f0, delta, strike, cap_prices):
+    """Per-forward LMM vols from a co-terminal cap strip on resets
+    1..K-1: caplet k is ``cap_k - cap_{k-1}`` and sigma_k inverts its
+    Black price.  Returns (K,) vols, ``sigma_0`` a copy of ``sigma_1`` (it
+    enters no price).  Raises on a strip that is not strictly increasing
+    or a caplet above its undiscounted forward bound."""
+    import numpy as np
+
+    sds = _caplet_total_sds(f0, delta, strike, cap_prices)
+    k_fwd = len(sds)
+    sigmas = np.zeros(k_fwd)
+    sigmas[1:] = sds[1:] / np.sqrt(float(delta) * np.arange(1, k_fwd))
+    sigmas[0] = sigmas[1]
+    return sigmas
+
+
+def calibrate_lmm_corr_to_swaptions(f0, sigma, delta, quotes, *,
+                                    beta_hi: float = 3.0) -> dict:
+    """Fit the correlation decay ``beta`` (``rho_jk = exp(-beta |T_j -
+    T_k|)``) to European swaption premia through Rebonato's map: 80 golden
+    sections on [0, ``beta_hi``] of the mean squared relative error.
+    ``quotes``: ``(start_idx, end_idx, strike, price)`` tuples.  Returns
+    ``{"corr_beta", "rmse_rel"}``."""
+    import numpy as np
+
+    from montecarlo_tpu_torch.processes.lmm import (LMM,
+                                                    lmm_swaption_rebonato)
+
+    def loss(beta):
+        m = LMM.create(f0, sigma, delta, corr_beta=float(beta),
+                       device="cpu")
+        errs = [lmm_swaption_rebonato(m, int(s), int(e), float(k_)) / px
+                - 1.0 for s, e, k_, px in quotes]
+        return float(np.mean(np.square(errs)))
+
+    gr = (np.sqrt(5.0) - 1.0) / 2.0
+    a, b = 0.0, float(beta_hi)
+    c, d = b - gr * (b - a), a + gr * (b - a)
+    fc, fd = loss(c), loss(d)
+    for _ in range(80):
+        if fc < fd:
+            b, d, fd = d, c, fc
+            c = b - gr * (b - a)
+            fc = loss(c)
+        else:
+            a, c, fc = c, d, fd
+            d = a + gr * (b - a)
+            fd = loss(d)
+    beta = 0.5 * (a + b)
+    return {"corr_beta": float(beta),
+            "rmse_rel": float(np.sqrt(loss(beta)))}
+
+
+__all__ = ["bootstrap_lmm_ttm_vols", "bootstrap_lmm_vols",
+           "calibrate_lmm_corr_to_swaptions",
+           "calibrate_vasicek_to_swaptions", "vasicek_swaption_prices"]

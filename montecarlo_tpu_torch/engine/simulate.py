@@ -67,6 +67,15 @@ def cast_state(state, dtype):
     return type(state)(*(v.to(dtype) for v in state))
 
 
+def start_state(process, ids, dtype):
+    """The start of a run in ``dtype``: computed in it by a process whose
+    JAX ``init_state`` computes in the run's dtype (``start_in_run_dtype``:
+    the LMM's ``log32(f0 + shift)``), else the float32 start, cast."""
+    if getattr(process, "start_in_run_dtype", False):
+        return process.init_state(ids, dtype)
+    return cast_state(process.init_state(ids), dtype)
+
+
 def _run(process, ids, n_steps, k0, k1, sampler, mode, remat=False,
          observe=None, dtype=torch.float32):
     if mode not in ("terminal", "paths"):
@@ -92,7 +101,7 @@ def _run(process, ids, n_steps, k0, k1, sampler, mode, remat=False,
         def step(state, t):
             return checkpoint(body, state, t, use_reentrant=False)
 
-    state = cast_state(process.init_state(ids), dtype)
+    state = start_state(process, ids, dtype)
     rows = [obs(process, state)] if mode == "paths" else None
     for t in range(n_steps):
         state = step(state, t)

@@ -3,9 +3,10 @@ the bootstrap GARCH, the jump processes Merton, Kou and Bates, the Levy
 processes NIG and variance gamma, HestonQE, BatesQE, SABR, local
 volatility and stochastic-local volatility with its particle calibration
 and the Dupire surface, Euler GBM and term-structure GBM, the short rates
-Vasicek, CIR and Hull-White and the two-factor G2++, and the multi-asset
-state processes TermBasketGBM, CCC-GARCH and DCC-GARCH) and the
-rough-Bergomi sampler."""
+Vasicek, CIR and Hull-White and the two-factor G2++, the multi-asset
+state processes TermBasketGBM, CCC-GARCH and DCC-GARCH, the LIBOR market
+model, the equity-Vasicek hybrid and Heston with its accrued variance)
+and the rough-Bergomi sampler."""
 
 from montecarlo_tpu_torch.processes.base import (  # noqa: F401
     NormalDrawsMixin,
@@ -39,8 +40,32 @@ from montecarlo_tpu_torch.processes.heston import (  # noqa: F401
     Heston,
     HestonState,
 )
+from montecarlo_tpu_torch.processes.heston_exposure import (  # noqa: F401
+    HestonExposure,
+    HestonExposureState,
+    heston_forward_value_fn,
+    heston_varswap_expected_total,
+    heston_varswap_value_fn,
+)
 from montecarlo_tpu_torch.processes.heston_qe import HestonQE  # noqa: F401
+from montecarlo_tpu_torch.processes.hybrid import (  # noqa: F401
+    EquityVasicekHybrid,
+    HybridState,
+    hybrid_call_closed_form,
+    hybrid_price_mc,
+)
 from montecarlo_tpu_torch.processes.kou import Kou  # noqa: F401
+from montecarlo_tpu_torch.processes.lmm import (  # noqa: F401
+    LMM,
+    LMMState,
+    exp_decay_corr,
+    lmm_caplet_mc,
+    lmm_par_strike,
+    lmm_swap_value_fn,
+    lmm_swaption_mc,
+    lmm_swaption_rebonato,
+    lmm_zcb0,
+)
 from montecarlo_tpu_torch.processes.local_vol import (  # noqa: F401
     LocalVolGBM,
     LocalVolState,

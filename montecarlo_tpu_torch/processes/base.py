@@ -99,6 +99,12 @@ class NormalDrawsMixin(DeviceMixin):
     package's float64 draws, which multilevel Monte Carlo takes)."""
 
     def draws(self, seed, stream, path_ids, t, dtype=torch.float32):
+        """One ``normal_draw`` call a dimension.  ``rng.normal.
+        normal_matrix`` gives the same bits from one call, but its cipher
+        temporaries are ``n_draws`` times the size (several int64 blocks
+        of paths x n_draws live at once: ~GiBs for a 128-asset basket at
+        2^20 paths), so only the LMM, whose K is small beside its
+        operation count a step, takes it."""
         d0 = int(t) * self.n_draws
         return tuple(normal_draw(seed, stream, path_ids, (d0 + d) & MASK32,
                                  dtype)

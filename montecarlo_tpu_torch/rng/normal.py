@@ -70,12 +70,15 @@ def normal_draw(seed: int, stream: int, path_ids, draw_index, dtype=F32):
     return torch.where((m & 1) == 0, z0, z1)
 
 
-def normal_matrix(seed: int, stream: int, path_ids, t: int, n_draws: int):
+def normal_matrix(seed: int, stream: int, path_ids, t: int, n_draws: int,
+                  dtype=F32):
     """``n_draws`` normals per path for step ``t``, shaped
-    ``path_ids.shape + (n_draws,)``, with draw index ``m = t*n_draws + d``."""
+    ``path_ids.shape + (n_draws,)``, with draw index ``m = t*n_draws + d``:
+    column ``d`` is ``normal_draw(..., m, dtype)`` bitwise, from one
+    cipher call over the whole block."""
     ids = as_words(path_ids)
     m = (int(t) * n_draws + torch.arange(n_draws, device=ids.device)) & MASK32
-    return normal_draw(seed, stream, ids[..., None], m)
+    return normal_draw(seed, stream, ids[..., None], m, dtype)
 
 
 def uniform_draw(seed: int, stream: int, path_ids, draw_index):

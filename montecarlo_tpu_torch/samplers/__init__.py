@@ -87,30 +87,35 @@ def _draw_kinds(process) -> Tuple[str, ...]:
 @dataclass(frozen=True)
 class SobolSampler:
     """Scrambled Sobol quasi-Monte Carlo draws from a host table
-    ``z`` (n_paths, n_steps, n_draws) float32 on the process's device; the
-    engine gathers step slices by global path id, so a run must use ids
-    below ``n_paths``.  Normals only: build it with :meth:`for_process`,
-    which gives processes with uniform slots a
+    ``z`` (n_paths, n_steps, n_draws) on the process's device, float32
+    unless built with another ``dtype`` (the JAX package's float64 table);
+    the engine gathers step slices by global path id, so a run must use
+    ids below ``n_paths``.  A run in another dtype than the table's gets
+    the table's values cast, as JAX's ``astype``.  Normals only: build it
+    with :meth:`for_process`, which gives processes with uniform slots a
     :class:`MixedSobolSampler`."""
 
     z: torch.Tensor
 
     normals_only = True
 
-    def draws(self, process, seed, stream, path_ids, t):
+    def draws(self, process, seed, stream, path_ids, t, *dtype):
         step = self.z[path_ids, int(t)]
+        if dtype:
+            step = step.to(dtype[0])
         return tuple(step[..., d] for d in range(self.z.shape[-1]))
 
     @classmethod
     def for_process(cls, process, n_paths: int, n_steps: int, seed: int = 0,
-                    bridge: bool = False):
+                    bridge: bool = False, dtype=torch.float32):
         """All-normal processes get a :class:`SobolSampler`, processes with
         uniform slots (``draw_kinds``) a :class:`MixedSobolSampler`; the
         table lives on the process's device."""
         kinds = _draw_kinds(process)
         if all(k == "normal" for k in kinds):
             return cls.create(n_paths, n_steps, len(kinds), seed=seed,
-                              bridge=bridge, device=process.device)
+                              bridge=bridge, device=process.device,
+                              dtype=dtype)
         if bridge:
             raise ValueError("the Brownian-bridge construction reorders "
                              "NORMAL increments; this process has uniform "
@@ -120,7 +125,8 @@ class SobolSampler:
 
     @classmethod
     def create(cls, n_paths: int, n_steps: int, n_draws: int, seed: int = 0,
-               bridge: bool = False, device="cuda") -> "SobolSampler":
+               bridge: bool = False, device="cuda",
+               dtype=torch.float32) -> "SobolSampler":
         """``bridge=True`` applies the Brownian-bridge construction (single
         draw dimension only): the best Sobol dimensions drive the path's
         coarse structure."""
@@ -132,7 +138,7 @@ class SobolSampler:
                 raise ValueError("bridge construction supports n_draws=1")
             z = _brownian_bridge_increments(z)
         z = z.reshape(n_paths, n_steps, n_draws)
-        return cls(z=torch.as_tensor(z, dtype=torch.float32,
+        return cls(z=torch.as_tensor(z, dtype=dtype,
                                      device=resolve_device(device)))
 
 

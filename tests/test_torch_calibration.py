@@ -393,9 +393,19 @@ def test_cli_calibrate_sabr_demo_matches_jax(capsys):
         assert abs(got[k] - want[k]) < 1e-3, (k, got, want)
 
 
-def test_cli_calibrate_lmm_exits_naming_its_item():
-    with pytest.raises(SystemExit, match="Queue 1 item 10"):
-        cli.main(["calibrate", "--model", "lmm", "--device", "cpu"])
+def test_cli_calibrate_lmm_matches_jax(capsys):
+    """``calibrate --model lmm``: the same JSON as the JAX command (host
+    float64 over the same float32 leaves) and tests/test_lmm.py::
+    test_cli_calibrate_lmm's recovery; ``--surface`` exits as in JAX."""
+    got = _run(cli.main, ["calibrate", "--model", "lmm", "--device", "cpu"],
+               capsys)
+    want = _run(jcli.main, ["calibrate", "--model", "lmm"], capsys)
+    assert got == want
+    assert abs(got["corr_beta"] - 0.35) < 1e-3
+    assert got["vol_max_abs_err"] < 1e-9
+    with pytest.raises(SystemExit, match="demo-only"):
+        cli.main(["calibrate", "--model", "lmm", "--surface", "x.csv",
+                  "--device", "cpu"])
 
 
 def test_cli_calibrate_needs_a_card_for_cuda(monkeypatch):

@@ -244,7 +244,9 @@ SLICE_MODULES = ("api.montecarlo", "api.var", "cli.risk", "data.synthetic",
                  "rng.sobol", "samplers", "cli.pricing_models",
                  "processes.dupire", "processes.local_vol", "processes.slv",
                  "parallel", "parallel.mesh", "parallel.sharded",
-                 "engine.american", "engine.bermudan")
+                 "engine.american", "engine.bermudan", "processes.lmm",
+                 "processes.hybrid", "processes.heston_exposure",
+                 "api.stress", "engine.rates_calibration")
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
@@ -344,7 +346,8 @@ def test_device_cuda_is_an_error_without_a_card(capsys):
 
 
 @pytest.mark.parametrize("argv", [
-    ["price", "--process", "hybrid"],
+    ["price", "--process", "hybrid", "--payoff", "digital", "--device",
+     "cpu"],
     ["price", "--sampler", "sobol", "--process", "hybrid", "--device", "cpu"],
     ["price", "--payoff", "max-call", "--sampler", "antithetic",
      "--device", "cpu"],
@@ -356,6 +359,45 @@ def test_unported_choices_are_clean_errors(argv, capsys):
         port_main(argv)
     assert e.value.code != 0
     assert capsys.readouterr().out == ""
+
+
+@pytest.mark.parametrize("flags", [
+    [],
+    ["--payoff", "put", "--seed", "4"],
+    ["--sigma-r", "0.03", "--rho", "0.5", "--kappa", "0.3", "--maturity",
+     "5", "--steps", "4", "--strike", "110"],
+])
+def test_price_hybrid_matches_jax_cli(flags, capsys):
+    """``price --process hybrid``: JAX's keys, the price and std-err within
+    rtol 1e-5 (tests/test_torch_hybrid.py's paths), the closed form
+    exact."""
+    argv = ["price", "--process", "hybrid", "--paths", "4096", "--steps",
+            "16", *flags]
+    want = _run(jax_main, argv, capsys)
+    got = _run(port_main, [*argv, "--device", "cpu"], capsys)
+    assert sorted(got) == sorted(want)
+    assert ("closed_form" in got) == ("put" not in flags)
+    assert got["n_paths"] == want["n_paths"] == 4096
+    for k in ("price", "std_err"):
+        assert got[k] == pytest.approx(want[k], rel=1e-5), k
+    if "closed_form" in want:
+        assert got["closed_form"] == pytest.approx(want["closed_form"],
+                                                   rel=1e-14)
+
+
+@pytest.mark.parametrize("flags", [
+    ["--american"],
+    ["--payoff", "asian"],
+    ["--sampler", "antithetic"],
+    ["--target-se", "0.1"],
+])
+def test_hybrid_refusals_exit_as_in_jax(flags, capsys):
+    argv = ["price", "--process", "hybrid", "--paths", "256", *flags]
+    for main, extra in ((jax_main, []), (port_main, ["--device", "cpu"])):
+        with pytest.raises(SystemExit) as e:
+            main([*argv, *extra])
+        assert e.value.code not in (0, None)
+        assert capsys.readouterr().out == ""
 
 
 def test_python_dash_m_entry_point():

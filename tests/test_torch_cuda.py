@@ -67,7 +67,17 @@ and launch no kernel; ``price --american --american-bound`` brackets the
 binomial put; in float64 the LSM, the dual and the Bermudan on the card
 are within rtol 1e-9 of the CPU's (the platforms' float64 log, sin and
 cos, sums in each device's order); the dual's per-path maxima over four
-emulated ranks' ids are the unsharded run's bits.
+emulated ranks' ids are the unsharded run's bits.  The LIBOR market
+model, the equity-Vasicek hybrid and Heston exposure run the torch loop
+(no kernel): the LMM's one-call draws are the per-draw stream's bits on
+the card; their paths on the card are within rtol 1e-5 of the CPU's in
+float32 (the card's log, sin, cos and sqrt are not the CPU's; the LMM's
+two products through cuBLAS in true float32, the CPU's BLAS in its own
+order), states that cross or touch 0 (the hybrid's short rate and
+integral, Heston's variance) held absolutely within 1e-6 (the LMM's
+within 1e-7), and 1e-12 in float64 (1e-9 for the LMM's products).  A float32 stress grid on GBM or
+Heston runs K2, one launch a scenario, bitwise its torch loop; the
+``stress`` command launches K2 34 times at ``--grid 5``.
 """
 
 import math
@@ -2184,3 +2194,186 @@ def test_cuda_american_greeks_and_swaption_commands(cuda, capsys):
         1e-9 * cpu["bermudan_swaption"]
     assert abs(card["bermudan_swaption"] - card["jamshidian_european"]) < \
         4 * card["std_err"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 3, 16])
+def test_cuda_lmm_draws_are_the_per_draw_stream(cuda, k):
+    from montecarlo_tpu_torch.processes import LMM, NormalDrawsMixin
+    from montecarlo_tpu_torch.rng.threefry import key_from_seed
+
+    m = LMM.create(np.full(k, 0.03), np.full(k, 0.2), 0.25, device=cuda)
+    k0, k1 = key_from_seed(5, 1)
+    ids = torch.arange(2**32 - 4096, 2**32 + 4096, device=cuda) & 0xFFFFFFFF
+    for t in (0, 1, 7):
+        for a, b in zip(m.draws(k0, k1, ids, t),
+                        NormalDrawsMixin.draws(m, k0, k1, ids, t)):
+            assert torch.equal(a, b)
+
+
+def _item10_models(dev, dtype):
+    from montecarlo_tpu_torch.processes import (LMM, EquityVasicekHybrid,
+                                                HestonExposure)
+
+    k = 16
+    return {
+        "lmm": LMM.create(0.03 + 0.004 * np.arange(k) / k,
+                          0.22 - 0.06 * np.arange(k) / k, 0.25, shift=0.01,
+                          dtype=dtype, device=dev),
+        "hybrid": EquityVasicekHybrid.create(100.0, 0.03, 0.6, 0.05, 0.015,
+                                             0.22, -0.35, 0.125, dtype=dtype,
+                                             device=dev),
+        "heston_exposure": HestonExposure.create(
+            100.0, 0.05, 0.02, 1.5, 0.04, 0.6, -0.7, 1 / 32, dtype=dtype,
+            device=dev)}
+
+
+#: Absolute slack of the float32 states that cross or touch 0, twice the
+#: largest difference measured on an H100 (8192 paths x 17 steps): the
+#: card's and the CPU's ``log``/``cos``/``sin`` in Box-Muller differ by
+#: ~1 ULP a normal, which stays within 1.7e-6 relative in every other
+#: state, but is large against a state near 0 and grows through
+#: ``sqrt(v+)`` there.  The hybrid's short rate r (1.5e-8 measured), Heston
+#: exposure's variance v (7.3e-7) and its accrual of v (7.3e-8).
+ITEM10_ATOL32 = {("hybrid", 1): 3e-8, ("heston_exposure", 1): 1.5e-6,
+                 ("heston_exposure", 2): 1.5e-7}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_cuda_lmm_hybrid_heston_exposure_match_the_cpu(cuda, dtype,
+                                                       capsys):
+    """Paths on the card against the CPU: float64 within rtol 1e-12 +
+    1e-15 (2.3e-14 relative and 1.1e-15 absolute measured), float32
+    within rtol 1e-5 and ``ITEM10_ATOL32`` (1.7e-6 relative measured
+    away from 0)."""
+    got = {}
+    for dev in (cuda, torch.device("cpu")):
+        for name, m in _item10_models(dev, dtype).items():
+            got[(name, dev.type)] = simulate(
+                m, 8192, 17, seed=3, mode="paths", dtype=dtype,
+                observe=lambda p, s: p.exposure_obs(s)).cpu().numpy()
+    for name in ("lmm", "hybrid", "heston_exposure"):
+        card, cpu = got[(name, "cuda")], got[(name, "cpu")]
+        assert np.isfinite(card).all()
+        diff = np.abs(card - cpu)
+        worst = {}
+        for c in range(cpu.shape[-1]):
+            rel = diff[..., c] / np.maximum(np.abs(cpu[..., c]), 1e-30)
+            at = np.unravel_index(np.argmax(rel), rel.shape)
+            worst[c] = (float(diff[..., c].max()), float(rel.max()),
+                        float(cpu[..., c][at]))
+        with capsys.disabled():
+            print(f"\n{name} {dtype}: state -> (max abs diff, max rel "
+                  f"diff, cpu value at the max rel): {worst}")
+        for c in range(cpu.shape[-1]):
+            rtol, atol = ((1e-12, 1e-15) if dtype == torch.float64 else
+                          (1e-5, ITEM10_ATOL32.get((name, c), 0.0)))
+            assert (diff[..., c] <= rtol * np.abs(cpu[..., c])
+                    + atol).all(), (name, c, worst[c])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["gbm", "heston"])
+def test_cuda_stress_grid_kernel_route_is_its_torch_loop(cuda, kind):
+    from montecarlo_tpu_torch.api import ladder, stress_grid
+    from montecarlo_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    if kind == "gbm":
+        proc, fields = GBM.create(100.0, 0.03, 0.2, 1 / 16,
+                                  device=cuda), ("s0", "sigma")
+    else:
+        proc, fields = Heston.create(100.0, 0.04, 0.03, 2.0, 0.04, 0.5, -0.7,
+                                     1 / 16, device=cuda), ("s0", "v0")
+    kw = dict(bumps_a=ladder(-0.2, 0.2, 5), bumps_b=ladder(-0.5, 0.5, 5),
+              seed=2, fields=fields, discount=0.97)
+    call = lambda s: torch.clamp(s - 105.0, min=0.0)
+    reset_launch_counts()
+    fused = stress_grid(proc, call, 1 << 14, 16, **kw)
+    assert launch_counts()["fused_terminal"] == 25
+    reset_launch_counts()
+    loop = stress_grid(proc, call, 1 << 14, 16, prefer_fused=False, **kw)
+    assert launch_counts()["fused_terminal"] == 0
+    np.testing.assert_array_equal(fused["prices"], loop["prices"])
+    assert fused["pnl"][2, 2] == 0.0
+
+
+@pytest.mark.cuda
+def test_cuda_item10_commands_match_the_cpu(cuda, capsys):
+    """``stress`` (34 K2 launches), ``bond --model lmm`` (``--caplet``,
+    the Bermudan), ``calibrate --model lmm`` and ``price --process
+    hybrid`` on the card against ``--device cpu``: the same keys, values
+    within rtol 1e-5 plus the JSON's rounding (stress: 1e-6 on the grid
+    plus a price's float32 ULP, 2e-6, 2.1e-6 measured on an H100 where
+    rtol adds to it; the LMM's 1e-8), the host closed forms equal.  The
+    Bermudan's float32 regressions sum in each device's order, so an
+    exercise decision may flip on a path that straddles them: 2e-7, twice
+    the 1.0e-7 measured.
+    """
+    import json
+
+    from montecarlo_tpu_torch import cli
+    from montecarlo_tpu_torch.ops import launch_counts, reset_launch_counts
+
+    def run(*argv):
+        assert cli.main(list(argv)) == 0
+        return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+    def flat(out, prefix=""):
+        rows = {}
+        for k, v in out.items():
+            if isinstance(v, dict):
+                rows.update(flat(v, f"{prefix}{k}."))
+            elif isinstance(v, list):
+                rows[prefix + k] = np.asarray(v, dtype=float)
+            elif not isinstance(v, str):
+                rows[prefix + k] = v
+        return rows
+
+    for argv, atol in [
+            (("stress", "--paths", "16384", "--steps", "16"), 2e-6),
+            (("stress", "--process", "heston", "--paths", "16384",
+              "--steps", "16"), 2e-6),
+            (("bond", "--model", "lmm", "--paths", "16384"), 1e-8),
+            (("bond", "--model", "lmm", "--caplet", "--paths", "16384"),
+             1e-8),
+            (("bond", "--model", "lmm", "--swaption", "--maturity", "3.0",
+              "--n-exercise", "4", "--paths", "16384"), 1e-8),
+            (("calibrate", "--model", "lmm"), 0.0),
+            (("price", "--process", "hybrid", "--paths", "16384", "--steps",
+              "16"), 0.0)]:
+        reset_launch_counts()
+        card = run(*argv)
+        k2 = launch_counts()["fused_terminal"]
+        assert k2 == (34 if argv[0] == "stress" else 0), (argv, k2)
+        cpu = run(*argv, "--device", "cpu")
+        a, b = flat(card), flat(cpu)
+        assert sorted(a) == sorted(b), argv
+        with capsys.disabled():
+            print("\n", argv, {k: float(np.max(np.abs(
+                np.asarray(a[k], float) - np.asarray(b[k], float))))
+                for k in b})
+        for k in b:
+            tol = 2e-7 if k == "bermudan_price" else atol
+            np.testing.assert_allclose(a[k], b[k], rtol=1e-5, atol=tol,
+                                       err_msg=f"{argv} {k}")
+
+
+@pytest.mark.cuda
+def test_cuda_item10_modules_import_no_jax(cuda):
+    import subprocess
+    import sys
+
+    code = ("import sys\n"
+            "import montecarlo_tpu_torch.processes.lmm, "
+            "montecarlo_tpu_torch.processes.hybrid, "
+            "montecarlo_tpu_torch.processes.heston_exposure, "
+            "montecarlo_tpu_torch.api.stress, "
+            "montecarlo_tpu_torch.engine.rates_calibration, "
+            "montecarlo_tpu_torch.engine.bermudan, "
+            "montecarlo_tpu_torch.cli.risk\n"
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'montecarlo_tpu')))\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=120, check=True)
+    assert out.stdout.strip() == "[]"

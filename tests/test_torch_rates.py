@@ -572,13 +572,35 @@ def test_bond_g2pp_swaption_matches_jax_cli(flags, capsys):
     assert got["g2pp_european_swaption"] > 0
 
 
-@pytest.mark.parametrize("argv,item", [
-    (["bond", "--model", "lmm"], "item 10"),
-    (["bond", "--model", "lmm", "--caplet"], "item 10"),
+#: The LMM command's Monte Carlo keys, rounded to 8 decimals in its JSON.
+LMM_MC_KEYS = ("zcb_price", "std_err", "mc_price", "mc_std_err",
+               "bermudan_price")
+
+
+@pytest.mark.parametrize("flags", [
+    [],
+    ["--caplet"],
+    ["--caplet", "--t1", "1.5", "--option-strike", "0.034", "--lmm-shift",
+     "0.01"],
+    ["--swaption", "--maturity", "3.0", "--n-exercise", "1"],
+    ["--swaption", "--maturity", "3.0", "--n-exercise", "4", "--seed", "2"],
 ])
-def test_bond_unported_modes_name_their_item(argv, item):
-    with pytest.raises(SystemExit, match=item):
-        port_main([*argv, "--device", "cpu"])
+def test_bond_lmm_matches_jax_cli(flags, capsys):
+    """``bond --model lmm`` (the zero-coupon bond, ``--caplet``,
+    ``--swaption``, and with ``--n-exercise 4`` the Bermudan): JAX's keys;
+    the Monte Carlo values within PRICE_RTOL plus the JSON's 1e-8 rounding
+    (the paths: tests/test_torch_lmm.py), the host closed forms exact."""
+    argv = ["bond", "--model", "lmm", "--paths", "4096", *flags]
+    want = run_cli(jax_main, argv, capsys)
+    got = run_cli(port_main, [*argv, "--device", "cpu"], capsys)
+    _hold_json(got, want, exact=("closed_form", "black_exact", "rebonato",
+                                 "strike", "reset", "expiry", "tenor"),
+               loose={k: dict(rtol=PRICE_RTOL, atol=1e-8)
+                      for k in LMM_MC_KEYS})
+    if "--n-exercise" in flags and "4" in flags:
+        assert got["instrument"] == "lmm_bermudan_swaption"
+        assert got["bermudan_price"] >= got["mc_price"] \
+            - 3 * got["mc_std_err"]
 
 
 @pytest.mark.parametrize("flags", [
